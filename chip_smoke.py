@@ -9,8 +9,12 @@ Phases, each fatal on failure (nothing is caught):
    in parallel) and print the build time;
 2. kernels: hold each kernel against its plain PyTorch version at the
    serving path's shapes and on edge cases, in bf16 (atol/rtol 2e-2) and
-   float32 (atol 1e-4), and time kernel, plain version and a PyTorch library
-   call computing the same function (a yardstick only);
+   float32 (atol 1e-4); hold the bf16 tensor-core flash kernel besides to
+   an emulation of its own rounding (one bf16 ulp plus 2^-13 per output,
+   at most 0.1 % of outputs different) and show that this check catches a
+   causal limit or validity mask one key off; time kernel, plain version
+   and a PyTorch library call computing the same function (a yardstick
+   only);
 3. serving: seed-initialise the ``125m`` zoo model in bf16, start the port's
    engine and HTTP server on 127.0.0.1 (4 slots, cache 1024, page 16,
    chunk 64) and answer concurrent greedy ``POST /generate`` requests; the
@@ -43,6 +47,14 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: dict(atol=2e-2, rtol=2e-2), torch.float32: dict(atol=1e-4, rtol=0.0)}
+# the bf16 flash kernel against the emulation of its own rounding. Set from
+# readings on an H100 at the kernel phase's cases: 0.01-0.03 % of outputs
+# differ at all, by at most one ulp, or by up to 6.1e-5 on outputs near zero
+# (five ulps at 5.8e-4); lse within 4.8e-7. A key missing from a ~250-key
+# window moves most outputs of its rows by ~4e-3.
+MMA_ATOL = 2.0**-13
+MMA_DIFFER_SHARE = 1e-3
+MMA_LSE_ATOL = 1e-4
 
 # 125m serving shapes (ServingConfig defaults at cache_len 1024)
 H, D, PAGE, CACHE, CHUNK, SLOTS = 12, 64, 16, 1024, 64, 4
@@ -140,6 +152,90 @@ def paged_bound(B, T, offsets, KVH, dtype):
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp (8 significant bits) of |x|."""
+    _, e = torch.frexp(x.float().abs().clamp(min=2.0**-30))
+    return torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8)
+
+
+def flash_mma_emulation(q, k, v, offsets, seg):
+    """The bf16 tensor-core kernel's arithmetic, step by step: scores from
+    the bf16 inputs (exact products, summed in float64, then float32), the
+    biases in the kernel's order, an online softmax over its 64-key tiles
+    with m and l in float32 from the unrounded P, P rounded to bf16 before
+    the P.V product (exact products summed in float64), and the output
+    rounded to bf16 once. A tile past a row's causal limit, which the kernel
+    skips, adds exp(-1e10 - m) = 0 here, so every tile is visited.
+    Returns ``(out [B, T, H, D] bf16, lse [B, H, T] f32)``."""
+    from zero_transformer_tpu_torch.ops.flash import row_offsets, slopes_on
+    from zero_transformer_tpu_torch.ops.positions import NEG_INF
+
+    B, T, Hq, Dq = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    G = Hq // KVH
+    kd = k.double().repeat_interleave(G, dim=2).transpose(1, 2)  # [B, H, S, D]
+    vd = v.double().repeat_interleave(G, dim=2).transpose(1, 2)
+    s = (q.double().transpose(1, 2) @ kd.transpose(-1, -2)).float()  # [B, H, T, S]
+    offs = row_offsets(offsets, B, q.device)
+    dist = offs[:, None, None] + torch.arange(T, device=q.device)[:, None] - torch.arange(S, device=q.device)
+    bias = 0.0 - slopes_on(Hq, str(q.device), True)[None, :, None, None] * dist.clamp(min=0)[:, None].float()
+    bias = bias + torch.where(dist >= 0, 0.0, NEG_INF)[:, None]
+    x = s * (1.0 / Dq**0.5) + bias
+    x = x + torch.where(seg != 0, 0.0, NEG_INF)[:, None, None, :]
+    m = torch.full((B, Hq, T, 1), -1e30, device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros(B, Hq, T, Dq, dtype=torch.float64, device=q.device)
+    for j in range(0, S, 64):
+        xt = x[..., j:j + 64]
+        m_new = torch.maximum(m, xt.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(xt - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        o = (o * alpha.double() + p.bfloat16().double() @ vd[:, :, j:j + 64]).float().double()
+        m = m_new
+    l_safe = torch.where(l == 0, 1.0, l)
+    out = (o.float() / l_safe).bfloat16().transpose(1, 2)
+    return out, (m + torch.log(l_safe))[..., 0]
+
+
+def mma_miss(got: torch.Tensor, emu: torch.Tensor):
+    """How far ``got`` is from the emulation: the largest |got - emu| over
+    its bar (one bf16 ulp of emu plus MMA_ATOL) and the share of outputs
+    that differ at all."""
+    err = (got.float() - emu.float()).abs()
+    over = float((err / (bf16_ulp(emu) + MMA_ATOL)).max())
+    return over, float((err > 0).float().mean())
+
+
+def check_mma(got, lse, q, k, v, offs, seg, label, shifted):
+    """Hold the bf16 tensor-core kernel to its own rounding against
+    ``flash_mma_emulation``: every output within one bf16 ulp plus MMA_ATOL,
+    at most MMA_DIFFER_SHARE of the outputs different at all, lse within
+    MMA_LSE_ATOL. With ``shifted``, also show that the check catches a kernel
+    whose causal limit or validity mask is one key off: the emulation with
+    every offset one later (one more key visible per row) and with every
+    row's last valid key masked must each fail those bars."""
+    emu, emu_lse = flash_mma_emulation(q, k, v, offs, seg)
+    over, share = mma_miss(got, emu)
+    lse_err = float((lse - emu_lse).abs().max())
+    if not (over <= 1.0 and share <= MMA_DIFFER_SHARE and lse_err <= MMA_LSE_ATOL):
+        raise AssertionError(f"flash {label} vs the mma emulation: max err {over} of its bar, "
+                             f"{share} of outputs differ (bar {MMA_DIFFER_SHARE}), lse {lse_err} "
+                             f"(bar {MMA_LSE_ATOL})")
+    out = {"max_err_over_bar": over, "differ_share": share, "lse_max_abs_err": lse_err}
+    if shifted:
+        last = seg.int().cumsum(1) == seg.int().sum(1, keepdim=True)
+        fewer = seg.bool() & ~(last & seg.bool())  # each row's last valid key masked
+        for what, (o2, s2) in {"causal_limit_plus_1": (offs + 1, seg),
+                               "validity_minus_1": (offs, fewer.int())}.items():
+            s_over, s_share = mma_miss(got, flash_mma_emulation(q, k, v, o2, s2)[0])
+            if s_over <= 1.0 and s_share <= MMA_DIFFER_SHARE:
+                raise AssertionError(f"flash {label}: the {what} emulation passes the bars "
+                                     f"({s_over}, {s_share}); the check cannot tell them apart")
+            out[what] = {"max_err_over_bar": s_over, "differ_share": s_share}
+    return out
+
+
 def sdpa_bias(B, T, S, offsets, seg, dtype):
     from zero_transformer_tpu_torch.ops.positions import NEG_INF, alibi_slopes
 
@@ -174,7 +270,10 @@ def kernel_phase():
         torch.cuda.synchronize()
         err = compare(got, ref, dtype, f"flash {label}")
         compare(lse, ref_lse, torch.float32 if dtype == torch.float32 else dtype, f"flash lse {label}")
-        log({"kernel": "flash_serving_fwd", "case": label, "dtype": str(dtype), "max_err": err})
+        line = {"kernel": "flash_serving_fwd", "case": label, "dtype": str(dtype), "max_err": err}
+        if dtype == torch.bfloat16:
+            line["mma"] = check_mma(got, lse, q, k, v, offs, seg, label, shifted=label == "main")
+        log(line)
         if label == "main":
             kern = time_ms(lambda: flash.flash_serving(q, k, v, causal=True, alibi=True,
                                                        q_offset=offs, segment_ids=seg))
@@ -442,9 +541,10 @@ def parity_phase(kernel_tokens):
     bf_x, _ = forced_logits(build_engine("xla"), prompts, table, forced)
     bf_k, _ = forced_logits(build_engine("auto"), prompts, table, forced)
     worst = {"kernel_vs_f32": 0.0, "plain_vs_f32": 0.0, "kernel_vs_plain": 0.0}
-    agree = 0
+    agree, steps = 0, []
     for i, (k, x, r) in enumerate(zip(bf_k, bf_x, ref)):
         e_k, e_x = float((k - r).abs().max()), float((x - r).abs().max())
+        steps.append([e_k, e_x])
         if not (math.isfinite(e_k) and e_k <= e_x + TOL[torch.bfloat16]["atol"]):
             raise AssertionError(f"bf16 logits step {i}: kernel path {e_k} from float32 vs plain {e_x}")
         worst["kernel_vs_f32"] = max(worst["kernel_vs_f32"], e_k)
@@ -462,6 +562,7 @@ def parity_phase(kernel_tokens):
     log({"parity": {
         "float32_logits_max_abs_err": f32_err, "float32_tol": TOL[torch.float32],
         "bf16_logits_max_abs_err": worst, "logit_range": float(ref[0].abs().max()),
+        "bf16_per_step_kernel_plain_vs_f32": steps,
         "bf16_argmax_agree": f"{agree}/{len(lens) * len(bf_k)}",
         "engine_tokens_agree": f"{same}/{MAX_NEW * len(PROMPT_LENS)}",
         "engine_identical_prefix": prefix,

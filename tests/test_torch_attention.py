@@ -180,18 +180,29 @@ def test_gates_decline_cpu_and_flash_raises():
     q = torch.zeros(1, 16, 4, 64)
     k = v = torch.zeros(1, 64, 4, 64)
     assert not tfa.supported(q, k, v, causal=True, alibi=True)
-    assert not tpaged.supported("auto", T=1, D=64, page_size=16, dtype=torch.float32, device="cpu")
-    assert not tpaged.supported("xla", T=1, D=64, page_size=16, dtype=torch.float32, device="cuda")
+    assert "CUDA" in tfa.decline_reason(q, k, v, causal=True, alibi=True)
     with pytest.raises(NotImplementedError):
         tattn.dot_product_attention(q, k, v, causal=True, alibi=True, impl="flash")
     # auto on the CPU is the reference path
     out = tattn.dot_product_attention(q, k, v, causal=True, alibi=True, impl="auto")
     ref = tattn.xla_attention(q, k, v, causal=True, alibi=True)
     assert torch.equal(out, ref)
+    # off the CPU nothing falls back to the reference: a tensor that is not
+    # on the CPU (a meta tensor here, a CUDA one on the card) takes the
+    # kernel or raises, under "auto" as under "flash"
+    qm, km = q.to("meta"), k.to("meta")
+    with pytest.raises(NotImplementedError, match="CUDA"):
+        tattn.dot_product_attention(qm, km, km, causal=True, alibi=True, impl="auto")
+    pool = torch.zeros(3, 16, 4, 64, device="meta")
+    table = torch.zeros(1, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tpaged.paged_attention(qm[:, :1], pool, pool, table, torch.zeros(1, dtype=torch.int32),
+                               causal=False, alibi=True)
 
 
 def test_gate_and_wrapper_signatures_match():
     gate = inspect.signature(tfa.supported).parameters
     wrap = inspect.signature(tfa.flash_attention).parameters
-    assert list(gate) == list(wrap)
-    assert all(gate[n].kind == wrap[n].kind for n in gate)
+    why = inspect.signature(tfa.decline_reason).parameters
+    assert list(gate) == list(wrap) == list(why)
+    assert all(gate[n].kind == wrap[n].kind == why[n].kind for n in gate)

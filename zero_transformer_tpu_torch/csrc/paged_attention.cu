@@ -15,8 +15,11 @@
 //
 // What bounds it on an H100: decode does 4*D flops per key per query row
 // against 4*D bytes of bf16 K/V, about one flop per byte: reading the pages
-// is the whole cost, and at serving sizes (a few hundred KB per call) the
-// latency of those reads, not the bandwidth, is what a CTA waits on.
+// is the whole cost. A call at the serving shapes (B = 4 rows, 12 kv heads,
+// contexts up to 1024) must move about 6 MB, 2 us at full HBM rate; the
+// split-KV grid below exists to keep more of those reads in flight at once,
+// and the kernel still reaches a small share of the rate (too few loads in
+// flight per SM: memory-level parallelism, not the payload, bounds it).
 //
 // Design (split-KV, "flash decoding"):
 // - paged_partial_kernel, one CTA (4 warps) per (256-key split, kv head and

@@ -122,19 +122,17 @@ class Attention(nn.Module):
         overflow = (offsets + T > cache_len)[:, None, None, None]
         q = torch.where(overflow, torch.full((), math.nan, dtype=q.dtype, device=q.device),
                         torch.ones((), dtype=q.dtype, device=q.device)) * q
-        # impl="flash" downgrades to "auto" in the decode variant: the T=1
-        # window and gate declines are O(S) reads, never an O(T^2) surprise
-        impl = "auto" if cfg.attention_impl == "flash" else cfg.attention_impl
-        if pa.supported(impl, T=T, D=cfg.head_width, page_size=page, dtype=q.dtype, device=q.device):
-            out = pa.paged_attention(q, k_pool, v_pool, block_table, offsets, causal=T > 1, alibi=True)
-        else:
-            k_all = pa.gather_pages(k_pool, block_table)
-            v_all = pa.gather_pages(v_pool, block_table)
-            kv_valid = torch.arange(cache_len, device=x.device)[None, :] < (offsets[:, None] + T)
+        if T > pa.MAX_DECODE_T:
+            # a prefill chunk: gather the row's pages once, then the flash kernel
+            k_all, v_all, kv_valid = pa.gather_window(k_pool, v_pool, block_table, offsets, T)
             out = dot_product_attention(
-                q, k_all, v_all, causal=T > 1, alibi=True, q_offset=offsets,
-                segment_ids=kv_valid, impl=impl,
+                q, k_all, v_all, causal=True, alibi=True, q_offset=offsets,
+                segment_ids=kv_valid, impl=cfg.attention_impl,
             )
+        elif cfg.attention_impl == "xla":
+            out = pa.paged_reference(q, k_pool, v_pool, block_table, offsets, causal=T > 1, alibi=True)
+        else:
+            out = pa.paged_attention(q, k_pool, v_pool, block_table, offsets, causal=T > 1, alibi=True)
         return self.out(out.reshape(B, T, -1))
 
 

@@ -9,9 +9,9 @@ packed-document mask.
 
 ``dot_product_attention`` dispatches between it and the hand-written CUDA
 flash kernel (``ops.flash_attention``): ``impl="xla"`` always takes the
-reference, ``"auto"`` takes the kernel where the gate accepts the call
-(CUDA tensors of a supported shape) and the reference elsewhere, and
-``"flash"`` takes the kernel or raises.
+reference, ``"auto"`` takes it for CPU tensors only, and otherwise (and
+always for ``"flash"``) the call takes the kernel or raises with the
+condition the gate declined.
 """
 from __future__ import annotations
 
@@ -114,25 +114,24 @@ def dot_product_attention(
     """Dispatching attention entry point used by the model."""
     if impl not in ("auto", "xla", "flash"):
         raise ValueError(f"invalid attention impl {impl!r}")
-    if impl in ("auto", "flash"):
-        from zero_transformer_tpu_torch.ops import flash_attention as fa
-
-        if fa.supported(
+    if impl == "xla" or (impl == "auto" and q.device.type == "cpu"):
+        return xla_attention(
             q, k, v, causal=causal, alibi=alibi, q_offset=q_offset,
             segment_ids=segment_ids, doc_ids=doc_ids,
-        ):
-            return fa.flash_attention(
-                q, k, v, causal=causal, alibi=alibi, q_offset=q_offset,
-                segment_ids=segment_ids, doc_ids=doc_ids,
-            )
-        if impl == "flash":
-            # flash-or-raise: an explicit flash request never silently
-            # takes the O(T^2) reference
-            raise NotImplementedError(
-                f"flash attention unsupported for q={tuple(q.shape)} {q.dtype} "
-                f"on {q.device}, k={tuple(k.shape)}"
-            )
-    return xla_attention(
+        )
+    from zero_transformer_tpu_torch.ops import flash_attention as fa
+
+    # kernel-or-raise: off the CPU nothing silently takes the reference
+    reason = fa.decline_reason(
+        q, k, v, causal=causal, alibi=alibi, q_offset=q_offset,
+        segment_ids=segment_ids, doc_ids=doc_ids,
+    )
+    if reason is not None:
+        raise NotImplementedError(
+            f"flash attention (impl={impl!r}) declines q={tuple(q.shape)} {q.dtype} "
+            f"on {q.device}, k={tuple(k.shape)}: {reason}"
+        )
+    return fa.flash_attention(
         q, k, v, causal=causal, alibi=alibi, q_offset=q_offset,
         segment_ids=segment_ids, doc_ids=doc_ids,
     )

@@ -1,8 +1,11 @@
-"""Paged decode attention: gate, CUDA kernel wrapper, plain version and
-launch count.
+"""Paged decode attention: CUDA kernel wrapper, plain version and launch
+count.
 
 Counterpart of ``zero_transformer_tpu/ops/pallas/paged_attention.py``
-(``supported`` :64, ``paged_attention`` :178, kernel ``_kernel`` :100). The
+(``paged_attention`` :178, kernel ``_kernel`` :100). The JAX gate
+``supported`` has no counterpart: the model routes every decode window of
+at most ``MAX_DECODE_T`` tokens here, and a CUDA call the kernel cannot take
+raises. The
 kernel is ``csrc/paged_attention.cu``; it walks each row's block table
 itself and never builds the ``[B, cache_len, KVH, D]`` slab. The plain
 version ``paged_reference`` is that slab: gather the row's pages, then the
@@ -35,19 +38,6 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SPLIT = 256  # keys per partial CTA in csrc/paged_attention.cu (SPLIT)
 
 
-def supported(impl: str, *, T: int, D: int, page_size: int, dtype, device) -> bool:
-    """Does the paged kernel handle this decode dispatch? ``impl`` is the
-    model's ``attention_impl``: ``xla`` always declines (the gather path is
-    the reference); ``auto``/``flash`` accept CUDA decode windows."""
-    if impl not in ("auto", "flash"):
-        return False
-    if torch.device(device).type != "cuda":
-        return False
-    if T < 1 or T > MAX_DECODE_T or page_size < 1:
-        return False
-    return D in HEAD_DIMS and dtype in _DTYPE_CODES
-
-
 def gather_pages(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
     """[n_pages, page, KVH, D] through [B, n_blocks] -> the row-major
     [B, n_blocks * page, KVH, D] slab view."""
@@ -56,17 +46,24 @@ def gather_pages(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
     return g.reshape((B, n_blocks * pool.shape[1]) + tuple(pool.shape[2:]))
 
 
+def gather_window(k_pool, v_pool, block_table, q_offset: torch.Tensor, T: int):
+    """The slab a window of ``T`` queries at ``q_offset`` [B] attends over:
+    the gathered K and V ``[B, S, KVH, D]`` and the validity mask ``[B, S]``
+    (position < q_offset + T)."""
+    k = gather_pages(k_pool, block_table)
+    v = gather_pages(v_pool, block_table)
+    valid = torch.arange(k.shape[1], device=k.device)[None, :] < (q_offset[:, None] + T)
+    return k, v, valid
+
+
 def paged_reference(
     q, k_pool, v_pool, block_table, q_offset, *, causal: bool, alibi: bool = False,
     softmax_scale: Optional[float] = None,
 ) -> torch.Tensor:
     """The gather-to-slab path the kernel replaces."""
     B, T, _, _ = q.shape
-    k = gather_pages(k_pool, block_table)
-    v = gather_pages(v_pool, block_table)
-    S = k.shape[1]
     offs = row_offsets(q_offset, B, q.device)
-    valid = torch.arange(S, device=q.device)[None, :] < (offs[:, None] + T)
+    k, v, valid = gather_window(k_pool, v_pool, block_table, offs, T)
     return xla_attention(
         q, k, v, causal=causal, alibi=alibi, q_offset=offs, segment_ids=valid,
         softmax_scale=softmax_scale,
