@@ -25,10 +25,33 @@ Phases, each fatal on failure (nothing is caught):
    within atol 1e-4, bf16 no farther from the float32 plain path than the
    bf16 plain path plus 2e-2; then greedy agreement of a whole engine run;
 5. profile: twenty decode ticks of four streams under ``torch.profiler``:
-   device busy time per tick against the ticks' wall time.
+   device busy time per tick against the ticks' wall time;
+6. training kernels: the differentiable flash entry (K1 with lse, K2 dq,
+   K3 dk/dv) through ``torch.autograd`` against ``flash_reference`` and
+   ``flash_bwd_reference`` at the training shape (B 8, T = S = 1024, 12
+   heads of 64, bf16) and on GQA, non-ALiBi, non-causal, ragged-T and
+   D 128 cases: float32 within atol 1e-4; bf16 K2/K3 within one bf16 ulp
+   plus 6e-3 of the largest |grad| of the float32 reference on the same
+   o and lse, and the same bar must reject a reference whose causal limit
+   is one key off; times of kernel, plain version and the backward of
+   ``scaled_dot_product_attention`` with the ALiBi float bias (a yardstick);
+7. training: ``125m`` at full width and depth, bf16 over float32 master
+   params, seed-0 weights: (a) one micro-batch's loss and grads through the
+   kernels against the plain path (``attention_impl="xla"``) in bf16 and in
+   float32; (b) the launch counts of one optimizer step of B 8 x accum 4 x
+   T 1024 (12 x accum each for ``flash_train_fwd``, ``flash_dq``,
+   ``flash_dkv``); (c) the loss over 20 steps on one repeated batch at a
+   constant learning rate must fall, and two steps run under
+   ``torch.profiler`` (device busy share, largest kernels); (d) the trainer CLI on
+   ``configs/train_125m.yaml`` with synthetic data takes a few steps and
+   reports tokens/s, step ms and the model-FLOPs share of 989 TFLOP/s.
+
+``--phases a,b,...`` builds the kernels and runs the named phases only
+(kernels, serving, parity, profile, train_kernels, training; parity needs
+serving); the kernel table then lists the kernels whose phases ran.
 
 The last two lines of standard output are the kernel table as one JSON
-object and ``{"ok": true, "device": {...}}``. Without CUDA the script exits
+object and ``{"ok": true, "device": {...}}`` (a full run only). Without CUDA the script exits
 non-zero and prints no result.
 """
 from __future__ import annotations
@@ -424,7 +447,7 @@ def serving_phase():
             raise AssertionError(f"{n}-token prompt: HTTP {code}, {status}, {len(toks)} tokens")
     if metrics["poisoned_slots"]:
         raise AssertionError(f"{metrics['poisoned_slots']} slots saw non-finite logits")
-    if not all(launches[k] > 0 for k in launches):
+    if not all(launches[k] > 0 for k in ("flash_serving_fwd", "paged_attention")):
         raise AssertionError(f"a kernel of the serving path never launched: {launches}")
     summary = {
         "serving": {
@@ -441,6 +464,20 @@ def serving_phase():
     }
     log(summary)
     return launches, [r[2] for r in results]
+
+
+def kernel_times(prof) -> dict:
+    """{kernel name: (device ms, launches)} from a ``torch.profiler`` run.
+    Kernel events only: CPU ops also carry the device time of what they
+    launched, and counting both would double it."""
+    kernels = {}
+    for ev in prof.key_averages():
+        if str(ev.device_type).endswith("CUDA"):
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = ev.self_cuda_time_total
+            kernels[ev.key] = (dev_us / 1e3, ev.count)
+    return kernels
 
 
 def profile_phase(ticks: int = 20):
@@ -465,15 +502,7 @@ def profile_phase(ticks: int = 20):
             engine.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for ev in prof.key_averages():
-        # kernel events only: CPU ops also carry the device time of what
-        # they launched, and counting both would double it
-        if str(ev.device_type).endswith("CUDA"):
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = ev.self_cuda_time_total
-            kernels[ev.key] = (dev_us / 1e3, ev.count)
+    kernels = kernel_times(prof)
     busy_ms = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     log({"profile": {
@@ -569,6 +598,355 @@ def parity_phase(kernel_tokens):
     }})
 
 
+# --------------------------------------------------------- training kernels
+
+# (label, B, T, H, KVH, D, dtype, causal, alibi); "main" is the training shape
+TRAIN_CASES = [
+    ("main", 8, 1024, 12, 12, 64, torch.bfloat16, True, True),
+    ("f32", 2, 1024, 12, 12, 64, torch.float32, True, True),
+    ("gqa", 2, 256, 8, 2, 64, torch.bfloat16, True, True),
+    ("gqa_f32", 2, 256, 8, 2, 64, torch.float32, True, True),
+    ("no_alibi_f32", 2, 192, 4, 4, 64, torch.float32, True, False),
+    ("non_causal", 2, 320, 4, 4, 64, torch.bfloat16, False, True),
+    ("non_causal_f32", 2, 320, 4, 4, 64, torch.float32, False, True),
+    ("ragged_T", 2, 1000, 12, 12, 64, torch.bfloat16, True, True),
+    ("ragged_T_f32", 1, 1000, 4, 4, 64, torch.float32, True, True),
+    ("d128_gqa_f32", 1, 200, 4, 2, 128, torch.float32, True, True),
+    ("d128_gqa", 1, 200, 4, 2, 128, torch.bfloat16, True, True),
+]
+# bf16 K2/K3 outputs against the float32 reference on the same o and lse:
+# one bf16 ulp of the reference (the output's own rounding) plus GRAD_ATOL of
+# the tensor's largest |grad|: the tensor-core path rounds p and ds to bf16
+# for its second products. Set from readings on an H100: the worst output
+# is 0.29-0.45 % of the largest |grad| (0.2-0.3 of a 1e-2 bar), while a
+# causal limit one key off lands at 57-91x that bar.
+GRAD_ATOL = 6e-3
+
+
+def causal_pairs(T: int, causal: bool) -> int:
+    """(query, key) pairs a head computes: T(T+1)/2 causal, T^2 otherwise."""
+    return T * (T + 1) // 2 if causal else T * T
+
+
+def train_bounds(B, T, H, KVH, D, dtype, causal):
+    """Least times (ms, bound_by) of K1 with lse, K2 and K3 on these inputs:
+    bytes (each input read once, each output written once) over HBM, or the
+    products' flops over the dtype's peak, whichever is larger."""
+    el = torch.finfo(dtype).bits // 8
+    qb, kb, row = B * T * H * D * el, B * T * KVH * D * el, B * H * T * 4
+    pairs = B * H * causal_pairs(T, causal)
+    work = {  # name: (bytes, flops)
+        "flash_train_fwd": (2 * qb + 2 * kb + row, 2 * 2 * D * pairs),
+        "flash_dq": (3 * qb + 2 * kb + 2 * row, 3 * 2 * D * pairs),
+        "flash_dkv": (2 * qb + 4 * kb + 2 * row, 4 * 2 * D * pairs),
+    }
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+        out[name] = (max(t_b, t_f), "bytes" if t_b >= t_f else "operations")
+    return out
+
+
+def shifted_bwd_reference(q, k, v, o, lse, do, alibi, shift):
+    """flash_bwd_reference with the causal limit moved by ``shift`` keys
+    (ALiBi unchanged): what a kernel one key off would compute."""
+    from zero_transformer_tpu_torch.ops.flash import slopes_on
+    from zero_transformer_tpu_torch.ops.positions import NEG_INF
+
+    B, T, Hq, Dq = q.shape
+    S = k.shape[1]
+    G = Hq // k.shape[2]
+    scale = 1.0 / Dq**0.5
+    qf, dof = q.float(), do.float()
+    kf, vf = k.float().repeat_interleave(G, 2), v.float().repeat_interleave(G, 2)
+    dist = torch.arange(T, device=q.device)[:, None] - torch.arange(S, device=q.device)
+    bias = torch.where(dist + shift >= 0, 0.0, NEG_INF)[None, None]
+    if alibi:
+        bias = bias - slopes_on(Hq, str(q.device), True)[None, :, None, None] * dist.clamp(min=0).float()
+    p = torch.exp(torch.einsum("bthd,bshd->bhts", qf, kf) * scale + bias - lse[..., None])
+    ds = p * (torch.einsum("bthd,bshd->bhts", dof, vf) - (dof * o.float()).sum(-1).transpose(1, 2)[..., None])
+    dq = scale * torch.einsum("bhts,bshd->bthd", ds, kf)
+    dk = (scale * torch.einsum("bhts,bthd->bshd", ds, qf)).reshape(B, S, -1, G, Dq).sum(3)
+    dv = torch.einsum("bhts,bthd->bshd", p, dof).reshape(B, S, -1, G, Dq).sum(3)
+    return dq, dk, dv
+
+
+def grad_miss(got, ref32) -> float:
+    """max |got - ref| over its bar (one bf16 ulp of ref + GRAD_ATOL * max|ref|)."""
+    err = (got.float() - ref32).abs()
+    return float((err / (bf16_ulp(ref32) + GRAD_ATOL * float(ref32.abs().max()))).max())
+
+
+def train_kernel_phase():
+    """K1 (training entry, with lse), K2 and K3 against their plain versions."""
+    import torch.nn.functional as F
+
+    from zero_transformer_tpu_torch.ops import flash
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = {}
+    for label, B, T, Hq, KVH, Dq, dtype, causal, alibi in TRAIN_CASES:
+        g = torch.Generator(device="cuda").manual_seed(len(label) + 100)
+        q, k, v = (torch.randn(B, T, h, Dq, generator=g, device="cuda").to(dtype).requires_grad_()
+                   for h in (Hq, KVH, KVH))
+        do = torch.randn(B, T, Hq, Dq, generator=g, device="cuda").to(dtype)
+        # the Function, forward and backward through autograd
+        out = flash.flash_attention(q, k, v, causal=causal, alibi=alibi)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
+        q, k, v = q.detach(), k.detach(), v.detach()
+        # K1 with lse vs its plain version
+        o_k, lse_k = flash._launch_fwd(q, k, v, causal=causal, alibi=alibi, q_offset=0,
+                                       segment_ids=None, scale=1.0 / Dq**0.5, want_lse=True,
+                                       counter=flash.TRAIN_KERNEL)
+        torch.cuda.synchronize()
+        if not torch.equal(o_k, out):
+            raise AssertionError(f"train {label}: the Function's output differs from K1's")
+        ref_o, ref_lse = flash.flash_reference(q, k, v, causal=causal, alibi=alibi)
+        fwd_err = compare(out, ref_o, dtype, f"train fwd {label}")
+        compare(lse_k, ref_lse, torch.float32 if dtype == torch.float32 else dtype, f"train lse {label}")
+        # K2/K3 on the kernel's own o and lse vs the plain backward on the same
+        got = flash.flash_bwd(q, k, v, o_k, lse_k, do, causal=causal, alibi=alibi)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, (dq, dk, dv))):
+            raise AssertionError(f"train {label}: autograd grads differ from flash_bwd's")
+        line = {"kernel": "flash_train", "case": label, "dtype": str(dtype), "fwd_max_err": fwd_err}
+        if dtype == torch.float32:
+            ref = flash.flash_bwd_reference(q, k, v, o_k, lse_k, do, causal=causal, alibi=alibi)
+            errs = [compare(a, b, dtype, f"train {n} {label}") for n, a, b in zip(("dq", "dk", "dv"), got, ref)]
+        else:
+            ref = flash.flash_bwd_reference(q.float(), k.float(), v.float(), o_k.float(), lse_k,
+                                            do.float(), causal=causal, alibi=alibi)
+            misses = [grad_miss(a, b) for a, b in zip(got, ref)]
+            if max(misses) > 1.0:
+                raise AssertionError(f"train {label}: bf16 dq/dk/dv at {misses} of their bars")
+            line["bf16_over_bar"] = misses
+            line["bf16_err_over_max"] = [float((a.float() - b).abs().max() / b.abs().max())
+                                         for a, b in zip(got, ref)]
+            errs = [float((a.float() - b).abs().max()) for a, b in zip(got, ref)]
+            if causal and label == "main":
+                for shift in (1, -1):
+                    off = shifted_bwd_reference(q, k, v, o_k, lse_k, do, alibi, shift)
+                    s_miss = [grad_miss(a, b) for a, b in zip(got, off)]
+                    if max(s_miss) <= 1.0:
+                        raise AssertionError(f"train {label}: the causal-limit {shift:+d} reference passes "
+                                             f"the bar ({s_miss}); the check cannot tell them apart")
+                    line[f"causal_limit_{shift:+d}_over_bar"] = s_miss
+        line.update(dq_max_err=errs[0], dk_max_err=errs[1], dv_max_err=errs[2])
+        # the end-to-end Function against the whole plain path (its own o, lse)
+        full = flash.flash_bwd_reference(q, k, v, ref_o, ref_lse, do, causal=causal, alibi=alibi)
+        line["vs_plain_path_max_err"] = [compare(a, b, dtype, f"train e2e {n} {label}")
+                                         for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), full)]
+        log(line)
+        if label != "main":
+            continue
+        lse = lse_k.contiguous()
+        delta = (do.float() * o_k.float()).sum(-1).transpose(1, 2).contiguous()
+        scale = 1.0 / Dq**0.5
+        kern = {
+            "flash_train_fwd": lambda: flash._launch_fwd(
+                q, k, v, causal=causal, alibi=alibi, q_offset=0, segment_ids=None, scale=scale,
+                want_lse=True, counter=flash.TRAIN_KERNEL),
+            "flash_dq": lambda: flash.launch_dq(q, k, v, do, lse, delta, causal=causal, alibi=alibi, scale=scale),
+            "flash_dkv": lambda: flash.launch_dkv(q, k, v, do, lse, delta, causal=causal, alibi=alibi, scale=scale),
+        }
+        kern_ms = {n: time_ms(fn, iters=10) for n, fn in kern.items()}
+        plain_fwd = time_ms(lambda: flash.flash_reference(q, k, v, causal=causal, alibi=alibi), iters=3)
+        # the plain backward computes dq, dk and dv together: one time for K2 and K3
+        plain_bwd = time_ms(lambda: flash.flash_bwd_reference(q, k, v, o_k, lse_k, do, causal=causal,
+                                                              alibi=alibi), iters=3)
+        bias = sdpa_bias(B, T, T, [0] * B, torch.ones(B, T, device="cuda", dtype=torch.int32), dtype)
+        qt, kt, vt = (x.transpose(1, 2).requires_grad_() for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias), iters=10)
+        # the library backward computes dq, dk and dv together: one time for K2 and K3
+        lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), do.transpose(1, 2),
+                                                      retain_graph=True), iters=10)
+        bounds = train_bounds(B, T, Hq, KVH, Dq, dtype, causal)
+        for name in kern:
+            err = fwd_err if name == "flash_train_fwd" else (errs[0] if name == "flash_dq" else max(errs[1:]))
+            bound, by = bounds[name]
+            rows[name] = dict(max_abs_err=err, ms=kern_ms[name],
+                              plain_ms=plain_fwd if name == "flash_train_fwd" else plain_bwd,
+                              library_ms=lib_fwd if name == "flash_train_fwd" else lib_bwd,
+                              bound_ms=bound, bound_by=by)
+            log({"kernel": name, "shape": [B, T, Hq, KVH, Dq], **rows[name]})
+        del lib_out, qt, kt, vt, bias
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------------------ training
+
+TRAIN_B, TRAIN_ACCUM, TRAIN_T = 8, 4, 1024
+# set from readings on an H100 (see PERF.md): the kernel path's loss may be
+# no farther from the float32 plain path than the bf16 plain path plus
+# LOSS_MARGIN (read: 7.4e-5 vs 7.6e-6); every grad tensor's cosine to the
+# float32 plain path at least COS_BAR (read: 0.99967 at the worst tensor,
+# the bf16 plain path 0.99970); the loss over FALL_STEPS steps on one batch
+# must fall by at least FALL_MARGIN (read: 3.6)
+LOSS_MARGIN = 5e-4
+COS_BAR = 0.999
+# the repeated batch draws from the first FALL_VOCAB ids, so the loss can
+# fall within a few steps (uniform ids over 50304 would leave ~0.4 nats)
+FALL_STEPS, FALL_LR, FALL_MARGIN, FALL_VOCAB = 20, 1e-3, 2.0, 1024
+
+
+def train_model(impl: str, dtype, state=None):
+    from zero_transformer_tpu_torch.models import model_getter
+
+    model = model_getter("125m", dtype=dtype, device="cuda", seed=None if state else SEED,
+                         trainable=True, attention_impl=impl)
+    if state is not None:
+        model.load_state_dict(state)
+    return model
+
+
+def loss_and_grads(model, tokens):
+    _, loss = model(tokens, labels=tokens, train=True)
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+    return float(loss), dict(zip(names, grads))
+
+
+def train_profile(step, st, batch, steps: int = 2):
+    """Where an optimizer step's time goes: ``steps`` steps under
+    ``torch.profiler``; device busy time (sum of kernel self time) against
+    the steps' wall time, and the largest kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(st, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = kernel_times(prof)
+    busy_ms = sum(ms for ms, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    log({"training_profile": {
+        "steps": steps, "wall_ms_per_step": wall_ms / steps,
+        "device_busy_ms_per_step": busy_ms / steps if kernels else "not measured",
+        "device_busy_share": busy_ms / wall_ms if kernels else "not measured",
+        "device_launches_per_step": sum(c for _, c in kernels.values()) / steps,
+        "top_kernels_ms_per_step": {k[:70]: ms / steps for k, (ms, _) in top},
+    }})
+
+
+def training_phase():
+    """125m training through the kernels: parity with the plain path, the
+    launch counts of one optimizer step, a falling loss, the trainer CLI."""
+    import os
+
+    from zero_transformer_tpu_torch.config import OptimizerConfig, model_config
+    from zero_transformer_tpu_torch.ops import _build
+    from zero_transformer_tpu_torch.parallel.zero import TrainState, make_train_step
+    from zero_transformer_tpu_torch.training.optimizer import make_optimizer, make_schedule
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(7)
+    batch = torch.randint(0, 50304, (TRAIN_ACCUM, TRAIN_B, TRAIN_T), generator=g, device="cuda",
+                          dtype=torch.int32)
+
+    # (a) one micro-batch: kernels (bf16) vs the plain path in bf16 and float32
+    kmodel = train_model("auto", torch.bfloat16)
+    state = {k: v.detach().clone() for k, v in kmodel.state_dict().items()}
+    loss_k, grads_k = loss_and_grads(kmodel, batch[0])
+    del kmodel
+    loss_x, grads_x = loss_and_grads(train_model("xla", torch.bfloat16, state), batch[0])
+    loss_f, grads_f = loss_and_grads(train_model("xla", torch.float32, state), batch[0])
+    torch.cuda.empty_cache()
+
+    def cos(a, b):
+        return float(torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0))
+
+    cos_k = {n: cos(grads_k[n], grads_f[n]) for n in grads_f}
+    cos_x = {n: cos(grads_x[n], grads_f[n]) for n in grads_f}
+    del grads_k, grads_x, grads_f
+    parity = {"loss_kernel": loss_k, "loss_plain_bf16": loss_x, "loss_plain_f32": loss_f,
+              "kernel_vs_f32": abs(loss_k - loss_f), "plain_bf16_vs_f32": abs(loss_x - loss_f),
+              "loss_margin": LOSS_MARGIN, "cos_bar": COS_BAR,
+              "grad_cos_kernel_min": min(cos_k.values()), "grad_cos_plain_bf16_min": min(cos_x.values()),
+              "grad_cos_kernel_min_tensor": min(cos_k, key=cos_k.get)}
+    log({"training_parity": parity})
+    if not (math.isfinite(loss_k) and abs(loss_k - loss_f) <= abs(loss_x - loss_f) + LOSS_MARGIN):
+        raise AssertionError(f"training parity: kernel loss {loss_k} vs f32 {loss_f}, bf16 plain {loss_x}")
+    if min(cos_k.values()) < COS_BAR:
+        raise AssertionError(f"training parity: grad cosines below {COS_BAR}: "
+                             f"{ {n: c for n, c in cos_k.items() if c < COS_BAR} }")
+
+    # (b) one optimizer step of B 8 x accum 4 x T 1024: launch counts
+    batch = batch % FALL_VOCAB
+    model = train_model("auto", torch.bfloat16, state)
+    opt_cfg = OptimizerConfig(schedule="constant", peak_learning_rate=FALL_LR)
+    schedule = make_schedule(opt_cfg)
+    st = TrainState(step=0, model=model, optimizer=make_optimizer(model, opt_cfg, schedule))
+    step = make_train_step(1, schedule)
+    step(st, batch)  # warm-up: cuBLAS handles, the allocator
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    metrics = step(st, batch)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = 12 * TRAIN_ACCUM
+    if any(launches[n] != want for n in ("flash_train_fwd", "flash_dq", "flash_dkv")):
+        raise AssertionError(f"launches per optimizer step {launches}, want {want} each for the training kernels")
+
+    # (c) the loss on one repeated batch at a constant lr must fall
+    losses = [float(metrics["loss"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FALL_STEPS - 2):
+        losses.append(float(step(st, batch)["loss"]))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (FALL_STEPS - 2)
+    peak_mem = torch.cuda.max_memory_allocated() / 2**30
+    log({"training_steps": {"losses": losses, "step_ms": step_ms, "lr": FALL_LR,
+                            "tokens_per_step": TRAIN_ACCUM * TRAIN_B * TRAIN_T,
+                            "peak_memory_gib": peak_mem, "launches_per_step": launches}})
+    if not all(math.isfinite(x) for x in losses) or losses[-1] > losses[0] - FALL_MARGIN:
+        raise AssertionError(f"loss did not fall by {FALL_MARGIN} over {FALL_STEPS} steps: {losses}")
+    train_profile(step, st, batch)
+    del st, model, step
+    torch.cuda.empty_cache()
+
+    # (d) the trainer CLI
+    run_dir = os.path.join("chiprun_out", "train_125m")
+    if os.path.exists(os.path.join(run_dir, "metrics.jsonl")):
+        os.remove(os.path.join(run_dir, "metrics.jsonl"))
+    cmd = [sys.executable, "-m", "zero_transformer_tpu_torch.train", "--cfg", "configs/train_125m.yaml",
+           "--max-steps", "12", "--set", "data.source=synthetic", f"training.batch_size={TRAIN_B}",
+           f"training.gradient_accumulation_steps={TRAIN_ACCUM}", "training.log_frequency=4",
+           "training.evaluation_frequency=12", "training.maximum_evaluation_steps=2",
+           f"checkpoint.directory={run_dir}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"trainer CLI exit {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    train_recs = [r for r in records if "loss" in r]
+    val = [r for r in records if "validation/loss" in r]
+    if not train_recs or not val or not all(math.isfinite(r["loss"]) for r in train_recs):
+        raise AssertionError(f"trainer CLI metrics incomplete or non-finite: {records}")
+    last = train_recs[-1]
+    n_params = model_config("125m").num_params
+    log({"trainer_cli": {
+        "wall_s": wall, "steps": last["step"], "loss": last["loss"],
+        "validation_loss": val[-1]["validation/loss"],
+        "tokens_per_sec": last["tokens_per_sec"], "step_time_ms": last["step_time_ms"],
+        "model_flops_share": last.get("model_flops_share"),
+        "model_flops_formula": f"tokens/s * 3 * (2 * N + 4 * L * d * T) / 989e12, N = {n_params}, "
+                               "L = 12, d = 768, T = 1024",
+    }})
+    if last.get("model_flops_share") is None:
+        raise AssertionError("the trainer CLI reported no model-FLOPs share on the card")
+    return launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -577,9 +955,33 @@ def card_line() -> str:
     return out[0]
 
 
+PHASES = ("kernels", "serving", "parity", "profile", "train_kernels", "training")
+SOURCES = {
+    "flash_serving_fwd": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
+                          "zero_transformer_tpu/ops/pallas/flash.py:127"),
+    "paged_attention": ("zero_transformer_tpu_torch/csrc/paged_attention.cu",
+                        "zero_transformer_tpu/ops/pallas/paged_attention.py:100"),
+    "flash_train_fwd": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
+                        "zero_transformer_tpu/ops/pallas/flash.py:127"),
+    "flash_dq": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
+                 "zero_transformer_tpu/ops/pallas/flash.py:176"),
+    "flash_dkv": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
+                  "zero_transformer_tpu/ops/pallas/flash.py:214"),
+}
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card only", file=sys.stderr)
+        return 2
+    phases = PHASES
+    if argv[:1] == ["--phases"] and len(argv) == 2:
+        phases = tuple(argv[1].split(","))
+    elif argv:
+        print(f"usage: chip_smoke.py [--phases {','.join(PHASES)}]", file=sys.stderr)
+        return 2
+    if set(phases) - set(PHASES):
+        print(f"chip_smoke: unknown phases {sorted(set(phases) - set(PHASES))}", file=sys.stderr)
         return 2
     from zero_transformer_tpu_torch.ops import _build
 
@@ -591,22 +993,29 @@ def main(argv) -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
-    rows = kernel_phase()
-    launches, kernel_tokens = serving_phase()
-    parity_phase(kernel_tokens)
-    profile_phase()
-    sources = {
-        "flash_serving_fwd": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
-                              "zero_transformer_tpu/ops/pallas/flash.py:127"),
-        "paged_attention": ("zero_transformer_tpu_torch/csrc/paged_attention.cu",
-                            "zero_transformer_tpu/ops/pallas/paged_attention.py:100"),
-    }
+    rows, launches = {}, {}
+    if "kernels" in phases:
+        rows.update(kernel_phase())
+    if "serving" in phases:
+        serving_launches, kernel_tokens = serving_phase()
+        launches.update({k: serving_launches[k] for k in ("flash_serving_fwd", "paged_attention")})
+        if "parity" in phases:
+            parity_phase(kernel_tokens)
+    if "profile" in phases:
+        profile_phase()
+    if "train_kernels" in phases:
+        rows.update(train_kernel_phase())
+    if "training" in phases:
+        train_launches = training_phase()
+        launches.update({k: train_launches[k] for k in ("flash_train_fwd", "flash_dq", "flash_dkv")})
     table = [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu, "launches": launches[name],
          **rows[name]}
-        for name, (src, tpu) in sources.items()
+        for name, (src, tpu) in SOURCES.items() if name in rows and name in launches
     ]
     log({"kernels": table})
+    if phases != PHASES:
+        return 0
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})
     return 0

@@ -4,7 +4,8 @@
   ``chip_smoke.py`` finds no import of jax, flax, yaml or the JAX package
   (a ``sys.modules`` check cannot work here: this interpreter imports jax
   at startup).
-- Entry points default to CUDA and raise without it unless the caller
+- Entry points (the model getter, the serving engine and CLI, the trainer
+  and its CLI) default to CUDA and raise without it unless the caller
   passes ``device="cpu"``; ``chip_smoke.py`` exits non-zero and prints no
   result without a card, also when it is alone in a directory.
 - The port's copy of the model zoo equals the JAX ``model_config``.
@@ -47,8 +48,10 @@ def test_no_jax_imports(path):
 def test_scan_sees_the_whole_package():
     names = {p.relative_to(PACKAGE).as_posix() for p in SOURCES if PACKAGE in p.parents}
     assert {"ops/flash.py", "ops/paged_attention.py", "serving/engine.py", "serve.py"} <= names
-    assert (PACKAGE / "csrc" / "flash_fwd.cu").exists()
-    assert (PACKAGE / "csrc" / "paged_attention.cu").exists()
+    assert {"ops/losses.py", "training/optimizer.py", "training/trainer.py", "parallel/zero.py",
+            "data/sources.py", "data/loader.py", "data/__init__.py", "train.py"} <= names
+    for source in ("flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh", "paged_attention.cu"):
+        assert (PACKAGE / "csrc" / source).exists(), source
 
 
 @pytest.fixture
@@ -71,6 +74,17 @@ def test_entry_points_raise_without_cuda(no_cuda):
     ServingEngine(model, cache_len=32, prefill_chunk=16, page_size=8, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--model", "test", "--params", "absent.npz", "--server"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model_getter("test", seed=0, trainable=True)
+    assert all(p.requires_grad for p in model_getter("test", device="cpu", seed=0, trainable=True).parameters())
+    assert not any(p.requires_grad for p in model.parameters())
+    from zero_transformer_tpu_torch import train
+    from zero_transformer_tpu_torch.training.trainer import Trainer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--cfg", "configs/train_test.yaml"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(tconfig.Config())
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])

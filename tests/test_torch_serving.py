@@ -88,7 +88,8 @@ def test_engine_streams_match_jax(setup):
     assert snap["completed"] == len(prompts) and snap["tokens_out"] == MAX_NEW * len(prompts)
     assert snap["prefill_chunks"] == sum(-(-n // CHUNK) for n in PROMPT_LENS)
     # on the CPU every kernel wrapper takes its plain version: no launches
-    assert snap["kernel_launches"] == {"flash_serving_fwd": 0, "paged_attention": 0}
+    assert snap["kernel_launches"] == {"flash_serving_fwd": 0, "paged_attention": 0,
+                                       "flash_train_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 
 
 def test_engine_rejects_and_bounds(setup):

@@ -1,7 +1,9 @@
-// Flash attention forward for the serving shapes (chunked prefill windows).
+// Flash attention forward (K1): the serving shapes (chunked prefill windows)
+// and the training forward, which also writes the lse its backward needs.
 //
 // Replaces the TPU kernel zero_transformer_tpu/ops/pallas/flash.py::_fwd_kernel
-// as reached through flash_serving (flash.py:504 -> _fwd :292). It computes
+// as reached through flash_serving (flash.py:504 -> _fwd :292) and through
+// the custom VJP of flash_attention (:462 -> _flash_fwd :431). It computes
 // the same function: s = scale * q.k^T in f32, plus the ALiBi bias
 // -slope * max(q_pos - k_pos, 0) and the causal NEG_INF mask added as one
 // bias, plus the [B, S] kv-validity mask (0 = masked); an online softmax over
@@ -19,12 +21,15 @@
 // one CTA per (tile, head, row) and a load-then-compute loop per tile few
 // loads are in flight at once: occupancy and memory-level parallelism, not
 // the payload, are what it lacks (cp.async double buffering is the next
-// step).
+// step). At the training shape (B = 8, H = 12, T = S = 1024, D = 64, bf16,
+// causal) a call must move 50.7 MB (q, k, v in; o, lse out), 15 us at
+// 3.35 TB/s, and do 12.9 GFLOP, 13 us at the bf16 tensor-core peak.
 //
 // Design: one CTA per (q tile of 64 rows, head, batch row); it stages 64-key
 // K/V tiles in shared memory and stops the key loop at the causal limit
 // q_offset + tile_end, so dead tiles cost nothing; m and l stay in f32
-// registers.
+// registers. The score bias is flash_common.cuh's, shared with the backward
+// kernels (flash_bwd.cu) so both see the same probabilities.
 // - bf16 (the serving path): 4 warps of 16 query rows each run
 //   mma.sync.m16n8k16 on the tensor cores for S = Q.K^T and O += P.V, in the
 //   FlashAttention-2 register layout (the S accumulator becomes the P
@@ -39,13 +44,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
 constexpr int BQ = 64;               // query rows per CTA
 constexpr int BK = 64;               // keys per shared-memory tile
 constexpr int TPR = 4;               // threads per query row
 constexpr int THREADS = BQ * TPR;    // 256
-constexpr float NEG_INF = -1e10f;    // ops/positions.py NEG_INF
 constexpr float INIT_M = -1e30f;     // flash.py _INIT_M
 
 // ---------------------------------------------------------------- f32 FMA
@@ -120,13 +126,9 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
       const int kp = k0 + key;
-      const int dist = q_pos - kp;
       // flash.py _scores order: s * scale + (alibi + causal), then + validity
-      float bias = 0.f;
-      if (alibi) bias = bias - slope * (float)max(dist, 0);
-      if (causal) bias = bias + (dist >= 0 ? 0.f : NEG_INF);
-      float x = dot * scale + bias;
-      if (seg != nullptr) x = x + (Sg[key] != 0 ? 0.f : NEG_INF);
+      float x = flash::biased_score(dot, scale, q_pos - kp, slope, causal, alibi);
+      if (seg != nullptr) x = x + (Sg[key] != 0 ? 0.f : flash::NEG_INF);
       if (kp >= S) x = -INFINITY;  // tile overhang past the cache: no key
       s[key] = x;
       tmax = fmaxf(tmax, x);
@@ -283,11 +285,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       for (int e = 0; e < 4; ++e) {
         const int col = nb * 8 + t4 * 2 + (e & 1), kp = k0 + col;
         const int dist = q_pos0 + (e >> 1) * 8 - kp;
-        float bias = 0.f;
-        if (alibi) bias = bias - slope * (float)max(dist, 0);
-        if (causal) bias = bias + (dist >= 0 ? 0.f : NEG_INF);
-        float x = sacc[nb][e] * scale + bias;
-        if (seg != nullptr) x = x + (Sg[col] != 0 ? 0.f : NEG_INF);
+        float x = flash::biased_score(sacc[nb][e], scale, dist, slope, causal, alibi);
+        if (seg != nullptr) x = x + (Sg[col] != 0 ? 0.f : flash::NEG_INF);
         if (kp >= S) x = -INFINITY;  // tile overhang past the cache: no key
         sacc[nb][e] = x;
         tmax[e >> 1] = fmaxf(tmax[e >> 1], x);

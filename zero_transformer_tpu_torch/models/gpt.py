@@ -2,8 +2,12 @@
 
 Counterpart of ``zero_transformer_tpu/models/gpt.py``: ``Attention`` (:157),
 ``MLP`` (:416), ``Block`` (:448), ``Transformer`` (:497) with the tied head.
-This slice ports the plain full-sequence forward and the PAGED decode
-variant the serving engine runs. Numerics follow flax where it matters:
+Ported: the full-sequence forward, with the next-token loss for training
+(``forward(tokens, labels, train=True)``, JAX ``Transformer.__call__``
+:512-684), and the PAGED decode variant the serving engine runs. Params are
+built with ``requires_grad=False`` (serving runs under ``no_grad``); the
+trainer turns them on with ``requires_grad_(True)``. Numerics follow flax
+where it matters:
 
 - bias-free LayerNorm with eps 1e-6 (flax's default, not torch's 1e-5),
   statistics in float32 as E[x^2] - E[x]^2 clipped at 0, scale in float32,
@@ -12,7 +16,10 @@ variant the serving engine runs. Numerics follow flax where it matters:
 - ``nn.Dense`` computes in the compute dtype from float32 params. Flax casts
   the params on every call; ``cast_for_inference`` casts the Dense and
   embedding weights once instead, which gives the same values;
-- the tied head is ``h @ wte.T`` in the compute dtype (``embed.attend``).
+- the tied head is ``h @ wte.T`` in the compute dtype (``embed.attend``),
+  so the tied table gets gradient from both the lookup and the head;
+- training keeps the float32 master params: every Dense and the embedding
+  cast per call, and autograd carries the grads back to float32.
 
 Layouts at the public surface are the JAX ones: q/k/v ``[B, T, H, D]``,
 page pools ``[n_pages, page, KVH, D]`` with page 0 the serving layer's trash
@@ -21,7 +28,7 @@ page, block tables ``[B, n_blocks]`` int32.
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +37,7 @@ from torch import nn
 from zero_transformer_tpu_torch.config import ModelConfig, resolve_dtype
 from zero_transformer_tpu_torch.ops import paged_attention as pa
 from zero_transformer_tpu_torch.ops.attention import dot_product_attention
+from zero_transformer_tpu_torch.ops.losses import next_token_loss
 
 LN_EPS = 1e-6  # flax LayerNorm default
 
@@ -227,12 +235,21 @@ class Transformer(nn.Module):
         """Tied head: ``h @ wte.T`` in the compute dtype."""
         return self.wte.attend(h)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """[B, T] token ids -> [B, T, vocab] logits (compute dtype)."""
+    def forward(self, tokens: torch.Tensor, labels: Optional[torch.Tensor] = None,
+                train: bool = False):
+        """[B, T] token ids -> [B, T, vocab] logits (compute dtype), or
+        ``(logits, loss)`` with ``labels``: the float32 next-token loss
+        (predict ``labels[:, t + 1]`` from position t). ``train`` would turn
+        dropout on, which is not ported: it raises for ``dropout > 0``."""
+        if train and self.cfg.dropout > 0:
+            raise NotImplementedError("dropout > 0 in training is not ported yet")
         h = self.wte(tokens)
         for blk in self.blocks:
             h = blk(h)
-        return self.logits(self.ln_f(h))
+        logits = self.logits(self.ln_f(h))
+        if labels is None:
+            return logits
+        return logits, next_token_loss(logits, labels)
 
     def forward_paged(
         self, tokens: torch.Tensor, pools: Pools, block_table: torch.Tensor,

@@ -12,7 +12,8 @@ and is loaded with ``ctypes``: every pointer and the stream cross as
 includes PyTorch's headers, so a build takes seconds, not minutes.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all of
 them. Libraries are cached in ``build/kernels/`` (listed in ``.gitignore``)
-under a hash of their source and flags, so an edited kernel rebuilds.
+under a hash of their source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited kernel or header rebuilds.
 """
 from __future__ import annotations
 
@@ -41,6 +42,13 @@ SIGNATURES = {
         # dtype, B, T, S, H, KVH, D, scale, causal, alibi, stream
         "flash_fwd": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P],
     },
+    "flash_bwd": {
+        # q, k, v, do, lse, delta, slopes, dq,
+        # dtype, B, T, S, H, KVH, D, scale, causal, alibi, stream
+        "flash_dq": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P],
+        # q, k, v, do, lse, delta, slopes, dk, dv, (the same ints), stream
+        "flash_dkv": [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P],
+    },
     "paged_attention": {
         # q, k_pool, v_pool, block_table, q_offset, slopes, o, part_o, part_ml,
         # dtype, B, T, H, KVH, D, page, n_blocks, scale, causal, alibi, stream
@@ -56,7 +64,12 @@ ptxas_report: Dict[str, str] = {}
 # Launch counts, one per kernel wrapper: a wrapper adds one where it
 # launches its kernel and nowhere else, so a run can show that its main path
 # went through the kernels (the plain CPU versions never count).
-LAUNCHES: Dict[str, int] = {"flash_serving_fwd": 0, "paged_attention": 0}
+# K1 counts apart by entry: ``flash_serving_fwd`` (serving, forward only) and
+# ``flash_train_fwd`` (the differentiable training entry).
+LAUNCHES: Dict[str, int] = {
+    "flash_serving_fwd": 0, "paged_attention": 0,
+    "flash_train_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+}
 
 
 def reset_launches() -> None:
@@ -72,8 +85,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
+    # the hash covers the source, every shared header in csrc/ and the flags
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

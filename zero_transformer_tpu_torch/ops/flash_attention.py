@@ -3,7 +3,10 @@
 Counterpart of ``zero_transformer_tpu/ops/flash_attention.py``. ``supported``
 decides whether the CUDA flash kernel (``ops.flash``) handles a call and
 ``decline_reason`` says why not (the dispatcher raises with it);
-``flash_attention`` runs the kernel. The gate's rules are the card's:
+``flash_attention`` runs the kernel: the training shape (``q_offset`` the
+int 0, no ``segment_ids``; JAX ``_is_training_call``) takes the
+differentiable entry (K1 forward, K2/K3 backward), every other shape the
+forward-only serving entry. The gate's rules are the card's:
 
 - CUDA tensors only (on the CPU the reference path runs);
 - q, k, v of one dtype, bfloat16 or float32;
@@ -11,8 +14,8 @@ decides whether the CUDA flash kernel (``ops.flash``) handles a call and
 - H divisible by KVH; a validity mask, when given, of shape ``[B, S]``;
 - an int, 0-d or ``[B]`` query offset (any window length is a legal tile:
   the kernel masks its ragged last query tile and key tile itself);
-- no packed-document mask and no gradient: the kernel is the serving
-  forward; the differentiable training kernels come with the training slice.
+- no packed-document mask (not ported to the kernels yet), and no input
+  that requires grad on a serving shape (that entry is forward only).
 
 The gate and the wrapper share ONE keyword surface (pinned by test): the
 gate may never inspect a keyword the wrapper then drops.
@@ -23,7 +26,13 @@ from typing import Optional
 
 import torch
 
-from zero_transformer_tpu_torch.ops.flash import HEAD_DIMS, flash_serving
+from zero_transformer_tpu_torch.ops import flash
+
+
+def _is_training_call(q_offset, segment_ids) -> bool:
+    """The int-0 offset and no validity mask: the full-sequence
+    self-attention shape the differentiable entry serves."""
+    return isinstance(q_offset, int) and q_offset == 0 and segment_ids is None
 
 
 def decline_reason(
@@ -33,18 +42,22 @@ def decline_reason(
     """Why the kernel cannot take this call, or None when it can."""
     B, T, H, D = q.shape
     _, S, KVH, _ = k.shape
+    if doc_ids is not None:
+        return "packed-document mask (doc_ids)"
+    if (
+        not _is_training_call(q_offset, segment_ids)
+        and torch.is_grad_enabled()
+        and (q.requires_grad or k.requires_grad or v.requires_grad)
+    ):
+        return "an input requires grad on a serving shape (that entry is forward only)"
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         return f"tensors not all on one CUDA device ({q.device}, {k.device}, {v.device})"
     if H % KVH or T == 0 or S == 0:
         return f"H={H}, KVH={KVH}, T={T}, S={S}"
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
         return f"dtypes {q.dtype}/{k.dtype}/{v.dtype} (one of bf16, f32)"
-    if D not in HEAD_DIMS:
-        return f"head width {D} not in {HEAD_DIMS}"
-    if doc_ids is not None:
-        return "packed-document mask (doc_ids)"
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return "an input requires grad (the kernel is forward only)"
+    if D not in flash.HEAD_DIMS:
+        return f"head width {D} not in {flash.HEAD_DIMS}"
     if torch.is_tensor(q_offset) and q_offset.ndim not in (0, 1):
         return f"q_offset of rank {q_offset.ndim}"
     if torch.is_tensor(q_offset) and q_offset.ndim == 1 and q_offset.shape[0] != B:
@@ -73,6 +86,8 @@ def flash_attention(
     """Kernel wrapper with EXACTLY the gate's keyword surface."""
     if doc_ids is not None:
         raise NotImplementedError("the packed-document mask is not ported to the CUDA kernel yet")
-    return flash_serving(
+    if _is_training_call(q_offset, segment_ids):
+        return flash.flash_attention(q, k, v, causal=causal, alibi=alibi)
+    return flash.flash_serving(
         q, k, v, causal=causal, alibi=alibi, q_offset=q_offset, segment_ids=segment_ids,
     )
