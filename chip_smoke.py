@@ -44,11 +44,30 @@ Phases, each fatal on failure (nothing is caught):
    constant learning rate must fall, and two steps run under
    ``torch.profiler`` (device busy share, largest kernels); (d) the trainer CLI on
    ``configs/train_125m.yaml`` with synthetic data takes a few steps and
-   reports tokens/s, step ms and the model-FLOPs share of 989 TFLOP/s.
+   reports tokens/s, step ms and the model-FLOPs share of 989 TFLOP/s;
+8. packed kernels: K1 (with lse), K2 and K3 with the packed-document mask
+   (``doc_ids``) through ``torch.autograd`` against their plain versions at
+   ``byte_25m``'s training shape (B 32, T = S 512, 8 heads of 64) in bf16
+   and float32, on GQA and D 128 cases, over documents that start at keys
+   63, 64 and 65, separators at 0 and T-1, one-token documents, a row with
+   no separator and real packed rows of the repo's text; the bars of phase
+   6, and the bf16 bars must reject plain versions given inclusive-cumsum
+   ids (each separator moved into the next document); times of kernel,
+   plain version and SDPA with one float bias of ALiBi + causal + documents;
+9. packed: ``byte_25m`` at full width and depth on the repo's own text
+   (``*.md``, ``docs/*.md``, ``.py``; held out by document hash): the
+   port's ``prepare`` writes tar shards, the kernel path meets the plain
+   path on one packed micro-batch (phase 7's bars), the trainer runs
+   ``configs/train_e2e_bytes.yaml`` for 300 steps (8 launches of each
+   ``_docs`` counter per step, a validation loss below the held-out bytes'
+   unigram entropy), the eval harness scores the trained model (bits per
+   byte below that entropy and within 0.01 of the plain path's; last-word
+   and choice accuracy), and the trainer CLI takes 20 steps on the shards.
 
 ``--phases a,b,...`` builds the kernels and runs the named phases only
-(kernels, serving, parity, profile, train_kernels, training; parity needs
-serving); the kernel table then lists the kernels whose phases ran.
+(kernels, serving, parity, profile, train_kernels, training,
+packed_kernels, packed; parity needs serving); the kernel table then lists
+the kernels whose phases ran.
 
 The last two lines of standard output are the kernel table as one JSON
 object and ``{"ok": true, "device": {...}}`` (a full run only). Without CUDA the script exits
@@ -56,15 +75,20 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import functools
+import hashlib
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
 import time
 import urllib.error
 import urllib.request
+from pathlib import Path
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -181,15 +205,23 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8)
 
 
-def flash_mma_emulation(q, k, v, offsets, seg):
+def flash_mma_emulation(q, k, v, offsets, seg, docs=None, with_flip=False):
     """The bf16 tensor-core kernel's arithmetic, step by step: scores from
     the bf16 inputs (exact products, summed in float64, then float32), the
-    biases in the kernel's order, an online softmax over its 64-key tiles
-    with m and l in float32 from the unrounded P, P rounded to bf16 before
-    the P.V product (exact products summed in float64), and the output
-    rounded to bf16 once. A tile past a row's causal limit, which the kernel
-    skips, adds exp(-1e10 - m) = 0 here, so every tile is visited.
-    Returns ``(out [B, T, H, D] bf16, lse [B, H, T] f32)``."""
+    biases in the kernel's order (ALiBi + causal, then the document mask
+    when ``docs`` [B, T] is given, then validity), an online softmax over
+    its 64-key tiles with m and l in float32 from the unrounded P, P
+    rounded to bf16 before the P.V product (exact products summed in
+    float64), and the output rounded to bf16 once. A tile past a row's
+    causal limit, which the kernel skips, adds exp(-1e10 - m) = 0 here, so
+    every tile is visited.
+    Returns ``(out [B, T, H, D] bf16, lse [B, H, T] f32)``; with
+    ``with_flip`` also ``flip`` [B, T, H, 1]: how far one p rounded to the
+    neighbouring bf16 value can move an output of the row, 2^-7 * max over
+    keys of (softmax weight * max |v|) (a bf16 ulp is at most 2^-7 of the
+    value). The tensor cores' f32 score sums differ from the exact sum in
+    the last bit now and then, and where that flips the rounding of a large
+    p, the kernel lands that far from this emulation."""
     from zero_transformer_tpu_torch.ops.flash import row_offsets, slopes_on
     from zero_transformer_tpu_torch.ops.positions import NEG_INF
 
@@ -204,6 +236,8 @@ def flash_mma_emulation(q, k, v, offsets, seg):
     bias = 0.0 - slopes_on(Hq, str(q.device), True)[None, :, None, None] * dist.clamp(min=0)[:, None].float()
     bias = bias + torch.where(dist >= 0, 0.0, NEG_INF)[:, None]
     x = s * (1.0 / Dq**0.5) + bias
+    if docs is not None:
+        x = x + torch.where(docs[:, :, None] == docs[:, None, :], 0.0, NEG_INF)[:, None]
     x = x + torch.where(seg != 0, 0.0, NEG_INF)[:, None, None, :]
     m = torch.full((B, Hq, T, 1), -1e30, device=q.device)
     l = torch.zeros_like(m)
@@ -218,44 +252,65 @@ def flash_mma_emulation(q, k, v, offsets, seg):
         m = m_new
     l_safe = torch.where(l == 0, 1.0, l)
     out = (o.float() / l_safe).bfloat16().transpose(1, 2)
-    return out, (m + torch.log(l_safe))[..., 0]
+    if not with_flip:
+        return out, (m + torch.log(l_safe))[..., 0]
+    vmax = v.float().abs().amax(-1).repeat_interleave(G, dim=2).transpose(1, 2)[:, :, None, :]  # [B, H, 1, S]
+    flip = 2.0**-7 * (torch.softmax(x, dim=-1) * vmax).amax(-1, keepdim=True)  # [B, H, T, 1]
+    return out, (m + torch.log(l_safe))[..., 0], flip.transpose(1, 2)
 
 
-def mma_miss(got: torch.Tensor, emu: torch.Tensor):
+def mma_miss(got: torch.Tensor, emu: torch.Tensor, flip=0.0):
     """How far ``got`` is from the emulation: the largest |got - emu| over
-    its bar (one bf16 ulp of emu plus MMA_ATOL) and the share of outputs
-    that differ at all."""
+    its bar (one bf16 ulp of emu plus MMA_ATOL, plus ``flip`` where given)
+    and the share of outputs that differ at all."""
     err = (got.float() - emu.float()).abs()
-    over = float((err / (bf16_ulp(emu) + MMA_ATOL)).max())
+    over = float((err / (bf16_ulp(emu) + MMA_ATOL + flip)).max())
     return over, float((err > 0).float().mean())
 
 
-def check_mma(got, lse, q, k, v, offs, seg, label, shifted):
+def check_mma(got, lse, q, k, v, offs, seg, label, shifted, docs=None, doc_control=None, flip=False):
     """Hold the bf16 tensor-core kernel to its own rounding against
     ``flash_mma_emulation``: every output within one bf16 ulp plus MMA_ATOL,
     at most MMA_DIFFER_SHARE of the outputs different at all, lse within
     MMA_LSE_ATOL. With ``shifted``, also show that the check catches a kernel
     whose causal limit or validity mask is one key off: the emulation with
     every offset one later (one more key visible per row) and with every
-    row's last valid key masked must each fail those bars."""
-    emu, emu_lse = flash_mma_emulation(q, k, v, offs, seg)
-    over, share = mma_miss(got, emu)
+    row's last valid key masked must each fail those bars. With
+    ``doc_control`` (other document ids), the emulation under those ids
+    must fail them too. With ``flip``, every bar also allows one rounding
+    flip of a p (``flash_mma_emulation``'s ``flip``): at byte_25m's training
+    shape (8.4M outputs) the bar without it misses by up to 9x, with and
+    without document ids alike; the reading without the allowance is
+    reported as ``over_without_flip``."""
+    if flip:
+        emu, emu_lse, allowance = flash_mma_emulation(q, k, v, offs, seg, docs, with_flip=True)
+    else:
+        (emu, emu_lse), allowance = flash_mma_emulation(q, k, v, offs, seg, docs), 0.0
+    over, share = mma_miss(got, emu, allowance)
     lse_err = float((lse - emu_lse).abs().max())
     if not (over <= 1.0 and share <= MMA_DIFFER_SHARE and lse_err <= MMA_LSE_ATOL):
-        raise AssertionError(f"flash {label} vs the mma emulation: max err {over} of its bar, "
-                             f"{share} of outputs differ (bar {MMA_DIFFER_SHARE}), lse {lse_err} "
-                             f"(bar {MMA_LSE_ATOL})")
+        miss = (got.float() - emu.float()).abs() / (bf16_ulp(emu) + MMA_ATOL + allowance)
+        worst = tuple(int(i) for i in torch.unravel_index(miss.argmax(), miss.shape))
+        raise AssertionError(f"flash {label} vs the mma emulation: max err {over} of its bar at "
+                             f"[b, t, h, d] = {list(worst)} (kernel {float(got[worst])}, emulation "
+                             f"{float(emu[worst])}), {share} of outputs differ (bar {MMA_DIFFER_SHARE}), "
+                             f"lse {lse_err} (bar {MMA_LSE_ATOL})")
     out = {"max_err_over_bar": over, "differ_share": share, "lse_max_abs_err": lse_err}
+    if flip:
+        out["over_without_flip"] = mma_miss(got, emu)[0]
+    controls = {}
     if shifted:
         last = seg.int().cumsum(1) == seg.int().sum(1, keepdim=True)
         fewer = seg.bool() & ~(last & seg.bool())  # each row's last valid key masked
-        for what, (o2, s2) in {"causal_limit_plus_1": (offs + 1, seg),
-                               "validity_minus_1": (offs, fewer.int())}.items():
-            s_over, s_share = mma_miss(got, flash_mma_emulation(q, k, v, o2, s2)[0])
-            if s_over <= 1.0 and s_share <= MMA_DIFFER_SHARE:
-                raise AssertionError(f"flash {label}: the {what} emulation passes the bars "
-                                     f"({s_over}, {s_share}); the check cannot tell them apart")
-            out[what] = {"max_err_over_bar": s_over, "differ_share": s_share}
+        controls = {"causal_limit_plus_1": (offs + 1, seg, docs), "validity_minus_1": (offs, fewer.int(), docs)}
+    if doc_control is not None:
+        controls["inclusive_doc_ids"] = (offs, seg, doc_control)
+    for what, (o2, s2, d2) in controls.items():
+        s_over, s_share = mma_miss(got, flash_mma_emulation(q, k, v, o2, s2, d2)[0], allowance)
+        if s_over <= 1.0 and s_share <= MMA_DIFFER_SHARE:
+            raise AssertionError(f"flash {label}: the {what} emulation passes the bars "
+                                 f"({s_over}, {s_share}); the check cannot tell them apart")
+        out[what] = {"max_err_over_bar": s_over, "differ_share": s_share}
     return out
 
 
@@ -628,17 +683,18 @@ def causal_pairs(T: int, causal: bool) -> int:
     return T * (T + 1) // 2 if causal else T * T
 
 
-def train_bounds(B, T, H, KVH, D, dtype, causal):
+def train_bounds(B, T, H, KVH, D, dtype, causal, ids_bytes=0):
     """Least times (ms, bound_by) of K1 with lse, K2 and K3 on these inputs:
-    bytes (each input read once, each output written once) over HBM, or the
-    products' flops over the dtype's peak, whichever is larger."""
+    bytes (each input read once, each output written once; ``ids_bytes`` of
+    document ids) over HBM, or the products' flops over the (query, key)
+    pairs the kernels visit, over the dtype's peak, whichever is larger."""
     el = torch.finfo(dtype).bits // 8
     qb, kb, row = B * T * H * D * el, B * T * KVH * D * el, B * H * T * 4
     pairs = B * H * causal_pairs(T, causal)
     work = {  # name: (bytes, flops)
-        "flash_train_fwd": (2 * qb + 2 * kb + row, 2 * 2 * D * pairs),
-        "flash_dq": (3 * qb + 2 * kb + 2 * row, 3 * 2 * D * pairs),
-        "flash_dkv": (2 * qb + 4 * kb + 2 * row, 4 * 2 * D * pairs),
+        "flash_train_fwd": (2 * qb + 2 * kb + row + ids_bytes, 2 * 2 * D * pairs),
+        "flash_dq": (3 * qb + 2 * kb + 2 * row + ids_bytes, 3 * 2 * D * pairs),
+        "flash_dkv": (2 * qb + 4 * kb + 2 * row + ids_bytes, 4 * 2 * D * pairs),
     }
     out = {}
     for name, (nbytes, flops) in work.items():
@@ -792,10 +848,10 @@ COS_BAR = 0.999
 FALL_STEPS, FALL_LR, FALL_MARGIN, FALL_VOCAB = 20, 1e-3, 2.0, 1024
 
 
-def train_model(impl: str, dtype, state=None):
+def train_model(impl: str, dtype, state=None, name="125m"):
     from zero_transformer_tpu_torch.models import model_getter
 
-    model = model_getter("125m", dtype=dtype, device="cuda", seed=None if state else SEED,
+    model = model_getter(name, dtype=dtype, device="cuda", seed=None if state else SEED,
                          trainable=True, attention_impl=impl)
     if state is not None:
         model.load_state_dict(state)
@@ -809,7 +865,41 @@ def loss_and_grads(model, tokens):
     return float(loss), dict(zip(names, grads))
 
 
-def train_profile(step, st, batch, steps: int = 2):
+def train_parity(name: str, tokens) -> dict:
+    """One micro-batch of ``name`` (seed-0 weights) through the kernels in
+    bf16 and through the plain path (``attention_impl="xla"``) in bf16 and
+    float32: fails unless the kernel loss is within LOSS_MARGIN of the bf16
+    plain path's distance to float32 and every grad's cosine to the float32
+    plain path is at least COS_BAR. Returns the readings and, under
+    ``"state"``, the weights."""
+    kmodel = train_model("auto", torch.bfloat16, name=name)
+    state = {k: v.detach().clone() for k, v in kmodel.state_dict().items()}
+    loss_k, grads_k = loss_and_grads(kmodel, tokens)
+    del kmodel
+    loss_x, grads_x = loss_and_grads(train_model("xla", torch.bfloat16, state, name), tokens)
+    loss_f, grads_f = loss_and_grads(train_model("xla", torch.float32, state, name), tokens)
+    torch.cuda.empty_cache()
+
+    def cos(a, b):
+        return float(torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0))
+
+    cos_k = {n: cos(grads_k[n], grads_f[n]) for n in grads_f}
+    cos_x = {n: cos(grads_x[n], grads_f[n]) for n in grads_f}
+    del grads_k, grads_x, grads_f
+    parity = {"model": name, "loss_kernel": loss_k, "loss_plain_bf16": loss_x, "loss_plain_f32": loss_f,
+              "kernel_vs_f32": abs(loss_k - loss_f), "plain_bf16_vs_f32": abs(loss_x - loss_f),
+              "loss_margin": LOSS_MARGIN, "cos_bar": COS_BAR,
+              "grad_cos_kernel_min": min(cos_k.values()), "grad_cos_plain_bf16_min": min(cos_x.values()),
+              "grad_cos_kernel_min_tensor": min(cos_k, key=cos_k.get)}
+    if not (math.isfinite(loss_k) and abs(loss_k - loss_f) <= abs(loss_x - loss_f) + LOSS_MARGIN):
+        raise AssertionError(f"{name} parity: kernel loss {loss_k} vs f32 {loss_f}, bf16 plain {loss_x}")
+    if min(cos_k.values()) < COS_BAR:
+        raise AssertionError(f"{name} parity: grad cosines below {COS_BAR}: "
+                             f"{ {n: c for n, c in cos_k.items() if c < COS_BAR} }")
+    return {**parity, "state": state}
+
+
+def train_profile(step, st, batch, steps: int = 2, label: str = "training_profile"):
     """Where an optimizer step's time goes: ``steps`` steps under
     ``torch.profiler``; device busy time (sum of kernel self time) against
     the steps' wall time, and the largest kernels by device time."""
@@ -825,7 +915,7 @@ def train_profile(step, st, batch, steps: int = 2):
     kernels = kernel_times(prof)
     busy_ms = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-    log({"training_profile": {
+    log({label: {
         "steps": steps, "wall_ms_per_step": wall_ms / steps,
         "device_busy_ms_per_step": busy_ms / steps if kernels else "not measured",
         "device_busy_share": busy_ms / wall_ms if kernels else "not measured",
@@ -851,31 +941,9 @@ def training_phase():
                           dtype=torch.int32)
 
     # (a) one micro-batch: kernels (bf16) vs the plain path in bf16 and float32
-    kmodel = train_model("auto", torch.bfloat16)
-    state = {k: v.detach().clone() for k, v in kmodel.state_dict().items()}
-    loss_k, grads_k = loss_and_grads(kmodel, batch[0])
-    del kmodel
-    loss_x, grads_x = loss_and_grads(train_model("xla", torch.bfloat16, state), batch[0])
-    loss_f, grads_f = loss_and_grads(train_model("xla", torch.float32, state), batch[0])
-    torch.cuda.empty_cache()
-
-    def cos(a, b):
-        return float(torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0))
-
-    cos_k = {n: cos(grads_k[n], grads_f[n]) for n in grads_f}
-    cos_x = {n: cos(grads_x[n], grads_f[n]) for n in grads_f}
-    del grads_k, grads_x, grads_f
-    parity = {"loss_kernel": loss_k, "loss_plain_bf16": loss_x, "loss_plain_f32": loss_f,
-              "kernel_vs_f32": abs(loss_k - loss_f), "plain_bf16_vs_f32": abs(loss_x - loss_f),
-              "loss_margin": LOSS_MARGIN, "cos_bar": COS_BAR,
-              "grad_cos_kernel_min": min(cos_k.values()), "grad_cos_plain_bf16_min": min(cos_x.values()),
-              "grad_cos_kernel_min_tensor": min(cos_k, key=cos_k.get)}
+    parity = train_parity("125m", batch[0])
+    state = parity.pop("state")
     log({"training_parity": parity})
-    if not (math.isfinite(loss_k) and abs(loss_k - loss_f) <= abs(loss_x - loss_f) + LOSS_MARGIN):
-        raise AssertionError(f"training parity: kernel loss {loss_k} vs f32 {loss_f}, bf16 plain {loss_x}")
-    if min(cos_k.values()) < COS_BAR:
-        raise AssertionError(f"training parity: grad cosines below {COS_BAR}: "
-                             f"{ {n: c for n, c in cos_k.items() if c < COS_BAR} }")
 
     # (b) one optimizer step of B 8 x accum 4 x T 1024: launch counts
     batch = batch % FALL_VOCAB
@@ -947,6 +1015,424 @@ def training_phase():
     return launches
 
 
+# ------------------------------------------------------- packed documents
+
+SEP = 0  # byte_25m's doc_sep_token
+CTX = 512  # byte_25m's max_seq_len and train_e2e_bytes.yaml's context
+HELDOUT_FRAC = 0.05  # scripts/e2e_quality.py's split
+# (label, B, H, KVH, D, dtype); "main" is byte_25m's training shape
+# (B 32, T = S 512, 8 heads of 64)
+PACKED_CASES = [
+    ("main", 32, 8, 8, 64, torch.bfloat16),
+    ("f32", 32, 8, 8, 64, torch.float32),
+    ("gqa", 10, 8, 2, 64, torch.bfloat16),
+    ("gqa_f32", 10, 8, 2, 64, torch.float32),
+    ("d128_f32", 10, 4, 4, 128, torch.float32),
+]
+
+
+@functools.lru_cache(maxsize=None)
+def corpus():
+    """The repo's own text, read from the tree (no ``.git`` needed):
+    ``*.md``, ``docs/*.md``, then every ``.py``, as scripts/e2e_quality.py
+    gathers text (:73-105): documents under 512 characters or holding a NUL
+    are dropped, duplicates too, and a document goes to the held-out split
+    when its hash says so. Returns ``(train, heldout)`` lists of str."""
+    root = Path(__file__).resolve().parent
+    skip = {"build", "runs"}  # build outputs and run directories (.gitignore)
+    paths = sorted(root.glob("*.md")) + sorted(root.glob("docs/*.md")) + sorted(
+        p for p in root.rglob("*.py")
+        if not any(part in skip or part.startswith(".") for part in p.relative_to(root).parts[:-1])
+    )
+    seen, train, heldout = set(), [], []
+    for p in paths:
+        try:
+            text = p.read_bytes().decode("utf-8")
+        except UnicodeDecodeError:
+            continue
+        if len(text) < 512 or "\x00" in text:
+            continue
+        h = hashlib.sha256(text.encode()).hexdigest()
+        if h in seen:
+            continue
+        seen.add(h)
+        (heldout if int(h[:8], 16) / 0xFFFFFFFF < HELDOUT_FRAC else train).append(text)
+    return train, heldout
+
+
+def packed_rows(n: int):
+    """``n`` [CTX] int32 rows of the packed train stream that hold a
+    separator (a row holds at most one: every document has 512 bytes or more)."""
+    from zero_transformer_tpu_torch.data.prepare import pack_rows
+    from zero_transformer_tpu_torch.serve import ByteTokenizer
+
+    rows = []
+    for row in pack_rows(corpus()[0], ByteTokenizer(), CTX, SEP):
+        if (row == SEP).any():
+            rows.append(torch.from_numpy(row))
+        if len(rows) == n:
+            return torch.stack(rows)
+    raise AssertionError(f"the corpus packs fewer than {n} rows with a separator")
+
+
+def layout_rows():
+    """[8, CTX] token rows whose separators make the document layouts the
+    kernels must get right: a document starting at key 63, 64 or 65 (each
+    side of the 64-key tile edge) and all three at once, separators at 0 and
+    CTX - 1, twelve one-token documents, no separator, and many short
+    documents of random lengths."""
+    def row(seps):
+        r = torch.full((CTX,), ord("a"), dtype=torch.int32)
+        r[list(seps)] = SEP
+        return r
+
+    cuts = np.cumsum(np.random.default_rng(11).integers(1, 80, 64))
+    return torch.stack([row([62]), row([63]), row([64]), row([62, 63, 64]), row([0, CTX - 1]),
+                        row(range(200, 212)), row([]), row(cuts[cuts < CTX].tolist())])
+
+
+def packed_sdpa_bias(docs, Hq, dtype):
+    """[B, H, T, T] float bias: ALiBi + causal + the document mask."""
+    from zero_transformer_tpu_torch.ops.positions import NEG_INF, alibi_slopes
+
+    T = docs.shape[1]
+    dist = torch.arange(T, device="cuda")[:, None] - torch.arange(T, device="cuda")
+    bias = -alibi_slopes(Hq, "cuda")[None, :, None, None] * dist.clamp(min=0).float()
+    bias = bias + torch.where(dist >= 0, 0.0, NEG_INF)
+    bias = bias + torch.where(docs[:, :, None] == docs[:, None, :], 0.0, NEG_INF)[:, None]
+    return bias.to(dtype)
+
+
+def packed_kernel_phase():
+    """K1 (with lse), K2 and K3 with the packed-document mask against their
+    plain versions, on the layouts of ``layout_rows`` plus real packed rows
+    of the corpus; the bars of the training-kernel phase, and a control:
+    plain versions given inclusive-cumsum ids (each separator moved into
+    the next document) must miss the bf16 bars."""
+    import torch.nn.functional as F
+
+    from zero_transformer_tpu_torch.models.gpt import doc_ids_from_tokens
+    from zero_transformer_tpu_torch.ops import flash
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    synthetic = layout_rows()
+    real = packed_rows(max(c[1] for c in PACKED_CASES) - len(synthetic))
+    rows = {}
+    for label, B, Hq, KVH, Dq, dtype in PACKED_CASES:
+        tokens = torch.cat([synthetic, real[: B - len(synthetic)]]).cuda()
+        docs = doc_ids_from_tokens(tokens, SEP)
+        inclusive = torch.cumsum((tokens == SEP).int(), 1, dtype=torch.int32)
+        g = torch.Generator(device="cuda").manual_seed(len(label) + 300)
+        q, k, v = (torch.randn(B, CTX, h, Dq, generator=g, device="cuda").to(dtype).requires_grad_()
+                   for h in (Hq, KVH, KVH))
+        do = torch.randn(B, CTX, Hq, Dq, generator=g, device="cuda").to(dtype)
+        out = flash.flash_attention(q, k, v, causal=True, alibi=True, doc_ids=docs)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
+        q, k, v, out = q.detach(), k.detach(), v.detach(), out.detach()
+        scale = 1.0 / Dq**0.5
+        o_k, lse_k = flash._launch_fwd(q, k, v, causal=True, alibi=True, q_offset=0, segment_ids=None,
+                                       scale=scale, want_lse=True, counter=flash.TRAIN_KERNEL, doc_ids=docs)
+        torch.cuda.synchronize()
+        if not torch.equal(o_k, out):
+            raise AssertionError(f"docs {label}: the Function's output differs from K1's")
+        ref_o, ref_lse = flash.flash_reference(q, k, v, causal=True, alibi=True, doc_ids=docs)
+        fwd_err = compare(out, ref_o, dtype, f"docs fwd {label}")
+        compare(lse_k, ref_lse, torch.float32 if dtype == torch.float32 else dtype, f"docs lse {label}")
+        line = {"kernel": "flash_train_docs", "case": label, "dtype": str(dtype),
+                "shape": [B, CTX, Hq, KVH, Dq], "fwd_max_err": fwd_err}
+        if dtype == torch.bfloat16:
+            zeros = torch.zeros(B, dtype=torch.int32, device="cuda")
+            ones = torch.ones(B, CTX, dtype=torch.int32, device="cuda")
+            line["mma"] = check_mma(out, lse_k, q, k, v, zeros, ones, f"docs {label}", shifted=False,
+                                    docs=docs, doc_control=inclusive, flip=True)
+            # the same inputs without document ids miss the bar without the allowance too
+            o_free, _ = flash._launch_fwd(q, k, v, causal=True, alibi=True, q_offset=0, segment_ids=None,
+                                          scale=scale, want_lse=True, counter=flash.TRAIN_KERNEL)
+            line["mma"]["no_docs_over_without_flip"] = mma_miss(
+                o_free, flash_mma_emulation(q, k, v, zeros, ones)[0])[0]
+            del o_free
+        got = flash.flash_bwd(q, k, v, o_k, lse_k, do, causal=True, alibi=True, doc_ids=docs)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, (dq, dk, dv))):
+            raise AssertionError(f"docs {label}: autograd grads differ from flash_bwd's")
+        if dtype == torch.float32:
+            ref = flash.flash_bwd_reference(q, k, v, o_k, lse_k, do, causal=True, alibi=True, doc_ids=docs)
+            errs = [compare(a, b, dtype, f"docs {n} {label}") for n, a, b in zip(("dq", "dk", "dv"), got, ref)]
+        else:
+            f32 = (q.float(), k.float(), v.float(), o_k.float(), lse_k, do.float())
+            ref = flash.flash_bwd_reference(*f32, causal=True, alibi=True, doc_ids=docs)
+            misses = [grad_miss(a, b) for a, b in zip(got, ref)]
+            if max(misses) > 1.0:
+                raise AssertionError(f"docs {label}: bf16 dq/dk/dv at {misses} of their bars")
+            control = flash.flash_bwd_reference(*f32, causal=True, alibi=True, doc_ids=inclusive)
+            c_miss = [grad_miss(a, b) for a, b in zip(got, control)]
+            if max(c_miss) <= 1.0:
+                raise AssertionError(f"docs {label}: the inclusive-id reference passes the bar ({c_miss}); "
+                                     "the check cannot tell them apart")
+            line.update(bf16_over_bar=misses, inclusive_doc_ids_over_bar=c_miss)
+            errs = [float((a.float() - b).abs().max()) for a, b in zip(got, ref)]
+            del control, f32
+        line.update(dq_max_err=errs[0], dk_max_err=errs[1], dv_max_err=errs[2])
+        full = flash.flash_bwd_reference(q, k, v, ref_o, ref_lse, do, causal=True, alibi=True, doc_ids=docs)
+        line["vs_plain_path_max_err"] = [compare(a, b, dtype, f"docs e2e {n} {label}")
+                                         for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), full)]
+        causal_pairs_all = B * causal_pairs(CTX, True)
+        causal = torch.ones(CTX, CTX, dtype=torch.bool, device="cuda").tril()
+        same = (docs[:, :, None] == docs[:, None, :]) & causal
+        line["doc_visible_pair_share"] = float(same.sum()) / causal_pairs_all
+        log(line)
+        del full, ref
+        if label != "main":
+            continue
+        lse = lse_k.contiguous()
+        delta = (do.float() * o_k.float()).sum(-1).transpose(1, 2).contiguous()
+        kern = {
+            "flash_train_fwd_docs": lambda: flash._launch_fwd(
+                q, k, v, causal=True, alibi=True, q_offset=0, segment_ids=None, scale=scale,
+                want_lse=True, counter=flash.TRAIN_KERNEL, doc_ids=docs),
+            "flash_dq_docs": lambda: flash.launch_dq(q, k, v, do, lse, delta, causal=True, alibi=True,
+                                                     scale=scale, doc_ids=docs),
+            "flash_dkv_docs": lambda: flash.launch_dkv(q, k, v, do, lse, delta, causal=True, alibi=True,
+                                                       scale=scale, doc_ids=docs),
+        }
+        kern_ms = {n: time_ms(fn, iters=10) for n, fn in kern.items()}
+        # the same kernels on the same inputs without the mask: what the mask costs
+        free_ms = {
+            "flash_train_fwd_docs": time_ms(lambda: flash._launch_fwd(
+                q, k, v, causal=True, alibi=True, q_offset=0, segment_ids=None, scale=scale,
+                want_lse=True, counter=flash.TRAIN_KERNEL), iters=10),
+            "flash_dq_docs": time_ms(lambda: flash.launch_dq(q, k, v, do, lse, delta, causal=True, alibi=True,
+                                                             scale=scale), iters=10),
+            "flash_dkv_docs": time_ms(lambda: flash.launch_dkv(q, k, v, do, lse, delta, causal=True, alibi=True,
+                                                               scale=scale), iters=10),
+        }
+        plain_fwd = time_ms(lambda: flash.flash_reference(q, k, v, causal=True, alibi=True, doc_ids=docs),
+                            iters=3)
+        # the plain backward computes dq, dk and dv together: one time for K2 and K3
+        plain_bwd = time_ms(lambda: flash.flash_bwd_reference(q, k, v, o_k, lse_k, do, causal=True, alibi=True,
+                                                              doc_ids=docs), iters=3)
+        bias = packed_sdpa_bias(docs, Hq, dtype)
+        qt, kt, vt = (x.transpose(1, 2).requires_grad_() for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias), iters=10)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), do.transpose(1, 2),
+                                                      retain_graph=True), iters=10)
+        bounds = train_bounds(B, CTX, Hq, KVH, Dq, dtype, True, ids_bytes=4 * B * CTX)
+        for name in kern:
+            err = fwd_err if name == "flash_train_fwd_docs" else (errs[0] if name == "flash_dq_docs"
+                                                                  else max(errs[1:]))
+            bound, by = bounds[name.removesuffix("_docs")]
+            rows[name] = dict(max_abs_err=err, ms=kern_ms[name],
+                              plain_ms=plain_fwd if name == "flash_train_fwd_docs" else plain_bwd,
+                              library_ms=lib_fwd if name == "flash_train_fwd_docs" else lib_bwd,
+                              bound_ms=bound, bound_by=by)
+            log({"kernel": name, "shape": [B, CTX, Hq, KVH, Dq], "ms_without_docs": free_ms[name],
+                 "doc_visible_pair_share": line["doc_visible_pair_share"], **rows[name]})
+        del lib_out, qt, kt, vt, bias
+    torch.cuda.empty_cache()
+    return rows
+
+
+def heldout_tasks(heldout, max_lambada: int = 400):
+    """The last-word and choice examples of scripts/e2e_quality.py
+    (``build_eval_files``, :116-199) at context 512, as token lists. The
+    held-out documents follow from file hashes, so a task may come out
+    empty (fewer than four paragraphs give no choice examples); its
+    accuracy is then reported over 0 examples and nothing is scored."""
+    lastword = []
+    for doc in heldout:
+        for para in doc.split("\n\n"):
+            para = para.strip()
+            words = para.split()
+            if not (12 <= len(words) <= 80) or len(para) > 1200:
+                continue
+            last = words[-1]
+            if not re.fullmatch(r"[A-Za-z][A-Za-z'\-]{2,}[.:,;]?", last):
+                continue
+            lastword.append((list(para[: len(para) - len(last) - 1].encode()), list((" " + last).encode())))
+            if len(lastword) >= max_lambada:
+                break
+        if len(lastword) >= max_lambada:
+            break
+    paras = [p.strip() for doc in heldout for p in doc.split("\n\n") if 200 <= len(p.strip()) <= 900]
+    if len(paras) < 4:
+        return lastword, []
+    cap = max(32, CTX // 2 - 8)
+
+    def second_half(s):
+        cut = s.find(" ", len(s) // 2)
+        cut = cut if cut != -1 else len(s) // 2
+        return s[:cut], s[cut:]
+
+    def cap_b(s):
+        return s.encode()[:cap].decode("utf-8", errors="ignore")
+
+    choice = []
+    for i, para in enumerate(paras[: 20 if len(paras) < 100 else 200]):
+        context, true_cont = second_half(para)
+        cands = [cap_b(true_cont), cap_b(second_half(paras[(i + 1) % len(paras)])[1]),
+                 cap_b(second_half(paras[(i + 2) % len(paras)])[1])]
+        gold = i % 3
+        cands[0], cands[gold] = cands[gold], cands[0]
+        choice.append((list(context.encode()), [list(c.encode()) for c in cands], gold,
+                       [len(c.encode()) for c in cands]))
+    return lastword, choice
+
+
+def unigram_entropy_nats(data: bytes) -> float:
+    counts = np.bincount(np.frombuffer(data, np.uint8), minlength=256).astype(np.float64)
+    p = counts[counts > 0] / counts.sum()
+    return float(-(p * np.log(p)).sum())
+
+
+# the packed run: configs/train_e2e_bytes.yaml with these changes only
+PACKED_STEPS, PACKED_WARMUP, PACKED_EVAL_EVERY, EVAL_BATCH = 300, 30, 300, 32
+BPB_GAP = 0.01  # kernel-path bits per byte within this of the plain path's
+
+
+def packed_phase():
+    """byte_25m at full width and depth on the repo's own text: the port's
+    prepare writes tar shards, the kernel path meets the plain path on one
+    packed batch, the trainer runs train_e2e_bytes.yaml, the eval harness
+    scores the trained model, and the trainer CLI takes a few steps."""
+    import shutil
+
+    from zero_transformer_tpu_torch.config import apply_dotted_overrides, load_config, model_config
+    from zero_transformer_tpu_torch.data import make_loader, prepare
+    from zero_transformer_tpu_torch.evalharness import choice_accuracy, lambada, perplexity
+    from zero_transformer_tpu_torch.ops import _build
+    from zero_transformer_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(__file__).resolve().parent
+    yaml_path = root / "configs" / "train_e2e_bytes.yaml"
+    out = root / "build" / "packed"
+    shutil.rmtree(out, ignore_errors=True)
+    data = out / "data"
+    data.mkdir(parents=True)
+
+    # 1. corpus -> the port's prepare CLI -> tar shards
+    t0 = time.perf_counter()
+    train_docs, heldout = corpus()
+    for name, docs in (("train", train_docs), ("heldout", heldout)):
+        with open(data / f"{name}.jsonl", "w") as f:
+            f.writelines(json.dumps({"text": d}) + "\n" for d in docs)
+    for split, src in (("train", "train.jsonl"), ("val", "heldout.jsonl")):
+        prepare.main(["--input", str(data / src), "--tokenizer", "bytes", "--max-context", str(CTX),
+                      "--format", "tar", "--doc-sep", str(SEP), "--rows-per-shard", "512",
+                      "--out", str(data / split)])
+    stream = "\n\n".join(heldout)[:400_000].encode()
+    entropy = unigram_entropy_nats(stream)
+    log({"packed_corpus": {
+        "train_docs": len(train_docs), "heldout_docs": len(heldout),
+        "train_bytes": sum(len(d.encode()) for d in train_docs), "heldout_stream_bytes": len(stream),
+        "heldout_unigram_entropy_nats": entropy, "heldout_unigram_entropy_bits": entropy / math.log(2),
+        "prepare_s": time.perf_counter() - t0}})
+
+    overrides = {
+        "data.train_path": str(data / "train.index"), "data.validation_path": str(data / "val.index"),
+        "training.total_steps": PACKED_STEPS, "optimizer.warmup_steps": PACKED_WARMUP,
+        "training.evaluation_frequency": PACKED_EVAL_EVERY, "checkpoint.directory": str(out / "run"),
+    }
+    cfg = apply_dotted_overrides(load_config(yaml_path), overrides)
+
+    # 2. parity on one packed micro-batch
+    it = iter(make_loader(cfg))
+    batch = torch.from_numpy(next(it)[0]).cuda()
+    it.close()
+    parity = train_parity("byte_25m", batch)
+    del parity["state"]
+    log({"packed_parity": parity})
+
+    # 3. training; the launch counts are zeroed just before and read just after
+    trainer = Trainer(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    finally:
+        trainer.close()
+    eval_batches = PACKED_STEPS // PACKED_EVAL_EVERY * cfg.training.maximum_evaluation_steps
+    want = {"flash_train_fwd_docs": 8 * (PACKED_STEPS + eval_batches), "flash_dq_docs": 8 * PACKED_STEPS,
+            "flash_dkv_docs": 8 * PACKED_STEPS, "flash_train_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    if any(launches[n] != c for n, c in want.items()):
+        raise AssertionError(f"packed launches {launches}, want {want} (8 per step and per eval batch)")
+    with open(out / "run" / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    train_recs = [r for r in records if "loss" in r]
+    val = [r for r in records if "validation/loss" in r]
+    last = train_recs[-1]
+    n_params = model_config("byte_25m").num_params
+    log({"packed_training": {
+        "overrides": overrides, "steps": last["step"], "wall_s": train_wall,
+        "tokens_per_step": cfg.training.batch_size * cfg.training.train_context,
+        "losses": [(r["step"], r["loss"]) for r in train_recs],
+        "validation_loss": val[-1]["validation/loss"], "heldout_unigram_entropy_nats": entropy,
+        "step_time_ms": last["step_time_ms"], "tokens_per_sec": last["tokens_per_sec"],
+        "model_flops_share": last.get("model_flops_share"),
+        "model_flops_formula": f"tokens/s * 3 * (2 * N + 4 * L * d * T) / 989e12, N = {n_params}, "
+                               "L = 8, d = 512, T = 512",
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches, "want": want, "eval_batches": eval_batches,
+    }})
+    if not all(math.isfinite(r["loss"]) for r in train_recs) or not val[-1]["validation/loss"] < entropy:
+        raise AssertionError(f"validation loss {val[-1]['validation/loss']} not below the held-out unigram "
+                             f"entropy {entropy} nats")
+
+    # 4. the eval harness on the trained model, and bpb through the plain path
+    model = trainer.state.model
+    lastword, choice = heldout_tasks(heldout)
+    tokens = list(stream)
+    t0 = time.perf_counter()
+    bpb = perplexity(model, tokens, CTX, EVAL_BATCH, num_bytes=len(tokens))
+    lam = lambada(model, lastword, CTX, EVAL_BATCH)
+    cho = choice_accuracy(model, choice, CTX, EVAL_BATCH) if choice else {"examples": 0}
+    eval_s = time.perf_counter() - t0
+    plain = train_model("xla", torch.bfloat16, {k: v.detach() for k, v in model.state_dict().items()},
+                        "byte_25m")
+    bpb_plain = perplexity(plain, tokens, CTX, EVAL_BATCH, num_bytes=len(tokens))
+    del plain
+    entropy_bits = entropy / math.log(2)
+    log({"packed_eval": {
+        "bits_per_byte": bpb["bits_per_byte"], "bits_per_byte_plain": bpb_plain["bits_per_byte"],
+        "unigram_entropy_bits": entropy_bits, "byte_ppl": bpb["ppl"], "scored_bytes": bpb["tokens"],
+        "lastword": lam, "choice": cho, "eval_s": eval_s}})
+    if not bpb["bits_per_byte"] < entropy_bits:
+        raise AssertionError(f"bits per byte {bpb['bits_per_byte']} not below the unigram entropy {entropy_bits}")
+    if abs(bpb["bits_per_byte"] - bpb_plain["bits_per_byte"]) > BPB_GAP:
+        raise AssertionError(f"kernel-path bpb {bpb['bits_per_byte']} vs plain {bpb_plain['bits_per_byte']}")
+    # two more steps under the profiler, after the eval has scored the run
+    train_profile(trainer.train_step, trainer.state, batch[None], label="packed_training_profile")
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    # 5. the trainer CLI on the same shards
+    cli_dir = out / "cli"
+    cmd = [sys.executable, "-m", "zero_transformer_tpu_torch.train", "--cfg", str(yaml_path), "--max-steps", "20",
+           "--set", f"data.train_path={data / 'train.index'}", f"data.validation_path={data / 'val.index'}",
+           f"checkpoint.directory={cli_dir}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=root)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"trainer CLI exit {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(cli_dir / "metrics.jsonl") as f:
+        cli_recs = [r for r in map(json.loads, f) if "loss" in r]
+    if not cli_recs or not all(math.isfinite(r["loss"]) for r in cli_recs):
+        raise AssertionError(f"packed trainer CLI metrics incomplete or non-finite: {cli_recs}")
+    log({"packed_trainer_cli": {"wall_s": wall, "steps": cli_recs[-1]["step"], "loss": cli_recs[-1]["loss"],
+                                "tokens_per_sec": cli_recs[-1]["tokens_per_sec"],
+                                "step_time_ms": cli_recs[-1]["step_time_ms"],
+                                "model_flops_share": cli_recs[-1].get("model_flops_share")}})
+    return launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -955,7 +1441,7 @@ def card_line() -> str:
     return out[0]
 
 
-PHASES = ("kernels", "serving", "parity", "profile", "train_kernels", "training")
+PHASES = ("kernels", "serving", "parity", "profile", "train_kernels", "training", "packed_kernels", "packed")
 SOURCES = {
     "flash_serving_fwd": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
                           "zero_transformer_tpu/ops/pallas/flash.py:127"),
@@ -967,6 +1453,13 @@ SOURCES = {
                  "zero_transformer_tpu/ops/pallas/flash.py:176"),
     "flash_dkv": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
                   "zero_transformer_tpu/ops/pallas/flash.py:214"),
+    # the same kernels' packed-document branch (flash.py:108-110, `_scores`)
+    "flash_train_fwd_docs": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
+                             "zero_transformer_tpu/ops/pallas/flash.py:127"),
+    "flash_dq_docs": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
+                      "zero_transformer_tpu/ops/pallas/flash.py:176"),
+    "flash_dkv_docs": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
+                       "zero_transformer_tpu/ops/pallas/flash.py:214"),
 }
 
 
@@ -1008,6 +1501,12 @@ def main(argv) -> int:
     if "training" in phases:
         train_launches = training_phase()
         launches.update({k: train_launches[k] for k in ("flash_train_fwd", "flash_dq", "flash_dkv")})
+    if "packed_kernels" in phases:
+        rows.update(packed_kernel_phase())
+    if "packed" in phases:
+        packed_launches = packed_phase()
+        launches.update({k: packed_launches[k] for k in ("flash_train_fwd_docs", "flash_dq_docs",
+                                                         "flash_dkv_docs")})
     table = [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu, "launches": launches[name],
          **rows[name]}

@@ -7,12 +7,16 @@ tensors its forward is ``flash_reference`` and its backward
 ``flash_bwd_reference``, the plain versions of K1 and of K2/K3). Out, dq, dk
 and dv agree within atol 1e-5 in float32, over MHA and GQA (8 query heads
 on 2 kv heads), ALiBi on and off, causal on and off, T = S in {64, 128},
-D = 64.
+D = 64. With packed-document ids (``doc_ids``, exclusive-cumsum ids from
+rows with separators at 0, at T-1, back to back, on a 64-key tile edge, and
+a row with none), the same holds, and ``flash_reference`` alone against the
+JAX forward, over MHA and GQA.
 
 Then ``flash_bwd_reference`` against autograd through the port's own
 ``xla_attention``, and the dispatch gate: a training-shape call that needs
-grads goes to the Function; a serving shape that needs grads and a
-``doc_ids`` call still decline, and so raise off the CPU.
+grads goes to the Function, with or without ``doc_ids``; a serving shape
+that needs grads, and ``doc_ids`` on a serving shape, still decline, and so
+raise off the CPU.
 """
 import jax
 import jax.numpy as jnp
@@ -40,9 +44,10 @@ def _inputs(seed, B, T, H, KVH, D):
     return q, k, v, do
 
 
-def _port(q, k, v, do, causal, alibi):
+def _port(q, k, v, do, causal, alibi, docs=None):
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
-    out = tflash.flash_attention(tq, tk, tv, causal=causal, alibi=alibi)
+    ids = None if docs is None else torch.from_numpy(docs)
+    out = tflash.flash_attention(tq, tk, tv, causal=causal, alibi=alibi, doc_ids=ids)
     grads = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
     return [out.detach().numpy()] + [g.numpy() for g in grads]
 
@@ -63,6 +68,45 @@ def test_flash_attention_and_grads_match_jax_interpret(heads, alibi, causal, T):
     got = _port(q, k, v, do, causal, alibi)
     for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g, np.asarray(w), atol=ATOL, rtol=0, err_msg=name)
+
+
+def _doc_ids(T):
+    """[4, T] exclusive-cumsum ids (the model's rule): separators at 0 and
+    T-1, three back to back, on the 64-key tile edge (63, 64, 65), none."""
+    sep = np.zeros((4, T), bool)
+    sep[0, [0, T // 3, T - 1]] = True
+    sep[1, [5, 6, 7, T // 2]] = True
+    sep[2, [63, 64, 65]] = True
+    ids = np.cumsum(sep, axis=1) - sep
+    return ids.astype(np.int32)
+
+
+@pytest.mark.parametrize("heads", [(4, 4), (8, 2)], ids=["mha", "gqa"])
+def test_flash_attention_with_doc_ids_matches_jax_interpret(heads):
+    H, KVH = heads
+    T = 128
+    q, k, v, do = _inputs(H + 7, 4, T, H, KVH, 64)
+    docs = _doc_ids(T)
+
+    def fwd(q, k, v):
+        return jflash.flash_attention(q, k, v, causal=True, alibi=True, doc_ids=jnp.asarray(docs),
+                                      block=64, interpret=True)
+
+    out, vjp = jax.vjp(fwd, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [out, *vjp(jnp.asarray(do))]
+    got = _port(q, k, v, do, True, True, docs)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, np.asarray(w), atol=ATOL, rtol=0, err_msg=name)
+    # the plain version of K1 alone, lse included, against the JAX forward
+    ref, lse = tflash.flash_reference(*(torch.from_numpy(x) for x in (q, k, v)), causal=True,
+                                      alibi=True, doc_ids=torch.from_numpy(docs))
+    j_out, j_lse = jflash._fwd(*(jnp.asarray(x) for x in (q, k, v)), True, True, 1 / 8.0, 64, 64, True,
+                               q_ids=jnp.asarray(docs), k_ids=jnp.asarray(docs))
+    np.testing.assert_allclose(ref.numpy(), np.asarray(j_out), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse)[..., 0], atol=ATOL, rtol=0)
+    # the mask does something: without it the output moves
+    free = _port(q, k, v, do, True, True)
+    assert np.abs(free[0] - got[0]).max() > 1e-2
 
 
 @pytest.mark.parametrize("case", [(2, 48, 4, 4, True, True), (1, 40, 8, 2, True, False),
@@ -105,10 +149,22 @@ def test_gate_routes_training_shape_with_grad_to_the_function():
     with pytest.raises(NotImplementedError, match="requires grad on a serving shape"):
         tattn.dot_product_attention(qm, km, km, causal=True, alibi=True,
                                     segment_ids=torch.ones(1, 16, dtype=torch.int32), impl="flash")
-    # so does the packed-document mask, with or without grads
+    # the packed-document mask rides the training shape, grads or not: the
+    # gate declines the meta tensor for its device only, and on the CPU the
+    # wrapper takes the Function
     docs = torch.zeros(1, 16, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="packed-document"):
+    reason = tfa.decline_reason(qm, km, km, causal=True, alibi=True, doc_ids=docs)
+    assert "CUDA" in reason and "packed-document" not in reason
+    with pytest.raises(NotImplementedError, match="CUDA"):
         tattn.dot_product_attention(qm.detach(), km.detach(), km.detach(), causal=True, alibi=True,
                                     doc_ids=docs, impl="auto")
+    out = tfa.flash_attention(q, k, v, causal=True, alibi=True, doc_ids=docs)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    # on a serving shape, or with ids of the wrong shape, it declines
+    with pytest.raises(NotImplementedError, match="packed-document mask .* serving shape"):
+        tattn.dot_product_attention(qm.detach(), km.detach(), km.detach(), causal=True, alibi=True,
+                                    q_offset=offs, doc_ids=docs, impl="auto")
+    assert "packed-document" in tfa.decline_reason(qm, km[:, :8], km[:, :8], causal=True, alibi=True,
+                                                   doc_ids=docs)
     with pytest.raises(NotImplementedError, match="packed-document"):
-        tfa.flash_attention(q, k, v, causal=True, alibi=True, doc_ids=docs)
+        tfa.flash_attention(q, k, v, causal=True, alibi=True, q_offset=offs, doc_ids=docs)

@@ -5,7 +5,7 @@
   (a ``sys.modules`` check cannot work here: this interpreter imports jax
   at startup).
 - Entry points (the model getter, the serving engine and CLI, the trainer
-  and its CLI) default to CUDA and raise without it unless the caller
+  and its CLI, the eval CLI) default to CUDA and raise without it unless the caller
   passes ``device="cpu"``; ``chip_smoke.py`` exits non-zero and prints no
   result without a card, also when it is alone in a directory.
 - The port's copy of the model zoo equals the JAX ``model_config``.
@@ -50,6 +50,8 @@ def test_scan_sees_the_whole_package():
     assert {"ops/flash.py", "ops/paged_attention.py", "serving/engine.py", "serve.py"} <= names
     assert {"ops/losses.py", "training/optimizer.py", "training/trainer.py", "parallel/zero.py",
             "data/sources.py", "data/loader.py", "data/__init__.py", "train.py"} <= names
+    assert {"data/tarshards.py", "data/prepare.py", "evalharness/__init__.py", "evalharness/__main__.py",
+            "evalharness/scoring.py", "evalharness/tasks.py", "evalharness/cli.py"} <= names
     for source in ("flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh", "paged_attention.cu"):
         assert (PACKAGE / "csrc" / source).exists(), source
 
@@ -85,6 +87,10 @@ def test_entry_points_raise_without_cuda(no_cuda):
         train.main(["--cfg", "configs/train_test.yaml"])
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(tconfig.Config())
+    from zero_transformer_tpu_torch.evalharness import cli as eval_cli
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        eval_cli.main(["--model", "byte_2m", "--params", "absent.npz", "--task", "ppl", "--data", "absent.jsonl"])
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])

@@ -89,7 +89,9 @@ def test_engine_streams_match_jax(setup):
     assert snap["prefill_chunks"] == sum(-(-n // CHUNK) for n in PROMPT_LENS)
     # on the CPU every kernel wrapper takes its plain version: no launches
     assert snap["kernel_launches"] == {"flash_serving_fwd": 0, "paged_attention": 0,
-                                       "flash_train_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+                                       "flash_train_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+                                       "flash_train_fwd_docs": 0, "flash_dq_docs": 0,
+                                       "flash_dkv_docs": 0}
 
 
 def test_engine_rejects_and_bounds(setup):

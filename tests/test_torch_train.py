@@ -227,10 +227,6 @@ def test_load_config_matches_jax(path):
         # a model feature this slice does not port (remat, loss_chunk)
         assert ref.model.remat or ref.model.loss_chunk
         return
-    except ValueError as e:
-        # a zoo entry the port does not carry (packed-document models)
-        assert ref.model.doc_sep_token is not None and "model name" in str(e)
-        return
     for section in dataclasses.fields(port):
         p_sec, r_sec = getattr(port, section.name), getattr(ref, section.name)
         for f in dataclasses.fields(p_sec):
@@ -270,9 +266,11 @@ def test_yaml_subset_scalars_match_pyyaml():
 def test_unported_training_features_raise():
     from zero_transformer_tpu_torch.training.trainer import build_training
 
-    for field in (dict(remat=True), dict(loss_chunk=256), dict(doc_sep_token=0)):
+    for field in (dict(remat=True), dict(loss_chunk=256)):
         with pytest.raises(NotImplementedError):
             tconfig.model_config("test", **field)
+    # packed documents are ported: the separator is validated, not refused
+    assert tconfig.model_config("test", doc_sep_token=0).doc_sep_token == 0
     with pytest.raises(NotImplementedError, match="dropout"):
         build_training(tconfig.Config(model=tconfig.model_config("test")), "cpu")  # zoo dropout 0.1
     model = Transformer(tconfig.model_config("test"), device="cpu")
@@ -282,6 +280,8 @@ def test_unported_training_features_raise():
         tconfig.MeshConfig(data=2)
     with pytest.raises(NotImplementedError):
         tconfig.CheckpointConfig(resume=True)
-    for source in ("hf", "tar"):
-        with pytest.raises(NotImplementedError):
-            make_source(tconfig.Config(data=tconfig.DataConfig(source=source)))
+    with pytest.raises(NotImplementedError):
+        make_source(tconfig.Config(data=tconfig.DataConfig(source="hf")))
+    # the tar source is ported: a missing index is a missing file, not a refusal
+    with pytest.raises(FileNotFoundError):
+        make_source(tconfig.Config(data=tconfig.DataConfig(source="tar", train_path="absent.index")))

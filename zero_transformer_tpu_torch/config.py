@@ -104,6 +104,18 @@ class ModelConfig:
             raise ValueError("d_model must be divisible by n_heads")
         if self.n_kv_heads is not None and self.n_heads % self.n_kv_heads:
             raise ValueError("n_heads must be divisible by n_kv_heads")
+        # JAX config.py:159-170: packing needs a relative position scheme,
+        # and a separator outside the vocab could never appear
+        if self.doc_sep_token is not None and self.position == "learned":
+            raise ValueError(
+                "doc_sep_token packing requires a relative position scheme (alibi/rope): "
+                "learned absolute positions break the packed==standalone logits contract"
+            )
+        if self.doc_sep_token is not None and not 0 <= self.doc_sep_token < self.vocab_size:
+            raise ValueError(
+                f"doc_sep_token {self.doc_sep_token} outside vocab [0, {self.vocab_size}): "
+                "the separator could never appear, silently disabling document masking"
+            )
         # the slice ports the GPT-2/ALiBi block only; the Llama variants
         # (rope, rmsnorm, swiglu) and learned positions come with a later slice
         if self.position != "alibi":
@@ -120,8 +132,6 @@ class ModelConfig:
             raise NotImplementedError("remat is not ported yet")
         if self.loss_chunk is not None:
             raise NotImplementedError("the chunked cross entropy (loss_chunk) is not ported yet")
-        if self.doc_sep_token is not None:
-            raise NotImplementedError("packed-document training (doc_sep_token) is not ported yet")
         resolve_dtype(self.param_dtype)
         resolve_dtype(self.compute_dtype)
 
@@ -150,7 +160,8 @@ class ServingConfig:
             raise ValueError("serving.page_pool_tokens must be >= 0 and a multiple of page_size")
 
 
-# The GPT-2/ALiBi entries of configs/models.yaml, as Python data.
+# The GPT-2/ALiBi entries of configs/models.yaml, as Python data (the MoE
+# and Llama variants byte_2m_moe / byte_2m_llama are not ported).
 MODEL_ZOO = {
     "test": dict(d_model=64, vocab_size=256, n_heads=4, max_seq_len=32, dropout=0.1, n_layers=2),
     "125m": dict(d_model=768, vocab_size=50304, n_heads=12, max_seq_len=1024, dropout=0.0, n_layers=12),
@@ -160,6 +171,12 @@ MODEL_ZOO = {
     "1_1b": dict(d_model=1536, vocab_size=50304, n_heads=16, max_seq_len=1024, dropout=0.1, n_layers=36),
     "1_3b": dict(d_model=2048, vocab_size=50304, n_heads=16, max_seq_len=1024, dropout=0.1, n_layers=24),
     "distill": dict(d_model=768, vocab_size=50304, n_heads=12, max_seq_len=2048, dropout=0.0, n_layers=6),
+    # the byte-level packed-document models of the end-to-end quality loop
+    # (NUL separates documents)
+    "byte_25m": dict(d_model=512, vocab_size=256, n_heads=8, max_seq_len=512, dropout=0.0, n_layers=8,
+                     doc_sep_token=0),
+    "byte_2m": dict(d_model=192, vocab_size=256, n_heads=6, max_seq_len=512, dropout=0.0, n_layers=3,
+                    doc_sep_token=0),
 }
 
 
@@ -230,12 +247,15 @@ class TrainingConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    source: str = "synthetic"  # "synthetic" | "memmap" ("hf" and "tar" are not ported)
+    source: str = "synthetic"  # "synthetic" | "memmap" | "tar" ("hf" is not ported)
     train_path: str = ""
     validation_path: str = ""
     max_context: int = 2048
     shuffle_seed: int = 23
     num_workers: int = 2  # batches read ahead by the loader's thread (0 = none)
+    # tar source: True raises on any undecodable member or unreadable shard;
+    # False warns, retries an open, and skips
+    strict: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

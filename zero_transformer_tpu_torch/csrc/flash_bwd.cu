@@ -13,7 +13,12 @@
 // tensor-core path rounds p and ds to bf16 for its second products, as the
 // forward rounds p for o. Query and key offsets
 // are 0 (the training shape), and T need not be a multiple of the 64-row
-// tile: rows and keys past the end get p = 0.
+// tile: rows and keys past the end get p = 0. With [B, T] int32 document ids
+// (packed documents) the scores carry the forward's document mask, from the
+// same header: the query ids of a tile sit in registers or shared memory
+// beside lse/delta, the key ids beside the key tile; tiles that hold no pair
+// of one document are still visited (skipping them is sound only for
+// monotone ids).
 //
 // The TPU kernels carry dq (and dk, dv) in VMEM scratch across a sequential
 // grid axis. Here one CTA owns one output tile and walks the other axis in a
@@ -93,8 +98,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const T* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, const float* __restrict__ slopes,
-                T* __restrict__ dq, int Tq, int S, int H, int KVH, float scale, int causal,
-                int alibi) {
+                const int* __restrict__ docs, T* __restrict__ dq, int Tq, int S, int H, int KVH,
+                float scale, int causal, int alibi) {
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;  // dq columns per thread
   extern __shared__ float smem[];
@@ -104,12 +109,14 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   float* Vs = Ks + BK * LD;    // [BK][LD]
   float* dSs = Vs + BK * LD;   // [BQ][LDP]
   __shared__ float lse_s[BQ], delta_s[BQ];
+  __shared__ int qdoc_s[BQ], kdoc_s[BK];
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KVH);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int q0 = qt * BQ;
   const float slope = alibi ? slopes[h] : 0.f;
+  const bool has_docs = docs != nullptr;
   const size_t qbase = (size_t)b * Tq * H * D, kbase = (size_t)b * S * KVH * D;
 
   stage<T, D>(Qs, q + qbase, q0, Tq, H, h);
@@ -119,6 +126,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     const size_t r = ((size_t)b * H + h) * Tq + qi;
     lse_s[tid] = qi < Tq ? lse[r] : 0.f;
     delta_s[tid] = qi < Tq ? delta[r] : 0.f;
+    qdoc_s[tid] = has_docs && qi < Tq ? docs[(size_t)b * Tq + qi] : 0;
   }
 
   float acc[4][DC];
@@ -135,6 +143,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     __syncthreads();  // the previous tile is fully consumed
     stage<T, D>(Ks, k + kbase, k0, S, KVH, kvh);
     stage<T, D>(Vs, v + kbase, k0, S, KVH, kvh);
+    if (tid < BK) kdoc_s[tid] = has_docs && k0 + tid < S ? docs[(size_t)b * S + k0 + tid] : 0;
     __syncthreads();
 
     // s = q . k^T and dp = do . v^T for rows ty + 16 r, keys tx + 16 c
@@ -172,7 +181,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
         const int jj = tx + 16 * c, kp = k0 + jj;
         float p = 0.f;
         if (qi < Tq && kp < S)
-          p = expf(flash::biased_score(s[r][c], scale, qi - kp, slope, causal, alibi) - lse_s[i]);
+          p = expf(flash::biased_score(s[r][c], scale, qi - kp, slope, causal, alibi, has_docs,
+                                       qdoc_s[i], kdoc_s[jj]) -
+                   lse_s[i]);
         dSs[i * LDP + jj] = p * (dp[r][c] - delta_s[i]);
       }
     }
@@ -211,8 +222,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dout, const float* __restrict__ lse,
                  const float* __restrict__ delta, const float* __restrict__ slopes,
-                 T* __restrict__ dk, T* __restrict__ dv, int Tq, int S, int H, int KVH,
-                 float scale, int causal, int alibi) {
+                 const int* __restrict__ docs, T* __restrict__ dk, T* __restrict__ dv, int Tq,
+                 int S, int H, int KVH, float scale, int causal, int alibi) {
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;
   extern __shared__ float smem[];
@@ -223,15 +234,18 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float* Ps = dOs + BQ * LD;   // [BK][LDP]: p transposed, [key][query]
   float* dSs = Ps + BK * LDP;  // [BK][LDP]: ds transposed
   __shared__ float lse_s[BQ], delta_s[BQ];
+  __shared__ int qdoc_s[BQ], kdoc_s[BK];
 
   const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / KVH;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int k0 = kt * BK;
+  const bool has_docs = docs != nullptr;
   const size_t qbase = (size_t)b * Tq * H * D, kbase = (size_t)b * S * KVH * D;
 
   stage<T, D>(Ks, k + kbase, k0, S, KVH, kvh);
   stage<T, D>(Vs, v + kbase, k0, S, KVH, kvh);
+  if (tid < BK) kdoc_s[tid] = has_docs && k0 + tid < S ? docs[(size_t)b * S + k0 + tid] : 0;
 
   // rows ty + 16 r of the key tile, dims tx + 16 c
   float dk_acc[4][DC], dv_acc[4][DC];
@@ -257,6 +271,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         const size_t r = ((size_t)b * H + h) * Tq + qi;
         lse_s[tid] = qi < Tq ? lse[r] : 0.f;
         delta_s[tid] = qi < Tq ? delta[r] : 0.f;
+        qdoc_s[tid] = has_docs && qi < Tq ? docs[(size_t)b * Tq + qi] : 0;
       }
       __syncthreads();
 
@@ -295,7 +310,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
           const int ii = tx + 16 * c, qi = q0 + ii;
           float p = 0.f;
           if (qi < Tq && kp < S)
-            p = expf(flash::biased_score(s[r][c], scale, qi - kp, slope, causal, alibi) -
+            p = expf(flash::biased_score(s[r][c], scale, qi - kp, slope, causal, alibi, has_docs,
+                                         qdoc_s[ii], kdoc_s[jj]) -
                      lse_s[ii]);
           Ps[jj * LDP + ii] = p;
           dSs[jj * LDP + ii] = p * (dp[r][c] - delta_s[ii]);
@@ -447,14 +463,16 @@ __global__ void __launch_bounds__(MMA_THREADS)
 flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    const float* __restrict__ slopes, bf16* __restrict__ dq, int Tq, int S, int H,
-                    int KVH, float scale, int causal, int alibi) {
+                    const float* __restrict__ slopes, const int* __restrict__ docs,
+                    bf16* __restrict__ dq, int Tq, int S, int H, int KVH, float scale, int causal,
+                    int alibi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LDM]
   bf16* dOs = Qs + BQ * LDM;                     // [BQ][LDM]
   bf16* Ks = dOs + BQ * LDM;                     // [BK][LDM]
   bf16* Vs = Ks + BK * LDM;                      // [BK][LDM]
   bf16* Kt = Vs + BK * LDM;                      // [D][LDT]
+  __shared__ int kdoc_s[BK];
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KVH);
@@ -466,7 +484,9 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   stage_bf16(Qs, nullptr, q + qbase, q0, Tq, H, h);
   stage_bf16(dOs, nullptr, dout + qbase, q0, Tq, H, h);
-  int qi_r[2];
+  // rows g and g + 8 of the warp's 16, the accumulator fragment's mapping
+  const bool has_docs = docs != nullptr;
+  int qi_r[2], qdoc_r[2];
   float lse_r[2], delta_r[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -474,6 +494,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const size_t at = ((size_t)b * H + h) * Tq + qi_r[r];
     lse_r[r] = qi_r[r] < Tq ? lse[at] : 0.f;
     delta_r[r] = qi_r[r] < Tq ? delta[at] : 0.f;
+    qdoc_r[r] = has_docs && qi_r[r] < Tq ? docs[(size_t)b * Tq + qi_r[r]] : 0;
   }
   __syncthreads();
   uint32_t qa[MD / 16][4], da[MD / 16][4];
@@ -494,6 +515,10 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // the previous tile is fully consumed
     stage_bf16(Ks, Kt, k + kbase, k0, S, KVH, kvh);
     stage_bf16(Vs, nullptr, v + kbase, k0, S, KVH, kvh);
+    if (threadIdx.x < BK) {
+      const int kp = k0 + (int)threadIdx.x;
+      kdoc_s[threadIdx.x] = has_docs && kp < S ? docs[(size_t)b * S + kp] : 0;
+    }
     __syncthreads();
     float s[8][4], ds[8][4];
     mma_rows(s, qa, Ks, g, t4);   // s = q . k^T
@@ -502,10 +527,11 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, kp = k0 + nb * 8 + t4 * 2 + (e & 1);
+        const int r = e >> 1, col = nb * 8 + t4 * 2 + (e & 1), kp = k0 + col;
         float p = 0.f;
         if (qi_r[r] < Tq && kp < S)
-          p = expf(flash::biased_score(s[nb][e], scale, qi_r[r] - kp, slope, causal, alibi) -
+          p = expf(flash::biased_score(s[nb][e], scale, qi_r[r] - kp, slope, causal, alibi,
+                                       has_docs, qdoc_r[r], kdoc_s[col]) -
                    lse_r[r]);
         ds[nb][e] = p * (ds[nb][e] - delta_r[r]);
       }
@@ -528,9 +554,9 @@ __global__ void __launch_bounds__(MMA_THREADS)
 flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     const float* __restrict__ slopes, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int Tq, int S, int H, int KVH, float scale, int causal,
-                     int alibi) {
+                     const float* __restrict__ slopes, const int* __restrict__ docs,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int S, int H, int KVH,
+                     float scale, int causal, int alibi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BK][LDM]
   bf16* Vs = Ks + BK * LDM;                      // [BK][LDM]
@@ -539,6 +565,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Qt = dOs + BQ * LDM;                     // [D][LDT]
   bf16* dOt = Qt + MD * LDT;                     // [D][LDT]
   __shared__ float lse_s[BQ], delta_s[BQ];
+  __shared__ int qdoc_s[BQ];
 
   const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / KVH;
@@ -553,7 +580,12 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   uint32_t ka[MD / 16][4], va[MD / 16][4];
   load_a(ka, Ks, rw, g, t4);
   load_a(va, Vs, rw, g, t4);
+  // keys g and g + 8 of the warp's 16 (the fragment's rows) and their ids
   const int kp_r[2] = {k0 + rw + g, k0 + rw + g + 8};
+  const bool has_docs = docs != nullptr;
+  int kdoc_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) kdoc_r[r] = has_docs && kp_r[r] < S ? docs[(size_t)b * S + kp_r[r]] : 0;
 
   float dk_acc[MD / 8][4], dv_acc[MD / 8][4];
 #pragma unroll
@@ -577,6 +609,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const size_t at = ((size_t)b * H + h) * Tq + qi;
         lse_s[threadIdx.x] = qi < Tq ? lse[at] : 0.f;
         delta_s[threadIdx.x] = qi < Tq ? delta[at] : 0.f;
+        qdoc_s[threadIdx.x] = has_docs && qi < Tq ? docs[(size_t)b * Tq + qi] : 0;
       }
       __syncthreads();
       float p[8][4], ds[8][4];
@@ -589,7 +622,8 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int col = nb * 8 + t4 * 2 + (e & 1), qi = q0 + col, kp = kp_r[e >> 1];
           float pv = 0.f;
           if (qi < Tq && kp < S)
-            pv = expf(flash::biased_score(p[nb][e], scale, qi - kp, slope, causal, alibi) -
+            pv = expf(flash::biased_score(p[nb][e], scale, qi - kp, slope, causal, alibi,
+                                          has_docs, qdoc_s[col], kdoc_r[e >> 1]) -
                       lse_s[col]);
           p[nb][e] = pv;
           ds[nb][e] = pv * (ds[nb][e] - delta_s[col]);
@@ -618,8 +652,8 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, const void* slopes, void* dq, int B, int Tq, int S, int H,
-              int KVH, float scale, int causal, int alibi, cudaStream_t stream) {
+              const void* delta, const void* slopes, const void* docs, void* dq, int B, int Tq,
+              int S, int H, int KVH, float scale, int causal, int alibi, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (4 * 64 * (D + 1) + BQ * LDP);
   cudaFuncSetAttribute(flash_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
@@ -627,15 +661,16 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   flash_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const float*>(slopes), static_cast<T*>(dq),
-      Tq, S, H, KVH, scale, causal, alibi);
+      static_cast<const float*>(delta), static_cast<const float*>(slopes),
+      static_cast<const int*>(docs), static_cast<T*>(dq), Tq, S, H, KVH, scale, causal, alibi);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, const void* slopes, void* dk, void* dv, int B, int Tq, int S,
-               int H, int KVH, float scale, int causal, int alibi, cudaStream_t stream) {
+               const void* delta, const void* slopes, const void* docs, void* dk, void* dv, int B,
+               int Tq, int S, int H, int KVH, float scale, int causal, int alibi,
+               cudaStream_t stream) {
   const size_t smem = sizeof(float) * (4 * 64 * (D + 1) + 2 * BK * LDP);
   cudaFuncSetAttribute(flash_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
@@ -643,14 +678,16 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   flash_dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const float*>(slopes), static_cast<T*>(dk),
-      static_cast<T*>(dv), Tq, S, H, KVH, scale, causal, alibi);
+      static_cast<const float*>(delta), static_cast<const float*>(slopes),
+      static_cast<const int*>(docs), static_cast<T*>(dk), static_cast<T*>(dv), Tq, S, H, KVH,
+      scale, causal, alibi);
   return (int)cudaGetLastError();
 }
 
 int launch_dq_mma(const void* q, const void* k, const void* v, const void* dout,
-                  const void* lse, const void* delta, const void* slopes, void* dq, int B, int Tq,
-                  int S, int H, int KVH, float scale, int causal, int alibi, cudaStream_t stream) {
+                  const void* lse, const void* delta, const void* slopes, const void* docs,
+                  void* dq, int B, int Tq, int S, int H, int KVH, float scale, int causal,
+                  int alibi, cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * (4 * 64 * LDM + MD * LDT);
   cudaFuncSetAttribute(flash_dq_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
@@ -658,15 +695,15 @@ int launch_dq_mma(const void* q, const void* k, const void* v, const void* dout,
   flash_dq_mma_kernel<<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const float*>(slopes), static_cast<bf16*>(dq),
-      Tq, S, H, KVH, scale, causal, alibi);
+      static_cast<const float*>(delta), static_cast<const float*>(slopes),
+      static_cast<const int*>(docs), static_cast<bf16*>(dq), Tq, S, H, KVH, scale, causal, alibi);
   return (int)cudaGetLastError();
 }
 
 int launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout,
-                   const void* lse, const void* delta, const void* slopes, void* dk, void* dv,
-                   int B, int Tq, int S, int H, int KVH, float scale, int causal, int alibi,
-                   cudaStream_t stream) {
+                   const void* lse, const void* delta, const void* slopes, const void* docs,
+                   void* dk, void* dv, int B, int Tq, int S, int H, int KVH, float scale,
+                   int causal, int alibi, cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * (4 * 64 * LDM + 2 * MD * LDT);
   cudaFuncSetAttribute(flash_dkv_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
@@ -674,8 +711,9 @@ int launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout
   flash_dkv_mma_kernel<<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const float*>(slopes), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), Tq, S, H, KVH, scale, causal, alibi);
+      static_cast<const float*>(delta), static_cast<const float*>(slopes),
+      static_cast<const int*>(docs), static_cast<bf16*>(dk), static_cast<bf16*>(dv), Tq, S, H, KVH,
+      scale, causal, alibi);
   return (int)cudaGetLastError();
 }
 
@@ -683,15 +721,18 @@ int launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, do and the grads all of it;
 // bf16 at D = 64 takes the tensor-core kernels, everything else the FMA ones);
-// lse and delta are f32 [B, H, T]; slopes f32 [H]. q, do, dq are
-// [B, T, H, D]; k, v, dk, dv are [B, S, KVH, D], all contiguous. Returns
-// cudaGetLastError() after the launch.
+// lse and delta are f32 [B, H, T]; slopes f32 [H]; docs null or int32 [B, T]
+// document ids (only with T == S). q, do, dq are [B, T, H, D]; k, v, dk, dv
+// are [B, S, KVH, D], all contiguous. Returns cudaGetLastError() after the
+// launch.
 extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* dout,
-                        const void* lse, const void* delta, const void* slopes, void* dq,
-                        int dtype, int B, int Tq, int S, int H, int KVH, int D, float scale,
-                        int causal, int alibi, void* stream) {
+                        const void* lse, const void* delta, const void* slopes, const void* docs,
+                        void* dq, int dtype, int B, int Tq, int S, int H, int KVH, int D,
+                        float scale, int causal, int alibi, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DQ_ARGS q, k, v, dout, lse, delta, slopes, dq, B, Tq, S, H, KVH, scale, causal, alibi, st
+  if (docs != nullptr && Tq != S) return (int)cudaErrorInvalidValue;
+#define DQ_ARGS \
+  q, k, v, dout, lse, delta, slopes, docs, dq, B, Tq, S, H, KVH, scale, causal, alibi, st
   if (dtype == 0 && D == 64) return launch_dq<float, 64>(DQ_ARGS);
   if (dtype == 0 && D == 128) return launch_dq<float, 128>(DQ_ARGS);
   if (dtype == 1 && D == 64) return launch_dq_mma(DQ_ARGS);
@@ -701,12 +742,13 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v, const void*
 }
 
 extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
-                         const void* lse, const void* delta, const void* slopes, void* dk,
-                         void* dv, int dtype, int B, int Tq, int S, int H, int KVH, int D,
-                         float scale, int causal, int alibi, void* stream) {
+                         const void* lse, const void* delta, const void* slopes, const void* docs,
+                         void* dk, void* dv, int dtype, int B, int Tq, int S, int H, int KVH,
+                         int D, float scale, int causal, int alibi, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (docs != nullptr && Tq != S) return (int)cudaErrorInvalidValue;
 #define DKV_ARGS \
-  q, k, v, dout, lse, delta, slopes, dk, dv, B, Tq, S, H, KVH, scale, causal, alibi, st
+  q, k, v, dout, lse, delta, slopes, docs, dk, dv, B, Tq, S, H, KVH, scale, causal, alibi, st
   if (dtype == 0 && D == 64) return launch_dkv<float, 64>(DKV_ARGS);
   if (dtype == 0 && D == 128) return launch_dkv<float, 128>(DKV_ARGS);
   if (dtype == 1 && D == 64) return launch_dkv_mma(DKV_ARGS);

@@ -6,10 +6,11 @@
 // the custom VJP of flash_attention (:462 -> _flash_fwd :431). It computes
 // the same function: s = scale * q.k^T in f32, plus the ALiBi bias
 // -slope * max(q_pos - k_pos, 0) and the causal NEG_INF mask added as one
-// bias, plus the [B, S] kv-validity mask (0 = masked); an online softmax over
-// key tiles with m starting at -1e30; a row with l == 0 outputs 0; lse =
-// m + log(l). GQA reads kv head h / (H / KVH). Every row b has its own query
-// position offset q_offset[b].
+// bias, plus the packed-document mask (training: [B, T] int32 ids, T == S,
+// keys of another document masked), plus the [B, S] kv-validity mask (0 =
+// masked); an online softmax over key tiles with m starting at -1e30; a row
+// with l == 0 outputs 0; lse = m + log(l). GQA reads kv head h / (H / KVH).
+// Every row b has its own query position offset q_offset[b].
 //
 // What bounds it on an H100: at the serving shapes (T = 64 queries against
 // up to S = 1024 cached keys, D = 64) each (row, head) reads its K/V once and
@@ -29,7 +30,11 @@
 // K/V tiles in shared memory and stops the key loop at the causal limit
 // q_offset + tile_end, so dead tiles cost nothing; m and l stay in f32
 // registers. The score bias is flash_common.cuh's, shared with the backward
-// kernels (flash_bwd.cu) so both see the same probabilities.
+// kernels (flash_bwd.cu) so both see the same probabilities. With document
+// ids, each thread keeps its rows' ids in registers and each key tile's ids
+// sit in shared memory beside the validity mask; key tiles that hold no key
+// of a row's document are still visited (the ids may be arbitrary: skipping
+// them is sound only for monotone ids).
 // - bf16 (the serving path): 4 warps of 16 query rows each run
 //   mma.sync.m16n8k16 on the tensor cores for S = Q.K^T and O += P.V, in the
 //   FlashAttention-2 register layout (the S accumulator becomes the P
@@ -61,13 +66,15 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ slopes,
                      const int* __restrict__ q_offset, const int* __restrict__ seg,
-                     float* __restrict__ o, float* __restrict__ lse, int Tq, int S, int H,
-                     int KVH, float scale, int causal, int alibi) {
+                     const int* __restrict__ docs, float* __restrict__ o,
+                     float* __restrict__ lse, int Tq, int S, int H, int KVH, float scale,
+                     int causal, int alibi) {
   constexpr int DP = D / TPR;  // dims per thread
   extern __shared__ float smem[];
   float* Ks = smem;                                   // [BK][D]
   float* Vs = Ks + BK * D;                            // [BK][D]
   int* Sg = reinterpret_cast<int*>(Vs + BK * D);      // [BK]
+  int* Dk = Sg + BK;                                  // [BK] key document ids
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KVH);
@@ -77,6 +84,8 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int off = q_offset[b];
   const int q_pos = off + qi;
   const float slope = alibi ? slopes[h] : 0.f;
+  const bool has_docs = docs != nullptr;
+  const int q_doc = has_docs && row_ok ? docs[(size_t)b * Tq + qi] : 0;
 
   float qr[DP];
   const float* qp = q + ((size_t)(b * Tq + (row_ok ? qi : 0)) * H + h) * D;
@@ -113,6 +122,7 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (tid < BK) {
       const int kp = k0 + tid;
       Sg[tid] = seg == nullptr ? 1 : (kp < S ? seg[(size_t)b * S + kp] : 0);
+      Dk[tid] = has_docs && kp < S ? docs[(size_t)b * S + kp] : 0;
     }
     __syncthreads();
 
@@ -126,8 +136,10 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
       const int kp = k0 + key;
-      // flash.py _scores order: s * scale + (alibi + causal), then + validity
-      float x = flash::biased_score(dot, scale, q_pos - kp, slope, causal, alibi);
+      // flash.py _scores order: s * scale + (alibi + causal), + documents,
+      // then + validity
+      float x = flash::biased_score(dot, scale, q_pos - kp, slope, causal, alibi, has_docs,
+                                    q_doc, Dk[key]);
       if (seg != nullptr) x = x + (Sg[key] != 0 ? 0.f : flash::NEG_INF);
       if (kp >= S) x = -INFINITY;  // tile overhang past the cache: no key
       s[key] = x;
@@ -189,8 +201,9 @@ __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const float* __restrict__ slopes,
                      const int* __restrict__ q_offset, const int* __restrict__ seg,
-                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Tq, int S, int H,
-                     int KVH, float scale, int causal, int alibi) {
+                     const int* __restrict__ docs, __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ lse, int Tq, int S, int H, int KVH, float scale,
+                     int causal, int alibi) {
   using bf16 = __nv_bfloat16;
   constexpr int LDK = D + 8;   // padded row of Qs and Ks (bf16 elements)
   constexpr int LDV = BK + 8;  // padded row of the transposed V tile
@@ -203,6 +216,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   bf16* Ks = Qs + BQ * LDK;                          // [BK][LDK]
   bf16* Vt = Ks + BK * LDK;                          // [D][LDV]
   int* Sg = reinterpret_cast<int*>(Vt + D * LDV);    // [BK]
+  int* Dk = Sg + BK;                                 // [BK] key document ids
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KVH);
@@ -236,6 +250,15 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     for (int e = 0; e < 4; ++e) oacc[nd][e] = 0.f;
   float m[2] = {INIT_M, INIT_M}, l[2] = {0.f, 0.f};  // rows g and g + 8
   const int q_pos0 = off + qt * BQ + rw + g;
+  // the document ids of rows g and g + 8, in the accumulator fragment's
+  // row mapping (e >> 1 below)
+  const bool has_docs = docs != nullptr;
+  int q_doc[2] = {0, 0};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = qt * BQ + rw + g + 8 * r;
+    if (has_docs && qi < Tq) q_doc[r] = docs[(size_t)b * Tq + qi];
+  }
 
   int n_tiles = (S + BK - 1) / BK;
   if (causal) {
@@ -262,6 +285,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     if (tid < BK) {
       const int kp = k0 + tid;
       Sg[tid] = seg == nullptr ? 1 : (kp < S ? seg[(size_t)b * S + kp] : 0);
+      Dk[tid] = has_docs && kp < S ? docs[(size_t)b * S + kp] : 0;
     }
     __syncthreads();
 
@@ -277,7 +301,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
         mma_bf16(sacc[nb], qa[kk], ld32(kb), ld32(kb + 8));
       }
     }
-    // flash.py _scores order: s * scale + (alibi + causal), then + validity
+    // flash.py _scores order: s * scale + (alibi + causal), + documents,
+    // then + validity
     float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) {
@@ -285,7 +310,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       for (int e = 0; e < 4; ++e) {
         const int col = nb * 8 + t4 * 2 + (e & 1), kp = k0 + col;
         const int dist = q_pos0 + (e >> 1) * 8 - kp;
-        float x = flash::biased_score(sacc[nb][e], scale, dist, slope, causal, alibi);
+        float x = flash::biased_score(sacc[nb][e], scale, dist, slope, causal, alibi, has_docs,
+                                      q_doc[e >> 1], Dk[col]);
         if (seg != nullptr) x = x + (Sg[col] != 0 ? 0.f : flash::NEG_INF);
         if (kp >= S) x = -INFINITY;  // tile overhang past the cache: no key
         sacc[nb][e] = x;
@@ -354,26 +380,28 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, const void* slopes,
-               const void* q_offset, const void* seg, void* o, void* lse, int B, int Tq, int S,
-               int H, int KVH, float scale, int causal, int alibi, cudaStream_t stream) {
-  const size_t smem = 2 * BK * D * sizeof(float) + BK * sizeof(int);
+               const void* q_offset, const void* seg, const void* docs, void* o, void* lse,
+               int B, int Tq, int S, int H, int KVH, float scale, int causal, int alibi,
+               cudaStream_t stream) {
+  const size_t smem = 2 * BK * D * sizeof(float) + 2 * BK * sizeof(int);
   cudaFuncSetAttribute(flash_fwd_fma_kernel<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
   flash_fwd_fma_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(slopes), static_cast<const int*>(q_offset),
-      static_cast<const int*>(seg), static_cast<float*>(o), static_cast<float*>(lse), Tq, S, H,
-      KVH, scale, causal, alibi);
+      static_cast<const int*>(seg), static_cast<const int*>(docs), static_cast<float*>(o),
+      static_cast<float*>(lse), Tq, S, H, KVH, scale, causal, alibi);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, const void* slopes,
-                const void* q_offset, const void* seg, void* o, void* lse, int B, int Tq, int S,
-                int H, int KVH, float scale, int causal, int alibi, cudaStream_t stream) {
+                const void* q_offset, const void* seg, const void* docs, void* o, void* lse,
+                int B, int Tq, int S, int H, int KVH, float scale, int causal, int alibi,
+                cudaStream_t stream) {
   const size_t smem =
-      sizeof(__nv_bfloat16) * ((BQ + BK) * (D + 8) + D * (BK + 8)) + BK * sizeof(int);
+      sizeof(__nv_bfloat16) * ((BQ + BK) * (D + 8) + D * (BK + 8)) + 2 * BK * sizeof(int);
   cudaFuncSetAttribute(flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
@@ -381,32 +409,28 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* slopes,
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(slopes),
       static_cast<const int*>(q_offset), static_cast<const int*>(seg),
-      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), Tq, S, H, KVH, scale, causal,
-      alibi);
+      static_cast<const int*>(docs), static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      Tq, S, H, KVH, scale, causal, alibi);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel). q, k,
-// v rows must be 16-byte aligned (contiguous tensors). seg and lse may be
-// null. Returns cudaGetLastError() after the launch.
+// v rows must be 16-byte aligned (contiguous tensors). seg ([B, S] int32),
+// docs ([B, T] int32 document ids, only with T == S) and lse may be null.
+// Returns cudaGetLastError() after the launch.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* slopes,
-                         const void* q_offset, const void* seg, void* o, void* lse, int dtype,
-                         int B, int Tq, int S, int H, int KVH, int D, float scale, int causal,
-                         int alibi, void* stream) {
+                         const void* q_offset, const void* seg, const void* docs, void* o,
+                         void* lse, int dtype, int B, int Tq, int S, int H, int KVH, int D,
+                         float scale, int causal, int alibi, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch_f32<64>(q, k, v, slopes, q_offset, seg, o, lse, B, Tq, S, H, KVH, scale,
-                          causal, alibi, st);
-  if (dtype == 0 && D == 128)
-    return launch_f32<128>(q, k, v, slopes, q_offset, seg, o, lse, B, Tq, S, H, KVH, scale,
-                           causal, alibi, st);
-  if (dtype == 1 && D == 64)
-    return launch_bf16<64>(q, k, v, slopes, q_offset, seg, o, lse, B, Tq, S, H, KVH, scale,
-                           causal, alibi, st);
-  if (dtype == 1 && D == 128)
-    return launch_bf16<128>(q, k, v, slopes, q_offset, seg, o, lse, B, Tq, S, H, KVH, scale,
-                            causal, alibi, st);
+  if (docs != nullptr && Tq != S) return (int)cudaErrorInvalidValue;
+#define FWD_ARGS q, k, v, slopes, q_offset, seg, docs, o, lse, B, Tq, S, H, KVH, scale, causal, alibi, st
+  if (dtype == 0 && D == 64) return launch_f32<64>(FWD_ARGS);
+  if (dtype == 0 && D == 128) return launch_f32<128>(FWD_ARGS);
+  if (dtype == 1 && D == 64) return launch_bf16<64>(FWD_ARGS);
+  if (dtype == 1 && D == 128) return launch_bf16<128>(FWD_ARGS);
+#undef FWD_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -2,8 +2,9 @@
 
 Counterpart of ``zero_transformer_tpu/data/loader.py`` with the same
 semantics: process striping (process ``p`` takes source rows ``p, p+P,
-...``; ``process_index``/``process_count`` are explicit, default 0 and 1,
-in place of ``jax.process_index()``), the sequence curriculum (a
+...``, unless the source stripes its shards itself and says so with
+``pre_striped``; ``process_index``/``process_count`` are explicit, default
+0 and 1, in place of ``jax.process_index()``), the sequence curriculum (a
 ``max_context`` row splits into ``max_context // train_context`` rows),
 resume by ``skip``/``state``/``restore``, and a bounded read-ahead thread
 whose unseen batches survive the iterator's teardown. ``to_device`` takes
@@ -49,6 +50,8 @@ class DataLoader:
         self.process_index = process_index
         self.process_count = process_count
         self.prefetch = prefetch
+        # a source that already yields only this process's rows
+        self.pre_striped = bool(getattr(source, "pre_striped", False))
         self.steps_consumed = 0
         # batches a torn-down prefetching iterator read ahead but never
         # yielded; the next iterator serves them first
@@ -70,6 +73,9 @@ class DataLoader:
         self.local_batch = batch_size // process_count
 
     def _striped_rows(self) -> Iterator[np.ndarray]:
+        if self.pre_striped:
+            yield from iter(self.source)
+            return
         for i, row in enumerate(iter(self.source)):
             if i % self.process_count == self.process_index:
                 yield row
@@ -143,12 +149,20 @@ class DataLoader:
 
     def skip(self, n_steps: int) -> None:
         """Fast-forward past ``n_steps`` batches, seeking the source in
-        global rows so striping stays aligned across processes."""
+        global rows so striping stays aligned across processes (in local
+        rows for a pre-striped source)."""
         take = min(n_steps, len(self._leftover))
         for _ in range(take):
             self._leftover.popleft()
-        self.source.seek((n_steps - take) * self.rows_per_step * self.process_count)
+        n = (n_steps - take) * self.rows_per_step
+        self.source.seek(n if self.pre_striped else n * self.process_count)
         self.steps_consumed += n_steps
+
+    def fault_counters(self) -> dict:
+        """The source's data-path fault counts (``TarShardSource``: shard
+        retries, skipped shards and members); empty for other sources."""
+        counters = getattr(self.source, "fault_counters", None)
+        return dict(counters) if isinstance(counters, dict) else {}
 
     def state(self) -> dict:
         """Resume token: the step count, the only state identical across processes."""

@@ -8,7 +8,9 @@ exact resume.
   the JAX package's rows;
 - ``MemmapSource``: a flat binary token file viewed as
   ``[n_rows, max_context]``, rows permuted per epoch with a seed derived
-  from ``(seed, epoch)``.
+  from ``(seed, epoch)``;
+- ``ReplayStreamSource``: the position bookkeeping of a stream that resumes
+  only by replaying from its head (``tarshards.TarShardSource``).
 """
 from __future__ import annotations
 
@@ -35,6 +37,44 @@ class TokenSource:
 
     def restore(self, state: Dict[str, Any]) -> None:
         raise NotImplementedError
+
+
+class ReplayStreamSource(TokenSource):
+    """Position tracking for sources that can only resume by replaying their
+    stream from the head and discarding (tar shards).
+
+    Subclasses implement ``_samples()``, an infinite iterator over decoded
+    rows from position 0. ``seek`` is O(n) (discard) but exact; repeated
+    ``iter()`` calls CONTINUE the stream (replaying past skipped and yielded
+    rows) rather than restarting it, as the indexable sources do.
+    """
+
+    def __init__(self):
+        self._skip_rows = 0
+        self._yielded = 0
+
+    def _samples(self) -> Iterator[np.ndarray]:
+        raise NotImplementedError
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        start = self._skip_rows + self._yielded
+        skipped = 0
+        for row in self._samples():
+            if skipped < start:
+                skipped += 1
+                continue
+            self._yielded += 1
+            yield row
+
+    def seek(self, n_rows: int) -> None:
+        self._skip_rows += n_rows
+
+    def state(self) -> Dict[str, Any]:
+        return {"rows": self._yielded + self._skip_rows}
+
+    def restore(self, state: Dict[str, Any]) -> None:
+        self._skip_rows = int(state["rows"])
+        self._yielded = 0
 
 
 @dataclasses.dataclass

@@ -4,10 +4,13 @@ Counterpart of ``zero_transformer_tpu/models/gpt.py``: ``Attention`` (:157),
 ``MLP`` (:416), ``Block`` (:448), ``Transformer`` (:497) with the tied head.
 Ported: the full-sequence forward, with the next-token loss for training
 (``forward(tokens, labels, train=True)``, JAX ``Transformer.__call__``
-:512-684), and the PAGED decode variant the serving engine runs. Params are
-built with ``requires_grad=False`` (serving runs under ``no_grad``); the
-trainer turns them on with ``requires_grad_(True)``. Numerics follow flax
-where it matters:
+:512-684), packed documents for ``doc_sep_token`` models
+(``doc_ids_from_tokens`` and ``mask_boundary_labels``, :63-81: the ids ride
+through every block into the attention, and the loss skips each document's
+first label), and the PAGED decode variant the serving engine runs, which
+never packs. Params are built with ``requires_grad=False`` (serving runs
+under ``no_grad``); the trainer turns them on with ``requires_grad_(True)``.
+Numerics follow flax where it matters:
 
 - bias-free LayerNorm with eps 1e-6 (flax's default, not torch's 1e-5),
   statistics in float32 as E[x^2] - E[x]^2 clipped at 0, scale in float32,
@@ -43,6 +46,22 @@ LN_EPS = 1e-6  # flax LayerNorm default
 
 # (k_pool, v_pool) per layer, each [n_pages, page, KVH, D]
 Pools = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def doc_ids_from_tokens(tokens: torch.Tensor, sep_token: int) -> torch.Tensor:
+    """[B, T] tokens -> [B, T] int32 document ids for packed-sequence
+    masking. The separator closes its own document (exclusive cumsum): it
+    attends within the document it ends, and the token after it starts the
+    next one."""
+    is_sep = (tokens == sep_token).to(torch.int32)
+    return (torch.cumsum(is_sep, dim=1, dtype=torch.int32) - is_sep).to(torch.int32)
+
+
+def mask_boundary_labels(labels: torch.Tensor, doc_ids: torch.Tensor) -> torch.Tensor:
+    """Labels set to -1 (the loss's ignore_index) where the document changes:
+    the first token of a document is never predicted from the previous one."""
+    boundary = doc_ids[:, 1:] != doc_ids[:, :-1]
+    return torch.cat([labels[:, :1], torch.where(boundary, -1, labels[:, 1:])], dim=1)
 
 
 class Dense(nn.Module):
@@ -98,10 +117,11 @@ class Attention(nn.Module):
         v = self.value(x).reshape(B, T, cfg.kv_heads, cfg.head_width)
         return q, k, v
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, doc_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, T, _ = x.shape
         q, k, v = self._qkv(x)
-        out = dot_product_attention(q, k, v, causal=True, alibi=True, impl=self.cfg.attention_impl)
+        out = dot_product_attention(q, k, v, causal=True, alibi=True, doc_ids=doc_ids,
+                                    impl=self.cfg.attention_impl)
         return self.out(out.reshape(B, T, -1))
 
     def forward_paged(
@@ -164,8 +184,8 @@ class Block(nn.Module):
         self.ln_mlp = LayerNorm(cfg.d_model, cfg, device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln_attn(x))
+    def forward(self, x: torch.Tensor, doc_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(self.ln_attn(x), doc_ids)
         return x + self.mlp(self.ln_mlp(x))
 
     def forward_paged(self, x, pools, block_table, offsets) -> torch.Tensor:
@@ -239,16 +259,23 @@ class Transformer(nn.Module):
                 train: bool = False):
         """[B, T] token ids -> [B, T, vocab] logits (compute dtype), or
         ``(logits, loss)`` with ``labels``: the float32 next-token loss
-        (predict ``labels[:, t + 1]`` from position t). ``train`` would turn
-        dropout on, which is not ported: it raises for ``dropout > 0``."""
+        (predict ``labels[:, t + 1]`` from position t). With
+        ``doc_sep_token`` set, attention stays inside each document of the
+        row and the loss skips the labels that start a document. ``train``
+        would turn dropout on, which is not ported: it raises for
+        ``dropout > 0``."""
         if train and self.cfg.dropout > 0:
             raise NotImplementedError("dropout > 0 in training is not ported yet")
+        packed = self.cfg.doc_sep_token is not None
+        doc_ids = doc_ids_from_tokens(tokens, self.cfg.doc_sep_token) if packed else None
         h = self.wte(tokens)
         for blk in self.blocks:
-            h = blk(h)
+            h = blk(h, doc_ids)
         logits = self.logits(self.ln_f(h))
         if labels is None:
             return logits
+        if packed:
+            return logits, next_token_loss(logits, mask_boundary_labels(labels, doc_ids), ignore_index=-1)
         return logits, next_token_loss(logits, labels)
 
     def forward_paged(
@@ -257,7 +284,8 @@ class Transformer(nn.Module):
     ) -> torch.Tensor:
         """[B, T] tokens at positions ``offsets[b] + t`` -> final hidden states
         ``[B, T, d_model]`` (apply ``logits`` to the rows needed). Writes the
-        window's K/V into ``pools`` in place."""
+        window's K/V into ``pools`` in place. Decoding never packs (JAX
+        ``packed = ... and not self.decode``): a separator is a token."""
         h = self.wte(tokens)
         for blk, layer_pools in zip(self.blocks, pools):
             h = blk.forward_paged(h, layer_pools, block_table, offsets)

@@ -38,16 +38,16 @@ FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "flash_fwd": {
-        # q, k, v, slopes, q_offset, segment_ids, o, lse,
+        # q, k, v, slopes, q_offset, segment_ids, doc_ids, o, lse,
         # dtype, B, T, S, H, KVH, D, scale, causal, alibi, stream
-        "flash_fwd": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P],
+        "flash_fwd": [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P],
     },
     "flash_bwd": {
-        # q, k, v, do, lse, delta, slopes, dq,
+        # q, k, v, do, lse, delta, slopes, doc_ids, dq,
         # dtype, B, T, S, H, KVH, D, scale, causal, alibi, stream
-        "flash_dq": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P],
-        # q, k, v, do, lse, delta, slopes, dk, dv, (the same ints), stream
-        "flash_dkv": [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P],
+        "flash_dq": [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P],
+        # q, k, v, do, lse, delta, slopes, doc_ids, dk, dv, (the same ints), stream
+        "flash_dkv": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P],
     },
     "paged_attention": {
         # q, k_pool, v_pool, block_table, q_offset, slopes, o, part_o, part_ml,
@@ -65,10 +65,12 @@ ptxas_report: Dict[str, str] = {}
 # launches its kernel and nowhere else, so a run can show that its main path
 # went through the kernels (the plain CPU versions never count).
 # K1 counts apart by entry: ``flash_serving_fwd`` (serving, forward only) and
-# ``flash_train_fwd`` (the differentiable training entry).
+# ``flash_train_fwd`` (the differentiable training entry). The training
+# kernels' launches with the packed-document mask count apart under ``_docs``.
 LAUNCHES: Dict[str, int] = {
     "flash_serving_fwd": 0, "paged_attention": 0,
     "flash_train_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+    "flash_train_fwd_docs": 0, "flash_dq_docs": 0, "flash_dkv_docs": 0,
 }
 
 

@@ -14,8 +14,10 @@ forward-only serving entry. The gate's rules are the card's:
 - H divisible by KVH; a validity mask, when given, of shape ``[B, S]``;
 - an int, 0-d or ``[B]`` query offset (any window length is a legal tile:
   the kernel masks its ragged last query tile and key tile itself);
-- no packed-document mask (not ported to the kernels yet), and no input
-  that requires grad on a serving shape (that entry is forward only).
+- a packed-document mask ``doc_ids`` only on the training shape, with
+  T == S and ``[B, T]`` ids (cache shapes never carry one, as in JAX);
+- no input that requires grad on a serving shape (that entry is forward
+  only).
 
 The gate and the wrapper share ONE keyword surface (pinned by test): the
 gate may never inspect a keyword the wrapper then drops.
@@ -42,8 +44,11 @@ def decline_reason(
     """Why the kernel cannot take this call, or None when it can."""
     B, T, H, D = q.shape
     _, S, KVH, _ = k.shape
-    if doc_ids is not None:
-        return "packed-document mask (doc_ids)"
+    if doc_ids is not None and not _is_training_call(q_offset, segment_ids):
+        return "packed-document mask (doc_ids) on a serving shape (cache shapes never carry one)"
+    if doc_ids is not None and (T != S or tuple(doc_ids.shape) != (B, T)):
+        return (f"packed-document mask needs T == S and [B, T] ids "
+                f"(T={T}, S={S}, doc_ids {tuple(doc_ids.shape)})")
     if (
         not _is_training_call(q_offset, segment_ids)
         and torch.is_grad_enabled()
@@ -84,10 +89,10 @@ def flash_attention(
     segment_ids=None, doc_ids=None,
 ) -> torch.Tensor:
     """Kernel wrapper with EXACTLY the gate's keyword surface."""
-    if doc_ids is not None:
-        raise NotImplementedError("the packed-document mask is not ported to the CUDA kernel yet")
     if _is_training_call(q_offset, segment_ids):
-        return flash.flash_attention(q, k, v, causal=causal, alibi=alibi)
+        return flash.flash_attention(q, k, v, causal=causal, alibi=alibi, doc_ids=doc_ids)
+    if doc_ids is not None:
+        raise NotImplementedError("the packed-document mask rides the training shape only")
     return flash.flash_serving(
         q, k, v, causal=causal, alibi=alibi, q_offset=q_offset, segment_ids=segment_ids,
     )

@@ -12,8 +12,11 @@ settings of the config it does not act on.
 Every ``log_frequency`` steps it syncs once and logs ``loss``,
 ``perplexity``, ``grad_norm``, ``learning_rate``, ``tokens_per_sec`` and
 ``step_time_ms`` (wall time over the window, which ends in that sync), plus
-the model-FLOPs share on a card whose bf16 peak it knows, to stdout and to
-``<checkpoint.directory>/metrics.jsonl``.
+the model-FLOPs share on a card whose bf16 peak it knows and the tar
+source's nonzero fault counts (``data_*``), to stdout and to
+``<checkpoint.directory>/metrics.jsonl``. Packed-document models
+(``doc_sep_token``) train and evaluate as any other: the model masks
+attention and loss per document.
 """
 from __future__ import annotations
 
@@ -184,6 +187,8 @@ class Trainer:
                     payload["model_flops_share"] = (
                         payload["tokens_per_sec"] * self.flops_per_token / self.peak
                     )
+                payload.update({f"data_{k}": float(v)
+                                for k, v in self.train_loader.fault_counters().items() if v})
                 self.metrics.log(payload, step)
                 t0, step0 = time.perf_counter(), step
             if cfg.evaluation_frequency and step % cfg.evaluation_frequency == 0:
