@@ -62,12 +62,27 @@ Phases, each fatal on failure (nothing is caught):
    ``_docs`` counter per step, a validation loss below the held-out bytes'
    unigram entropy), the eval harness scores the trained model (bits per
    byte below that entropy and within 0.01 of the plain path's; last-word
-   and choice accuracy), and the trainer CLI takes 20 steps on the shards.
+   and choice accuracy), and the trainer CLI takes 20 steps on the shards;
+   then the trained model with weight-only int8 scores bits per byte within
+   log2(1.02) of its bf16 value (JAX's 2 % perplexity budget), and serves
+   eight held-out prompts in-process twice, in bf16 and with int8 KV plus
+   int8 weights: the share of greedy tokens before the first divergence;
+10. int8 kernels: K4 over int8 pools with float32 scales (the TPU kernel's
+   int8 branch) against its plain version at the serving shapes (T 1, 3
+   and 8; offsets 0 to 1023), GQA, D 128, a trash-page row and a
+   NaN-poisoned row, bf16 (atol/rtol 2e-2) and float32 (atol 1e-4); the bf16
+   bar must reject plain versions that read the scale of the next position
+   or of the next kv head; times of the kernel, the plain version, the bf16
+   K4 on the dequantized pools and a library yardstick;
+11. int8 serving: the serving phase with ``125m``'s weights quantized to
+   int8 and an int8 KV cache (the CLI's ``--quantize int8 --kv-cache-dtype
+   int8``): every request done, K4's int8 branch and K1 launched, the bf16
+   K4 never; then the parity and profile phases on that engine.
 
 ``--phases a,b,...`` builds the kernels and runs the named phases only
-(kernels, serving, parity, profile, train_kernels, training,
-packed_kernels, packed; parity needs serving); the kernel table then lists
-the kernels whose phases ran.
+(kernels, serving, parity, profile, int8_kernels, int8_serving,
+train_kernels, training, packed_kernels, packed; parity needs serving); the
+kernel table then lists the kernels whose phases ran.
 
 The last two lines of standard output are the kernel table as one JSON
 object and ``{"ok": true, "device": {...}}`` (a full run only). Without CUDA the script exits
@@ -123,6 +138,36 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 30) -> float:
+    """Device time per call of ``fn``: CUDA events around ``iters`` calls
+    queued behind a spin kernel (``torch.cuda._sleep``), so that the calls'
+    kernels run back to back on the device. ``time_ms``'s events also count
+    the host's time between launches, which decides the reading when one
+    call's kernels take less than its Python wrapper. The reading counts
+    only if the start event was still pending when the host had queued
+    every call; otherwise the spin is made longer. (``torch.profiler``
+    sessions this short miss launches of the port's kernels: they read
+    0.0 ms for a 0.2 ms kernel.)"""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_in_time = not start.query()
+        end.synchronize()
+        if queued_in_time:
+            return start.elapsed_time(end) / iters
+        if cycles >= 1 << 32:
+            raise AssertionError("device_ms: the calls were not queued within a ~2 s spin (does fn sync?)")
+        cycles *= 4
 
 
 def compare(got: torch.Tensor, ref: torch.Tensor, dtype, what: str) -> float:
@@ -361,10 +406,11 @@ def kernel_phase():
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias))
             bound, by = flash_bound(B, T, offs_l, KVH, dtype)
-            rows["flash_serving_fwd"] = dict(max_abs_err=err, ms=kern, plain_ms=plain,
+            dev = device_ms(lambda: flash.flash_serving(q, k, v, causal=True, alibi=True,
+                                                        q_offset=offs, segment_ids=seg))
+            rows["flash_serving_fwd"] = dict(max_abs_err=err, ms=kern, device_ms=dev, plain_ms=plain,
                                              library_ms=lib, bound_ms=bound, bound_by=by)
-            log({"kernel": "flash_serving_fwd", "max_err": err, "kernel_ms": kern,
-                 "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": lib})
+            log({"kernel": "flash_serving_fwd", **rows["flash_serving_fwd"]})
 
     # ---- K4: paged decode
     n_blocks = CACHE // PAGE
@@ -401,10 +447,169 @@ def kernel_phase():
 
             lib = time_ms(library)
             bound, by = paged_bound(B, T, offs_l, KVH, dtype)
-            rows["paged_attention"] = dict(max_abs_err=err, ms=kern, plain_ms=plain,
+            dev = device_ms(lambda: pa.paged_attention(q, kp, vp, table, offs, causal=False, alibi=True))
+            rows["paged_attention"] = dict(max_abs_err=err, ms=kern, device_ms=dev, plain_ms=plain,
                                            library_ms=lib, bound_ms=bound, bound_by=by)
-            log({"kernel": "paged_attention", "max_err": err, "kernel_ms": kern,
-                 "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": lib})
+            log({"kernel": "paged_attention", **rows["paged_attention"]})
+    return rows
+
+
+# ------------------------------------------------------------- int8 kernels
+
+
+def within(got: torch.Tensor, ref: torch.Tensor, dtype) -> bool:
+    """Whether ``compare`` would pass: the same NaN pattern and every
+    finite entry within the dtype's bar."""
+    try:
+        compare(got, ref, dtype, "control")
+    except AssertionError:
+        return False
+    return True
+
+
+def int8_paged_case(B, T, Hq, KVH, Dh, dtype, offsets, seed, trash_row=None, nan_row=None):
+    """q and int8 K/V pools quantized by the model's ``_quantize_kv`` from
+    random K/V whose magnitude varies by up to e^2 either way between
+    (position, kv head) rows, every 7th position all zero; the trash page 0
+    keeps zero values and zero scales, as ``allocate_pools`` leaves it."""
+    from zero_transformer_tpu_torch.models.gpt import _quantize_kv
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n_blocks = CACHE // PAGE
+    n_pages = B * n_blocks + 1
+    q = torch.randn(B, T, Hq, Dh, generator=g, device="cuda").to(dtype)
+    pools = []
+    for _ in range(2):
+        x = torch.randn(n_pages, PAGE, KVH, Dh, generator=g, device="cuda")
+        x = x * torch.exp(torch.rand(n_pages, PAGE, KVH, 1, generator=g, device="cuda") * 4 - 2)
+        x[:, ::7] = 0.0
+        xq, xs = _quantize_kv(x)
+        xq[0], xs[0] = 0, 0.0
+        pools += [xq, xs]
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
+    table = torch.zeros(B, n_blocks, dtype=torch.int32)
+    used = 0
+    for b, off in enumerate(offsets):
+        need = min(n_blocks, -(-(off + T) // PAGE))
+        table[b, :need] = perm[used:used + need]
+        used += need
+    if trash_row is not None:
+        table[trash_row] = 0
+    if nan_row is not None:
+        q[nan_row] = float("nan")
+    offs = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+    kq, ks, vq, vs = pools
+    return q, kq, vq, ks, vs, table.to("cuda"), offs
+
+
+def int8_paged_bound(B, T, offsets, Hq, KVH, Dh, dtype):
+    """Least time for K4 over int8 pools: q read and the output written in
+    ``dtype``, each visible key's int8 K and V rows and float32 scales, the
+    table and offsets read once, against HBM; or the flops against the
+    dtype's peak, whichever is larger."""
+    el = torch.finfo(dtype).bits // 8
+    keys = sum(min(o + T, CACHE) for o in offsets)
+    nbytes = 2 * B * T * Hq * Dh * el + 2 * keys * KVH * (Dh + 4) + 4 * B * (CACHE // PAGE) + 4 * B
+    flops = sum(4 * T * min(o + T, CACHE) * Dh * Hq for o in offsets)
+    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def shift_scales(sc: torch.Tensor, what: str) -> torch.Tensor:
+    """A scale pool as a kernel that reads the wrong scale would see it:
+    each position the scale of the next position in the pool, or each kv
+    head the scale of the next kv head."""
+    if what == "next_position":
+        return sc.reshape(-1, sc.shape[2], 1).roll(-1, 0).reshape(sc.shape)
+    return sc.roll(-1, 2)
+
+
+# (label, B, T, Hq, KVH, D, dtype, offsets, trash_row, nan_row); "main" is
+# the 125m serving decode shape of the kernel phase's K4 "main"
+INT8_CASES = [
+    ("main", 4, 1, H, H, D, torch.bfloat16, [5, 300, 700, 1000], None, None),
+    ("f32", 4, 1, H, H, D, torch.float32, [5, 300, 700, 1000], None, None),
+    ("edges", 4, 1, H, H, D, torch.bfloat16, [0, 63, 64, 65], None, None),
+    ("edges_f32", 4, 1, H, H, D, torch.float32, [300, 1023, 64, 0], None, None),
+    ("verify_T3", 4, 3, H, H, D, torch.bfloat16, [0, 63, 300, 1020], None, None),
+    ("verify_T3_f32", 4, 3, H, H, D, torch.float32, [64, 65, 1000, 7], None, None),
+    ("verify_T8", 2, 8, H, H, D, torch.bfloat16, [64, 1016], None, None),
+    ("verify_T8_f32", 2, 8, H, H, D, torch.float32, [65, 1000], None, None),
+    ("gqa", 4, 1, H, 4, D, torch.bfloat16, [63, 300, 700, 1023], None, None),
+    ("gqa_T3_f32", 3, 3, H, 4, D, torch.float32, [10, 127, 600], None, None),
+    ("d128", 3, 1, 8, 8, 128, torch.bfloat16, [0, 65, 1023], None, None),
+    ("d128_gqa_f32", 3, 3, 8, 2, 128, torch.float32, [64, 300, 1000], None, None),
+    ("trash_nan", 4, 1, H, H, D, torch.bfloat16, [0, 63, 64, 500], 0, 2),
+    ("trash_nan_f32", 4, 1, H, H, D, torch.float32, [300, 63, 64, 1023], 1, 3),
+]
+
+
+def int8_kernel_phase():
+    """K4's int8 branch against its plain version (gather the pages and
+    scales, dequantize, the reference attention)."""
+    import torch.nn.functional as F
+
+    from zero_transformer_tpu_torch.models.gpt import _quantize_kv
+    from zero_transformer_tpu_torch.ops import paged_attention as pa
+
+    # the model's quantizer on the card rounds as on the CPU, where the
+    # tests pin it bit for bit to JAX's _quantize_kv
+    g = torch.Generator(device="cuda").manual_seed(399)
+    x = torch.randn(257, PAGE, H, D, generator=g, device="cuda")
+    x = x * torch.exp(torch.rand(257, PAGE, H, 1, generator=g, device="cuda") * 8 - 4)
+    (cq, cs), (hq, hs) = _quantize_kv(x), _quantize_kv(x.cpu())
+    if not (torch.equal(cq.cpu(), hq) and torch.equal(cs.cpu().view(torch.int32), hs.view(torch.int32))):
+        raise AssertionError("_quantize_kv on the card differs from the CPU's bits")
+    log({"quantize_kv_card_equals_cpu": {"rows": x.numel() // D, "equal": True}})
+
+    rows = {}
+    for label, B, T, Hq, KVH, Dh, dtype, offs_l, trash_row, nan_row in INT8_CASES:
+        q, kq, vq, ks, vs, table, offs = int8_paged_case(B, T, Hq, KVH, Dh, dtype, offs_l, len(label) + 400,
+                                                         trash_row, nan_row)
+        kw = dict(causal=T > 1, alibi=True)
+        got = pa.paged_attention(q, kq, vq, table, offs, k_scale=ks, v_scale=vs, **kw)
+        ref = pa.paged_reference(q, kq, vq, table, offs, k_scale=ks, v_scale=vs, **kw)
+        torch.cuda.synchronize()
+        err = compare(got, ref, dtype, f"paged int8 {label}")
+        if nan_row is not None and not bool(torch.isnan(got[nan_row]).all()):
+            raise AssertionError(f"paged int8 {label}: a NaN-poisoned q row did not come out NaN")
+        if trash_row is not None and not bool((got[trash_row] == 0).all()):
+            raise AssertionError(f"paged int8 {label}: a row on the zero-scale trash page is not all zero")
+        line = {"kernel": "paged_attention_int8", "case": label, "dtype": str(dtype),
+                "shape": [B, T, Hq, KVH, Dh], "max_err": err}
+        if label in ("main", "gqa", "verify_T3"):
+            # the bar must see the scale walk: a plain version that reads the
+            # scale of the next position, or of the next kv head, fails it
+            for what in ("next_position", "next_kv_head"):
+                bad = pa.paged_reference(q, kq, vq, table, offs, k_scale=shift_scales(ks, what),
+                                         v_scale=shift_scales(vs, what), **kw)
+                if within(got, bad, dtype):
+                    raise AssertionError(f"paged int8 {label}: the {what} scale control passes the bar")
+                line[f"{what}_control_max_err"] = float((got.float() - bad.float()).nan_to_num().abs().max())
+        log(line)
+        if label != "main":
+            continue
+        kern = time_ms(lambda: pa.paged_attention(q, kq, vq, table, offs, k_scale=ks, v_scale=vs, **kw))
+        kern_dev = device_ms(lambda: pa.paged_attention(q, kq, vq, table, offs, k_scale=ks, v_scale=vs, **kw))
+        plain = time_ms(lambda: pa.paged_reference(q, kq, vq, table, offs, k_scale=ks, v_scale=vs, **kw))
+        kd, vd = pa.dequantize(kq, ks, dtype), pa.dequantize(vq, vs, dtype)
+        bf16_k4 = time_ms(lambda: pa.paged_attention(q, kd, vd, table, offs, **kw))
+        bf16_k4_dev = device_ms(lambda: pa.paged_attention(q, kd, vd, table, offs, **kw))
+        valid = (torch.arange(CACHE, device="cuda")[None, :] < offs[:, None] + T).int()
+        bias = sdpa_bias(B, T, CACHE, offs_l, valid, dtype)
+
+        def library():
+            kk = pa.dequantize(pa.gather_pages(kq, table), pa.gather_pages(ks, table), dtype).transpose(1, 2)
+            vv = pa.dequantize(pa.gather_pages(vq, table), pa.gather_pages(vs, table), dtype).transpose(1, 2)
+            return F.scaled_dot_product_attention(q.transpose(1, 2), kk, vv, attn_mask=bias)
+
+        lib = time_ms(library)
+        bound, by = int8_paged_bound(B, T, offs_l, Hq, KVH, Dh, dtype)
+        rows["paged_attention_int8"] = dict(max_abs_err=err, ms=kern, device_ms=kern_dev, plain_ms=plain,
+                                            library_ms=lib, bound_ms=bound, bound_by=by)
+        log({"kernel": "paged_attention_int8", "shape": [B, T, Hq, KVH, Dh], "offsets": offs_l,
+             "bf16_k4_on_dequantized_pools_ms": bf16_k4,
+             "bf16_k4_on_dequantized_pools_device_ms": bf16_k4_dev, **rows["paged_attention_int8"]})
     return rows
 
 
@@ -421,14 +626,28 @@ def prompt_text(n: int, salt: int) -> str:
     return "".join(alphabet[(7 * i + 3 * salt + i // 11) % len(alphabet)] for i in range(n))
 
 
-def build_engine(impl: str, dtype=torch.bfloat16):
+# the CLI's --kv-cache-dtype int8 --quantize int8
+INT8 = dict(kv="int8", weights="int8")
+
+
+def build_engine(impl: str, dtype=torch.bfloat16, kv: str = "auto", weights: str = "none", name: str = "125m",
+                 state=None, cache_len: int = CACHE):
+    """The serving engine over ``name`` with seed-``SEED`` weights (or
+    ``state``), its KV cache in ``kv`` ("auto" or "int8"); ``weights="int8"``
+    quantizes the weights with ``quant.quantize_model``, the host route of the
+    CLI's ``--quantize int8``."""
     from zero_transformer_tpu_torch.inference.sampling import SamplingConfig
     from zero_transformer_tpu_torch.models import model_getter
+    from zero_transformer_tpu_torch.models.quant import quantize_model
     from zero_transformer_tpu_torch.serving import ServingEngine
 
-    model = model_getter("125m", dtype=dtype, device="cuda", seed=SEED,
-                         attention_impl=impl)
-    return ServingEngine(model, n_slots=SLOTS, cache_len=CACHE, sampling=SamplingConfig(greedy=True),
+    model = model_getter(name, dtype=dtype, device="cuda", seed=SEED if state is None else None,
+                         attention_impl=impl, kv_cache_dtype=kv)
+    if state is not None:
+        model.load_state_dict(state)
+    if weights == "int8":
+        model = quantize_model(model)
+    return ServingEngine(model, n_slots=SLOTS, cache_len=cache_len, sampling=SamplingConfig(greedy=True),
                          prefill_chunk=CHUNK, page_size=PAGE, device="cuda")
 
 
@@ -440,13 +659,15 @@ def http(method: str, url: str, body=None, timeout: float = 300.0):
         return r.status, r.read().decode()
 
 
-def serving_phase():
-    """125m behind the port's HTTP server; concurrent greedy requests."""
+def serving_phase(int8: bool = False):
+    """125m behind the port's HTTP server; concurrent greedy requests. With
+    ``int8``: int8 weights and KV cache, served through K4's int8 branch."""
     from zero_transformer_tpu_torch.ops import _build
     from zero_transformer_tpu_torch.serve import ByteTokenizer
     from zero_transformer_tpu_torch.serving import ServingServer
 
-    engine = build_engine("auto")
+    label = "int8_serving" if int8 else "serving"
+    engine = build_engine("auto", **(INT8 if int8 else {}))
     # warm-up (cuBLAS handles, the allocator, both kernels) through the
     # trash page only: an all-zero table at position 0 touches no slot
     with torch.no_grad():
@@ -502,23 +723,26 @@ def serving_phase():
             raise AssertionError(f"{n}-token prompt: HTTP {code}, {status}, {len(toks)} tokens")
     if metrics["poisoned_slots"]:
         raise AssertionError(f"{metrics['poisoned_slots']} slots saw non-finite logits")
-    if not all(launches[k] > 0 for k in ("flash_serving_fwd", "paged_attention")):
-        raise AssertionError(f"a kernel of the serving path never launched: {launches}")
+    paged = "paged_attention_int8" if int8 else "paged_attention"
+    if not all(launches[k] > 0 for k in ("flash_serving_fwd", paged)):
+        raise AssertionError(f"a kernel of the {label} path never launched: {launches}")
+    if int8 and launches["paged_attention"]:
+        raise AssertionError(f"the int8 path launched the bf16 paged kernel: {launches}")
     summary = {
-        "serving": {
-            "requests": len(PROMPT_LENS), "prompt_lens": PROMPT_LENS, "max_new_tokens": MAX_NEW,
-            "wall_s": wall, "tokens_out": metrics["tokens_out"],
-            "ttft_ms_p50": metrics["ttft_ms_p50"], "ttft_ms_p99": metrics["ttft_ms_p99"],
-            "itl_ms_p50": metrics["itl_ms_p50"], "itl_ms_p99": metrics["itl_ms_p99"],
-            "decode_tok_s": metrics["decode_tok_s"], "decode_ticks": metrics["decode_ticks"],
-            "prefill_ticks": metrics["prefill_ticks"],
-            "paged_launches_per_decode_tick": launches["paged_attention"] / metrics["decode_ticks"],
-            "flash_launches_per_prefill_tick": launches["flash_serving_fwd"] / metrics["prefill_ticks"],
-            "launches": launches,
-        }
+        "requests": len(PROMPT_LENS), "prompt_lens": PROMPT_LENS, "max_new_tokens": MAX_NEW,
+        "wall_s": wall, "tokens_out": metrics["tokens_out"],
+        "ttft_ms_p50": metrics["ttft_ms_p50"], "ttft_ms_p99": metrics["ttft_ms_p99"],
+        "itl_ms_p50": metrics["itl_ms_p50"], "itl_ms_p99": metrics["itl_ms_p99"],
+        "decode_tok_s": metrics["decode_tok_s"], "decode_ticks": metrics["decode_ticks"],
+        "prefill_ticks": metrics["prefill_ticks"],
+        "kv_cache_dtype": metrics["kv_cache_dtype"], "kv_pool_bytes": metrics["kv_pool_bytes"],
+        "param_quant": metrics["param_quant"], "weight_bytes": metrics["weight_bytes"],
+        "paged_launches_per_decode_tick": launches[paged] / metrics["decode_ticks"],
+        "flash_launches_per_prefill_tick": launches["flash_serving_fwd"] / metrics["prefill_ticks"],
+        "launches": launches,
     }
-    log(summary)
-    return launches, [r[2] for r in results]
+    log({label: summary})
+    return launches, [r[2] for r in results], summary
 
 
 def kernel_times(prof) -> dict:
@@ -535,16 +759,26 @@ def kernel_times(prof) -> dict:
     return kernels
 
 
-def profile_phase(ticks: int = 20):
+def top_kernels(kernels: dict, n: int, per: int, width: int) -> dict:
+    """The ``n`` largest kernels by device time, in ms per tick or step
+    (``per`` of them), under their names cut to ``width`` characters;
+    kernels whose cut names coincide are summed."""
+    out = {}
+    for k, (ms, _) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:n]:
+        out[k[:width]] = out.get(k[:width], 0.0) + ms / per
+    return out
+
+
+def profile_phase(ticks: int = 20, int8: bool = False):
     """Where a decode tick's time goes: four 300-token streams prefilled,
     then ``ticks`` decode ticks under ``torch.profiler``. Device busy time is
     the sum of the CUDA kernels' self time; its share of the ticks' wall time
     says how far the host holds the card back. (The host clock around the
     profiled ticks includes the profiler's own overhead; the untraced tick
-    time is the serving phase's ITL.)"""
+    time is the serving phase's ITL.) ``int8``: int8 weights and KV cache."""
     from torch.profiler import ProfilerActivity, profile
 
-    engine = build_engine("auto")
+    engine = build_engine("auto", **(INT8 if int8 else {}))
     for i in range(SLOTS):
         engine.submit(list(prompt_text(300, 70 + i).encode()), max_new_tokens=ticks + 10, seed=i)
     while engine.active_count < SLOTS:
@@ -559,13 +793,12 @@ def profile_phase(ticks: int = 20):
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = kernel_times(prof)
     busy_ms = sum(ms for ms, _ in kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
-    log({"profile": {
+    log({"int8_profile" if int8 else "profile": {
         "decode_ticks": ticks, "slots": SLOTS, "wall_ms_per_tick": wall_ms / ticks,
         "device_busy_ms_per_tick": busy_ms / ticks if kernels else "not measured",
         "device_busy_share": busy_ms / wall_ms if kernels else "not measured",
         "device_launches_per_tick": sum(c for _, c in kernels.values()) / ticks,
-        "top_kernels_ms_per_tick": {k[:60]: ms / ticks for k, (ms, _) in top},
+        "top_kernels_ms_per_tick": top_kernels(kernels, 8, ticks, 60),
     }})
 
 
@@ -601,11 +834,85 @@ def forced_logits(engine, prompts, table, forced=None, steps: int = 4):
     return out, fed
 
 
-def parity_phase(kernel_tokens):
+def checked_reads(engine, prompts, table, forced):
+    """``forced_logits`` on the kernel path over the int8 cache, with every
+    layer's attention call held against the plain path's read of the same
+    pools: the call runs again with ``attention_impl="xla"`` on the same
+    input over a copy of the pools as they were before it. Both paths write
+    the same int8 values and scales (checked bit for bit), so only the
+    reads differ: the attention output (the out projection's input) must
+    agree within float32 atol 1e-4. Control: the plain read of pools whose
+    scales are each the next position's must miss that bar in every decode
+    call. Returns the logits and the readings."""
+    import copy
+    import dataclasses
+
+    from zero_transformer_tpu_torch.models.gpt import KVPools
+    from zero_transformer_tpu_torch.ops.paged_attention import MAX_DECODE_T
+
+    blocks = engine.model.blocks
+    seen = []
+    err = {"prefill": 0.0, "decode": 0.0}
+    control = []
+    hooks = [blk.attn.out.register_forward_pre_hook(lambda _m, args: seen.append(args[0].float()))
+             for blk in blocks]
+    fwd = type(blocks[0].attn).forward_paged
+
+    def checked(x, pools, block_table, offsets, attn, plain):
+        before = KVPools(*(t.clone() for t in (pools.k, pools.v, pools.k_scale, pools.v_scale)))
+        out = fwd(attn, x, pools, block_table, offsets)
+        got = seen.pop()
+        shifted = dataclasses.replace(before, k=before.k.clone(), v=before.v.clone(),
+                                      k_scale=shift_scales(before.k_scale, "next_position"),
+                                      v_scale=shift_scales(before.v_scale, "next_position"))
+        fwd(plain, x, before, block_table, offsets)
+        want = seen.pop()
+        if not all(torch.equal(a, b) for a, b in ((pools.k, before.k), (pools.v, before.v),
+                                                  (pools.k_scale, before.k_scale),
+                                                  (pools.v_scale, before.v_scale))):
+            raise AssertionError("the kernel and plain paths wrote different int8 pools")
+        kind = "prefill" if x.shape[1] > MAX_DECODE_T else "decode"
+        err[kind] = max(err[kind], compare(got, want, torch.float32, f"int8-cache {kind} read"))
+        if kind == "decode":
+            fwd(plain, x, shifted, block_table, offsets)
+            miss = float((got - seen.pop()).abs().max())
+            if not miss > TOL[torch.float32]["atol"]:
+                raise AssertionError(f"the next-position scale control reads {miss}: within the bar")
+            control.append(miss)
+        return out
+
+    for blk in blocks:
+        plain = copy.copy(blk.attn)
+        plain.cfg = dataclasses.replace(blk.attn.cfg, attention_impl="xla")
+        blk.attn.forward_paged = functools.partial(checked, attn=blk.attn, plain=plain)
+    try:
+        logits, _ = forced_logits(engine, prompts, table, forced)
+    finally:
+        for blk in blocks:
+            del blk.attn.forward_paged
+        for h in hooks:
+            h.remove()
+    return logits, {"read_max_abs_err": err, "decode_reads": len(control),
+                    "next_position_scale_control_min": min(control)}
+
+
+def parity_phase(kernel_tokens, int8: bool = False):
     """The kernels against the plain path (``attention_impl="xla"``): logits
     of a prefill (last position) and four decode steps at the serving
     shapes, every run fed the same tokens, then greedy token agreement of a
-    whole plain-path engine run with the serving phase.
+    whole plain-path engine run with the serving phase. ``int8``: int8
+    weights and an int8 KV cache on both paths.
+
+    float32 with ``int8``: the cache rounds each K/V element to a step of
+    max|row| / 127, so a last-bit difference in a layer's input moves an
+    element that sits near a rounding edge by a whole step, and the logits
+    by ~1e-3 after 12 layers, whichever path computed the difference: two
+    paths that each write their own cache drift apart without either being
+    wrong. So the 1e-4 bar holds on the logits of int8 weights over a
+    float32 cache, where nothing rounds to int8 at run time, and on every
+    attention read over the int8 cache where both paths read the same pools
+    (``checked_reads``); the whole-model logits over two int8 caches are
+    reported without a bar.
 
     float32: kernel path vs plain path within atol 1e-4 (fatal). bfloat16:
     every layer rounds the residual stream to bf16, so after 12 layers both
@@ -618,12 +925,25 @@ def parity_phase(kernel_tokens):
         torch.arange(1 + b * n_blocks, 1 + (b + 1) * n_blocks, dtype=torch.int32) for b in range(len(lens))
     ]).to("cuda")
     prompts = [[ord(c) for c in prompt_text(n, 50 + b)] for b, n in enumerate(lens)]
-    ref, forced = forced_logits(build_engine("xla", torch.float32), prompts, table)
-    f32_k, _ = forced_logits(build_engine("auto", torch.float32), prompts, table, forced)
-    f32_err = max(compare(k, r, torch.float32, f"float32 logits, step {i}")
-                  for i, (k, r) in enumerate(zip(f32_k, ref)))
-    bf_x, _ = forced_logits(build_engine("xla"), prompts, table, forced)
-    bf_k, _ = forced_logits(build_engine("auto"), prompts, table, forced)
+    quant = INT8 if int8 else {}
+    ref, forced = forced_logits(build_engine("xla", torch.float32, **quant), prompts, table)
+    int8_cache = {}
+    if int8:
+        f32_k, int8_cache = checked_reads(build_engine("auto", torch.float32, **quant), prompts, table, forced)
+        w_x, _ = forced_logits(build_engine("xla", torch.float32, weights="int8"), prompts, table, forced)
+        w_k, _ = forced_logits(build_engine("auto", torch.float32, weights="int8"), prompts, table, forced)
+        f32_err = max(compare(k, r, torch.float32, f"float32 logits, int8 weights, step {i}")
+                      for i, (k, r) in enumerate(zip(w_k, w_x)))
+        kernel = [float((k - r).abs().max()) for k, r in zip(f32_k, ref)]
+        if not all(math.isfinite(e) for e in kernel):
+            raise AssertionError(f"float32 logits over the int8 cache are not finite: {kernel}")
+        int8_cache["whole_model_kernel_vs_plain_per_step"] = kernel
+    else:
+        f32_k, _ = forced_logits(build_engine("auto", torch.float32), prompts, table, forced)
+        f32_err = max(compare(k, r, torch.float32, f"float32 logits, step {i}")
+                      for i, (k, r) in enumerate(zip(f32_k, ref)))
+    bf_x, _ = forced_logits(build_engine("xla", **quant), prompts, table, forced)
+    bf_k, _ = forced_logits(build_engine("auto", **quant), prompts, table, forced)
     worst = {"kernel_vs_f32": 0.0, "plain_vs_f32": 0.0, "kernel_vs_plain": 0.0}
     agree, steps = 0, []
     for i, (k, x, r) in enumerate(zip(bf_k, bf_x, ref)):
@@ -636,15 +956,16 @@ def parity_phase(kernel_tokens):
         worst["kernel_vs_plain"] = max(worst["kernel_vs_plain"], float((k - x).abs().max()))
         agree += int((k.argmax(-1) == x.argmax(-1)).sum())
     # a whole plain-path engine run on the serving phase's requests
-    eng_x = build_engine("xla")
+    eng_x = build_engine("xla", **quant)
     handles = [eng_x.submit(list(prompt_text(n, i).encode()), max_new_tokens=MAX_NEW, seed=i)
                for i, n in enumerate(PROMPT_LENS)]
     eng_x.run_until_idle()
     same = sum(int(a == b) for h, ref_toks in zip(handles, kernel_tokens) for a, b in zip(h.tokens, ref_toks))
     prefix = [next((j for j, (a, b) in enumerate(zip(h.tokens, ref_toks)) if a != b), len(ref_toks))
               for h, ref_toks in zip(handles, kernel_tokens)]
-    log({"parity": {
+    log({"int8_parity" if int8 else "parity": {
         "float32_logits_max_abs_err": f32_err, "float32_tol": TOL[torch.float32],
+        **({"float32_int8_cache": int8_cache} if int8 else {}),
         "bf16_logits_max_abs_err": worst, "logit_range": float(ref[0].abs().max()),
         "bf16_per_step_kernel_plain_vs_f32": steps,
         "bf16_argmax_agree": f"{agree}/{len(lens) * len(bf_k)}",
@@ -807,6 +1128,7 @@ def train_kernel_phase():
             "flash_dkv": lambda: flash.launch_dkv(q, k, v, do, lse, delta, causal=causal, alibi=alibi, scale=scale),
         }
         kern_ms = {n: time_ms(fn, iters=10) for n, fn in kern.items()}
+        kern_dev = {n: device_ms(fn, iters=10) for n, fn in kern.items()}
         plain_fwd = time_ms(lambda: flash.flash_reference(q, k, v, causal=causal, alibi=alibi), iters=3)
         # the plain backward computes dq, dk and dv together: one time for K2 and K3
         plain_bwd = time_ms(lambda: flash.flash_bwd_reference(q, k, v, o_k, lse_k, do, causal=causal,
@@ -822,7 +1144,7 @@ def train_kernel_phase():
         for name in kern:
             err = fwd_err if name == "flash_train_fwd" else (errs[0] if name == "flash_dq" else max(errs[1:]))
             bound, by = bounds[name]
-            rows[name] = dict(max_abs_err=err, ms=kern_ms[name],
+            rows[name] = dict(max_abs_err=err, ms=kern_ms[name], device_ms=kern_dev[name],
                               plain_ms=plain_fwd if name == "flash_train_fwd" else plain_bwd,
                               library_ms=lib_fwd if name == "flash_train_fwd" else lib_bwd,
                               bound_ms=bound, bound_by=by)
@@ -914,13 +1236,12 @@ def train_profile(step, st, batch, steps: int = 2, label: str = "training_profil
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = kernel_times(prof)
     busy_ms = sum(ms for ms, _ in kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     log({label: {
         "steps": steps, "wall_ms_per_step": wall_ms / steps,
         "device_busy_ms_per_step": busy_ms / steps if kernels else "not measured",
         "device_busy_share": busy_ms / wall_ms if kernels else "not measured",
         "device_launches_per_step": sum(c for _, c in kernels.values()) / steps,
-        "top_kernels_ms_per_step": {k[:70]: ms / steps for k, (ms, _) in top},
+        "top_kernels_ms_per_step": top_kernels(kernels, 12, steps, 70),
     }})
 
 
@@ -1197,6 +1518,7 @@ def packed_kernel_phase():
                                                        scale=scale, doc_ids=docs),
         }
         kern_ms = {n: time_ms(fn, iters=10) for n, fn in kern.items()}
+        kern_dev = {n: device_ms(fn, iters=10) for n, fn in kern.items()}
         # the same kernels on the same inputs without the mask: what the mask costs
         free_ms = {
             "flash_train_fwd_docs": time_ms(lambda: flash._launch_fwd(
@@ -1223,7 +1545,7 @@ def packed_kernel_phase():
             err = fwd_err if name == "flash_train_fwd_docs" else (errs[0] if name == "flash_dq_docs"
                                                                   else max(errs[1:]))
             bound, by = bounds[name.removesuffix("_docs")]
-            rows[name] = dict(max_abs_err=err, ms=kern_ms[name],
+            rows[name] = dict(max_abs_err=err, ms=kern_ms[name], device_ms=kern_dev[name],
                               plain_ms=plain_fwd if name == "flash_train_fwd_docs" else plain_bwd,
                               library_ms=lib_fwd if name == "flash_train_fwd_docs" else lib_bwd,
                               bound_ms=bound, bound_by=by)
@@ -1407,6 +1729,7 @@ def packed_phase():
         raise AssertionError(f"bits per byte {bpb['bits_per_byte']} not below the unigram entropy {entropy_bits}")
     if abs(bpb["bits_per_byte"] - bpb_plain["bits_per_byte"]) > BPB_GAP:
         raise AssertionError(f"kernel-path bpb {bpb['bits_per_byte']} vs plain {bpb_plain['bits_per_byte']}")
+    packed_int8(model, heldout, tokens, bpb["bits_per_byte"], out)
     # two more steps under the profiler, after the eval has scored the run
     train_profile(trainer.train_step, trainer.state, batch[None], label="packed_training_profile")
     del trainer, model
@@ -1433,6 +1756,138 @@ def packed_phase():
     return launches
 
 
+# JAX's budget for weight-only int8 (tests/test_quant.py::test_quant_perplexity_budget):
+# perplexity within 2 %, so bits per byte within log2(1.02)
+INT8_BPB_BUDGET = math.log2(1.02)
+
+
+def packed_int8(model, heldout, tokens, bpb_bf16: float, out: Path) -> None:
+    """The trained byte_25m with weight-only int8: bits per byte on the
+    held-out stream within INT8_BPB_BUDGET of the bf16 value; then eight
+    held-out prompts served in-process by the engine twice, in bf16 and
+    with int8 KV plus int8 weights, greedy, 32 tokens each: the share of
+    tokens before each stream's first divergence (no bar). Then the CLIs a
+    user runs, on an ``.npz`` of the same weights: the eval harness with
+    ``--quantize int8`` must give the same bits per byte, and the server
+    with ``--kv-cache-dtype int8 --quantize int8`` must answer a request
+    through K4's int8 branch."""
+    from zero_transformer_tpu_torch.convert import params_to_jax
+    from zero_transformer_tpu_torch.evalharness import perplexity
+    from zero_transformer_tpu_torch.models import model_getter
+    from zero_transformer_tpu_torch.models.quant import quantize_model
+
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    qmodel = model_getter("byte_25m", dtype=torch.bfloat16, device="cuda")
+    qmodel.load_state_dict(state)
+    qmodel = quantize_model(qmodel)
+    bpb_q = perplexity(qmodel, tokens, CTX, EVAL_BATCH, num_bytes=len(tokens))["bits_per_byte"]
+    del qmodel
+    paras = [p.strip() for doc in heldout for p in doc.split("\n\n") if 120 <= len(p.strip().encode()) <= 400]
+    if len(paras) < 8:
+        raise AssertionError(f"the held-out text gives {len(paras)} prompts of 120-400 bytes, want 8")
+    prompts = [list(p.encode()) for p in paras[:8]]
+    streams = {}
+    for label, int8 in (("bf16", False), ("int8", True)):
+        engine = build_engine("auto", name="byte_25m", state=state, cache_len=CTX, **(INT8 if int8 else {}))
+        handles = [engine.submit(p, max_new_tokens=MAX_NEW, seed=i) for i, p in enumerate(prompts)]
+        engine.run_until_idle()
+        if any(h.status != "done" or len(h.tokens) != MAX_NEW for h in handles):
+            raise AssertionError(f"byte_25m {label} serving: {[(h.status, len(h.tokens)) for h in handles]}")
+        streams[label] = [h.tokens for h in handles]
+        del engine
+    prefix = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b), MAX_NEW)
+              for x, y in zip(streams["bf16"], streams["int8"])]
+    log({"packed_int8": {
+        "bits_per_byte_bf16": bpb_bf16, "bits_per_byte_int8_weights": bpb_q, "gap": bpb_q - bpb_bf16,
+        "budget": INT8_BPB_BUDGET, "served_prompts": len(prompts), "prompt_bytes": [len(p) for p in prompts],
+        "agree_before_first_divergence": sum(prefix) / (MAX_NEW * len(prompts)),
+        "identical_prefix_per_prompt": prefix}})
+    if not bpb_q <= bpb_bf16 + INT8_BPB_BUDGET:
+        raise AssertionError(f"int8-weight bits per byte {bpb_q} beyond bf16 {bpb_bf16} + {INT8_BPB_BUDGET}")
+    torch.cuda.empty_cache()
+
+    # the CLIs, each quantizing the .npz's float32 tree on the host
+    npz = out / "byte_25m.npz"
+    np.savez(npz, **params_to_jax(state))
+    data = out / "heldout_ppl.json"
+    data.write_text(json.dumps({"tokens": tokens, "num_bytes": len(tokens)}))
+    cmd = [sys.executable, "-m", "zero_transformer_tpu_torch.evalharness", "--model", "byte_25m", "--params",
+           str(npz), "--task", "bpb", "--data", str(data), "--seq-len", str(CTX), "--batch-size", str(EVAL_BATCH),
+           "--quantize", "int8"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=Path(__file__).resolve().parent)
+    if proc.returncode != 0:
+        raise AssertionError(f"eval CLI exit {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    cli = json.loads(proc.stdout.strip().splitlines()[-1])
+    if not cli["device"].startswith("cuda") or abs(cli["bits_per_byte"] - bpb_q) > CLI_BPB_ATOL:
+        raise AssertionError(f"eval CLI --quantize int8: {cli} vs in-process {bpb_q}")
+    served = serve_cli(npz, paras[0])
+    log({"packed_int8_clis": {"eval_bits_per_byte": cli["bits_per_byte"], "in_process": bpb_q,
+                              "serve": served, "serve_tokens_agree_with_engine": sum(
+                                  int(a == b) for a, b in zip(served["tokens"], streams["int8"][0]))}})
+
+
+# the eval CLI's bits per byte on the .npz against the in-process model's:
+# the same int8 weights and the same batches, so equal but for the order in
+# which cuBLAS may sum in another process
+CLI_BPB_ATOL = 1e-5
+
+
+def serve_cli(npz: Path, prompt: str) -> dict:
+    """``python -m zero_transformer_tpu_torch.serve --server --kv-cache-dtype
+    int8 --quantize int8`` on byte_25m's ``.npz``, in a process of its own on
+    a free port: one greedy request of 32 tokens, then ``/metrics``; the
+    server is stopped with SIGINT (and killed if it does not stop)."""
+    import queue
+    import signal
+
+    cmd = [sys.executable, "-m", "zero_transformer_tpu_torch.serve", "--model", "byte_25m", "--params", str(npz),
+           "--server", "--port", "0", "--cache-len", str(CTX), "--kv-cache-dtype", "int8", "--quantize", "int8",
+           "--greedy"]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            cwd=Path(__file__).resolve().parent)
+    lines: "queue.Queue[str]" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout], daemon=True).start()
+    try:
+        base, seen, deadline = None, [], time.monotonic() + 300
+        while base is None:
+            try:
+                line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise AssertionError(f"serve CLI printed no address within 300 s: {seen[-20:]}") from None
+            seen.append(line)
+            found = re.search(r"serving on (http://[0-9.]+:[0-9]+)", line)
+            base = found.group(1) if found else None
+            if proc.poll() is not None and base is None and lines.empty():
+                raise AssertionError(f"serve CLI exit {proc.returncode}: {seen[-20:]}")
+        for _ in range(600):
+            try:
+                if http("GET", base + "/healthz", timeout=10)[0] == 200:
+                    break
+            except urllib.error.HTTPError:
+                time.sleep(0.05)
+        code, text = http("POST", base + "/generate", {"prompt": prompt, "max_new_tokens": MAX_NEW,
+                                                      "stream": False})
+        doc = json.loads(text)
+        metrics = json.loads(http("GET", base + "/metrics")[1])
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    launches = metrics["kernel_launches"]
+    if code != 200 or doc["status"] != "done" or len(doc["tokens"]) != MAX_NEW:
+        raise AssertionError(f"serve CLI request: HTTP {code}, {doc}")
+    if (metrics["kv_cache_dtype"], metrics["param_quant"]) != ("int8", "int8") or not (
+            launches["paged_attention_int8"] > 0 and launches["flash_serving_fwd"] > 0
+            and launches["paged_attention"] == 0) or not metrics["device"].startswith("cuda"):
+        raise AssertionError(f"serve CLI did not serve int8 through the kernels: {metrics}")
+    return {"tokens": doc["tokens"], "device": metrics["device"], "kv_pool_bytes": metrics["kv_pool_bytes"],
+            "weight_bytes": metrics["weight_bytes"], "launches": {k: v for k, v in launches.items() if v},
+            "exit": proc.returncode}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1441,12 +1896,16 @@ def card_line() -> str:
     return out[0]
 
 
-PHASES = ("kernels", "serving", "parity", "profile", "train_kernels", "training", "packed_kernels", "packed")
+PHASES = ("kernels", "serving", "parity", "profile", "int8_kernels", "int8_serving", "train_kernels", "training",
+          "packed_kernels", "packed")
 SOURCES = {
     "flash_serving_fwd": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
                           "zero_transformer_tpu/ops/pallas/flash.py:127"),
     "paged_attention": ("zero_transformer_tpu_torch/csrc/paged_attention.cu",
                         "zero_transformer_tpu/ops/pallas/paged_attention.py:100"),
+    # the same kernel's int8 branch (paged_attention.py:121-135)
+    "paged_attention_int8": ("zero_transformer_tpu_torch/csrc/paged_attention.cu",
+                             "zero_transformer_tpu/ops/pallas/paged_attention.py:100"),
     "flash_train_fwd": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
                         "zero_transformer_tpu/ops/pallas/flash.py:127"),
     "flash_dq": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
@@ -1489,13 +1948,25 @@ def main(argv) -> int:
     rows, launches = {}, {}
     if "kernels" in phases:
         rows.update(kernel_phase())
+    bf16_serving = None
     if "serving" in phases:
-        serving_launches, kernel_tokens = serving_phase()
+        serving_launches, kernel_tokens, bf16_serving = serving_phase()
         launches.update({k: serving_launches[k] for k in ("flash_serving_fwd", "paged_attention")})
         if "parity" in phases:
             parity_phase(kernel_tokens)
     if "profile" in phases:
         profile_phase()
+    if "int8_kernels" in phases:
+        rows.update(int8_kernel_phase())
+    if "int8_serving" in phases:
+        int8_launches, int8_tokens, int8_serving = serving_phase(int8=True)
+        launches["paged_attention_int8"] = int8_launches["paged_attention_int8"]
+        if bf16_serving is not None:
+            keys = ("ttft_ms_p50", "ttft_ms_p99", "itl_ms_p50", "itl_ms_p99", "decode_tok_s", "kv_pool_bytes",
+                    "weight_bytes")
+            log({"int8_vs_bf16_serving": {k: [int8_serving[k], bf16_serving[k]] for k in keys}})
+        parity_phase(int8_tokens, int8=True)
+        profile_phase(int8=True)
     if "train_kernels" in phases:
         rows.update(train_kernel_phase())
     if "training" in phases:

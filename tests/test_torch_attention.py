@@ -9,7 +9,8 @@ counterpart on the CPU, in float32:
   interpret mode, atol 1e-5;
 - the paged kernel's plain version vs JAX ``paged_attention`` in interpret
   mode, with ragged tables, a trash row, a NaN-poisoned row and offsets on
-  page and chunk edges, atol 1e-5.
+  page and chunk edges, atol 1e-5; over float32 pools and over int8 pools
+  with float32 scales (the TPU kernel's int8 branch).
 
 Then the CPU dispatch contract: each gate declines CPU tensors and
 ``impl="flash"`` raises there.
@@ -129,10 +130,21 @@ def test_flash_plain_matches_jax_flash_serving(case):
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[..., 0], atol=1e-4, rtol=0)
 
 
-def _paged_inputs(rng, B, T, H, KVH, D, page, n_blocks, offsets, trash_row=None, nan_row=None):
+def _paged_inputs(rng, B, T, H, KVH, D, page, n_blocks, offsets, trash_row=None, nan_row=None,
+                  int8=False):
     n_pages = B * n_blocks + 1
     q = _rand(rng, B, T, H, D)
-    kp, vp = _rand(rng, n_pages, page, KVH, D), _rand(rng, n_pages, page, KVH, D)
+    if int8:
+        # random int8 pages and scales as tests/test_paged_kernel.py draws
+        # them; the trash page 0 keeps scale 0, and some positions are all zero
+        kp, vp = (rng.integers(-127, 128, (n_pages, page, KVH, D)).astype(np.int8) for _ in range(2))
+        scales = [rng.uniform(1e-3, 2e-2, (n_pages, page, KVH, 1)).astype(np.float32) for _ in range(2)]
+        for pool, sc in zip((kp, vp), scales):
+            sc[0] = 0.0
+            pool[1:, ::5] = 0
+    else:
+        kp, vp = _rand(rng, n_pages, page, KVH, D), _rand(rng, n_pages, page, KVH, D)
+        scales = [None, None]
     perm = rng.permutation(np.arange(1, n_pages))
     table = np.zeros((B, n_blocks), np.int32)
     used = 0
@@ -144,32 +156,38 @@ def _paged_inputs(rng, B, T, H, KVH, D, page, n_blocks, offsets, trash_row=None,
         table[trash_row] = 0
     if nan_row is not None:
         q[nan_row] = np.nan
-    return q, kp, vp, table, np.asarray(offsets, np.int32)
+    return q, kp, vp, scales, table, np.asarray(offsets, np.int32)
 
 
-# (name, B, T, H, KVH, page, n_blocks, offsets, trash_row, nan_row)
+# (name, B, T, H, KVH, page, n_blocks, offsets, trash_row, nan_row, int8)
 PAGED_CASES = [
-    ("page_edges", 4, 1, 4, 4, 8, 6, [0, 7, 8, 47], None, None),
-    ("chunk_edges_alibi12", 3, 1, 12, 12, 8, 8, [15, 16, 63], None, None),
-    ("trash_and_nan_rows", 4, 1, 4, 4, 8, 6, [0, 12, 30, 5], 0, 2),
-    ("verify_window_gqa", 2, 4, 8, 2, 8, 6, [9, 40], None, None),
+    ("page_edges", 4, 1, 4, 4, 8, 6, [0, 7, 8, 47], None, None, False),
+    ("chunk_edges_alibi12", 3, 1, 12, 12, 8, 8, [15, 16, 63], None, None, False),
+    ("trash_and_nan_rows", 4, 1, 4, 4, 8, 6, [0, 12, 30, 5], 0, 2, False),
+    ("verify_window_gqa", 2, 4, 8, 2, 8, 6, [9, 40], None, None, False),
+    ("int8_page_edges", 4, 1, 4, 4, 8, 6, [0, 7, 8, 47], None, None, True),
+    ("int8_trash_nan_ragged", 4, 1, 4, 4, 8, 6, [0, 12, 30, 5], 0, 2, True),
+    ("int8_verify_T3_alibi12", 3, 3, 12, 12, 8, 8, [15, 16, 61], None, None, True),
+    ("int8_verify_T3_gqa", 2, 3, 8, 2, 8, 6, [9, 40], None, None, True),
 ]
 
 
 @pytest.mark.parametrize("case", PAGED_CASES, ids=[c[0] for c in PAGED_CASES])
 def test_paged_plain_matches_jax_paged_attention(case):
-    _, B, T, H, KVH, page, n_blocks, offs, trash_row, nan_row = case
+    _, B, T, H, KVH, page, n_blocks, offs, trash_row, nan_row, int8 = case
     rng = np.random.default_rng(len(case[0]) + 5)
-    q, kp, vp, table, offsets = _paged_inputs(
-        rng, B, T, H, KVH, 16, page, n_blocks, offs, trash_row, nan_row,
+    q, kp, vp, (ks, vs), table, offsets = _paged_inputs(
+        rng, B, T, H, KVH, 16, page, n_blocks, offs, trash_row, nan_row, int8,
     )
     want = jpaged.paged_attention(
         jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(table),
         jnp.asarray(offsets), causal=T > 1, alibi=True, interpret=True,
+        k_scale=None if ks is None else jnp.asarray(ks), v_scale=None if vs is None else jnp.asarray(vs),
     )
     got = tpaged.paged_attention(
         torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
         torch.from_numpy(table), torch.from_numpy(offsets), causal=T > 1, alibi=True,
+        k_scale=None if ks is None else torch.from_numpy(ks), v_scale=None if vs is None else torch.from_numpy(vs),
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
     if nan_row is not None:
@@ -198,6 +216,27 @@ def test_gates_decline_cpu_and_flash_raises():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tpaged.paged_attention(qm[:, :1], pool, pool, table, torch.zeros(1, dtype=torch.int32),
                                causal=False, alibi=True)
+
+
+def test_paged_int8_pools_need_scales():
+    q = torch.zeros(1, 1, 4, 16)
+    pool = torch.zeros(3, 8, 4, 16, dtype=torch.int8)
+    table = torch.zeros(1, 2, dtype=torch.int32)
+    offs = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="k_scale/v_scale"):
+        tpaged.paged_attention(q, pool, pool, table, offs, causal=False, alibi=True)
+    bad = torch.zeros(3, 8, 4, 16)  # a scale per element, not per (position, head)
+    with pytest.raises(ValueError, match="scale pools"):
+        tpaged.paged_attention(q, pool, pool, table, offs, causal=False, alibi=True, k_scale=bad, v_scale=bad)
+    # the trash page with scale 0 reads as zeros: attention over it is 0
+    sc = torch.zeros(3, 8, 4, 1)
+    out = tpaged.paged_attention(q + 1, pool + 5, pool + 5, table, offs, causal=False, alibi=True,
+                                 k_scale=sc, v_scale=sc)
+    assert torch.equal(out, torch.zeros_like(out))
+    # off the CPU an int8 pool takes the int8 kernel or raises, never the plain path
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tpaged.paged_attention(q.to("meta"), pool.to("meta"), pool.to("meta"), table, offs, causal=False,
+                               alibi=True, k_scale=sc.to("meta"), v_scale=sc.to("meta"))
 
 
 def test_gate_and_wrapper_signatures_match():

@@ -10,7 +10,10 @@ tiny tar shards, on the CPU.
   separator.
 - ``python -m zero_transformer_tpu_torch.evalharness --device cpu`` on the
   ``.npz`` of JAX-initialised ``byte_2m`` params gives the port's in-process
-  numbers for every task; ``--tokenizer`` and ``--quantize int8`` raise.
+  numbers for every task, ``--quantize int8`` those of the in-process
+  weight-only int8 model, and ``--tokenizer`` raises; with ``--quantize
+  int8`` its scores equal the JAX eval CLI's on the same weights (a msgpack
+  of the tree the ``.npz`` holds), task by task.
 - The trainer CLI trains and evaluates a packed byte model from tar shards
   that the port's ``prepare`` wrote, on ``--device cpu``.
 """
@@ -25,6 +28,7 @@ import torch
 from flax.traverse_util import flatten_dict
 
 from zero_transformer_tpu.config import model_config as jax_model_config
+from zero_transformer_tpu.evalharness import cli as j_cli
 from zero_transformer_tpu.evalharness import choice_accuracy as j_choice
 from zero_transformer_tpu.evalharness import lambada as j_lambada
 from zero_transformer_tpu.evalharness import loglikelihoods as j_loglik
@@ -37,6 +41,7 @@ from zero_transformer_tpu_torch.convert import params_from_jax
 from zero_transformer_tpu_torch.data import prepare
 from zero_transformer_tpu_torch.evalharness import choice_accuracy, cli, lambada, loglikelihoods, perplexity
 from zero_transformer_tpu_torch.models.gpt import Transformer
+from zero_transformer_tpu_torch.models.quant import quantize_params
 
 ROOT = Path(__file__).resolve().parent.parent
 MODEL = dict(dropout=0.0, compute_dtype="float32", doc_sep_token=0)
@@ -116,13 +121,12 @@ def test_perplexity_matches_jax(models):
     np.testing.assert_allclose(t["bits_per_byte"], j["bits_per_byte"], rtol=1e-5)
 
 
-def test_eval_cli_on_cpu(tmp_path, capsys):
-    # a packed zoo model, as the CLI builds models by zoo name
+def _cli_inputs(tmp_path):
+    """byte_2m params (a packed zoo model, as the CLI builds models by zoo
+    name) as a tree and an ``.npz``, and one data file per task."""
     jcfg = jax_model_config("byte_2m", compute_dtype="float32")
     params = JaxTransformer(jcfg).init(jax.random.PRNGKey(5), jnp.zeros((1, 8), jnp.int32))["params"]
     tree = jax.tree.map(np.asarray, unbox(params))
-    port = Transformer(tconfig.model_config("byte_2m", compute_dtype="float32"), device="cpu")
-    port.load_state_dict(params_from_jax(tree))
     npz = tmp_path / "p.npz"
     np.savez(npz, **{k: np.asarray(v, np.float32) for k, v in flatten_dict(tree, sep="/").items()})
     ex = _examples()
@@ -134,23 +138,60 @@ def test_eval_cli_on_cpu(tmp_path, capsys):
     tokens = np.random.default_rng(2).integers(0, 256, 300).tolist()
     ppl = tmp_path / "ppl.jsonl"
     ppl.write_text(json.dumps({"tokens": tokens, "num_bytes": 300}))
-    want = {"lambada": lambada(port, ex, SEQ, BATCH), "choice": choice_accuracy(port, _choices(), SEQ, BATCH),
-            "bpb": perplexity(port, tokens, SEQ, BATCH, num_bytes=300)}
-    base = ["--model", "byte_2m", "--params", str(npz), "--seq-len", str(SEQ), "--batch-size", str(BATCH),
-            "--dtype", "float32", "--device", "cpu"]
-    for task, data in (("lambada", lam), ("choice", cho), ("bpb", ppl)):
-        cli.main([*base, "--task", task, "--data", str(data)])
-        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-        assert out["task"] == task and out["device"] == "cpu"
-        for key, value in want[task].items():
-            if isinstance(value, float):
-                np.testing.assert_allclose(out[key], value, rtol=1e-6)
-            else:
-                assert out[key] == value, key
+    return tree, npz, {"lambada": lam, "choice": cho, "bpb": ppl}
+
+
+def _cli_base(params):
+    return ["--model", "byte_2m", "--params", str(params), "--seq-len", str(SEQ), "--batch-size", str(BATCH),
+            "--dtype", "float32"]
+
+
+def _last_json(capsys):
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_eval_cli_on_cpu(tmp_path, capsys):
+    tree, npz, data = _cli_inputs(tmp_path)
+    tokens = json.loads(data["bpb"].read_text())["tokens"]
+    base = [*_cli_base(npz), "--device", "cpu"]
+    for quant in ("none", "int8"):
+        port = Transformer(tconfig.model_config("byte_2m", compute_dtype="float32", param_quant=quant),
+                           device="cpu")
+        port.load_state_dict(params_from_jax(quantize_params(tree) if quant == "int8" else tree))
+        want = {"lambada": lambada(port, _examples(), SEQ, BATCH),
+                "choice": choice_accuracy(port, _choices(), SEQ, BATCH),
+                "bpb": perplexity(port, tokens, SEQ, BATCH, num_bytes=300)}
+        for task, path in data.items():
+            cli.main([*base, "--task", task, "--data", str(path), "--quantize", quant])
+            out = _last_json(capsys)
+            assert out["task"] == task and out["device"] == "cpu"
+            for key, value in want[task].items():
+                if isinstance(value, float):
+                    np.testing.assert_allclose(out[key], value, rtol=1e-6)
+                else:
+                    assert out[key] == value, key
     with pytest.raises(NotImplementedError, match="tokenizer"):
-        cli.main([*base, "--task", "lambada", "--data", str(lam), "--tokenizer", "gpt2"])
-    with pytest.raises(NotImplementedError, match="int8"):
-        cli.main([*base, "--task", "lambada", "--data", str(lam), "--quantize", "int8"])
+        cli.main([*base, "--task", "lambada", "--data", str(data["lambada"]), "--tokenizer", "gpt2"])
+
+
+@pytest.mark.parametrize("task", ["lambada", "choice", "bpb"])
+def test_eval_cli_quantize_int8_matches_jax(tmp_path, capsys, task):
+    from flax.serialization import msgpack_serialize
+
+    tree, npz, data = _cli_inputs(tmp_path)
+    msgpack = tmp_path / "p.msgpack"
+    msgpack.write_bytes(msgpack_serialize(tree))
+    args = ["--task", task, "--data", str(data[task]), "--quantize", "int8"]
+    j_cli.main([*_cli_base(msgpack), *args])
+    want = _last_json(capsys)
+    cli.main([*_cli_base(npz), "--device", "cpu", *args])
+    got = _last_json(capsys)
+    assert set(got) == set(want) | {"device"}
+    for key, value in want.items():
+        if isinstance(value, float):
+            np.testing.assert_allclose(got[key], value, rtol=1e-5, err_msg=key)
+        else:
+            assert got[key] == value, key
 
 
 def test_trainer_cli_trains_a_packed_model_from_tar_shards(tmp_path):

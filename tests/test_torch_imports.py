@@ -51,7 +51,7 @@ def test_scan_sees_the_whole_package():
     assert {"ops/losses.py", "training/optimizer.py", "training/trainer.py", "parallel/zero.py",
             "data/sources.py", "data/loader.py", "data/__init__.py", "train.py"} <= names
     assert {"data/tarshards.py", "data/prepare.py", "evalharness/__init__.py", "evalharness/__main__.py",
-            "evalharness/scoring.py", "evalharness/tasks.py", "evalharness/cli.py"} <= names
+            "evalharness/scoring.py", "evalharness/tasks.py", "evalharness/cli.py", "models/quant.py"} <= names
     for source in ("flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh", "paged_attention.cu"):
         assert (PACKAGE / "csrc" / source).exists(), source
 

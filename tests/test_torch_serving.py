@@ -4,11 +4,14 @@ HTTP smoke of the port's server. CPU, float32, greedy.
 Four requests whose prompt lengths straddle the chunk (16) and page (8)
 edges go through the JAX ``ServingEngine`` (paged KV, chunked prefill) and
 the port's ``ServingEngine`` built from the same converted params; the
-emitted token streams must be identical. A tie between the top two logits
+emitted token streams must be identical: with the full-precision model, and
+with the int8 KV cache, int8 weights (``quantize_params`` on both sides),
+and both. A tie between the top two logits
 would make greedy decoding ill-posed rather than wrong, so every compared
 step first asserts a top-1/top-2 gap of at least 1e-4 and fails with its
 own message when there is none.
 """
+import dataclasses
 import json
 import time
 import urllib.error
@@ -23,12 +26,14 @@ import torch
 from zero_transformer_tpu.config import model_config as jax_model_config
 from zero_transformer_tpu.inference.sampling import SamplingConfig as JaxSampling
 from zero_transformer_tpu.models import Transformer as JaxTransformer
+from zero_transformer_tpu.models.quant import quantize_params as j_quantize_params
 from zero_transformer_tpu.parallel.sharding import unbox
 from zero_transformer_tpu.serving import ServingEngine as JaxEngine
 from zero_transformer_tpu_torch.config import model_config
 from zero_transformer_tpu_torch.convert import params_from_jax
 from zero_transformer_tpu_torch.inference.sampling import SamplingConfig
 from zero_transformer_tpu_torch.models.gpt import Transformer
+from zero_transformer_tpu_torch.models.quant import quantize_params
 from zero_transformer_tpu_torch.serve import ByteTokenizer
 from zero_transformer_tpu_torch.serving import ServingEngine, ServingServer
 
@@ -60,8 +65,9 @@ def _port_engine(model, **kw):
     )
 
 
-def test_engine_streams_match_jax(setup):
-    jcfg, params, model, prompts = setup
+def _both_streams(jcfg, params, model, prompts):
+    """Greedy streams of the JAX engine and the port's on the same prompts;
+    every compared step must have a top-1/top-2 gap (see the module doc)."""
     jeng = JaxEngine(
         jcfg, params, n_slots=4, cache_len=CACHE_LEN, sampling=JaxSampling(greedy=True),
         prefill_chunk=CHUNK, kv_layout="paged", page_size=PAGE,
@@ -84,14 +90,41 @@ def test_engine_streams_match_jax(setup):
                 "greedy decoding is a tie here, pick other inputs"
             )
         assert list(a.tokens) == list(b.tokens), f"prompt of {len(p)}: JAX {a.tokens} != port {b.tokens}"
+    return teng
+
+
+def test_engine_streams_match_jax(setup):
+    jcfg, params, model, prompts = setup
+    teng = _both_streams(jcfg, params, model, prompts)
     snap = teng.metrics_snapshot()
     assert snap["completed"] == len(prompts) and snap["tokens_out"] == MAX_NEW * len(prompts)
     assert snap["prefill_chunks"] == sum(-(-n // CHUNK) for n in PROMPT_LENS)
     # on the CPU every kernel wrapper takes its plain version: no launches
     assert snap["kernel_launches"] == {"flash_serving_fwd": 0, "paged_attention": 0,
+                                       "paged_attention_int8": 0,
                                        "flash_train_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
                                        "flash_train_fwd_docs": 0, "flash_dq_docs": 0,
                                        "flash_dkv_docs": 0}
+
+
+@pytest.mark.parametrize("kv,weights", [("int8", "none"), ("auto", "int8"), ("int8", "int8")],
+                         ids=["int8_kv", "int8_weights", "int8_both"])
+def test_int8_engine_streams_match_jax(setup, kv, weights):
+    jcfg, params, _, prompts = setup
+    over = dict(kv_cache_dtype=kv, param_quant=weights)
+    tree = jax.tree.map(np.asarray, unbox(params))
+    if weights == "int8":
+        params = jax.tree.map(jnp.asarray, j_quantize_params(tree))
+        tree = quantize_params(tree)
+    model = Transformer(model_config("test", dropout=0.0, compute_dtype="float32", **over), device="cpu")
+    model.load_state_dict(params_from_jax(tree))
+    teng = _both_streams(dataclasses.replace(jcfg, **over), params, model, prompts)
+    snap = teng.metrics_snapshot()
+    assert snap["kv_cache_dtype"] == kv and snap["param_quant"] == weights
+    # int8 pools: 1 byte per element plus a float32 scale per (position, kv head)
+    n_pos = (4 * CACHE_LEN + PAGE) * model.cfg.n_layers * model.cfg.kv_heads
+    per_pos = model.cfg.head_width + 4 if kv == "int8" else 4 * model.cfg.head_width
+    assert snap["kv_pool_bytes"] == 2 * n_pos * per_pos
 
 
 def test_engine_rejects_and_bounds(setup):

@@ -75,7 +75,13 @@ class ModelConfig:
     attention_impl: str = "auto"  # "auto" | "xla" (plain torch) | "flash"
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    # decode KV pools: "auto" stores the compute dtype; "int8" stores
+    # per-(token, kv head) symmetric int8 values with f32 scales
     kv_cache_dtype: str = "auto"
+    # weight-only int8 for inference (serve/evalharness --quantize int8):
+    # Dense kernels and the token table as int8 with f32 per-output-channel
+    # and per-vocab-row scales (models/quant.py); training rejects it
+    param_quant: str = "none"
     doc_sep_token: Optional[int] = None
     loss_chunk: Optional[int] = None
 
@@ -126,8 +132,10 @@ class ModelConfig:
             raise NotImplementedError("only tied embeddings are ported yet")
         if self.attention_impl not in ("auto", "xla", "flash"):
             raise ValueError(f"invalid attention_impl {self.attention_impl!r}")
-        if self.kv_cache_dtype != "auto":
-            raise NotImplementedError("the int8 KV cache is not ported yet")
+        if self.kv_cache_dtype not in ("auto", "int8"):
+            raise ValueError(f"invalid kv_cache_dtype {self.kv_cache_dtype!r}")
+        if self.param_quant not in ("none", "int8"):
+            raise ValueError(f"invalid param_quant {self.param_quant!r}")
         if self.remat:
             raise NotImplementedError("remat is not ported yet")
         if self.loss_chunk is not None:

@@ -11,13 +11,20 @@ The input is the tree as NUMPY arrays (nested dicts; ``nn.Partitioned``
 boxes already unwrapped on the JAX side), or its flat form with
 ``/``-joined keys as written to an ``.npz``. Nothing here imports JAX.
 
+A weight-only int8 tree (``models/quant.py::quantize_params``, JAX's
+layout) converts too: a Dense's ``kernel_q`` ``[in, out]`` int8 and
+``scale`` ``[out]`` become ``weight_q`` ``[out, in]`` (still int8) and
+``scale``; ``wte/embedding_q`` and ``wte/scale`` become ``wte.embedding_q``
+and ``wte.scale``. Float leaves come out float32, int8 leaves stay int8.
+
 To write the ``.npz`` that ``serve --params`` reads, on a machine with JAX::
 
     import numpy as np
     from flax.traverse_util import flatten_dict
     from zero_transformer_tpu.parallel.sharding import unbox
     flat = flatten_dict(unbox(params), sep="/")
-    np.savez("p.npz", **{k: np.asarray(v, np.float32) for k, v in flat.items()})
+    np.savez("p.npz", **{k: np.asarray(v, np.int8 if v.dtype == np.int8 else np.float32)
+                         for k, v in flat.items()})
 """
 from __future__ import annotations
 
@@ -43,6 +50,17 @@ def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
     return tree
 
 
+def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """``{"a": {"b": {"c": x}}}`` -> ``{"a/b/c": x}``."""
+    out: Dict[str, Any] = {}
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            out.update(flatten(value, f"{prefix}{key}/"))
+        else:
+            out[prefix + key] = value
+    return out
+
+
 def _layer(stacked: Mapping[str, Any], i: int) -> Dict[str, Any]:
     """Layer ``i`` of a scan-stacked subtree (every leaf has a leading
     ``[n_layers]`` axis)."""
@@ -57,22 +75,36 @@ def _block_state(block: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]
     for norm in _NORMS:
         out[f"{prefix}.{norm}.scale"] = np.asarray(block[norm]["scale"])
     for mod, name in _DENSE:
+        leaves = block[mod][name]
         # flax kernel [in, out] -> torch weight [out, in]
-        out[f"{prefix}.{mod}.{name}.weight"] = np.asarray(block[mod][name]["kernel"]).T
+        if "kernel_q" in leaves:
+            out[f"{prefix}.{mod}.{name}.weight_q"] = np.asarray(leaves["kernel_q"]).T
+            out[f"{prefix}.{mod}.{name}.scale"] = np.asarray(leaves["scale"])
+        else:
+            out[f"{prefix}.{mod}.{name}.weight"] = np.asarray(leaves["kernel"]).T
     return out
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    return torch.tensor(a) if a.dtype == np.int8 else torch.tensor(a, dtype=torch.float32)
 
 
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax params (nested or ``/``-flat, numpy leaves) -> the port's
-    ``Transformer.state_dict()`` (float32 CPU tensors)."""
+    ``Transformer.state_dict()`` (CPU tensors: float32, int8 for the
+    quantized leaves)."""
     if any("/" in k for k in tree):
         tree = unflatten(tree)
     if set(tree) == {"params"}:
         tree = tree["params"]
-    state: Dict[str, np.ndarray] = {
-        "wte.embedding": np.asarray(tree["wte"]["embedding"]),
-        "ln_f.scale": np.asarray(tree["ln_f"]["scale"]),
-    }
+    wte = tree["wte"]
+    if "embedding_q" in wte:
+        state: Dict[str, np.ndarray] = {"wte.embedding_q": np.asarray(wte["embedding_q"]),
+                                        "wte.scale": np.asarray(wte["scale"])}
+    else:
+        state = {"wte.embedding": np.asarray(wte["embedding"])}
+    state["ln_f.scale"] = np.asarray(tree["ln_f"]["scale"])
     if "lm_head" in tree:
         raise NotImplementedError("untied heads are not ported yet")
     if "blocks" in tree:
@@ -87,11 +119,46 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             i += 1
         if i == 0:
             raise ValueError("no 'blocks' or 'block_0' subtree in the param tree")
-    return {k: torch.tensor(np.asarray(v), dtype=torch.float32) for k, v in state.items()}
+    return {k: _tensor(v) for k, v in state.items()}
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's ``state_dict`` -> the ``/``-flat flax tree in JAX's
+    scan-stacked layout (``blocks/...`` with a leading ``[n_layers]`` axis),
+    the inverse of ``params_from_jax``: what an ``.npz`` for ``serve
+    --params`` holds. Float leaves come out float32, int8 leaves int8."""
+    def arr(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return t.numpy() if t.dtype == torch.int8 else t.float().numpy()
+
+    flat: Dict[str, np.ndarray] = {"ln_f/scale": arr(state["ln_f.scale"])}
+    if "wte.embedding_q" in state:
+        flat["wte/embedding_q"], flat["wte/scale"] = arr(state["wte.embedding_q"]), arr(state["wte.scale"])
+    else:
+        flat["wte/embedding"] = arr(state["wte.embedding"])
+    n_layers = 1 + max(int(k.split(".")[1]) for k in state if k.startswith("blocks."))
+
+    def stack(suffix: str, transpose: bool = False) -> np.ndarray:
+        return np.stack([arr(state[f"blocks.{i}.{suffix}"]).T if transpose else arr(state[f"blocks.{i}.{suffix}"])
+                         for i in range(n_layers)])
+
+    for norm in _NORMS:
+        flat[f"blocks/{norm}/scale"] = stack(f"{norm}.scale")
+    for mod, name in _DENSE:
+        if f"blocks.0.{mod}.{name}.weight_q" in state:
+            flat[f"blocks/{mod}/{name}/kernel_q"] = stack(f"{mod}.{name}.weight_q", transpose=True)
+            flat[f"blocks/{mod}/{name}/scale"] = stack(f"{mod}.{name}.scale")
+        else:
+            flat[f"blocks/{mod}/{name}/kernel"] = stack(f"{mod}.{name}.weight", transpose=True)
+    return flat
+
+
+def read_npz(path: str) -> Dict[str, np.ndarray]:
+    """The flat flax tree of an ``.npz``, leaves as stored (int8 stays int8)."""
+    with np.load(path) as data:
+        return {k: data[k] for k in data.files}
 
 
 def load_npz(path: str) -> Dict[str, torch.Tensor]:
     """Read an ``.npz`` of the flat flax tree and convert it."""
-    with np.load(path) as data:
-        flat = {k: data[k] for k in data.files}
-    return params_from_jax(flat)
+    return params_from_jax(read_npz(path))

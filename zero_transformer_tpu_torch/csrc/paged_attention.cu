@@ -36,9 +36,21 @@
 // Splits past the row's last key write an empty partial (l = 0) and exit.
 // NaN-poisoned q rows come out NaN; an all-zero (trash) table reads page 0
 // and runs without a fault.
+//
+// int8 pools (the TPU kernel's int8 branch, paged_attention.py:121-135): the
+// partial kernel is a template on (compute type T, storage type S). With
+// S = int8 a lane loads 16 int8 values in one 16-byte load (D/16 lanes per
+// key: 4 at D 64, 8 at D 128) and the key's float32 scale for its kv head,
+// k_scale[(pg * page + pos % page) * KVH + kvh], and dequantizes as the TPU
+// kernel does: f32(int8) * scale, rounded to T (for bf16, __float2bfloat16
+// and back) before the q.k dot and the p.v sum. A trash page with scale 0
+// reads as zeros. Per key and kv head it moves 2 * D + 8 bytes of K/V and
+// scales against 4 * D for bf16 (0.53x at D 64); the same memory-level
+// parallelism bounds it as the bf16 path.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -58,10 +70,11 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-// 16 bytes of T per lane: 4 floats or 8 bf16
-template <typename T> struct Vec;
+// 16 bytes of the storage type per lane: 4 floats, 8 bf16 or 16 int8
+template <typename S> struct Vec;
 template <> struct Vec<float> { static constexpr int N = 4; };
 template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
+template <> struct Vec<int8_t> { static constexpr int N = 16; };
 
 __device__ __forceinline__ void load16(const float* p, float* out) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -78,6 +91,22 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
   }
 }
 
+// One lane's 16 bytes of a K or V row as float values of the compute type T.
+// Pools in the compute type: a plain load (the scales are not read).
+template <typename T>
+__device__ __forceinline__ void load_kv(const T* p, const float* /*scales*/, size_t /*srow*/, float* out) {
+  load16(p, out);
+}
+// int8 pools: f32(int8) * the row's f32 scale, rounded to T.
+template <typename T>
+__device__ __forceinline__ void load_kv(const int8_t* p, const float* scales, size_t srow, float* out) {
+  const int4 raw = *reinterpret_cast<const int4*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+  const float sc = scales[srow];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out[i] = to_f(from_f<T>(static_cast<float>(b[i]) * sc));
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int s = 16; s > 0; s >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, s));
@@ -89,14 +118,16 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+// k_scale/v_scale [n_pages, page, KVH] f32 are read only when S is int8.
+template <typename T, typename S, int D>
 __global__ void __launch_bounds__(THREADS)
-paged_partial_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                     const T* __restrict__ v_pool, const int* __restrict__ table,
+paged_partial_kernel(const T* __restrict__ q, const S* __restrict__ k_pool,
+                     const S* __restrict__ v_pool, const float* __restrict__ k_scale,
+                     const float* __restrict__ v_scale, const int* __restrict__ table,
                      const int* __restrict__ q_offset, const float* __restrict__ slopes,
                      float* __restrict__ part_o, float* __restrict__ part_ml, int Tq, int H,
                      int KVH, int page, int n_blocks, float scale, int causal, int alibi) {
-  constexpr int VEC = Vec<T>::N;
+  constexpr int VEC = Vec<S>::N;
   constexpr int LPK = D / VEC;   // lanes per key
   constexpr int KPI = 32 / LPK;  // keys per warp step
   __shared__ __align__(16) float Qs[RMAX][D];
@@ -145,8 +176,8 @@ paged_partial_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     const bool valid = kl < n_local;
     float kf[VEC];
     if (valid) {
-      const int pg = tbl[pos / page];
-      load16(k_pool + (((size_t)pg * page + pos % page) * KVH + kvh) * D + li * VEC, kf);
+      const size_t row = ((size_t)tbl[pos / page] * page + pos % page) * KVH + kvh;
+      load_kv<T>(k_pool + row * D + li * VEC, k_scale, row, kf);
     } else {
 #pragma unroll
       for (int e = 0; e < VEC; ++e) kf[e] = 0.f;
@@ -213,8 +244,8 @@ paged_partial_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     const int kl = base + grp, pos = k_begin + kl;
     if (kl < n_local) {
       float vf[VEC];
-      const int pg = tbl[pos / page];
-      load16(v_pool + (((size_t)pg * page + pos % page) * KVH + kvh) * D + li * VEC, vf);
+      const size_t row = ((size_t)tbl[pos / page] * page + pos % page) * KVH + kvh;
+      load_kv<T>(v_pool + row * D + li * VEC, v_scale, row, vf);
 #pragma unroll
       for (int r = 0; r < RMAX; ++r) {
         if (r < nr) {
@@ -271,16 +302,17 @@ __global__ void paged_combine_kernel(const float* __restrict__ part_o,
   o[((size_t)b * rows + row) * D + d] = from_f<T>(den == 0.f ? 0.f : num / den);
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k_pool, const void* v_pool, const void* table,
-           const void* q_offset, const void* slopes, void* o, void* part_o, void* part_ml, int B,
-           int Tq, int H, int KVH, int page, int n_blocks, float scale, int causal, int alibi,
-           cudaStream_t stream) {
+template <typename T, typename S, int D>
+int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+           const void* v_scale, const void* table, const void* q_offset, const void* slopes, void* o,
+           void* part_o, void* part_ml, int B, int Tq, int H, int KVH, int page, int n_blocks,
+           float scale, int causal, int alibi, cudaStream_t stream) {
   const int R = (H / KVH) * Tq;
   const int n_rc = (R + RMAX - 1) / RMAX;
   const int n_splits = (n_blocks * page + SPLIT - 1) / SPLIT;
-  paged_partial_kernel<T, D><<<dim3(n_splits, KVH * n_rc, B), THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
+  paged_partial_kernel<T, S, D><<<dim3(n_splits, KVH * n_rc, B), THREADS, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const S*>(k_pool), static_cast<const S*>(v_pool),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<const int*>(table), static_cast<const int*>(q_offset),
       static_cast<const float*>(slopes), static_cast<float*>(part_o),
       static_cast<float*>(part_ml), Tq, H, KVH, page, n_blocks, scale, causal, alibi);
@@ -292,30 +324,57 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* ta
   return (int)cudaGetLastError();
 }
 
+// Storage of the pools: Same stores the compute type T, int8_t int8.
+struct Same {};
+template <typename T, typename S> struct Store { using type = S; };
+template <typename T> struct Store<T, Same> { using type = T; };
+
+// Launch with storage S (Same or int8_t) for the compute type and head
+// width the codes name.
+template <typename S>
+int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+             const void* v_scale, const void* table, const void* q_offset, const void* slopes,
+             void* o, void* part_o, void* part_ml, int dtype, int B, int Tq, int H, int KVH, int D,
+             int page, int n_blocks, float scale, int causal, int alibi, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PAGED_LAUNCH(T, DD)                                                                      \
+  return launch<T, typename Store<T, S>::type, DD>(q, k_pool, v_pool, k_scale, v_scale, table,   \
+                                                   q_offset, slopes, o, part_o, part_ml, B, Tq,  \
+                                                   H, KVH, page, n_blocks, scale, causal, alibi, \
+                                                   st)
+  if (dtype == 0 && D == 64) PAGED_LAUNCH(float, 64);
+  if (dtype == 0 && D == 128) PAGED_LAUNCH(float, 128);
+  if (dtype == 1 && D == 64) PAGED_LAUNCH(__nv_bfloat16, 64);
+  if (dtype == 1 && D == 128) PAGED_LAUNCH(__nv_bfloat16, 128);
+#undef PAGED_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. part_o [B, n_splits, T, H, D] and
-// part_ml [B, n_splits, T, H, 2] are float32 scratch with n_splits =
+// dtype (of q and the output): 0 = float32, 1 = bfloat16; the pools are of
+// that dtype too. part_o [B, n_splits, T, H, D] and part_ml
+// [B, n_splits, T, H, 2] are float32 scratch with n_splits =
 // ceil(n_blocks * page / 256). Returns cudaGetLastError() after the launches.
 extern "C" int paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                const void* table, const void* q_offset, const void* slopes,
                                void* o, void* part_o, void* part_ml, int dtype, int B, int Tq,
                                int H, int KVH, int D, int page, int n_blocks, float scale,
                                int causal, int alibi, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k_pool, v_pool, table, q_offset, slopes, o, part_o, part_ml, B,
-                             Tq, H, KVH, page, n_blocks, scale, causal, alibi, st);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k_pool, v_pool, table, q_offset, slopes, o, part_o, part_ml, B,
-                              Tq, H, KVH, page, n_blocks, scale, causal, alibi, st);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k_pool, v_pool, table, q_offset, slopes, o, part_o,
-                                     part_ml, B, Tq, H, KVH, page, n_blocks, scale, causal, alibi,
-                                     st);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k_pool, v_pool, table, q_offset, slopes, o, part_o,
-                                      part_ml, B, Tq, H, KVH, page, n_blocks, scale, causal,
-                                      alibi, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<Same>(q, k_pool, v_pool, nullptr, nullptr, table, q_offset, slopes, o, part_o,
+                        part_ml, dtype, B, Tq, H, KVH, D, page, n_blocks, scale, causal, alibi,
+                        stream);
+}
+
+// The same over int8 pools with float32 scale pools k_scale/v_scale
+// [n_pages, page, KVH, 1]; q and the output are of dtype.
+extern "C" int paged_attention_int8(const void* q, const void* k_pool, const void* v_pool,
+                                    const void* k_scale, const void* v_scale, const void* table,
+                                    const void* q_offset, const void* slopes, void* o,
+                                    void* part_o, void* part_ml, int dtype, int B, int Tq, int H,
+                                    int KVH, int D, int page, int n_blocks, float scale,
+                                    int causal, int alibi, void* stream) {
+  return dispatch<int8_t>(q, k_pool, v_pool, k_scale, v_scale, table, q_offset, slopes, o, part_o,
+                          part_ml, dtype, B, Tq, H, KVH, D, page, n_blocks, scale, causal, alibi,
+                          stream);
 }

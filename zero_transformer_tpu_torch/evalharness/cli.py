@@ -12,9 +12,11 @@ and the serve CLI read. Data is pre-tokenized JSONL:
 - ``ppl``/``bpb``: one object ``{"tokens": [ids], "num_bytes": n?}``, or a
   raw ``.bin``/``.u16`` uint16 token file (pass ``--num-bytes`` for bpb).
 
-It runs on the CUDA card unless ``--device cpu`` is given. ``--tokenizer``
-(text fields through a HuggingFace tokenizer) and ``--quantize int8`` are
-not ported and raise. The result is one JSON line on stdout.
+It runs on the CUDA card unless ``--device cpu`` is given. ``--quantize
+int8`` scores the weight-only int8 model: the tree is quantized on the host
+(the conversion ``serve --quantize int8`` runs), then loaded. ``--tokenizer``
+(text fields through a HuggingFace tokenizer) is not ported and raises. The
+result is one JSON line on stdout.
 """
 from __future__ import annotations
 
@@ -50,7 +52,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-bytes", type=int, default=None, help="UTF-8 bytes for bpb")
     p.add_argument("--limit", type=int, default=None, help="cap example count")
     p.add_argument("--tokenizer", default=None, help="not ported: data must be token ids")
-    p.add_argument("--quantize", default="none", choices=("none", "int8"), help="int8 is not ported")
+    p.add_argument("--quantize", default="none", choices=("none", "int8"),
+                   help="score the weight-only int8 serving path (the same "
+                        "conversion serve --quantize runs) — measures what "
+                        "the quantization costs in eval quality")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
@@ -59,15 +64,18 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     if args.tokenizer:
         raise NotImplementedError("--tokenizer (HuggingFace text fields) is not ported: pass token ids")
-    if args.quantize != "none":
-        raise NotImplementedError("--quantize int8 (weight-only int8 scoring) is not ported yet")
     device = resolve_device(args.device)
-    from zero_transformer_tpu_torch.convert import load_npz
+    from zero_transformer_tpu_torch.convert import params_from_jax, read_npz
     from zero_transformer_tpu_torch.evalharness import choice_accuracy, lambada, perplexity
     from zero_transformer_tpu_torch.models import model_getter
+    from zero_transformer_tpu_torch.models.quant import quantize_params
 
-    model = model_getter(args.model, dtype=getattr(torch, args.dtype), device=device, dropout=0.0)
-    model.load_state_dict(load_npz(args.params))
+    tree = read_npz(args.params)
+    if args.quantize == "int8":
+        tree = quantize_params(tree)  # on the host, before the weights reach the device
+    model = model_getter(args.model, dtype=getattr(torch, args.dtype), device=device, dropout=0.0,
+                         param_quant=args.quantize)
+    model.load_state_dict(params_from_jax(tree))
     model.cast_for_inference()
 
     def rows():

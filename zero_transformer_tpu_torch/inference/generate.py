@@ -4,8 +4,9 @@ Counterpart of ``zero_transformer_tpu/inference/generate.py`` (``decode_model``
 :30-50 and the cache allocation of ``init_cache``). In JAX the decode
 variant is a separate flax module whose cache is a pytree returned by every
 apply; in the port the one ``Transformer`` has a ``forward_paged`` method and
-the cache is a list of per-layer pool pairs that the forward updates IN
-PLACE (where the JAX engine donates its cache buffers to the step).
+the cache is a list of per-layer ``KVPools`` (K/V pools, plus their scale
+pools for an int8 cache) that the forward updates IN PLACE (where the JAX
+engine donates its cache buffers to the step).
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from zero_transformer_tpu_torch.config import ModelConfig, resolve_dtype
-from zero_transformer_tpu_torch.models.gpt import Pools, Transformer
+from zero_transformer_tpu_torch.models.gpt import KVPools, Pools, Transformer
 
 
 def decode_model(model: Transformer, cache_len: int, kv_pages: Tuple[int, int]) -> Transformer:
@@ -33,11 +34,20 @@ def decode_model(model: Transformer, cache_len: int, kv_pages: Tuple[int, int]) 
 
 def allocate_pools(cfg: ModelConfig, n_pages: int, page_size: int, device,
                    dtype: Optional[torch.dtype] = None) -> Pools:
-    """One zeroed ``[n_pages, page, KVH, D]`` K/V pool pair per layer, in
-    the compute dtype (``kv_cache_dtype: auto``). Page 0 is the trash page."""
-    dtype = dtype or resolve_dtype(cfg.compute_dtype)
+    """One zeroed ``[n_pages, page, KVH, D]`` K/V pool pair per layer: in
+    the compute dtype (``kv_cache_dtype: auto``), or int8 with zeroed
+    float32 scale pools ``[n_pages, page, KVH, 1]`` (``int8``, JAX
+    ``gpt.py:233-237``). Page 0 is the trash page, scales included."""
     shape = (n_pages, page_size, cfg.kv_heads, cfg.head_width)
+    if cfg.kv_cache_dtype == "int8":
+        sc_shape = shape[:-1] + (1,)
+        return [
+            KVPools(*(torch.zeros(shape, dtype=torch.int8, device=device) for _ in range(2)),
+                    *(torch.zeros(sc_shape, dtype=torch.float32, device=device) for _ in range(2)))
+            for _ in range(cfg.n_layers)
+        ]
+    dtype = dtype or resolve_dtype(cfg.compute_dtype)
     return [
-        (torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
+        KVPools(torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
         for _ in range(cfg.n_layers)
     ]

@@ -22,7 +22,13 @@ Numerics follow flax where it matters:
 - the tied head is ``h @ wte.T`` in the compute dtype (``embed.attend``),
   so the tied table gets gradient from both the lookup and the head;
 - training keeps the float32 master params: every Dense and the embedding
-  cast per call, and autograd carries the grads back to float32.
+  cast per call, and autograd carries the grads back to float32;
+- ``param_quant="int8"`` swaps every Dense and the token table for their
+  weight-only int8 counterparts (``models/quant.py``, JAX ``_dense`` :43-60
+  and ``Transformer`` :524-541), an inference-only configuration;
+- ``kv_cache_dtype="int8"`` stores the paged K/V as int8 with one float32
+  scale per (token, kv head) (``_quantize_kv``, JAX :84-92), dequantized
+  (int8 -> f32) * scale -> compute dtype wherever it is read.
 
 Layouts at the public surface are the JAX ones: q/k/v ``[B, T, H, D]``,
 page pools ``[n_pages, page, KVH, D]`` with page 0 the serving layer's trash
@@ -30,6 +36,7 @@ page, block tables ``[B, n_blocks]`` int32.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import List, Optional, Tuple
 
@@ -38,14 +45,45 @@ import torch.nn.functional as F
 from torch import nn
 
 from zero_transformer_tpu_torch.config import ModelConfig, resolve_dtype
+from zero_transformer_tpu_torch.models.quant import QuantDense, QuantEmbed
 from zero_transformer_tpu_torch.ops import paged_attention as pa
 from zero_transformer_tpu_torch.ops.attention import dot_product_attention
 from zero_transformer_tpu_torch.ops.losses import next_token_loss
 
 LN_EPS = 1e-6  # flax LayerNorm default
 
-# (k_pool, v_pool) per layer, each [n_pages, page, KVH, D]
-Pools = List[Tuple[torch.Tensor, torch.Tensor]]
+
+@dataclasses.dataclass
+class KVPools:
+    """One layer's paged KV cache: ``k``/``v`` ``[n_pages, page, KVH, D]``
+    in the compute dtype, or int8 with float32 ``k_scale``/``v_scale``
+    ``[n_pages, page, KVH, 1]`` (``kv_cache_dtype="int8"``)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (self.k, self.v, self.k_scale, self.v_scale)
+                   if t is not None)
+
+
+Pools = List[KVPools]
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the head dim: ``[..., D]`` -> (int8 values,
+    float32 scale ``[..., 1]``). The scale is floored so an all-zero row
+    stays exactly zero after dequant; ``torch.round`` rounds half to even,
+    as ``jnp.round`` does. Both divisions are tensor by tensor: on CUDA,
+    PyTorch divides by a Python scalar as a multiply by its reciprocal,
+    which can miss the correctly rounded quotient by one bit."""
+    xf = x.float()
+    amax = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8)
+    scale = amax / torch.full_like(amax, 127.0)
+    return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
 
 
 def doc_ids_from_tokens(tokens: torch.Tensor, sep_token: int) -> torch.Tensor:
@@ -81,6 +119,12 @@ class Dense(nn.Module):
         return F.linear(x.to(cdt), self.weight.to(cdt))
 
 
+def _dense(d_in: int, d_out: int, cfg: ModelConfig, device) -> nn.Module:
+    if cfg.param_quant == "int8":
+        return QuantDense(d_in, d_out, cfg, device)
+    return Dense(d_in, d_out, cfg, device)
+
+
 class LayerNorm(nn.Module):
     """flax ``LayerNorm(use_bias=False)``."""
 
@@ -104,10 +148,10 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         H, KVH, D, d = cfg.n_heads, cfg.kv_heads, cfg.head_width, cfg.d_model
-        self.query = Dense(d, H * D, cfg, device)
-        self.key = Dense(d, KVH * D, cfg, device)
-        self.value = Dense(d, KVH * D, cfg, device)
-        self.out = Dense(H * D, d, cfg, device)
+        self.query = _dense(d, H * D, cfg, device)
+        self.key = _dense(d, KVH * D, cfg, device)
+        self.value = _dense(d, KVH * D, cfg, device)
+        self.out = _dense(H * D, d, cfg, device)
 
     def _qkv(self, x):
         cfg = self.cfg
@@ -125,16 +169,15 @@ class Attention(nn.Module):
         return self.out(out.reshape(B, T, -1))
 
     def forward_paged(
-        self, x: torch.Tensor, pools: Tuple[torch.Tensor, torch.Tensor],
-        block_table: torch.Tensor, offsets: torch.Tensor,
+        self, x: torch.Tensor, pools: KVPools, block_table: torch.Tensor, offsets: torch.Tensor,
     ) -> torch.Tensor:
-        """Write this window's K/V through the block table, then attend over
-        the row's cache. ``offsets`` [B] is each row's first position."""
+        """Write this window's K/V through the block table (quantized for an
+        int8 cache), then attend over the row's cache. ``offsets`` [B] is
+        each row's first position."""
         cfg = self.cfg
         B, T, _ = x.shape
         q, k, v = self._qkv(x)
-        k_pool, v_pool = pools
-        page = k_pool.shape[1]
+        page = pools.k.shape[1]
         n_blocks = block_table.shape[1]
         cache_len = n_blocks * page
         pos = offsets.long()[:, None] + torch.arange(T, device=x.device)  # [B, T]
@@ -144,31 +187,41 @@ class Attention(nn.Module):
         page_ids = torch.gather(block_table.long(), 1, torch.clamp(pos // page, 0, n_blocks - 1))
         in_page = pos % page
         # the pools are updated IN PLACE (the JAX engine donates its cache)
-        k_pool[page_ids, in_page] = k.to(k_pool.dtype)
-        v_pool[page_ids, in_page] = v.to(v_pool.dtype)
+        if cfg.kv_cache_dtype == "int8":
+            for pool, scale_pool, x_new in ((pools.k, pools.k_scale, k), (pools.v, pools.v_scale, v)):
+                xq, xs = _quantize_kv(x_new)
+                pool[page_ids, in_page] = xq
+                scale_pool[page_ids, in_page] = xs
+        else:
+            pools.k[page_ids, in_page] = k.to(pools.k.dtype)
+            pools.v[page_ids, in_page] = v.to(pools.v.dtype)
+        scales = dict(k_scale=pools.k_scale, v_scale=pools.v_scale)
         # writing past capacity poisons only the overflowing row's output
         overflow = (offsets + T > cache_len)[:, None, None, None]
         q = torch.where(overflow, torch.full((), math.nan, dtype=q.dtype, device=q.device),
                         torch.ones((), dtype=q.dtype, device=q.device)) * q
         if T > pa.MAX_DECODE_T:
             # a prefill chunk: gather the row's pages once, then the flash kernel
-            k_all, v_all, kv_valid = pa.gather_window(k_pool, v_pool, block_table, offsets, T)
+            k_all, v_all, kv_valid = pa.gather_window(pools.k, pools.v, block_table, offsets, T,
+                                                      dtype=q.dtype, **scales)
             out = dot_product_attention(
                 q, k_all, v_all, causal=True, alibi=True, q_offset=offsets,
                 segment_ids=kv_valid, impl=cfg.attention_impl,
             )
         elif cfg.attention_impl == "xla":
-            out = pa.paged_reference(q, k_pool, v_pool, block_table, offsets, causal=T > 1, alibi=True)
+            out = pa.paged_reference(q, pools.k, pools.v, block_table, offsets, causal=T > 1, alibi=True,
+                                     **scales)
         else:
-            out = pa.paged_attention(q, k_pool, v_pool, block_table, offsets, causal=T > 1, alibi=True)
+            out = pa.paged_attention(q, pools.k, pools.v, block_table, offsets, causal=T > 1, alibi=True,
+                                     **scales)
         return self.out(out.reshape(B, T, -1))
 
 
 class MLP(nn.Module):
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        self.wi = Dense(cfg.d_model, cfg.ff_dim, cfg, device)
-        self.wo = Dense(cfg.ff_dim, cfg.d_model, cfg, device)
+        self.wi = _dense(cfg.d_model, cfg.ff_dim, cfg, device)
+        self.wo = _dense(cfg.ff_dim, cfg.d_model, cfg, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.wo(F.gelu(self.wi(x), approximate="tanh"))
@@ -217,7 +270,7 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cpu"):
         super().__init__()
         self.cfg = cfg
-        self.wte = Embed(cfg, device)
+        self.wte = QuantEmbed(cfg, device) if cfg.param_quant == "int8" else Embed(cfg, device)
         self.blocks = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
         self.ln_f = LayerNorm(cfg.d_model, cfg, device)
 
@@ -226,7 +279,11 @@ class Transformer(nn.Module):
         """The JAX init: normal(0.02) kernels and embedding, residual
         projections (attention out, MLP wo) at 0.02 / sqrt(2 * n_layers),
         LayerNorm scales at one. Draws from ``generator``, whose device must
-        be the model's."""
+        be the model's. A weight-only int8 model has no float weights to draw:
+        initialise the float model, then ``quant.quantize_model``."""
+        if self.cfg.param_quant != "none":
+            raise ValueError("init_weights draws float weights: initialise a param_quant='none' model, "
+                             "then quantize it with models.quant.quantize_model")
         resid_std = 0.02 / math.sqrt(2 * self.cfg.n_layers)
         self.wte.embedding.normal_(0.0, 0.02, generator=generator)
         for blk in self.blocks:
@@ -243,12 +300,16 @@ class Transformer(nn.Module):
     def cast_for_inference(self) -> "Transformer":
         """Store the Dense and embedding weights in the compute dtype once,
         rather than casting them on every call as flax does (same values);
-        LayerNorm scales stay in float32, as flax computes them."""
+        LayerNorm scales stay in float32, as flax computes them. Weight-only
+        int8 modules keep their int8 weights and store their scales in the
+        compute dtype, the values flax's per-call cast gives."""
         for mod in self.modules():
             if isinstance(mod, Dense):
                 mod.weight.data = mod.weight.data.to(mod.compute_dtype)
             elif isinstance(mod, Embed):
                 mod.embedding.data = mod.embedding.data.to(mod.compute_dtype)
+            elif isinstance(mod, (QuantDense, QuantEmbed)):
+                mod.scale.data = mod.scale.data.to(mod.compute_dtype)
         return self
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
@@ -263,7 +324,12 @@ class Transformer(nn.Module):
         ``doc_sep_token`` set, attention stays inside each document of the
         row and the loss skips the labels that start a document. ``train``
         would turn dropout on, which is not ported: it raises for
-        ``dropout > 0``."""
+        ``dropout > 0``. A weight-only int8 model computes logits only."""
+        if labels is not None and self.cfg.param_quant != "none":
+            raise NotImplementedError(
+                "param_quant='int8' is an inference configuration; the loss paths run on "
+                "full-precision params"
+            )
         if train and self.cfg.dropout > 0:
             raise NotImplementedError("dropout > 0 in training is not ported yet")
         packed = self.cfg.doc_sep_token is not None

@@ -53,6 +53,8 @@ SIGNATURES = {
         # q, k_pool, v_pool, block_table, q_offset, slopes, o, part_o, part_ml,
         # dtype, B, T, H, KVH, D, page, n_blocks, scale, causal, alibi, stream
         "paged_attention": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P],
+        # q, k_pool, v_pool (int8), k_scale, v_scale, then as paged_attention
+        "paged_attention_int8": [_P] * 11 + [_I] * 8 + [_F, _I, _I, _P],
     },
 }
 
@@ -66,9 +68,10 @@ ptxas_report: Dict[str, str] = {}
 # went through the kernels (the plain CPU versions never count).
 # K1 counts apart by entry: ``flash_serving_fwd`` (serving, forward only) and
 # ``flash_train_fwd`` (the differentiable training entry). The training
-# kernels' launches with the packed-document mask count apart under ``_docs``.
+# kernels' launches with the packed-document mask count apart under ``_docs``,
+# K4's launches on int8 pools under ``paged_attention_int8``.
 LAUNCHES: Dict[str, int] = {
-    "flash_serving_fwd": 0, "paged_attention": 0,
+    "flash_serving_fwd": 0, "paged_attention": 0, "paged_attention_int8": 0,
     "flash_train_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
     "flash_train_fwd_docs": 0, "flash_dq_docs": 0, "flash_dkv_docs": 0,
 }

@@ -17,8 +17,13 @@ The TPU kernel is bitwise equal to the gather path (it stages the whole row
 and runs one full softmax); the CUDA kernel splits each row's keys into
 256-key parts across CTAs and merges their softmax statistics in a second
 pass (one call = both launches), so it matches the gather path to a
-tolerance instead. int8 pools are not
-ported yet: the wrapper raises on them.
+tolerance instead.
+
+int8 pools (``kv_cache_dtype="int8"``) come with float32 scale pools
+``[n_pages, page, KVH, 1]``, one scale per (position, kv head). Every read
+dequantizes as the TPU kernel does (``paged_attention.py:134-135``):
+``(int8 -> f32) * scale``, then rounded to the compute dtype. Their launches
+count apart, as ``paged_attention_int8``.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from zero_transformer_tpu_torch.ops.attention import xla_attention
 from zero_transformer_tpu_torch.ops.flash import HEAD_DIMS, row_offsets, slopes_on
 
 KERNEL = "paged_attention"
+KERNEL_INT8 = "paged_attention_int8"
 # decode window ceiling: 1 (plain decode) .. 1 + draft_k (a verify window);
 # longer windows belong to the flash kernel's chunked-prefill path
 MAX_DECODE_T = 8
@@ -46,24 +52,49 @@ def gather_pages(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
     return g.reshape((B, n_blocks * pool.shape[1]) + tuple(pool.shape[2:]))
 
 
-def gather_window(k_pool, v_pool, block_table, q_offset: torch.Tensor, T: int):
+def dequantize(pool: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """int8 values with their float32 scales -> ``dtype``: ``(int8 -> f32) *
+    scale``, rounded once (JAX ``gpt.py:374-375``)."""
+    return (pool.float() * scale).to(dtype)
+
+
+def gather_window(k_pool, v_pool, block_table, q_offset: torch.Tensor, T: int, *,
+                  k_scale=None, v_scale=None, dtype: Optional[torch.dtype] = None):
     """The slab a window of ``T`` queries at ``q_offset`` [B] attends over:
     the gathered K and V ``[B, S, KVH, D]`` and the validity mask ``[B, S]``
-    (position < q_offset + T)."""
+    (position < q_offset + T). int8 pools are gathered with their scales and
+    dequantized to ``dtype``."""
     k = gather_pages(k_pool, block_table)
     v = gather_pages(v_pool, block_table)
+    if k_pool.dtype == torch.int8:
+        _check_scales(k_pool, v_pool, k_scale, v_scale)
+        k = dequantize(k, gather_pages(k_scale, block_table), dtype)
+        v = dequantize(v, gather_pages(v_scale, block_table), dtype)
     valid = torch.arange(k.shape[1], device=k.device)[None, :] < (q_offset[:, None] + T)
     return k, v, valid
 
 
+def _check_scales(k_pool, v_pool, k_scale, v_scale) -> None:
+    if k_scale is None or v_scale is None:
+        raise ValueError("int8 pools need k_scale/v_scale pools")
+    want = tuple(k_pool.shape[:-1]) + (1,)
+    if v_pool.dtype != torch.int8 or tuple(k_scale.shape) != want or tuple(v_scale.shape) != want:
+        raise ValueError(f"int8 pools {tuple(k_pool.shape)} need int8 v and float32 scale pools {want}, got "
+                         f"{v_pool.dtype}, {tuple(k_scale.shape)}, {tuple(v_scale.shape)}")
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise ValueError(f"scale pools must be float32, got {k_scale.dtype}/{v_scale.dtype}")
+
+
 def paged_reference(
     q, k_pool, v_pool, block_table, q_offset, *, causal: bool, alibi: bool = False,
-    softmax_scale: Optional[float] = None,
+    softmax_scale: Optional[float] = None, k_scale=None, v_scale=None,
 ) -> torch.Tensor:
-    """The gather-to-slab path the kernel replaces."""
+    """The gather-to-slab path the kernel replaces (dequantized for int8
+    pools)."""
     B, T, _, _ = q.shape
     offs = row_offsets(q_offset, B, q.device)
-    k, v, valid = gather_window(k_pool, v_pool, block_table, offs, T)
+    k, v, valid = gather_window(k_pool, v_pool, block_table, offs, T, k_scale=k_scale, v_scale=v_scale,
+                                dtype=q.dtype)
     return xla_attention(
         q, k, v, causal=causal, alibi=alibi, q_offset=offs, segment_ids=valid,
         softmax_scale=softmax_scale,
@@ -80,12 +111,16 @@ def paged_attention(
     causal: bool,
     alibi: bool = False,
     softmax_scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Decode attention straight off the page pool. q ``[B, T, H, D]``
     (overflow rows already NaN-poisoned by the caller); pools
-    ``[n_pages, page, KVH, D]``; ``block_table`` ``[B, n_blocks]`` int32
-    whose entries must be valid page ids (zeros = the trash page);
-    ``q_offset`` ``[B]`` or int. Positions ``>= q_offset + T`` are invalid."""
+    ``[n_pages, page, KVH, D]`` in q's dtype, or int8 with float32
+    ``k_scale``/``v_scale`` ``[n_pages, page, KVH, 1]``; ``block_table``
+    ``[B, n_blocks]`` int32 whose entries must be valid page ids (zeros =
+    the trash page); ``q_offset`` ``[B]`` or int. Positions ``>= q_offset +
+    T`` are invalid."""
     B, T, H, D = q.shape
     n_pages, page, KVH, Dk = k_pool.shape
     if v_pool.shape != k_pool.shape or Dk != D:
@@ -94,17 +129,19 @@ def paged_attention(
         raise ValueError(f"query heads {H} not divisible by kv heads {KVH}")
     if block_table.ndim != 2 or block_table.shape[0] != B:
         raise ValueError(f"block_table must be [B={B}, n_blocks], got {tuple(block_table.shape)}")
-    if k_pool.dtype == torch.int8:
-        raise NotImplementedError("int8 KV pools are not ported yet")
+    int8 = k_pool.dtype == torch.int8
+    if int8:
+        _check_scales(k_pool, v_pool, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_reference(
             q, k_pool, v_pool, block_table, q_offset, causal=causal, alibi=alibi,
-            softmax_scale=softmax_scale,
+            softmax_scale=softmax_scale, k_scale=k_scale, v_scale=v_scale,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on CUDA or CPU tensors, got {q.device}")
-    if q.dtype not in _DTYPE_CODES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise ValueError(f"paged kernel takes bf16 or f32 q/pools of one dtype, got {q.dtype}/{k_pool.dtype}")
+    if q.dtype not in _DTYPE_CODES or (not int8 and (k_pool.dtype != q.dtype or v_pool.dtype != q.dtype)):
+        raise ValueError(f"paged kernel takes bf16 or f32 q with pools of q's dtype or int8, "
+                         f"got {q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
     if D not in HEAD_DIMS:
         raise ValueError(f"paged kernel takes head width in {HEAD_DIMS}, got {D}")
     if not 1 <= T <= MAX_DECODE_T:
@@ -121,12 +158,16 @@ def paged_attention(
     part_ml = torch.empty((B, n_splits, T, H, 2), dtype=torch.float32, device=dev)
     scale = softmax_scale if softmax_scale is not None else 1.0 / (D**0.5)
     lib = _build.library("paged_attention")
-    status = lib.paged_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(), offs.data_ptr(),
-        slopes_on(H, str(dev), alibi).data_ptr(), out.data_ptr(), part_o.data_ptr(),
-        part_ml.data_ptr(), _DTYPE_CODES[q.dtype], B, T, H, KVH, D, page, table.shape[1], float(scale),
-        int(causal), int(alibi), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.LAUNCHES[KERNEL] += 1
-    _build.check(status, "paged_attention launch")
+    head = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr())
+    tail = (table.data_ptr(), offs.data_ptr(), slopes_on(H, str(dev), alibi).data_ptr(), out.data_ptr(),
+            part_o.data_ptr(), part_ml.data_ptr(), _DTYPE_CODES[q.dtype], B, T, H, KVH, D, page,
+            table.shape[1], float(scale), int(causal), int(alibi), torch.cuda.current_stream(dev).cuda_stream)
+    if int8:
+        k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
+        status = lib.paged_attention_int8(*head, k_scale.data_ptr(), v_scale.data_ptr(), *tail)
+        _build.LAUNCHES[KERNEL_INT8] += 1
+    else:
+        status = lib.paged_attention(*head, *tail)
+        _build.LAUNCHES[KERNEL] += 1
+    _build.check(status, f"{KERNEL_INT8 if int8 else KERNEL} launch")
     return out

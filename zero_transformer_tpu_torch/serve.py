@@ -3,12 +3,16 @@
 Counterpart of ``zero_transformer_tpu/serve.py`` (``ByteTokenizer`` :31,
 the ``--server`` path :358-436, ``main`` :496-). Runs as::
 
-    python -m zero_transformer_tpu_torch.serve --model 125m --params p.npz --server
+    python -m zero_transformer_tpu_torch.serve --model 125m --params p.npz --server \
+        [--kv-cache-dtype int8] [--quantize int8]
 
 ``--params`` is an ``.npz`` of the flat flax param tree (``convert.py`` says
-how to write one from the JAX package). The continuous-batching HTTP server
-(``--server``) is the only mode of this slice. The CLI runs on the CUDA card
-unless ``--device cpu`` is given; without a card it refuses to start.
+how to write one from the JAX package). ``--quantize int8`` quantizes that
+tree on the host before any weight reaches the card (JAX ``serve.py``
+:314-322); an ``.npz`` that is already quantized needs the flag. The
+continuous-batching HTTP server (``--server``) is the only mode of this
+slice. The CLI runs on the CUDA card unless ``--device cpu`` is given;
+without a card it refuses to start.
 """
 from __future__ import annotations
 
@@ -52,6 +56,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--page-pool-tokens", type=int, default=_DEFAULTS.page_pool_tokens,
                    help="KV pool size in positions (0 = slots x cache_len)")
     p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    p.add_argument("--quantize", default="none", choices=("none", "int8"),
+                   help="weight-only int8 serving: Dense kernels + token table "
+                        "stored int8 with per-channel scales, about half the "
+                        "weight memory at rest; each call dequantizes them to "
+                        "the compute dtype, so decode is not faster")
+    p.add_argument("--kv-cache-dtype", default="auto", choices=("auto", "int8"),
+                   help="int8 K/V with one float32 scale per token and kv head: "
+                        "about half the KV pool's bytes, at slight quantization cost")
     p.add_argument("--attention-impl", default="auto", choices=("auto", "xla", "flash"),
                    help="'auto' runs the CUDA kernels wherever their gates accept, "
                         "'xla' the plain PyTorch reference, 'flash' kernel-or-raise")
@@ -66,19 +78,37 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def load_params(path: str, quantize: str):
+    """The port's state dict from an ``.npz``: quantized on the host first
+    with ``quantize="int8"``; an already-quantized file without it exits."""
+    from zero_transformer_tpu_torch.convert import params_from_jax, read_npz
+    from zero_transformer_tpu_torch.models.quant import has_quantized_leaves, quantize_params
+
+    tree = read_npz(path)
+    if quantize != "int8" and has_quantized_leaves(tree):
+        raise SystemExit(
+            f"{path} is already int8-quantized (kernel_q/embedding_q "
+            "leaves found); pass --quantize int8 to serve it"
+        )
+    if quantize == "int8":
+        tree = quantize_params(tree)
+    return params_from_jax(tree)
+
+
 def build_engine(args):
     """Model + weights + engine from parsed CLI arguments."""
-    from zero_transformer_tpu_torch.convert import load_npz
     from zero_transformer_tpu_torch.inference.sampling import SamplingConfig
     from zero_transformer_tpu_torch.models import model_getter
     from zero_transformer_tpu_torch.serving.engine import ServingEngine
 
     device = resolve_device(args.device)
+    state = load_params(args.params, args.quantize)
     model = model_getter(
         args.model, dtype=getattr(torch, args.dtype), device=device,
         attention_impl=args.attention_impl, dropout=0.0,
+        kv_cache_dtype=args.kv_cache_dtype, param_quant=args.quantize,
     )
-    model.load_state_dict(load_npz(args.params))
+    model.load_state_dict(state)
     sampling = SamplingConfig(
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         repetition_penalty=args.repetition_penalty, greedy=args.greedy,

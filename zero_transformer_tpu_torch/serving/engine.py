@@ -192,6 +192,10 @@ class ServingEngine:
         n_pages = page_pool_tokens // page_size + 1  # + trash page
         self.model = decode_model(model, self.cache_len, (n_pages, page_size)).cast_for_inference()
         self.pools = allocate_pools(cfg, n_pages, page_size, self.device)
+        # device bytes of the KV pools (scales included) and of the weights
+        # as served (int8 ones at one byte each)
+        self.kv_pool_bytes = sum(p.nbytes for p in self.pools)
+        self.weight_bytes = sum(t.numel() * t.element_size() for t in self.model.state_dict().values())
         self.slots = PagedKVCache(n_slots, n_pages, page_size, self.cache_len)
         self.n_slots = n_slots
         self.sampling = sampling
@@ -554,6 +558,10 @@ class ServingEngine:
             "queue_depth": self.queue_depth,
             "page_pool_util": self.slots.page_pool_util,
             "page_pool_peak": self.slots.pool.peak_in_use,
+            "kv_cache_dtype": self.cfg.kv_cache_dtype,
+            "kv_pool_bytes": self.kv_pool_bytes,
+            "param_quant": self.cfg.param_quant,
+            "weight_bytes": self.weight_bytes,
             "kernel_launches": dict(_build.LAUNCHES),
         }
         for name, samples in (("ttft_ms", self._ttft), ("itl_ms", self._itl)):

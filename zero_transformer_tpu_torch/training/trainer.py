@@ -86,6 +86,11 @@ class TrainingBuild:
 def build_training(cfg: Config, device) -> TrainingBuild:
     """Model (seeded from ``training.seed``, trainable), schedule, AdamW and
     the steps. The optimizer's horizon is ``training.total_steps``, as in JAX."""
+    if cfg.model.param_quant != "none":
+        raise ValueError(
+            "param_quant is an inference-only configuration (serve "
+            "--quantize); training runs on full-precision params"
+        )
     dev = resolve_device(device)
     if cfg.model.dropout > 0:
         raise NotImplementedError(f"dropout {cfg.model.dropout} > 0 in training is not ported yet")
