@@ -79,10 +79,29 @@ Phases, each fatal on failure (nothing is caught):
    int8``): every request done, K4's int8 branch and K1 launched, the bf16
    K4 never; then the parity and profile phases on that engine.
 
+12. sp_kernels: ``flash_partial`` (K1 at global offsets, f32 output) and
+   ``flash_grads`` (K2/K3 given the global lse and delta, f32 grads) against
+   their plain versions at 580m's ring shape (B 1, a 2048-token shard, 12
+   heads of 128) in bf16 and f32, a GQA and a D 64 case: the diagonal, a
+   past and a future shard of a 3-shard row, with and without separate
+   query and key document ids; the bf16 bars must reject a plain version
+   one key off in kv_offset and one that reads the query ids as key ids; a
+   future shard writes o = 0, lse = -1e30 and zero grads; times of kernel,
+   plain version and SDPA with the block's float bias (and its backward);
+13. sequence_parallel: 580m at T 8192 over 4 ranks (NCCL with a card per
+   rank on a 4-card machine, else 4 ranks sharing card 0 over gloo): the
+   ring at the layer shape against the one-card ``flash_attention`` on the
+   gathered tensors, one ring train step against the one-card step (loss,
+   grad cosines, bit-equal params across ranks, exact launch counts, peak
+   memory, the transfers' share under ``torch.profiler``), plain and packed,
+   then the trainer CLI under ``torch.distributed.run`` for 3 steps of
+   ``configs/train_580m_8k.yaml``.
+
 ``--phases a,b,...`` builds the kernels and runs the named phases only
 (kernels, serving, parity, profile, int8_kernels, int8_serving,
-train_kernels, training, packed_kernels, packed; parity needs serving); the
-kernel table then lists the kernels whose phases ran.
+train_kernels, training, packed_kernels, packed, sp_kernels,
+sequence_parallel; parity needs serving); the kernel table then lists the
+kernels whose phases ran.
 
 The last two lines of standard output are the kernel table as one JSON
 object and ``{"ok": true, "device": {...}}`` (a full run only). Without CUDA the script exits
@@ -91,6 +110,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import functools
+import gc
 import hashlib
 import json
 import math
@@ -250,7 +270,8 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8)
 
 
-def flash_mma_emulation(q, k, v, offsets, seg, docs=None, with_flip=False):
+def flash_mma_emulation(q, k, v, offsets, seg, docs=None, with_flip=False, kv_offsets=0, k_docs=None,
+                        round_out=True):
     """The bf16 tensor-core kernel's arithmetic, step by step: scores from
     the bf16 inputs (exact products, summed in float64, then float32), the
     biases in the kernel's order (ALiBi + causal, then the document mask
@@ -266,7 +287,11 @@ def flash_mma_emulation(q, k, v, offsets, seg, docs=None, with_flip=False):
     keys of (softmax weight * max |v|) (a bf16 ulp is at most 2^-7 of the
     value). The tensor cores' f32 score sums differ from the exact sum in
     the last bit now and then, and where that flips the rounding of a large
-    p, the kernel lands that far from this emulation."""
+    p, the kernel lands that far from this emulation. ``kv_offsets`` (int or
+    [B]) puts the keys at global positions and ``k_docs`` [B, S] gives them
+    ids of their own (``flash_partial``); ``round_out=False`` keeps the
+    output in float32; a row that sees no key (causal, every key after it)
+    is 0 with lse -1e30, as the kernel writes it."""
     from zero_transformer_tpu_torch.ops.flash import row_offsets, slopes_on
     from zero_transformer_tpu_torch.ops.positions import NEG_INF
 
@@ -277,12 +302,15 @@ def flash_mma_emulation(q, k, v, offsets, seg, docs=None, with_flip=False):
     vd = v.double().repeat_interleave(G, dim=2).transpose(1, 2)
     s = (q.double().transpose(1, 2) @ kd.transpose(-1, -2)).float()  # [B, H, T, S]
     offs = row_offsets(offsets, B, q.device)
-    dist = offs[:, None, None] + torch.arange(T, device=q.device)[:, None] - torch.arange(S, device=q.device)
+    kv_offs = row_offsets(kv_offsets, B, q.device)
+    dist = (offs[:, None, None] + torch.arange(T, device=q.device)[:, None]
+            - (kv_offs[:, None, None] + torch.arange(S, device=q.device)))
     bias = 0.0 - slopes_on(Hq, str(q.device), True)[None, :, None, None] * dist.clamp(min=0)[:, None].float()
     bias = bias + torch.where(dist >= 0, 0.0, NEG_INF)[:, None]
     x = s * (1.0 / Dq**0.5) + bias
     if docs is not None:
-        x = x + torch.where(docs[:, :, None] == docs[:, None, :], 0.0, NEG_INF)[:, None]
+        k_docs = docs if k_docs is None else k_docs
+        x = x + torch.where(docs[:, :, None] == k_docs[:, None, :], 0.0, NEG_INF)[:, None]
     x = x + torch.where(seg != 0, 0.0, NEG_INF)[:, None, None, :]
     m = torch.full((B, Hq, T, 1), -1e30, device=q.device)
     l = torch.zeros_like(m)
@@ -296,12 +324,17 @@ def flash_mma_emulation(q, k, v, offsets, seg, docs=None, with_flip=False):
         o = (o * alpha.double() + p.bfloat16().double() @ vd[:, :, j:j + 64]).float().double()
         m = m_new
     l_safe = torch.where(l == 0, 1.0, l)
-    out = (o.float() / l_safe).bfloat16().transpose(1, 2)
+    out = o.float() / l_safe
+    lse = (m + torch.log(l_safe))[..., 0]
+    dead = (dist.amax(-1) < 0)[:, None, :]  # [B, 1, T]: the row sees no key
+    out = torch.where(dead[..., None], 0.0, out)
+    lse = torch.where(dead, -1e30, lse)
+    out = (out.bfloat16() if round_out else out).transpose(1, 2)
     if not with_flip:
-        return out, (m + torch.log(l_safe))[..., 0]
+        return out, lse
     vmax = v.float().abs().amax(-1).repeat_interleave(G, dim=2).transpose(1, 2)[:, :, None, :]  # [B, H, 1, S]
     flip = 2.0**-7 * (torch.softmax(x, dim=-1) * vmax).amax(-1, keepdim=True)  # [B, H, T, 1]
-    return out, (m + torch.log(l_safe))[..., 0], flip.transpose(1, 2)
+    return out, lse, flip.transpose(1, 2)
 
 
 def mma_miss(got: torch.Tensor, emu: torch.Tensor, flip=0.0):
@@ -748,10 +781,12 @@ def serving_phase(int8: bool = False):
 def kernel_times(prof) -> dict:
     """{kernel name: (device ms, launches)} from a ``torch.profiler`` run.
     Kernel events only: CPU ops also carry the device time of what they
-    launched, and counting both would double it."""
+    launched, and counting both would double it; user annotations
+    (``record_function`` spans, which the profiler also lays on the device
+    timeline) are not kernels either."""
     kernels = {}
     for ev in prof.key_averages():
-        if str(ev.device_type).endswith("CUDA"):
+        if str(ev.device_type).endswith("CUDA") and not getattr(ev, "is_user_annotation", False):
             dev_us = getattr(ev, "self_device_time_total", None)
             if dev_us is None:
                 dev_us = ev.self_cuda_time_total
@@ -1888,6 +1923,522 @@ def serve_cli(npz: Path, prompt: str) -> dict:
             "exit": proc.returncode}
 
 
+# ------------------------------------------------- sequence-parallel kernels
+
+SP_T = 2048  # 580m's shard: T 8192 over 4 ranks
+# (label, B, t, H, KVH, D, dtype, docs); "main" is 580m's ring shape
+SP_CASES = [
+    ("main", 1, SP_T, 12, 12, 128, torch.bfloat16, False),
+    ("main_docs", 1, SP_T, 12, 12, 128, torch.bfloat16, True),
+    ("main_f32", 1, SP_T, 12, 12, 128, torch.float32, True),
+    ("gqa", 2, 256, 8, 2, 128, torch.bfloat16, True),
+    ("gqa_f32", 2, 256, 8, 2, 128, torch.float32, True),
+    ("d64", 2, 256, 4, 4, 64, torch.bfloat16, True),
+    ("d64_f32", 2, 256, 4, 4, 64, torch.float32, False),
+]
+# (query shard, key shard) of a 3-shard sequence
+SP_PAIRS = {"diagonal": (1, 1), "past": (2, 1), "future": (0, 2)}
+MASKED_LSE = -1e9  # a row with no visible key of its document has lse ~ -1e10 or -1e30
+
+
+def sp_doc_ids(B: int, T: int) -> torch.Tensor:
+    """[B, T] exclusive-cumsum document ids whose documents span both shard
+    boundaries of a 3-shard row, and some that start inside a shard."""
+    sep = torch.zeros(B, T, dtype=torch.int32)
+    for b in range(B):
+        for f in (0.05, 0.3, 0.45, 0.6, 0.62, 0.9):
+            sep[b, int(f * T) + 7 * b] = 1
+    return (torch.cumsum(sep, 1) - sep).to(torch.int32).cuda()
+
+
+def partial_bounds(B, t, H, KVH, D, dtype, pairs, ids_bytes):
+    """Least times (ms, bound_by) of flash_partial's K1 (f32 out + lse) and
+    flash_grads' K2 and K3 (f32 grads) on one shard pair: bytes (inputs read
+    once, outputs written once) over HBM, or the products' flops over the
+    (query, key) pairs the causal limit admits, over the input dtype's peak."""
+    el = torch.finfo(dtype).bits // 8
+    qb, kb, row = B * t * H * D * el, B * t * KVH * D * el, B * H * t * 4
+    q32, k32 = B * t * H * D * 4, B * t * KVH * D * 4
+    work = {  # name: (bytes, flops)
+        "flash_partial_fwd": (qb + 2 * kb + q32 + row + ids_bytes, 2 * 2 * D * B * H * pairs),
+        "flash_partial_dq": (2 * qb + 2 * kb + 2 * row + q32 + ids_bytes, 3 * 2 * D * B * H * pairs),
+        "flash_partial_dkv": (2 * qb + 2 * kb + 2 * row + 2 * k32 + ids_bytes, 4 * 2 * D * B * H * pairs),
+    }
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+        out[name] = (max(t_b, t_f), "bytes" if t_b >= t_f else "operations")
+    return out
+
+
+def sp_sdpa_bias(q_off, kv_off, t, Hq, q_ids, k_ids, dtype):
+    from zero_transformer_tpu_torch.ops.positions import NEG_INF, alibi_slopes
+
+    dist = (q_off + torch.arange(t, device="cuda"))[:, None] - (kv_off + torch.arange(t, device="cuda"))
+    bias = -alibi_slopes(Hq, "cuda")[:, None, None] * dist.clamp(min=0).float()
+    bias = (bias + torch.where(dist >= 0, 0.0, NEG_INF))[None]
+    if q_ids is not None:
+        bias = bias + torch.where(q_ids[:, :, None] == k_ids[:, None, :], 0.0, NEG_INF)[:, None]
+    return bias.to(dtype)
+
+
+def sp_kernel_phase():
+    """flash_partial (K1 at global offsets, f32 out) and flash_grads (K2/K3
+    at global offsets given the global lse and delta, f32 grads) against
+    their plain versions, on the diagonal, a past and a future shard of a
+    3-shard sequence, with and without separate query and key document ids;
+    f32 within atol 1e-4; bf16 forward within MMA_ATOL plus one p-rounding
+    flip of the f32-output emulation of its rounding and its lse within
+    MMA_LSE_ATOL, bf16 grads within one
+    bf16 ulp + GRAD_ATOL of the largest |grad| (the training bars), each bf16
+    bar rejecting a plain version one key off in kv_offset and (past shard,
+    ids) one that reads the query ids as key ids; a future shard writes
+    o = 0, lse = -1e30 and zero grads exactly. Rows that see no key of their
+    own document in a shard (lse near -1e10) carry weight exp(lse - m) = 0
+    in the ring's merge: their lse must be masked in both, their o is not
+    compared (its value, a mean over keys whose scores round to the same
+    multiple of 1024 near -1e10, is not part of the function)."""
+    import torch.nn.functional as F
+
+    from zero_transformer_tpu_torch.ops import flash
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = {}
+    for label, B, t, Hq, KVH, Dq, dtype, docs in SP_CASES:
+        g = torch.Generator(device="cuda").manual_seed(len(label) + 500)
+        T = 3 * t
+        q, k, v, do = (torch.randn(B, T, h, Dq, generator=g, device="cuda").to(dtype)
+                       for h in (Hq, KVH, KVH, Hq))
+        ids = sp_doc_ids(B, T) if docs else None
+        scale = 1.0 / Dq**0.5
+        # the global out and lse of the whole sequence, as the ring hands them to flash_grads
+        o_all, lse_all = flash._launch_fwd(q, k, v, causal=True, alibi=True, q_offset=0, segment_ids=None,
+                                           scale=scale, want_lse=True, counter=flash.TRAIN_KERNEL, doc_ids=ids)
+
+        def cut(x, i, dim=1):
+            return None if x is None else x.narrow(dim, i * t, t).contiguous()
+
+        for pair, (qi, ki) in SP_PAIRS.items():
+            qs, ks, vs, dos = cut(q, qi), cut(k, ki), cut(v, ki), cut(do, qi)
+            q_ids, k_ids = cut(ids, qi), cut(ids, ki)
+            at = dict(causal=True, alibi=True, softmax_scale=scale, q_offset=qi * t, kv_offset=ki * t)
+            o_k, lse_k = flash.flash_partial(qs, ks, vs, **at, q_ids=q_ids, k_ids=k_ids)
+            ref_o, ref_lse = flash.flash_partial_reference(qs, ks, vs, **at, q_ids=q_ids, k_ids=k_ids)
+            torch.cuda.synchronize()
+            if o_k.dtype != torch.float32 or lse_k.dtype != torch.float32:
+                raise AssertionError(f"sp {label} {pair}: flash_partial wrote {o_k.dtype}/{lse_k.dtype}")
+            live = ref_lse > MASKED_LSE  # [B, H, t]
+            if not torch.equal(lse_k > MASKED_LSE, live):
+                raise AssertionError(f"sp {label} {pair}: the kernel masks other rows than the plain version")
+            live_o = live.transpose(1, 2)[..., None].expand_as(o_k)
+            line = {"kernel": "flash_partial", "case": label, "pair": pair, "dtype": str(dtype),
+                    "shape": [B, t, Hq, KVH, Dq], "live_row_share": float(live.float().mean())}
+            line["fwd_max_err"] = compare(o_k[live_o], ref_o[live_o], torch.float32 if dtype == torch.float32
+                                          else dtype, f"sp fwd {label} {pair}")
+            compare(lse_k[live], ref_lse[live], torch.float32 if dtype == torch.float32 else dtype,
+                    f"sp lse {label} {pair}")
+            if pair == "future" and not (bool((o_k == 0).all()) and bool((lse_k == flash.INIT_M).all())):
+                raise AssertionError(f"sp {label}: a future shard must write o = 0 and lse = -1e30")
+            if dtype == torch.bfloat16:
+                emu, emu_lse, flip = flash_mma_emulation(qs, ks, vs, qi * t, torch.ones(B, t, device="cuda"),
+                                                         q_ids, with_flip=True, kv_offsets=ki * t,
+                                                         k_docs=k_ids, round_out=False)
+
+                def over(e):
+                    return float(((o_k - e).abs() / (MMA_ATOL + flip))[live_o].max()) if bool(live.any()) else 0.0
+
+                miss, lse_err = over(emu), float((lse_k - emu_lse)[live].abs().max()) if bool(live.any()) else 0.0
+                if miss > 1.0 or lse_err > MMA_LSE_ATOL:
+                    raise AssertionError(f"sp {label} {pair}: {miss} of the emulation bar, lse {lse_err}")
+                line["mma"] = {"max_err_over_bar": miss, "lse_max_abs_err": lse_err}
+                controls = {}
+                if pair != "future":
+                    controls["kv_offset_plus_1"] = dict(kv_offsets=ki * t + 1, k_docs=k_ids)
+                if pair == "past" and docs:
+                    controls["q_ids_as_k_ids"] = dict(kv_offsets=ki * t, k_docs=q_ids)
+                for what, kw in controls.items():
+                    # a past shard's keys all lie behind its queries: one key
+                    # off moves every ALiBi bias of a row alike, so o cannot
+                    # tell, but the lse the ring merges by does
+                    c_o, c_lse = flash_mma_emulation(qs, ks, vs, qi * t, torch.ones(B, t, device="cuda"), q_ids,
+                                                     round_out=False, **kw)
+                    c_miss, c_lse_err = over(c_o), float((lse_k - c_lse)[live].abs().max())
+                    if c_miss <= 1.0 and c_lse_err <= MMA_LSE_ATOL:
+                        raise AssertionError(f"sp {label} {pair}: the {what} control passes the bars "
+                                             f"({c_miss}, lse {c_lse_err})")
+                    line["mma"][what] = {"max_err_over_bar": c_miss, "lse_max_abs_err": c_lse_err}
+                del emu, flip
+
+            # backward against the global o and lse, delta from the caller
+            o_g, lse_g = cut(o_all, qi), cut(lse_all, qi, dim=2)
+            delta = (dos.float() * o_g.float()).sum(-1).transpose(1, 2).contiguous()
+            got = flash.flash_grads(qs, ks, vs, o_g, lse_g, dos, **at, delta=delta, q_ids=q_ids, k_ids=k_ids)
+            f32_in = [x.float() for x in (qs, ks, vs, o_g)] + [lse_g, dos.float()]
+            ref = flash.flash_grads_reference(*f32_in, **at, delta=delta, q_ids=q_ids, k_ids=k_ids)
+            torch.cuda.synchronize()
+            if any(x.dtype != torch.float32 for x in got):
+                raise AssertionError(f"sp {label} {pair}: flash_grads wrote {[x.dtype for x in got]}")
+            if pair == "future" and any(bool(x.any()) for x in got):
+                raise AssertionError(f"sp {label}: a future shard's grads must be exactly 0")
+            if dtype == torch.float32:
+                errs = [compare(a, b, dtype, f"sp {n} {label} {pair}") for n, a, b in zip(("dq", "dk", "dv"), got, ref)]
+            else:
+                misses = [grad_miss(a, b) for a, b in zip(got, ref)]
+                if max(misses) > 1.0:
+                    raise AssertionError(f"sp {label} {pair}: bf16 dq/dk/dv at {misses} of their bars")
+                line["bf16_grads_over_bar"] = misses
+                errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+                controls = {}
+                if pair != "future":
+                    controls["kv_offset_plus_1"] = dict(at, kv_offset=ki * t + 1, q_ids=q_ids, k_ids=k_ids)
+                if pair == "past" and docs:
+                    controls["q_ids_as_k_ids"] = dict(at, q_ids=q_ids, k_ids=q_ids)
+                for what, kw in controls.items():
+                    off = flash.flash_grads_reference(*f32_in, **kw, delta=delta)
+                    c_miss = [grad_miss(a, b) for a, b in zip(got, off)]
+                    if max(c_miss) <= 1.0:
+                        raise AssertionError(f"sp {label} {pair}: the {what} control passes the bars ({c_miss})")
+                    line[f"grads_{what}_over_bar"] = c_miss
+                    del off
+            line.update(dq_max_err=errs[0], dk_max_err=errs[1], dv_max_err=errs[2])
+            log(line)
+            del ref
+            if not (label in ("main", "main_docs") and pair == "past"):
+                continue
+            suffix = flash.DOCS if docs else ""
+            kern = {
+                "flash_partial_fwd": lambda: flash.flash_partial(qs, ks, vs, **at, q_ids=q_ids, k_ids=k_ids),
+                "flash_partial_dq": lambda: flash.launch_dq(
+                    qs, ks, vs, dos, lse_g, delta, causal=True, alibi=True, scale=scale, q_offset=qi * t,
+                    kv_offset=ki * t, q_ids=q_ids, k_ids=k_ids, out_dtype=torch.float32, counter="flash_partial_dq"),
+                "flash_partial_dkv": lambda: flash.launch_dkv(
+                    qs, ks, vs, dos, lse_g, delta, causal=True, alibi=True, scale=scale, q_offset=qi * t,
+                    kv_offset=ki * t, q_ids=q_ids, k_ids=k_ids, out_dtype=torch.float32, counter="flash_partial_dkv"),
+            }
+            kern_ms = {n: time_ms(fn, iters=10) for n, fn in kern.items()}
+            kern_dev = {n: device_ms(fn, iters=10) for n, fn in kern.items()}
+            plain_fwd = time_ms(lambda: flash.flash_partial_reference(qs, ks, vs, **at, q_ids=q_ids, k_ids=k_ids),
+                                iters=3)
+            # the plain backward computes dq, dk and dv together: one time for K2 and K3
+            plain_bwd = time_ms(lambda: flash.flash_grads_reference(qs, ks, vs, o_g, lse_g, dos, **at, delta=delta,
+                                                                    q_ids=q_ids, k_ids=k_ids), iters=3)
+            bias = sp_sdpa_bias(qi * t, ki * t, t, Hq, q_ids, k_ids, dtype)
+            qt, kt, vt = (x.transpose(1, 2).requires_grad_() for x in (qs, ks, vs))
+            lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
+            lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias), iters=10)
+            lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dos.transpose(1, 2),
+                                                          retain_graph=True), iters=10)
+            pairs = t * t if qi > ki else causal_pairs(t, True)
+            bounds = partial_bounds(B, t, Hq, KVH, Dq, dtype, pairs, 8 * B * t if docs else 0)
+            for name in kern:
+                err = line["fwd_max_err"] if name == "flash_partial_fwd" else (
+                    errs[0] if name == "flash_partial_dq" else max(errs[1:]))
+                bound, by = bounds[name]
+                rows[name + suffix] = dict(max_abs_err=err, ms=kern_ms[name], device_ms=kern_dev[name],
+                                           plain_ms=plain_fwd if name == "flash_partial_fwd" else plain_bwd,
+                                           library_ms=lib_fwd if name == "flash_partial_fwd" else lib_bwd,
+                                           bound_ms=bound, bound_by=by)
+                log({"kernel": name + suffix, "shape": [B, t, Hq, KVH, Dq], "pair": pair, **rows[name + suffix]})
+            del lib_out, qt, kt, vt, bias
+        del q, k, v, do, o_all, lse_all
+        torch.cuda.empty_cache()
+    return rows
+
+
+# -------------------------------------------------------- sequence parallel
+
+SP_RANKS, SP_SEQ, SP_MODEL, SP_LR = 4, 8192, "580m", 1e-4
+SP_SEPARATORS = (1000, 2047, 2048, 3000, 6100, 8191)  # packed case: across and on shard edges
+SP_STEP_CASES = {"plain": {}, "packed": {"doc_sep_token": 0}}  # 580m overrides
+
+
+def sp_layer_inputs(docs: bool):
+    """580m's attention at T 8192 (one row, 12 heads of 128, bf16), made on
+    the CPU from seed 21 so every rank and the one-card run see the same
+    tensors: q, k, v, the output grad g, and document ids (or None)."""
+    g = torch.Generator().manual_seed(21)
+    q, k, v, do = (torch.randn(1, SP_SEQ, 12, 128, generator=g).bfloat16() for _ in range(4))
+    return q, k, v, do, (sp_doc_ids(1, SP_SEQ).cpu() if docs else None)
+
+
+def sp_batch(packed: bool) -> torch.Tensor:
+    """One micro-batch [1, 1, T 8192] of token ids from seed 23 (the packed
+    case with separators across and on the shard edges)."""
+    tokens = torch.randint(1, 50304, (1, 1, SP_SEQ), generator=torch.Generator().manual_seed(23), dtype=torch.int32)
+    if packed:
+        tokens[..., list(SP_SEPARATORS)] = 0
+    return tokens
+
+
+def sp_model(overrides: dict, device):
+    from zero_transformer_tpu_torch.models import model_getter
+
+    return model_getter(SP_MODEL, dtype=torch.bfloat16, device=device, seed=SEED, trainable=True, dropout=0.0,
+                        remat=True, **overrides)
+
+
+def param_checksum(model) -> int:
+    """The sum of every float32 param's bits read as int32: equal only if
+    the params are (up to a collision) bit-equal."""
+    return sum(int(p.detach().view(torch.int32).sum(dtype=torch.int64)) for p in model.parameters())
+
+
+def _sp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str) -> None:
+    """One rank of the sequence-parallel phase: the op-level ring at 580m's
+    layer shape, then one ring train step of 580m per case (launch counts,
+    grad cosines against the one-card grads on rank 0, the param checksum,
+    peak memory), and a second step under the profiler on rank 0."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zero_transformer_tpu_torch.config import OptimizerConfig
+    from zero_transformer_tpu_torch.ops import _build
+    from zero_transformer_tpu_torch.ops.ring_attention import ring_attention
+    from zero_transformer_tpu_torch.parallel.mesh import destroy, init_distributed
+    from zero_transformer_tpu_torch.parallel.zero import TrainState, make_train_step
+    from zero_transformer_tpu_torch.training.optimizer import make_optimizer, make_schedule
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = Path(out_dir)
+    group = init_distributed(world, backend, "cuda", rank=rank, world_size=world,
+                             init_method=f"file://{init_file}", local_rank=rank)
+    dev = group.device
+    result = {"rank": rank, **group.describe()}
+    t = SP_SEQ // world
+    sl = slice(rank * t, (rank + 1) * t)
+    for docs in (False, True):
+        q, k, v, do, ids = sp_layer_inputs(docs)
+        qs, ks, vs = (x[:, sl].to(dev).requires_grad_() for x in (q, k, v))
+        o = ring_attention(qs, ks, vs, group, causal=True, alibi=True,
+                           doc_ids=None if ids is None else ids[:, sl].to(dev))
+        grads = torch.autograd.grad(o, (qs, ks, vs), do[:, sl].to(dev))
+        torch.save([x.detach().cpu() for x in (o, *grads)], out / f"op_{int(docs)}_{rank}.pt")
+        del q, k, v, do, qs, ks, vs, o, grads
+    for case, overrides in SP_STEP_CASES.items():
+        model = sp_model(overrides, dev).set_sequence_group(group)
+        init_checksum = param_checksum(model)
+        opt_cfg = OptimizerConfig(schedule="constant", peak_learning_rate=SP_LR)
+        schedule = make_schedule(opt_cfg)
+        st = TrainState(step=0, model=model, optimizer=make_optimizer(model, opt_cfg, schedule))
+        captured, adamw_step = {}, st.optimizer.step
+
+        def capture(grads, _step=adamw_step):  # the grads the step hands to AdamW
+            captured["grads"] = grads
+            return _step(grads)
+
+        st.optimizer.step = capture
+        step = make_train_step(1, schedule, seq_group=group)
+        batch = sp_batch(case == "packed").to(dev)
+        torch.cuda.synchronize(dev)
+        group.barrier()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        metrics = step(st, batch)
+        torch.cuda.synchronize(dev)
+        step_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        line = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]), "step_s": step_s,
+                "launches": {n: c for n, c in launches.items() if c}, "init_checksum": init_checksum,
+                "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+        if rank == 0:
+            ref = torch.load(out / f"ref_{case}.pt", mmap=True, weights_only=True)
+            names = [n for n, _ in model.named_parameters()]
+            cos = {n: float(torch.nn.functional.cosine_similarity(
+                g.flatten().double(), ref["grads"][n].to(dev).flatten().double(), dim=0))
+                for n, g in zip(names, captured["grads"])}
+            line.update(grad_cos_min=min(cos.values()), grad_cos_min_tensor=min(cos, key=cos.get),
+                        grad_cos_below_bar={n: c for n, c in cos.items() if c < COS_BAR}, ref_loss=ref["loss"])
+            del ref
+        captured.clear()
+        line["checksum_after_update"] = param_checksum(model)
+        # a second step, under the profiler on rank 0: where the ring step's time goes
+        group.barrier()
+        if rank == 0:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step(st, batch)
+                torch.cuda.synchronize(dev)
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            spans = {ev.key: ev.cpu_time_total / 1e3 for ev in prof.key_averages()
+                     if ev.key.startswith("sequence_group.") and str(ev.device_type).endswith("CPU")}
+            kernels = kernel_times(prof)
+            busy = sum(ms for ms, _ in kernels.values())
+            flash_ms = sum(ms for name, (ms, _) in kernels.items() if "flash" in name)
+            line["profile"] = {
+                "wall_ms": wall_ms, "device_busy_ms": busy, "device_busy_share": busy / wall_ms,
+                "flash_kernels_ms": flash_ms, "all_reduce_ms": spans.get("sequence_group.all_reduce", 0.0),
+                "all_reduce_share": spans.get("sequence_group.all_reduce", 0.0) / wall_ms,
+                "rotate_ms": spans.get("sequence_group.rotate", 0.0),
+                "rotate_share": spans.get("sequence_group.rotate", 0.0) / wall_ms,
+                "top_kernels_ms": top_kernels(kernels, 10, 1, 60)}
+        else:
+            step(st, batch)
+            torch.cuda.synchronize(dev)
+        result[case] = line
+        del st, model, step, batch, metrics, capture, adamw_step
+        gc.collect()  # the AdamW step wrapper made a cycle through the optimizer
+        torch.cuda.empty_cache()
+    (out / f"rank{rank}.json").write_text(json.dumps(result))
+    group.barrier()
+    destroy(group)
+
+
+def sequence_parallel_phase() -> dict:
+    """580m at T 8192 over 4 ranks: NCCL with a card per rank when the
+    machine has 4, else 4 ranks sharing card 0 over gloo (each rank's
+    kernels run on the card; the transfers stage through pinned host
+    memory). Before the ranks start, the one-card reference: one 580m step's
+    loss and grads (remat, the same seeded weights and batch) per case,
+    saved for rank 0. Then the ranks run the ring at the layer shape and
+    the ring train step (``_sp_rank``). Fails unless: the ring's output is
+    within the bf16 bar (atol/rtol 2e-2) of the one-card ``flash_attention``
+    on the gathered tensors and its grads within K2/K3's bar (one bf16 ulp +
+    GRAD_ATOL of the largest |grad|), with and without document ids; the
+    ring step's loss is within LOSS_MARGIN of the one-card loss, every
+    grad's cosine at least COS_BAR; the seeded weights and the params after
+    the update are bit-equal across the ranks (checksums); the launches per
+    rank per micro-step are exact: flash_partial_fwd = L x n x 2 (the
+    forward, and its recompute under remat), flash_partial_dq =
+    flash_partial_dkv = L x n, for L layers and n ranks (the ``_docs``
+    counters in the packed case). Then the trainer CLI under
+    ``torch.distributed.run`` for 3 steps of configs/train_580m_8k.yaml."""
+    import os
+
+    import torch.multiprocessing as mp
+
+    from zero_transformer_tpu_torch.config import model_config
+    from zero_transformer_tpu_torch.ops import flash
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= SP_RANKS else "gloo"
+    topology = {"ranks": SP_RANKS, "cards": min(cards, SP_RANKS), "backend": backend,
+                "transfers": "NCCL, card to card" if backend == "nccl" else "gloo through pinned host memory"}
+    log({"sequence_parallel_topology": topology})
+    out = Path("build") / "sp"
+    out.mkdir(parents=True, exist_ok=True)
+    L = model_config(SP_MODEL).n_layers
+
+    # the one-card reference, before the ranks take the card's memory
+    ref_loss = {}
+    for case, overrides in SP_STEP_CASES.items():
+        model = sp_model(overrides, "cuda")
+        init_checksum = param_checksum(model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(model, sp_batch(case == "packed")[0].cuda())
+        torch.cuda.synchronize()
+        ref_loss[case] = (loss, init_checksum, time.perf_counter() - t0)
+        torch.save({"loss": loss, "grads": {n: g.cpu() for n, g in grads.items()}}, out / f"ref_{case}.pt")
+        del model, grads
+        torch.cuda.empty_cache()
+    log({"sequence_parallel_one_card_reference": {c: {"loss": l, "step_s": s} for c, (l, _, s) in ref_loss.items()}})
+
+    init_file = out / "rendezvous"
+    if init_file.exists():
+        init_file.unlink()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_sp_rank, args=(SP_RANKS, backend, str(init_file.resolve()), str(out)),
+                             nprocs=SP_RANKS, join=False, start_method="spawn")
+    end = time.monotonic() + 900
+    try:
+        while not ctx.join(timeout=max(end - time.monotonic(), 0.0)):  # one rank at a time
+            if time.monotonic() >= end:
+                raise AssertionError("the sequence-parallel ranks did not finish within 900 s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    ranks_s = time.perf_counter() - t0
+    results = [json.loads((out / f"rank{r}.json").read_text()) for r in range(SP_RANKS)]
+
+    # the op-level ring against the one-card flash_attention on the gathered tensors
+    op = {}
+    for docs in (False, True):
+        q, k, v, do, ids = sp_layer_inputs(docs)
+        q, k, v = (x.cuda().requires_grad_() for x in (q, k, v))
+        one = flash.flash_attention(q, k, v, causal=True, alibi=True, doc_ids=None if ids is None else ids.cuda())
+        one_grads = torch.autograd.grad(one, (q, k, v), do.cuda())
+        shards = [torch.load(out / f"op_{int(docs)}_{r}.pt") for r in range(SP_RANKS)]
+        ring = [torch.cat([s[i] for s in shards], dim=1).cuda() for i in range(4)]
+        line = {"out_max_err": compare(ring[0], one.detach(), torch.bfloat16, f"ring out docs={docs}")}
+        misses = [grad_miss(a, b.float()) for a, b in zip(ring[1:], one_grads)]
+        if max(misses) > 1.0:
+            raise AssertionError(f"ring grads docs={docs}: {misses} of K2/K3's bars against the one-card grads")
+        line["grads_over_bar"] = misses
+        line["grads_max_err"] = [float((a.float() - b.float()).abs().max()) for a, b in zip(ring[1:], one_grads)]
+        op["docs" if docs else "no_docs"] = line
+        del q, k, v, one, one_grads, ring, shards
+    torch.cuda.empty_cache()
+    log({"sequence_parallel_op": op})
+
+    launches = {}
+    for case in SP_STEP_CASES:
+        lines = [r[case] for r in results]
+        loss_ref, ref_init, _ = ref_loss[case]
+        first = lines[0]
+        summary = {"loss_ring": first["loss"], "loss_one_card": loss_ref, "loss_margin": LOSS_MARGIN,
+                   "grad_cos_min": first["grad_cos_min"], "grad_cos_min_tensor": first["grad_cos_min_tensor"],
+                   "step_s_per_rank": [x["step_s"] for x in lines],
+                   "peak_memory_gib_per_rank": [x["peak_memory_gib"] for x in lines],
+                   "checksums_after_update": [x["checksum_after_update"] for x in lines],
+                   "launches_rank0": first["launches"], "profile_rank0": first["profile"]}
+        log({f"sequence_parallel_step_{case}": summary})
+        if not abs(first["loss"] - loss_ref) <= LOSS_MARGIN:
+            raise AssertionError(f"{case}: ring loss {first['loss']} vs one-card {loss_ref}")
+        if first["grad_cos_below_bar"]:
+            raise AssertionError(f"{case}: grad cosines below {COS_BAR}: {first['grad_cos_below_bar']}")
+        if any(x["init_checksum"] != ref_init for x in lines):
+            raise AssertionError(f"{case}: the ranks' seeded weights differ from the one-card model's")
+        if len({x["checksum_after_update"] for x in lines}) != 1:
+            raise AssertionError(f"{case}: params differ across the ranks after the update")
+        sfx = flash.DOCS if case == "packed" else ""
+        want = {"flash_partial_fwd" + sfx: L * SP_RANKS * 2, "flash_partial_dq" + sfx: L * SP_RANKS,
+                "flash_partial_dkv" + sfx: L * SP_RANKS}
+        for x in lines:
+            if x["launches"] != want:
+                raise AssertionError(f"{case} rank launches {x['launches']}, want exactly {want}")
+        launches.update(first["launches"])
+
+    # the trainer CLI under torch.distributed.run
+    run_dir = Path("chiprun_out") / "train_580m_8k_sp"
+    if (run_dir / "metrics.jsonl").exists():
+        (run_dir / "metrics.jsonl").unlink()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(SP_RANKS),
+           "-m", "zero_transformer_tpu_torch.train", "--cfg", "configs/train_580m_8k.yaml", "--dist-backend",
+           backend, "--max-steps", "3", "--set", f"mesh.sequence={SP_RANKS}", "model.dropout=0.0",
+           "training.gradient_accumulation_steps=1", "training.log_frequency=1", f"checkpoint.directory={run_dir}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                          env={**os.environ, "OMP_NUM_THREADS": "2"})
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"trainer CLI exit {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    train = [r for r in records if "loss" in r]
+    if len(train) != 3 or not all(math.isfinite(r["loss"]) for r in train):
+        raise AssertionError(f"trainer CLI metrics incomplete or non-finite: {records}")
+    last = train[-1]
+    topo = next((json.loads(line)["distributed"] for line in proc.stdout.splitlines()
+                 if line.startswith('{"distributed"')), None)
+    log({"sequence_parallel_trainer_cli": {
+        "wall_s": wall, "ranks_phase_s": ranks_s, "topology": topo, "losses": [r["loss"] for r in train],
+        "step_time_ms": last["step_time_ms"], "tokens_per_sec": last["tokens_per_sec"],
+        "model_flops_share": last.get("model_flops_share"),
+        "model_flops_formula": f"tokens/s * 3 * (2 * N + 4 * L * d * T) / (989e12 * cards), "
+                               f"N = {model_config(SP_MODEL).num_params}, L = {L}, d = 1536, T = {SP_SEQ}",
+    }})
+    if topo is None or topo["backend"] != backend or last.get("model_flops_share") is None:
+        raise AssertionError(f"the trainer CLI printed no topology or no model-FLOPs share: {topo}, {last}")
+    for f in out.glob("*.pt"):
+        f.unlink()
+    return launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1897,7 +2448,7 @@ def card_line() -> str:
 
 
 PHASES = ("kernels", "serving", "parity", "profile", "int8_kernels", "int8_serving", "train_kernels", "training",
-          "packed_kernels", "packed")
+          "packed_kernels", "packed", "sp_kernels", "sequence_parallel")
 SOURCES = {
     "flash_serving_fwd": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
                           "zero_transformer_tpu/ops/pallas/flash.py:127"),
@@ -1919,6 +2470,20 @@ SOURCES = {
                       "zero_transformer_tpu/ops/pallas/flash.py:176"),
     "flash_dkv_docs": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
                        "zero_transformer_tpu/ops/pallas/flash.py:214"),
+    # the same kernels at global offsets with f32 outputs: flash_partial
+    # (flash.py:551) and flash_grads (:577), with and without document ids
+    "flash_partial_fwd": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
+                          "zero_transformer_tpu/ops/pallas/flash.py:127"),
+    "flash_partial_dq": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
+                         "zero_transformer_tpu/ops/pallas/flash.py:176"),
+    "flash_partial_dkv": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
+                          "zero_transformer_tpu/ops/pallas/flash.py:214"),
+    "flash_partial_fwd_docs": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
+                               "zero_transformer_tpu/ops/pallas/flash.py:127"),
+    "flash_partial_dq_docs": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
+                              "zero_transformer_tpu/ops/pallas/flash.py:176"),
+    "flash_partial_dkv_docs": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
+                               "zero_transformer_tpu/ops/pallas/flash.py:214"),
 }
 
 
@@ -1978,6 +2543,10 @@ def main(argv) -> int:
         packed_launches = packed_phase()
         launches.update({k: packed_launches[k] for k in ("flash_train_fwd_docs", "flash_dq_docs",
                                                          "flash_dkv_docs")})
+    if "sp_kernels" in phases:
+        rows.update(sp_kernel_phase())
+    if "sequence_parallel" in phases:
+        launches.update(sequence_parallel_phase())
     table = [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu, "launches": launches[name],
          **rows[name]}

@@ -52,6 +52,7 @@ def test_scan_sees_the_whole_package():
             "data/sources.py", "data/loader.py", "data/__init__.py", "train.py"} <= names
     assert {"data/tarshards.py", "data/prepare.py", "evalharness/__init__.py", "evalharness/__main__.py",
             "evalharness/scoring.py", "evalharness/tasks.py", "evalharness/cli.py", "models/quant.py"} <= names
+    assert {"ops/ring_attention.py", "parallel/mesh.py"} <= names
     for source in ("flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh", "paged_attention.cu"):
         assert (PACKAGE / "csrc" / source).exists(), source
 

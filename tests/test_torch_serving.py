@@ -104,7 +104,10 @@ def test_engine_streams_match_jax(setup):
                                        "paged_attention_int8": 0,
                                        "flash_train_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
                                        "flash_train_fwd_docs": 0, "flash_dq_docs": 0,
-                                       "flash_dkv_docs": 0}
+                                       "flash_dkv_docs": 0, "flash_partial_fwd": 0,
+                                       "flash_partial_dq": 0, "flash_partial_dkv": 0,
+                                       "flash_partial_fwd_docs": 0, "flash_partial_dq_docs": 0,
+                                       "flash_partial_dkv_docs": 0}
 
 
 @pytest.mark.parametrize("kv,weights", [("int8", "none"), ("auto", "int8"), ("int8", "int8")],

@@ -224,8 +224,9 @@ def test_load_config_matches_jax(path):
     try:
         port = tconfig.load_config(path)
     except NotImplementedError:
-        # a model feature this slice does not port (remat, loss_chunk)
-        assert ref.model.remat or ref.model.loss_chunk
+        # a model feature the port does not have yet (loss_chunk); remat with
+        # policy "none" loads (configs/train_580m_8k.yaml)
+        assert ref.model.loss_chunk
         return
     for section in dataclasses.fields(port):
         p_sec, r_sec = getattr(port, section.name), getattr(ref, section.name)
@@ -247,6 +248,20 @@ def test_dotted_overrides_match_jax():
         tconfig.apply_dotted_overrides(port, {"training.profile_steps": 3})
 
 
+def test_sequence_parallel_overrides_match_jax():
+    """The ring's command line: configs/train_580m_8k.yaml with
+    ``mesh.sequence=4 model.dropout=0.0`` loads field-equal in both."""
+    path = str(ROOT / "configs" / "train_580m_8k.yaml")
+    over = {"mesh.sequence": 4, "model.dropout": 0.0}
+    ref = jconfig.apply_dotted_overrides(jconfig.load_config(path), over)
+    port = tconfig.apply_dotted_overrides(tconfig.load_config(path), over)
+    assert port.mesh.sequence == 4 and port.model.remat and port.model.cp_impl == "ring"
+    for section in ("model", "mesh", "training", "data", "optimizer"):
+        p_sec, r_sec = getattr(port, section), getattr(ref, section)
+        for f in dataclasses.fields(p_sec):
+            assert getattr(p_sec, f.name) == getattr(r_sec, f.name), f"{section}.{f.name}"
+
+
 @pytest.mark.parametrize("text", [
     "model:\n  size: [1, 2]\n", "a:\n  b:\n    c: 1\n", "- item\n", "model:\n\tsize: test\n",
     "x: &anchor 3\n", "x: 010\n", "x: 0x1f\n", "a: 'it''s'\n",
@@ -266,9 +281,17 @@ def test_yaml_subset_scalars_match_pyyaml():
 def test_unported_training_features_raise():
     from zero_transformer_tpu_torch.training.trainer import build_training
 
-    for field in (dict(remat=True), dict(loss_chunk=256)):
+    for field in (dict(remat=True, remat_policy="dots"), dict(remat=True, remat_policy="qkv_mlp"),
+                  dict(loss_chunk=256), dict(cp_impl="ulysses")):
         with pytest.raises(NotImplementedError):
             tconfig.model_config("test", **field)
+    for field in (dict(remat_policy="all"), dict(cp_impl="tree")):
+        with pytest.raises(ValueError):
+            tconfig.model_config("test", **field)
+    # remat (policy "none") and the ring engine are ported
+    assert tconfig.model_config("test", remat=True).remat
+    with pytest.raises(ValueError, match="sequence"):
+        tconfig.MeshConfig(sequence=0)
     # packed documents are ported: the separator is validated, not refused
     assert tconfig.model_config("test", doc_sep_token=0).doc_sep_token == 0
     with pytest.raises(NotImplementedError, match="dropout"):

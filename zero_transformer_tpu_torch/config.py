@@ -1,7 +1,7 @@
 """Typed configuration for the PyTorch/CUDA port.
 
 Counterpart of ``zero_transformer_tpu/config.py``: ``ModelConfig`` (:32-160),
-the training sections ``MeshConfig`` (its ``data`` and ``zero_stage``
+the training sections ``MeshConfig`` (its ``data``, ``sequence`` and ``zero_stage``
 fields), ``OptimizerConfig``, ``TrainingConfig``, ``DataConfig``,
 ``ResilienceConfig`` and ``CheckpointConfig`` (:290-480, with JAX's
 defaults), ``Config``, ``ServingConfig`` (:489-620), ``model_config``
@@ -71,8 +71,14 @@ class ModelConfig:
     # the JAX param layout only: the converter reads both, the port's
     # modules are the same either way
     scan_layers: bool = True
+    # checkpoint each block (torch.utils.checkpoint, JAX's jax.checkpoint per
+    # block): its forward runs again in the backward. Policy "none" only
     remat: bool = False
+    remat_policy: str = "none"
     attention_impl: str = "auto"  # "auto" | "xla" (plain torch) | "flash"
+    # the context-parallel engine when mesh.sequence > 1: "ring" (K/V shards
+    # rotate around the ranks, ops/ring_attention.py); "ulysses" is not ported
+    cp_impl: str = "ring"
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     # decode KV pools: "auto" stores the compute dtype; "int8" stores
@@ -136,8 +142,20 @@ class ModelConfig:
             raise ValueError(f"invalid kv_cache_dtype {self.kv_cache_dtype!r}")
         if self.param_quant not in ("none", "int8"):
             raise ValueError(f"invalid param_quant {self.param_quant!r}")
-        if self.remat:
-            raise NotImplementedError("remat is not ported yet")
+        if self.remat_policy not in ("none", "dots", "qkv_mlp"):
+            raise ValueError(f"invalid remat_policy {self.remat_policy!r}")
+        if self.remat and self.remat_policy != "none":
+            raise NotImplementedError(
+                f"remat_policy {self.remat_policy!r} is not ported yet: remat saves nothing "
+                "inside a block (policy 'none')"
+            )
+        if self.cp_impl not in ("ring", "ulysses"):
+            raise ValueError(f"invalid cp_impl {self.cp_impl!r}")
+        if self.cp_impl == "ulysses":
+            raise NotImplementedError(
+                "cp_impl 'ulysses' is not ported yet (ROADMAP Queue 1 item 13); "
+                "sequence parallelism runs the ring engine (cp_impl: ring)"
+            )
         if self.loss_chunk is not None:
             raise NotImplementedError("the chunked cross entropy (loss_chunk) is not ported yet")
         resolve_dtype(self.param_dtype)
@@ -200,15 +218,21 @@ def model_config(name: str, **overrides) -> ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """One card: ``data`` is -1 (all devices) or 1. Every ZeRO stage is the
-    same step on one device; ``zero_stage`` is kept and recorded."""
+    """``data`` is -1 (all devices) or 1: data parallelism across processes
+    is not ported. ``sequence`` > 1 splits every row over that many ranks
+    (one process each, ``torch.distributed``) and runs attention as a ring
+    (``ops/ring_attention.py``). Every ZeRO stage is the same step;
+    ``zero_stage`` is kept and recorded."""
 
     data: int = -1
+    sequence: int = 1
     zero_stage: int = 1
 
     def __post_init__(self):
         if self.data not in (-1, 1):
             raise NotImplementedError("data parallelism over several cards is not ported yet")
+        if self.sequence < 1:
+            raise ValueError(f"mesh.sequence must be >= 1, got {self.sequence}")
         if self.zero_stage not in (0, 1, 2, 3):
             raise ValueError(f"zero_stage must be 0-3, got {self.zero_stage}")
 

@@ -11,14 +11,24 @@
 //   K3: dv = sum_i p^T . do, dk = scale * sum_i ds^T . q
 // with every sum in f32, whatever the input dtype (bf16 or f32); the bf16
 // tensor-core path rounds p and ds to bf16 for its second products, as the
-// forward rounds p for o. Query and key offsets
-// are 0 (the training shape), and T need not be a multiple of the 64-row
-// tile: rows and keys past the end get p = 0. With [B, T] int32 document ids
-// (packed documents) the scores carry the forward's document mask, from the
-// same header: the query ids of a tile sit in registers or shared memory
-// beside lse/delta, the key ids beside the key tile; tiles that hold no pair
-// of one document are still visited (skipping them is sound only for
-// monotone ids).
+// forward rounds p for o. T need not be a multiple of the 64-row tile: rows
+// and keys past the end get p = 0. With int32 document ids (query ids
+// [B, T], key ids [B, S]; packed documents) the scores carry the forward's
+// document mask, from the same header: the query ids of a tile sit in
+// registers or shared memory beside lse/delta, the key ids beside the key
+// tile; tiles that hold no pair of one document are still visited
+// (skipping them is sound only for monotone ids).
+//
+// flash_grads (flash.py:577) reaches the same two kernel bodies for
+// sequence parallelism: the query shard at global q_off against a key shard
+// at kv_off (offs [2, B], as in the forward), separate query and key ids,
+// the GLOBAL lse and delta of the ring's merged softmax from the caller, the
+// caller's slope table, and f32 grads from bf16 inputs (the ring sums them
+// over its steps). Both causal tile skips are _run_predicate (:118) at
+// those offsets (flash_common.cuh): K2's key-tile limit and K3's first
+// query tile. A K3 CTA whose key tile no query tile sees (a future shard)
+// writes zeros. The training entry passes zero offsets and one id array
+// twice.
 //
 // The TPU kernels carry dq (and dk, dv) in VMEM scratch across a sequential
 // grid axis. Here one CTA owns one output tile and walks the other axis in a
@@ -28,11 +38,11 @@
 //   tiles up to the causal limit of its last row and writes dq once.
 // - K3: one CTA per (64-key tile, kv head, batch row); for GQA it loops over
 //   the G query heads of its kv head inside the CTA, and for each over the q
-//   tiles from the first that sees the key tile (q tile index >= key tile
-//   index) to the last, accumulating dk and dv for all G heads in one set of
-//   f32 registers. The group sum of flash.py:415-417 thus happens in f32,
-//   and dk/dv are written once, directly as [B, S, KVH, D] (no [B, S, H, D]
-//   intermediate, no sum in torch).
+//   tiles from the first that sees the key tile to the last, accumulating
+//   dk and dv for all G heads in one set of f32 registers. The group sum of
+//   flash.py:415-417 thus happens in f32, and dk/dv are written once,
+//   directly as [B, S, KVH, D] (no [B, S, H, D] intermediate, no sum in
+//   torch).
 //
 // What bounds it on an H100: at the training shape (B = 8, H = KVH = 12,
 // T = S = 1024, D = 64, bf16) K2 must move 5 x 12.6 MB (q, k, v, do in, dq
@@ -46,8 +56,10 @@
 //   each CTA loads a tile, then computes, with no loads in flight behind
 //   the products (cp.async double buffering, then wgmma + TMA, are the next
 //   steps), and K3 needs 238 registers a thread.
-// - f32, and bf16 at D = 128: plain FMA in f32 on the CUDA cores (like
-//   K1's f32 path), whose peak is 67 TFLOP/s. Tiles are staged in shared
+// - f32, and bf16 at D = 128 (580m's ring shape among them): plain FMA in
+//   f32 on the CUDA cores (like K1's f32 path), whose peak is 67 TFLOP/s:
+//   at that shape (a 2048-token shard, 12 heads of 128) a past shard's K3
+//   does 51.5 GFLOP, 0.77 ms at that peak. Tiles are staged in shared
 //   memory as f32 with rows padded by one word (conflict-free column
 //   walks); each of 256 threads owns a 4 x 4 block of the 64 x 64 score
 //   tile and a 4 x D/16 block of the output tile. In f32 this path computes
@@ -93,13 +105,14 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src, int
 
 // ------------------------------------------------------------------ K2: dq
 
-template <typename T, int D>
+template <typename T, typename OutT, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const T* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, const float* __restrict__ slopes,
-                const int* __restrict__ docs, T* __restrict__ dq, int Tq, int S, int H, int KVH,
-                float scale, int causal, int alibi) {
+                const int* __restrict__ offs, const int* __restrict__ qids,
+                const int* __restrict__ kids, OutT* __restrict__ dq, int Tq, int S, int H,
+                int KVH, float scale, int causal, int alibi) {
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;  // dq columns per thread
   extern __shared__ float smem[];
@@ -115,8 +128,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int kvh = h / (H / KVH);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int q0 = qt * BQ;
+  const int q_off = offs[b], kv_off = offs[gridDim.z + b];
   const float slope = alibi ? slopes[h] : 0.f;
-  const bool has_docs = docs != nullptr;
+  const bool has_docs = qids != nullptr;
   const size_t qbase = (size_t)b * Tq * H * D, kbase = (size_t)b * S * KVH * D;
 
   stage<T, D>(Qs, q + qbase, q0, Tq, H, h);
@@ -126,7 +140,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     const size_t r = ((size_t)b * H + h) * Tq + qi;
     lse_s[tid] = qi < Tq ? lse[r] : 0.f;
     delta_s[tid] = qi < Tq ? delta[r] : 0.f;
-    qdoc_s[tid] = has_docs && qi < Tq ? docs[(size_t)b * Tq + qi] : 0;
+    qdoc_s[tid] = has_docs && qi < Tq ? qids[(size_t)b * Tq + qi] : 0;
   }
 
   float acc[4][DC];
@@ -136,14 +150,14 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
 
   int n_tiles = (S + BK - 1) / BK;
-  if (causal) n_tiles = min(n_tiles, (min(q0 + BQ, Tq) - 1) / BK + 1);
+  if (causal) n_tiles = flash::causal_key_tiles(n_tiles, q_off + min(q0 + BQ, Tq) - 1, kv_off, BK);
 
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * BK;
     __syncthreads();  // the previous tile is fully consumed
     stage<T, D>(Ks, k + kbase, k0, S, KVH, kvh);
     stage<T, D>(Vs, v + kbase, k0, S, KVH, kvh);
-    if (tid < BK) kdoc_s[tid] = has_docs && k0 + tid < S ? docs[(size_t)b * S + k0 + tid] : 0;
+    if (tid < BK) kdoc_s[tid] = has_docs && k0 + tid < S ? kids[(size_t)b * S + k0 + tid] : 0;
     __syncthreads();
 
     // s = q . k^T and dp = do . v^T for rows ty + 16 r, keys tx + 16 c
@@ -181,8 +195,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
         const int jj = tx + 16 * c, kp = k0 + jj;
         float p = 0.f;
         if (qi < Tq && kp < S)
-          p = expf(flash::biased_score(s[r][c], scale, qi - kp, slope, causal, alibi, has_docs,
-                                       qdoc_s[i], kdoc_s[jj]) -
+          p = expf(flash::biased_score(s[r][c], scale, (q_off + qi) - (kv_off + kp), slope, causal,
+                                       alibi, has_docs, qdoc_s[i], kdoc_s[jj]) -
                    lse_s[i]);
         dSs[i * LDP + jj] = p * (dp[r][c] - delta_s[i]);
       }
@@ -208,22 +222,23 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   for (int r = 0; r < 4; ++r) {
     const int qi = q0 + ty + 16 * r;
     if (qi < Tq) {
-      T* out = dq + qbase + ((size_t)qi * H + h) * D;
+      OutT* out = dq + qbase + ((size_t)qi * H + h) * D;
 #pragma unroll
-      for (int c = 0; c < DC; ++c) out[tx + 16 * c] = from_f32<T>(scale * acc[r][c]);
+      for (int c = 0; c < DC; ++c) out[tx + 16 * c] = from_f32<OutT>(scale * acc[r][c]);
     }
   }
 }
 
 // -------------------------------------------------------------- K3: dk, dv
 
-template <typename T, int D>
+template <typename T, typename OutT, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dout, const float* __restrict__ lse,
                  const float* __restrict__ delta, const float* __restrict__ slopes,
-                 const int* __restrict__ docs, T* __restrict__ dk, T* __restrict__ dv, int Tq,
-                 int S, int H, int KVH, float scale, int causal, int alibi) {
+                 const int* __restrict__ offs, const int* __restrict__ qids,
+                 const int* __restrict__ kids, OutT* __restrict__ dk, OutT* __restrict__ dv,
+                 int Tq, int S, int H, int KVH, float scale, int causal, int alibi) {
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;
   extern __shared__ float smem[];
@@ -240,12 +255,13 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int G = H / KVH;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int k0 = kt * BK;
-  const bool has_docs = docs != nullptr;
+  const int q_off = offs[b], kv_off = offs[gridDim.z + b];
+  const bool has_docs = qids != nullptr;
   const size_t qbase = (size_t)b * Tq * H * D, kbase = (size_t)b * S * KVH * D;
 
   stage<T, D>(Ks, k + kbase, k0, S, KVH, kvh);
   stage<T, D>(Vs, v + kbase, k0, S, KVH, kvh);
-  if (tid < BK) kdoc_s[tid] = has_docs && k0 + tid < S ? docs[(size_t)b * S + k0 + tid] : 0;
+  if (tid < BK) kdoc_s[tid] = has_docs && k0 + tid < S ? kids[(size_t)b * S + k0 + tid] : 0;
 
   // rows ty + 16 r of the key tile, dims tx + 16 c
   float dk_acc[4][DC], dv_acc[4][DC];
@@ -255,8 +271,9 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int c = 0; c < DC; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
 
   const int n_q = (Tq + BQ - 1) / BQ;
-  // with both offsets 0, q tile i reaches key tile kt only when i >= kt
-  const int i_first = causal ? min(k0 / BQ, n_q) : 0;
+  // the first q tile whose last row reaches key tile kt (i >= kt when both
+  // offsets are 0); none for a future shard, and the tile writes zeros
+  const int i_first = causal ? flash::first_query_tile(k0, q_off, kv_off, BQ, n_q) : 0;
 
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
@@ -271,7 +288,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         const size_t r = ((size_t)b * H + h) * Tq + qi;
         lse_s[tid] = qi < Tq ? lse[r] : 0.f;
         delta_s[tid] = qi < Tq ? delta[r] : 0.f;
-        qdoc_s[tid] = has_docs && qi < Tq ? docs[(size_t)b * Tq + qi] : 0;
+        qdoc_s[tid] = has_docs && qi < Tq ? qids[(size_t)b * Tq + qi] : 0;
       }
       __syncthreads();
 
@@ -310,8 +327,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
           const int ii = tx + 16 * c, qi = q0 + ii;
           float p = 0.f;
           if (qi < Tq && kp < S)
-            p = expf(flash::biased_score(s[r][c], scale, qi - kp, slope, causal, alibi, has_docs,
-                                         qdoc_s[ii], kdoc_s[jj]) -
+            p = expf(flash::biased_score(s[r][c], scale, (q_off + qi) - (kv_off + kp), slope,
+                                         causal, alibi, has_docs, qdoc_s[ii], kdoc_s[jj]) -
                      lse_s[ii]);
           Ps[jj * LDP + ii] = p;
           dSs[jj * LDP + ii] = p * (dp[r][c] - delta_s[ii]);
@@ -351,8 +368,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const size_t a = kbase + ((size_t)kp * KVH + kvh) * D;
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
-        dk[a + tx + 16 * c] = from_f32<T>(scale * dk_acc[r][c]);
-        dv[a + tx + 16 * c] = from_f32<T>(dv_acc[r][c]);
+        dk[a + tx + 16 * c] = from_f32<OutT>(scale * dk_acc[r][c]);
+        dv[a + tx + 16 * c] = from_f32<OutT>(dv_acc[r][c]);
       }
     }
   }
@@ -392,6 +409,14 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// two neighbouring grads, rounded to bf16 or kept in f32 (flash_grads)
+__device__ __forceinline__ void store2(bf16* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(lo, hi);
+}
+__device__ __forceinline__ void store2(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
 }
 
 // Stage rows [r0, r0 + 64) of head `head` of a [rows, heads, 64] bf16 slab:
@@ -459,12 +484,14 @@ __device__ __forceinline__ void mma_cols(float (&out)[MD / 8][4], const float (&
   }
 }
 
+template <typename OutT>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    const float* __restrict__ slopes, const int* __restrict__ docs,
-                    bf16* __restrict__ dq, int Tq, int S, int H, int KVH, float scale, int causal,
+                    const float* __restrict__ slopes, const int* __restrict__ offs,
+                    const int* __restrict__ qids, const int* __restrict__ kids,
+                    OutT* __restrict__ dq, int Tq, int S, int H, int KVH, float scale, int causal,
                     int alibi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LDM]
@@ -479,13 +506,14 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3, rw = warp * 16;
   const int q0 = qt * BQ;
+  const int q_off = offs[b], kv_off = offs[gridDim.z + b];
   const float slope = alibi ? slopes[h] : 0.f;
   const size_t qbase = (size_t)b * Tq * H * MD, kbase = (size_t)b * S * KVH * MD;
 
   stage_bf16(Qs, nullptr, q + qbase, q0, Tq, H, h);
   stage_bf16(dOs, nullptr, dout + qbase, q0, Tq, H, h);
   // rows g and g + 8 of the warp's 16, the accumulator fragment's mapping
-  const bool has_docs = docs != nullptr;
+  const bool has_docs = qids != nullptr;
   int qi_r[2], qdoc_r[2];
   float lse_r[2], delta_r[2];
 #pragma unroll
@@ -494,7 +522,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const size_t at = ((size_t)b * H + h) * Tq + qi_r[r];
     lse_r[r] = qi_r[r] < Tq ? lse[at] : 0.f;
     delta_r[r] = qi_r[r] < Tq ? delta[at] : 0.f;
-    qdoc_r[r] = has_docs && qi_r[r] < Tq ? docs[(size_t)b * Tq + qi_r[r]] : 0;
+    qdoc_r[r] = has_docs && qi_r[r] < Tq ? qids[(size_t)b * Tq + qi_r[r]] : 0;
   }
   __syncthreads();
   uint32_t qa[MD / 16][4], da[MD / 16][4];
@@ -508,7 +536,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
 
   int n_tiles = (S + BK - 1) / BK;
-  if (causal) n_tiles = min(n_tiles, (min(q0 + BQ, Tq) - 1) / BK + 1);
+  if (causal) n_tiles = flash::causal_key_tiles(n_tiles, q_off + min(q0 + BQ, Tq) - 1, kv_off, BK);
 
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * BK;
@@ -517,7 +545,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     stage_bf16(Vs, nullptr, v + kbase, k0, S, KVH, kvh);
     if (threadIdx.x < BK) {
       const int kp = k0 + (int)threadIdx.x;
-      kdoc_s[threadIdx.x] = has_docs && kp < S ? docs[(size_t)b * S + kp] : 0;
+      kdoc_s[threadIdx.x] = has_docs && kp < S ? kids[(size_t)b * S + kp] : 0;
     }
     __syncthreads();
     float s[8][4], ds[8][4];
@@ -530,8 +558,8 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int r = e >> 1, col = nb * 8 + t4 * 2 + (e & 1), kp = k0 + col;
         float p = 0.f;
         if (qi_r[r] < Tq && kp < S)
-          p = expf(flash::biased_score(s[nb][e], scale, qi_r[r] - kp, slope, causal, alibi,
-                                       has_docs, qdoc_r[r], kdoc_s[col]) -
+          p = expf(flash::biased_score(s[nb][e], scale, (q_off + qi_r[r]) - (kv_off + kp), slope,
+                                       causal, alibi, has_docs, qdoc_r[r], kdoc_s[col]) -
                    lse_r[r]);
         ds[nb][e] = p * (ds[nb][e] - delta_r[r]);
       }
@@ -541,21 +569,22 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (qi_r[r] < Tq) {
-      bf16* out = dq + qbase + ((size_t)qi_r[r] * H + h) * MD + t4 * 2;
+      OutT* out = dq + qbase + ((size_t)qi_r[r] * H + h) * MD + t4 * 2;
 #pragma unroll
       for (int nd = 0; nd < MD / 8; ++nd)
-        *reinterpret_cast<uint32_t*>(out + nd * 8) =
-            pack_bf16(scale * acc[nd][2 * r], scale * acc[nd][2 * r + 1]);
+        store2(out + nd * 8, scale * acc[nd][2 * r], scale * acc[nd][2 * r + 1]);
     }
   }
 }
 
+template <typename OutT>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     const float* __restrict__ slopes, const int* __restrict__ docs,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int S, int H, int KVH,
+                     const float* __restrict__ slopes, const int* __restrict__ offs,
+                     const int* __restrict__ qids, const int* __restrict__ kids,
+                     OutT* __restrict__ dk, OutT* __restrict__ dv, int Tq, int S, int H, int KVH,
                      float scale, int causal, int alibi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BK][LDM]
@@ -572,6 +601,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3, rw = warp * 16;
   const int k0 = kt * BK;
+  const int q_off = offs[b], kv_off = offs[gridDim.z + b];
   const size_t qbase = (size_t)b * Tq * H * MD, kbase = (size_t)b * S * KVH * MD;
 
   stage_bf16(Ks, nullptr, k + kbase, k0, S, KVH, kvh);
@@ -582,10 +612,10 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_a(va, Vs, rw, g, t4);
   // keys g and g + 8 of the warp's 16 (the fragment's rows) and their ids
   const int kp_r[2] = {k0 + rw + g, k0 + rw + g + 8};
-  const bool has_docs = docs != nullptr;
+  const bool has_docs = qids != nullptr;
   int kdoc_r[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) kdoc_r[r] = has_docs && kp_r[r] < S ? docs[(size_t)b * S + kp_r[r]] : 0;
+  for (int r = 0; r < 2; ++r) kdoc_r[r] = has_docs && kp_r[r] < S ? kids[(size_t)b * S + kp_r[r]] : 0;
 
   float dk_acc[MD / 8][4], dv_acc[MD / 8][4];
 #pragma unroll
@@ -594,7 +624,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < 4; ++e) dk_acc[nd][e] = dv_acc[nd][e] = 0.f;
 
   const int n_q = (Tq + BQ - 1) / BQ;
-  const int i_first = causal ? min(k0 / BQ, n_q) : 0;  // offsets 0: q tile i sees key tile kt iff i >= kt
+  const int i_first = causal ? flash::first_query_tile(k0, q_off, kv_off, BQ, n_q) : 0;
 
   for (int gi = 0; gi < G; ++gi) {
     const int h = kvh * G + gi;
@@ -609,7 +639,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const size_t at = ((size_t)b * H + h) * Tq + qi;
         lse_s[threadIdx.x] = qi < Tq ? lse[at] : 0.f;
         delta_s[threadIdx.x] = qi < Tq ? delta[at] : 0.f;
-        qdoc_s[threadIdx.x] = has_docs && qi < Tq ? docs[(size_t)b * Tq + qi] : 0;
+        qdoc_s[threadIdx.x] = has_docs && qi < Tq ? qids[(size_t)b * Tq + qi] : 0;
       }
       __syncthreads();
       float p[8][4], ds[8][4];
@@ -622,8 +652,8 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int col = nb * 8 + t4 * 2 + (e & 1), qi = q0 + col, kp = kp_r[e >> 1];
           float pv = 0.f;
           if (qi < Tq && kp < S)
-            pv = expf(flash::biased_score(p[nb][e], scale, qi - kp, slope, causal, alibi,
-                                          has_docs, qdoc_s[col], kdoc_r[e >> 1]) -
+            pv = expf(flash::biased_score(p[nb][e], scale, (q_off + qi) - (kv_off + kp), slope,
+                                          causal, alibi, has_docs, qdoc_s[col], kdoc_r[e >> 1]) -
                       lse_s[col]);
           p[nb][e] = pv;
           ds[nb][e] = pv * (ds[nb][e] - delta_s[col]);
@@ -639,10 +669,8 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const size_t at = kbase + ((size_t)kp_r[r] * KVH + kvh) * MD + t4 * 2;
 #pragma unroll
       for (int nd = 0; nd < MD / 8; ++nd) {
-        *reinterpret_cast<uint32_t*>(dk + at + nd * 8) =
-            pack_bf16(scale * dk_acc[nd][2 * r], scale * dk_acc[nd][2 * r + 1]);
-        *reinterpret_cast<uint32_t*>(dv + at + nd * 8) =
-            pack_bf16(dv_acc[nd][2 * r], dv_acc[nd][2 * r + 1]);
+        store2(dk + at + nd * 8, scale * dk_acc[nd][2 * r], scale * dk_acc[nd][2 * r + 1]);
+        store2(dv + at + nd * 8, dv_acc[nd][2 * r], dv_acc[nd][2 * r + 1]);
       }
     }
   }
@@ -650,109 +678,108 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ------------------------------------------------------------------ launch
 
-template <typename T, int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, const void* slopes, const void* docs, void* dq, int B, int Tq,
-              int S, int H, int KVH, float scale, int causal, int alibi, cudaStream_t stream) {
+// the pointer and shape arguments every launch passes on, in order
+#define BWD_PARAMS                                                                             \
+  const void *q, const void *k, const void *v, const void *dout, const void *lse,              \
+      const void *delta, const void *slopes, const void *offs, const void *qids,               \
+      const void *kids
+#define BWD_CAST(T)                                                                            \
+  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),                \
+      static_cast<const T*>(dout), static_cast<const float*>(lse),                             \
+      static_cast<const float*>(delta), static_cast<const float*>(slopes),                     \
+      static_cast<const int*>(offs), static_cast<const int*>(qids),                            \
+      static_cast<const int*>(kids)
+
+template <typename T, typename OutT, int D>
+int launch_dq(BWD_PARAMS, void* dq, int B, int Tq, int S, int H, int KVH, float scale, int causal,
+              int alibi, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (4 * 64 * (D + 1) + BQ * LDP);
-  cudaFuncSetAttribute(flash_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  cudaFuncSetAttribute(flash_dq_kernel<T, OutT, D>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const float*>(slopes),
-      static_cast<const int*>(docs), static_cast<T*>(dq), Tq, S, H, KVH, scale, causal, alibi);
+  flash_dq_kernel<T, OutT, D><<<grid, THREADS, smem, stream>>>(
+      BWD_CAST(T), static_cast<OutT*>(dq), Tq, S, H, KVH, scale, causal, alibi);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, const void* slopes, const void* docs, void* dk, void* dv, int B,
-               int Tq, int S, int H, int KVH, float scale, int causal, int alibi,
-               cudaStream_t stream) {
+template <typename T, typename OutT, int D>
+int launch_dkv(BWD_PARAMS, void* dk, void* dv, int B, int Tq, int S, int H, int KVH, float scale,
+               int causal, int alibi, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (4 * 64 * (D + 1) + 2 * BK * LDP);
-  cudaFuncSetAttribute(flash_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  cudaFuncSetAttribute(flash_dkv_kernel<T, OutT, D>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const dim3 grid((S + BK - 1) / BK, KVH, B);
-  flash_dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const float*>(slopes),
-      static_cast<const int*>(docs), static_cast<T*>(dk), static_cast<T*>(dv), Tq, S, H, KVH,
-      scale, causal, alibi);
+  flash_dkv_kernel<T, OutT, D><<<grid, THREADS, smem, stream>>>(
+      BWD_CAST(T), static_cast<OutT*>(dk), static_cast<OutT*>(dv), Tq, S, H, KVH, scale, causal,
+      alibi);
   return (int)cudaGetLastError();
 }
 
-int launch_dq_mma(const void* q, const void* k, const void* v, const void* dout,
-                  const void* lse, const void* delta, const void* slopes, const void* docs,
-                  void* dq, int B, int Tq, int S, int H, int KVH, float scale, int causal,
-                  int alibi, cudaStream_t stream) {
+template <typename OutT>
+int launch_dq_mma(BWD_PARAMS, void* dq, int B, int Tq, int S, int H, int KVH, float scale,
+                  int causal, int alibi, cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * (4 * 64 * LDM + MD * LDT);
-  cudaFuncSetAttribute(flash_dq_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncSetAttribute(flash_dq_mma_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_dq_mma_kernel<<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const float*>(slopes),
-      static_cast<const int*>(docs), static_cast<bf16*>(dq), Tq, S, H, KVH, scale, causal, alibi);
+  flash_dq_mma_kernel<OutT><<<grid, MMA_THREADS, smem, stream>>>(
+      BWD_CAST(bf16), static_cast<OutT*>(dq), Tq, S, H, KVH, scale, causal, alibi);
   return (int)cudaGetLastError();
 }
 
-int launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout,
-                   const void* lse, const void* delta, const void* slopes, const void* docs,
-                   void* dk, void* dv, int B, int Tq, int S, int H, int KVH, float scale,
-                   int causal, int alibi, cudaStream_t stream) {
+template <typename OutT>
+int launch_dkv_mma(BWD_PARAMS, void* dk, void* dv, int B, int Tq, int S, int H, int KVH,
+                   float scale, int causal, int alibi, cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * (4 * 64 * LDM + 2 * MD * LDT);
-  cudaFuncSetAttribute(flash_dkv_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncSetAttribute(flash_dkv_mma_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   const dim3 grid((S + BK - 1) / BK, KVH, B);
-  flash_dkv_mma_kernel<<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const float*>(slopes),
-      static_cast<const int*>(docs), static_cast<bf16*>(dk), static_cast<bf16*>(dv), Tq, S, H, KVH,
-      scale, causal, alibi);
+  flash_dkv_mma_kernel<OutT><<<grid, MMA_THREADS, smem, stream>>>(
+      BWD_CAST(bf16), static_cast<OutT*>(dk), static_cast<OutT*>(dv), Tq, S, H, KVH, scale,
+      causal, alibi);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, do and the grads all of it;
-// bf16 at D = 64 takes the tensor-core kernels, everything else the FMA ones);
-// lse and delta are f32 [B, H, T]; slopes f32 [H]; docs null or int32 [B, T]
-// document ids (only with T == S). q, do, dq are [B, T, H, D]; k, v, dk, dv
-// are [B, S, KVH, D], all contiguous. Returns cudaGetLastError() after the
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and do); out_dtype: the grads',
+// 0 = float32 or 1 = bfloat16 (float32 inputs take float32 only). bf16 at
+// D = 64 takes the tensor-core kernels, everything else the FMA ones. lse
+// and delta are f32 [B, H, T]; slopes f32 [H]; offs int32 [2, B] (query
+// offsets, then key offsets); qids [B, T] and kids [B, S] int32 document ids,
+// both or neither. q, do, dq are [B, T, H, D]; k, v, dk, dv are
+// [B, S, KVH, D], all contiguous. Returns cudaGetLastError() after the
 // launch.
-extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* dout,
-                        const void* lse, const void* delta, const void* slopes, const void* docs,
-                        void* dq, int dtype, int B, int Tq, int S, int H, int KVH, int D,
-                        float scale, int causal, int alibi, void* stream) {
+extern "C" int flash_dq(BWD_PARAMS, void* dq, int dtype, int out_dtype, int B, int Tq, int S, int H,
+                        int KVH, int D, float scale, int causal, int alibi, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (docs != nullptr && Tq != S) return (int)cudaErrorInvalidValue;
+  if ((qids == nullptr) != (kids == nullptr)) return (int)cudaErrorInvalidValue;
 #define DQ_ARGS \
-  q, k, v, dout, lse, delta, slopes, docs, dq, B, Tq, S, H, KVH, scale, causal, alibi, st
-  if (dtype == 0 && D == 64) return launch_dq<float, 64>(DQ_ARGS);
-  if (dtype == 0 && D == 128) return launch_dq<float, 128>(DQ_ARGS);
-  if (dtype == 1 && D == 64) return launch_dq_mma(DQ_ARGS);
-  if (dtype == 1 && D == 128) return launch_dq<__nv_bfloat16, 128>(DQ_ARGS);
+  q, k, v, dout, lse, delta, slopes, offs, qids, kids, dq, B, Tq, S, H, KVH, scale, causal, alibi, st
+  if (dtype == 0 && out_dtype == 0 && D == 64) return launch_dq<float, float, 64>(DQ_ARGS);
+  if (dtype == 0 && out_dtype == 0 && D == 128) return launch_dq<float, float, 128>(DQ_ARGS);
+  if (dtype == 1 && out_dtype == 1 && D == 64) return launch_dq_mma<bf16>(DQ_ARGS);
+  if (dtype == 1 && out_dtype == 0 && D == 64) return launch_dq_mma<float>(DQ_ARGS);
+  if (dtype == 1 && out_dtype == 1 && D == 128) return launch_dq<bf16, bf16, 128>(DQ_ARGS);
+  if (dtype == 1 && out_dtype == 0 && D == 128) return launch_dq<bf16, float, 128>(DQ_ARGS);
 #undef DQ_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
-                         const void* lse, const void* delta, const void* slopes, const void* docs,
-                         void* dk, void* dv, int dtype, int B, int Tq, int S, int H, int KVH,
-                         int D, float scale, int causal, int alibi, void* stream) {
+extern "C" int flash_dkv(BWD_PARAMS, void* dk, void* dv, int dtype, int out_dtype, int B, int Tq,
+                         int S, int H, int KVH, int D, float scale, int causal, int alibi,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (docs != nullptr && Tq != S) return (int)cudaErrorInvalidValue;
-#define DKV_ARGS \
-  q, k, v, dout, lse, delta, slopes, docs, dk, dv, B, Tq, S, H, KVH, scale, causal, alibi, st
-  if (dtype == 0 && D == 64) return launch_dkv<float, 64>(DKV_ARGS);
-  if (dtype == 0 && D == 128) return launch_dkv<float, 128>(DKV_ARGS);
-  if (dtype == 1 && D == 64) return launch_dkv_mma(DKV_ARGS);
-  if (dtype == 1 && D == 128) return launch_dkv<__nv_bfloat16, 128>(DKV_ARGS);
+  if ((qids == nullptr) != (kids == nullptr)) return (int)cudaErrorInvalidValue;
+#define DKV_ARGS                                                                               \
+  q, k, v, dout, lse, delta, slopes, offs, qids, kids, dk, dv, B, Tq, S, H, KVH, scale, causal, \
+      alibi, st
+  if (dtype == 0 && out_dtype == 0 && D == 64) return launch_dkv<float, float, 64>(DKV_ARGS);
+  if (dtype == 0 && out_dtype == 0 && D == 128) return launch_dkv<float, float, 128>(DKV_ARGS);
+  if (dtype == 1 && out_dtype == 1 && D == 64) return launch_dkv_mma<bf16>(DKV_ARGS);
+  if (dtype == 1 && out_dtype == 0 && D == 64) return launch_dkv_mma<float>(DKV_ARGS);
+  if (dtype == 1 && out_dtype == 1 && D == 128) return launch_dkv<bf16, bf16, 128>(DKV_ARGS);
+  if (dtype == 1 && out_dtype == 0 && D == 128) return launch_dkv<bf16, float, 128>(DKV_ARGS);
 #undef DKV_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -6,11 +6,24 @@
 // the custom VJP of flash_attention (:462 -> _flash_fwd :431). It computes
 // the same function: s = scale * q.k^T in f32, plus the ALiBi bias
 // -slope * max(q_pos - k_pos, 0) and the causal NEG_INF mask added as one
-// bias, plus the packed-document mask (training: [B, T] int32 ids, T == S,
-// keys of another document masked), plus the [B, S] kv-validity mask (0 =
-// masked); an online softmax over key tiles with m starting at -1e30; a row
+// bias, plus the packed-document mask (int32 query ids [B, T] against key
+// ids [B, S]: keys of another document masked), plus the [B, S] kv-validity
+// mask (0 = masked); an online softmax over key tiles with m starting at -1e30; a row
 // with l == 0 outputs 0; lse = m + log(l). GQA reads kv head h / (H / KVH).
-// Every row b has its own query position offset q_offset[b].
+// Every row b has its own query and key position offsets (offs [2, B]).
+//
+// flash_partial (flash.py:551) reaches the same kernel body for sequence
+// parallelism: the query shard at global q_off against a key shard at
+// kv_off, separate query and key document ids (q_ids [B, T], k_ids [B, S]:
+// the key ids ride the ring with their shard), the caller's slope table,
+// and an f32 output from bf16 inputs (the ring merges the partial outputs
+// in f32 and rounds once). The causal tile limit is _run_predicate (:118)
+// at those offsets, in both the mma and the FMA path. A row that sees no
+// key of the shard (causal, q_pos < kv_off: a future shard) writes o = 0
+// and lse = -1e30, as _write (:169-174) does for a row whose every tile was
+// skipped; the row-level test makes that independent of the tile size (the
+// TPU kernel's 512-row blocks, this kernel's 64). The ring's merge weighs
+// such a shard exp(-1e30 - m) = 0.
 //
 // What bounds it on an H100: at the serving shapes (T = 64 queries against
 // up to S = 1024 cached keys, D = 64) each (row, head) reads its K/V once and
@@ -24,11 +37,14 @@
 // the payload, are what it lacks (cp.async double buffering is the next
 // step). At the training shape (B = 8, H = 12, T = S = 1024, D = 64, bf16,
 // causal) a call must move 50.7 MB (q, k, v in; o, lse out), 15 us at
-// 3.35 TB/s, and do 12.9 GFLOP, 13 us at the bf16 tensor-core peak.
+// 3.35 TB/s, and do 12.9 GFLOP, 13 us at the bf16 tensor-core peak. At
+// 580m's ring shape (B = 1, a 2048-token shard, 12 heads of 128, bf16 in,
+// f32 out) a past shard's call moves 31.5 MB (9.4 us) and does 25.8 GFLOP
+// (26 us): the tensor cores bound it, and the diagonal shard's half.
 //
 // Design: one CTA per (q tile of 64 rows, head, batch row); it stages 64-key
 // K/V tiles in shared memory and stops the key loop at the causal limit
-// q_offset + tile_end, so dead tiles cost nothing; m and l stay in f32
+// q_off + tile_end - kv_off, so dead tiles cost nothing; m and l stay in f32
 // registers. The score bias is flash_common.cuh's, shared with the backward
 // kernels (flash_bwd.cu) so both see the same probabilities. With document
 // ids, each thread keeps its rows' ids in registers and each key tile's ids
@@ -65,10 +81,10 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ slopes,
-                     const int* __restrict__ q_offset, const int* __restrict__ seg,
-                     const int* __restrict__ docs, float* __restrict__ o,
-                     float* __restrict__ lse, int Tq, int S, int H, int KVH, float scale,
-                     int causal, int alibi) {
+                     const int* __restrict__ offs, const int* __restrict__ seg,
+                     const int* __restrict__ qids, const int* __restrict__ kids,
+                     float* __restrict__ o, float* __restrict__ lse, int Tq, int S, int H, int KVH,
+                     float scale, int causal, int alibi) {
   constexpr int DP = D / TPR;  // dims per thread
   extern __shared__ float smem[];
   float* Ks = smem;                                   // [BK][D]
@@ -81,11 +97,11 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, row = tid / TPR, part = tid % TPR;
   const int qi = qt * BQ + row;
   const bool row_ok = qi < Tq;
-  const int off = q_offset[b];
+  const int off = offs[b], kv_off = offs[gridDim.z + b];
   const int q_pos = off + qi;
   const float slope = alibi ? slopes[h] : 0.f;
-  const bool has_docs = docs != nullptr;
-  const int q_doc = has_docs && row_ok ? docs[(size_t)b * Tq + qi] : 0;
+  const bool has_docs = qids != nullptr;
+  const int q_doc = has_docs && row_ok ? qids[(size_t)b * Tq + qi] : 0;
 
   float qr[DP];
   const float* qp = q + ((size_t)(b * Tq + (row_ok ? qi : 0)) * H + h) * D;
@@ -100,10 +116,7 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // key tiles to visit: all of them, or up to the causal limit of the tile's
   // last query row (the TPU kernel's _run_predicate, per tile)
   int n_tiles = (S + BK - 1) / BK;
-  if (causal) {
-    const int last_q = off + min(qt * BQ + BQ, Tq) - 1;
-    n_tiles = last_q < 0 ? 0 : min(n_tiles, last_q / BK + 1);
-  }
+  if (causal) n_tiles = flash::causal_key_tiles(n_tiles, off + min(qt * BQ + BQ, Tq) - 1, kv_off, BK);
 
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * BK;
@@ -122,7 +135,7 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (tid < BK) {
       const int kp = k0 + tid;
       Sg[tid] = seg == nullptr ? 1 : (kp < S ? seg[(size_t)b * S + kp] : 0);
-      Dk[tid] = has_docs && kp < S ? docs[(size_t)b * S + kp] : 0;
+      Dk[tid] = has_docs && kp < S ? kids[(size_t)b * S + kp] : 0;
     }
     __syncthreads();
 
@@ -138,8 +151,8 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int kp = k0 + key;
       // flash.py _scores order: s * scale + (alibi + causal), + documents,
       // then + validity
-      float x = flash::biased_score(dot, scale, q_pos - kp, slope, causal, alibi, has_docs,
-                                    q_doc, Dk[key]);
+      float x = flash::biased_score(dot, scale, q_pos - (kv_off + kp), slope, causal, alibi,
+                                    has_docs, q_doc, Dk[key]);
       if (seg != nullptr) x = x + (Sg[key] != 0 ? 0.f : flash::NEG_INF);
       if (kp >= S) x = -INFINITY;  // tile overhang past the cache: no key
       s[key] = x;
@@ -166,11 +179,13 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (row_ok) {
+    const bool dead = causal && q_pos < kv_off;  // no key of the shard is visible
     const float l_safe = l == 0.f ? 1.f : l;
     float* op = o + ((size_t)(b * Tq + qi) * H + h) * D;
 #pragma unroll
-    for (int i = 0; i < DP; ++i) op[part + TPR * i] = acc[i] / l_safe;
-    if (lse != nullptr && part == 0) lse[((size_t)b * H + h) * Tq + qi] = m + logf(l_safe);
+    for (int i = 0; i < DP; ++i) op[part + TPR * i] = dead ? 0.f : acc[i] / l_safe;
+    if (lse != nullptr && part == 0)
+      lse[((size_t)b * H + h) * Tq + qi] = dead ? INIT_M : m + logf(l_safe);
   }
 }
 
@@ -196,14 +211,22 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
+// two neighbouring outputs, rounded to bf16 or kept in f32 (flash_partial)
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(lo, hi);
+}
+__device__ __forceinline__ void store2(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
+
+template <typename OutT, int D>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const float* __restrict__ slopes,
-                     const int* __restrict__ q_offset, const int* __restrict__ seg,
-                     const int* __restrict__ docs, __nv_bfloat16* __restrict__ o,
-                     float* __restrict__ lse, int Tq, int S, int H, int KVH, float scale,
-                     int causal, int alibi) {
+                     const int* __restrict__ offs, const int* __restrict__ seg,
+                     const int* __restrict__ qids, const int* __restrict__ kids,
+                     OutT* __restrict__ o, float* __restrict__ lse, int Tq, int S, int H, int KVH,
+                     float scale, int causal, int alibi) {
   using bf16 = __nv_bfloat16;
   constexpr int LDK = D + 8;   // padded row of Qs and Ks (bf16 elements)
   constexpr int LDV = BK + 8;  // padded row of the transposed V tile
@@ -223,7 +246,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;  // mma fragment row group / column pair
   const int rw = warp * 16;                // the warp's first query row in the tile
-  const int off = q_offset[b];
+  const int off = offs[b], kv_off = offs[gridDim.z + b];
   const float slope = alibi ? slopes[h] : 0.f;
 
   for (int idx = tid; idx < BQ * VPR; idx += MMA_THREADS) {
@@ -252,19 +275,16 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int q_pos0 = off + qt * BQ + rw + g;
   // the document ids of rows g and g + 8, in the accumulator fragment's
   // row mapping (e >> 1 below)
-  const bool has_docs = docs != nullptr;
+  const bool has_docs = qids != nullptr;
   int q_doc[2] = {0, 0};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = qt * BQ + rw + g + 8 * r;
-    if (has_docs && qi < Tq) q_doc[r] = docs[(size_t)b * Tq + qi];
+    if (has_docs && qi < Tq) q_doc[r] = qids[(size_t)b * Tq + qi];
   }
 
   int n_tiles = (S + BK - 1) / BK;
-  if (causal) {
-    const int last_q = off + min(qt * BQ + BQ, Tq) - 1;
-    n_tiles = last_q < 0 ? 0 : min(n_tiles, last_q / BK + 1);
-  }
+  if (causal) n_tiles = flash::causal_key_tiles(n_tiles, off + min(qt * BQ + BQ, Tq) - 1, kv_off, BK);
 
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * BK;
@@ -285,7 +305,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     if (tid < BK) {
       const int kp = k0 + tid;
       Sg[tid] = seg == nullptr ? 1 : (kp < S ? seg[(size_t)b * S + kp] : 0);
-      Dk[tid] = has_docs && kp < S ? docs[(size_t)b * S + kp] : 0;
+      Dk[tid] = has_docs && kp < S ? kids[(size_t)b * S + kp] : 0;
     }
     __syncthreads();
 
@@ -309,7 +329,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = nb * 8 + t4 * 2 + (e & 1), kp = k0 + col;
-        const int dist = q_pos0 + (e >> 1) * 8 - kp;
+        const int dist = q_pos0 + (e >> 1) * 8 - (kv_off + kp);
         float x = flash::biased_score(sacc[nb][e], scale, dist, slope, causal, alibi, has_docs,
                                       q_doc[e >> 1], Dk[col]);
         if (seg != nullptr) x = x + (Sg[col] != 0 ? 0.f : flash::NEG_INF);
@@ -365,13 +385,15 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int qi = qt * BQ + rw + g + r * 8;
     if (qi < Tq) {
+      const bool dead = causal && q_pos0 + r * 8 < kv_off;  // no key of the shard is visible
       const float l_safe = l[r] == 0.f ? 1.f : l[r];
-      bf16* op = o + ((size_t)(b * Tq + qi) * H + h) * D + t4 * 2;
+      OutT* op = o + ((size_t)(b * Tq + qi) * H + h) * D + t4 * 2;
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd)
-        *reinterpret_cast<uint32_t*>(op + nd * 8) =
-            pack_bf16(oacc[nd][2 * r] / l_safe, oacc[nd][2 * r + 1] / l_safe);
-      if (lse != nullptr && t4 == 0) lse[((size_t)b * H + h) * Tq + qi] = m[r] + logf(l_safe);
+        store2(op + nd * 8, dead ? 0.f : oacc[nd][2 * r] / l_safe,
+               dead ? 0.f : oacc[nd][2 * r + 1] / l_safe);
+      if (lse != nullptr && t4 == 0)
+        lse[((size_t)b * H + h) * Tq + qi] = dead ? INIT_M : m[r] + logf(l_safe);
     }
   }
 }
@@ -379,9 +401,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 // ------------------------------------------------------------------ launch
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, const void* slopes,
-               const void* q_offset, const void* seg, const void* docs, void* o, void* lse,
-               int B, int Tq, int S, int H, int KVH, float scale, int causal, int alibi,
+int launch_f32(const void* q, const void* k, const void* v, const void* slopes, const void* offs,
+               const void* seg, const void* qids, const void* kids, void* o, void* lse, int B,
+               int Tq, int S, int H, int KVH, float scale, int causal, int alibi,
                cudaStream_t stream) {
   const size_t smem = 2 * BK * D * sizeof(float) + 2 * BK * sizeof(int);
   cudaFuncSetAttribute(flash_fwd_fma_kernel<D>,
@@ -389,48 +411,54 @@ int launch_f32(const void* q, const void* k, const void* v, const void* slopes,
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
   flash_fwd_fma_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(slopes), static_cast<const int*>(q_offset),
-      static_cast<const int*>(seg), static_cast<const int*>(docs), static_cast<float*>(o),
-      static_cast<float*>(lse), Tq, S, H, KVH, scale, causal, alibi);
+      static_cast<const float*>(slopes), static_cast<const int*>(offs),
+      static_cast<const int*>(seg), static_cast<const int*>(qids), static_cast<const int*>(kids),
+      static_cast<float*>(o), static_cast<float*>(lse), Tq, S, H, KVH, scale, causal, alibi);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, const void* slopes,
-                const void* q_offset, const void* seg, const void* docs, void* o, void* lse,
-                int B, int Tq, int S, int H, int KVH, float scale, int causal, int alibi,
+template <typename OutT, int D>
+int launch_bf16(const void* q, const void* k, const void* v, const void* slopes, const void* offs,
+                const void* seg, const void* qids, const void* kids, void* o, void* lse, int B,
+                int Tq, int S, int H, int KVH, float scale, int causal, int alibi,
                 cudaStream_t stream) {
   const size_t smem =
       sizeof(__nv_bfloat16) * ((BQ + BK) * (D + 8) + D * (BK + 8)) + 2 * BK * sizeof(int);
-  cudaFuncSetAttribute(flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  cudaFuncSetAttribute(flash_fwd_mma_kernel<OutT, D>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_fwd_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
+  flash_fwd_mma_kernel<OutT, D><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(slopes),
-      static_cast<const int*>(q_offset), static_cast<const int*>(seg),
-      static_cast<const int*>(docs), static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      Tq, S, H, KVH, scale, causal, alibi);
+      static_cast<const int*>(offs), static_cast<const int*>(seg), static_cast<const int*>(qids),
+      static_cast<const int*>(kids), static_cast<OutT*>(o), static_cast<float*>(lse), Tq, S, H,
+      KVH, scale, causal, alibi);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel). q, k,
-// v rows must be 16-byte aligned (contiguous tensors). seg ([B, S] int32),
-// docs ([B, T] int32 document ids, only with T == S) and lse may be null.
-// Returns cudaGetLastError() after the launch.
+// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel);
+// out_dtype: the output's, 0 = float32 or 1 = bfloat16 (float32 inputs
+// take float32 only). q, k, v rows must be 16-byte aligned (contiguous
+// tensors). offs is int32 [2, B] (query offsets, then key offsets). seg
+// ([B, S] int32 validity), the document ids (qids [B, T] and kids [B, S]
+// int32, both or neither) and lse may be null. Returns cudaGetLastError()
+// after the launch.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* slopes,
-                         const void* q_offset, const void* seg, const void* docs, void* o,
-                         void* lse, int dtype, int B, int Tq, int S, int H, int KVH, int D,
-                         float scale, int causal, int alibi, void* stream) {
+                         const void* offs, const void* seg, const void* qids, const void* kids,
+                         void* o, void* lse, int dtype, int out_dtype, int B, int Tq, int S, int H,
+                         int KVH, int D, float scale, int causal, int alibi, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (docs != nullptr && Tq != S) return (int)cudaErrorInvalidValue;
-#define FWD_ARGS q, k, v, slopes, q_offset, seg, docs, o, lse, B, Tq, S, H, KVH, scale, causal, alibi, st
-  if (dtype == 0 && D == 64) return launch_f32<64>(FWD_ARGS);
-  if (dtype == 0 && D == 128) return launch_f32<128>(FWD_ARGS);
-  if (dtype == 1 && D == 64) return launch_bf16<64>(FWD_ARGS);
-  if (dtype == 1 && D == 128) return launch_bf16<128>(FWD_ARGS);
+  if ((qids == nullptr) != (kids == nullptr)) return (int)cudaErrorInvalidValue;
+#define FWD_ARGS \
+  q, k, v, slopes, offs, seg, qids, kids, o, lse, B, Tq, S, H, KVH, scale, causal, alibi, st
+  if (dtype == 0 && out_dtype == 0 && D == 64) return launch_f32<64>(FWD_ARGS);
+  if (dtype == 0 && out_dtype == 0 && D == 128) return launch_f32<128>(FWD_ARGS);
+  if (dtype == 1 && out_dtype == 1 && D == 64) return launch_bf16<__nv_bfloat16, 64>(FWD_ARGS);
+  if (dtype == 1 && out_dtype == 1 && D == 128) return launch_bf16<__nv_bfloat16, 128>(FWD_ARGS);
+  if (dtype == 1 && out_dtype == 0 && D == 64) return launch_bf16<float, 64>(FWD_ARGS);
+  if (dtype == 1 && out_dtype == 0 && D == 128) return launch_bf16<float, 128>(FWD_ARGS);
 #undef FWD_ARGS
   return (int)cudaErrorInvalidValue;
 }

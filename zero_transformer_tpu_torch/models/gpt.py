@@ -33,6 +33,18 @@ Numerics follow flax where it matters:
 Layouts at the public surface are the JAX ones: q/k/v ``[B, T, H, D]``,
 page pools ``[n_pages, page, KVH, D]`` with page 0 the serving layer's trash
 page, block tables ``[B, n_blocks]`` int32.
+
+Sequence parallelism (JAX ``Attention`` :392-401 under a mesh whose
+``sequence`` axis is > 1): a ``Transformer`` given a ``SequenceGroup`` of
+size n routes attention to ``ops/ring_attention.py``. Its ``forward`` takes
+the full row ``[B, T]``, which every rank of the group reads, computes the
+document ids, the boundary labels and the next-token shift on the whole
+row, and runs the rank's shard ``[r * T / n, (r + 1) * T / n)``: the local
+logits and the GLOBAL mean loss's share, (local CE sum) / (global count of
+labels), whose grads summed over the ranks are the grads of the mean. With
+``remat`` every block runs under ``torch.utils.checkpoint`` (JAX's
+``jax.checkpoint`` per block, policy "none"); its recompute runs the ring
+forward again, as JAX's does.
 """
 from __future__ import annotations
 
@@ -43,12 +55,15 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from zero_transformer_tpu_torch.config import ModelConfig, resolve_dtype
 from zero_transformer_tpu_torch.models.quant import QuantDense, QuantEmbed
 from zero_transformer_tpu_torch.ops import paged_attention as pa
 from zero_transformer_tpu_torch.ops.attention import dot_product_attention
-from zero_transformer_tpu_torch.ops.losses import next_token_loss
+from zero_transformer_tpu_torch.ops.losses import cross_entropy_sum, next_token_loss
+from zero_transformer_tpu_torch.ops.ring_attention import ring_attention
+from zero_transformer_tpu_torch.parallel.mesh import SequenceGroup
 
 LN_EPS = 1e-6  # flax LayerNorm default
 
@@ -152,6 +167,7 @@ class Attention(nn.Module):
         self.key = _dense(d, KVH * D, cfg, device)
         self.value = _dense(d, KVH * D, cfg, device)
         self.out = _dense(H * D, d, cfg, device)
+        self.seq_group: Optional[SequenceGroup] = None  # Transformer.set_sequence_group
 
     def _qkv(self, x):
         cfg = self.cfg
@@ -164,8 +180,11 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, doc_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, T, _ = x.shape
         q, k, v = self._qkv(x)
-        out = dot_product_attention(q, k, v, causal=True, alibi=True, doc_ids=doc_ids,
-                                    impl=self.cfg.attention_impl)
+        if self.seq_group is not None:
+            out = ring_attention(q, k, v, self.seq_group, causal=True, alibi=True, doc_ids=doc_ids)
+        else:
+            out = dot_product_attention(q, k, v, causal=True, alibi=True, doc_ids=doc_ids,
+                                        impl=self.cfg.attention_impl)
         return self.out(out.reshape(B, T, -1))
 
     def forward_paged(
@@ -267,12 +286,21 @@ class Transformer(nn.Module):
     """Full decoder LM: ``forward`` over whole sequences, ``forward_paged``
     over a window per row against the paged KV cache."""
 
-    def __init__(self, cfg: ModelConfig, device="cpu"):
+    def __init__(self, cfg: ModelConfig, device="cpu", seq_group: Optional[SequenceGroup] = None):
         super().__init__()
         self.cfg = cfg
         self.wte = QuantEmbed(cfg, device) if cfg.param_quant == "int8" else Embed(cfg, device)
         self.blocks = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
         self.ln_f = LayerNorm(cfg.d_model, cfg, device)
+        self.set_sequence_group(seq_group)
+
+    def set_sequence_group(self, group: Optional[SequenceGroup]) -> "Transformer":
+        """Route attention through the ring over ``group`` (None or size 1:
+        the one-card path)."""
+        self.seq_group = group if group is not None and group.size > 1 else None
+        for blk in self.blocks:
+            blk.attn.seq_group = self.seq_group
+        return self
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "Transformer":
@@ -334,15 +362,43 @@ class Transformer(nn.Module):
             raise NotImplementedError("dropout > 0 in training is not ported yet")
         packed = self.cfg.doc_sep_token is not None
         doc_ids = doc_ids_from_tokens(tokens, self.cfg.doc_sep_token) if packed else None
-        h = self.wte(tokens)
-        for blk in self.blocks:
-            h = blk(h, doc_ids)
-        logits = self.logits(self.ln_f(h))
+        if self.seq_group is not None:
+            return self._forward_shard(tokens, labels, doc_ids)
+        logits = self.logits(self.ln_f(self._blocks(self.wte(tokens), doc_ids)))
         if labels is None:
             return logits
         if packed:
             return logits, next_token_loss(logits, mask_boundary_labels(labels, doc_ids), ignore_index=-1)
         return logits, next_token_loss(logits, labels)
+
+    def _blocks(self, h: torch.Tensor, doc_ids: Optional[torch.Tensor]) -> torch.Tensor:
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for blk in self.blocks:
+            h = checkpoint(blk, h, doc_ids, use_reentrant=False) if remat else blk(h, doc_ids)
+        return h
+
+    def _forward_shard(self, tokens, labels, doc_ids):
+        """This rank's shard of the full row ``tokens`` [B, T]: the local
+        logits ``[B, T / n, vocab]`` and, with labels, (local CE sum) /
+        (the global count of labels, summed over the group without grad).
+        The shift and the boundary mask run on the full row, so the label
+        of a shard's last position is the next shard's first token; the
+        row's last position has none."""
+        group = self.seq_group
+        B, T = tokens.shape
+        if T % group.size:
+            raise ValueError(f"sequence length {T} not divisible by the sequence group's {group.size} ranks")
+        t = T // group.size
+        lo, hi = group.rank * t, (group.rank + 1) * t
+        h = self._blocks(self.wte(tokens[:, lo:hi]), None if doc_ids is None else doc_ids[:, lo:hi])
+        logits = self.logits(self.ln_f(h))
+        if labels is None:
+            return logits
+        if doc_ids is not None:
+            labels = mask_boundary_labels(labels, doc_ids)
+        shifted = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -1)], dim=1)[:, lo:hi]
+        total, count = cross_entropy_sum(logits, shifted, ignore_index=-1)
+        return logits, total / torch.clamp(group.all_reduce_sum(count), min=1.0)
 
     def forward_paged(
         self, tokens: torch.Tensor, pools: Pools, block_table: torch.Tensor,

@@ -38,16 +38,16 @@ FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "flash_fwd": {
-        # q, k, v, slopes, q_offset, segment_ids, doc_ids, o, lse,
-        # dtype, B, T, S, H, KVH, D, scale, causal, alibi, stream
-        "flash_fwd": [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P],
+        # q, k, v, slopes, offsets [2, B], segment_ids, q_ids, k_ids, o, lse,
+        # dtype, out_dtype, B, T, S, H, KVH, D, scale, causal, alibi, stream
+        "flash_fwd": [_P] * 10 + [_I] * 8 + [_F, _I, _I, _P],
     },
     "flash_bwd": {
-        # q, k, v, do, lse, delta, slopes, doc_ids, dq,
-        # dtype, B, T, S, H, KVH, D, scale, causal, alibi, stream
-        "flash_dq": [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P],
-        # q, k, v, do, lse, delta, slopes, doc_ids, dk, dv, (the same ints), stream
-        "flash_dkv": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P],
+        # q, k, v, do, lse, delta, slopes, offsets [2, B], q_ids, k_ids, dq,
+        # dtype, out_dtype, B, T, S, H, KVH, D, scale, causal, alibi, stream
+        "flash_dq": [_P] * 11 + [_I] * 8 + [_F, _I, _I, _P],
+        # the same with dk, dv in place of dq
+        "flash_dkv": [_P] * 12 + [_I] * 8 + [_F, _I, _I, _P],
     },
     "paged_attention": {
         # q, k_pool, v_pool, block_table, q_offset, slopes, o, part_o, part_ml,
@@ -69,11 +69,16 @@ ptxas_report: Dict[str, str] = {}
 # K1 counts apart by entry: ``flash_serving_fwd`` (serving, forward only) and
 # ``flash_train_fwd`` (the differentiable training entry). The training
 # kernels' launches with the packed-document mask count apart under ``_docs``,
-# K4's launches on int8 pools under ``paged_attention_int8``.
+# K4's launches on int8 pools under ``paged_attention_int8``. The sequence-
+# parallel entries (``flash_partial``, ``flash_grads``: K1-K3 at global
+# offsets with f32 outputs) count under ``flash_partial_*``, with their own
+# ``_docs`` variants.
 LAUNCHES: Dict[str, int] = {
     "flash_serving_fwd": 0, "paged_attention": 0, "paged_attention_int8": 0,
     "flash_train_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
     "flash_train_fwd_docs": 0, "flash_dq_docs": 0, "flash_dkv_docs": 0,
+    "flash_partial_fwd": 0, "flash_partial_dq": 0, "flash_partial_dkv": 0,
+    "flash_partial_fwd_docs": 0, "flash_partial_dq_docs": 0, "flash_partial_dkv_docs": 0,
 }
 
 

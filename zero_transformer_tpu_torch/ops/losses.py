@@ -3,7 +3,7 @@
 whatever the logits' dtype."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,6 +29,19 @@ def cross_entropy_loss(
         mask = (labels != ignore_index).float()
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor,
+                      ignore_index: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(sum of the token losses, count of labels)`` in float32 over the
+    labels that are not ``ignore_index``: the pieces of a mean that spans
+    several shards (sequence parallelism sums both over the ranks)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    safe = torch.where(labels == ignore_index, 0, labels)
+    nll = lse - torch.gather(logits, -1, safe.long()[..., None])[..., 0]
+    mask = (labels != ignore_index).float()
+    return torch.sum(nll * mask), torch.sum(mask)
 
 
 def next_token_loss(

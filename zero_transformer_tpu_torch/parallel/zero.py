@@ -12,6 +12,13 @@ micro-step's grads are summed into a ``grad_accum_dtype`` buffer with
 buffer), then the loss and the grads are divided by ``accum`` in float32.
 ``grad_norm`` is the norm of the unclipped grads; ``learning_rate`` is the
 schedule at the step count before the increment. Updates happen in place.
+
+With a ``SequenceGroup`` (sequence parallelism: each rank runs a shard of
+every row through the ring, and its loss is its share of the global mean)
+the step sums the grads over the ranks in flat buckets after the
+micro-steps, before the clip and AdamW, and sums the logged loss the same
+way, so the grad norm, the clip and the update are the same bits on every
+rank. ZeRO sharding across processes is not ported.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import torch
 
 from zero_transformer_tpu_torch.config import resolve_dtype
 from zero_transformer_tpu_torch.models.gpt import Transformer
+from zero_transformer_tpu_torch.parallel.mesh import SequenceGroup
 from zero_transformer_tpu_torch.training.optimizer import AdamW
 
 
@@ -43,6 +51,7 @@ def make_train_step(
     zero_stage: int = 1,
     schedule: Optional[Callable[[int], float]] = None,
     grad_accum_dtype: str = "float32",
+    seq_group: Optional[SequenceGroup] = None,
 ) -> Callable[[TrainState, torch.Tensor], Dict[str, torch.Tensor]]:
     """``step(state, batch [accum, B, T]) -> metrics``: one optimizer step,
     in place on ``state``. Metrics are 0-d tensors (``loss``, ``grad_norm``)
@@ -73,6 +82,10 @@ def make_train_step(
                 del micro
             loss = loss / accum
             grads = [g.float() / accum for g in grads]
+        if seq_group is not None and seq_group.size > 1:
+            grads = list(grads)
+            seq_group.all_reduce_(grads)
+            loss = seq_group.all_reduce_sum(loss)
         grad_norm = state.optimizer.step(grads)
         metrics = {"loss": loss, "grad_norm": grad_norm, "tokens": float(batch.numel())}
         if schedule is not None:
@@ -84,10 +97,12 @@ def make_train_step(
 
 
 def make_eval_step(model: Transformer) -> Callable[[torch.Tensor], torch.Tensor]:
-    """``eval_step(batch [B, T]) -> mean next-token loss`` (0-d tensor)."""
+    """``eval_step(batch [B, T]) -> mean next-token loss`` (0-d tensor); under
+    a sequence group, the ranks' shares summed."""
 
     @torch.no_grad()
     def eval_step(batch: torch.Tensor) -> torch.Tensor:
-        return model(batch, labels=batch)[1]
+        loss = model(batch, labels=batch)[1]
+        return loss if model.seq_group is None else model.seq_group.all_reduce_sum(loss)
 
     return eval_step

@@ -10,6 +10,16 @@ Counterpart of the root ``train.py`` (``--cfg``, ``--set``, ``--max-steps``,
 ``--set`` overrides any dotted config field (values read as Python
 literals, else strings). The CLI runs on the CUDA card unless ``--device
 cpu`` is given; without a card it refuses to start.
+
+Sequence parallelism (``mesh.sequence`` n > 1) runs one process per rank
+under ``torch.distributed.run``::
+
+    python -m torch.distributed.run --nproc-per-node 4 -m zero_transformer_tpu_torch.train \
+        --cfg configs/train_580m_8k.yaml --set mesh.sequence=4 model.dropout=0.0
+
+``--dist-backend`` picks nccl (a card per rank) or gloo (the CPU, or ranks
+sharing a card); without it, nccl when every rank has a card of its own,
+else gloo. Rank 0 prints the topology it runs on.
 """
 from __future__ import annotations
 
@@ -38,6 +48,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--set", nargs="*", action="extend", default=None, metavar="KEY=VALUE")
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="torch.distributed backend for mesh.sequence > 1 (default: nccl with a card "
+                        "per rank, else gloo)")
     return p
 
 
@@ -45,13 +58,20 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     cfg = apply_dotted_overrides(load_config(args.cfg), parse_overrides(args.set))
+    if args.dist_backend is not None and cfg.mesh.sequence == 1:
+        raise ValueError("--dist-backend applies to mesh.sequence > 1")
+    from zero_transformer_tpu_torch.parallel.mesh import destroy, init_distributed
     from zero_transformer_tpu_torch.training.trainer import Trainer
 
-    trainer = Trainer(cfg, device=device)
+    group = init_distributed(cfg.mesh.sequence, args.dist_backend, device) if cfg.mesh.sequence > 1 else None
     try:
-        trainer.train(max_steps=args.max_steps)
+        trainer = Trainer(cfg, device=device, seq_group=group)
+        try:
+            trainer.train(max_steps=args.max_steps)
+        finally:
+            trainer.close()
     finally:
-        trainer.close()
+        destroy(group)
 
 
 if __name__ == "__main__":

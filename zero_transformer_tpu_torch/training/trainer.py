@@ -17,6 +17,16 @@ source's nonzero fault counts (``data_*``), to stdout and to
 ``<checkpoint.directory>/metrics.jsonl``. Packed-document models
 (``doc_sep_token``) train and evaluate as any other: the model masks
 attention and loss per document.
+
+With ``mesh.sequence`` n > 1 (one process per rank under
+``torch.distributed.run``, JAX's ``build_training`` with an active
+``sequence`` axis, :153-157) every rank reads the same rows (the loader's
+data rank and data size are 0 and 1: there is no data parallelism across
+processes), runs its shard of each row through the ring, and the step sums
+the grads over the ranks. Rank 0 builds the CUDA kernels while the others
+wait at a barrier, and only rank 0 writes ``metrics.jsonl`` and stdout.
+tokens/s counts the global tokens of a step, and the model-FLOPs share
+divides by the peak of the distinct cards the ranks use.
 """
 from __future__ import annotations
 
@@ -32,6 +42,8 @@ import torch
 from zero_transformer_tpu_torch.config import Config, resolve_device
 from zero_transformer_tpu_torch.data import DataLoader, make_loader, to_device
 from zero_transformer_tpu_torch.models.registry import build_model
+from zero_transformer_tpu_torch.ops import _build
+from zero_transformer_tpu_torch.parallel.mesh import SequenceGroup, init_distributed
 from zero_transformer_tpu_torch.parallel.zero import TrainState, make_eval_step, make_train_step
 from zero_transformer_tpu_torch.training.optimizer import make_optimizer, make_schedule
 
@@ -53,16 +65,20 @@ def peak_flops(device: torch.device, compute_dtype: str) -> Optional[float]:
 
 
 class MetricsLogger:
-    """stdout plus ``<directory>/metrics.jsonl``, one JSON object per line."""
+    """stdout plus ``<directory>/metrics.jsonl``, one JSON object per line;
+    silent with ``enabled=False`` (the ranks of a group other than 0)."""
 
-    def __init__(self, directory: Optional[str]):
+    def __init__(self, directory: Optional[str], enabled: bool = True):
         self._file = None
-        if directory:
+        self.enabled = enabled
+        if directory and enabled:
             path = Path(directory)
             path.mkdir(parents=True, exist_ok=True)
             self._file = open(path / "metrics.jsonl", "a", buffering=1)
 
     def log(self, metrics: Dict[str, Any], step: int, prefix: str = "") -> None:
+        if not self.enabled:
+            return
         clean = {(f"{prefix}/{k}" if prefix else k): v for k, v in metrics.items()}
         if self._file:
             self._file.write(json.dumps({"step": step, **clean}) + "\n")
@@ -83,9 +99,11 @@ class TrainingBuild:
     eval_step: Callable
 
 
-def build_training(cfg: Config, device) -> TrainingBuild:
-    """Model (seeded from ``training.seed``, trainable), schedule, AdamW and
-    the steps. The optimizer's horizon is ``training.total_steps``, as in JAX."""
+def build_training(cfg: Config, device, seq_group: Optional[SequenceGroup] = None) -> TrainingBuild:
+    """Model (seeded from ``training.seed``, trainable: the same weights on
+    every rank), schedule, AdamW and the steps. The optimizer's horizon is
+    ``training.total_steps``, as in JAX. ``mesh.sequence`` > 1 needs the
+    ``seq_group`` of that many ranks."""
     if cfg.model.param_quant != "none":
         raise ValueError(
             "param_quant is an inference-only configuration (serve "
@@ -94,35 +112,54 @@ def build_training(cfg: Config, device) -> TrainingBuild:
     dev = resolve_device(device)
     if cfg.model.dropout > 0:
         raise NotImplementedError(f"dropout {cfg.model.dropout} > 0 in training is not ported yet")
+    size = 1 if seq_group is None else seq_group.size
+    if cfg.mesh.sequence != size:
+        raise ValueError(f"mesh.sequence {cfg.mesh.sequence} needs a sequence group of that many ranks, "
+                         f"got {size}")
     opt = dataclasses.replace(cfg.optimizer, total_steps=cfg.training.total_steps)
-    model = build_model(cfg.model, dev, seed=cfg.training.seed, trainable=True)
+    model = build_model(cfg.model, dev, seed=cfg.training.seed, trainable=True).set_sequence_group(seq_group)
     schedule = make_schedule(opt)
     state = TrainState(step=0, model=model, optimizer=make_optimizer(model, opt, schedule))
-    train_step = make_train_step(cfg.mesh.zero_stage, schedule, cfg.training.grad_accum_dtype)
+    train_step = make_train_step(cfg.mesh.zero_stage, schedule, cfg.training.grad_accum_dtype, seq_group)
     return TrainingBuild(state=state, schedule=schedule, train_step=train_step,
                          eval_step=make_eval_step(model))
 
 
 class Trainer:
     def __init__(self, cfg: Config, device="cuda", train_loader: Optional[DataLoader] = None,
-                 val_loader: Optional[DataLoader] = None):
+                 val_loader: Optional[DataLoader] = None, seq_group: Optional[SequenceGroup] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        build = build_training(cfg, self.device)
+        if cfg.mesh.sequence > 1 and seq_group is None:
+            seq_group = init_distributed(cfg.mesh.sequence, None, self.device)
+        self.seq_group = seq_group
+        topology = {"world_size": 1, "cards": int(self.device.type == "cuda")}
+        if seq_group is not None:
+            self.device = seq_group.device
+            topology = {"world_size": seq_group.size, **seq_group.describe()}
+            if self.device.type == "cuda":  # one nvcc per source, on rank 0 only
+                if seq_group.rank == 0:
+                    _build.build_all()
+                seq_group.barrier()
+        rank0 = seq_group is None or seq_group.rank == 0
+        build = build_training(cfg, self.device, seq_group)
         self.state, self.schedule = build.state, build.schedule
         self.train_step, self.eval_step = build.train_step, build.eval_step
         self.train_loader = train_loader if train_loader is not None else make_loader(cfg)
         self._val_loader = val_loader
         self._val_window: Optional[dict] = None
-        self.metrics = MetricsLogger(cfg.checkpoint.directory)
+        self.metrics = MetricsLogger(cfg.checkpoint.directory, enabled=rank0)
         t = cfg.training
         self.tokens_per_step = t.batch_size * t.train_context * max(t.gradient_accumulation_steps, 1)
         self.flops_per_token = model_flops_per_token(
             cfg.model.num_params, cfg.model.n_layers, cfg.model.d_model, t.train_context
         )
-        self.peak = peak_flops(self.device, cfg.model.compute_dtype)
+        peak = peak_flops(self.device, cfg.model.compute_dtype)
+        self.peak = peak * topology["cards"] if peak else None
+        if not rank0:
+            return
         print(json.dumps({"trainer": {
-            "device": str(self.device), "world_size": 1, "zero_stage": cfg.mesh.zero_stage,
+            "device": str(self.device), **topology, "zero_stage": cfg.mesh.zero_stage,
             "model": cfg.model.name, "params": cfg.model.num_params,
             "tokens_per_step": self.tokens_per_step,
             "not_ported_ignored": {"checkpoint.save_frequency": cfg.checkpoint.save_frequency,
