@@ -29,11 +29,13 @@ Phases, each fatal on failure (nothing is caught):
 6. training kernels: the differentiable flash entry (K1 with lse, K2 dq,
    K3 dk/dv) through ``torch.autograd`` against ``flash_reference`` and
    ``flash_bwd_reference`` at the training shape (B 8, T = S = 1024, 12
-   heads of 64, bf16) and on GQA, non-ALiBi, non-causal, ragged-T and
-   D 128 cases: float32 within atol 1e-4; bf16 K2/K3 within one bf16 ulp
-   plus 6e-3 of the largest |grad| of the float32 reference on the same
-   o and lse, and the same bar must reject a reference whose causal limit
-   is one key off; times of kernel, plain version and the backward of
+   heads of 64, bf16), at 580m's one-card shape (B 1, T = S 8192, 12 heads
+   of 128, bf16) and on GQA, non-ALiBi, non-causal, ragged-T and D 128
+   cases: float32 within atol 1e-4; bf16 K2/K3 within one bf16 ulp plus
+   6e-3 of the largest |grad| of the float32 reference on the same o and
+   lse, and at both timed shapes the same bar must reject a reference whose
+   causal limit is one key off; K2 and K3 twice on the same inputs write the
+   same bits; times of kernel, plain version and the backward of
    ``scaled_dot_product_attention`` with the ALiBi float bias (a yardstick);
 7. training: ``125m`` at full width and depth, bf16 over float32 master
    params, seed-0 weights: (a) one micro-batch's loss and grads through the
@@ -86,8 +88,9 @@ Phases, each fatal on failure (nothing is caught):
    past and a future shard of a 3-shard row, with and without separate
    query and key document ids; the bf16 bars must reject a plain version
    one key off in kv_offset and one that reads the query ids as key ids; a
-   future shard writes o = 0, lse = -1e30 and zero grads; times of kernel,
-   plain version and SDPA with the block's float bias (and its backward);
+   future shard writes o = 0, lse = -1e30 and zero grads; K2 and K3 twice
+   on a past shard write the same bits; times of kernel, plain version and
+   SDPA with the block's float bias (and its backward);
 13. sequence_parallel: 580m at T 8192 over 4 ranks (NCCL with a card per
    rank on a 4-card machine, else 4 ranks sharing card 0 over gloo): the
    ring at the layer shape against the one-card ``flash_attention`` on the
@@ -95,13 +98,19 @@ Phases, each fatal on failure (nothing is caught):
    grad cosines, bit-equal params across ranks, exact launch counts, peak
    memory, the transfers' share under ``torch.profiler``), plain and packed,
    then the trainer CLI under ``torch.distributed.run`` for 3 steps of
-   ``configs/train_580m_8k.yaml``.
+   ``configs/train_580m_8k.yaml`` and the same CLI on one card; the one-card
+   reference step's launches give the D 128 rows of the kernel table.
+
+``--phases sequence_parallel_f32`` (never part of a full run) repeats
+phase 13's parity with the model in float32, so that every kernel on both
+sides takes its f32 path: the ring's distance to the one-card step without
+bf16 rounding.
 
 ``--phases a,b,...`` builds the kernels and runs the named phases only
 (kernels, serving, parity, profile, int8_kernels, int8_serving,
 train_kernels, training, packed_kernels, packed, sp_kernels,
-sequence_parallel; parity needs serving); the kernel table then lists the
-kernels whose phases ran.
+sequence_parallel, and sequence_parallel_f32; parity needs serving); the
+kernel table then lists the kernels whose phases ran.
 
 The last two lines of standard output are the kernel table as one JSON
 object and ``{"ok": true, "device": {...}}`` (a full run only). Without CUDA the script exits
@@ -1024,7 +1033,14 @@ TRAIN_CASES = [
     ("ragged_T_f32", 1, 1000, 4, 4, 64, torch.float32, True, True),
     ("d128_gqa_f32", 1, 200, 4, 2, 128, torch.float32, True, True),
     ("d128_gqa", 1, 200, 4, 2, 128, torch.bfloat16, True, True),
+    # 580m's one-card step at D 128: B 1, T 8192, 12 heads of 128
+    ("d128_580m", 1, 8192, 12, 12, 128, torch.bfloat16, True, True),
+    ("d128_ragged_T", 2, 1000, 4, 4, 128, torch.bfloat16, True, True),
+    ("d128_non_causal", 2, 320, 4, 4, 128, torch.bfloat16, False, True),
 ]
+# the timed cases and the suffix of their kernel-table rows: 125m's training
+# shape (D 64) and 580m's one-card shape (D 128)
+TIMED_TRAIN_CASES = {"main": "", "d128_580m": "_d128"}
 # bf16 K2/K3 outputs against the float32 reference on the same o and lse:
 # one bf16 ulp of the reference (the output's own rounding) plus GRAD_ATOL of
 # the tensor's largest |grad|: the tensor-core path rounds p and ds to bf16
@@ -1136,7 +1152,7 @@ def train_kernel_phase():
             line["bf16_err_over_max"] = [float((a.float() - b).abs().max() / b.abs().max())
                                          for a, b in zip(got, ref)]
             errs = [float((a.float() - b).abs().max()) for a, b in zip(got, ref)]
-            if causal and label == "main":
+            if causal and label in TIMED_TRAIN_CASES:
                 for shift in (1, -1):
                     off = shifted_bwd_reference(q, k, v, o_k, lse_k, do, alibi, shift)
                     s_miss = [grad_miss(a, b) for a, b in zip(got, off)]
@@ -1150,11 +1166,15 @@ def train_kernel_phase():
         line["vs_plain_path_max_err"] = [compare(a, b, dtype, f"train e2e {n} {label}")
                                          for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), full)]
         log(line)
-        if label != "main":
+        if label not in TIMED_TRAIN_CASES:
+            del full, ref
             continue
+        suffix = TIMED_TRAIN_CASES[label]
         lse = lse_k.contiguous()
         delta = (do.float() * o_k.float()).sum(-1).transpose(1, 2).contiguous()
         scale = 1.0 / Dq**0.5
+        check_deterministic(q, k, v, do, lse, delta, dict(causal=causal, alibi=alibi, scale=scale),
+                            f"train {label}")
         kern = {
             "flash_train_fwd": lambda: flash._launch_fwd(
                 q, k, v, causal=causal, alibi=alibi, q_offset=0, segment_ids=None, scale=scale,
@@ -1179,14 +1199,30 @@ def train_kernel_phase():
         for name in kern:
             err = fwd_err if name == "flash_train_fwd" else (errs[0] if name == "flash_dq" else max(errs[1:]))
             bound, by = bounds[name]
-            rows[name] = dict(max_abs_err=err, ms=kern_ms[name], device_ms=kern_dev[name],
-                              plain_ms=plain_fwd if name == "flash_train_fwd" else plain_bwd,
-                              library_ms=lib_fwd if name == "flash_train_fwd" else lib_bwd,
-                              bound_ms=bound, bound_by=by)
-            log({"kernel": name, "shape": [B, T, Hq, KVH, Dq], **rows[name]})
-        del lib_out, qt, kt, vt, bias
+            rows[name + suffix] = dict(max_abs_err=err, ms=kern_ms[name], device_ms=kern_dev[name],
+                                       plain_ms=plain_fwd if name == "flash_train_fwd" else plain_bwd,
+                                       library_ms=lib_fwd if name == "flash_train_fwd" else lib_bwd,
+                                       bound_ms=bound, bound_by=by)
+            log({"kernel": name + suffix, "shape": [B, T, Hq, KVH, Dq], **rows[name + suffix]})
+        del lib_out, qt, kt, vt, bias, full, ref
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     return rows
+
+
+def check_deterministic(q, k, v, do, lse, delta, kw, what: str) -> None:
+    """K2 and K3 twice on the same inputs must write the same bits: each
+    output tile is written once by one CTA, with no atomics (a resumed run
+    is bit-equal only so)."""
+    from zero_transformer_tpu_torch.ops import flash
+
+    first = (flash.launch_dq(q, k, v, do, lse, delta, **kw),) + flash.launch_dkv(q, k, v, do, lse, delta, **kw)
+    again = (flash.launch_dq(q, k, v, do, lse, delta, **kw),) + flash.launch_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(a, b)) for a, b in zip(first, again)]
+    log({"deterministic": what, "dq_dk_dv_bit_equal": same})
+    if not all(same):
+        raise AssertionError(f"{what}: two K2/K3 runs on the same inputs differ ({same})")
 
 
 # ------------------------------------------------------------------ training
@@ -1384,6 +1420,7 @@ PACKED_CASES = [
     ("gqa", 10, 8, 2, 64, torch.bfloat16),
     ("gqa_f32", 10, 8, 2, 64, torch.float32),
     ("d128_f32", 10, 4, 4, 128, torch.float32),
+    ("d128", 10, 4, 4, 128, torch.bfloat16),
 ]
 
 
@@ -2107,6 +2144,9 @@ def sp_kernel_phase():
             if not (label in ("main", "main_docs") and pair == "past"):
                 continue
             suffix = flash.DOCS if docs else ""
+            check_deterministic(qs, ks, vs, dos, lse_g, delta,
+                                dict(causal=True, alibi=True, scale=scale, q_offset=qi * t, kv_offset=ki * t,
+                                     q_ids=q_ids, k_ids=k_ids, out_dtype=torch.float32), f"sp {label} {pair}")
             kern = {
                 "flash_partial_fwd": lambda: flash.flash_partial(qs, ks, vs, **at, q_ids=q_ids, k_ids=k_ids),
                 "flash_partial_dq": lambda: flash.launch_dq(
@@ -2171,10 +2211,10 @@ def sp_batch(packed: bool) -> torch.Tensor:
     return tokens
 
 
-def sp_model(overrides: dict, device):
+def sp_model(overrides: dict, device, dtype=torch.bfloat16):
     from zero_transformer_tpu_torch.models import model_getter
 
-    return model_getter(SP_MODEL, dtype=torch.bfloat16, device=device, seed=SEED, trainable=True, dropout=0.0,
+    return model_getter(SP_MODEL, dtype=dtype, device=device, seed=SEED, trainable=True, dropout=0.0,
                         remat=True, **overrides)
 
 
@@ -2184,7 +2224,7 @@ def param_checksum(model) -> int:
     return sum(int(p.detach().view(torch.int32).sum(dtype=torch.int64)) for p in model.parameters())
 
 
-def _sp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str) -> None:
+def _sp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str, dtype_name: str) -> None:
     """One rank of the sequence-parallel phase: the op-level ring at 580m's
     layer shape, then one ring train step of 580m per case (launch counts,
     grad cosines against the one-card grads on rank 0, the param checksum,
@@ -2200,6 +2240,7 @@ def _sp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str) 
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    dtype = getattr(torch, dtype_name)
     out = Path(out_dir)
     group = init_distributed(world, backend, "cuda", rank=rank, world_size=world,
                              init_method=f"file://{init_file}", local_rank=rank)
@@ -2216,7 +2257,7 @@ def _sp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str) 
         torch.save([x.detach().cpu() for x in (o, *grads)], out / f"op_{int(docs)}_{rank}.pt")
         del q, k, v, do, qs, ks, vs, o, grads
     for case, overrides in SP_STEP_CASES.items():
-        model = sp_model(overrides, dev).set_sequence_group(group)
+        model = sp_model(overrides, dev, dtype).set_sequence_group(group)
         init_checksum = param_checksum(model)
         opt_cfg = OptimizerConfig(schedule="constant", peak_learning_rate=SP_LR)
         schedule = make_schedule(opt_cfg)
@@ -2285,7 +2326,7 @@ def _sp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str) 
     destroy(group)
 
 
-def sequence_parallel_phase() -> dict:
+def sequence_parallel_phase(dtype=torch.bfloat16) -> dict:
     """580m at T 8192 over 4 ranks: NCCL with a card per rank when the
     machine has 4, else 4 ranks sharing card 0 over gloo (each rank's
     kernels run on the card; the transfers stage through pinned host
@@ -2303,45 +2344,58 @@ def sequence_parallel_phase() -> dict:
     forward, and its recompute under remat), flash_partial_dq =
     flash_partial_dkv = L x n, for L layers and n ranks (the ``_docs``
     counters in the packed case). Then the trainer CLI under
-    ``torch.distributed.run`` for 3 steps of configs/train_580m_8k.yaml."""
-    import os
+    ``torch.distributed.run`` for 3 steps of configs/train_580m_8k.yaml,
+    and the same CLI on one card. Returns the ring's launch counts and, as
+    the ``_d128`` rows of the kernel table, the one-card reference's
+    (the training entry at D 128: ``flash_train_fwd_d128``,
+    ``flash_dq_d128``, ``flash_dkv_d128``, plain case).
 
+    With ``dtype`` float32 (the ``sequence_parallel_f32`` phase) every
+    kernel of both sides takes its f32 path: the same bars and readings
+    under ``_f32`` names, without the trainer CLIs."""
     import torch.multiprocessing as mp
 
     from zero_transformer_tpu_torch.config import model_config
-    from zero_transformer_tpu_torch.ops import flash
+    from zero_transformer_tpu_torch.ops import _build, flash
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    tag = "" if dtype == torch.bfloat16 else "_" + str(dtype).removeprefix("torch.")
     cards = torch.cuda.device_count()
     backend = "nccl" if cards >= SP_RANKS else "gloo"
     topology = {"ranks": SP_RANKS, "cards": min(cards, SP_RANKS), "backend": backend,
                 "transfers": "NCCL, card to card" if backend == "nccl" else "gloo through pinned host memory"}
-    log({"sequence_parallel_topology": topology})
+    log({f"sequence_parallel{tag}_topology": topology})
     out = Path("build") / "sp"
     out.mkdir(parents=True, exist_ok=True)
     L = model_config(SP_MODEL).n_layers
 
     # the one-card reference, before the ranks take the card's memory
-    ref_loss = {}
+    ref_loss, one_card_launches = {}, {}
     for case, overrides in SP_STEP_CASES.items():
-        model = sp_model(overrides, "cuda")
+        model = sp_model(overrides, "cuda", dtype)
         init_checksum = param_checksum(model)
+        batch = sp_batch(case == "packed")[0].cuda()
+        loss_and_grads(model, batch)  # warm-up: cuBLAS's and the allocator's first calls
         torch.cuda.synchronize()
+        _build.reset_launches()
         t0 = time.perf_counter()
-        loss, grads = loss_and_grads(model, sp_batch(case == "packed")[0].cuda())
+        loss, grads = loss_and_grads(model, batch)
         torch.cuda.synchronize()
         ref_loss[case] = (loss, init_checksum, time.perf_counter() - t0)
+        one_card_launches[case] = {n: c for n, c in _build.LAUNCHES.items() if c}
         torch.save({"loss": loss, "grads": {n: g.cpu() for n, g in grads.items()}}, out / f"ref_{case}.pt")
-        del model, grads
+        del model, grads, batch
         torch.cuda.empty_cache()
-    log({"sequence_parallel_one_card_reference": {c: {"loss": l, "step_s": s} for c, (l, _, s) in ref_loss.items()}})
+    log({f"sequence_parallel{tag}_one_card_reference": {
+        c: {"loss": l, "step_s": s, "launches": one_card_launches[c]} for c, (l, _, s) in ref_loss.items()}})
 
     init_file = out / "rendezvous"
     if init_file.exists():
         init_file.unlink()
     t0 = time.perf_counter()
-    ctx = mp.start_processes(_sp_rank, args=(SP_RANKS, backend, str(init_file.resolve()), str(out)),
+    ctx = mp.start_processes(_sp_rank, args=(SP_RANKS, backend, str(init_file.resolve()), str(out),
+                                             str(dtype).removeprefix("torch.")),
                              nprocs=SP_RANKS, join=False, start_method="spawn")
     end = time.monotonic() + 900
     try:
@@ -2374,7 +2428,7 @@ def sequence_parallel_phase() -> dict:
         op["docs" if docs else "no_docs"] = line
         del q, k, v, one, one_grads, ring, shards
     torch.cuda.empty_cache()
-    log({"sequence_parallel_op": op})
+    log({f"sequence_parallel{tag}_op": op})
 
     launches = {}
     for case in SP_STEP_CASES:
@@ -2387,7 +2441,7 @@ def sequence_parallel_phase() -> dict:
                    "peak_memory_gib_per_rank": [x["peak_memory_gib"] for x in lines],
                    "checksums_after_update": [x["checksum_after_update"] for x in lines],
                    "launches_rank0": first["launches"], "profile_rank0": first["profile"]}
-        log({f"sequence_parallel_step_{case}": summary})
+        log({f"sequence_parallel{tag}_step_{case}": summary})
         if not abs(first["loss"] - loss_ref) <= LOSS_MARGIN:
             raise AssertionError(f"{case}: ring loss {first['loss']} vs one-card {loss_ref}")
         if first["grad_cos_below_bar"]:
@@ -2403,15 +2457,47 @@ def sequence_parallel_phase() -> dict:
             if x["launches"] != want:
                 raise AssertionError(f"{case} rank launches {x['launches']}, want exactly {want}")
         launches.update(first["launches"])
+    # the training entry at D 128: the one-card reference's launches
+    launches.update({n + "_d128": one_card_launches["plain"].get(n, 0)
+                     for n in ("flash_train_fwd", "flash_dq", "flash_dkv")})
+    if dtype != torch.bfloat16:
+        for f in out.glob("*.pt"):
+            f.unlink()
+        return launches
 
-    # the trainer CLI under torch.distributed.run
-    run_dir = Path("chiprun_out") / "train_580m_8k_sp"
+    # the trainer CLI under torch.distributed.run, then on one card
+    sets = ["model.dropout=0.0", "training.gradient_accumulation_steps=1", "training.log_frequency=1"]
+    flops = (f"tokens/s * 3 * (2 * N + 4 * L * d * T) / (989e12 * cards), "
+             f"N = {model_config(SP_MODEL).num_params}, L = {L}, d = 1536, T = {SP_SEQ}")
+    ring_cli, proc = trainer_cli_580m(
+        ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(SP_RANKS), "-m",
+         "zero_transformer_tpu_torch.train", "--dist-backend", backend], [f"mesh.sequence={SP_RANKS}", *sets],
+        Path("chiprun_out") / "train_580m_8k_sp")
+    topo = next((json.loads(line)["distributed"] for line in proc.stdout.splitlines()
+                 if line.startswith('{"distributed"')), None)
+    log({"sequence_parallel_trainer_cli": {**ring_cli, "ranks_phase_s": ranks_s, "topology": topo,
+                                           "model_flops_formula": flops}})
+    if topo is None or topo["backend"] != backend or ring_cli["model_flops_share"] is None:
+        raise AssertionError(f"the trainer CLI printed no topology or no model-FLOPs share: {topo}, {ring_cli}")
+    one_cli, _ = trainer_cli_580m(["-m", "zero_transformer_tpu_torch.train"], sets,
+                                  Path("chiprun_out") / "train_580m_8k_one_card")
+    log({"one_card_trainer_cli_580m": {**one_cli, "model_flops_formula": flops}})
+    for f in out.glob("*.pt"):
+        f.unlink()
+    return launches
+
+
+def trainer_cli_580m(launcher: list, sets: list, run_dir: Path):
+    """3 steps of configs/train_580m_8k.yaml through the trainer CLI
+    (``launcher`` the interpreter arguments before ``--cfg``); fails unless
+    it exits 0 and logs 3 finite losses. Returns its last step's readings
+    and the finished process."""
+    import os
+
     if (run_dir / "metrics.jsonl").exists():
         (run_dir / "metrics.jsonl").unlink()
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(SP_RANKS),
-           "-m", "zero_transformer_tpu_torch.train", "--cfg", "configs/train_580m_8k.yaml", "--dist-backend",
-           backend, "--max-steps", "3", "--set", f"mesh.sequence={SP_RANKS}", "model.dropout=0.0",
-           "training.gradient_accumulation_steps=1", "training.log_frequency=1", f"checkpoint.directory={run_dir}"]
+    cmd = [sys.executable, *launcher, "--cfg", "configs/train_580m_8k.yaml", "--max-steps", "3", "--set", *sets,
+           f"checkpoint.directory={run_dir}"]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
                           env={**os.environ, "OMP_NUM_THREADS": "2"})
@@ -2423,20 +2509,8 @@ def sequence_parallel_phase() -> dict:
     if len(train) != 3 or not all(math.isfinite(r["loss"]) for r in train):
         raise AssertionError(f"trainer CLI metrics incomplete or non-finite: {records}")
     last = train[-1]
-    topo = next((json.loads(line)["distributed"] for line in proc.stdout.splitlines()
-                 if line.startswith('{"distributed"')), None)
-    log({"sequence_parallel_trainer_cli": {
-        "wall_s": wall, "ranks_phase_s": ranks_s, "topology": topo, "losses": [r["loss"] for r in train],
-        "step_time_ms": last["step_time_ms"], "tokens_per_sec": last["tokens_per_sec"],
-        "model_flops_share": last.get("model_flops_share"),
-        "model_flops_formula": f"tokens/s * 3 * (2 * N + 4 * L * d * T) / (989e12 * cards), "
-                               f"N = {model_config(SP_MODEL).num_params}, L = {L}, d = 1536, T = {SP_SEQ}",
-    }})
-    if topo is None or topo["backend"] != backend or last.get("model_flops_share") is None:
-        raise AssertionError(f"the trainer CLI printed no topology or no model-FLOPs share: {topo}, {last}")
-    for f in out.glob("*.pt"):
-        f.unlink()
-    return launches
+    return {"wall_s": wall, "losses": [r["loss"] for r in train], "step_time_ms": last["step_time_ms"],
+            "tokens_per_sec": last["tokens_per_sec"], "model_flops_share": last.get("model_flops_share")}, proc
 
 
 def card_line() -> str:
@@ -2449,6 +2523,8 @@ def card_line() -> str:
 
 PHASES = ("kernels", "serving", "parity", "profile", "int8_kernels", "int8_serving", "train_kernels", "training",
           "packed_kernels", "packed", "sp_kernels", "sequence_parallel")
+# named with --phases only: the ring's parity with every kernel on its f32 path
+EXTRA_PHASES = ("sequence_parallel_f32",)
 SOURCES = {
     "flash_serving_fwd": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
                           "zero_transformer_tpu/ops/pallas/flash.py:127"),
@@ -2484,6 +2560,13 @@ SOURCES = {
                               "zero_transformer_tpu/ops/pallas/flash.py:176"),
     "flash_partial_dkv_docs": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
                                "zero_transformer_tpu/ops/pallas/flash.py:214"),
+    # the training entry at D 128: 580m's one-card step (B 1, T 8192)
+    "flash_train_fwd_d128": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
+                             "zero_transformer_tpu/ops/pallas/flash.py:127"),
+    "flash_dq_d128": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
+                      "zero_transformer_tpu/ops/pallas/flash.py:176"),
+    "flash_dkv_d128": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
+                       "zero_transformer_tpu/ops/pallas/flash.py:214"),
 }
 
 
@@ -2495,10 +2578,10 @@ def main(argv) -> int:
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = tuple(argv[1].split(","))
     elif argv:
-        print(f"usage: chip_smoke.py [--phases {','.join(PHASES)}]", file=sys.stderr)
+        print(f"usage: chip_smoke.py [--phases {','.join(PHASES + EXTRA_PHASES)}]", file=sys.stderr)
         return 2
-    if set(phases) - set(PHASES):
-        print(f"chip_smoke: unknown phases {sorted(set(phases) - set(PHASES))}", file=sys.stderr)
+    if set(phases) - set(PHASES + EXTRA_PHASES):
+        print(f"chip_smoke: unknown phases {sorted(set(phases) - set(PHASES + EXTRA_PHASES))}", file=sys.stderr)
         return 2
     from zero_transformer_tpu_torch.ops import _build
 
@@ -2508,7 +2591,7 @@ def main(argv) -> int:
     log({"build_s": time.perf_counter() - t0, "per_source_s": fresh})
     for name, report in _build.ptxas_report.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Performance" in line:
                 log(f"ptxas {name}: {line.strip()}")
     rows, launches = {}, {}
     if "kernels" in phases:
@@ -2547,6 +2630,8 @@ def main(argv) -> int:
         rows.update(sp_kernel_phase())
     if "sequence_parallel" in phases:
         launches.update(sequence_parallel_phase())
+    if "sequence_parallel_f32" in phases:
+        sequence_parallel_phase(torch.float32)
     table = [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu, "launches": launches[name],
          **rows[name]}

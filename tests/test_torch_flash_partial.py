@@ -15,7 +15,11 @@ as a tensor-parallel shard holds it). The backward is given the GLOBAL
 out and lse of the whole sequence, as the ring gives it, and delta both
 computed and passed in. Out, lse, dq, dk and dv agree within atol 1e-5 in
 float32; on the future shard the output is 0, the lse -1e30 and every grad
-exactly 0 in both packages.
+exactly 0 in both packages. The cases run at D = 32, and at D = 128
+(MHA, and GQA with document ids) over the same three pairs.
+
+The bf16 kernels' argument check (16-byte aligned q/k/v/do) raises on a
+tensor that starts off that boundary.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +31,7 @@ from zero_transformer_tpu.ops.positions import alibi_slopes
 from zero_transformer_tpu_torch.ops import flash as tflash
 
 ATOL = 1e-5
-T_SHARD, N_SHARDS, B, D = 64, 3, 2, 32
+T_SHARD, N_SHARDS, B, D = 64, 3, 2, 32  # D: the head width unless a case names its own
 # (query shard, key shard): the diagonal, a past shard and a future shard
 PAIRS = {"diagonal": (1, 1), "past": (2, 0), "future": (0, 2)}
 
@@ -37,7 +41,7 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-def _sequence(seed, H, KVH, docs):
+def _sequence(seed, H, KVH, docs, D=D):
     rng = np.random.default_rng(seed)
     T = T_SHARD * N_SHARDS
     q, k, v = (rng.standard_normal((B, T, h, D)).astype(np.float32) for h in (H, KVH, KVH))
@@ -66,22 +70,25 @@ def _j(x):
 
 
 CASES = [
-    # (label, H, KVH, alibi, docs, slopes)
-    ("mha", 4, 4, True, False, False),
-    ("gqa", 8, 2, True, False, False),
-    ("no_alibi", 4, 4, False, False, False),
-    ("docs", 4, 4, True, True, False),
-    ("gqa_docs", 8, 2, True, True, False),
-    ("slopes", 4, 4, True, False, True),
+    # (label, H, KVH, alibi, docs, slopes, D); D = 128 is 580m's head width,
+    # the wgmma kernels' path on the card
+    ("mha", 4, 4, True, False, False, D),
+    ("gqa", 8, 2, True, False, False, D),
+    ("no_alibi", 4, 4, False, False, False, D),
+    ("docs", 4, 4, True, True, False, D),
+    ("gqa_docs", 8, 2, True, True, False, D),
+    ("slopes", 4, 4, True, False, True, D),
+    ("mha_d128", 4, 4, True, False, False, 128),
+    ("gqa_docs_d128", 8, 2, True, True, False, 128),
 ]
 
 
 @pytest.mark.parametrize("pair", sorted(PAIRS))
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_partial_and_grads_match_jax_interpret(case, pair):
-    label, H, KVH, alibi, docs, with_slopes = case
+    label, H, KVH, alibi, docs, with_slopes, D = case
     qi, ki = PAIRS[pair]
-    q, k, v, do, ids = _sequence(len(label) + 7 * qi + ki, H, KVH, docs)
+    q, k, v, do, ids = _sequence(len(label) + 7 * qi + ki, H, KVH, docs, D)
     slopes = np.asarray(alibi_slopes(2 * H))[H:].astype(np.float32) if with_slopes else None
     scale = 1.0 / D**0.5
     common = dict(causal=True, alibi=alibi, softmax_scale=scale, q_offset=qi * T_SHARD,
@@ -165,3 +172,15 @@ def test_partial_wrappers_refuse_what_the_kernels_cannot_take():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tflash.flash_grads(meta, meta, meta, meta, torch.zeros(1, 4, 8, device="meta"), meta,
                            causal=True, alibi=True)
+
+
+def test_bf16_backward_refuses_misaligned_tensors():
+    """The bf16 kernels copy 16 bytes at a time: a q/k/v/do view that starts
+    one bf16 element past a 16-byte boundary is refused, before any launch."""
+    buf = torch.zeros(1 + 8 * 4 * 128, dtype=torch.bfloat16)
+    aligned = buf[:-1].view(1, 8, 4, 128)
+    assert aligned.data_ptr() % 16 == 0
+    tflash.check_aligned(aligned, aligned, aligned, aligned)
+    shifted = buf[1:].view(1, 8, 4, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tflash.check_aligned(aligned, shifted, aligned, aligned)

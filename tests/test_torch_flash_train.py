@@ -7,10 +7,12 @@ tensors its forward is ``flash_reference`` and its backward
 ``flash_bwd_reference``, the plain versions of K1 and of K2/K3). Out, dq, dk
 and dv agree within atol 1e-5 in float32, over MHA and GQA (8 query heads
 on 2 kv heads), ALiBi on and off, causal on and off, T = S in {64, 128},
-D = 64. With packed-document ids (``doc_ids``, exclusive-cumsum ids from
-rows with separators at 0, at T-1, back to back, on a 64-key tile edge, and
-a row with none), the same holds, and ``flash_reference`` alone against the
-JAX forward, over MHA and GQA.
+D = 64; at D = 128 (the head width of the wgmma kernels on the card) over
+MHA and GQA, causal with ALiBi, and GQA non-causal. With packed-document
+ids (``doc_ids``, exclusive-cumsum ids from rows with separators at 0, at
+T-1, back to back, on a 64-key tile edge, and a row with none), the same
+holds, and ``flash_reference`` alone against the JAX forward, over MHA and
+GQA at D = 64 and GQA at D = 128.
 
 Then ``flash_bwd_reference`` against autograd through the port's own
 ``xla_attention``, and the dispatch gate: a training-shape call that needs
@@ -52,13 +54,25 @@ def _port(q, k, v, do, causal, alibi, docs=None):
     return [out.detach().numpy()] + [g.numpy() for g in grads]
 
 
-@pytest.mark.parametrize("T", [64, 128])
-@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("alibi", [True, False], ids=["alibi", "no_alibi"])
-@pytest.mark.parametrize("heads", [(4, 4), (8, 2)], ids=["mha", "gqa"])
-def test_flash_attention_and_grads_match_jax_interpret(heads, alibi, causal, T):
+# (heads, alibi, causal, T, D): every combination at D = 64, and at D = 128
+# (580m's head width, the wgmma kernels' path on the card) MHA and GQA,
+# causal with ALiBi, and one non-causal case
+HEADS = {"mha": (4, 4), "gqa": (8, 2)}
+PARITY_CASES = [
+    pytest.param(HEADS[h], alibi, causal, T, 64,
+                 id=f"{h}-{'alibi' if alibi else 'no_alibi'}-{'causal' if causal else 'full'}-{T}")
+    for h in HEADS for alibi in (True, False) for causal in (True, False) for T in (64, 128)
+] + [
+    pytest.param(HEADS["mha"], True, True, 128, 128, id="mha-alibi-causal-128-d128"),
+    pytest.param(HEADS["gqa"], True, True, 128, 128, id="gqa-alibi-causal-128-d128"),
+    pytest.param(HEADS["gqa"], True, False, 64, 128, id="gqa-alibi-full-64-d128"),
+]
+
+
+@pytest.mark.parametrize("heads,alibi,causal,T,D", PARITY_CASES)
+def test_flash_attention_and_grads_match_jax_interpret(heads, alibi, causal, T, D):
     H, KVH = heads
-    q, k, v, do = _inputs(T + H + 2 * alibi + causal, 2, T, H, KVH, 64)
+    q, k, v, do = _inputs(T + H + 2 * alibi + causal + D - 64, 2, T, H, KVH, D)
 
     def fwd(q, k, v):
         return jflash.flash_attention(q, k, v, causal=causal, alibi=alibi, block=64, interpret=True)
@@ -81,11 +95,11 @@ def _doc_ids(T):
     return ids.astype(np.int32)
 
 
-@pytest.mark.parametrize("heads", [(4, 4), (8, 2)], ids=["mha", "gqa"])
-def test_flash_attention_with_doc_ids_matches_jax_interpret(heads):
+@pytest.mark.parametrize("heads,D", [((4, 4), 64), ((8, 2), 64), ((8, 2), 128)], ids=["mha", "gqa", "gqa_d128"])
+def test_flash_attention_with_doc_ids_matches_jax_interpret(heads, D):
     H, KVH = heads
     T = 128
-    q, k, v, do = _inputs(H + 7, 4, T, H, KVH, 64)
+    q, k, v, do = _inputs(H + 7 + (D > 64), 4, T, H, KVH, D)
     docs = _doc_ids(T)
 
     def fwd(q, k, v):
@@ -100,7 +114,7 @@ def test_flash_attention_with_doc_ids_matches_jax_interpret(heads):
     # the plain version of K1 alone, lse included, against the JAX forward
     ref, lse = tflash.flash_reference(*(torch.from_numpy(x) for x in (q, k, v)), causal=True,
                                       alibi=True, doc_ids=torch.from_numpy(docs))
-    j_out, j_lse = jflash._fwd(*(jnp.asarray(x) for x in (q, k, v)), True, True, 1 / 8.0, 64, 64, True,
+    j_out, j_lse = jflash._fwd(*(jnp.asarray(x) for x in (q, k, v)), True, True, D**-0.5, 64, 64, True,
                                q_ids=jnp.asarray(docs), k_ids=jnp.asarray(docs))
     np.testing.assert_allclose(ref.numpy(), np.asarray(j_out), atol=ATOL, rtol=0)
     np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse)[..., 0], atol=ATOL, rtol=0)

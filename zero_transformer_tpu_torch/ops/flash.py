@@ -277,6 +277,17 @@ def _check_kernel_inputs(q, k, v, what: str) -> None:
         raise ValueError("flash kernel needs non-empty q and k")
 
 
+def check_aligned(*tensors: torch.Tensor) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary: the bf16
+    backward kernels copy q, k, v and do into shared memory 16 bytes at a
+    time (``cp.async``). Their rows, H * D * 2 bytes apart, are then aligned
+    too."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"the bf16 flash backward needs 16-byte aligned q/k/v/do; got a {tuple(t.shape)} "
+                             f"tensor at an address 16n + {t.data_ptr() % 16}")
+
+
 def _ids_arg(ids: Optional[torch.Tensor], dev) -> Optional[torch.Tensor]:
     """An optional id or mask tensor as the contiguous int32 the kernels read."""
     return None if ids is None else ids.to(device=dev, dtype=torch.int32).contiguous()
@@ -360,6 +371,8 @@ def _bwd_args(q, k, v, do, lse, delta, causal, alibi, scale, q_offset, kv_offset
     B, T, H, D = q.shape
     _, S, KVH, _ = k.shape
     dev = q.device
+    if q.dtype == torch.bfloat16:
+        check_aligned(q, k, v, do)
     offs = offsets_arg(q_offset, kv_offset, B, dev)
     qid, kid = _ids_arg(q_ids, dev), _ids_arg(k_ids, dev)
     ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta)]
@@ -373,7 +386,9 @@ def _bwd_args(q, k, v, do, lse, delta, causal, alibi, scale, q_offset, kv_offset
 def launch_dq(q, k, v, do, lse, delta, *, causal, alibi, scale, doc_ids=None, q_offset=0, kv_offset=0,
               q_ids=None, k_ids=None, slopes=None, out_dtype=None, counter="flash_dq") -> torch.Tensor:
     """K2 on contiguous CUDA tensors: dq [B, T, H, D] in ``out_dtype`` or q's
-    dtype. ``doc_ids`` serves as both ``q_ids`` and ``k_ids``."""
+    dtype. ``doc_ids`` serves as both ``q_ids`` and ``k_ids``. bf16 inputs
+    take the wgmma kernel (16-byte aligned, ``check_aligned``), f32 inputs
+    the FMA one."""
     if doc_ids is not None:
         q_ids = k_ids = doc_ids
     dq = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
