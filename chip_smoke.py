@@ -12,9 +12,9 @@ Phases, each fatal on failure (nothing is caught):
    float32 (atol 1e-4); hold the bf16 tensor-core flash kernel besides to
    an emulation of its own rounding (one bf16 ulp plus 2^-13 per output,
    at most 0.1 % of outputs different) and show that this check catches a
-   causal limit or validity mask one key off; time kernel, plain version
-   and a PyTorch library call computing the same function (a yardstick
-   only);
+   causal limit or validity mask one key off; K1 twice on the same inputs
+   writes the same bits; time kernel, plain version and a PyTorch library
+   call computing the same function (a yardstick only);
 3. serving: seed-initialise the ``125m`` zoo model in bf16, start the port's
    engine and HTTP server on 127.0.0.1 (4 slots, cache 1024, page 16,
    chunk 64) and answer concurrent greedy ``POST /generate`` requests; the
@@ -31,11 +31,14 @@ Phases, each fatal on failure (nothing is caught):
    ``flash_bwd_reference`` at the training shape (B 8, T = S = 1024, 12
    heads of 64, bf16), at 580m's one-card shape (B 1, T = S 8192, 12 heads
    of 128, bf16) and on GQA, non-ALiBi, non-causal, ragged-T and D 128
-   cases: float32 within atol 1e-4; bf16 K2/K3 within one bf16 ulp plus
-   6e-3 of the largest |grad| of the float32 reference on the same o and
-   lse, and at both timed shapes the same bar must reject a reference whose
-   causal limit is one key off; K2 and K3 twice on the same inputs write the
-   same bits; times of kernel, plain version and the backward of
+   cases: float32 within atol 1e-4; bf16 K1 within the emulation bar of
+   phase 2 plus one p-rounding flip (phase 8's), which at both timed shapes
+   must reject a causal limit or validity mask one key off; bf16 K2/K3
+   within one bf16 ulp plus 6e-3 of the largest |grad| of the float32
+   reference on the same o and lse, and at both timed shapes the same bar
+   must reject a reference whose causal limit is one key off; K1, K2 and K3
+   twice on the same inputs write the same bits; times of kernel, plain
+   version and the backward of
    ``scaled_dot_product_attention`` with the ALiBi float bias (a yardstick);
 7. training: ``125m`` at full width and depth, bf16 over float32 master
    params, seed-0 weights: (a) one micro-batch's loss and grads through the
@@ -90,7 +93,8 @@ Phases, each fatal on failure (nothing is caught):
    one key off in kv_offset and one that reads the query ids as key ids; a
    future shard writes o = 0, lse = -1e30 and zero grads; K2 and K3 twice
    on a past shard write the same bits; times of kernel, plain version and
-   SDPA with the block's float bias (and its backward);
+   SDPA with the block's float bias (and its backward); K1 twice on a past
+   shard writes the same bits;
 13. sequence_parallel: 580m at T 8192 over 4 ranks (NCCL with a card per
    rank on a 4-card machine, else 4 ranks sharing card 0 over gloo): the
    ring at the layer shape against the one-card ``flash_attention`` on the
@@ -146,6 +150,7 @@ TOL = {torch.bfloat16: dict(atol=2e-2, rtol=2e-2), torch.float32: dict(atol=1e-4
 MMA_ATOL = 2.0**-13
 MMA_DIFFER_SHARE = 1e-3
 MMA_LSE_ATOL = 1e-4
+K1_KEY_TILE = 64  # keys per tile of the bf16 K1 kernel (csrc/flash_fwd.cu BK): its online softmax's steps
 
 # 125m serving shapes (ServingConfig defaults at cache_len 1024)
 H, D, PAGE, CACHE, CHUNK, SLOTS = 12, 64, 16, 1024, 64, 4
@@ -280,14 +285,15 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_mma_emulation(q, k, v, offsets, seg, docs=None, with_flip=False, kv_offsets=0, k_docs=None,
-                        round_out=True):
+                        round_out=True, key_tile=K1_KEY_TILE, round_p=True, causal=True):
     """The bf16 tensor-core kernel's arithmetic, step by step: scores from
     the bf16 inputs (exact products, summed in float64, then float32), the
     biases in the kernel's order (ALiBi + causal, then the document mask
     when ``docs`` [B, T] is given, then validity), an online softmax over
-    its 64-key tiles with m and l in float32 from the unrounded P, P
+    its ``key_tile``-key tiles with m and l in float32 from the unrounded P, P
     rounded to bf16 before the P.V product (exact products summed in
-    float64), and the output rounded to bf16 once. A tile past a row's
+    float64; ``round_p=False`` keeps P in float32), and the output rounded
+    to bf16 once. A tile past a row's
     causal limit, which the kernel skips, adds exp(-1e10 - m) = 0 here, so
     every tile is visited.
     Returns ``(out [B, T, H, D] bf16, lse [B, H, T] f32)``; with
@@ -300,7 +306,8 @@ def flash_mma_emulation(q, k, v, offsets, seg, docs=None, with_flip=False, kv_of
     [B]) puts the keys at global positions and ``k_docs`` [B, S] gives them
     ids of their own (``flash_partial``); ``round_out=False`` keeps the
     output in float32; a row that sees no key (causal, every key after it)
-    is 0 with lse -1e30, as the kernel writes it."""
+    is 0 with lse -1e30, as the kernel writes it. ``causal=False`` drops
+    the causal mask (ALiBi stays)."""
     from zero_transformer_tpu_torch.ops.flash import row_offsets, slopes_on
     from zero_transformer_tpu_torch.ops.positions import NEG_INF
 
@@ -315,7 +322,8 @@ def flash_mma_emulation(q, k, v, offsets, seg, docs=None, with_flip=False, kv_of
     dist = (offs[:, None, None] + torch.arange(T, device=q.device)[:, None]
             - (kv_offs[:, None, None] + torch.arange(S, device=q.device)))
     bias = 0.0 - slopes_on(Hq, str(q.device), True)[None, :, None, None] * dist.clamp(min=0)[:, None].float()
-    bias = bias + torch.where(dist >= 0, 0.0, NEG_INF)[:, None]
+    if causal:
+        bias = bias + torch.where(dist >= 0, 0.0, NEG_INF)[:, None]
     x = s * (1.0 / Dq**0.5) + bias
     if docs is not None:
         k_docs = docs if k_docs is None else k_docs
@@ -324,18 +332,19 @@ def flash_mma_emulation(q, k, v, offsets, seg, docs=None, with_flip=False, kv_of
     m = torch.full((B, Hq, T, 1), -1e30, device=q.device)
     l = torch.zeros_like(m)
     o = torch.zeros(B, Hq, T, Dq, dtype=torch.float64, device=q.device)
-    for j in range(0, S, 64):
-        xt = x[..., j:j + 64]
+    for j in range(0, S, key_tile):
+        xt = x[..., j:j + key_tile]
         m_new = torch.maximum(m, xt.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(xt - m_new)
         l = alpha * l + p.sum(-1, keepdim=True)
-        o = (o * alpha.double() + p.bfloat16().double() @ vd[:, :, j:j + 64]).float().double()
+        pv = (p.bfloat16() if round_p else p).double()
+        o = (o * alpha.double() + pv @ vd[:, :, j:j + key_tile]).float().double()
         m = m_new
     l_safe = torch.where(l == 0, 1.0, l)
     out = o.float() / l_safe
     lse = (m + torch.log(l_safe))[..., 0]
-    dead = (dist.amax(-1) < 0)[:, None, :]  # [B, 1, T]: the row sees no key
+    dead = (dist.amax(-1) < 0)[:, None, :] & causal  # [B, 1, T]: the row sees no key
     out = torch.where(dead[..., None], 0.0, out)
     lse = torch.where(dead, -1e30, lse)
     out = (out.bfloat16() if round_out else out).transpose(1, 2)
@@ -355,7 +364,8 @@ def mma_miss(got: torch.Tensor, emu: torch.Tensor, flip=0.0):
     return over, float((err > 0).float().mean())
 
 
-def check_mma(got, lse, q, k, v, offs, seg, label, shifted, docs=None, doc_control=None, flip=False):
+def check_mma(got, lse, q, k, v, offs, seg, label, shifted, docs=None, doc_control=None, flip=False,
+              causal=True):
     """Hold the bf16 tensor-core kernel to its own rounding against
     ``flash_mma_emulation``: every output within one bf16 ulp plus MMA_ATOL,
     at most MMA_DIFFER_SHARE of the outputs different at all, lse within
@@ -368,11 +378,12 @@ def check_mma(got, lse, q, k, v, offs, seg, label, shifted, docs=None, doc_contr
     flip of a p (``flash_mma_emulation``'s ``flip``): at byte_25m's training
     shape (8.4M outputs) the bar without it misses by up to 9x, with and
     without document ids alike; the reading without the allowance is
-    reported as ``over_without_flip``."""
+    reported as ``over_without_flip``. ``causal=False``: the kernel ran
+    without the causal mask."""
     if flip:
-        emu, emu_lse, allowance = flash_mma_emulation(q, k, v, offs, seg, docs, with_flip=True)
+        emu, emu_lse, allowance = flash_mma_emulation(q, k, v, offs, seg, docs, with_flip=True, causal=causal)
     else:
-        (emu, emu_lse), allowance = flash_mma_emulation(q, k, v, offs, seg, docs), 0.0
+        (emu, emu_lse), allowance = flash_mma_emulation(q, k, v, offs, seg, docs, causal=causal), 0.0
     over, share = mma_miss(got, emu, allowance)
     lse_err = float((lse - emu_lse).abs().max())
     if not (over <= 1.0 and share <= MMA_DIFFER_SHARE and lse_err <= MMA_LSE_ATOL):
@@ -393,7 +404,7 @@ def check_mma(got, lse, q, k, v, offs, seg, label, shifted, docs=None, doc_contr
     if doc_control is not None:
         controls["inclusive_doc_ids"] = (offs, seg, doc_control)
     for what, (o2, s2, d2) in controls.items():
-        s_over, s_share = mma_miss(got, flash_mma_emulation(q, k, v, o2, s2, d2)[0], allowance)
+        s_over, s_share = mma_miss(got, flash_mma_emulation(q, k, v, o2, s2, d2, causal=causal)[0], allowance)
         if s_over <= 1.0 and s_share <= MMA_DIFFER_SHARE:
             raise AssertionError(f"flash {label}: the {what} emulation passes the bars "
                                  f"({s_over}, {s_share}); the check cannot tell them apart")
@@ -440,6 +451,8 @@ def kernel_phase():
             line["mma"] = check_mma(got, lse, q, k, v, offs, seg, label, shifted=label == "main")
         log(line)
         if label == "main":
+            check_deterministic_fwd(lambda: flash.flash_serving(q, k, v, causal=True, alibi=True, q_offset=offs,
+                                                                segment_ids=seg, return_lse=True), "serving main")
             kern = time_ms(lambda: flash.flash_serving(q, k, v, causal=True, alibi=True,
                                                        q_offset=offs, segment_ids=seg))
             plain = time_ms(lambda: flash.flash_reference(q, k, v, causal=True, alibi=True,
@@ -1133,12 +1146,23 @@ def train_kernel_phase():
         ref_o, ref_lse = flash.flash_reference(q, k, v, causal=causal, alibi=alibi)
         fwd_err = compare(out, ref_o, dtype, f"train fwd {label}")
         compare(lse_k, ref_lse, torch.float32 if dtype == torch.float32 else dtype, f"train lse {label}")
+        mma = None
+        if dtype == torch.bfloat16:  # every bf16 case is ALiBi (the emulation's bias)
+            # K1 held to its own rounding, with the packed phase's one-flip
+            # allowance (6.3M-12.6M outputs a case at the timed shapes); the
+            # causal-limit and validity controls must miss at the timed ones
+            mma = check_mma(o_k, lse_k, q, k, v, torch.zeros(B, dtype=torch.int32, device="cuda"),
+                            torch.ones(B, T, dtype=torch.int32, device="cuda"), f"train {label}",
+                            shifted=causal and label in TIMED_TRAIN_CASES, flip=True, causal=causal)
+            torch.cuda.empty_cache()
         # K2/K3 on the kernel's own o and lse vs the plain backward on the same
         got = flash.flash_bwd(q, k, v, o_k, lse_k, do, causal=causal, alibi=alibi)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, (dq, dk, dv))):
             raise AssertionError(f"train {label}: autograd grads differ from flash_bwd's")
         line = {"kernel": "flash_train", "case": label, "dtype": str(dtype), "fwd_max_err": fwd_err}
+        if mma is not None:
+            line["mma"] = mma
         if dtype == torch.float32:
             ref = flash.flash_bwd_reference(q, k, v, o_k, lse_k, do, causal=causal, alibi=alibi)
             errs = [compare(a, b, dtype, f"train {n} {label}") for n, a, b in zip(("dq", "dk", "dv"), got, ref)]
@@ -1175,6 +1199,9 @@ def train_kernel_phase():
         scale = 1.0 / Dq**0.5
         check_deterministic(q, k, v, do, lse, delta, dict(causal=causal, alibi=alibi, scale=scale),
                             f"train {label}")
+        check_deterministic_fwd(lambda: flash._launch_fwd(
+            q, k, v, causal=causal, alibi=alibi, q_offset=0, segment_ids=None, scale=scale, want_lse=True,
+            counter=flash.TRAIN_KERNEL), f"train {label}")
         kern = {
             "flash_train_fwd": lambda: flash._launch_fwd(
                 q, k, v, causal=causal, alibi=alibi, q_offset=0, segment_ids=None, scale=scale,
@@ -1223,6 +1250,17 @@ def check_deterministic(q, k, v, do, lse, delta, kw, what: str) -> None:
     log({"deterministic": what, "dq_dk_dv_bit_equal": same})
     if not all(same):
         raise AssertionError(f"{what}: two K2/K3 runs on the same inputs differ ({same})")
+
+
+def check_deterministic_fwd(call, what: str) -> None:
+    """K1 twice on the same inputs (``call`` returns o and lse) must write
+    the same bits: each output row is written once by one CTA, no atomics."""
+    first, again = call(), call()
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(a, b)) for a, b in zip(first, again)]
+    log({"deterministic": what, "k1_o_lse_bit_equal": same})
+    if not all(same):
+        raise AssertionError(f"{what}: two K1 runs on the same inputs differ ({same})")
 
 
 # ------------------------------------------------------------------ training
@@ -2147,6 +2185,8 @@ def sp_kernel_phase():
             check_deterministic(qs, ks, vs, dos, lse_g, delta,
                                 dict(causal=True, alibi=True, scale=scale, q_offset=qi * t, kv_offset=ki * t,
                                      q_ids=q_ids, k_ids=k_ids, out_dtype=torch.float32), f"sp {label} {pair}")
+            check_deterministic_fwd(lambda: flash.flash_partial(qs, ks, vs, **at, q_ids=q_ids, k_ids=k_ids),
+                                    f"sp {label} {pair}")
             kern = {
                 "flash_partial_fwd": lambda: flash.flash_partial(qs, ks, vs, **at, q_ids=q_ids, k_ids=k_ids),
                 "flash_partial_dq": lambda: flash.launch_dq(

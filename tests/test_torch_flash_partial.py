@@ -19,7 +19,8 @@ exactly 0 in both packages. The cases run at D = 32, and at D = 128
 (MHA, and GQA with document ids) over the same three pairs.
 
 The bf16 kernels' argument check (16-byte aligned q/k/v/do) raises on a
-tensor that starts off that boundary.
+tensor that starts off that boundary, and the forward's launch makes it
+before it builds or calls the kernel.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -184,3 +185,21 @@ def test_bf16_backward_refuses_misaligned_tensors():
     shifted = buf[1:].view(1, 8, 4, 128)
     with pytest.raises(ValueError, match="16-byte aligned"):
         tflash.check_aligned(aligned, shifted, aligned, aligned)
+
+
+def test_bf16_forward_refuses_misaligned_tensors(monkeypatch):
+    """K1's wrapper checks the 16-byte alignment of bf16 q/k/v before it
+    reaches the kernel library: a view one bf16 element past the boundary
+    raises, and nothing is built or launched."""
+    def no_library(name):
+        pytest.fail(f"_launch_fwd reached _build.library({name!r}) with a misaligned tensor")
+
+    monkeypatch.setattr(tflash._build, "library", no_library)
+    buf = torch.zeros(1 + 8 * 4 * 128, dtype=torch.bfloat16)
+    aligned = buf[:-1].view(1, 8, 4, 128)
+    shifted = buf[1:].view(1, 8, 4, 128)
+    assert aligned.data_ptr() % 16 == 0 and shifted.is_contiguous()
+    for args in ((shifted, aligned, aligned), (aligned, aligned, shifted)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tflash._launch_fwd(*args, causal=True, alibi=True, q_offset=0, segment_ids=None, scale=128**-0.5,
+                               want_lse=True, counter=tflash.TRAIN_KERNEL)

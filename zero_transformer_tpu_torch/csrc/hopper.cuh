@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks of the tensor-core flash backward
-// (flash_bwd.cu): asynchronous copies into 128-byte-swizzled shared-memory
+// Hopper (sm_90a) building blocks of the tensor-core flash forward and
+// backward (flash_fwd.cu, flash_bwd.cu): asynchronous copies into 128-byte-swizzled shared-memory
 // tiles, the wgmma descriptors that read those tiles either way round, and
 // the m64n64k16 bf16 -> f32 wgmma forms the kernels issue.
 //

@@ -279,13 +279,14 @@ def _check_kernel_inputs(q, k, v, what: str) -> None:
 
 def check_aligned(*tensors: torch.Tensor) -> None:
     """Raise unless every tensor starts on a 16-byte boundary: the bf16
-    backward kernels copy q, k, v and do into shared memory 16 bytes at a
-    time (``cp.async``). Their rows, H * D * 2 bytes apart, are then aligned
-    too."""
+    forward and backward kernels copy q, k, v (and do) into shared memory
+    16 bytes at a time (``cp.async``). Their rows, H * D * 2 bytes apart,
+    are then aligned too. ``.contiguous()`` keeps a contiguous view that
+    starts off that boundary, so the wrappers check before every launch."""
     for t in tensors:
         if t.data_ptr() % 16:
-            raise ValueError(f"the bf16 flash backward needs 16-byte aligned q/k/v/do; got a {tuple(t.shape)} "
-                             f"tensor at an address 16n + {t.data_ptr() % 16}")
+            raise ValueError(f"the bf16 flash forward and backward need 16-byte aligned q/k/v/do; got a "
+                             f"{tuple(t.shape)} tensor at an address 16n + {t.data_ptr() % 16}")
 
 
 def _ids_arg(ids: Optional[torch.Tensor], dev) -> Optional[torch.Tensor]:
@@ -311,11 +312,14 @@ def _launch_fwd(q, k, v, *, causal, alibi, q_offset, segment_ids, scale, want_ls
                 doc_ids=None, kv_offset=0, q_ids=None, k_ids=None, slopes=None, out_dtype=None):
     """Launch K1 on CUDA tensors, counting the launch under ``counter``
     (with document ids, under ``counter + "_docs"``). ``doc_ids`` serves as
-    both ``q_ids`` and ``k_ids``."""
+    both ``q_ids`` and ``k_ids``. bf16 inputs take the wgmma kernel (16-byte
+    aligned, ``check_aligned``), f32 inputs the FMA one."""
     B, T, H, D = q.shape
     _, S, KVH, _ = k.shape
     dev = q.device
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.bfloat16:
+        check_aligned(q, k, v)
     if doc_ids is not None:
         q_ids = k_ids = doc_ids
     offs = offsets_arg(q_offset, kv_offset, B, dev)
