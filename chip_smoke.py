@@ -13,8 +13,14 @@ Phases, each fatal on failure (nothing is caught):
    an emulation of its own rounding (one bf16 ulp plus 2^-13 per output,
    at most 0.1 % of outputs different) and show that this check catches a
    causal limit or validity mask one key off; K1 twice on the same inputs
-   writes the same bits; time kernel, plain version and a PyTorch library
-   call computing the same function (a yardstick only);
+   writes the same bits; K4 (paged decode) also on a ``long`` case (B 4,
+   8192 keys, 8 query heads on 2 kv heads of 128: full 8-CTA clusters
+   streaming through the kernel's ring) and on clusters of 3 and of 1 CTA,
+   and twice on the same inputs writes the same bits (main and long); time
+   kernel, plain version and a PyTorch library call computing the same
+   function (a yardstick only), and K4's device time both hot and cold
+   (the calls rotate over copies of the pools that together touch twice
+   the 50 MB L2, as the decode tick's layers each read their own pools);
 3. serving: seed-initialise the ``125m`` zoo model in bf16, start the port's
    engine and HTTP server on 127.0.0.1 (4 slots, cache 1024, page 16,
    chunk 64) and answer concurrent greedy ``POST /generate`` requests; the
@@ -77,8 +83,10 @@ Phases, each fatal on failure (nothing is caught):
    and 8; offsets 0 to 1023), GQA, D 128, a trash-page row and a
    NaN-poisoned row, bf16 (atol/rtol 2e-2) and float32 (atol 1e-4); the bf16
    bar must reject plain versions that read the scale of the next position
-   or of the next kv head; times of the kernel, the plain version, the bf16
-   K4 on the dequantized pools and a library yardstick;
+   or of the next kv head; the ``long`` case's int8 twin; bit-equal reruns
+   (main and long); times of the kernel (hot and cold, as in phase 2), the
+   plain version, the bf16 K4 on the dequantized pools and a library
+   yardstick;
 11. int8 serving: the serving phase with ``125m``'s weights quantized to
    int8 and an int8 KV cache (the CLI's ``--quantize int8 --kv-cache-dtype
    int8``): every request done, K4's int8 branch and K1 launched, the bf16
@@ -105,6 +113,13 @@ Phases, each fatal on failure (nothing is caught):
    ``configs/train_580m_8k.yaml`` and the same CLI on one card; the one-card
    reference step's launches give the D 128 rows of the kernel table.
 
+``--phases k4_anatomy`` (never part of a full run) shows where the paged
+decode kernel's time goes at phase 2's main and long cases: it rebuilds
+``csrc/paged_attention.cu`` apart as the kernel, a variant that skips the
+compute, one that issues no copies and one that stamps each phase of each
+CTA with the card's clock, and prints their device times and the phases'
+durations.
+
 ``--phases sequence_parallel_f32`` (never part of a full run) repeats
 phase 13's parity with the model in float32, so that every kernel on both
 sides takes its f32 path: the ring's distance to the one-card step without
@@ -113,8 +128,8 @@ bf16 rounding.
 ``--phases a,b,...`` builds the kernels and runs the named phases only
 (kernels, serving, parity, profile, int8_kernels, int8_serving,
 train_kernels, training, packed_kernels, packed, sp_kernels,
-sequence_parallel, and sequence_parallel_f32; parity needs serving); the
-kernel table then lists the kernels whose phases ran.
+sequence_parallel, sequence_parallel_f32 and k4_anatomy; parity needs
+serving); the kernel table then lists the kernels whose phases ran.
 
 The last two lines of standard output are the kernel table as one JSON
 object and ``{"ok": true, "device": {...}}`` (a full run only). Without CUDA the script exits
@@ -140,6 +155,7 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+L2_BYTES = 50e6
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: dict(atol=2e-2, rtol=2e-2), torch.float32: dict(atol=1e-4, rtol=0.0)}
 # the bf16 flash kernel against the emulation of its own rounding. Set from
@@ -154,6 +170,10 @@ K1_KEY_TILE = 64  # keys per tile of the bf16 K1 kernel (csrc/flash_fwd.cu BK): 
 
 # 125m serving shapes (ServingConfig defaults at cache_len 1024)
 H, D, PAGE, CACHE, CHUNK, SLOTS = 12, 64, 16, 1024, 64, 4
+# K4's long case: a row of 8192 keys (full 8-CTA clusters of 1024 keys,
+# streamed through the kernel's ring), 8 query heads on 2 kv heads of 128
+LONG_CACHE, LONG_HQ, LONG_KVH, LONG_D = 8192, 8, 2, 128
+LONG_OFFSETS = [100, 3000, 6001, 8191]
 
 
 def log(obj) -> None:
@@ -234,12 +254,12 @@ def flash_case(B, T, S, KVH, dtype, offsets, valid_lens, seed):
     return q, k, v, offs, seg
 
 
-def paged_case(B, T, n_blocks, KVH, dtype, offsets, seed, trash_row=None, nan_row=None):
+def paged_case(B, T, n_blocks, KVH, dtype, offsets, seed, trash_row=None, nan_row=None, Hq=H, Dh=D):
     g = torch.Generator(device="cuda").manual_seed(seed)
     n_pages = B * n_blocks + 1
-    q = torch.randn(B, T, H, D, generator=g, device="cuda").to(dtype)
-    kp = torch.randn(n_pages, PAGE, KVH, D, generator=g, device="cuda").to(dtype)
-    vp = torch.randn(n_pages, PAGE, KVH, D, generator=g, device="cuda").to(dtype)
+    q = torch.randn(B, T, Hq, Dh, generator=g, device="cuda").to(dtype)
+    kp = torch.randn(n_pages, PAGE, KVH, Dh, generator=g, device="cuda").to(dtype)
+    vp = torch.randn(n_pages, PAGE, KVH, Dh, generator=g, device="cuda").to(dtype)
     # ragged: each row maps the blocks its offset needs, in shuffled order;
     # the rest of its table stays on the trash page 0
     perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
@@ -276,6 +296,27 @@ def paged_bound(B, T, offsets, KVH, dtype):
     flops = sum(4 * T * min(o + T, CACHE) * D * H for o in offsets)
     t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def k4_touched_bytes(offsets, T, KVH, row_bytes, cache=CACHE) -> int:
+    """Bytes of the pools one K4 call reads: the K and V rows of every
+    visible key and kv head, ``row_bytes`` each (D * 2 in bf16, D + 4 for
+    int8 with its scale)."""
+    return 2 * sum(min(o + T, cache) for o in offsets) * KVH * row_bytes
+
+
+def cold_device_ms(call, pools, touched: int) -> tuple:
+    """Device time per call with the pools cold in L2, as the decode tick
+    finds them (each of its layers reads its own pools): ``call(*pools)``
+    rotates over copies of ``pools``, at least 8 and enough that one
+    rotation touches twice the 50 MB L2. Returns (ms, copies)."""
+    n = max(8, math.ceil(2 * L2_BYTES / touched))
+    copies = [tuple(p.clone() for p in pools) for _ in range(n)]
+    turn = iter(range(1 << 30))
+    ms = device_ms(lambda: call(*copies[next(turn) % n]))
+    del copies
+    torch.cuda.empty_cache()
+    return ms, n
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -468,19 +509,23 @@ def kernel_phase():
             log({"kernel": "flash_serving_fwd", **rows["flash_serving_fwd"]})
 
     # ---- K4: paged decode
-    n_blocks = CACHE // PAGE
     main_offsets = [5, 300, 700, 1000]
-    cases = [
+    cases = [  # (label, B, T, KVH, dtype, offsets, trash_row, nan_row[, Hq, D, cache])
         ("main", 4, 1, H, torch.bfloat16, main_offsets, None, None),
         ("f32", 4, 1, H, torch.float32, main_offsets, None, None),
         ("edges", 4, 1, H, torch.bfloat16, [0, 15, 16, 1023], None, None),
         ("trash_nan", 4, 1, H, torch.bfloat16, [0, 63, 64, 500], 0, 2),
         ("verify_gqa", 3, 5, 4, torch.bfloat16, [10, 127, 600], None, None),
         ("verify_f32", 2, 8, H, torch.float32, [0, 1000], None, None),
+        ("long", 4, 1, LONG_KVH, torch.bfloat16, LONG_OFFSETS, None, None, LONG_HQ, LONG_D, LONG_CACHE),
+        # clusters of 3 and of 1 CTA: caches of 3 pages and of one
+        ("three_splits", 4, 1, H, torch.bfloat16, [0, 17, 40, 47], None, None, H, D, 3 * PAGE),
+        ("one_split_f32", 2, 3, 4, torch.float32, [0, 13], None, None, H, D, PAGE),
     ]
-    for label, B, T, KVH, dtype, offs_l, trash_row, nan_row in cases:
-        q, kp, vp, table, offs = paged_case(B, T, n_blocks, KVH, dtype, offs_l, seed=len(label) + 7,
-                                            trash_row=trash_row, nan_row=nan_row)
+    for label, B, T, KVH, dtype, offs_l, trash_row, nan_row, *shape in cases:
+        Hq, Dh, cache = shape or (H, D, CACHE)
+        q, kp, vp, table, offs = paged_case(B, T, cache // PAGE, KVH, dtype, offs_l, seed=len(label) + 7,
+                                            trash_row=trash_row, nan_row=nan_row, Hq=Hq, Dh=Dh)
         causal = T > 1
         got = pa.paged_attention(q, kp, vp, table, offs, causal=causal, alibi=True)
         ref = pa.paged_reference(q, kp, vp, table, offs, causal=causal, alibi=True)
@@ -488,7 +533,17 @@ def kernel_phase():
         err = compare(got, ref, dtype, f"paged {label}")
         if nan_row is not None and not bool(torch.isnan(got[nan_row]).all()):
             raise AssertionError("paged: a NaN-poisoned q row did not come out NaN")
-        log({"kernel": "paged_attention", "case": label, "dtype": str(dtype), "max_err": err})
+        line = {"kernel": "paged_attention", "case": label, "dtype": str(dtype), "shape": [B, T, Hq, KVH, Dh],
+                "cache": cache, "max_err": err}
+        if label in ("main", "long"):
+            check_deterministic_fwd(lambda: (pa.paged_attention(q, kp, vp, table, offs, causal=causal, alibi=True),),
+                                    f"K4 {label}", kernel="k4_o")
+        if label == "long":
+            call = lambda k_, v_: pa.paged_attention(q, k_, v_, table, offs, causal=False, alibi=True)  # noqa: E731
+            line["device_ms"] = device_ms(lambda: call(kp, vp))
+            line["device_ms_cold"], line["cold_copies"] = cold_device_ms(
+                call, (kp, vp), k4_touched_bytes(offs_l, T, KVH, 2 * Dh, cache))
+        log(line)
         if label == "main":
             kern = time_ms(lambda: pa.paged_attention(q, kp, vp, table, offs, causal=False, alibi=True))
             plain = time_ms(lambda: pa.paged_reference(q, kp, vp, table, offs, causal=False, alibi=True))
@@ -502,9 +557,12 @@ def kernel_phase():
 
             lib = time_ms(library)
             bound, by = paged_bound(B, T, offs_l, KVH, dtype)
-            dev = device_ms(lambda: pa.paged_attention(q, kp, vp, table, offs, causal=False, alibi=True))
-            rows["paged_attention"] = dict(max_abs_err=err, ms=kern, device_ms=dev, plain_ms=plain,
-                                           library_ms=lib, bound_ms=bound, bound_by=by)
+            call = lambda k_, v_: pa.paged_attention(q, k_, v_, table, offs, causal=False, alibi=True)  # noqa: E731
+            dev = device_ms(lambda: call(kp, vp))
+            cold, copies = cold_device_ms(call, (kp, vp), k4_touched_bytes(offs_l, T, KVH, 2 * D))
+            rows["paged_attention"] = dict(max_abs_err=err, ms=kern, device_ms=dev, device_ms_cold=cold,
+                                           cold_copies=copies, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                                           bound_by=by)
             log({"kernel": "paged_attention", **rows["paged_attention"]})
     return rows
 
@@ -522,7 +580,7 @@ def within(got: torch.Tensor, ref: torch.Tensor, dtype) -> bool:
     return True
 
 
-def int8_paged_case(B, T, Hq, KVH, Dh, dtype, offsets, seed, trash_row=None, nan_row=None):
+def int8_paged_case(B, T, Hq, KVH, Dh, dtype, offsets, seed, trash_row=None, nan_row=None, cache=CACHE):
     """q and int8 K/V pools quantized by the model's ``_quantize_kv`` from
     random K/V whose magnitude varies by up to e^2 either way between
     (position, kv head) rows, every 7th position all zero; the trash page 0
@@ -530,7 +588,7 @@ def int8_paged_case(B, T, Hq, KVH, Dh, dtype, offsets, seed, trash_row=None, nan
     from zero_transformer_tpu_torch.models.gpt import _quantize_kv
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    n_blocks = CACHE // PAGE
+    n_blocks = cache // PAGE
     n_pages = B * n_blocks + 1
     q = torch.randn(B, T, Hq, Dh, generator=g, device="cuda").to(dtype)
     pools = []
@@ -596,6 +654,8 @@ INT8_CASES = [
     ("d128_gqa_f32", 3, 3, 8, 2, 128, torch.float32, [64, 300, 1000], None, None),
     ("trash_nan", 4, 1, H, H, D, torch.bfloat16, [0, 63, 64, 500], 0, 2),
     ("trash_nan_f32", 4, 1, H, H, D, torch.float32, [300, 63, 64, 1023], 1, 3),
+    # the kernel phase's K4 "long" (cache LONG_CACHE)
+    ("long", 4, 1, LONG_HQ, LONG_KVH, LONG_D, torch.bfloat16, LONG_OFFSETS, None, None),
 ]
 
 
@@ -619,8 +679,9 @@ def int8_kernel_phase():
 
     rows = {}
     for label, B, T, Hq, KVH, Dh, dtype, offs_l, trash_row, nan_row in INT8_CASES:
+        cache = LONG_CACHE if label == "long" else CACHE
         q, kq, vq, ks, vs, table, offs = int8_paged_case(B, T, Hq, KVH, Dh, dtype, offs_l, len(label) + 400,
-                                                         trash_row, nan_row)
+                                                         trash_row, nan_row, cache)
         kw = dict(causal=T > 1, alibi=True)
         got = pa.paged_attention(q, kq, vq, table, offs, k_scale=ks, v_scale=vs, **kw)
         ref = pa.paged_reference(q, kq, vq, table, offs, k_scale=ks, v_scale=vs, **kw)
@@ -641,11 +702,21 @@ def int8_kernel_phase():
                 if within(got, bad, dtype):
                     raise AssertionError(f"paged int8 {label}: the {what} scale control passes the bar")
                 line[f"{what}_control_max_err"] = float((got.float() - bad.float()).nan_to_num().abs().max())
+        # the pools with their scales, as a call takes them
+        call = lambda kq_, vq_, ks_, vs_: pa.paged_attention(q, kq_, vq_, table, offs, k_scale=ks_,  # noqa: E731
+                                                             v_scale=vs_, **kw)
+        touched = k4_touched_bytes(offs_l, T, KVH, Dh + 4, cache)
+        if label in ("main", "long"):
+            check_deterministic_fwd(lambda: (call(kq, vq, ks, vs),), f"K4 int8 {label}", kernel="k4_o")
+        if label == "long":
+            line["device_ms"] = device_ms(lambda: call(kq, vq, ks, vs))
+            line["device_ms_cold"], line["cold_copies"] = cold_device_ms(call, (kq, vq, ks, vs), touched)
         log(line)
         if label != "main":
             continue
         kern = time_ms(lambda: pa.paged_attention(q, kq, vq, table, offs, k_scale=ks, v_scale=vs, **kw))
         kern_dev = device_ms(lambda: pa.paged_attention(q, kq, vq, table, offs, k_scale=ks, v_scale=vs, **kw))
+        kern_cold, copies = cold_device_ms(call, (kq, vq, ks, vs), touched)
         plain = time_ms(lambda: pa.paged_reference(q, kq, vq, table, offs, k_scale=ks, v_scale=vs, **kw))
         kd, vd = pa.dequantize(kq, ks, dtype), pa.dequantize(vq, vs, dtype)
         bf16_k4 = time_ms(lambda: pa.paged_attention(q, kd, vd, table, offs, **kw))
@@ -660,12 +731,136 @@ def int8_kernel_phase():
 
         lib = time_ms(library)
         bound, by = int8_paged_bound(B, T, offs_l, Hq, KVH, Dh, dtype)
-        rows["paged_attention_int8"] = dict(max_abs_err=err, ms=kern, device_ms=kern_dev, plain_ms=plain,
-                                            library_ms=lib, bound_ms=bound, bound_by=by)
+        rows["paged_attention_int8"] = dict(max_abs_err=err, ms=kern, device_ms=kern_dev, device_ms_cold=kern_cold,
+                                            cold_copies=copies, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                                            bound_by=by)
         log({"kernel": "paged_attention_int8", "shape": [B, T, Hq, KVH, Dh], "offsets": offs_l,
              "bf16_k4_on_dequantized_pools_ms": bf16_k4,
              "bf16_k4_on_dequantized_pools_device_ms": bf16_k4_dev, **rows["paged_attention_int8"]})
     return rows
+
+
+# ------------------------------------------------ K4 anatomy (opt-in phase)
+
+# each "marks" stamp: (name, source line it goes after, or before when the
+# name starts with "<")
+K4_MARKS = (
+    ("start", "  cg::cluster_group cluster = cg::this_cluster();\n"),
+    ("rows_q_loaded", "hopper::mbar_init(&full[st], THREADS);\n  }\n  __syncthreads();\n"),
+    ("first_tile", "hopper::mbar_wait(&full[slot], (j / n_stages) & 1);  // each warp on its own: no CTA barrier\n"),
+    ("<tiles_done", "  // merge the warp's key groups"),
+    ("<ctas_merged", "  // the CTA's (m, l, o) into the leader's inbox"),
+    ("cluster_started", "  hopper::cluster_wait();\n  float* lead_m = "),
+    ("<inbox_written", "  hopper::cluster_arrive();  // release"),
+    ("<cluster_done", "  if (split != 0) return;\n"),
+)
+
+
+def k4_variant(name: str) -> str:
+    """``csrc/paged_attention.cu`` rewritten for ``k4_anatomy``: "no_compute"
+    skips every tile's keys (copies and waits stay), "no_copies" issues no
+    K/V copy (the compute reads whatever the ring holds), "marks" has thread
+    0 of each CTA store %globaltimer at each of ``K4_MARKS`` (slot 9: its
+    tile count) into a device array that ``k4_marks_read`` copies out."""
+    from zero_transformer_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "paged_attention.cu").read_text()
+
+    def sub(old, new):
+        if src.count(old) != 1:
+            raise AssertionError(f"k4_anatomy: the kernel source no longer has {old!r} once")
+        return src.replace(old, new)
+
+    if name == "no_compute":
+        src = sub("    const int kt_end = min(TILE, n_local - j * TILE);\n", "    const int kt_end = 0;\n")
+    elif name == "no_copies":
+        src = sub("hopper::copy16(", "if (false) hopper::copy16(")
+    elif name == "marks":
+        cta = "(blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)) * 12"
+        stamp = ("  if (threadIdx.x == 0) {{ unsigned long long t_; asm volatile(\"mov.u64 %0, %%globaltimer;\" : "
+                 "\"=l\"(t_)); k4_marks[" + cta + " + {i}] = t_; }}\n")
+        src = sub("namespace cg = cooperative_groups;\n",
+                  "namespace cg = cooperative_groups;\n__device__ unsigned long long k4_marks[16384 * 12];\n")
+        for i, (mark, line) in enumerate(K4_MARKS):
+            text = stamp.format(i=i)
+            if mark == "first_tile":
+                text = "    if (j == 0) {\n" + text + "    }\n"
+            if mark == "<tiles_done":
+                text += "  if (threadIdx.x == 0) k4_marks[" + cta + " + 9] = n_tiles;\n"
+            if line.endswith("float* lead_m = "):  # between the wait and the next line
+                src = sub(line, line.replace("float* lead_m", text.strip() + "\n  float* lead_m"))
+            else:
+                src = sub(line, text + line if mark.startswith("<") else line + text)
+        src += ('\nextern "C" int k4_marks_read(void* dst, int n) {\n'
+                '  return (int)cudaMemcpyFromSymbol(dst, k4_marks, (size_t)n * 12 * 8);\n}\n')
+    return src
+
+
+def k4_anatomy_phase():
+    """Where K4's time goes, at the kernel phase's main and long cases:
+    device time of the kernel and of two variants (no compute, no copies),
+    built apart from the same source under ``build/k4_anatomy/``; then the
+    marks variant's per-CTA phase durations (median and maximum over CTAs
+    with a live key) and its start-to-end span."""
+    import ctypes
+
+    from zero_transformer_tpu_torch.ops import _build, paged_attention as pa
+    from zero_transformer_tpu_torch.ops.flash import slopes_on
+
+    out = _build.BUILD_DIR.parent / "k4_anatomy"
+    out.mkdir(parents=True, exist_ok=True)
+    names = ("kernel", "no_compute", "no_copies", "marks")
+    procs = {}
+    for name in names:
+        (out / f"{name}.cu").write_text(k4_variant(name))
+        procs[name] = subprocess.Popen([_build._nvcc(), *_build.FLAGS, "-I", str(_build.CSRC), "-o",
+                                        str(out / f"{name}.so"), str(out / f"{name}.cu")],
+                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log_text, _ = proc.communicate()
+        if proc.returncode:
+            raise AssertionError(f"k4_anatomy: nvcc failed for {name}:\n{log_text}")
+        libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
+        libs[name].paged_attention.argtypes = _build.SIGNATURES["paged_attention"]["paged_attention"]
+    libs["marks"].k4_marks_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    for label, B, KVH, offs_l, Hq, Dh, cache in (("main", 4, H, [5, 300, 700, 1000], H, D, CACHE),
+                                                 ("long", 4, LONG_KVH, LONG_OFFSETS, LONG_HQ, LONG_D, LONG_CACHE)):
+        q, kp, vp, table, offs = paged_case(B, 1, cache // PAGE, KVH, torch.bfloat16, offs_l, seed=len(label) + 7,
+                                            Hq=Hq, Dh=Dh)
+        o = torch.empty_like(q)
+        per, n = pa.split_plan(table.shape[1], PAGE)
+        slopes = slopes_on(Hq, "cuda", True)
+        args = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(), offs.data_ptr(), slopes.data_ptr(),
+                o.data_ptr(), 1, B, 1, Hq, KVH, Dh, PAGE, table.shape[1], per, n, Dh**-0.5, 0, 1,
+                torch.cuda.current_stream().cuda_stream)
+        ref = pa.paged_attention(q, kp, vp, table, offs, causal=False, alibi=True)
+        line = {"k4_anatomy": label}
+        for name in names[:3]:
+            _build.check(libs[name].paged_attention(*args), f"k4_anatomy {name}")
+            torch.cuda.synchronize()
+            if name == "kernel" and not torch.equal(o, ref):
+                raise AssertionError("k4_anatomy: the rebuilt kernel differs from the package's")
+            line[f"{name}_device_ms"] = device_ms(lambda: libs[name].paged_attention(*args))
+        R = Hq // KVH
+        n_cta = n * KVH * -(-R // (1 if R == 1 else 2 if R == 2 else 4 if R <= 4 else 8)) * B
+        torch.cuda._sleep(1 << 22)
+        _build.check(libs["marks"].paged_attention(*args), "k4_anatomy marks")
+        torch.cuda.synchronize()
+        t = np.zeros(n_cta * 12, np.uint64)
+        libs["marks"].k4_marks_read(t.ctypes.data, n_cta)
+        t = t.reshape(n_cta, 12).astype(np.int64)
+        live = t[:, 9] > 0
+        stamps = t[live][:, :len(K4_MARKS)]
+        steps = np.diff(stamps, axis=1) / 1e3
+        line["marks_us"] = {
+            "ctas": n_cta, "live_ctas": int(live.sum()),
+            "span": float((t[:, len(K4_MARKS) - 1].max() - t[:, 0].min()) / 1e3),
+            **{f"{K4_MARKS[i][0].lstrip('<')}->{K4_MARKS[i + 1][0].lstrip('<')}": [float(np.median(steps[:, i])),
+                                                                                  float(steps[:, i].max())]
+               for i in range(len(K4_MARKS) - 1)},
+        }
+        log(line)
 
 
 # ------------------------------------------------------------------ serving
@@ -1252,15 +1447,16 @@ def check_deterministic(q, k, v, do, lse, delta, kw, what: str) -> None:
         raise AssertionError(f"{what}: two K2/K3 runs on the same inputs differ ({same})")
 
 
-def check_deterministic_fwd(call, what: str) -> None:
-    """K1 twice on the same inputs (``call`` returns o and lse) must write
-    the same bits: each output row is written once by one CTA, no atomics."""
+def check_deterministic_fwd(call, what: str, kernel: str = "k1_o_lse") -> None:
+    """A forward kernel twice on the same inputs (``call`` returns its
+    outputs: K1's o and lse, K4's o) must write the same bits: each output
+    element is written once, in a fixed order of sums, with no atomics."""
     first, again = call(), call()
     torch.cuda.synchronize()
     same = [bool(torch.equal(a, b)) for a, b in zip(first, again)]
-    log({"deterministic": what, "k1_o_lse_bit_equal": same})
+    log({"deterministic": what, f"{kernel}_bit_equal": same})
     if not all(same):
-        raise AssertionError(f"{what}: two K1 runs on the same inputs differ ({same})")
+        raise AssertionError(f"{what}: two runs on the same inputs differ ({same})")
 
 
 # ------------------------------------------------------------------ training
@@ -2564,7 +2760,7 @@ def card_line() -> str:
 PHASES = ("kernels", "serving", "parity", "profile", "int8_kernels", "int8_serving", "train_kernels", "training",
           "packed_kernels", "packed", "sp_kernels", "sequence_parallel")
 # named with --phases only: the ring's parity with every kernel on its f32 path
-EXTRA_PHASES = ("sequence_parallel_f32",)
+EXTRA_PHASES = ("sequence_parallel_f32", "k4_anatomy")
 SOURCES = {
     "flash_serving_fwd": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
                           "zero_transformer_tpu/ops/pallas/flash.py:127"),
@@ -2670,6 +2866,8 @@ def main(argv) -> int:
         rows.update(sp_kernel_phase())
     if "sequence_parallel" in phases:
         launches.update(sequence_parallel_phase())
+    if "k4_anatomy" in phases:
+        k4_anatomy_phase()
     if "sequence_parallel_f32" in phases:
         sequence_parallel_phase(torch.float32)
     table = [

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the tensor-core flash forward and
 // backward (flash_fwd.cu, flash_bwd.cu): asynchronous copies into 128-byte-swizzled shared-memory
 // tiles, the wgmma descriptors that read those tiles either way round, and
-// the m64n64k16 bf16 -> f32 wgmma forms the kernels issue.
+// the m64n64k16 bf16 -> f32 wgmma forms the kernels issue; and for the paged
+// decode kernel (paged_attention.cu) copies that complete on an mbarrier and
+// the thread-block cluster's split barrier.
 //
 // Tile layout. A tile of R rows x D bf16 (D a multiple of 64) is stored as
 // D / 64 column blocks of R x 64; a block row is 128 bytes, a block R * 128
@@ -56,6 +58,41 @@ template <int N>
 __device__ __forceinline__ void wait_copies() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// ------------------------------------------------ mbarriers, clusters
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// arrive on bar once all of this thread's earlier cp.async copies have
+// landed (the arrival counts as the thread's own: init with one per thread)
+__device__ __forceinline__ void copies_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// wait until the phase of bar with this parity has completed; a phase that
+// never completes (a lost arrival) traps, a launch error, not a hung card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t tries = 0;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 24)) __trap();
+  }
+}
+
+// the cluster barrier in two halves: every thread of every CTA arrives
+// once, then waits for all of them (release on arrive, acquire on wait)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory"); }
 
 // cp.async lands through the generic proxy, wgmma reads through the async
 // proxy: each thread fences its own copies before the barrier that

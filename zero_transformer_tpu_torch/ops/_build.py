@@ -50,11 +50,12 @@ SIGNATURES = {
         "flash_dkv": [_P] * 12 + [_I] * 8 + [_F, _I, _I, _P],
     },
     "paged_attention": {
-        # q, k_pool, v_pool, block_table, q_offset, slopes, o, part_o, part_ml,
-        # dtype, B, T, H, KVH, D, page, n_blocks, scale, causal, alibi, stream
-        "paged_attention": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P],
+        # q, k_pool, v_pool, block_table, q_offset, slopes, o, dtype, B, T, H,
+        # KVH, D, page, n_blocks, per_split, n_splits, scale, causal, alibi,
+        # stream
+        "paged_attention": [_P] * 7 + [_I] * 10 + [_F, _I, _I, _P],
         # q, k_pool, v_pool (int8), k_scale, v_scale, then as paged_attention
-        "paged_attention_int8": [_P] * 11 + [_I] * 8 + [_F, _I, _I, _P],
+        "paged_attention_int8": [_P] * 9 + [_I] * 10 + [_F, _I, _I, _P],
     },
 }
 

@@ -279,14 +279,15 @@ def _check_kernel_inputs(q, k, v, what: str) -> None:
 
 def check_aligned(*tensors: torch.Tensor) -> None:
     """Raise unless every tensor starts on a 16-byte boundary: the bf16
-    forward and backward kernels copy q, k, v (and do) into shared memory
-    16 bytes at a time (``cp.async``). Their rows, H * D * 2 bytes apart,
-    are then aligned too. ``.contiguous()`` keeps a contiguous view that
-    starts off that boundary, so the wrappers check before every launch."""
+    flash forward and backward copy q, k, v (and do), and the paged decode
+    kernel its K/V pools, into shared memory 16 bytes at a time
+    (``cp.async``). Their rows, a multiple of 16 bytes apart, are then
+    aligned too. ``.contiguous()`` keeps a contiguous view that starts off
+    that boundary, so the wrappers check before every launch."""
     for t in tensors:
         if t.data_ptr() % 16:
-            raise ValueError(f"the bf16 flash forward and backward need 16-byte aligned q/k/v/do; got a "
-                             f"{tuple(t.shape)} tensor at an address 16n + {t.data_ptr() % 16}")
+            raise ValueError(f"the kernels copy this tensor 16 bytes at a time and need it 16-byte aligned; "
+                             f"got a {tuple(t.shape)} {t.dtype} tensor at an address 16n + {t.data_ptr() % 16}")
 
 
 def _ids_arg(ids: Optional[torch.Tensor], dev) -> Optional[torch.Tensor]:

@@ -14,10 +14,10 @@ wrapper takes it only for CPU tensors; a CUDA tensor launches the kernel or
 raises.
 
 The TPU kernel is bitwise equal to the gather path (it stages the whole row
-and runs one full softmax); the CUDA kernel splits each row's keys into
-256-key parts across CTAs and merges their softmax statistics in a second
-pass (one call = both launches), so it matches the gather path to a
-tolerance instead.
+and runs one full softmax); the CUDA kernel splits each row's keys over the
+CTAs of one thread-block cluster (``split_plan``) and merges their softmax
+statistics inside the cluster, in one launch, so it matches the gather path
+to a tolerance instead.
 
 int8 pools (``kv_cache_dtype="int8"``) come with float32 scale pools
 ``[n_pages, page, KVH, 1]``, one scale per (position, kv head). Every read
@@ -33,7 +33,7 @@ import torch
 
 from zero_transformer_tpu_torch.ops import _build
 from zero_transformer_tpu_torch.ops.attention import xla_attention
-from zero_transformer_tpu_torch.ops.flash import HEAD_DIMS, row_offsets, slopes_on
+from zero_transformer_tpu_torch.ops.flash import HEAD_DIMS, check_aligned, row_offsets, slopes_on
 
 KERNEL = "paged_attention"
 KERNEL_INT8 = "paged_attention_int8"
@@ -41,7 +41,22 @@ KERNEL_INT8 = "paged_attention_int8"
 # longer windows belong to the flash kernel's chunked-prefill path
 MAX_DECODE_T = 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SPLIT = 256  # keys per partial CTA in csrc/paged_attention.cu (SPLIT)
+MAX_SPLITS = 8  # CTAs of one cluster: csrc/paged_attention.cu MAX_SPLITS
+
+
+def split_plan(n_blocks: int, page: int) -> tuple:
+    """How the kernel splits a row's ``n_blocks * page`` keys over the CTAs
+    of one cluster: ``(keys per CTA, number of CTAs)``. Keys per CTA is the
+    least multiple of ``page`` that is at least ``ceil(S / MAX_SPLITS)``, so
+    a split never straddles a page and at most ``MAX_SPLITS`` cover the row
+    (S 1024 at page 16: 8 CTAs of 128 keys)."""
+    S = n_blocks * page
+    per = _cdiv(_cdiv(S, MAX_SPLITS), page) * page
+    return per, _cdiv(S, per)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def gather_pages(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
@@ -127,8 +142,8 @@ def paged_attention(
         raise ValueError(f"pools {tuple(k_pool.shape)}/{tuple(v_pool.shape)} do not fit q {tuple(q.shape)}")
     if H % KVH:
         raise ValueError(f"query heads {H} not divisible by kv heads {KVH}")
-    if block_table.ndim != 2 or block_table.shape[0] != B:
-        raise ValueError(f"block_table must be [B={B}, n_blocks], got {tuple(block_table.shape)}")
+    if block_table.ndim != 2 or block_table.shape[0] != B or block_table.shape[1] == 0:
+        raise ValueError(f"block_table must be [B={B}, n_blocks >= 1], got {tuple(block_table.shape)}")
     int8 = k_pool.dtype == torch.int8
     if int8:
         _check_scales(k_pool, v_pool, k_scale, v_scale)
@@ -146,22 +161,34 @@ def paged_attention(
         raise ValueError(f"paged kernel takes head width in {HEAD_DIMS}, got {D}")
     if not 1 <= T <= MAX_DECODE_T:
         raise ValueError(f"paged kernel takes decode windows of 1..{MAX_DECODE_T} tokens, got {T}")
+    if n_pages * page * KVH >= 2**31:
+        raise ValueError(f"paged kernel indexes pool rows in 32 bits: {n_pages} pages of {page} x {KVH} is too many")
+    return _launch(q, k_pool, v_pool, block_table, q_offset, causal=causal, alibi=alibi, scale=softmax_scale,
+                   k_scale=k_scale, v_scale=v_scale)
+
+
+def _launch(q, k_pool, v_pool, block_table, q_offset, *, causal, alibi, scale, k_scale, v_scale):
+    """Launch K4 on checked CUDA tensors, counting the launch. The kernel
+    copies the pools 16 bytes at a time (``cp.async``), so they must start
+    on a 16-byte boundary (``check_aligned``); q, the table and the scales
+    are read by element."""
+    B, T, H, D = q.shape
+    page, KVH = k_pool.shape[1], k_pool.shape[2]
+    int8 = k_pool.dtype == torch.int8
     dev = q.device
     q = q.contiguous()
     k_pool, v_pool = k_pool.contiguous(), v_pool.contiguous()
+    check_aligned(k_pool, v_pool)
     table = block_table.to(device=dev, dtype=torch.int32).contiguous()
+    per_split, n_splits = split_plan(table.shape[1], page)
     offs = row_offsets(q_offset, B, dev)
     out = torch.empty_like(q)
-    # split-KV scratch: each 256-key split's unnormalised output and (m, l)
-    n_splits = -(-table.shape[1] * page // _SPLIT)
-    part_o = torch.empty((B, n_splits, T, H, D), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((B, n_splits, T, H, 2), dtype=torch.float32, device=dev)
-    scale = softmax_scale if softmax_scale is not None else 1.0 / (D**0.5)
+    scale = scale if scale is not None else 1.0 / (D**0.5)
     lib = _build.library("paged_attention")
     head = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr())
     tail = (table.data_ptr(), offs.data_ptr(), slopes_on(H, str(dev), alibi).data_ptr(), out.data_ptr(),
-            part_o.data_ptr(), part_ml.data_ptr(), _DTYPE_CODES[q.dtype], B, T, H, KVH, D, page,
-            table.shape[1], float(scale), int(causal), int(alibi), torch.cuda.current_stream(dev).cuda_stream)
+            _DTYPE_CODES[q.dtype], B, T, H, KVH, D, page, table.shape[1], per_split, n_splits, float(scale),
+            int(causal), int(alibi), torch.cuda.current_stream(dev).cuda_stream)
     if int8:
         k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
         status = lib.paged_attention_int8(*head, k_scale.data_ptr(), v_scale.data_ptr(), *tail)
