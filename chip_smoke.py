@@ -142,7 +142,9 @@ import gc
 import hashlib
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -1557,8 +1559,8 @@ def training_phase():
 
     from zero_transformer_tpu_torch.config import OptimizerConfig, model_config
     from zero_transformer_tpu_torch.ops import _build
-    from zero_transformer_tpu_torch.parallel.zero import TrainState, make_train_step
-    from zero_transformer_tpu_torch.training.optimizer import make_optimizer, make_schedule
+    from zero_transformer_tpu_torch.parallel.zero import init_train_state, make_train_step
+    from zero_transformer_tpu_torch.training.optimizer import make_schedule
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1576,7 +1578,7 @@ def training_phase():
     model = train_model("auto", torch.bfloat16, state)
     opt_cfg = OptimizerConfig(schedule="constant", peak_learning_rate=FALL_LR)
     schedule = make_schedule(opt_cfg)
-    st = TrainState(step=0, model=model, optimizer=make_optimizer(model, opt_cfg, schedule))
+    st = init_train_state(model, opt_cfg, schedule)
     step = make_train_step(1, schedule)
     step(st, batch)  # warm-up: cuBLAS handles, the allocator
     torch.cuda.synchronize()
@@ -1607,7 +1609,7 @@ def training_phase():
     torch.cuda.empty_cache()
 
     # (d) the trainer CLI
-    run_dir = os.path.join("chiprun_out", "train_125m")
+    run_dir = os.path.join("build", "train_125m")  # its checkpoint is too large to bring back
     if os.path.exists(os.path.join(run_dir, "metrics.jsonl")):
         os.remove(os.path.join(run_dir, "metrics.jsonl"))
     cmd = [sys.executable, "-m", "zero_transformer_tpu_torch.train", "--cfg", "configs/train_125m.yaml",
@@ -2035,6 +2037,24 @@ def packed_phase():
         raise AssertionError(f"bits per byte {bpb['bits_per_byte']} not below the unigram entropy {entropy_bits}")
     if abs(bpb["bits_per_byte"] - bpb_plain["bits_per_byte"]) > BPB_GAP:
         raise AssertionError(f"kernel-path bpb {bpb['bits_per_byte']} vs plain {bpb_plain['bits_per_byte']}")
+    # the handoff: the eval CLI scores the trainer's saved step directory
+    step_dir = out / "run" / str(PACKED_STEPS)
+    ppl_data = out / "heldout_ppl.json"
+    ppl_data.write_text(json.dumps({"tokens": tokens, "num_bytes": len(tokens)}))
+    cmd = [sys.executable, "-m", "zero_transformer_tpu_torch.evalharness", "--model", "byte_25m", "--params",
+           str(step_dir), "--task", "bpb", "--data", str(ppl_data), "--seq-len", str(CTX), "--batch-size",
+           str(EVAL_BATCH)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=root)
+    if proc.returncode != 0:
+        raise AssertionError(f"eval CLI on {step_dir} exit {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    handoff = json.loads(proc.stdout.strip().splitlines()[-1])
+    log({"packed_handoff": {"params": str(step_dir.relative_to(out)), "eval_cli_bits_per_byte":
+                            handoff["bits_per_byte"], "in_process": bpb["bits_per_byte"],
+                            "atol": HANDOFF_BPB_ATOL}})
+    if not handoff["device"].startswith("cuda") or abs(handoff["bits_per_byte"] - bpb["bits_per_byte"]) > \
+            HANDOFF_BPB_ATOL:
+        raise AssertionError(f"eval CLI --params {step_dir}: {handoff} vs in-process {bpb['bits_per_byte']}")
     packed_int8(model, heldout, tokens, bpb["bits_per_byte"], out)
     # two more steps under the profiler, after the eval has scored the run
     train_profile(trainer.train_step, trainer.state, batch[None], label="packed_training_profile")
@@ -2061,6 +2081,11 @@ def packed_phase():
                                 "model_flops_share": cli_recs[-1].get("model_flops_share")}})
     return launches
 
+
+# the eval CLI on the trainer's step directory against the in-process eval of
+# the same weights: equal but for the order in which cuBLAS sums in another
+# process
+HANDOFF_BPB_ATOL = 1e-4
 
 # JAX's budget for weight-only int8 (tests/test_quant.py::test_quant_perplexity_budget):
 # perplexity within 2 %, so bits per byte within log2(1.02)
@@ -2471,17 +2496,18 @@ def _sp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str, 
     from zero_transformer_tpu_torch.ops import _build
     from zero_transformer_tpu_torch.ops.ring_attention import ring_attention
     from zero_transformer_tpu_torch.parallel.mesh import destroy, init_distributed
-    from zero_transformer_tpu_torch.parallel.zero import TrainState, make_train_step
-    from zero_transformer_tpu_torch.training.optimizer import make_optimizer, make_schedule
+    from zero_transformer_tpu_torch.parallel.zero import init_train_state, make_train_step
+    from zero_transformer_tpu_torch.training.optimizer import make_schedule
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dtype = getattr(torch, dtype_name)
     out = Path(out_dir)
-    group = init_distributed(world, backend, "cuda", rank=rank, world_size=world,
-                             init_method=f"file://{init_file}", local_rank=rank)
+    mesh = init_distributed(world, backend, "cuda", rank=rank, world_size=world,
+                            init_method=f"file://{init_file}", local_rank=rank)
+    group = mesh.sequence
     dev = group.device
-    result = {"rank": rank, **group.describe()}
+    result = {"rank": rank, **mesh.describe()}
     t = SP_SEQ // world
     sl = slice(rank * t, (rank + 1) * t)
     for docs in (False, True):
@@ -2497,12 +2523,12 @@ def _sp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str, 
         init_checksum = param_checksum(model)
         opt_cfg = OptimizerConfig(schedule="constant", peak_learning_rate=SP_LR)
         schedule = make_schedule(opt_cfg)
-        st = TrainState(step=0, model=model, optimizer=make_optimizer(model, opt_cfg, schedule))
+        st = init_train_state(model, opt_cfg, schedule)
         captured, adamw_step = {}, st.optimizer.step
 
-        def capture(grads, _step=adamw_step):  # the grads the step hands to AdamW
-            captured["grads"] = grads
-            return _step(grads)
+        def capture(grads, norm=None, _step=adamw_step):  # the grads the step hands to AdamW, by name
+            captured["grads"] = st.shards.layout.views(torch.cat([g.reshape(-1) for g in grads]))
+            return _step(grads, norm)
 
         st.optimizer.step = capture
         step = make_train_step(1, schedule, seq_group=group)
@@ -2521,10 +2547,9 @@ def _sp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str, 
                 "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
         if rank == 0:
             ref = torch.load(out / f"ref_{case}.pt", mmap=True, weights_only=True)
-            names = [n for n, _ in model.named_parameters()]
             cos = {n: float(torch.nn.functional.cosine_similarity(
                 g.flatten().double(), ref["grads"][n].to(dev).flatten().double(), dim=0))
-                for n, g in zip(names, captured["grads"])}
+                for n, g in captured["grads"].items()}
             line.update(grad_cos_min=min(cos.values()), grad_cos_min_tensor=min(cos, key=cos.get),
                         grad_cos_below_bar={n: c for n, c in cos.items() if c < COS_BAR}, ref_loss=ref["loss"])
             del ref
@@ -2559,7 +2584,7 @@ def _sp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str, 
         torch.cuda.empty_cache()
     (out / f"rank{rank}.json").write_text(json.dumps(result))
     group.barrier()
-    destroy(group)
+    destroy(mesh)
 
 
 def sequence_parallel_phase(dtype=torch.bfloat16) -> dict:
@@ -2589,8 +2614,6 @@ def sequence_parallel_phase(dtype=torch.bfloat16) -> dict:
     With ``dtype`` float32 (the ``sequence_parallel_f32`` phase) every
     kernel of both sides takes its f32 path: the same bars and readings
     under ``_f32`` names, without the trainer CLIs."""
-    import torch.multiprocessing as mp
-
     from zero_transformer_tpu_torch.config import model_config
     from zero_transformer_tpu_torch.ops import _build, flash
 
@@ -2626,25 +2649,10 @@ def sequence_parallel_phase(dtype=torch.bfloat16) -> dict:
     log({f"sequence_parallel{tag}_one_card_reference": {
         c: {"loss": l, "step_s": s, "launches": one_card_launches[c]} for c, (l, _, s) in ref_loss.items()}})
 
-    init_file = out / "rendezvous"
-    if init_file.exists():
-        init_file.unlink()
     t0 = time.perf_counter()
-    ctx = mp.start_processes(_sp_rank, args=(SP_RANKS, backend, str(init_file.resolve()), str(out),
-                                             str(dtype).removeprefix("torch.")),
-                             nprocs=SP_RANKS, join=False, start_method="spawn")
-    end = time.monotonic() + 900
-    try:
-        while not ctx.join(timeout=max(end - time.monotonic(), 0.0)):  # one rank at a time
-            if time.monotonic() >= end:
-                raise AssertionError("the sequence-parallel ranks did not finish within 900 s")
-    finally:
-        for proc in ctx.processes:
-            if proc.is_alive():
-                proc.kill()
-                proc.join()
+    results = run_ranks(_sp_rank, SP_RANKS, backend, out, str(dtype).removeprefix("torch."),
+                        what="sequence-parallel")
     ranks_s = time.perf_counter() - t0
-    results = [json.loads((out / f"rank{r}.json").read_text()) for r in range(SP_RANKS)]
 
     # the op-level ring against the one-card flash_attention on the gathered tensors
     op = {}
@@ -2708,7 +2716,7 @@ def sequence_parallel_phase(dtype=torch.bfloat16) -> dict:
     ring_cli, proc = trainer_cli_580m(
         ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(SP_RANKS), "-m",
          "zero_transformer_tpu_torch.train", "--dist-backend", backend], [f"mesh.sequence={SP_RANKS}", *sets],
-        Path("chiprun_out") / "train_580m_8k_sp")
+        Path("build") / "train_580m_8k_sp")
     topo = next((json.loads(line)["distributed"] for line in proc.stdout.splitlines()
                  if line.startswith('{"distributed"')), None)
     log({"sequence_parallel_trainer_cli": {**ring_cli, "ranks_phase_s": ranks_s, "topology": topo,
@@ -2716,7 +2724,7 @@ def sequence_parallel_phase(dtype=torch.bfloat16) -> dict:
     if topo is None or topo["backend"] != backend or ring_cli["model_flops_share"] is None:
         raise AssertionError(f"the trainer CLI printed no topology or no model-FLOPs share: {topo}, {ring_cli}")
     one_cli, _ = trainer_cli_580m(["-m", "zero_transformer_tpu_torch.train"], sets,
-                                  Path("chiprun_out") / "train_580m_8k_one_card")
+                                  Path("build") / "train_580m_8k_one_card")
     log({"one_card_trainer_cli_580m": {**one_cli, "model_flops_formula": flops}})
     for f in out.glob("*.pt"):
         f.unlink()
@@ -2749,6 +2757,408 @@ def trainer_cli_580m(launcher: list, sets: list, run_dir: Path):
             "tokens_per_sec": last["tokens_per_sec"], "model_flops_share": last.get("model_flops_share")}, proc
 
 
+# ------------------------------------------------------- data parallelism
+
+DP_RANKS, DP_B, DP_STEPS = 4, 8, 3  # 4 ranks x B 8 x T 1024: a global batch of 32 rows
+DP_LR = 6e-4  # configs/train_125m.yaml's peak learning rate, held constant
+GRAD_NORM_RTOL = 1e-3
+DP_TIMED_STEPS = 3  # steps timed after the parity steps (data_parallel_nccl only)
+N_125M = 123_587_328
+
+
+def dp_overrides(run_dir: Path, stage: int, accum: int = 1, **more) -> dict:
+    """configs/train_125m.yaml cut for the phase: a global batch of 32 rows
+    a step (B 8 a rank at accum 1, B 4 at accum 2), synthetic tokens, a
+    constant learning rate, a log line each step, saves at step 2 (keep 2)
+    and at the end."""
+    return {"data.source": "synthetic", "training.batch_size": DP_RANKS * DP_B // accum,
+            "training.gradient_accumulation_steps": accum, "training.log_frequency": 1,
+            "training.evaluation_frequency": 0, "optimizer.schedule": "constant",
+            "optimizer.peak_learning_rate": DP_LR, "mesh.zero_stage": stage,
+            "checkpoint.directory": str(run_dir), "checkpoint.save_frequency": 2, "checkpoint.keep": 2, **more}
+
+
+def dp_trainer(overrides: dict, mesh=None):
+    from zero_transformer_tpu_torch.config import apply_dotted_overrides, load_config
+    from zero_transformer_tpu_torch.training.trainer import Trainer
+
+    cfg = apply_dotted_overrides(load_config("configs/train_125m.yaml"), overrides)
+    return Trainer(cfg, device="cuda", mesh=mesh)
+
+
+def dp_drive(trainer, steps: int, save: bool) -> dict:
+    """``steps`` optimizer steps with the launch counts zeroed just before and
+    read just after: with ``save`` through ``trainer.train`` (its saves on
+    the cadence and at the end; rank 0 reads the losses and grad norms it
+    logged), else through the trainer's own step on its loader's batches,
+    which writes no checkpoint (the phase stays within the machine's disk
+    budget). Per-step readings are keyed by the step as a string (the
+    ranks send JSON)."""
+    from zero_transformer_tpu_torch.data import to_device
+    from zero_transformer_tpu_torch.ops import _build
+
+    start = trainer.state.step
+    losses, norms = {}, {}
+    _build.reset_launches()
+    if save:
+        trainer.train(max_steps=steps)
+    else:
+        it = iter(trainer.train_loader)
+        try:
+            for _ in range(steps):
+                metrics = trainer.train_step(trainer.state, to_device(next(it), trainer.device))
+                losses[str(trainer.state.step)] = float(metrics["loss"])
+                norms[str(trainer.state.step)] = float(metrics["grad_norm"])
+        finally:
+            it.close()
+    torch.cuda.synchronize(trainer.device)
+    launches = {n: c for n, c in _build.LAUNCHES.items() if c}
+    if save and trainer.mesh.rank == 0:
+        records = [json.loads(x) for x in (Path(trainer.cfg.checkpoint.directory) / "metrics.jsonl").open()]
+        train = {str(r["step"]): r for r in records if "loss" in r}
+        losses = {k: r["loss"] for k, r in train.items()}
+        norms = {k: r["grad_norm"] for k, r in train.items()}
+    return {"start_step": start, "end_step": trainer.state.step, "launches": launches, "losses": losses,
+            "grad_norms": norms}
+
+
+def dp_readings(trainer, timed: int) -> dict:
+    """After the steps: the persistent state bytes, the whole params' digest
+    (a collective at stage 3), the replica audit, the latest save's times;
+    then ``timed`` steps timed and one step under the profiler (rank 0:
+    the data group's spans)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zero_transformer_tpu_torch.data import to_device
+    from zero_transformer_tpu_torch.resilience.detect import leaf_checksum
+
+    mesh, shards = trainer.mesh, trainer.state.shards
+    dev = trainer.device
+    out = {"rank": mesh.rank, "persistent_bytes": shards.persistent_bytes(),
+           "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "save_ms": trainer.last_save_ms, "digest_ms": trainer.ckpt.last_digest_ms}
+    leaves = shards.state_leaves()
+    out["params_digest"] = sum(leaf_checksum(v) for k, v in leaves.items() if k.startswith("params/")) % 2**32
+    del leaves
+    out["audit_diverged"] = trainer.audit() if trainer.audit is not None else None
+    it = iter(trainer.train_loader)
+    try:
+        if timed:
+            mesh.barrier()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(timed):
+                trainer.train_step(trainer.state, to_device(next(it), dev))
+            torch.cuda.synchronize(dev)
+            mesh.barrier()
+            out["timed_step_ms"] = (time.perf_counter() - t0) * 1e3 / timed
+            out["tokens_per_sec"] = trainer.tokens_per_step * timed / (time.perf_counter() - t0)
+        batch = to_device(next(it), dev)
+        mesh.barrier()
+        if mesh.rank == 0:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                trainer.train_step(trainer.state, batch)
+                torch.cuda.synchronize(dev)
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            spans = {ev.key: ev.cpu_time_total / 1e3 for ev in prof.key_averages()
+                     if ev.key.startswith("data_group.") and str(ev.device_type).endswith("CPU")}
+            kernels = kernel_times(prof)
+            busy = sum(ms for ms, _ in kernels.values())
+            nccl_ms = sum(ms for name, (ms, _) in kernels.items() if "nccl" in name.lower())
+            out["profile"] = {"wall_ms": wall_ms, "device_busy_ms": busy, "device_busy_share": busy / wall_ms,
+                              "nccl_kernels_ms": nccl_ms, **{f"{k}_ms": v for k, v in spans.items()},
+                              **{f"{k}_share": v / wall_ms for k, v in spans.items()}}
+        else:
+            trainer.train_step(trainer.state, batch)
+            torch.cuda.synchronize(dev)
+    finally:
+        it.close()
+    return out
+
+
+def _dp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str, jobs: list) -> None:
+    """One rank of a data-parallel world: for each job, the trainer on the
+    world's mesh (``jobs[i]["overrides"]``; rank 0 first links the step
+    directories a resume starts from), ``dp_drive``, then ``dp_readings``."""
+    from zero_transformer_tpu_torch.parallel.mesh import destroy, init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = init_distributed(1, backend, "cuda", data=world, rank=rank, world_size=world,
+                            init_method=f"file://{init_file}", local_rank=rank)
+    results = {}
+    for job in jobs:
+        if rank == 0:
+            for src, dst in job.get("copy", ()):
+                shutil.rmtree(dst, ignore_errors=True)
+                Path(dst).mkdir(parents=True)
+                shutil.copytree(src, Path(dst) / Path(src).name, copy_function=os.link)
+        mesh.barrier()
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        trainer = dp_trainer(job["overrides"], mesh)
+        try:
+            line = dp_drive(trainer, job["steps"], job.get("save", False))
+            line.update(dp_readings(trainer, job.get("timed", 0)))  # takes more steps
+            if trainer._restore_report is not None:
+                line["restore_verify_ms"] = trainer._restore_report.verify_ms
+        finally:
+            trainer.close()
+        results[job["name"]] = line
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(results))
+    mesh.barrier()
+    destroy(mesh)
+
+
+def run_ranks(fn, world: int, backend: str, out: Path, *args, what: str) -> list:
+    """``fn(rank, world, backend, init_file, out, *args)`` on ``world``
+    spawned ranks, each writing ``out/rank<r>.json``; joined under a 900 s
+    deadline (a rank that fails or hangs fails the phase, and no rank
+    outlives it). Returns each rank's results."""
+    import torch.multiprocessing as mp
+
+    init_file = out / f"rendezvous{world}"
+    if init_file.exists():
+        init_file.unlink()
+    ctx = mp.start_processes(fn, args=(world, backend, str(init_file.resolve()), str(out), *args),
+                             nprocs=world, join=False, start_method="spawn")
+    end = time.monotonic() + 900
+    try:
+        while not ctx.join(timeout=max(end - time.monotonic(), 0.0)):  # one rank at a time
+            if time.monotonic() >= end:
+                raise AssertionError(f"the {world} {what} ranks did not finish within 900 s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def dp_world(world: int, backend: str, out: Path, jobs: list) -> list:
+    """Run ``jobs`` on ``world`` ranks (``_dp_rank``); each rank's results."""
+    return run_ranks(_dp_rank, world, backend, out, jobs, what="data-parallel")
+
+
+def one_card_reference(out: Path, accum: int, timed: int) -> dict:
+    """The one-card trainer on the same global batches: 3 steps' losses and
+    grad norms (and, with ``timed``, the step time)."""
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = dp_trainer(dp_overrides(out, 2, accum))
+    try:
+        line = dp_drive(trainer, DP_STEPS, save=False)
+        line.update(dp_readings(trainer, timed))
+    finally:
+        trainer.close()
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def check_dp_stage(name: str, ranks: list, ref: dict, stage: int, accum: int) -> dict:
+    """The fatal checks of one stage's run against the one-card run: each
+    step's loss within LOSS_MARGIN, the grad norm within GRAD_NORM_RTOL,
+    the params bit-equal across the ranks (digests; the replica audit sees
+    no divergence), each rank's persistent bytes equal to the formula for
+    ``N_125M`` params, exactly 12 x accum launches of each training kernel
+    a rank a step."""
+    first = ranks[0][name]
+    summary = {"losses": first["losses"], "one_card_losses": ref["losses"], "grad_norms": first["grad_norms"],
+               "one_card_grad_norms": ref["grad_norms"], "loss_margin": LOSS_MARGIN,
+               "persistent_bytes_per_rank": [r[name]["persistent_bytes"] for r in ranks],
+               "peak_memory_gib_per_rank": [r[name]["peak_memory_gib"] for r in ranks],
+               "save_ms_rank0": first["save_ms"], "digest_ms_rank0": first["digest_ms"],
+               "profile_rank0": first.get("profile"), "launches_rank0": first["launches"]}
+    for k in ("timed_step_ms", "tokens_per_sec"):
+        if k in first:
+            summary[k] = first[k]
+    for step, loss in first["losses"].items():
+        if not abs(loss - ref["losses"][step]) <= LOSS_MARGIN:
+            raise AssertionError(f"{name} step {step}: loss {loss} vs one card {ref['losses'][step]}")
+        norm, want = first["grad_norms"][step], ref["grad_norms"][step]
+        if not abs(norm - want) <= GRAD_NORM_RTOL * abs(want):
+            raise AssertionError(f"{name} step {step}: grad norm {norm} vs one card {want}")
+    if len({r[name]["params_digest"] for r in ranks}) != 1 or any(r[name]["audit_diverged"] for r in ranks):
+        raise AssertionError(f"{name}: params differ across the ranks: "
+                             f"{[(r[name]['params_digest'], r[name]['audit_diverged']) for r in ranks]}")
+    world = len(ranks)
+    params = N_125M if stage < 3 else N_125M // world
+    moments = 2 * (N_125M if stage == 0 else N_125M // world)
+    want_bytes = 4 * (params + moments)
+    if any(r[name]["persistent_bytes"] != want_bytes for r in ranks):
+        raise AssertionError(f"{name}: persistent bytes {summary['persistent_bytes_per_rank']}, want {want_bytes}")
+    steps = first["end_step"] - first["start_step"]
+    want = {n: 12 * accum * steps for n in ("flash_train_fwd", "flash_dq", "flash_dkv")}
+    for r in ranks:
+        if {n: r[name]["launches"].get(n, 0) for n in want} != want:
+            raise AssertionError(f"{name} rank {r[name]['rank']} launches {r[name]['launches']}, want {want}")
+    summary["persistent_bytes_formula"] = want_bytes
+    return summary
+
+
+def data_parallel_phase(backend: str = "gloo") -> dict:
+    """125m at full width and depth over 4 data-parallel ranks, bf16 over
+    float32 master params, AdamW, T 1024, a global batch of 32 rows a step,
+    synthetic tokens, seed-0 weights (configs/train_125m.yaml cut as
+    ``dp_overrides`` says). ``gloo``: the 4 ranks share card 0 (a
+    correctness rig: the collectives stage through pinned host memory);
+    ``nccl`` (the ``data_parallel_nccl`` phase, 4 cards): a card per rank.
+
+    Fatal: for ZeRO stages 0-3 at accum 1, and stage 2 at accum 2, 3 steps
+    each through the trainer against the one-card trainer on the same
+    global batches (``check_dp_stage``). Printed: the ranks' peak memory
+    and the data group's spans in a profiled step. Then, with gloo, the
+    checkpoints: the stage-2 run saved at step 2; resumed from it at data 4
+    its step 3 ends with the uninterrupted run's param digest (bit-equal);
+    resumed at data 2 (stage 3, a world of 2) and on one process its step-3
+    loss is within LOSS_MARGIN of the uninterrupted run's; a copy with one
+    flipped byte in step 3's ``params.safetensors`` is quarantined and
+    restore falls back to step 2; then the trainer CLI under
+    ``torch.distributed.run --nproc-per-node 4`` saves after 3 steps and a
+    second launch with ``checkpoint.resume=True`` continues from it.
+    Returns the one-card and 4-rank launch counts of the stage-2 run."""
+    from zero_transformer_tpu_torch.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    nccl = backend == "nccl"
+    if nccl and torch.cuda.device_count() < DP_RANKS:
+        raise AssertionError(f"data_parallel_nccl needs {DP_RANKS} cards, this machine has "
+                             f"{torch.cuda.device_count()}")
+    tag = "data_parallel_nccl" if nccl else "data_parallel"
+    out = (Path("build") / tag).resolve()
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    timed = DP_TIMED_STEPS if nccl else 0
+    log({f"{tag}_topology": {"ranks": DP_RANKS, "backend": backend,
+                             "cards": min(torch.cuda.device_count(), DP_RANKS),
+                             "transfers": "NCCL, card to card" if nccl else "gloo through pinned host memory"}})
+    t0 = time.perf_counter()
+    refs = {accum: one_card_reference(out / f"one_card_accum{accum}", accum, timed) for accum in (1, 2)}
+    log({f"{tag}_one_card": {a: {k: r.get(k) for k in ("losses", "grad_norms", "peak_memory_gib",
+                                                        "timed_step_ms", "tokens_per_sec", "persistent_bytes")}
+                             for a, r in refs.items()}, "one_card_s": time.perf_counter() - t0})
+
+    cases = {f"stage{s}": (s, 1) for s in (0, 1, 2, 3)}
+    cases["stage2_accum2"] = (2, 2)
+    # with gloo the stage-2 run goes through trainer.train, saving at steps 2 and 3
+    jobs = [dict(name=name, steps=DP_STEPS, timed=timed, save=name == "stage2" and not nccl,
+                 overrides=dp_overrides(out / name, stage, accum)) for name, (stage, accum) in cases.items()]
+    saved = out / "stage2"
+    if not nccl:  # resume from the stage-2 run's step 2, at data 4
+        jobs.append(dict(name="resume_data4", steps=1, save=True,
+                         copy=[(str(saved / "2"), str(out / "resume_data4"))],
+                         overrides=dp_overrides(out / "resume_data4", 2, **{"checkpoint.resume": True})))
+    t0 = time.perf_counter()
+    ranks = dp_world(DP_RANKS, backend, out, jobs)
+    ranks_s = time.perf_counter() - t0
+    for name, (stage, accum) in cases.items():
+        log({f"{tag}_{name}": check_dp_stage(name, ranks, refs[accum], stage, accum)})
+    log({f"{tag}_ranks_s": ranks_s})
+    launches = {"one_card": {}, "ranks": ranks[0]["stage2"]["launches"]}
+    if nccl:
+        log({f"{tag}_tokens_per_sec": {name: [ranks[0][name]["tokens_per_sec"], refs[cases[name][1]]["tokens_per_sec"]]
+                                       for name in cases}, "order": "4 cards, one card"})
+        log({f"{tag}_s": time.perf_counter() - t_phase})
+        return launches
+
+    # checkpoints: the stage-2 run saved at steps 2 and 3
+    uninterrupted = ranks[0]["stage2"]
+    resumed = ranks[0]["resume_data4"]
+    ckpt_line = {"uninterrupted_digest": uninterrupted["params_digest"], "resumed_data4_digest":
+                 resumed["params_digest"], "resumed_data4_start": resumed["start_step"],
+                 "resumed_data4_loss": resumed["losses"].get("3"), "restore_verify_ms_rank0":
+                 resumed.get("restore_verify_ms"), "save_ms_rank0": uninterrupted["save_ms"],
+                 "digest_ms_rank0": uninterrupted["digest_ms"]}
+    if resumed["start_step"] != 2 or resumed["params_digest"] != uninterrupted["params_digest"]:
+        raise AssertionError(f"resume at data 4 from step 2 is not bit-equal to the uninterrupted run: {ckpt_line}")
+    # data 2 at stage 3: a world of 2
+    t0 = time.perf_counter()
+    two = dp_world(2, backend, out, [dict(name="resume_data2_stage3", steps=1, save=True,
+                                          copy=[(str(saved / "2"), str(out / "resume_data2"))],
+                                          overrides=dp_overrides(out / "resume_data2", 3, **{
+                                              "checkpoint.resume": True}))])
+    want_loss = uninterrupted["losses"]["3"]
+    d2 = two[0]["resume_data2_stage3"]
+    ckpt_line.update(resumed_data2_loss=d2["losses"].get("3"), resumed_data2_s=time.perf_counter() - t0,
+                     uninterrupted_loss=want_loss)
+    if not (d2["start_step"] == 2 and abs(d2["losses"]["3"] - want_loss) <= LOSS_MARGIN):
+        raise AssertionError(f"resume at data 2 (stage 3): {ckpt_line}")
+    # one process
+    one_dir = out / "resume_one"
+    one_dir.mkdir()
+    shutil.copytree(saved / "2", one_dir / "2", copy_function=os.link)
+    trainer = dp_trainer(dp_overrides(one_dir, 2, **{"checkpoint.resume": True}))
+    try:
+        start = trainer.state.step
+        trainer.train(max_steps=1)
+        records = [json.loads(x) for x in (one_dir / "metrics.jsonl").open()]
+        one_loss = next(r["loss"] for r in records if r.get("step") == 3 and "loss" in r)
+        ckpt_line.update(resumed_one_process_loss=one_loss,
+                         resumed_one_process_verify_ms=trainer._restore_report.verify_ms)
+        if not (start == 2 and abs(one_loss - want_loss) <= LOSS_MARGIN):
+            raise AssertionError(f"resume on one process: {ckpt_line}")
+        # a flipped byte in step 3's params: quarantined, restore falls back to step 2
+        bad = out / "bitflip"
+        shutil.copytree(saved, bad, copy_function=os.link)
+        path = bad / "3" / "params.safetensors"
+        data = bytearray(path.read_bytes())
+        header = 8 + int.from_bytes(data[:8], "little")
+        data[header + (len(data) - header) // 3] ^= 0x01
+        path.unlink()  # a link to the saved run's file: write a new one
+        path.write_bytes(bytes(data))
+        _, _, report = CheckpointManager(bad).restore_verified(trainer.state.shards.target(), device="cuda")
+        ckpt_line.update(bitflip_restored_step=report.step, bitflip_quarantined=report.quarantined,
+                         bitflip_verify_ms=report.verify_ms)
+        if report.step != 2 or report.quarantined != [3] or not (bad / "3.quarantined").is_dir():
+            raise AssertionError(f"the flipped step was not quarantined with fallback: {ckpt_line}")
+    finally:
+        trainer.close()
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    log({"data_parallel_checkpoints": ckpt_line})
+
+    # the trainer CLI under torch.distributed.run: 3 steps and a save, then a resumed launch
+    cli_dir = out / "cli"
+    launch = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(DP_RANKS),
+              "-m", "zero_transformer_tpu_torch.train", "--cfg", "configs/train_125m.yaml", "--dist-backend",
+              backend, "--set", f"mesh.data={DP_RANKS}", f"training.batch_size={DP_RANKS * DP_B}",
+              "data.source=synthetic", "training.log_frequency=1", "training.evaluation_frequency=0",
+              f"checkpoint.directory={cli_dir}"]
+    cli = {}
+    for label, extra in (("first", ["--max-steps", "3"]), ("resumed", ["--max-steps", "2", "--set",
+                                                                       "checkpoint.resume=True"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(launch + extra, capture_output=True, text=True, timeout=600,
+                              env={**os.environ, "OMP_NUM_THREADS": "2"})
+        if proc.returncode != 0:
+            raise AssertionError(f"data-parallel trainer CLI ({label}) exit {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        cli[label] = {"wall_s": time.perf_counter() - t0,
+                      "resumed": next((json.loads(x)["resumed"] for x in proc.stdout.splitlines()
+                                       if x.startswith('{"resumed"')), None)}
+    records = [json.loads(x) for x in (cli_dir / "metrics.jsonl").open()]
+    train = [r for r in records if "loss" in r]
+    steps = sorted(p.name for p in cli_dir.iterdir() if p.is_dir())
+    cli.update(steps_logged=[r["step"] for r in train], step_dirs=steps,
+               losses=[r["loss"] for r in train], tokens_per_sec=train[-1]["tokens_per_sec"],
+               step_time_ms=train[-1]["step_time_ms"], ckpt_save_ms=train[-1].get("ckpt_save_ms"))
+    log({"data_parallel_trainer_cli": cli})
+    if (cli["resumed"]["resumed"] is None or cli["resumed"]["resumed"]["step"] != 3
+            or cli["steps_logged"] != [1, 2, 3, 4, 5] or steps != ["3", "5"]
+            or not all(math.isfinite(x) for x in cli["losses"])):
+        raise AssertionError(f"the data-parallel trainer CLI did not save and resume: {cli}")
+    log({f"{tag}_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2758,9 +3168,10 @@ def card_line() -> str:
 
 
 PHASES = ("kernels", "serving", "parity", "profile", "int8_kernels", "int8_serving", "train_kernels", "training",
-          "packed_kernels", "packed", "sp_kernels", "sequence_parallel")
-# named with --phases only: the ring's parity with every kernel on its f32 path
-EXTRA_PHASES = ("sequence_parallel_f32", "k4_anatomy")
+          "packed_kernels", "packed", "sp_kernels", "sequence_parallel", "data_parallel")
+# named with --phases only: the ring's parity with every kernel on its f32 path, K4's
+# anatomy, and data parallelism over NCCL with a card per rank (4 cards)
+EXTRA_PHASES = ("sequence_parallel_f32", "k4_anatomy", "data_parallel_nccl")
 SOURCES = {
     "flash_serving_fwd": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
                           "zero_transformer_tpu/ops/pallas/flash.py:127"),
@@ -2866,6 +3277,10 @@ def main(argv) -> int:
         rows.update(sp_kernel_phase())
     if "sequence_parallel" in phases:
         launches.update(sequence_parallel_phase())
+    if "data_parallel" in phases:
+        data_parallel_phase()
+    if "data_parallel_nccl" in phases:
+        data_parallel_phase("nccl")
     if "k4_anatomy" in phases:
         k4_anatomy_phase()
     if "sequence_parallel_f32" in phases:

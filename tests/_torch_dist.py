@@ -1,4 +1,4 @@
-"""Multi-process helpers of the port's sequence-parallel tests (no test here).
+"""Multi-process helpers of the port's multi-process tests (no test here).
 
 ``run_world`` starts one world of gloo processes (``torch.multiprocessing``,
 spawn) that rendezvous through ``file://`` in the test's tmp directory, so
@@ -10,6 +10,7 @@ suite. The rank bodies import torch and the port only, never JAX.
 from __future__ import annotations
 
 import importlib
+import json
 import time
 from pathlib import Path
 
@@ -20,28 +21,30 @@ import torch.multiprocessing as mp
 DEADLINE_S = 120.0
 
 
-def _entry(rank, world, init_file, body, payload_path, out_dir):
+def _entry(rank, world, init_file, body, payload_path, out_dir, sequence):
     torch.set_num_threads(1)
     from zero_transformer_tpu_torch.parallel.mesh import destroy, init_distributed
 
-    group = init_distributed(world, "gloo", "cpu", rank=rank, world_size=world,
-                             init_method=f"file://{init_file}")
+    mesh = init_distributed(sequence, "gloo", "cpu", rank=rank, world_size=world,
+                            init_method=f"file://{init_file}")
     try:
         payload = torch.load(payload_path, weights_only=False)
-        result = getattr(importlib.import_module(__name__), body)(group, payload)
+        result = getattr(importlib.import_module(__name__), body)(mesh, payload)
         torch.save(result, Path(out_dir) / f"rank{rank}.pt")
     finally:
-        destroy(group)
+        destroy(mesh)
 
 
-def run_world(body: str, payload, tmp_path: Path, world: int = 4, deadline: float = DEADLINE_S) -> list:
-    """Run ``body(group, payload)`` on ``world`` gloo ranks; returns each
-    rank's result, in rank order."""
+def run_world(body: str, payload, tmp_path: Path, world: int = 4, deadline: float = DEADLINE_S,
+              sequence: int = None) -> list:
+    """Run ``body(mesh, payload)`` on ``world`` gloo ranks of a ``data x
+    sequence`` mesh (``sequence`` None: all ranks in one sequence group);
+    returns each rank's result, in rank order."""
     tmp_path.mkdir(parents=True, exist_ok=True)
     payload_path = tmp_path / "payload.pt"
     torch.save(payload, payload_path)
     ctx = mp.start_processes(_entry, args=(world, str(tmp_path / "rendezvous"), body, str(payload_path),
-                                           str(tmp_path)),
+                                           str(tmp_path), world if sequence is None else sequence),
                              nprocs=world, join=False, start_method="spawn")
     end = time.monotonic() + deadline
     try:
@@ -64,11 +67,12 @@ def shard(x: np.ndarray, rank: int, world: int, dim: int = 1) -> np.ndarray:
 # ---------------------------------------------------------------- rank bodies
 
 
-def ring_cases(group, cases: dict) -> dict:
+def ring_cases(mesh, cases: dict) -> dict:
     """``ring_attention`` forward and backward of every case on this rank's
     shards: {case: (out, dq, dk, dv)} as numpy."""
     from zero_transformer_tpu_torch.ops.ring_attention import ring_attention
 
+    group = mesh.sequence
     out = {}
     for name, c in cases.items():
         q, k, v = (torch.from_numpy(shard(c[x], group.rank, group.size)).requires_grad_() for x in "qkv")
@@ -79,13 +83,14 @@ def ring_cases(group, cases: dict) -> dict:
     return out
 
 
-def train_cases(group, cases: dict) -> dict:
+def train_cases(mesh, cases: dict) -> dict:
     """Three optimizer steps of every case's model on the ring: {case:
     (losses, grad norms, final params by name)}."""
+    group = mesh.sequence
     from zero_transformer_tpu_torch import config as tconfig
     from zero_transformer_tpu_torch.models.gpt import Transformer
-    from zero_transformer_tpu_torch.parallel.zero import TrainState, make_train_step
-    from zero_transformer_tpu_torch.training.optimizer import make_optimizer, make_schedule
+    from zero_transformer_tpu_torch.parallel.zero import init_train_state, make_train_step
+    from zero_transformer_tpu_torch.training.optimizer import make_schedule
 
     out = {}
     for name, c in cases.items():
@@ -95,7 +100,7 @@ def train_cases(group, cases: dict) -> dict:
         model.requires_grad_(True)
         opt_cfg = tconfig.OptimizerConfig(**c["opt"])
         schedule = make_schedule(opt_cfg)
-        state = TrainState(step=0, model=model, optimizer=make_optimizer(model, opt_cfg, schedule))
+        state = init_train_state(model, opt_cfg, schedule)
         step = make_train_step(1, schedule, seq_group=group)
         losses, norms = [], []
         for batch in c["batches"]:
@@ -103,4 +108,86 @@ def train_cases(group, cases: dict) -> dict:
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
         out[name] = (losses, norms, {n: p.detach().numpy() for n, p in model.named_parameters()})
+    return out
+
+
+def zero_cases(mesh, cases: dict) -> dict:
+    """Three ZeRO optimizer steps of every case's model on this rank's rows
+    of each global batch: {case: dict(losses, grad norms, whole params by
+    name, persistent bytes, replica audit)}. A case's ``data x sequence``
+    other than the world's own mesh gets a mesh of its own."""
+    from zero_transformer_tpu_torch import config as tconfig
+    from zero_transformer_tpu_torch.models.gpt import Transformer
+    from zero_transformer_tpu_torch.parallel.mesh import make_mesh
+    from zero_transformer_tpu_torch.parallel.zero import init_train_state, make_replica_audit, make_train_step
+    from zero_transformer_tpu_torch.training.optimizer import make_schedule
+
+    out = {}
+    for name, c in cases.items():
+        m = mesh if (c["data"], c["sequence"]) == (mesh.data.size, mesh.sequence.size) else \
+            make_mesh(c["data"], c["sequence"], "gloo", mesh.device)
+        model = Transformer(tconfig.model_config("test", **c["model"]), device="cpu")
+        model.load_state_dict({n: torch.from_numpy(p) for n, p in c["params"].items()})
+        model.requires_grad_(True).set_sequence_group(m.sequence)
+        opt_cfg = tconfig.OptimizerConfig(**c["opt"])
+        schedule = make_schedule(opt_cfg)
+        state = init_train_state(model, opt_cfg, schedule, m.data, c["stage"])
+        step = make_train_step(c["stage"], schedule, c["accum_dtype"], m.sequence)
+        rows = c["batches"][0].shape[1] // m.data.size
+        lo = m.data.rank * rows
+        losses, norms, tokens = [], [], []
+        for batch in c["batches"]:
+            metrics = step(state, torch.from_numpy(batch[:, lo:lo + rows]))
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            tokens.append(metrics["tokens"])
+        leaves = state.shards.state_leaves()
+        audit = make_replica_audit(state.shards)
+        out[name] = dict(losses=losses, norms=norms, tokens=tokens,
+                         params={k.removeprefix("params/"): v.numpy().copy()
+                                 for k, v in leaves.items() if k.startswith("params/")},
+                         persistent_bytes=state.shards.persistent_bytes(),
+                         diverged=None if audit is None else audit())
+    return out
+
+
+def trainer_run(mesh, c: dict) -> dict:
+    """The trainer on this world's mesh: ``c["overrides"]`` on
+    configs/train_test.yaml, ``train(max_steps)``; rank 0 returns its
+    metrics by step, every rank its whole params digest."""
+    from zero_transformer_tpu_torch import config as tconfig
+    from zero_transformer_tpu_torch.training.trainer import Trainer
+
+    cfg = tconfig.apply_dotted_overrides(tconfig.load_config(c["config"]), c["overrides"])
+    trainer = Trainer(cfg, device="cpu", mesh=mesh)
+    try:
+        trainer.train(max_steps=c.get("max_steps"))
+        leaves = trainer.state.shards.state_leaves()
+    finally:
+        trainer.close()
+    out = {"step": trainer.state.step,
+           "params": {k.removeprefix("params/"): v.numpy().copy() for k, v in leaves.items()
+                      if k.startswith("params/")}}
+    if mesh.rank == 0:
+        lines = (Path(cfg.checkpoint.directory) / "metrics.jsonl").read_text().splitlines()
+        out["metrics"] = [json.loads(x) for x in lines]
+    return out
+
+
+def trainer_runs(mesh, runs: list) -> list:
+    """``trainer_run`` for each run in order, on the world's mesh or on a
+    ``data x sequence`` mesh of its own; a run may first have rank 0 copy a
+    run directory (``copy``: [(source, destination), ...])."""
+    import shutil
+
+    from zero_transformer_tpu_torch.parallel.mesh import make_mesh
+
+    out = []
+    for run in runs:
+        if mesh.rank == 0:
+            for src, dst in run.get("copy", ()):
+                shutil.copytree(src, dst)
+        mesh.barrier()
+        m = mesh if "mesh" not in run else make_mesh(*run["mesh"], "gloo", mesh.device)
+        out.append(trainer_run(m, run))
     return out

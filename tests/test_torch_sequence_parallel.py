@@ -41,8 +41,9 @@ from zero_transformer_tpu.training.optimizer import make_schedule as jax_make_sc
 from zero_transformer_tpu_torch import config as tconfig
 from zero_transformer_tpu_torch.convert import params_from_jax
 from zero_transformer_tpu_torch.models.gpt import Transformer
-from zero_transformer_tpu_torch.parallel.zero import TrainState, make_train_step
-from zero_transformer_tpu_torch.training.optimizer import make_optimizer, make_schedule
+from zero_transformer_tpu_torch.parallel.zero import init_train_state as port_init_train_state
+from zero_transformer_tpu_torch.parallel.zero import make_train_step
+from zero_transformer_tpu_torch.training.optimizer import make_schedule
 
 ROOT = Path(__file__).resolve().parent.parent
 WORLD, B, T, STEPS, ATOL = 4, 2, 32, 3, 1e-5
@@ -105,7 +106,7 @@ def _one_process(name, init):
     model.requires_grad_(True)
     opt_cfg = tconfig.OptimizerConfig(**OPT)
     schedule = make_schedule(opt_cfg)
-    state = TrainState(step=0, model=model, optimizer=make_optimizer(model, opt_cfg, schedule))
+    state = port_init_train_state(model, opt_cfg, schedule)
     step = make_train_step(1, schedule)
     losses, norms = [], []
     for batch in _batches(name):

@@ -299,10 +299,15 @@ def test_unported_training_features_raise():
     model = Transformer(tconfig.model_config("test"), device="cpu")
     with pytest.raises(NotImplementedError, match="dropout"):
         model(torch.zeros(1, 4, dtype=torch.long), train=True)
-    with pytest.raises(NotImplementedError):
-        tconfig.MeshConfig(data=2)
-    with pytest.raises(NotImplementedError):
-        tconfig.CheckpointConfig(resume=True)
+    # data parallelism and checkpoints are ported; the other mesh axes are not
+    assert tconfig.MeshConfig(data=2).data == 2 and tconfig.CheckpointConfig(resume=True).resume
+    with pytest.raises(ValueError, match="mesh.data"):
+        tconfig.MeshConfig(data=0)
+    for field in ("fsdp", "tensor", "pipe", "dcn_data"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+            tconfig.MeshConfig(**{field: 2})
+    with pytest.raises(NotImplementedError, match="overlap"):
+        tconfig.MeshConfig(overlap_comm=True)
     with pytest.raises(NotImplementedError):
         make_source(tconfig.Config(data=tconfig.DataConfig(source="hf")))
     # the tar source is ported: a missing index is a missing file, not a refusal

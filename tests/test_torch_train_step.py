@@ -41,8 +41,9 @@ from zero_transformer_tpu_torch import config as tconfig
 from zero_transformer_tpu_torch import train as ttrain
 from zero_transformer_tpu_torch.convert import params_from_jax
 from zero_transformer_tpu_torch.models.gpt import Transformer
-from zero_transformer_tpu_torch.parallel.zero import TrainState, make_train_step
-from zero_transformer_tpu_torch.training.optimizer import make_optimizer, make_schedule
+from zero_transformer_tpu_torch.parallel.zero import init_train_state as port_init_train_state
+from zero_transformer_tpu_torch.parallel.zero import make_train_step
+from zero_transformer_tpu_torch.training.optimizer import make_schedule
 
 TRAIN_TEST = str(Path(__file__).resolve().parent.parent / "configs" / "train_test.yaml")
 MODEL = dict(dropout=0.0, compute_dtype="float32")
@@ -103,7 +104,7 @@ def test_three_steps_match_jax_make_train_step(accum, accum_dtype):
 
     model = _port_model(jax.tree.map(np.asarray, jstate.params))
     schedule = make_schedule(tconfig.OptimizerConfig(**OPT))
-    state = TrainState(step=0, model=model, optimizer=make_optimizer(model, tconfig.OptimizerConfig(**OPT), schedule))
+    state = port_init_train_state(model, tconfig.OptimizerConfig(**OPT), schedule)
     step = make_train_step(1, schedule, accum_dtype)
     for i in range(3):
         batch = _batch(accum, 10 + i)

@@ -1,10 +1,9 @@
 """Typed configuration for the PyTorch/CUDA port.
 
 Counterpart of ``zero_transformer_tpu/config.py``: ``ModelConfig`` (:32-160),
-the training sections ``MeshConfig`` (its ``data``, ``sequence`` and ``zero_stage``
-fields), ``OptimizerConfig``, ``TrainingConfig``, ``DataConfig``,
-``ResilienceConfig`` and ``CheckpointConfig`` (:290-480, with JAX's
-defaults), ``Config``, ``ServingConfig`` (:489-620), ``model_config``
+the training sections ``MeshConfig``, ``OptimizerConfig``, ``TrainingConfig``,
+``DataConfig``, ``ResilienceConfig`` and ``CheckpointConfig`` (:194-642,
+with JAX's defaults), ``Config``, ``ServingConfig`` (:489-620), ``model_config``
 (:674), ``load_config`` (:683) and ``apply_dotted_overrides`` (:720). Only
 the fields the ported slices read, or that ``configs/train_*.yaml`` set, are
 here; a field that asks for something not ported raises. The zoo entries are
@@ -218,23 +217,39 @@ def model_config(name: str, **overrides) -> ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """``data`` is -1 (all devices) or 1: data parallelism across processes
-    is not ported. ``sequence`` > 1 splits every row over that many ranks
-    (one process each, ``torch.distributed``) and runs attention as a ring
-    (``ops/ring_attention.py``). Every ZeRO stage is the same step;
-    ``zero_stage`` is kept and recorded."""
+    """``data`` ranks train data-parallel under ZeRO ``zero_stage`` (0-3,
+    ``parallel/zero.py``); -1 takes every rank the launch has (world /
+    ``sequence``). ``sequence`` > 1 splits every row over that many ranks
+    and runs attention as a ring (``ops/ring_attention.py``). One process
+    per rank under ``torch.distributed.run``; ``world == data x sequence``
+    is checked where the groups are made (``parallel/mesh.py``). The other
+    axes of the JAX mesh keep JAX's defaults and raise when asked for."""
 
     data: int = -1
+    fsdp: int = 1
+    tensor: int = 1
+    pipe: int = 1
     sequence: int = 1
+    dcn_data: int = 1
     zero_stage: int = 1
+    overlap_comm: bool = False
 
     def __post_init__(self):
-        if self.data not in (-1, 1):
-            raise NotImplementedError("data parallelism over several cards is not ported yet")
+        if self.data != -1 and self.data < 1:
+            raise ValueError(f"mesh.data must be -1 (every rank) or >= 1, got {self.data}")
         if self.sequence < 1:
             raise ValueError(f"mesh.sequence must be >= 1, got {self.sequence}")
         if self.zero_stage not in (0, 1, 2, 3):
             raise ValueError(f"zero_stage must be 0-3, got {self.zero_stage}")
+        unported = {"fsdp": ("the fsdp axis", 7), "tensor": ("tensor parallelism", 13),
+                    "pipe": ("pipeline parallelism", 14), "dcn_data": ("multi-slice placement", 7)}
+        for name, (what, item) in unported.items():
+            if getattr(self, name) != 1:
+                raise NotImplementedError(f"mesh.{name}={getattr(self, name)}: {what} is not ported yet "
+                                          f"(ROADMAP Queue 1 item {item})")
+        if self.overlap_comm:
+            raise NotImplementedError("mesh.overlap_comm: the overlapped ZeRO schedule (parallel/overlap.py) "
+                                      "is not ported yet (ROADMAP Queue 1 item 7)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -325,16 +340,30 @@ class ResilienceConfig:
 
 @dataclasses.dataclass(frozen=True)
 class CheckpointConfig:
-    """``directory`` holds the run's ``metrics.jsonl``. Saving and resuming
-    are not ported: ``resume`` raises."""
+    """JAX's checkpoint fields and defaults (``checkpoint.py``): the run's
+    ``metrics.jsonl`` and one step directory per save under ``directory``,
+    the newest ``keep`` kept; a save every ``save_frequency`` steps and at
+    the end, written by a thread with ``async_save``; ``resume`` continues
+    from the newest step that verifies against its integrity manifest
+    (``integrity``); ``warm_init`` starts from the params of
+    ``warm_init_dir`` (a run directory) or ``warm_init_msgpack`` (JAX's
+    exported params)."""
 
     directory: str = "checkpoints"
+    keep: int = 5
     save_frequency: int = 1000
+    async_save: bool = True
     resume: bool = False
+    integrity: bool = True
+    warm_init: bool = False
+    warm_init_dir: str = ""
+    warm_init_msgpack: str = ""
 
     def __post_init__(self):
-        if self.resume:
-            raise NotImplementedError("checkpoint resume is not ported yet")
+        if self.keep < 1:
+            raise ValueError(f"checkpoint.keep must be >= 1, got {self.keep}")
+        if self.save_frequency < 1:
+            raise ValueError(f"checkpoint.save_frequency must be >= 1, got {self.save_frequency}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,8 +8,11 @@ scan-stacked under ``blocks/...`` with a leading ``[n_layers]`` axis
 (``gpt.py:621-630``) or unscanned under ``block_<i>/...``.
 
 The input is the tree as NUMPY arrays (nested dicts; ``nn.Partitioned``
-boxes already unwrapped on the JAX side), or its flat form with
-``/``-joined keys as written to an ``.npz``. Nothing here imports JAX.
+boxes already unwrapped on the JAX side, or as ``checkpoint.py``'s
+``import_params_msgpack`` reads a flax msgpack file), or its flat form with
+``/``-joined keys as written to an ``.npz``. ``read_params_tree`` reads any
+of these files, or a port checkpoint's step directory. Nothing here
+imports JAX.
 
 A weight-only int8 tree (``models/quant.py::quantize_params``, JAX's
 layout) converts too: a Dense's ``kernel_q`` ``[in, out]`` int8 and
@@ -28,6 +31,7 @@ To write the ``.npz`` that ``serve --params`` reads, on a machine with JAX::
 """
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -162,3 +166,22 @@ def read_npz(path: str) -> Dict[str, np.ndarray]:
 def load_npz(path: str) -> Dict[str, torch.Tensor]:
     """Read an ``.npz`` of the flat flax tree and convert it."""
     return params_from_jax(read_npz(path))
+
+
+def read_params_tree(path: str) -> Dict[str, np.ndarray]:
+    """The flat flax tree of the params at ``path``, whichever of the three
+    forms it takes: a port checkpoint's step directory (its
+    ``params.safetensors``, ``checkpoint.py``), a flax msgpack file (JAX
+    ``export_params_msgpack``, ``export.py extract``) or an ``.npz`` of the
+    flat tree."""
+    from zero_transformer_tpu_torch import checkpoint
+
+    p = Path(path)
+    if p.is_dir():
+        if not (p / checkpoint.PARAMS_FILE).is_file():
+            raise FileNotFoundError(f"{path} is a directory without {checkpoint.PARAMS_FILE}: pass a checkpoint "
+                                    f"step directory (<checkpoint.directory>/<step>)")
+        return params_to_jax(checkpoint.CheckpointManager(p.parent).restore_params(int(p.name)))
+    if p.suffix == ".msgpack":
+        return flatten(checkpoint.import_params_msgpack(p))
+    return read_npz(path)

@@ -4,7 +4,9 @@
       --params p.npz --task bpb --data heldout_ppl.jsonl --seq-len 512
 
 ``--params`` is the ``.npz`` of the flat flax param tree that ``convert.py``
-and the serve CLI read. Data is pre-tokenized JSONL:
+and the serve CLI read, a flax ``.msgpack``, or a trainer checkpoint's step
+directory (``<checkpoint.directory>/<step>``): the handoff from training to
+evaluation. Data is pre-tokenized JSONL:
 
 - ``lambada``: ``{"context": [ids], "target": [ids]}`` per line;
 - ``choice``: ``{"context": [ids], "choices": [[ids], ...], "gold": i,
@@ -43,7 +45,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="zero_transformer_tpu_torch.evalharness", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model", required=True, help="model zoo name")
-    p.add_argument("--params", required=True, help=".npz of the flat flax param tree")
+    p.add_argument("--params", required=True,
+                   help=".npz of the flat flax param tree, a flax .msgpack, or a checkpoint step directory")
     p.add_argument("--task", required=True, choices=["lambada", "choice", "ppl", "bpb"])
     p.add_argument("--data", required=True, help="JSONL / token file (see above)")
     p.add_argument("--seq-len", type=int, default=1024)
@@ -65,12 +68,12 @@ def main(argv=None) -> None:
     if args.tokenizer:
         raise NotImplementedError("--tokenizer (HuggingFace text fields) is not ported: pass token ids")
     device = resolve_device(args.device)
-    from zero_transformer_tpu_torch.convert import params_from_jax, read_npz
+    from zero_transformer_tpu_torch.convert import params_from_jax, read_params_tree
     from zero_transformer_tpu_torch.evalharness import choice_accuracy, lambada, perplexity
     from zero_transformer_tpu_torch.models import model_getter
     from zero_transformer_tpu_torch.models.quant import quantize_params
 
-    tree = read_npz(args.params)
+    tree = read_params_tree(args.params)
     if args.quantize == "int8":
         tree = quantize_params(tree)  # on the host, before the weights reach the device
     model = model_getter(args.model, dtype=getattr(torch, args.dtype), device=device, dropout=0.0,

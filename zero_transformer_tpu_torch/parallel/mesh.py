@@ -1,26 +1,33 @@
-"""Process groups for sequence parallelism.
+"""Process groups for data and sequence parallelism.
 
-Counterpart of ``zero_transformer_tpu/parallel/mesh.py``'s ``sequence`` axis
-and of ``parallel/bootstrap.py::maybe_initialize`` (:29): JAX's mesh axis
-becomes a ``torch.distributed`` group of one process per rank, started by
-``torch.distributed.run`` (or by a caller that passes rank, world size and an
-``init_method`` itself, as the tests do with ``file://``).
+Counterpart of ``zero_transformer_tpu/parallel/mesh.py``'s ``data`` and
+``sequence`` axes (``make_mesh`` :35-119: ``data`` outer, ``sequence``
+inner) and of ``parallel/bootstrap.py::maybe_initialize`` (:29): JAX's mesh
+becomes ``torch.distributed`` groups of one process per rank, started by
+``torch.distributed.run`` (or by a caller that passes rank, world size and
+an ``init_method`` itself, as the tests do with ``file://``). World rank
+``r`` is data rank ``r // sequence`` and sequence rank ``r % sequence``: a
+sequence group is ``sequence`` consecutive ranks (they share rows), a data
+group takes one rank of each sequence group.
 
 The backend is always explicit and printed, never switched silently:
 
 - ``nccl`` when every rank has a card of its own (``cuda:LOCAL_RANK``);
 - ``gloo`` for CPU tensors;
 - ``gloo`` when several ranks share a card (NCCL refuses two ranks on one
-  GPU). gloo's send and receive take CPU tensors only, so under gloo
-  ``SequenceGroup`` stages CUDA tensors through pinned host buffers: that
-  is the gloo backend's transport. The kernels still run on the card.
+  GPU). gloo's collectives take CPU tensors only here, so under gloo both
+  groups stage CUDA tensors through pinned host buffers: that is the gloo
+  backend's transport. The kernels still run on the card.
 
 ``SequenceGroup.rotate_start`` is the ring's ``lax.ppermute`` to ``(r + 1) %
-n`` (``ops/ring_attention.py::_rotate``); ``all_reduce_`` sums tensors over
-the ranks in flat buckets (the grads of a sequence-parallel train step).
-Both run inside ``torch.profiler`` spans (``sequence_group.rotate``,
-``sequence_group.all_reduce``: host time, the staging copies included), so a
-profile of a step can say what share of it the transfers take.
+n`` (``ops/ring_attention.py::_rotate``). ``DataGroup`` holds the ZeRO
+collectives of ``parallel/zero.py``: ``reduce_scatter_`` (JAX
+``psum_scatter``), ``all_gather_`` (``all_gather``) and ``all_reduce_``
+(``psum``). Every collective runs inside a ``torch.profiler`` span named
+after its group and operation (``sequence_group.rotate``,
+``data_group.reduce_scatter``, ...: host time, the staging copies
+included), so a profile of a step can say what share of it the transfers
+take. A group of one rank runs no collective at all.
 """
 from __future__ import annotations
 
@@ -39,9 +46,10 @@ BACKENDS = ("nccl", "gloo")
 BUCKET_BYTES = 256 << 20  # grads all-reduced per flat bucket
 
 
-def _torchrun_hint(sequence: int) -> str:
-    return (f"python -m torch.distributed.run --nproc-per-node {sequence} -m zero_transformer_tpu_torch.train "
-            f"--cfg <config> --set mesh.sequence={sequence}")
+def _torchrun_hint(data: int, sequence: int) -> str:
+    sets = " ".join(f"mesh.{k}={v}" for k, v in (("data", data), ("sequence", sequence)) if v > 1)
+    return (f"python -m torch.distributed.run --nproc-per-node {max(data, 1) * sequence} -m "
+            f"zero_transformer_tpu_torch.train --cfg <config> --set {sets}")
 
 
 class _Pending:
@@ -59,9 +67,10 @@ class _Pending:
 
 
 @dataclasses.dataclass
-class SequenceGroup:
-    """One sequence-parallel group: this process's ``rank`` of ``size``, the
-    ``torch.distributed`` group, its backend and the device this rank
+class _Group:
+    """One axis of the mesh: this process's ``rank`` of ``size``, the
+    ``torch.distributed`` group (None: the default group, or no collective
+    at all for a group of one), its backend and the device this rank
     computes on."""
 
     rank: int
@@ -70,6 +79,7 @@ class SequenceGroup:
     device: torch.device
     group: Optional[dist.ProcessGroup] = None
     _host: Dict[Tuple, torch.Tensor] = dataclasses.field(default_factory=dict, repr=False)
+    SPAN = "group"
 
     @property
     def staged(self) -> bool:
@@ -83,6 +93,76 @@ class SequenceGroup:
             self._host[key] = buf
         return buf
 
+    def _flat_buffer(self, key: Tuple, numel: int, dtype: torch.dtype) -> torch.Tensor:
+        """A pinned host buffer of at least ``numel`` elements, its first
+        ``numel`` returned."""
+        buf = self._host.get(key)
+        if buf is None or buf.dtype != dtype or buf.numel() < numel:
+            buf = torch.empty(numel, dtype=dtype, pin_memory=True)
+            self._host[key] = buf
+        return buf[:numel]
+
+    def all_reduce_(self, tensors: Sequence[torch.Tensor], bucket_bytes: int = BUCKET_BYTES) -> None:
+        """Sum each tensor over the group, in place, through flat buckets of
+        one dtype of at most ``bucket_bytes`` (a larger tensor goes alone).
+        Every rank ends with the same bits: the collective sums each element
+        once and hands the result to all."""
+        if self.size == 1:
+            return
+        with record_function(f"{self.SPAN}.all_reduce"):
+            self._all_reduce(tensors, bucket_bytes)
+
+    def _all_reduce(self, tensors: Sequence[torch.Tensor], bucket_bytes: int) -> None:
+        buckets: List[List[torch.Tensor]] = []
+        size = 0
+        for t in tensors:
+            if not buckets or buckets[-1][0].dtype != t.dtype or size + t.numel() * t.element_size() > bucket_bytes:
+                buckets.append([])
+                size = 0
+            buckets[-1].append(t)
+            size += t.numel() * t.element_size()
+        for bucket in buckets:
+            flat = bucket[0].view(-1) if len(bucket) == 1 and bucket[0].is_contiguous() else \
+                torch.cat([t.reshape(-1) for t in bucket])
+            if self.staged:
+                host = self._flat_buffer(("all_reduce", flat.dtype), flat.numel(), flat.dtype)
+                host.copy_(flat)
+                dist.all_reduce(host, group=self.group)
+                flat.copy_(host)
+            else:
+                dist.all_reduce(flat, group=self.group)
+            offset = 0
+            for t in bucket:
+                if t.data_ptr() != flat.data_ptr() or t.numel() != flat.numel():
+                    t.copy_(flat[offset:offset + t.numel()].view_as(t))
+                offset += t.numel()
+
+    def all_reduce_sum(self, value: torch.Tensor) -> torch.Tensor:
+        """A new tensor: ``value`` summed over the group (no autograd)."""
+        out = value.detach().clone()
+        self.all_reduce_([out])
+        return out
+
+    def barrier(self) -> None:
+        if self.size == 1:
+            return
+        if self.backend == "nccl":
+            dist.barrier(group=self.group, device_ids=[self.device.index])
+        else:
+            dist.barrier(group=self.group)
+
+    def describe(self) -> dict:
+        cards = min(self.size, torch.cuda.device_count()) if self.device.type == "cuda" else 0
+        return {"ranks": self.size, "rank": self.rank, "backend": self.backend, "device": str(self.device),
+                "cards": cards, "staged_through_host": self.staged}
+
+
+@dataclasses.dataclass
+class SequenceGroup(_Group):
+    """The ranks that split every row between them (``mesh.sequence``)."""
+
+    SPAN = "sequence_group"
+
     def rotate_start(self, tensors: Sequence[torch.Tensor], channel: str) -> _Pending:
         """Send each tensor to rank ``(r + 1) % n`` and receive its
         counterpart from ``(r - 1) % n``; every rank must call this with the
@@ -95,6 +175,8 @@ class SequenceGroup:
 
     def _rotate_start(self, tensors: Sequence[torch.Tensor], channel: str) -> _Pending:
         nxt, prv = (self.rank + 1) % self.size, (self.rank - 1) % self.size
+        if self.group is not None:  # group ranks -> world ranks
+            nxt, prv = (dist.get_global_rank(self.group, r) for r in (nxt, prv))
         if self.staged:
             sends = []
             for i, t in enumerate(tensors):
@@ -117,83 +199,125 @@ class SequenceGroup:
 
         return _Pending(works, finish, sends)
 
-    def all_reduce_(self, tensors: Sequence[torch.Tensor], bucket_bytes: int = BUCKET_BYTES) -> None:
-        """Sum each tensor over the group, in place, through flat buckets of
-        one dtype of at most ``bucket_bytes`` (a larger tensor goes alone).
-        Every rank ends with the same bits: the collective sums each element
-        once and hands the result to all."""
-        with record_function("sequence_group.all_reduce"):
-            self._all_reduce(tensors, bucket_bytes)
 
-    def _all_reduce(self, tensors: Sequence[torch.Tensor], bucket_bytes: int) -> None:
-        buckets: List[List[torch.Tensor]] = []
-        size = 0
-        for t in tensors:
-            if not buckets or buckets[-1][0].dtype != t.dtype or size + t.numel() * t.element_size() > bucket_bytes:
-                buckets.append([])
-                size = 0
-            buckets[-1].append(t)
-            size += t.numel() * t.element_size()
-        for bucket in buckets:
-            flat = torch.cat([t.reshape(-1) for t in bucket])
+@dataclasses.dataclass
+class DataGroup(_Group):
+    """The ranks that train on different rows (``mesh.data``): the ZeRO
+    collectives over one flat buffer (``parallel/zero.py``)."""
+
+    SPAN = "data_group"
+
+    def reduce_scatter_(self, out: torch.Tensor, flat: torch.Tensor) -> None:
+        """``out`` <- this rank's ``1/size`` slice of ``flat`` summed over the
+        group (``flat.numel() == size * out.numel()``)."""
+        if self.size == 1:
+            out.copy_(flat)
+            return
+        with record_function("data_group.reduce_scatter"):
             if self.staged:
-                key = ("all_reduce", flat.dtype)
-                if key not in self._host or self._host[key].numel() < flat.numel():
-                    self._host[key] = torch.empty(flat.numel(), dtype=flat.dtype, pin_memory=True)
-                host = self._host[key][:flat.numel()]
-                host.copy_(flat)
-                dist.all_reduce(host, group=self.group)
-                flat.copy_(host)
+                src = self._flat_buffer(("rs_in", flat.dtype), flat.numel(), flat.dtype)
+                dst = self._flat_buffer(("rs_out", out.dtype), out.numel(), out.dtype)
+                src.copy_(flat.reshape(-1))
+                dist.reduce_scatter_tensor(dst, src, group=self.group)
+                out.copy_(dst.view_as(out))
             else:
-                dist.all_reduce(flat, group=self.group)
-            offset = 0
-            for t in bucket:
-                t.copy_(flat[offset:offset + t.numel()].view_as(t))
-                offset += t.numel()
+                dist.reduce_scatter_tensor(out, flat, group=self.group)
 
-    def all_reduce_sum(self, value: torch.Tensor) -> torch.Tensor:
-        """A new tensor: ``value`` summed over the group (no autograd)."""
-        out = value.detach().clone()
-        self.all_reduce_([out])
+    def all_gather_(self, full: torch.Tensor, shard: torch.Tensor) -> None:
+        """``full`` <- every rank's ``shard`` in rank order (``full.numel()
+        == size * shard.numel()``; ``shard`` must not alias ``full``)."""
+        if self.size == 1:
+            full.copy_(shard.reshape(full.shape))
+            return
+        with record_function("data_group.all_gather"):
+            if self.staged:
+                src = self._flat_buffer(("ag_in", shard.dtype), shard.numel(), shard.dtype)
+                dst = self._flat_buffer(("ag_out", full.dtype), full.numel(), full.dtype)
+                src.copy_(shard.reshape(-1))
+                dist.all_gather_into_tensor(dst, src, group=self.group)
+                full.copy_(dst.view_as(full))
+            else:
+                dist.all_gather_into_tensor(full, shard, group=self.group)
+
+    def all_gather_object(self, obj) -> list:
+        """Every rank's ``obj`` (picklable), in rank order."""
+        if self.size == 1:
+            return [obj]
+        out = [None] * self.size
+        dist.all_gather_object(out, obj, group=self.group)
         return out
 
+
+@dataclasses.dataclass
+class Mesh:
+    """This process's place in the ``data x sequence`` mesh: its world rank,
+    the world's size, and its data and sequence groups."""
+
+    rank: int
+    world_size: int
+    backend: str
+    device: torch.device
+    data: DataGroup
+    sequence: SequenceGroup
+
     def barrier(self) -> None:
+        if self.world_size == 1:
+            return
         if self.backend == "nccl":
-            dist.barrier(group=self.group, device_ids=[self.device.index])
+            dist.barrier(device_ids=[self.device.index])
         else:
-            dist.barrier(group=self.group)
+            dist.barrier()
+
+    def broadcast_object(self, obj):
+        """Rank 0's ``obj`` on every rank."""
+        if self.world_size == 1:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
 
     def describe(self) -> dict:
-        cards = min(self.size, torch.cuda.device_count()) if self.device.type == "cuda" else 0
-        return {"ranks": self.size, "rank": self.rank, "backend": self.backend, "device": str(self.device),
-                "cards": cards, "staged_through_host": self.staged}
+        cards = min(self.world_size, torch.cuda.device_count()) if self.device.type == "cuda" else 0
+        return {"ranks": self.world_size, "rank": self.rank, "data": self.data.size,
+                "sequence": self.sequence.size, "backend": self.backend, "device": str(self.device),
+                "cards": cards, "staged_through_host": self.data.staged}
 
 
-def init_distributed(sequence: int, backend: Optional[str] = None, device="cuda", *,
+def single_process(device) -> Mesh:
+    """The mesh of one process: groups of one rank, no process group."""
+    dev = resolve_device(device)
+    return Mesh(rank=0, world_size=1, backend="none", device=dev,
+                data=DataGroup(rank=0, size=1, backend="none", device=dev),
+                sequence=SequenceGroup(rank=0, size=1, backend="none", device=dev))
+
+
+def init_distributed(sequence: int, backend: Optional[str] = None, device="cuda", *, data: int = -1,
                      rank: Optional[int] = None, world_size: Optional[int] = None,
-                     init_method: Optional[str] = None, local_rank: Optional[int] = None) -> SequenceGroup:
-    """Join (or start) the process group of a ``mesh.sequence``-way ring.
+                     init_method: Optional[str] = None, local_rank: Optional[int] = None) -> Mesh:
+    """Join (or start) the process group of a ``data x sequence`` mesh and
+    make its data and sequence groups.
 
     Rank, world size and local rank come from the arguments or from
     ``torch.distributed.run``'s environment (``RANK``, ``WORLD_SIZE``,
     ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``);
-    without either it raises with the launch command. The world is the
-    sequence group (data parallelism across processes is not ported).
+    without either it raises with the launch command. ``data`` -1 takes
+    world / ``sequence``; the world must equal ``data x sequence``.
     ``backend`` None takes nccl when every rank of the host has a card of
     its own, else gloo (ranks share card ``LOCAL_RANK % cards``); asking for
     nccl without a card per rank raises."""
     env = os.environ
     if rank is None or world_size is None:
         if "RANK" not in env or "WORLD_SIZE" not in env:
-            raise RuntimeError(f"mesh.sequence={sequence} needs one process per rank, started by "
-                               f"torch.distributed.run: {_torchrun_hint(sequence)}")
+            raise RuntimeError(f"mesh.data={data} x mesh.sequence={sequence} needs one process per rank, "
+                               f"started by torch.distributed.run: {_torchrun_hint(data, sequence)}")
         rank, world_size = int(env["RANK"]), int(env["WORLD_SIZE"])
     if local_rank is None:
         local_rank = int(env.get("LOCAL_RANK", rank))
     local_world = int(env.get("LOCAL_WORLD_SIZE", world_size))
-    if world_size != sequence:
-        raise ValueError(f"world size {world_size} must equal mesh.sequence {sequence}: data parallelism "
-                         "across processes is not ported yet")
+    n_data = world_size // sequence if data == -1 else data
+    if n_data < 1 or n_data * sequence != world_size:
+        raise ValueError(f"world size {world_size} must equal mesh.sequence {sequence} x mesh.data "
+                         f"{'(all ranks)' if data == -1 else data}: {_torchrun_hint(max(n_data, 1), sequence)}")
     dev = torch.device(device)
     if backend is not None and backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
@@ -216,13 +340,32 @@ def init_distributed(sequence: int, backend: Optional[str] = None, device="cuda"
         if backend == "nccl":
             kwargs["device_id"] = dev
         dist.init_process_group(**kwargs)
-    group = SequenceGroup(rank=rank, size=world_size, backend=backend, device=dev, group=None)
+    mesh = make_mesh(n_data, sequence, backend, dev)
     if rank == 0:
-        print(json.dumps({"distributed": group.describe()}), flush=True)
-    return group
+        print(json.dumps({"distributed": mesh.describe()}), flush=True)
+    return mesh
 
 
-def destroy(group: Optional[SequenceGroup]) -> None:
+def make_mesh(data: int, sequence: int, backend: str, device: torch.device) -> Mesh:
+    """This process's ``data x sequence`` mesh over the initialised default
+    group (``data * sequence`` must be its world): every rank makes every
+    subgroup, in the same order; a group that spans the world is the
+    default group (None)."""
+    rank, world_size = dist.get_rank(), dist.get_world_size()
+    if data * sequence != world_size:
+        raise ValueError(f"world size {world_size} must equal mesh.sequence {sequence} x mesh.data {data}")
+    d, s = divmod(rank, sequence)
+    seq_pg = data_pg = None
+    if 1 < sequence < world_size:
+        seq_pg = [dist.new_group(list(range(i * sequence, (i + 1) * sequence))) for i in range(data)][d]
+    if 1 < data < world_size:
+        data_pg = [dist.new_group(list(range(j, world_size, sequence))) for j in range(sequence)][s]
+    return Mesh(rank=rank, world_size=world_size, backend=backend, device=device,
+                data=DataGroup(rank=d, size=data, backend=backend, device=device, group=data_pg),
+                sequence=SequenceGroup(rank=s, size=sequence, backend=backend, device=device, group=seq_pg))
+
+
+def destroy(mesh: Optional[Mesh]) -> None:
     """Leave the process group (no-op without one)."""
-    if group is not None and dist.is_initialized():
+    if mesh is not None and mesh.world_size > 1 and dist.is_initialized():
         dist.destroy_process_group()

@@ -1,0 +1,149 @@
+"""The ZeRO shard layout of the params, the topology a checkpoint records,
+and the check that decides whether a run may resume on another topology.
+
+Counterpart of ``zero_transformer_tpu/parallel/sharding.py``:
+``_add_zero_axis`` (:131) and ``zero_sharding``, ``topology_summary``
+(:226) and ``check_elastic_compat`` (:248).
+
+The layout differs from JAX's on purpose. JAX shards each leaf on its
+largest dim that the ZeRO world divides and keeps the other leaves
+replicated, which suits GSPMD's per-array shardings. Here the params live
+in one flat float32 buffer, padded with zeros to a multiple of the data
+world ``n``, and rank ``r`` owns the contiguous slice ``[r * s, (r + 1) *
+s)`` with ``s = padded / n``: one reduce-scatter and one all-gather a step
+whatever the leaves' shapes, every rank holding exactly ``1/n`` of the
+state at any world size (no leaf stays replicated), and the model's params
+are views of the full buffer, so a gather updates them in place. The
+leaves that decay (``weight_decay_mask``) come first, so the mask is one
+boundary in the flat order, carried per element without a buffer of its
+own. Padding is zero in the params and in the grads, so it adds nothing to
+the norm or the digests, and AdamW leaves it zero. Checkpoints hold whole
+leaves by name, so a restore onto another world is a re-slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatLayout:
+    """Where each named leaf lives in the flat buffer of ``world`` shards."""
+
+    names: Tuple[str, ...]  # flat order: the decayed leaves first
+    shapes: Tuple[Tuple[int, ...], ...]
+    offsets: Tuple[int, ...]
+    numel: int  # elements of all leaves
+    decay_end: int  # elements [0, decay_end) decay
+    world: int
+
+    @classmethod
+    def build(cls, shapes: Dict[str, Sequence[int]], decay: Dict[str, bool], world: int) -> "FlatLayout":
+        """``shapes`` in the model's parameter order; the decayed leaves keep
+        their order and go first, then the others."""
+        if world < 1:
+            raise ValueError(f"world must be >= 1, got {world}")
+        order = [n for n in shapes if decay[n]] + [n for n in shapes if not decay[n]]
+        offsets, off = [], 0
+        for n in order:
+            offsets.append(off)
+            off += math.prod(shapes[n])
+        decay_end = sum(math.prod(shapes[n]) for n in order if decay[n])
+        return cls(tuple(order), tuple(tuple(shapes[n]) for n in order), tuple(offsets), off, decay_end, world)
+
+    @property
+    def padded(self) -> int:
+        return -(-self.numel // self.world) * self.world
+
+    @property
+    def shard_numel(self) -> int:
+        return self.padded // self.world
+
+    def shard_range(self, rank: int) -> Tuple[int, int]:
+        return rank * self.shard_numel, (rank + 1) * self.shard_numel
+
+    def shard_decay_end(self, rank: int) -> int:
+        """Elements ``[0, this)`` of rank ``rank``'s shard decay."""
+        lo, hi = self.shard_range(rank)
+        return min(max(self.decay_end - lo, 0), hi - lo)
+
+    def views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Each leaf as a view of the full flat buffer ``flat``."""
+        return {n: flat[o:o + math.prod(s)].view(s) for n, s, o in zip(self.names, self.shapes, self.offsets)}
+
+    def flatten(self, leaves: Dict[str, torch.Tensor], dtype=None, device=None) -> torch.Tensor:
+        """A new flat buffer (padded with zeros) holding ``leaves`` by name."""
+        first = leaves[self.names[0]]
+        flat = torch.zeros(self.padded, dtype=dtype or first.dtype, device=device or first.device)
+        self.fill(flat, leaves)
+        return flat
+
+    def fill(self, flat: torch.Tensor, leaves: Dict[str, torch.Tensor]) -> None:
+        for n, view in self.views(flat).items():
+            view.copy_(leaves[n])
+
+    def shard_of(self, leaves: Dict[str, torch.Tensor], rank: int, dtype=None, device=None) -> torch.Tensor:
+        """Rank ``rank``'s slice of the flat buffer of ``leaves``, built from
+        the leaves that overlap it (no full buffer is made)."""
+        lo, hi = self.shard_range(rank)
+        first = leaves[self.names[0]]
+        out = torch.zeros(hi - lo, dtype=dtype or first.dtype, device=device or first.device)
+        for n, s, o in zip(self.names, self.shapes, self.offsets):
+            a, b = max(o, lo), min(o + math.prod(s), hi)
+            if a < b:
+                out[a - lo:b - lo].copy_(leaves[n].reshape(-1)[a - o:b - o])
+        return out
+
+
+def topology_summary(data: int, sequence: int, zero_stage: int) -> dict:
+    """The topology a checkpoint was saved under, in JAX's format (one
+    process and one device per rank; the axes the port has not ported are
+    1), written into every step's ``meta.json``."""
+    world = data * sequence
+    return {
+        "mesh": {"pipe": 1, "data": int(data), "fsdp": 1, "expert": 1, "tensor": 1, "sequence": int(sequence)},
+        "devices": int(world),
+        "processes": int(world),
+        "zero_stage": int(zero_stage),
+        "pp_schedule": "gpipe",
+    }
+
+
+def check_elastic_compat(saved: Optional[dict], data: int, sequence: int, zero_stage: int,
+                         global_batch: int) -> List[str]:
+    """Validate resuming onto a ``data x sequence`` mesh from a checkpoint
+    saved under ``saved`` (a ``topology_summary``; None for a checkpoint
+    without one). Raises ``ValueError`` with JAX's message, word for word,
+    for a global batch the new data world cannot divide, before any step;
+    returns notes describing what changed for a compatible topology."""
+    new = topology_summary(data, sequence, zero_stage)
+    if global_batch % data:
+        raise ValueError(
+            f"elastic resume: global batch_size {global_batch} is not "
+            f"divisible by the new data-parallel world of {data} "
+            f"(mesh {new['mesh']}). Resuming onto this topology would "
+            f"fail inside pjit at the first step — pick a mesh whose "
+            f"data*fsdp divides the batch, or adjust training.batch_size"
+        )
+    notes: List[str] = []
+    if not saved:
+        return notes
+    if saved.get("devices") != new["devices"]:
+        notes.append(
+            f"device count {saved.get('devices')} -> {new['devices']} "
+            f"(ZeRO shard layout rebuilt for the new mesh; the restore "
+            f"re-slices the saved whole leaves)"
+        )
+    if saved.get("mesh") != new["mesh"]:
+        notes.append(f"mesh axes {saved.get('mesh')} -> {new['mesh']}")
+    if saved.get("zero_stage") != new["zero_stage"]:
+        notes.append(
+            f"zero_stage {saved.get('zero_stage')} -> {new['zero_stage']} "
+            f"(same state tree, different layout — restore reshards)"
+        )
+    if saved.get("processes") != new["processes"]:
+        notes.append(f"process count {saved.get('processes')} -> {new['processes']}")
+    return notes

@@ -7,7 +7,9 @@ the ``--server`` path :358-436, ``main`` :496-). Runs as::
         [--kv-cache-dtype int8] [--quantize int8]
 
 ``--params`` is an ``.npz`` of the flat flax param tree (``convert.py`` says
-how to write one from the JAX package). ``--quantize int8`` quantizes that
+how to write one from the JAX package), a flax ``.msgpack`` (JAX
+``export_params_msgpack``) or a trainer checkpoint's step directory
+(``<checkpoint.directory>/<step>``). ``--quantize int8`` quantizes that
 tree on the host before any weight reaches the card (JAX ``serve.py``
 :314-322); an ``.npz`` that is already quantized needs the flag. The
 continuous-batching HTTP server (``--server``) is the only mode of this
@@ -44,7 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="zero_transformer_tpu_torch.serve", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model", required=True, help="model zoo name (config.MODEL_ZOO)")
-    p.add_argument("--params", required=True, help=".npz of the flat flax param tree")
+    p.add_argument("--params", required=True,
+                   help=".npz of the flat flax param tree, a flax .msgpack, or a checkpoint step directory")
     p.add_argument("--server", action="store_true", help="run the continuous-batching HTTP server")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
@@ -79,12 +82,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def load_params(path: str, quantize: str):
-    """The port's state dict from an ``.npz``: quantized on the host first
-    with ``quantize="int8"``; an already-quantized file without it exits."""
-    from zero_transformer_tpu_torch.convert import params_from_jax, read_npz
+    """The port's state dict from an ``.npz``, a flax msgpack file or a
+    checkpoint step directory (``convert.read_params_tree``): quantized on
+    the host first with ``quantize="int8"``; an already-quantized file
+    without it exits."""
+    from zero_transformer_tpu_torch.convert import params_from_jax, read_params_tree
     from zero_transformer_tpu_torch.models.quant import has_quantized_leaves, quantize_params
 
-    tree = read_npz(path)
+    tree = read_params_tree(path)
     if quantize != "int8" and has_quantized_leaves(tree):
         raise SystemExit(
             f"{path} is already int8-quantized (kernel_q/embedding_q "

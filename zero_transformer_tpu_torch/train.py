@@ -11,15 +11,22 @@ Counterpart of the root ``train.py`` (``--cfg``, ``--set``, ``--max-steps``,
 literals, else strings). The CLI runs on the CUDA card unless ``--device
 cpu`` is given; without a card it refuses to start.
 
-Sequence parallelism (``mesh.sequence`` n > 1) runs one process per rank
-under ``torch.distributed.run``::
+Data parallelism (``mesh.data``, ZeRO ``mesh.zero_stage`` 0-3) and sequence
+parallelism (``mesh.sequence``) run one process per rank under
+``torch.distributed.run``; the world is ``data x sequence``::
 
+    python -m torch.distributed.run --nproc-per-node 4 -m zero_transformer_tpu_torch.train \
+        --cfg configs/train_125m.yaml --set mesh.data=4 mesh.zero_stage=2 data.source=synthetic
     python -m torch.distributed.run --nproc-per-node 4 -m zero_transformer_tpu_torch.train \
         --cfg configs/train_580m_8k.yaml --set mesh.sequence=4 model.dropout=0.0
 
+``mesh.data`` -1 (the default) takes every rank the launch has.
 ``--dist-backend`` picks nccl (a card per rank) or gloo (the CPU, or ranks
 sharing a card); without it, nccl when every rank has a card of its own,
-else gloo. Rank 0 prints the topology it runs on.
+else gloo. Rank 0 prints the topology it runs on. Checkpoints go to
+``checkpoint.directory`` every ``checkpoint.save_frequency`` steps and at
+the end; ``--set checkpoint.resume=true`` continues from the newest one
+that verifies, on this world size or another.
 """
 from __future__ import annotations
 
@@ -58,20 +65,21 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     cfg = apply_dotted_overrides(load_config(args.cfg), parse_overrides(args.set))
-    if args.dist_backend is not None and cfg.mesh.sequence == 1:
-        raise ValueError("--dist-backend applies to mesh.sequence > 1")
     from zero_transformer_tpu_torch.parallel.mesh import destroy, init_distributed
-    from zero_transformer_tpu_torch.training.trainer import Trainer
+    from zero_transformer_tpu_torch.training.trainer import Trainer, needs_process_group
 
-    group = init_distributed(cfg.mesh.sequence, args.dist_backend, device) if cfg.mesh.sequence > 1 else None
+    ranks = needs_process_group(cfg)
+    if args.dist_backend is not None and not ranks:
+        raise ValueError("--dist-backend applies to a mesh of several ranks (mesh.data or mesh.sequence > 1)")
+    mesh = init_distributed(cfg.mesh.sequence, args.dist_backend, device, data=cfg.mesh.data) if ranks else None
     try:
-        trainer = Trainer(cfg, device=device, seq_group=group)
+        trainer = Trainer(cfg, device=device, mesh=mesh)
         try:
             trainer.train(max_steps=args.max_steps)
         finally:
             trainer.close()
     finally:
-        destroy(group)
+        destroy(mesh)
 
 
 if __name__ == "__main__":

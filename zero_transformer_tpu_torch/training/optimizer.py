@@ -12,7 +12,7 @@ operations. Adafactor and Lion are not ported and raise.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -20,6 +20,7 @@ from torch import nn
 from zero_transformer_tpu_torch.config import OptimizerConfig
 
 Schedule = Callable[[int], float]
+CHUNK = 1 << 24  # elements AdamW updates at a time
 
 
 def _linear(init: float, end: float, steps: int) -> Schedule:
@@ -78,9 +79,12 @@ def weight_decay_mask(model: nn.Module) -> Dict[str, bool]:
 
 class AdamW:
     """``optax.chain(clip_by_global_norm(grad_clip), adamw(...))`` on a fixed
-    list of float32 params, updated in place. Its count starts at 0 and the
-    learning rate of an update is ``schedule(count)``; the bias correction
-    uses the count after the increment."""
+    list of float32 tensors, updated in place: the model's params (one
+    process), or the views of this rank's ZeRO shard (``parallel/zero.py``:
+    the decayed elements and the others), so m and v exist only for what
+    this rank owns. Its count starts at 0 and the learning rate of an update
+    is ``schedule(count)``; the bias correction uses the count after the
+    increment."""
 
     def __init__(self, params: List[torch.Tensor], decay: List[bool], cfg: OptimizerConfig,
                  schedule: Schedule):
@@ -92,23 +96,30 @@ class AdamW:
         self.count = 0
 
     @torch.no_grad()
-    def step(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        """Clip ``grads`` by their global norm, take one AdamW step, and
-        return the norm of the unclipped grads (a 0-d float32 tensor)."""
+    def step(self, grads: List[torch.Tensor], norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Clip ``grads`` by the global norm, take one AdamW step, and return
+        the norm of the unclipped grads (a 0-d float32 tensor). ``norm``
+        None computes it from ``grads``; a sharded step passes the norm of
+        the whole grads (JAX ``ZeroCollectives.shard_norm``, ``zero.py:414``)."""
         cfg = self.cfg
-        g_norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+        g_norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads)) if norm is None else norm
         trigger = g_norm < cfg.grad_clip
         count_inc = self.count + 1
         bc1, bc2 = 1 - cfg.b1**count_inc, 1 - cfg.b2**count_inc
         step_size = -self.schedule(self.count)
         for p, g, mu, nu, decay in zip(self.params, grads, self.mu, self.nu, self.decay):
-            g = torch.where(trigger, g, (g / g_norm) * cfg.grad_clip)
-            mu.copy_((1 - cfg.b1) * g + cfg.b1 * mu)
-            nu.copy_((1 - cfg.b2) * torch.square(g) + cfg.b2 * nu)
-            update = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
-            if decay:
-                update = update + cfg.weight_decay * p
-            p.add_(step_size * update)
+            # views: the updates land in place (a non-contiguous tensor raises)
+            p, mu, nu, g = p.view(-1), mu.view(-1), nu.view(-1), g.reshape(-1)
+            # in chunks: the temporaries of a flat shard stay small
+            for s in range(0, p.numel(), CHUNK):
+                pc, mc, nc = p[s:s + CHUNK], mu[s:s + CHUNK], nu[s:s + CHUNK]
+                gc = torch.where(trigger, g[s:s + CHUNK], (g[s:s + CHUNK] / g_norm) * cfg.grad_clip)
+                mc.copy_((1 - cfg.b1) * gc + cfg.b1 * mc)
+                nc.copy_((1 - cfg.b2) * torch.square(gc) + cfg.b2 * nc)
+                update = (mc / bc1) / (torch.sqrt(nc / bc2) + cfg.eps)
+                if decay:
+                    update = update + cfg.weight_decay * pc
+                pc.add_(step_size * update)
         self.count = count_inc
         return g_norm
 
