@@ -113,6 +113,27 @@ Phases, each fatal on failure (nothing is caught):
    ``configs/train_580m_8k.yaml`` and the same CLI on one card; the one-card
    reference step's launches give the D 128 rows of the kernel table.
 
+14. train_1_3b: ``configs/train_1_3b_1chip.yaml``'s path (1_3b, remat,
+   ``loss_chunk`` 256, Adafactor, B 4 x accum 16, a bf16 accumulator):
+   (a) K1-K3 at its shape (B 4, T = S = 1024, 16 heads of 128, causal
+   ALiBi) in bf16 and f32 with phase 6's bars, controls, bit-equal reruns
+   and timings; (b) one micro-batch at full width and depth, seed-0
+   weights: the chunked loss and grads against the full logits and
+   against the plain path (``attention_impl="xla"``) in bf16, loss within
+   5e-4 and grad cosines at least 0.999, and against the float32 plain
+   path (phase 7's bars), with each run's peak memory; (c) the
+   launches of one optimizer step: 24 x 16 x 2 of K1 (the remat recompute
+   runs it again), 24 x 16 of K2 and of K3; (d) Adafactor holds exactly 4N
+   bytes of params plus 4 per element of JAX's factored statistics, and
+   20 steps on one repeated batch lower the loss; (e) the trainer CLI on
+   the recipe for 3 steps (synthetic data, no eval, its checkpoint
+   deleted): tokens/s, step ms, the model-FLOPs share, peak memory, and
+   the peak of a step with the full logits (one step, ``loss_chunk``
+   None);
+   (f) 125m at dropout 0.1: remat on and off give bit-equal grads, each
+   site keeps 1 - p of its elements within 5 sigma, the same key the same
+   bits. Phase 13's trainer CLIs run 580m at its own dropout 0.1.
+
 ``--phases k4_anatomy`` (never part of a full run) shows where the paged
 decode kernel's time goes at phase 2's main and long cases: it rebuilds
 ``csrc/paged_attention.cu`` apart as the kernel, a variant that skips the
@@ -127,9 +148,9 @@ bf16 rounding.
 
 ``--phases a,b,...`` builds the kernels and runs the named phases only
 (kernels, serving, parity, profile, int8_kernels, int8_serving,
-train_kernels, training, packed_kernels, packed, sp_kernels,
-sequence_parallel, sequence_parallel_f32 and k4_anatomy; parity needs
-serving); the kernel table then lists the kernels whose phases ran.
+train_kernels, training, train_1_3b, packed_kernels, packed, sp_kernels,
+sequence_parallel, data_parallel, data_parallel_nccl,
+sequence_parallel_f32 and k4_anatomy; parity needs serving); the kernel table then lists the kernels whose phases ran.
 
 The last two lines of standard output are the kernel table as one JSON
 object and ``{"ok": true, "device": {...}}`` (a full run only). Without CUDA the script exits
@@ -455,12 +476,12 @@ def check_mma(got, lse, q, k, v, offs, seg, label, shifted, docs=None, doc_contr
     return out
 
 
-def sdpa_bias(B, T, S, offsets, seg, dtype):
+def sdpa_bias(B, T, S, offsets, seg, dtype, heads=H):
     from zero_transformer_tpu_torch.ops.positions import NEG_INF, alibi_slopes
 
     q_pos = torch.tensor(offsets, device="cuda")[:, None] + torch.arange(T, device="cuda")
     dist = q_pos[:, :, None] - torch.arange(S, device="cuda")
-    bias = -alibi_slopes(H, "cuda")[None, :, None, None] * dist.clamp(min=0)[:, None].float()
+    bias = -alibi_slopes(heads, "cuda")[None, :, None, None] * dist.clamp(min=0)[:, None].float()
     bias = bias + torch.where(dist >= 0, 0.0, NEG_INF)[:, None]
     bias = bias + torch.where(seg != 0, 0.0, NEG_INF)[:, None, None, :]
     return bias.to(dtype)
@@ -1315,8 +1336,10 @@ def grad_miss(got, ref32) -> float:
     return float((err / (bf16_ulp(ref32) + GRAD_ATOL * float(ref32.abs().max()))).max())
 
 
-def train_kernel_phase():
-    """K1 (training entry, with lse), K2 and K3 against their plain versions."""
+def train_kernel_phase(cases=TRAIN_CASES, timed=TIMED_TRAIN_CASES):
+    """K1 (training entry, with lse), K2 and K3 against their plain versions
+    on ``cases``; the ``timed`` ones (label: row suffix) are also timed and
+    give the kernel table's rows."""
     import torch.nn.functional as F
 
     from zero_transformer_tpu_torch.ops import flash
@@ -1324,7 +1347,7 @@ def train_kernel_phase():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = {}
-    for label, B, T, Hq, KVH, Dq, dtype, causal, alibi in TRAIN_CASES:
+    for label, B, T, Hq, KVH, Dq, dtype, causal, alibi in cases:
         g = torch.Generator(device="cuda").manual_seed(len(label) + 100)
         q, k, v = (torch.randn(B, T, h, Dq, generator=g, device="cuda").to(dtype).requires_grad_()
                    for h in (Hq, KVH, KVH))
@@ -1350,7 +1373,7 @@ def train_kernel_phase():
             # causal-limit and validity controls must miss at the timed ones
             mma = check_mma(o_k, lse_k, q, k, v, torch.zeros(B, dtype=torch.int32, device="cuda"),
                             torch.ones(B, T, dtype=torch.int32, device="cuda"), f"train {label}",
-                            shifted=causal and label in TIMED_TRAIN_CASES, flip=True, causal=causal)
+                            shifted=causal and label in timed, flip=True, causal=causal)
             torch.cuda.empty_cache()
         # K2/K3 on the kernel's own o and lse vs the plain backward on the same
         got = flash.flash_bwd(q, k, v, o_k, lse_k, do, causal=causal, alibi=alibi)
@@ -1373,7 +1396,7 @@ def train_kernel_phase():
             line["bf16_err_over_max"] = [float((a.float() - b).abs().max() / b.abs().max())
                                          for a, b in zip(got, ref)]
             errs = [float((a.float() - b).abs().max()) for a, b in zip(got, ref)]
-            if causal and label in TIMED_TRAIN_CASES:
+            if causal and label in timed:
                 for shift in (1, -1):
                     off = shifted_bwd_reference(q, k, v, o_k, lse_k, do, alibi, shift)
                     s_miss = [grad_miss(a, b) for a, b in zip(got, off)]
@@ -1387,10 +1410,10 @@ def train_kernel_phase():
         line["vs_plain_path_max_err"] = [compare(a, b, dtype, f"train e2e {n} {label}")
                                          for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), full)]
         log(line)
-        if label not in TIMED_TRAIN_CASES:
+        if label not in timed:
             del full, ref
             continue
-        suffix = TIMED_TRAIN_CASES[label]
+        suffix = timed[label]
         lse = lse_k.contiguous()
         delta = (do.float() * o_k.float()).sum(-1).transpose(1, 2).contiguous()
         scale = 1.0 / Dq**0.5
@@ -1412,7 +1435,7 @@ def train_kernel_phase():
         # the plain backward computes dq, dk and dv together: one time for K2 and K3
         plain_bwd = time_ms(lambda: flash.flash_bwd_reference(q, k, v, o_k, lse_k, do, causal=causal,
                                                               alibi=alibi), iters=3)
-        bias = sdpa_bias(B, T, T, [0] * B, torch.ones(B, T, device="cuda", dtype=torch.int32), dtype)
+        bias = sdpa_bias(B, T, T, [0] * B, torch.ones(B, T, device="cuda", dtype=torch.int32), dtype, Hq)
         qt, kt, vt = (x.transpose(1, 2).requires_grad_() for x in (q, k, v))
         lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
         lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias), iters=10)
@@ -1641,6 +1664,267 @@ def training_phase():
     if last.get("model_flops_share") is None:
         raise AssertionError("the trainer CLI reported no model-FLOPs share on the card")
     return launches
+
+
+# ------------------------------------------------------- 1.3B on one card
+
+T13_MODEL, T13_B, T13_ACCUM, T13_T, T13_CHUNK = "1_3b", 4, 16, 1024, 256  # configs/train_1_3b_1chip.yaml
+T13_N = 1_311_082_496  # 1_3b's params (the tied embedding once)
+# K1-K3 at 1_3b's shape: B 4, T = S = 1024, 16 heads of 128, causal ALiBi
+T13_CASES = [
+    ("1_3b", T13_B, T13_T, 16, 16, 128, torch.bfloat16, True, True),
+    ("1_3b_f32", T13_B, T13_T, 16, 16, 128, torch.float32, True, True),
+]
+T13_TIMED = {"1_3b": "_1_3b"}
+# Adafactor on one repeated batch at a constant learning rate: the loss over
+# FALL_STEPS steps must fall by at least AF_FALL_MARGIN
+AF_LR, AF_FALL_MARGIN = 1e-2, 0.5
+DROP_P, DROP_SIGMAS = 0.1, 5.0
+
+
+def jax_adafactor_statistics(d: int, f: int, vocab: int, layers: int) -> int:
+    """Elements of the second-moment statistics JAX's ``optax.adafactor``
+    keeps for the GPT-2 leaves of a model (scan-stacked blocks), by its own
+    rule on JAX's shapes (``_factored_dims``: the two largest dims when the
+    second is at least 128, ties as ``np.argsort`` orders them; ``v_row``
+    drops the largest, ``v_col`` the second): factored leaves keep both,
+    the others a ``v`` of their own size. The one-element placeholders
+    optax keeps for the unused statistics are not counted."""
+    leaves = [(vocab, d), (d,), (layers, d), (layers, d)]  # wte, ln_f, ln_attn, ln_mlp
+    leaves += [(layers, d, d)] * 4 + [(layers, d, f), (layers, f, d)]  # query, key, value, out, wi, wo
+    total = 0
+    for shape in leaves:
+        order = np.argsort(shape)
+        if len(shape) < 2 or shape[order[-2]] < 128:
+            total += math.prod(shape)
+            continue
+        d1, d0 = int(order[-2]), int(order[-1])
+        total += math.prod(shape) // shape[d0] + math.prod(shape) // shape[d1]
+    return total
+
+
+def t13_model(impl: str = "auto", chunk=T13_CHUNK, dtype=torch.bfloat16):
+    """1_3b with the recipe's model settings: ``dtype`` (bf16) over float32
+    master params, remat, ``loss_chunk`` (None: the full logits), dropout 0,
+    seed-0 weights (the same on every call)."""
+    from zero_transformer_tpu_torch.models import model_getter
+
+    return model_getter(T13_MODEL, dtype=dtype, device="cuda", seed=SEED, trainable=True,
+                        attention_impl=impl, remat=True, loss_chunk=chunk, dropout=0.0)
+
+
+def t13_parity(tokens) -> dict:
+    """(b) one micro-batch four ways: the plain path (``attention_impl=
+    "xla"``, the full logits) in float32 and in bf16, the recipe (kernels,
+    the chunked loss) and the kernels with the full logits. Fails unless
+    the recipe's loss is within LOSS_MARGIN of the full logits' and of the
+    bf16 plain path's, and no farther from the float32 plain path than the
+    bf16 plain path plus LOSS_MARGIN, and every grad's cosine to each of
+    the three is at least COS_BAR. Each run's peak memory above its start
+    through the forward (the logits, or one tile, live then); a whole
+    step's peak with and without the chunk comes from the trainer CLI in
+    processes of their own (``t13_cli``)."""
+    runs = {"plain_f32": ("xla", None, torch.float32), "plain_bf16": ("xla", None, torch.bfloat16),
+            "kernels_chunk": ("auto", T13_CHUNK, torch.bfloat16),
+            "kernels_full_logits": ("auto", None, torch.bfloat16)}
+    out, grads_of, loss_of = {}, {}, {}
+
+    def cos(a, b):
+        return float(torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0))
+
+    for label, (impl, chunk, dtype) in runs.items():
+        gc.collect()
+        model = t13_model(impl, chunk, dtype)
+        names = [n for n, _ in model.named_parameters()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        _, loss = model(tokens, labels=tokens, train=True)
+        torch.cuda.synchronize()
+        fwd_peak = torch.cuda.max_memory_allocated() - start
+        grads = dict(zip(names, torch.autograd.grad(loss, list(model.parameters()))))
+        torch.cuda.synchronize()
+        loss_of[label] = float(loss)
+        out[label] = {"loss": loss_of[label], "forward_peak_above_start_gib": fwd_peak / 2**30}
+        del model, loss
+        for other in grads_of:  # this run against each earlier one
+            cosines = {n: cos(g, grads_of[other][n]) for n, g in grads.items()}
+            out[label][f"vs_{other}"] = {"loss_gap": abs(loss_of[label] - loss_of[other]),
+                                         "grad_cos_min": min(cosines.values()),
+                                         "grad_cos_min_tensor": min(cosines, key=cosines.get)}
+        if label != "kernels_full_logits":
+            grads_of[label] = grads
+        del grads
+        torch.cuda.empty_cache()
+    grads_of.clear()
+    recipe, full = out["kernels_chunk"], out["kernels_full_logits"]
+    checks = [recipe["vs_plain_f32"], recipe["vs_plain_bf16"], full["vs_kernels_chunk"]]
+    if not all(math.isfinite(x) for x in loss_of.values()) or \
+            recipe["vs_plain_f32"]["loss_gap"] > out["plain_bf16"]["vs_plain_f32"]["loss_gap"] + LOSS_MARGIN or \
+            any(c["loss_gap"] > LOSS_MARGIN for c in checks[1:]):
+        raise AssertionError(f"1_3b parity: losses {loss_of}")
+    if any(c["grad_cos_min"] < COS_BAR for c in checks):
+        raise AssertionError(f"1_3b parity: a grad cosine below {COS_BAR}: {out}")
+    out["chunk_saves_forward_gib"] = full["forward_peak_above_start_gib"] - recipe["forward_peak_above_start_gib"]
+    return out
+
+
+def t13_cli(steps: int = 3, *sets: str) -> dict:
+    """(e) the trainer CLI on configs/train_1_3b_1chip.yaml (``sets`` more
+    overrides) for ``steps`` steps, in a process of its own that reports its
+    peak memory. Cuts: synthetic data (data/train.bin is not in the repo),
+    ``steps`` of 163,000 steps, no eval, the checkpoint (its save at the
+    end, 5.2 GB) into a directory this phase deletes."""
+    run_dir = Path("build") / "train_1_3b"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    code = ("import json, sys, torch; from zero_transformer_tpu_torch import train; train.main(sys.argv[1:]); "
+            "print(json.dumps({'cli_peak_memory_gib': torch.cuda.max_memory_allocated() / 2**30}))")
+    cmd = [sys.executable, "-c", code, "--cfg", "configs/train_1_3b_1chip.yaml", "--max-steps", str(steps), "--set",
+           "data.source=synthetic", "training.log_frequency=1", "training.evaluation_frequency=0",
+           f"checkpoint.directory={run_dir}", *sets]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"1_3b trainer CLI exit {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        saved = sorted(p.name for p in run_dir.iterdir() if p.is_dir())
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    train = [r for r in records if "loss" in r]
+    if len(train) != steps or not all(math.isfinite(r["loss"]) for r in train) or saved != [str(steps)]:
+        raise AssertionError(f"1_3b trainer CLI metrics incomplete or non-finite: {records}, saved {saved}")
+    info = next(json.loads(line)["trainer"] for line in proc.stdout.splitlines() if line.startswith('{"trainer"'))
+    peak = next(json.loads(line) for line in proc.stdout.splitlines() if line.startswith('{"cli_peak'))
+    last = train[-1]
+    if last.get("model_flops_share") is None:
+        raise AssertionError("the 1_3b trainer CLI reported no model-FLOPs share on the card")
+    return {"wall_s": wall, "losses": [r["loss"] for r in train], "step_time_ms": last["step_time_ms"],
+            "tokens_per_sec": last["tokens_per_sec"], "model_flops_share": last["model_flops_share"],
+            "model_flops_formula": f"tokens/s * 3 * (2 * N + 4 * L * d * T) / 989e12, N = {T13_N}, L = 24, "
+                                   "d = 2048, T = 1024",
+            "persistent_state_bytes": info["persistent_state_bytes"], **peak}
+
+
+def t13_dropout() -> dict:
+    """(f) 125m at dropout 0.1, one micro-batch on the card: remat on and off
+    give bit-equal loss and grads; every site's kept share within
+    DROP_SIGMAS sigma of 1 - p; the same (seed, step, rank, micro) gives the
+    same bits twice, another micro-step other bits."""
+    from zero_transformer_tpu_torch.models import gpt, model_getter
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, 50304, (TRAIN_B, TRAIN_T), generator=g, device="cuda", dtype=torch.int32)
+    shares, original = [], gpt.dropout
+
+    def record(x, rate, seed):  # every mask's kept share (an input exactly 0 reads as dropped)
+        out = original(x, rate, seed)
+        if seed is not None:
+            shares.append(((out != 0).float().mean().item(), out.numel()))
+        return out
+
+    def run(remat: bool, key):
+        model = model_getter("125m", dtype=torch.bfloat16, device="cuda", seed=SEED, trainable=True,
+                             dropout=DROP_P, remat=remat)
+        _, loss = model(tokens, labels=tokens, train=True, dropout_key=key)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        return loss.detach(), grads
+
+    gpt.dropout = record
+    try:
+        loss, grads = run(False, (0, 3, 0, 1))
+        sites = list(shares)
+        r_loss, r_grads = run(True, (0, 3, 0, 1))
+    finally:
+        gpt.dropout = original
+    again, again_grads = run(False, (0, 3, 0, 1))
+    other, _ = run(False, (0, 3, 0, 2))
+    torch.cuda.synchronize()
+    remat_equal = bool(torch.equal(loss, r_loss)) and all(torch.equal(a, b) for a, b in zip(grads, r_grads))
+    repeat_equal = bool(torch.equal(loss, again)) and all(torch.equal(a, b) for a, b in zip(grads, again_grads))
+    bad = [s for s, n in sites if abs(s - (1 - DROP_P)) > DROP_SIGMAS * math.sqrt(DROP_P * (1 - DROP_P) / n)]
+    out = {"sites": len(sites), "kept_share_min": min(s for s, _ in sites), "kept_share_max": max(s for s, _ in sites),
+           "remat_bit_equal": remat_equal, "same_key_bit_equal": repeat_equal, "loss": float(loss),
+           "other_micro_loss": float(other)}
+    if len(sites) != 1 + 2 * 12 or bad or not remat_equal or not repeat_equal or torch.equal(loss, other):
+        raise AssertionError(f"125m dropout on the card: {out}, shares beyond the bar {bad}")
+    return out
+
+
+def train_1_3b_phase():
+    """configs/train_1_3b_1chip.yaml's path on the card: K1-K3 at its shape,
+    the chunked loss against the full logits and the plain path, the launch
+    counts of one optimizer step, Adafactor's state and a falling loss, the
+    trainer CLI; then dropout at 125m."""
+    from zero_transformer_tpu_torch.config import OptimizerConfig
+    from zero_transformer_tpu_torch.ops import _build
+    from zero_transformer_tpu_torch.parallel.zero import init_train_state, make_train_step
+    from zero_transformer_tpu_torch.training.optimizer import make_schedule
+
+    # (a) K1-K3 at the 1.3B shape, with train_kernel_phase's bars and timings
+    rows = train_kernel_phase(T13_CASES, T13_TIMED)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(13)
+    batch = torch.randint(0, 50304, (T13_ACCUM, T13_B, T13_T), generator=g, device="cuda", dtype=torch.int32)
+
+    # (b) one micro-batch: chunked loss vs full logits vs the plain path
+    log({"train_1_3b_parity": t13_parity(batch[0])})
+
+    # (c) one optimizer step of B 4 x accum 16, remat: launch counts
+    model = t13_model()
+    opt_cfg = OptimizerConfig(optimizer="adafactor", schedule="constant", peak_learning_rate=AF_LR)
+    schedule = make_schedule(opt_cfg)
+    st = init_train_state(model, opt_cfg, schedule)
+    step = make_train_step(1, schedule, "bfloat16")
+    step(st, batch)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    step(st, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    L = model.cfg.n_layers
+    want = {"flash_train_fwd": L * T13_ACCUM * 2, "flash_dq": L * T13_ACCUM, "flash_dkv": L * T13_ACCUM}
+    if any(launches[n] != c for n, c in want.items()):
+        raise AssertionError(f"1_3b launches per optimizer step {launches}, want {want}")
+
+    # (d) Adafactor: its persistent bytes, and the loss on one repeated batch
+    stats = jax_adafactor_statistics(2048, 4 * 2048, 50304, L)
+    persistent = st.shards.persistent_bytes()
+    if model.cfg.num_params != T13_N or persistent != 4 * T13_N + 4 * stats:
+        raise AssertionError(f"1_3b Adafactor holds {persistent} bytes, want 4 * {T13_N} + 4 * {stats}")
+    one = (batch[:1] % FALL_VOCAB).contiguous()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FALL_STEPS):
+        losses.append(float(step(st, one)["loss"]))
+    af_step_ms = (time.perf_counter() - t0) * 1e3 / FALL_STEPS
+    log({"train_1_3b_steps": {
+        "step_s_accum16": step_s, "tokens_per_step": T13_ACCUM * T13_B * T13_T,
+        "launches_per_step": {n: launches[n] for n in want}, "persistent_bytes": persistent,
+        "adamw_would_hold": 12 * T13_N, "adafactor_statistics": stats, "losses": losses, "lr": AF_LR,
+        "step_ms_accum1": af_step_ms, "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}})
+    if not all(math.isfinite(x) for x in losses) or losses[-1] > losses[0] - AF_FALL_MARGIN:
+        raise AssertionError(f"Adafactor: the loss did not fall by {AF_FALL_MARGIN} over {FALL_STEPS} steps: {losses}")
+    train_profile(step, st, one, steps=1, label="train_1_3b_profile")  # one micro-step and the optimizer
+    del st, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the trainer CLI on the recipe, and a step's peak memory without the chunk
+    cli = t13_cli()
+    full = t13_cli(1, "model.loss_chunk=None")
+    cli["cli_peak_memory_gib_full_logits"] = full["cli_peak_memory_gib"]
+    log({"train_1_3b_trainer_cli": cli})
+    # (f) dropout on the card
+    log({"dropout_125m": t13_dropout()})
+    torch.cuda.empty_cache()
+    return rows, {n + "_1_3b": launches[n] for n in want}
 
 
 # ------------------------------------------------------- packed documents
@@ -2710,7 +2994,7 @@ def sequence_parallel_phase(dtype=torch.bfloat16) -> dict:
         return launches
 
     # the trainer CLI under torch.distributed.run, then on one card
-    sets = ["model.dropout=0.0", "training.gradient_accumulation_steps=1", "training.log_frequency=1"]
+    sets = ["training.gradient_accumulation_steps=1", "training.log_frequency=1"]  # 580m at its own dropout 0.1
     flops = (f"tokens/s * 3 * (2 * N + 4 * L * d * T) / (989e12 * cards), "
              f"N = {model_config(SP_MODEL).num_params}, L = {L}, d = 1536, T = {SP_SEQ}")
     ring_cli, proc = trainer_cli_580m(
@@ -3168,7 +3452,7 @@ def card_line() -> str:
 
 
 PHASES = ("kernels", "serving", "parity", "profile", "int8_kernels", "int8_serving", "train_kernels", "training",
-          "packed_kernels", "packed", "sp_kernels", "sequence_parallel", "data_parallel")
+          "train_1_3b", "packed_kernels", "packed", "sp_kernels", "sequence_parallel", "data_parallel")
 # named with --phases only: the ring's parity with every kernel on its f32 path, K4's
 # anatomy, and data parallelism over NCCL with a card per rank (4 cards)
 EXTRA_PHASES = ("sequence_parallel_f32", "k4_anatomy", "data_parallel_nccl")
@@ -3213,6 +3497,13 @@ SOURCES = {
     "flash_dq_d128": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
                       "zero_transformer_tpu/ops/pallas/flash.py:176"),
     "flash_dkv_d128": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
+                       "zero_transformer_tpu/ops/pallas/flash.py:214"),
+    # the training entry at 1_3b's shape (B 4, T 1024, 16 heads of 128)
+    "flash_train_fwd_1_3b": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
+                             "zero_transformer_tpu/ops/pallas/flash.py:127"),
+    "flash_dq_1_3b": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
+                      "zero_transformer_tpu/ops/pallas/flash.py:176"),
+    "flash_dkv_1_3b": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
                        "zero_transformer_tpu/ops/pallas/flash.py:214"),
 }
 
@@ -3267,6 +3558,10 @@ def main(argv) -> int:
     if "training" in phases:
         train_launches = training_phase()
         launches.update({k: train_launches[k] for k in ("flash_train_fwd", "flash_dq", "flash_dkv")})
+    if "train_1_3b" in phases:
+        t13_rows, t13_launches = train_1_3b_phase()
+        rows.update(t13_rows)
+        launches.update(t13_launches)
     if "packed_kernels" in phases:
         rows.update(packed_kernel_phase())
     if "packed" in phases:

@@ -111,6 +111,32 @@ def train_cases(mesh, cases: dict) -> dict:
     return out
 
 
+def shard_loss_cases(mesh, c: dict) -> dict:
+    """This rank's share of the loss and its grads on the sequence ring,
+    with ``loss_chunk`` and without: {case: (chunked, whole)}, each a dict
+    of the loss, the logits' shape (None when the loss is chunked) and the
+    grads by name."""
+    from zero_transformer_tpu_torch import config as tconfig
+    from zero_transformer_tpu_torch.models.gpt import Transformer
+
+    out = {}
+    for case, tokens in c["tokens"].items():
+        runs = []
+        for chunk in (c["chunk"], None):
+            cfg = tconfig.model_config("test", dropout=0.0, compute_dtype="float32", loss_chunk=chunk,
+                                       doc_sep_token=0 if case == "packed" else None)
+            model = Transformer(cfg, device="cpu", seq_group=mesh.sequence)
+            model.load_state_dict({n: torch.from_numpy(p) for n, p in c["params"].items()})
+            model.requires_grad_(True)
+            t = torch.from_numpy(tokens)
+            logits, loss = model(t, labels=t, train=True)
+            grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+            runs.append({"loss": loss.item(), "logits": None if logits is None else tuple(logits.shape),
+                         "grads": {n: g.numpy() for (n, _), g in zip(model.named_parameters(), grads)}})
+        out[case] = tuple(runs)
+    return out
+
+
 def zero_cases(mesh, cases: dict) -> dict:
     """Three ZeRO optimizer steps of every case's model on this rank's rows
     of each global batch: {case: dict(losses, grad norms, whole params by

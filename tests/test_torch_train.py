@@ -152,10 +152,13 @@ def test_adamw_matches_optax_chain(grad_scale):
 
 
 def test_other_optimizers_raise():
+    """Adafactor and Lion are ported (their parity with JAX is in
+    test_torch_optimizers.py); a name outside the three raises, as in JAX."""
     model = _port_model(_test_model_params()[1])
-    for name in ("adafactor", "lion"):
-        with pytest.raises(NotImplementedError):
-            topt.make_optimizer(model, tconfig.OptimizerConfig(optimizer=name))
+    for name, cls in (("adafactor", topt.Adafactor), ("lion", topt.Lion)):
+        assert isinstance(topt.make_optimizer(model, tconfig.OptimizerConfig(optimizer=name)), cls)
+    with pytest.raises(ValueError, match="invalid optimizer"):
+        tconfig.OptimizerConfig(optimizer="sgd")
 
 
 # ---------------------------------------------------------------------- data
@@ -221,13 +224,7 @@ def test_load_config_matches_jax(path):
     text = Path(path).read_text()
     assert tconfig.read_yaml_subset(text, path) == yaml.safe_load(text)
     ref = jconfig.load_config(path)
-    try:
-        port = tconfig.load_config(path)
-    except NotImplementedError:
-        # a model feature the port does not have yet (loss_chunk); remat with
-        # policy "none" loads (configs/train_580m_8k.yaml)
-        assert ref.model.loss_chunk
-        return
+    port = tconfig.load_config(path)  # every training config loads, loss_chunk and adafactor included
     for section in dataclasses.fields(port):
         p_sec, r_sec = getattr(port, section.name), getattr(ref, section.name)
         for f in dataclasses.fields(p_sec):
@@ -282,10 +279,12 @@ def test_unported_training_features_raise():
     from zero_transformer_tpu_torch.training.trainer import build_training
 
     for field in (dict(remat=True, remat_policy="dots"), dict(remat=True, remat_policy="qkv_mlp"),
-                  dict(loss_chunk=256), dict(cp_impl="ulysses")):
+                  dict(cp_impl="ulysses")):
         with pytest.raises(NotImplementedError):
             tconfig.model_config("test", **field)
-    for field in (dict(remat_policy="all"), dict(cp_impl="tree")):
+    # the chunked loss is ported: its chunk is validated as JAX does
+    assert tconfig.model_config("test", loss_chunk=256).loss_chunk == 256
+    for field in (dict(remat_policy="all"), dict(cp_impl="tree"), dict(loss_chunk=0)):
         with pytest.raises(ValueError):
             tconfig.model_config("test", **field)
     # remat (policy "none") and the ring engine are ported
@@ -294,10 +293,10 @@ def test_unported_training_features_raise():
         tconfig.MeshConfig(sequence=0)
     # packed documents are ported: the separator is validated, not refused
     assert tconfig.model_config("test", doc_sep_token=0).doc_sep_token == 0
-    with pytest.raises(NotImplementedError, match="dropout"):
-        build_training(tconfig.Config(model=tconfig.model_config("test")), "cpu")  # zoo dropout 0.1
+    # dropout is ported: the zoo's 0.1 trains, and a training call names its masks' seed
+    assert build_training(tconfig.Config(model=tconfig.model_config("test")), "cpu").state.model.cfg.dropout == 0.1
     model = Transformer(tconfig.model_config("test"), device="cpu")
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="dropout_key"):
         model(torch.zeros(1, 4, dtype=torch.long), train=True)
     # data parallelism and checkpoints are ported; the other mesh axes are not
     assert tconfig.MeshConfig(data=2).data == 2 and tconfig.CheckpointConfig(resume=True).resume

@@ -5,7 +5,11 @@ Counterpart of ``zero_transformer_tpu/checkpoint.py`` (:44-723). The port
 cannot use orbax (it imports JAX), so the format is its own::
 
     <directory>/<step>/params.safetensors    the params by name (float32)
-    <directory>/<step>/opt_state.safetensors ``mu/<name>`` and ``nu/<name>``
+    <directory>/<step>/opt_state.safetensors the optimizer's state by name:
+                                             ``mu/<name>`` and ``nu/<name>``
+                                             (AdamW), ``mu/<name>`` (Lion),
+                                             ``v_row/<name>``, ``v_col/<name>``
+                                             and ``v/<name>`` (Adafactor)
     <directory>/<step>/meta.json             step, optimizer count, loader
                                              state, batch geometry, flat
                                              config, topology, manifest

@@ -155,8 +155,8 @@ class ModelConfig:
                 "cp_impl 'ulysses' is not ported yet (ROADMAP Queue 1 item 13); "
                 "sequence parallelism runs the ring engine (cp_impl: ring)"
             )
-        if self.loss_chunk is not None:
-            raise NotImplementedError("the chunked cross entropy (loss_chunk) is not ported yet")
+        if self.loss_chunk is not None and self.loss_chunk <= 0:
+            raise ValueError("loss_chunk must be a positive chunk size or None")
         resolve_dtype(self.param_dtype)
         resolve_dtype(self.compute_dtype)
 
@@ -265,7 +265,7 @@ class OptimizerConfig:
     eps: float = 1e-8
     grad_clip: float = 1.0
     schedule: str = "warmup_cosine"  # "warmup_cosine" | "warmup_linear" | "constant"
-    optimizer: str = "adamw"  # adafactor and lion are not ported
+    optimizer: str = "adamw"  # "adamw" | "adafactor" | "lion"
 
     def __post_init__(self):
         if self.optimizer not in ("adamw", "adafactor", "lion"):

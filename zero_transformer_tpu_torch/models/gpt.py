@@ -4,7 +4,9 @@ Counterpart of ``zero_transformer_tpu/models/gpt.py``: ``Attention`` (:157),
 ``MLP`` (:416), ``Block`` (:448), ``Transformer`` (:497) with the tied head.
 Ported: the full-sequence forward, with the next-token loss for training
 (``forward(tokens, labels, train=True)``, JAX ``Transformer.__call__``
-:512-684), packed documents for ``doc_sep_token`` models
+:512-684), the chunked loss for ``loss_chunk`` models (``(None, loss)``,
+:651-668: the ``[B, T, vocab]`` logits never exist), dropout in training
+(:413, :445, :605), packed documents for ``doc_sep_token`` models
 (``doc_ids_from_tokens`` and ``mask_boundary_labels``, :63-81: the ids ride
 through every block into the attention, and the loss skips each document's
 first label), and the PAGED decode variant the serving engine runs, which
@@ -28,7 +30,18 @@ Numerics follow flax where it matters:
   and ``Transformer`` :524-541), an inference-only configuration;
 - ``kv_cache_dtype="int8"`` stores the paged K/V as int8 with one float32
   scale per (token, kv head) (``_quantize_kv``, JAX :84-92), dequantized
-  (int8 -> f32) * scale -> compute dtype wherever it is read.
+  (int8 -> f32) * scale -> compute dtype wherever it is read;
+- dropout follows flax's rule (keep with probability 1 - p, kept values
+  divided by 1 - p) at JAX's three sites: the embedding output, the
+  attention output after ``out`` and the MLP output after ``wo``, only with
+  ``train=True``. Its masks cannot be JAX's threefry bits. Each mask is
+  drawn from a generator seeded inside the block with ``fold_seed`` of the
+  caller's ``dropout_key`` (the train step's seed, step, data rank and
+  micro-step), the sequence rank, the layer and the site: a pure function
+  of them, so a remat recompute redraws the same mask (checkpoint restores
+  only the global RNG states, never an explicit generator), two data ranks
+  draw different masks and a resumed run draws the masks the uninterrupted
+  run drew.
 
 Layouts at the public surface are the JAX ones: q/k/v ``[B, T, H, D]``,
 page pools ``[n_pages, page, KVH, D]`` with page 0 the serving layer's trash
@@ -61,11 +74,48 @@ from zero_transformer_tpu_torch.config import ModelConfig, resolve_dtype
 from zero_transformer_tpu_torch.models.quant import QuantDense, QuantEmbed
 from zero_transformer_tpu_torch.ops import paged_attention as pa
 from zero_transformer_tpu_torch.ops.attention import dot_product_attention
-from zero_transformer_tpu_torch.ops.losses import cross_entropy_sum, next_token_loss
+from zero_transformer_tpu_torch.ops.losses import (chunked_cross_entropy_sum, chunked_next_token_loss,
+                                                   cross_entropy_sum, next_token_loss)
 from zero_transformer_tpu_torch.ops.ring_attention import ring_attention
 from zero_transformer_tpu_torch.parallel.mesh import SequenceGroup
 
 LN_EPS = 1e-6  # flax LayerNorm default
+_M64 = (1 << 64) - 1
+EMBED_SITE, ATTN_SITE, MLP_SITE = 0, 1, 2  # dropout sites; the embedding's layer is -1
+
+
+def _mix64(z: int) -> int:
+    """splitmix64's finaliser: a bijection of 64-bit ints that spreads every
+    input bit over the output."""
+    z = (z + 0x9E3779B97F4A7C15) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return z ^ (z >> 31)
+
+
+def fold_seed(*parts: int) -> int:
+    """A generator seed (63 bits) that is a pure function of ``parts``, in
+    order (JAX's ``fold_in`` chain, with another hash)."""
+    h = 0
+    for p in parts:
+        h = _mix64(h ^ (int(p) & _M64))
+    return h >> 1
+
+
+def dropout(x: torch.Tensor, rate: float, seed: Optional[int]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
+    and divide the kept ones by ``1 - rate``; the mask comes from a
+    generator on ``x``'s device seeded with ``seed``. ``seed`` None (eval,
+    serving, scoring) or ``rate`` 0 returns ``x``."""
+    if seed is None or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(seed)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 @dataclasses.dataclass
@@ -256,9 +306,13 @@ class Block(nn.Module):
         self.ln_mlp = LayerNorm(cfg.d_model, cfg, device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x: torch.Tensor, doc_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn(self.ln_attn(x), doc_ids)
-        return x + self.mlp(self.ln_mlp(x))
+    def forward(self, x: torch.Tensor, doc_ids: Optional[torch.Tensor] = None,
+                drop: Optional[Tuple[float, int, int]] = None) -> torch.Tensor:
+        """``drop``: (rate, attention site's seed, MLP site's seed), or None
+        for no dropout."""
+        rate, attn_seed, mlp_seed = drop if drop is not None else (0.0, None, None)
+        x = x + dropout(self.attn(self.ln_attn(x), doc_ids), rate, attn_seed)
+        return x + dropout(self.mlp(self.ln_mlp(x)), rate, mlp_seed)
 
     def forward_paged(self, x, pools, block_table, offsets) -> torch.Tensor:
         x = x + self.attn.forward_paged(self.ln_attn(x), pools, block_table, offsets)
@@ -344,60 +398,92 @@ class Transformer(nn.Module):
         """Tied head: ``h @ wte.T`` in the compute dtype."""
         return self.wte.attend(h)
 
+    def head_weight(self) -> torch.Tensor:
+        """The tied head as ``[d, vocab]`` in the compute dtype (JAX's
+        ``w_dv``: the embedding transposed)."""
+        return self.wte.embedding.to(self.wte.compute_dtype).T
+
     def forward(self, tokens: torch.Tensor, labels: Optional[torch.Tensor] = None,
-                train: bool = False):
+                train: bool = False, dropout_key: Optional[Tuple[int, ...]] = None):
         """[B, T] token ids -> [B, T, vocab] logits (compute dtype), or
         ``(logits, loss)`` with ``labels``: the float32 next-token loss
-        (predict ``labels[:, t + 1]`` from position t). With
-        ``doc_sep_token`` set, attention stays inside each document of the
-        row and the loss skips the labels that start a document. ``train``
-        would turn dropout on, which is not ported: it raises for
-        ``dropout > 0``. A weight-only int8 model computes logits only."""
+        (predict ``labels[:, t + 1]`` from position t); with ``loss_chunk``
+        set, ``(None, loss)`` from the chunked loss (calls without labels
+        still return the logits). With ``doc_sep_token`` set, attention
+        stays inside each document of the row and the loss skips the labels
+        that start a document. ``train`` with ``dropout > 0`` applies
+        dropout, and then needs ``dropout_key`` (ints, e.g. the train step's
+        ``(seed, step, data rank, micro-step)``): every mask is a pure
+        function of it. A weight-only int8 model computes logits only."""
         if labels is not None and self.cfg.param_quant != "none":
             raise NotImplementedError(
                 "param_quant='int8' is an inference configuration; the loss paths run on "
                 "full-precision params"
             )
+        key = None
         if train and self.cfg.dropout > 0:
-            raise NotImplementedError("dropout > 0 in training is not ported yet")
+            if dropout_key is None:
+                raise ValueError("training with dropout > 0 needs a dropout_key (the masks' seed)")
+            key = (*dropout_key, self.seq_group.rank if self.seq_group is not None else 0)
         packed = self.cfg.doc_sep_token is not None
         doc_ids = doc_ids_from_tokens(tokens, self.cfg.doc_sep_token) if packed else None
         if self.seq_group is not None:
-            return self._forward_shard(tokens, labels, doc_ids)
-        logits = self.logits(self.ln_f(self._blocks(self.wte(tokens), doc_ids)))
+            return self._forward_shard(tokens, labels, doc_ids, key)
+        h = self.ln_f(self._blocks(self._embed(tokens, key), doc_ids, key))
+        if labels is not None and self.cfg.loss_chunk:
+            ignore = None
+            if packed:
+                labels, ignore = mask_boundary_labels(labels, doc_ids), -1
+            return None, chunked_next_token_loss(h, self.head_weight(), labels, self.cfg.loss_chunk,
+                                                 ignore_index=ignore)
+        logits = self.logits(h)
         if labels is None:
             return logits
         if packed:
             return logits, next_token_loss(logits, mask_boundary_labels(labels, doc_ids), ignore_index=-1)
         return logits, next_token_loss(logits, labels)
 
-    def _blocks(self, h: torch.Tensor, doc_ids: Optional[torch.Tensor]) -> torch.Tensor:
+    def _embed(self, tokens: torch.Tensor, key: Optional[Tuple[int, ...]]) -> torch.Tensor:
+        return dropout(self.wte(tokens), self.cfg.dropout,
+                       None if key is None else fold_seed(*key, -1, EMBED_SITE))
+
+    def _blocks(self, h: torch.Tensor, doc_ids: Optional[torch.Tensor],
+                key: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
         remat = self.cfg.remat and torch.is_grad_enabled()
-        for blk in self.blocks:
-            h = checkpoint(blk, h, doc_ids, use_reentrant=False) if remat else blk(h, doc_ids)
+        for i, blk in enumerate(self.blocks):
+            drop = None if key is None else (self.cfg.dropout, fold_seed(*key, i, ATTN_SITE),
+                                             fold_seed(*key, i, MLP_SITE))
+            h = checkpoint(blk, h, doc_ids, drop, use_reentrant=False) if remat else blk(h, doc_ids, drop)
         return h
 
-    def _forward_shard(self, tokens, labels, doc_ids):
+    def _forward_shard(self, tokens, labels, doc_ids, key):
         """This rank's shard of the full row ``tokens`` [B, T]: the local
         logits ``[B, T / n, vocab]`` and, with labels, (local CE sum) /
-        (the global count of labels, summed over the group without grad).
-        The shift and the boundary mask run on the full row, so the label
-        of a shard's last position is the next shard's first token; the
-        row's last position has none."""
+        (the global count of labels, summed over the group without grad);
+        with ``loss_chunk`` the sum comes from the chunked loss and the
+        logits are None. The shift and the boundary mask run on the full
+        row, so the label of a shard's last position is the next shard's
+        first token; the row's last position has none."""
         group = self.seq_group
         B, T = tokens.shape
         if T % group.size:
             raise ValueError(f"sequence length {T} not divisible by the sequence group's {group.size} ranks")
         t = T // group.size
         lo, hi = group.rank * t, (group.rank + 1) * t
-        h = self._blocks(self.wte(tokens[:, lo:hi]), None if doc_ids is None else doc_ids[:, lo:hi])
-        logits = self.logits(self.ln_f(h))
+        h = self.ln_f(self._blocks(self._embed(tokens[:, lo:hi], key),
+                                   None if doc_ids is None else doc_ids[:, lo:hi], key))
         if labels is None:
-            return logits
+            return self.logits(h)
         if doc_ids is not None:
             labels = mask_boundary_labels(labels, doc_ids)
         shifted = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -1)], dim=1)[:, lo:hi]
-        total, count = cross_entropy_sum(logits, shifted, ignore_index=-1)
+        if self.cfg.loss_chunk:
+            logits = None
+            total, count = chunked_cross_entropy_sum(h, self.head_weight(), shifted, self.cfg.loss_chunk,
+                                                     ignore_index=-1)
+        else:
+            logits = self.logits(h)
+            total, count = cross_entropy_sum(logits, shifted, ignore_index=-1)
         return logits, total / torch.clamp(group.all_reduce_sum(count), min=1.0)
 
     def forward_paged(

@@ -17,8 +17,11 @@ are views of the full buffer, so a gather updates them in place. The
 leaves that decay (``weight_decay_mask``) come first, so the mask is one
 boundary in the flat order, carried per element without a buffer of its
 own. Padding is zero in the params and in the grads, so it adds nothing to
-the norm or the digests, and AdamW leaves it zero. Checkpoints hold whole
-leaves by name, so a restore onto another world is a re-slice.
+the norm or the digests, and the optimizers leave it zero. Checkpoints hold
+whole leaves by name, so a restore onto another world is a re-slice.
+``FlatLayout.segments`` maps a contiguous range of the buffer back onto the
+leaves it touches, for the optimizers whose statistics are per leaf
+(Adafactor's factored rows and columns).
 """
 from __future__ import annotations
 
@@ -27,6 +30,24 @@ import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """The part of leaf ``name`` (of ``shape``) that a range of the flat
+    buffer holds: the leaf's elements ``[start, stop)`` in row-major order,
+    at ``offset`` within the range. A segment may start and end mid-row."""
+
+    name: str
+    shape: Tuple[int, ...]
+    start: int
+    stop: int
+    offset: int
+    decay: bool
+
+    @property
+    def numel(self) -> int:
+        return self.stop - self.start
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,30 +91,44 @@ class FlatLayout:
         lo, hi = self.shard_range(rank)
         return min(max(self.decay_end - lo, 0), hi - lo)
 
+    def segments(self, lo: int, hi: int) -> List[Segment]:
+        """Every leaf that the range ``[lo, hi)`` of the flat buffer touches,
+        in flat order, with the element range of the leaf it holds (the
+        padding belongs to no leaf)."""
+        out = []
+        for i, (n, s, o) in enumerate(zip(self.names, self.shapes, self.offsets)):
+            a, b = max(o, lo), min(o + math.prod(s), hi)
+            if a < b:
+                out.append(Segment(n, s, a - o, b - o, a - lo, o < self.decay_end))
+        return out
+
     def views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Each leaf as a view of the full flat buffer ``flat``."""
         return {n: flat[o:o + math.prod(s)].view(s) for n, s, o in zip(self.names, self.shapes, self.offsets)}
 
     def flatten(self, leaves: Dict[str, torch.Tensor], dtype=None, device=None) -> torch.Tensor:
-        """A new flat buffer (padded with zeros) holding ``leaves`` by name."""
-        first = leaves[self.names[0]]
+        """A new flat buffer (padded with zeros) holding ``leaves`` by name;
+        a leaf not in ``leaves`` stays zero."""
+        first = next(iter(leaves.values()))
         flat = torch.zeros(self.padded, dtype=dtype or first.dtype, device=device or first.device)
         self.fill(flat, leaves)
         return flat
 
     def fill(self, flat: torch.Tensor, leaves: Dict[str, torch.Tensor]) -> None:
         for n, view in self.views(flat).items():
-            view.copy_(leaves[n])
+            if n in leaves:
+                view.copy_(leaves[n])
 
     def shard_of(self, leaves: Dict[str, torch.Tensor], rank: int, dtype=None, device=None) -> torch.Tensor:
         """Rank ``rank``'s slice of the flat buffer of ``leaves``, built from
-        the leaves that overlap it (no full buffer is made)."""
+        the leaves that overlap it (no full buffer is made); a leaf not in
+        ``leaves`` stays zero."""
         lo, hi = self.shard_range(rank)
-        first = leaves[self.names[0]]
+        first = next(iter(leaves.values()))
         out = torch.zeros(hi - lo, dtype=dtype or first.dtype, device=device or first.device)
         for n, s, o in zip(self.names, self.shapes, self.offsets):
             a, b = max(o, lo), min(o + math.prod(s), hi)
-            if a < b:
+            if a < b and n in leaves:
                 out[a - lo:b - lo].copy_(leaves[n].reshape(-1)[a - o:b - o])
         return out
 

@@ -15,17 +15,23 @@ Updates happen in place.
 
 ``init_train_state`` gives the ``TrainState`` of a data group
 (``parallel/mesh.py``; None: one process) at ``zero_stage``: its
-``ZeroShards`` hold the params and AdamW state in the flat layout of
+``ZeroShards`` hold the params and the optimizer's state
+(``optimizer.optimizer``: adamw, adafactor or lion) in the flat layout of
 ``parallel/sharding.py``:
 
 =====  ==============================  ======================  =====================
-stage  grads, each micro-step          AdamW                   params between steps
+stage  grads, each micro-step          optimizer               params between steps
 =====  ==============================  ======================  =====================
 0      all-reduce, mean                the whole buffer        whole
 1      all-reduce, mean                this rank's shard       whole (all-gather)
 2      reduce-scatter into the shard   this rank's shard       whole (all-gather)
 3      reduce-scatter into the shard   this rank's shard       the shard only
 =====  ==============================  ======================  =====================
+
+AdamW's and Lion's moments are elementwise over the shard. Adafactor's
+factored statistics are whole on every rank, completed at stages 1-3 by
+one all-reduce of the shards' partial sums a step; its elementwise ``v``
+(leaves that do not factor) covers the shard.
 
 At stage 3 the step all-gathers the params once before the first forward
 (JAX :513-514) into a full buffer whose views the model's params become,
@@ -54,22 +60,23 @@ from zero_transformer_tpu_torch.models.gpt import Transformer
 from zero_transformer_tpu_torch.parallel.mesh import DataGroup, SequenceGroup
 from zero_transformer_tpu_torch.parallel.sharding import FlatLayout
 from zero_transformer_tpu_torch.resilience.detect import leaf_checksum
-from zero_transformer_tpu_torch.training.optimizer import AdamW, Schedule, weight_decay_mask
+from zero_transformer_tpu_torch.training.optimizer import (Adafactor, AdamW, Lion, Optimizer, Schedule,
+                                                           weight_decay_mask)
 
 
 class ZeroShards:
     """This rank's ZeRO state: the flat layout of the model's params over
     the data group, the full param buffer (stages 0-2, the model's params
     are its views), this rank's shard of it (a view at stages 1-2, its own
-    tensor at stage 3, the whole buffer at stage 0) and the AdamW over the
-    shard's decayed and undecayed elements."""
+    tensor at stage 3, the whole buffer at stage 0) and the optimizer
+    ``opt_cfg.optimizer`` over the shard's parts: its decayed and undecayed
+    elements (AdamW, Lion), or the segment of each leaf it touches
+    (Adafactor)."""
 
     def __init__(self, model: Transformer, opt_cfg: OptimizerConfig, schedule: Schedule, group: DataGroup,
                  zero_stage: int):
         if zero_stage not in (0, 1, 2, 3):
             raise ValueError(f"zero_stage must be 0-3, got {zero_stage}")
-        if opt_cfg.optimizer != "adamw":
-            raise NotImplementedError(f"optimizer {opt_cfg.optimizer!r} is not ported yet (adamw only)")
         named = dict(model.named_parameters())
         dtypes = {p.dtype for p in named.values()}
         if len(dtypes) != 1:
@@ -83,14 +90,34 @@ class ZeroShards:
         lo, hi = self.layout.shard_range(group.rank)
         full = self.layout.flatten({n: p.detach() for n, p in named.items()})
         if self.stage == 0:
-            self.full, self.shard, decay_end = full, full, self.layout.decay_end
+            lo, hi, decay_end = 0, self.layout.padded, self.layout.decay_end
+            self.full, self.shard = full, full
         elif self.stage < 3:
             self.full, self.shard, decay_end = full, full[lo:hi], self.layout.shard_decay_end(group.rank)
         else:
             self.full, self.shard, decay_end = None, full[lo:hi].clone(), self.layout.shard_decay_end(group.rank)
             del full
         self._bind(self.full)
-        self.optimizer = AdamW([self.shard[:decay_end], self.shard[decay_end:]], [True, False], opt_cfg, schedule)
+        self.optimizer = self._make_optimizer(opt_cfg, schedule, model.cfg.scan_layers, lo, hi, decay_end)
+
+    def _make_optimizer(self, opt_cfg: OptimizerConfig, schedule: Schedule, scan_layers: bool, lo: int, hi: int,
+                        decay_end: int) -> Optimizer:
+        """The optimizer over the shard ``[lo, hi)`` of the flat layout;
+        ``bounds`` are its parts' ranges within the shard."""
+        if opt_cfg.optimizer == "adafactor":
+            segments = self.layout.segments(lo, hi)
+            self.bounds = [(s.offset, s.offset + s.numel) for s in segments]
+            reduce = (lambda t: self.group.all_reduce_([t])) if self.stage > 0 else None
+            return Adafactor(self.split(self.shard), segments, dict(zip(self.layout.names, self.layout.shapes)),
+                             opt_cfg, schedule, scan_layers, reduce)
+        self.bounds = [(0, decay_end), (decay_end, hi - lo)]
+        cls = {"adamw": AdamW, "lion": Lion}[opt_cfg.optimizer]
+        return cls(self.split(self.shard), [True, False], opt_cfg, schedule)
+
+    def split(self, shard: torch.Tensor) -> List[torch.Tensor]:
+        """``shard`` (this rank's part of a flat buffer) as views of the
+        optimizer's parts."""
+        return [shard[a:b] for a, b in self.bounds]
 
     # -- the params as the model sees them --------------------------------
 
@@ -137,7 +164,7 @@ class ZeroShards:
         return out.div_(n)
 
     def grad_shard(self, grads: torch.Tensor) -> torch.Tensor:
-        """The part of the reduced grads this rank's AdamW updates."""
+        """The part of the reduced grads this rank's optimizer updates."""
         if self.stage == 1:
             lo, hi = self.layout.shard_range(self.group.rank)
             return grads[lo:hi]
@@ -162,19 +189,29 @@ class ZeroShards:
         self.group.all_gather_(full, shard)
         return full
 
+    def _elementwise_names(self) -> List[str]:
+        names = self.optimizer.elementwise_leaves
+        return [n for n in self.layout.names if names is None or n in names]
+
     def state_leaves(self) -> Dict[str, torch.Tensor]:
-        """The whole params and AdamW moments by name (``params/<name>``,
-        ``opt_state/mu/<name>``, ``opt_state/nu/<name>``), gathered on every
-        rank: a collective, every rank calls it."""
+        """The whole params and optimizer state by name, gathered on every
+        rank (a collective, every rank calls it): ``params/<name>``; AdamW's
+        ``opt_state/mu/<name>`` and ``opt_state/nu/<name>``; Lion's
+        ``opt_state/mu/<name>``; Adafactor's ``opt_state/v_row/<name>`` and
+        ``opt_state/v_col/<name>`` for the leaves that factor and
+        ``opt_state/v/<name>`` for the others. The count is the
+        checkpoint's ``opt_count``."""
         opt = self.optimizer
-        moments = {}
-        for key, parts in (("mu", opt.mu), ("nu", opt.nu)):
-            shard = torch.cat([t.reshape(-1) for t in parts])
-            moments[key] = shard if self.stage == 0 else self._gather_flat(shard)
         params = self.full if self.stage < 3 else self._gather_flat(self.shard)
         leaves = {f"params/{n}": v for n, v in self.layout.views(params).items()}
-        for key, flat in moments.items():
-            leaves.update({f"opt_state/{key}/{n}": v for n, v in self.layout.views(flat).items()})
+        for key, parts in opt.elementwise.items():
+            shard = torch.zeros(self.shard.numel(), dtype=self.dtype, device=self.device)
+            for (a, b), t in zip(self.bounds, parts):
+                if t.numel():
+                    shard[a:b] = t.reshape(-1)
+            views = self.layout.views(shard if self.stage == 0 else self._gather_flat(shard))
+            leaves.update({f"opt_state/{key}/{n}": views[n] for n in self._elementwise_names()})
+        leaves.update({f"opt_state/{k}": t for k, t in opt.replicated.items()})
         return leaves
 
     def load_params(self, params: Dict[str, torch.Tensor]) -> None:
@@ -190,36 +227,41 @@ class ZeroShards:
                 self.shard.copy_(self.layout.shard_of(params, self.group.rank, self.dtype, self.device))
 
     def load_leaves(self, leaves: Dict[str, torch.Tensor], count: int) -> None:
-        """Set the params and the AdamW state from ``state_leaves``'s names."""
+        """Set the params and the optimizer state from ``state_leaves``'s names."""
         self.load_params({n: leaves[f"params/{n}"] for n in self.layout.names})
         opt = self.optimizer
         with torch.no_grad():
-            for key, parts in (("mu", opt.mu), ("nu", opt.nu)):
-                named = {n: leaves[f"opt_state/{key}/{n}"] for n in self.layout.names}
+            for key, parts in opt.elementwise.items():
+                named = {n: leaves[f"opt_state/{key}/{n}"] for n in self._elementwise_names()}
                 flat = (self.layout.flatten(named, self.dtype, self.device) if self.stage == 0
                         else self.layout.shard_of(named, self.group.rank, self.dtype, self.device))
-                offset = 0
-                for t in parts:
-                    t.copy_(flat[offset:offset + t.numel()].view_as(t))
-                    offset += t.numel()
+                for (a, b), t in zip(self.bounds, parts):
+                    if t.numel():
+                        t.copy_(flat[a:b].view_as(t))
+            for k, t in opt.replicated.items():
+                t.copy_(leaves[f"opt_state/{k}"])
         opt.count = int(count)
 
     def target(self) -> Dict[str, tuple]:
         """Name -> (shape, dtype name) of every leaf ``state_leaves`` gives:
-        what a checkpoint of this model and optimizer holds."""
+        what a checkpoint of this model and optimizer holds. Another
+        optimizer's checkpoint differs in its leaf set: a structural
+        mismatch, fatal on restore."""
         dt = str(self.dtype).removeprefix("torch.")
-        out = {}
-        for prefix in ("params/", "opt_state/mu/", "opt_state/nu/"):
-            out.update({prefix + n: (s, dt) for n, s in zip(self.layout.names, self.layout.shapes)})
+        shapes = dict(zip(self.layout.names, self.layout.shapes))
+        out = {f"params/{n}": (s, dt) for n, s in shapes.items()}
+        for key in self.optimizer.elementwise:
+            out.update({f"opt_state/{key}/{n}": (shapes[n], dt) for n in self._elementwise_names()})
+        out.update({f"opt_state/{k}": (tuple(t.shape), dt) for k, t in self.optimizer.replicated.items()})
         return out
 
     # -- accounting ----------------------------------------------------------
 
     def persistent_bytes(self) -> int:
         """Bytes of the tensors this rank holds between steps (params, shard,
-        AdamW moments), each storage counted once."""
+        optimizer state), each storage counted once."""
         seen, total = set(), 0
-        tensors = [self.shard, *self.optimizer.mu, *self.optimizer.nu]
+        tensors = [self.shard, *self.optimizer.tensors()]
         if self.full is not None:
             tensors.append(self.full)
         for t in tensors:
@@ -237,7 +279,7 @@ class TrainState:
     shards: ZeroShards
 
     @property
-    def optimizer(self) -> AdamW:
+    def optimizer(self) -> Optimizer:
         return self.shards.optimizer
 
 
@@ -263,10 +305,14 @@ def make_train_step(
     schedule: Optional[Callable[[int], float]] = None,
     grad_accum_dtype: str = "float32",
     seq_group: Optional[SequenceGroup] = None,
+    seed: int = 0,
 ) -> Callable[[TrainState, torch.Tensor], Dict[str, torch.Tensor]]:
     """``step(state, batch [accum, B, T]) -> metrics``: one optimizer step,
     in place on ``state``. Metrics are 0-d tensors (``loss``, ``grad_norm``)
-    and floats (``tokens``, ``learning_rate``): reading the tensors syncs."""
+    and floats (``tokens``, ``learning_rate``): reading the tensors syncs.
+    A model with dropout draws micro-step ``i``'s masks from ``(seed, step,
+    data rank, i)`` (JAX folds the step, the data index and the micro-step
+    into its rng, :505-511)."""
     if zero_stage not in (0, 1, 2, 3):
         raise ValueError(f"zero_stage must be 0-3, got {zero_stage}")
     acc_dt = resolve_dtype(grad_accum_dtype)
@@ -274,8 +320,8 @@ def make_train_step(
         raise ValueError(f"grad_accum_dtype must be float32 or bfloat16, got {grad_accum_dtype!r}")
     seq = seq_group if seq_group is not None and seq_group.size > 1 else None
 
-    def micro_grads(model: Transformer, params: List[torch.Tensor], tokens: torch.Tensor):
-        _, loss = model(tokens, labels=tokens, train=True)
+    def micro_grads(model: Transformer, params: List[torch.Tensor], tokens: torch.Tensor, key):
+        _, loss = model(tokens, labels=tokens, train=True, dropout_key=key)
         return loss.detach(), torch.autograd.grad(loss, params)
 
     def train_step(state: TrainState, batch: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -287,7 +333,8 @@ def make_train_step(
         grads: Optional[torch.Tensor] = None
         with zs.gathered():
             for i in range(accum):
-                micro_loss, micro = micro_grads(state.model, zs.params, batch[i])
+                micro_loss, micro = micro_grads(state.model, zs.params, batch[i],
+                                                (seed, state.step, group.rank, i))
                 flat = zs.layout.flatten(dict(zip(zs.layout.names, micro)))
                 del micro
                 if seq is not None:
@@ -307,8 +354,7 @@ def make_train_step(
             loss, grads = loss / accum, grads.float() / accum
         shard = zs.grad_shard(grads)
         norm = zs.global_norm(shard)
-        d = zs.optimizer.params[0].numel()
-        zs.optimizer.step([shard[:d], shard[d:]], norm)
+        zs.optimizer.step(zs.split(shard), norm)
         zs.all_gather_params()
         metrics = {"loss": loss, "grad_norm": norm, "tokens": float(batch.numel() * group.size)}
         if schedule is not None:
@@ -323,9 +369,10 @@ def make_replica_audit(shards: ZeroShards) -> Optional[Callable[[], bool]]:
     """``audit() -> bool``: True when the data ranks' copies of the
     replicated state disagree bit for bit (JAX ``make_replica_audit``: each
     rank digests its own copy with ``leaf_checksum``, the digests are
-    gathered and compared). Replicated: the params at stages 0-2 and AdamW's
-    moments at stage 0; a sharded tensor has no copy to compare, so at stage
-    3 nothing is audited. None for a data group of one rank."""
+    gathered and compared). Replicated: the params at stages 0-2, the whole
+    optimizer state at stage 0, and Adafactor's factored statistics at every
+    stage; a sharded tensor has no copy to compare, so at stage 3 AdamW and
+    Lion leave nothing to audit. None for a data group of one rank."""
     if shards.group.size <= 1:
         return None
 
@@ -333,8 +380,9 @@ def make_replica_audit(shards: ZeroShards) -> Optional[Callable[[], bool]]:
         total = 0
         if shards.stage < 3:
             total += leaf_checksum(shards.full)
-        if shards.stage == 0:
-            total += sum(leaf_checksum(t) for t in (*shards.optimizer.mu, *shards.optimizer.nu))
+        opt = shards.optimizer
+        replicated = opt.tensors() if shards.stage == 0 else list(opt.replicated.values())
+        total += sum(leaf_checksum(t) for t in replicated if t.numel())
         digests = shards.group.all_gather_object(total % (1 << 32))
         return any(d != digests[0] for d in digests)
 

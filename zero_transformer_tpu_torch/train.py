@@ -7,9 +7,17 @@ Counterpart of the root ``train.py`` (``--cfg``, ``--set``, ``--max-steps``,
         --set data.source=synthetic training.batch_size=8 \\
         training.gradient_accumulation_steps=4 --max-steps 20
 
+1.3B on one card with its recipe (Adafactor, remat, ``loss_chunk`` 256,
+B 4 x accum 16, a bfloat16 accumulator)::
+
+    python -m zero_transformer_tpu_torch.train --cfg configs/train_1_3b_1chip.yaml \\
+        --set data.source=synthetic checkpoint.directory=runs/1_3b
+
 ``--set`` overrides any dotted config field (values read as Python
-literals, else strings). The CLI runs on the CUDA card unless ``--device
-cpu`` is given; without a card it refuses to start.
+literals, else strings): ``optimizer.optimizer`` is adamw, adafactor or
+lion, ``model.loss_chunk`` chunks the loss, ``model.dropout`` trains with
+dropout. The CLI runs on the CUDA card unless ``--device cpu`` is given;
+without a card it refuses to start.
 
 Data parallelism (``mesh.data``, ZeRO ``mesh.zero_stage`` 0-3) and sequence
 parallelism (``mesh.sequence``) run one process per rank under
@@ -18,7 +26,7 @@ parallelism (``mesh.sequence``) run one process per rank under
     python -m torch.distributed.run --nproc-per-node 4 -m zero_transformer_tpu_torch.train \
         --cfg configs/train_125m.yaml --set mesh.data=4 mesh.zero_stage=2 data.source=synthetic
     python -m torch.distributed.run --nproc-per-node 4 -m zero_transformer_tpu_torch.train \
-        --cfg configs/train_580m_8k.yaml --set mesh.sequence=4 model.dropout=0.0
+        --cfg configs/train_580m_8k.yaml --set mesh.sequence=4
 
 ``mesh.data`` -1 (the default) takes every rank the launch has.
 ``--dist-backend`` picks nccl (a card per rank) or gloo (the CPU, or ranks

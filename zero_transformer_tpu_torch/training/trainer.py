@@ -158,8 +158,6 @@ def build_training(cfg: Config, device, mesh: Optional[Mesh] = None) -> Training
             "--quantize); training runs on full-precision params"
         )
     dev = resolve_device(device)
-    if cfg.model.dropout > 0:
-        raise NotImplementedError(f"dropout {cfg.model.dropout} > 0 in training is not ported yet")
     mesh = mesh if mesh is not None else single_process(dev)
     if cfg.mesh.sequence != mesh.sequence.size:
         raise ValueError(f"mesh.sequence {cfg.mesh.sequence} needs a sequence group of that many ranks, "
@@ -171,7 +169,8 @@ def build_training(cfg: Config, device, mesh: Optional[Mesh] = None) -> Training
     model.set_sequence_group(mesh.sequence)
     schedule = make_schedule(opt)
     state = init_train_state(model, opt, schedule, mesh.data, cfg.mesh.zero_stage)
-    train_step = make_train_step(cfg.mesh.zero_stage, schedule, cfg.training.grad_accum_dtype, mesh.sequence)
+    train_step = make_train_step(cfg.mesh.zero_stage, schedule, cfg.training.grad_accum_dtype, mesh.sequence,
+                                 seed=cfg.training.seed)
     return TrainingBuild(state=state, schedule=schedule, train_step=train_step,
                          eval_step=make_eval_step(model, mesh.data), audit=make_replica_audit(state.shards))
 
