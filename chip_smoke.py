@@ -132,7 +132,31 @@ Phases, each fatal on failure (nothing is caught):
    None);
    (f) 125m at dropout 0.1: remat on and off give bit-equal grads, each
    site keeps 1 - p of its elements within 5 sigma, the same key the same
-   bits. Phase 13's trainer CLIs run 580m at its own dropout 0.1.
+   bits. Phase 13's trainer CLIs run 580m at its own dropout 0.1. (d) also
+   times the anomaly guard at 1.3B: steps of one micro-batch with and
+   without it, interleaved, and the Adafactor step with and without its
+   gate (CUDA events).
+
+15. resilience (run after training): ``configs/train_125m.yaml``'s
+   resilience block on 125m at full width and depth, B 8 x T 1024, through
+   the port's ``Trainer`` (K1-K3 in the guarded step; the cuts are
+   printed): (a) guard on against guard off on the same batches: params
+   and optimizer state bit-equal after 14 steps, the synchronising calls of
+   a non-log step equal (``torch.cuda.set_sync_debug_mode("warn")``), step
+   ms over interleaved blocks (off, on, off, on) and the optimizer step
+   alone with and without its gate; (b) ``skip_batch`` with NaN at the
+   non-log steps 4 and 5: the run ends at step 8 with finite params, the
+   carry's count 2, the optimizer's count 6, and the state bit-equal to a
+   guard-off run fed the same batches without those two; (c) the block's
+   ``rollback`` with NaN at three steps in a row: one rollback, to the
+   snapshot of step 4, whose tensors' digests after the restore equal
+   theirs at capture, the ``anomaly_rollback`` event, the run completes;
+   the snapshot's bytes and capture ms; (d) a ``hang`` (watchdog 10 s)
+   and a ``sigterm``, each under ``Supervisor``: one restart each, from
+   the force-saved / preemption step, and the state bit-equal to an
+   uninterrupted run's at step 8; the watchdog's detection time and the
+   restart's ms; (e) K1-K3 launch 12 times each a guarded step, exactly;
+   (f) every step directory of the phase deleted.
 
 ``--phases k4_anatomy`` (never part of a full run) shows where the paged
 decode kernel's time goes at phase 2's main and long cases: it rebuilds
@@ -148,7 +172,7 @@ bf16 rounding.
 
 ``--phases a,b,...`` builds the kernels and runs the named phases only
 (kernels, serving, parity, profile, int8_kernels, int8_serving,
-train_kernels, training, train_1_3b, packed_kernels, packed, sp_kernels,
+train_kernels, training, resilience, train_1_3b, packed_kernels, packed, sp_kernels,
 sequence_parallel, data_parallel, data_parallel_nccl,
 sequence_parallel_f32 and k4_anatomy; parity needs serving); the kernel table then lists the kernels whose phases ran.
 
@@ -1666,6 +1690,279 @@ def training_phase():
     return launches
 
 
+# ------------------------------------------------------- training resilience
+
+RES_DIR = Path("build") / "resilience"  # its checkpoints are too large to bring back
+RES_B, RES_STEPS = 8, 8  # B 8 x accum 1 x T 1024 a step
+RES_BLOCKS, RES_BLOCK = 4, 5  # (a): off, on, off, on blocks of 5 non-log steps each, after 2 warm-up steps
+RES_WATCHDOG_S = 10.0  # above a step, a log point and a save (the hook's force-save joins within it)
+RES_CUTS = {"data.source": "memmap -> synthetic", "training.batch_size": "256 -> 8",
+            "training.total_steps": "143,000 -> 8-22 a case", "training.evaluation_frequency": "1000 -> 0",
+            "checkpoint.save_frequency": "1000 -> none in the run (saves at a preemption, a hang and the end)",
+            "resilience.snapshot_frequency": "500 -> 4",
+            "resilience.watchdog_timeout_s": f"600 -> {RES_WATCHDOG_S} in (d), off elsewhere"}
+
+
+def res_config(name: str, **sets):
+    """configs/train_125m.yaml (its resilience block) at B 8 x T 1024 on
+    synthetic tokens, a fresh run directory under ``RES_DIR``; ``sets``
+    override dotted fields."""
+    from zero_transformer_tpu_torch.config import apply_dotted_overrides, load_config
+
+    run_dir = RES_DIR / name
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return apply_dotted_overrides(load_config("configs/train_125m.yaml"), {
+        "data.source": "synthetic", "training.batch_size": RES_B, "training.gradient_accumulation_steps": 1,
+        "training.evaluation_frequency": 0, "training.log_frequency": 4, "checkpoint.directory": str(run_dir),
+        "checkpoint.save_frequency": 1000, "resilience.snapshot_frequency": 4,
+        "resilience.watchdog_timeout_s": 0.0, **sets})
+
+
+def res_trainer(name: str, chaos=None, save: bool = True, **sets):
+    """The trainer on ``res_config``. ``save`` False drops its saves (the
+    cases that check no checkpoint stay within the machine's disk budget)."""
+    from zero_transformer_tpu_torch.training.trainer import Trainer
+
+    trainer = Trainer(res_config(name, **sets), device="cuda", chaos=chaos)
+    if not save:
+        trainer.save = lambda force=False: False
+    return trainer
+
+
+def res_steps(trainer, it, n: int, skip=()) -> None:
+    """``n`` batches of ``trainer``'s loader through its train step (no log
+    point, no save); the batches at the indices in ``skip`` are read and
+    dropped."""
+    from zero_transformer_tpu_torch.data import to_device
+
+    for i in range(n):
+        batch = next(it)
+        if i not in skip:
+            trainer.train_step(trainer.state, to_device(batch, trainer.device))
+
+
+def res_state(trainer) -> dict:
+    return {k: v.clone() for k, v in trainer.state.shards.state_leaves().items()}
+
+
+def res_bit_equal(a: dict, b: dict, what: str) -> None:
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    if set(a) != set(b) or bad:
+        raise AssertionError(f"{what}: not bit-equal ({len(bad)} tensors differ, e.g. {bad[:3]})")
+
+
+def res_close(*trainers) -> None:
+    for t in trainers:
+        t.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def res_count_syncs(fn) -> list:
+    """The synchronising CUDA calls ``fn`` makes, as ``set_sync_debug_mode``
+    warns of them: the Python line of each."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+
+
+def res_optimizer_ms(state, reps: int = 5) -> dict:
+    """The optimizer step alone with and without the gate, CUDA events,
+    interleaved (off, on, off, on) on the same state: what the gate adds."""
+    shard = state.shards.shard
+    grads = torch.randn(shard.shape, generator=torch.Generator(device="cuda").manual_seed(3), device="cuda") * 1e-3
+    parts = state.shards.split(grads)
+    norm = torch.linalg.vector_norm(grads)
+    keep = torch.ones((), dtype=torch.bool, device="cuda")
+    out = {"off": [], "on": []}
+    for arm in ("off", "on", "off", "on"):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            state.optimizer.step(parts, norm, keep if arm == "on" else None)
+        end.record()
+        torch.cuda.synchronize()
+        out[arm].append(start.elapsed_time(end) / reps)
+    return {f"optimizer_ms_{arm}": v for arm, v in out.items()}
+
+
+def resilience_phase() -> dict:
+    """``configs/train_125m.yaml``'s resilience block on 125m at full width
+    and depth through the port's Trainer (K1-K3 in the guarded step):
+    (a) guard on vs off, (b) skip, (c) rollback, (d) a hang and a SIGTERM
+    under the supervisor, (e) the guarded step's K1-K3 launches, (f) every
+    step directory deleted."""
+    from zero_transformer_tpu_torch.ops import _build
+    from zero_transformer_tpu_torch.resilience.anomaly import HostSnapshot
+    from zero_transformer_tpu_torch.resilience.chaos import ChaosMonkey, Fault
+    from zero_transformer_tpu_torch.resilience.detect import leaf_checksum
+    from zero_transformer_tpu_torch.resilience.supervisor import Supervisor
+
+    log({"resilience_cuts": RES_CUTS})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+
+    # (a) guard off and on, the same batches, interleaved blocks of non-log steps
+    off = res_trainer("a_off", save=False, **{"resilience.anomaly_detection": False})
+    on = res_trainer("a_on", save=False)
+    its = {"off": iter(off.train_loader), "on": iter(on.train_loader)}
+    arms = {"off": off, "on": on}
+    warm_syncs = {}
+    for arm, t in arms.items():
+        res_steps(t, its[arm], 1)  # warm-up: cuBLAS handles, the allocator
+        # a step's first pass under the sync check: one-time allocations
+        # (the pinned host allocator's first blocks) are read, not compared
+        warm_syncs[arm] = res_count_syncs(lambda t=t, arm=arm: res_steps(t, its[arm], 1))
+    ms, syncs, launches, where = {"off": [], "on": []}, {"off": [], "on": []}, {}, set()
+    for _ in range(RES_BLOCKS // 2):
+        for arm, t in arms.items():
+            _build.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res_steps(t, its[arm], RES_BLOCK)
+            torch.cuda.synchronize()
+            ms[arm].append((time.perf_counter() - t0) * 1e3 / RES_BLOCK)
+            launches[arm] = {n: _build.LAUNCHES[n] for n in ("flash_train_fwd", "flash_dq", "flash_dkv")}
+            hits = res_count_syncs(lambda t=t, arm=arm: res_steps(t, its[arm], 1))
+            syncs[arm].append(len(hits))
+            where.update(hits)
+    for it in its.values():
+        it.close()
+    res_bit_equal(res_state(off), res_state(on), "(a) guard on vs off after the same 14 steps")
+    if int(off.state.optimizer.count) != int(on.state.optimizer.count) or on.guard.read().count:
+        raise AssertionError("(a) the optimizer counts differ, or the guard flagged a clean step")
+    if syncs["on"] != syncs["off"]:
+        raise AssertionError(f"(a) the guard adds host syncs to a non-log step: {syncs}")
+    # (e) the guarded step's K1-K3 launches, counted as the training phase counts them
+    want = 12 * RES_BLOCK
+    if any(c != want for c in launches["on"].values()) or launches["on"] != launches["off"]:
+        raise AssertionError(f"(e) K1-K3 launches in {RES_BLOCK} guarded steps {launches}, want {want} each")
+    out["guard"] = {"step_ms_off": ms["off"], "step_ms_on": ms["on"], "syncs_per_non_log_step": syncs,
+                    "syncs_where": sorted(where), "first_step_syncs": warm_syncs,
+                    "k1_k3_launches_per_step": {n: c // RES_BLOCK for n, c in launches["on"].items()},
+                    **res_optimizer_ms(on.state)}
+    res_close(off, on)
+    del off, on, arms
+
+    # (b) skip: NaN at the non-log steps 4 and 5 (state.step 3 and 4) under skip_batch
+    skip = res_trainer("b_skip", chaos=ChaosMonkey([Fault("nan_step", 3, 2)]), save=False,
+                       **{"resilience.anomaly_response": "skip_batch", "training.log_frequency": 6})
+    skip.train(max_steps=RES_STEPS)
+    stats = skip.guard.read()
+    ref = res_trainer("b_ref", save=False, **{"resilience.anomaly_detection": False})
+    it = iter(ref.train_loader)
+    res_steps(ref, it, RES_STEPS, skip=(3, 4))
+    it.close()
+    if skip.state.step != RES_STEPS or stats.count != 2 or int(skip.state.optimizer.count) != RES_STEPS - 2:
+        raise AssertionError(f"(b) step {skip.state.step}, carry count {stats.count}, "
+                             f"optimizer count {int(skip.state.optimizer.count)}")
+    finite = all(bool(torch.isfinite(v).all()) for v in skip.state.shards.state_leaves().values())
+    res_bit_equal(res_state(skip), res_state(ref), "(b) skip vs guard off without the two batches")
+    out["skip"] = {"steps": skip.state.step, "carry_count": stats.count, "finite": finite,
+                   "optimizer_count": int(skip.state.optimizer.count)}
+    res_close(skip, ref)
+    del skip, ref
+
+    # (c) rollback with the block's own rollback_after 3 and spike factors:
+    # NaN at state.step 5-7, the log point of step 8 rolls back to step 4
+    roll = res_trainer("c_rollback", chaos=ChaosMonkey([Fault("nan_step", 5, 3)]), save=False)
+    snap, at_capture, checked = HostSnapshot(), {}, []
+    capture, rollback = snap.capture, roll._rollback
+
+    def recorded_capture(state):
+        capture(state)
+        at_capture[state.step] = [leaf_checksum(t) for t in snap.device_tensors(state)]
+
+    def checked_rollback(snapshot):
+        rollback(snapshot)
+        checked.append((snapshot.step, [leaf_checksum(t) for t in snapshot.device_tensors(roll.state)]
+                        == at_capture[snapshot.step]))
+
+    snap.capture, roll.snapshot, roll._rollback = recorded_capture, snap, checked_rollback
+    roll.train(max_steps=12)
+    events = [json.loads(x) for x in (RES_DIR / "c_rollback" / "metrics.jsonl").open()]
+    rolled = [e for e in events if e.get("event") == "anomaly_rollback"]
+    if roll.state.step != 12 or checked != [(4, True)] or len(rolled) != 1 or roll.resilience_report["rollbacks"] != 1:
+        raise AssertionError(f"(c) step {roll.state.step}, rollbacks {checked}, events {rolled}")
+    out["rollback"] = {"to_step": checked[0][0], "at_step": rolled[0]["step"], "digests_equal": True,
+                       "snapshot_bytes": snap.bytes, "snapshot_capture_ms": snap.capture_ms,
+                       "anomalies": roll.resilience_report["anomalies"]}
+    res_close(roll)
+    del roll, snap
+
+    # (d) a hang, then a SIGTERM, each under the supervisor, against an uninterrupted run
+    clean = res_trainer("d_clean", save=False)
+    it = iter(clean.train_loader)
+    res_steps(clean, it, RES_STEPS)
+    it.close()
+    want_state = res_state(clean)
+    res_close(clean)
+    del clean
+    for kind, fault in (("hang", Fault("hang", 3, duration=120.0)), ("sigterm", Fault("sigterm", 4))):
+        chaos, built, ended = ChaosMonkey([fault]), [], []
+
+        def factory(c, chaos=chaos, built=built, ended=ended):
+            from zero_transformer_tpu_torch.training.trainer import Trainer
+
+            t0 = time.perf_counter()
+            t = Trainer(c, device="cuda", chaos=chaos)
+            built.append((t0, time.perf_counter(), t))
+            train = t.train
+
+            def timed(max_steps=None):
+                try:
+                    return train(max_steps)
+                finally:
+                    ended.append(time.perf_counter())
+
+            t.train = timed
+            return t
+
+        cfg = res_config(f"d_{kind}", **{"resilience.watchdog_timeout_s": RES_WATCHDOG_S})
+        t0 = time.perf_counter()
+        sup = Supervisor(cfg, trainer_factory=factory)
+        state = sup.run(max_steps=RES_STEPS)
+        wall = time.perf_counter() - t0
+        final = {k: v.clone() for k, v in state.shards.state_leaves().items()}
+        if state.step != RES_STEPS or len(sup.history) != 1 or sup.history[0].step != fault.step:
+            raise AssertionError(f"(d) {kind}: step {state.step}, restarts {sup.history}")
+        res_bit_equal(final, want_state, f"(d) {kind} under the supervisor vs the uninterrupted run")
+        first = built[0][2]
+        reading = {"restarts": len(sup.history), "reason": sup.history[0].reason, "resumed_at": sup.history[0].step,
+                   "backoff_s": sup.history[0].backoff_s, "wall_s": wall,
+                   "restart_ms": (built[1][1] - ended[0]) * 1e3, "rebuild_and_restore_ms":
+                   (built[1][1] - built[1][0]) * 1e3}
+        if kind == "hang":
+            wd = first.watchdog
+            if not (wd.fired and first.resilience_report["watchdog_fired"]):
+                raise AssertionError("(d) the watchdog did not fire on the hang")
+            reading.update({"watchdog_timeout_s": wd.timeout_s, "detected_after_s": wd.fired_after_s,
+                            "detection_latency_past_deadline_s": wd.fired_after_s - wd.timeout_s})
+        else:
+            reading["preempted"] = first.preempted
+        out[f"supervised_{kind}"] = reading
+        del state, final, built, first, sup
+        gc.collect()
+        torch.cuda.empty_cache()
+    del want_state
+
+    # (f) no step directory outlives the phase
+    shutil.rmtree(RES_DIR, ignore_errors=True)
+    if RES_DIR.exists():
+        raise AssertionError(f"(f) {RES_DIR} was not deleted")
+    log({"resilience": out})
+    return out["guard"]["k1_k3_launches_per_step"]
+
+
 # ------------------------------------------------------- 1.3B on one card
 
 T13_MODEL, T13_B, T13_ACCUM, T13_T, T13_CHUNK = "1_3b", 4, 16, 1024, 256  # configs/train_1_3b_1chip.yaml
@@ -1853,6 +2150,28 @@ def t13_dropout() -> dict:
     return out
 
 
+def t13_guard_cost(st, step, schedule, batch, reps: int = 2) -> dict:
+    """What the anomaly guard costs at 1.3B (the trainer runs it by
+    default): steps of one micro-batch with and without it, interleaved
+    (off, on, off, on) on the same state, and the Adafactor step alone with
+    and without its gate (``res_optimizer_ms``)."""
+    from zero_transformer_tpu_torch.config import ResilienceConfig
+    from zero_transformer_tpu_torch.parallel.zero import make_train_step
+    from zero_transformer_tpu_torch.resilience.anomaly import AnomalyGuard
+
+    guarded = make_train_step(1, schedule, "bfloat16", guard=AnomalyGuard(ResilienceConfig(), "cuda"))
+    ms = {"off": [], "on": []}
+    for arm in ("off", "on", "off", "on"):
+        fn = guarded if arm == "on" else step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(st, batch)
+        torch.cuda.synchronize()
+        ms[arm].append((time.perf_counter() - t0) * 1e3 / reps)
+    return {"step_ms_off": ms["off"], "step_ms_on": ms["on"], **res_optimizer_ms(st)}
+
+
 def train_1_3b_phase():
     """configs/train_1_3b_1chip.yaml's path on the card: K1-K3 at its shape,
     the chunked loss against the full logits and the plain path, the launch
@@ -1911,6 +2230,7 @@ def train_1_3b_phase():
         "step_ms_accum1": af_step_ms, "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}})
     if not all(math.isfinite(x) for x in losses) or losses[-1] > losses[0] - AF_FALL_MARGIN:
         raise AssertionError(f"Adafactor: the loss did not fall by {AF_FALL_MARGIN} over {FALL_STEPS} steps: {losses}")
+    log({"train_1_3b_guard": t13_guard_cost(st, step, schedule, one)})
     train_profile(step, st, one, steps=1, label="train_1_3b_profile")  # one micro-step and the optimizer
     del st, model, step
     gc.collect()
@@ -2810,9 +3130,9 @@ def _sp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str, 
         st = init_train_state(model, opt_cfg, schedule)
         captured, adamw_step = {}, st.optimizer.step
 
-        def capture(grads, norm=None, _step=adamw_step):  # the grads the step hands to AdamW, by name
+        def capture(grads, norm=None, keep=None, _step=adamw_step):  # the grads the step hands to AdamW, by name
             captured["grads"] = st.shards.layout.views(torch.cat([g.reshape(-1) for g in grads]))
-            return _step(grads, norm)
+            return _step(grads, norm, keep)
 
         st.optimizer.step = capture
         step = make_train_step(1, schedule, seq_group=group)
@@ -3114,6 +3434,7 @@ def dp_readings(trainer, timed: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from zero_transformer_tpu_torch.data import to_device
+    from zero_transformer_tpu_torch.parallel.zero import make_replica_audit
     from zero_transformer_tpu_torch.resilience.detect import leaf_checksum
 
     mesh, shards = trainer.mesh, trainer.state.shards
@@ -3124,7 +3445,8 @@ def dp_readings(trainer, timed: int) -> dict:
     leaves = shards.state_leaves()
     out["params_digest"] = sum(leaf_checksum(v) for k, v in leaves.items() if k.startswith("params/")) % 2**32
     del leaves
-    out["audit_diverged"] = trainer.audit() if trainer.audit is not None else None
+    audit = make_replica_audit(shards)  # whatever resilience.audit_frequency says
+    out["audit_diverged"] = audit() if audit is not None else None
     it = iter(trainer.train_loader)
     try:
         if timed:
@@ -3452,7 +3774,7 @@ def card_line() -> str:
 
 
 PHASES = ("kernels", "serving", "parity", "profile", "int8_kernels", "int8_serving", "train_kernels", "training",
-          "train_1_3b", "packed_kernels", "packed", "sp_kernels", "sequence_parallel", "data_parallel")
+          "resilience", "train_1_3b", "packed_kernels", "packed", "sp_kernels", "sequence_parallel", "data_parallel")
 # named with --phases only: the ring's parity with every kernel on its f32 path, K4's
 # anatomy, and data parallelism over NCCL with a card per rank (4 cards)
 EXTRA_PHASES = ("sequence_parallel_f32", "k4_anatomy", "data_parallel_nccl")
@@ -3558,6 +3880,8 @@ def main(argv) -> int:
     if "training" in phases:
         train_launches = training_phase()
         launches.update({k: train_launches[k] for k in ("flash_train_fwd", "flash_dq", "flash_dkv")})
+    if "resilience" in phases:
+        resilience_phase()
     if "train_1_3b" in phases:
         t13_rows, t13_launches = train_1_3b_phase()
         rows.update(t13_rows)

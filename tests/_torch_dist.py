@@ -217,3 +217,83 @@ def trainer_runs(mesh, runs: list) -> list:
         m = mesh if "mesh" not in run else make_mesh(*run["mesh"], "gloo", mesh.device)
         out.append(trainer_run(m, run))
     return out
+
+
+def guarded_zero_steps(mesh, c: dict) -> dict:
+    """ZeRO steps under the anomaly guard on this rank's rows; on rank
+    ``nan_rank`` the loss of micro-batch ``nan_micro`` of step ``nan_step``
+    is scaled by NaN in the forward (its grads go NaN too). Returns the
+    flags, the optimizer count, the carry and the whole params."""
+    from zero_transformer_tpu_torch import config as tconfig
+    from zero_transformer_tpu_torch.models.gpt import Transformer
+    from zero_transformer_tpu_torch.parallel.zero import init_train_state, make_train_step
+    from zero_transformer_tpu_torch.resilience.anomaly import AnomalyGuard
+    from zero_transformer_tpu_torch.training.optimizer import make_schedule
+
+    model = Transformer(tconfig.model_config("test", **c["model"]), device="cpu")
+    model.load_state_dict({n: torch.from_numpy(p) for n, p in c["params"].items()})
+    model.requires_grad_(True)
+    opt_cfg = tconfig.OptimizerConfig(**c["opt"])
+    schedule = make_schedule(opt_cfg)
+    state = init_train_state(model, opt_cfg, schedule, mesh.data, c["stage"])
+    guard = AnomalyGuard(tconfig.ResilienceConfig(anomaly_response="skip_batch"), "cpu")
+    step = make_train_step(c["stage"], schedule, guard=guard)
+
+    def poison(module, args, kwargs, output):
+        _, step_no, rank, micro = kwargs["dropout_key"]
+        if (rank, step_no, micro) == (c["nan_rank"], c["nan_step"], c["nan_micro"]):
+            return output[0], output[1] * float("nan")
+        return output
+
+    model.register_forward_hook(poison, with_kwargs=True)
+    rows = c["batches"][0].shape[1] // mesh.data.size
+    lo = mesh.data.rank * rows
+    flags = []
+    for batch in c["batches"]:
+        flags.append(bool(step(state, torch.from_numpy(batch[:, lo:lo + rows]))["anomaly"]))
+    leaves = state.shards.state_leaves()
+    stats = guard.read()
+    return {"anomaly": flags, "count": int(state.optimizer.count),
+            "carry": (stats.count, stats.streak, stats.loss_ema, stats.grad_ema),
+            "params": {k.removeprefix("params/"): v.numpy().copy() for k, v in leaves.items()
+                       if k.startswith("params/")}}
+
+
+def trainer_chaos_runs(mesh, runs: list) -> list:
+    """The trainer for each run in order on the world's mesh, with a
+    ``replica_perturb`` fault at step ``perturb`` where given; the steps
+    its replica audit ran after (None without an audit), the halt's text,
+    the resilience report and the whole params."""
+    from zero_transformer_tpu_torch import config as tconfig
+    from zero_transformer_tpu_torch.resilience import AnomalyHalt
+    from zero_transformer_tpu_torch.resilience.chaos import ChaosMonkey, Fault
+    from zero_transformer_tpu_torch.training.trainer import Trainer
+
+    out = []
+    for run in runs:
+        cfg = tconfig.apply_dotted_overrides(tconfig.load_config(run["config"]), run["overrides"])
+        chaos = ChaosMonkey([Fault("replica_perturb", run["perturb"])]) if run.get("perturb") else None
+        trainer = Trainer(cfg, device="cpu", mesh=mesh, chaos=chaos)
+        audit_steps = None
+        if trainer.audit is not None:
+            audit_steps, audit = [], trainer.audit
+
+            def recorded(audit=audit, steps=audit_steps):
+                steps.append(trainer.state.step)
+                return audit()
+
+            trainer.audit = recorded
+        error = None
+        try:
+            trainer.train()
+        except AnomalyHalt as e:
+            error = str(e)
+        finally:
+            trainer.close()
+        leaves = trainer.state.shards.state_leaves()
+        out.append({"name": run["name"], "step": trainer.state.step, "audit_steps": audit_steps, "error": error,
+                    "report": dict(trainer.resilience_report),
+                    "params": {k.removeprefix("params/"): v.numpy().copy() for k, v in leaves.items()
+                               if k.startswith("params/")}})
+        mesh.barrier()
+    return out

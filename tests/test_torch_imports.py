@@ -53,6 +53,9 @@ def test_scan_sees_the_whole_package():
     assert {"data/tarshards.py", "data/prepare.py", "evalharness/__init__.py", "evalharness/__main__.py",
             "evalharness/scoring.py", "evalharness/tasks.py", "evalharness/cli.py", "models/quant.py"} <= names
     assert {"ops/ring_attention.py", "parallel/mesh.py"} <= names
+    assert {"resilience/__init__.py", "resilience/anomaly.py", "resilience/chaos.py", "resilience/supervisor.py",
+            "resilience/watchdog.py", "obs/__init__.py", "obs/spans.py", "obs/flight.py", "obs/metrics.py",
+            "obs/exporter.py", "obs/profiling.py", "obs/logging.py"} <= names
     for source in ("flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh", "paged_attention.cu"):
         assert (PACKAGE / "csrc" / source).exists(), source
 

@@ -242,7 +242,7 @@ def test_dotted_overrides_match_jax():
         for f in dataclasses.fields(p_sec):
             assert getattr(p_sec, f.name) == getattr(r_sec, f.name), f"{section}.{f.name}"
     with pytest.raises(ValueError, match="unknown config field"):
-        tconfig.apply_dotted_overrides(port, {"training.profile_steps": 3})
+        tconfig.apply_dotted_overrides(port, {"training.step_bench_artifact": "BENCH_step.json"})
 
 
 def test_sequence_parallel_overrides_match_jax():

@@ -282,6 +282,12 @@ class TrainingConfig:
     total_steps: int = 163000
     seed: int = 0
     log_frequency: int = 10
+    # a torch.profiler capture of this many steps (0: off), from the step
+    # after the first of the run, or over [profile_start, profile_start +
+    # profile_steps) when profile_start > 0 (train --profile-window START:LEN)
+    profile_steps: int = 0
+    profile_start: int = 0
+    profile_dir: str = ""  # default: <checkpoint.directory>/profile
     halt_on_nan: bool = True
     grad_accum_dtype: str = "float32"  # "float32" | "bfloat16"
 
@@ -307,35 +313,69 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ResilienceConfig:
-    """JAX's fault-tolerance policy, as data. The port's trainer halts on a
-    non-finite loss (``training.halt_on_nan``, JAX's default "halt"
-    response); spike detection, skip/rollback, snapshots, the watchdog and
-    the supervisor are not ported, and the trainer prints the settings it
-    does not act on."""
+    """JAX's fault-tolerance policy (``zero_transformer_tpu/config.py``
+    :382-486), with its fields, defaults and validation. The trainer acts on
+    every field (``resilience/``, ``training/trainer.py``): the anomaly
+    guard inside the step, skip -> rollback -> halt at log points, the host
+    snapshot, the replica audit, the watchdog and the supervisor's restart
+    budget and backoff."""
 
+    # the per-step guard (a non-finite loss or grad norm always flags)
     anomaly_detection: bool = True
-    anomaly_response: str = "halt"  # "skip_batch" | "rollback" | "halt"
-    loss_spike_factor: float = 0.0
-    grad_spike_factor: float = 0.0
-    snapshot_frequency: int = 200
-    watchdog_timeout_s: float = 0.0
-    max_restarts: int = 3
+    # "skip_batch" drops flagged updates; "rollback" also restores the host
+    # snapshot after `rollback_after` consecutive anomalies; "halt" raises
+    # at the first detection
+    anomaly_response: str = "halt"
+    loss_spike_factor: float = 0.0  # > 0: flag loss > factor * EMA(loss)
+    grad_spike_factor: float = 0.0  # > 0: flag grad_norm > factor * EMA(grad_norm)
+    ema_decay: float = 0.98
+    spike_warmup_steps: int = 50  # clean steps absorbed before spike checks arm
+    max_consecutive_anomalies: int = 25  # skip_batch's streak limit: then halt
+    rollback_after: int = 3  # streak length that triggers a rollback
+    snapshot_frequency: int = 200  # steps between host snapshots
+    max_rollbacks: int = 3  # per train() call; exceeding it halts
+    audit_frequency: int = 0  # steps between replica audits (0: off)
+    watchdog_timeout_s: float = 0.0  # no completed step for this long: abort (0: off)
+    max_restarts: int = 3  # the supervisor's restart budget
+    backoff_base_s: float = 2.0
+    backoff_max_s: float = 300.0
+    backoff_jitter: float = 0.1  # each delay spread uniformly over [1-j, 1+j]
 
     def __post_init__(self):
         if self.anomaly_response not in ("skip_batch", "rollback", "halt"):
-            raise ValueError(f"invalid anomaly_response {self.anomaly_response!r}")
-        for name in ("loss_spike_factor", "grad_spike_factor", "watchdog_timeout_s"):
+            raise ValueError(
+                f"invalid anomaly_response {self.anomaly_response!r}; expected "
+                "'skip_batch', 'rollback', or 'halt'"
+            )
+        if not 0.0 < self.ema_decay < 1.0:
+            raise ValueError("ema_decay must be in (0, 1)")
+        for name in ("loss_spike_factor", "grad_spike_factor"):
             if getattr(self, name) < 0:
                 raise ValueError(f"{name} must be >= 0 (0 disables)")
-        if self.snapshot_frequency < 0 or self.max_restarts < 0:
-            raise ValueError("snapshot_frequency/max_restarts must be >= 0")
-
-    def unported(self) -> Dict[str, Any]:
-        """The settings that differ from JAX's defaults: each asks for a
-        policy the port's trainer does not have yet."""
-        base = ResilienceConfig()
-        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
-                if getattr(self, f.name) != getattr(base, f.name)}
+        for name in ("rollback_after", "max_consecutive_anomalies"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1")
+        if self.snapshot_frequency < 0 or self.max_rollbacks < 0:
+            raise ValueError("snapshot_frequency/max_rollbacks must be >= 0")
+        if self.audit_frequency < 0:
+            raise ValueError("audit_frequency must be >= 0 (0 disables)")
+        if self.audit_frequency > 0 and not self.anomaly_detection:
+            raise ValueError(
+                "audit_frequency requires anomaly_detection: the replica "
+                "audit rides the in-graph anomaly-guard carry (it would be "
+                "silently inert with the guard disabled)"
+            )
+        if self.watchdog_timeout_s < 0 or self.max_restarts < 0:
+            raise ValueError("watchdog_timeout_s/max_restarts must be >= 0")
+        if self.backoff_base_s <= 0 or self.backoff_max_s < self.backoff_base_s:
+            raise ValueError(
+                "backoff_base_s must be > 0 and backoff_max_s >= backoff_base_s"
+            )
+        if not 0.0 <= self.backoff_jitter < 1.0:
+            raise ValueError(
+                "backoff_jitter must be in [0, 1): at 1.0 the jitter window "
+                "touches a zero delay, which defeats the backoff entirely"
+            )
 
 
 @dataclasses.dataclass(frozen=True)

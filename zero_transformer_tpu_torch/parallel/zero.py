@@ -59,6 +59,7 @@ from zero_transformer_tpu_torch.config import OptimizerConfig, resolve_dtype
 from zero_transformer_tpu_torch.models.gpt import Transformer
 from zero_transformer_tpu_torch.parallel.mesh import DataGroup, SequenceGroup
 from zero_transformer_tpu_torch.parallel.sharding import FlatLayout
+from zero_transformer_tpu_torch.resilience.anomaly import AnomalyGuard
 from zero_transformer_tpu_torch.resilience.detect import leaf_checksum
 from zero_transformer_tpu_torch.training.optimizer import (Adafactor, AdamW, Lion, Optimizer, Schedule,
                                                            weight_decay_mask)
@@ -240,7 +241,7 @@ class ZeroShards:
                         t.copy_(flat[a:b].view_as(t))
             for k, t in opt.replicated.items():
                 t.copy_(leaves[f"opt_state/{k}"])
-        opt.count = int(count)
+            opt.count.fill_(int(count))
 
     def target(self) -> Dict[str, tuple]:
         """Name -> (shape, dtype name) of every leaf ``state_leaves`` gives:
@@ -259,7 +260,9 @@ class ZeroShards:
 
     def persistent_bytes(self) -> int:
         """Bytes of the tensors this rank holds between steps (params, shard,
-        optimizer state), each storage counted once."""
+        optimizer state), each storage counted once. The optimizer's 0-d
+        count and the anomaly guard's carry are not counted (JAX's carry is
+        not optimizer state either)."""
         seen, total = set(), 0
         tensors = [self.shard, *self.optimizer.tensors()]
         if self.full is not None:
@@ -306,13 +309,27 @@ def make_train_step(
     grad_accum_dtype: str = "float32",
     seq_group: Optional[SequenceGroup] = None,
     seed: int = 0,
+    guard: Optional[AnomalyGuard] = None,
+    poison: Optional[Callable[[TrainState], torch.Tensor]] = None,
 ) -> Callable[[TrainState, torch.Tensor], Dict[str, torch.Tensor]]:
     """``step(state, batch [accum, B, T]) -> metrics``: one optimizer step,
     in place on ``state``. Metrics are 0-d tensors (``loss``, ``grad_norm``)
     and floats (``tokens``, ``learning_rate``): reading the tensors syncs.
     A model with dropout draws micro-step ``i``'s masks from ``(seed, step,
     data rank, i)`` (JAX folds the step, the data index and the micro-step
-    into its rng, :505-511)."""
+    into its rng, :505-511).
+
+    ``guard`` (``resilience/anomaly.py``) flags the step from the reduced
+    loss and the global grad norm, both the same on every rank, between the
+    norm and the update, and hands the optimizer ``keep = ~flag``: a flagged
+    step writes nothing (JAX selects the old state after the step, ``wrap``
+    :147-168; here the step is in place, so the select is inside the
+    optimizer's passes). ``state.step`` advances either way (the batch is
+    consumed); ``metrics["anomaly"]`` is the flag, a 0-d bool tensor. The
+    guard's carry advances on the device: nothing is read on the host.
+    ``poison(state)`` (chaos, ``resilience/chaos.py``) returns a 0-d float32
+    tensor added to the loss and to the reduced grads before the norm: NaN
+    inside a fault window, 0 outside, decided on the device."""
     if zero_stage not in (0, 1, 2, 3):
         raise ValueError(f"zero_stage must be 0-3, got {zero_stage}")
     acc_dt = resolve_dtype(grad_accum_dtype)
@@ -353,10 +370,18 @@ def make_train_step(
         if accum > 1:
             loss, grads = loss / accum, grads.float() / accum
         shard = zs.grad_shard(grads)
+        if poison is not None:
+            nan = poison(state)
+            loss = loss + nan
+            shard.add_(nan)
         norm = zs.global_norm(shard)
-        zs.optimizer.step(zs.split(shard), norm)
+        bad = guard.flag(loss, norm) if guard is not None else None
+        zs.optimizer.step(zs.split(shard), norm, None if bad is None else ~bad)
         zs.all_gather_params()
         metrics = {"loss": loss, "grad_norm": norm, "tokens": float(batch.numel() * group.size)}
+        if guard is not None:
+            guard.advance(bad, loss, norm)
+            metrics["anomaly"] = bad
         if schedule is not None:
             metrics["learning_rate"] = schedule(state.step)
         state.step += 1

@@ -28,13 +28,26 @@ and column sums, one all-reduce of one small buffer over the data group
 completes them (with the per-leaf sums of squared params that
 ``scale_by_param_block_rms`` needs), and every rank then holds the factored
 statistics whole, as JAX replicates them.
+
+The count is a 0-d int32 tensor on the params' device, as optax keeps it
+in the optimizer state, and no step reads it on the host: a schedule
+evaluated on it and Adafactor's decay are float32 arithmetic on the
+device in optax's order; AdamW's bias corrections are taken in float64,
+rounded once to float32 and applied as reciprocals, the rounding the
+port's host-side corrections had on the card. ``step(..., keep)`` takes
+a 0-d bool tensor (the anomaly guard's verdict, ``resilience/anomaly.py``):
+every write of the update (params, moments, statistics, the count) takes
+the new value where it is true and keeps the old one where it is false,
+inside the same passes (one more read of each state tensor, and a select
+of each params delta), so a flagged step changes nothing and costs no host
+sync.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import re
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -44,7 +57,9 @@ from torch import nn
 from zero_transformer_tpu_torch.config import OptimizerConfig
 from zero_transformer_tpu_torch.parallel.sharding import Segment
 
-Schedule = Callable[[int], float]
+# count -> learning rate: a host int gives a float, a 0-d int tensor a 0-d
+# float32 tensor on its device (or a float where the schedule is constant)
+Schedule = Callable[[Union[int, torch.Tensor]], Union[float, torch.Tensor]]
 CHUNK = 1 << 24  # elements AdamW updates at a time
 
 
@@ -52,8 +67,11 @@ def _linear(init: float, end: float, steps: int) -> Schedule:
     if steps <= 0:  # optax: a constant schedule at init_value
         return lambda count: init
 
-    def schedule(count: int) -> float:
-        frac = 1 - min(max(count, 0), steps) / steps
+    def schedule(count):
+        if isinstance(count, torch.Tensor):  # optax's order, in float32
+            frac = 1 - torch.clamp(count, 0, steps) / steps
+        else:
+            frac = 1 - min(max(count, 0), steps) / steps
         return (init - end) * frac + end
 
     return schedule
@@ -63,7 +81,10 @@ def _cosine(init: float, decay_steps: int, alpha: float) -> Schedule:
     if not decay_steps > 0:
         raise ValueError(f"the cosine decay needs positive decay_steps, got {decay_steps}")
 
-    def schedule(count: int) -> float:
+    def schedule(count):
+        if isinstance(count, torch.Tensor):  # optax's order, in float32
+            cosine = 0.5 * (1 + torch.cos(math.pi * torch.clamp(count, max=decay_steps) / decay_steps))
+            return init * ((1 - alpha) * cosine + alpha)
         decayed = (1 - alpha) * 0.5 * (1 + math.cos(math.pi * min(count, decay_steps) / decay_steps)) + alpha
         return init * decayed
 
@@ -71,12 +92,18 @@ def _cosine(init: float, decay_steps: int, alpha: float) -> Schedule:
 
 
 def _join(first: Schedule, second: Schedule, boundary: int) -> Schedule:
-    return lambda count: first(count) if count < boundary else second(count - boundary)
+    def schedule(count):
+        if isinstance(count, torch.Tensor):
+            return torch.where(count < boundary, first(count), second(count - boundary))
+        return first(count) if count < boundary else second(count - boundary)
+
+    return schedule
 
 
 def make_schedule(cfg: OptimizerConfig) -> Schedule:
-    """Step count -> learning rate. ``warmup_cosine`` is 0 at count 0, so
-    the first step changes no weights, as in JAX."""
+    """Step count -> learning rate, on a host int or on the optimizer's
+    count tensor. ``warmup_cosine`` is 0 at count 0, so the first step
+    changes no weights, as in JAX."""
     peak, end, warmup = cfg.peak_learning_rate, cfg.end_learning_rate, cfg.warmup_steps
     if cfg.schedule == "constant":
         return lambda count: peak
@@ -111,10 +138,26 @@ def _clip(g: torch.Tensor, trigger: torch.Tensor, g_norm: torch.Tensor, clip: fl
     return torch.where(trigger, g, (g / g_norm) * clip)
 
 
+def _write(dst: torch.Tensor, new: torch.Tensor, keep: Optional[torch.Tensor]) -> None:
+    """``dst <- new``, or ``dst <- where(keep, new, dst)`` under the guard."""
+    if keep is None:
+        dst.copy_(new)
+    else:
+        torch.where(keep, new, dst, out=dst)
+
+
+def _add(dst: torch.Tensor, delta: torch.Tensor, keep: Optional[torch.Tensor]) -> None:
+    """``dst += delta``; under the guard ``dst += where(keep, delta, -0.0)``:
+    x + -0.0 is x for every x, so a dropped update writes the same bits."""
+    dst.add_(delta if keep is None else torch.where(keep, delta, -0.0))
+
+
 class Optimizer:
     """What the three optimizers share: the params they update in place,
-    the config, the schedule and the count (0 at the start; an update's
-    learning rate is ``schedule(count)``), and the state as the ZeRO layer
+    the config, the schedule and the count (a 0-d int32 tensor on the
+    params' device, 0 at the start; an update's learning rate is
+    ``schedule(count)``; it is not part of ``tensors()``, the checkpoint
+    holds it as ``opt_count``), and the state as the ZeRO layer
     saves it. ``elementwise`` maps a state key to one tensor per param (a
     tensor without elements where that param holds none of it),
     ``elementwise_leaves`` names the leaves those keys cover (None: all)
@@ -123,7 +166,7 @@ class Optimizer:
 
     def __init__(self, params: List[torch.Tensor], cfg: OptimizerConfig, schedule: Schedule):
         self.params, self.cfg, self.schedule = params, cfg, schedule
-        self.count = 0
+        self.count = torch.zeros((), dtype=torch.int32, device=params[0].device)
         self.elementwise: Dict[str, List[torch.Tensor]] = {}
         self.elementwise_leaves: Optional[set] = None
         self.replicated: Dict[str, torch.Tensor] = {}
@@ -132,12 +175,14 @@ class Optimizer:
         """Every tensor of state this rank holds."""
         return [t for parts in self.elementwise.values() for t in parts] + list(self.replicated.values())
 
-    def step(self, grads: List[torch.Tensor], norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def step(self, grads: List[torch.Tensor], norm: Optional[torch.Tensor] = None,
+             keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Clip ``grads`` (one per param) by the global norm, take one step,
         and return the norm of the unclipped grads (a 0-d float32 tensor).
         ``norm`` None computes it from ``grads``; a sharded step passes the
         norm of the whole grads (JAX ``ZeroCollectives.shard_norm``,
-        ``zero.py:414``)."""
+        ``zero.py:414``). ``keep`` (a 0-d bool tensor) false leaves the
+        params, the state and the count as they were."""
         raise NotImplementedError
 
 
@@ -158,12 +203,18 @@ class AdamW(Optimizer):
         self.elementwise = {"mu": self.mu, "nu": self.nu}
 
     @torch.no_grad()
-    def step(self, grads: List[torch.Tensor], norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def step(self, grads: List[torch.Tensor], norm: Optional[torch.Tensor] = None,
+             keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         g_norm = _global_norm(grads, norm)
         trigger = g_norm < cfg.grad_clip
-        count_inc = self.count + 1
-        bc1, bc2 = 1 - cfg.b1**count_inc, 1 - cfg.b2**count_inc
+        # the corrections in float64 from the device count, rounded once to
+        # float32 and applied as a reciprocal: the rounding a host-scalar
+        # correction gets on the card, so the port's trajectories stay as
+        # they were (optax divides by a float32 correction, an ulp away)
+        count_inc = (self.count + 1).double()
+        inv_bc1 = torch.reciprocal((1 - cfg.b1**count_inc).float())
+        inv_bc2 = torch.reciprocal((1 - cfg.b2**count_inc).float())
         step_size = -self.schedule(self.count)
         for p, g, mu, nu, decay in zip(self.params, grads, self.mu, self.nu, self.decay):
             # views: the updates land in place (a non-contiguous tensor raises)
@@ -172,13 +223,13 @@ class AdamW(Optimizer):
             for s in range(0, p.numel(), CHUNK):
                 pc, mc, nc = p[s:s + CHUNK], mu[s:s + CHUNK], nu[s:s + CHUNK]
                 gc = _clip(g[s:s + CHUNK], trigger, g_norm, cfg.grad_clip)
-                mc.copy_((1 - cfg.b1) * gc + cfg.b1 * mc)
-                nc.copy_((1 - cfg.b2) * torch.square(gc) + cfg.b2 * nc)
-                update = (mc / bc1) / (torch.sqrt(nc / bc2) + cfg.eps)
+                _write(mc, (1 - cfg.b1) * gc + cfg.b1 * mc, keep)
+                _write(nc, (1 - cfg.b2) * torch.square(gc) + cfg.b2 * nc, keep)
+                update = (mc * inv_bc1) / (torch.sqrt(nc * inv_bc2) + cfg.eps)
                 if decay:
                     update = update + cfg.weight_decay * pc
-                pc.add_(step_size * update)
-        self.count = count_inc
+                _add(pc, step_size * update, keep)
+        _write(self.count, self.count + 1, keep)
         return g_norm
 
 
@@ -198,7 +249,8 @@ class Lion(Optimizer):
         self.elementwise = {"mu": self.mu}
 
     @torch.no_grad()
-    def step(self, grads: List[torch.Tensor], norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def step(self, grads: List[torch.Tensor], norm: Optional[torch.Tensor] = None,
+             keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         g_norm = _global_norm(grads, norm)
         trigger = g_norm < cfg.grad_clip
@@ -211,9 +263,9 @@ class Lion(Optimizer):
                 update = torch.sign((1.0 - cfg.b1) * gc + cfg.b1 * mc)
                 if decay:
                     update = update + cfg.weight_decay * pc
-                pc.add_(step_size * update)
-                mc.copy_((1.0 - cfg.b2) * gc + cfg.b2 * mc)
-        self.count += 1
+                _add(pc, step_size * update, keep)
+                _write(mc, (1.0 - cfg.b2) * gc + cfg.b2 * mc, keep)
+        _write(self.count, self.count + 1, keep)
         return g_norm
 
 
@@ -374,12 +426,13 @@ class Adafactor(Optimizer):
         return [*self.v, self.vrc]
 
     @torch.no_grad()
-    def step(self, grads: List[torch.Tensor], norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def step(self, grads: List[torch.Tensor], norm: Optional[torch.Tensor] = None,
+             keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         g_norm = _global_norm(grads, norm)
         trigger = g_norm < cfg.grad_clip
         # optax's power decay in float32: 1 - (count + 1)^-0.8
-        decay_t = float(np.float32(1.0) - np.float32(self.count + 1) ** np.float32(-AF_DECAY_RATE))
+        decay_t = 1.0 - (self.count + 1).float() ** -AF_DECAY_RATE
         lr = self.schedule(self.count)
         # partial sums: the factored statistics, then each rms group's sum of p^2
         acc = torch.zeros(self.n_stats + self.n_groups, dtype=torch.float32, device=self.vrc.device)
@@ -399,7 +452,7 @@ class Adafactor(Optimizer):
         if self.all_reduce is not None:
             self.all_reduce(acc)
         mean = acc[:self.n_stats] / self.denom
-        self.vrc.copy_(decay_t * self.vrc + (1.0 - decay_t) * mean)
+        _write(self.vrc, decay_t * self.vrc + (1.0 - decay_t) * mean, keep)
         v_row = self.vrc[:self.n_row]
         row_mean = torch.zeros_like(self.row_len).index_add_(0, self.row_leaf, v_row) / self.row_len
         # aligned with vrc: the row factors, then the column factors
@@ -418,14 +471,14 @@ class Adafactor(Optimizer):
                     u = rows * rf[first:first + n, None] * cf[None, :]
                 u = u.reshape(-1)[head:head + seg.numel]
             else:
-                v.copy_(decay_t * v + (1.0 - decay_t) * (gc * gc + AF_EPS))
+                _write(v, decay_t * v + (1.0 - decay_t) * (gc * gc + AF_EPS), keep)
                 u = gc * v ** -0.5
             u = -((u * lr) * rms[self.group[seg.name]])
             pf = p.view(-1)
             if seg.decay:  # _lr_coupled_decay
                 u = u - (lr * cfg.weight_decay) * pf
-            pf.add_(u)
-        self.count += 1
+            _add(pf, u, keep)
+        _write(self.count, self.count + 1, keep)
         return g_norm
 
 
