@@ -152,7 +152,7 @@ def zero_cases(mesh, cases: dict) -> dict:
     for name, c in cases.items():
         m = mesh if (c["data"], c["sequence"]) == (mesh.data.size, mesh.sequence.size) else \
             make_mesh(c["data"], c["sequence"], "gloo", mesh.device)
-        model = Transformer(tconfig.model_config("test", **c["model"]), device="cpu")
+        model = Transformer(tconfig.model_config(c.get("zoo", "test"), **c["model"]), device="cpu")
         model.load_state_dict({n: torch.from_numpy(p) for n, p in c["params"].items()})
         model.requires_grad_(True).set_sequence_group(m.sequence)
         opt_cfg = tconfig.OptimizerConfig(**c["opt"])
@@ -175,6 +175,32 @@ def zero_cases(mesh, cases: dict) -> dict:
                          persistent_bytes=state.shards.persistent_bytes(),
                          diverged=None if audit is None else audit())
     return out
+
+
+def ring_loss_grads(mesh, cases: dict) -> dict:
+    """Every case's model (``zoo`` with ``model`` overrides) on a ring of
+    all the world's ranks: this rank's share of the loss and its grads by
+    name, for the full rows ``tokens``."""
+    from zero_transformer_tpu_torch import config as tconfig
+    from zero_transformer_tpu_torch.models.gpt import Transformer
+    from zero_transformer_tpu_torch.parallel.mesh import make_mesh
+
+    ring = make_mesh(1, mesh.world_size, "gloo", mesh.device).sequence
+    out = {}
+    for name, c in cases.items():
+        model = Transformer(tconfig.model_config(c["zoo"], **c["model"]), device="cpu", seq_group=ring)
+        model.load_state_dict({n: torch.from_numpy(p) for n, p in c["params"].items()})
+        model.requires_grad_(True)
+        t = torch.from_numpy(c["tokens"])
+        _, loss = model(t, labels=t, train=True)
+        grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+        out[name] = (loss.item(), {n: g.numpy() for (n, _), g in zip(model.named_parameters(), grads)})
+    return out
+
+
+def llama_world(mesh, payload: dict) -> dict:
+    """The Llama file's one world: ``zero_cases`` and ``ring_loss_grads``."""
+    return {"zero": zero_cases(mesh, payload["zero"]), "ring": ring_loss_grads(mesh, payload["ring"])}
 
 
 def trainer_run(mesh, c: dict) -> dict:

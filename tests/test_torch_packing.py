@@ -138,7 +138,8 @@ def test_separator_is_validated_as_in_jax():
         tconfig.model_config("test", doc_sep_token=256)
     with pytest.raises(ValueError, match="relative position"):
         tconfig.ModelConfig(position="learned", doc_sep_token=0)
-    # the MoE and Llama byte variants stay unported
-    for name in ("byte_2m_moe", "byte_2m_llama"):
-        with pytest.raises(ValueError, match="model name"):
-            tconfig.model_config(name)
+    # the MoE byte variant stays unported; the Llama one is ported and packs
+    with pytest.raises(ValueError, match="model name"):
+        tconfig.model_config("byte_2m_moe")
+    llama = tconfig.model_config("byte_2m_llama")
+    assert (llama.doc_sep_token, llama.position, llama.tie_embeddings) == (0, "rope", False)

@@ -51,7 +51,9 @@ def resolve_device(device="cuda") -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyperparameters of the GPT-2/ALiBi family the slice serves."""
+    """Architecture hyperparameters: the GPT-2/ALiBi family and the Llama
+    family (RoPE, RMSNorm, SwiGLU, GQA, an untied head), and learned
+    absolute positions, as JAX's ``ModelConfig`` has them."""
 
     name: str = "test"
     vocab_size: int = 256
@@ -60,18 +62,21 @@ class ModelConfig:
     n_layers: int = 2
     max_seq_len: int = 32
     dropout: float = 0.0
-    position: str = "alibi"
+    position: str = "alibi"  # "alibi" | "rope" | "learned"
+    rope_theta: float = 10000.0
     n_kv_heads: Optional[int] = None  # GQA; None -> MHA
     head_dim: Optional[int] = None  # None -> d_model // n_heads
-    d_ff: Optional[int] = None  # None -> 4 * d_model
-    activation: str = "gelu"
-    norm: str = "layernorm"
+    d_ff: Optional[int] = None  # None -> 4 * d_model (gelu) or 8/3 * d_model (swiglu)
+    activation: str = "gelu"  # "gelu" | "swiglu"
+    norm: str = "layernorm"  # "layernorm" | "rmsnorm"
     tie_embeddings: bool = True
     # the JAX param layout only: the converter reads both, the port's
     # modules are the same either way
     scan_layers: bool = True
     # checkpoint each block (torch.utils.checkpoint, JAX's jax.checkpoint per
-    # block): its forward runs again in the backward. Policy "none" only
+    # block): its forward runs again in the backward, except what the
+    # policy saves: "none" nothing, "dots" every projection's output,
+    # "qkv_mlp" q, k, v and the MLP's wi/gate outputs (models/gpt.py)
     remat: bool = False
     remat_policy: str = "none"
     attention_impl: str = "auto"  # "auto" | "xla" (plain torch) | "flash"
@@ -100,21 +105,36 @@ class ModelConfig:
 
     @property
     def ff_dim(self) -> int:
-        return self.d_ff if self.d_ff is not None else 4 * self.d_model
+        if self.d_ff is not None:
+            return self.d_ff
+        if self.activation == "swiglu":
+            # about the params of the 4x gelu MLP: 2/3 * 4 * d, rounded up to 128
+            return ((8 * self.d_model // 3) + 127) // 128 * 128
+        return 4 * self.d_model
 
     @property
     def num_params(self) -> int:
-        """Parameter count (the tied embedding once), JAX's formula."""
+        """Parameter count, JAX's formula: three MLP matrices under SwiGLU,
+        the token table once when tied and twice (with the head) when not.
+        Like JAX's, it leaves out the learned position table."""
         d, f, L, v = self.d_model, self.ff_dim, self.n_layers, self.vocab_size
         h, kv, hd = self.n_heads, self.kv_heads, self.head_width
-        per_layer = d * h * hd + 2 * d * kv * hd + h * hd * d + 2 * d * f + 2 * d
-        return L * per_layer + v * d + d
+        attn = d * h * hd + 2 * d * kv * hd + h * hd * d
+        mlp = (3 if self.activation == "swiglu" else 2) * d * f
+        per_layer = attn + mlp + 2 * d
+        return L * per_layer + v * d * (1 if self.tie_embeddings else 2) + d
 
     def __post_init__(self):
         if self.d_model % self.n_heads and self.head_dim is None:
             raise ValueError("d_model must be divisible by n_heads")
         if self.n_kv_heads is not None and self.n_heads % self.n_kv_heads:
             raise ValueError("n_heads must be divisible by n_kv_heads")
+        if self.position not in ("alibi", "rope", "learned"):
+            raise ValueError(f"invalid position {self.position!r}")
+        if self.activation not in ("gelu", "swiglu"):
+            raise ValueError(f"invalid activation {self.activation!r}")
+        if self.norm not in ("layernorm", "rmsnorm"):
+            raise ValueError(f"invalid norm {self.norm!r}")
         # JAX config.py:159-170: packing needs a relative position scheme,
         # and a separator outside the vocab could never appear
         if self.doc_sep_token is not None and self.position == "learned":
@@ -127,14 +147,6 @@ class ModelConfig:
                 f"doc_sep_token {self.doc_sep_token} outside vocab [0, {self.vocab_size}): "
                 "the separator could never appear, silently disabling document masking"
             )
-        # the slice ports the GPT-2/ALiBi block only; the Llama variants
-        # (rope, rmsnorm, swiglu) and learned positions come with a later slice
-        if self.position != "alibi":
-            raise NotImplementedError(f"position {self.position!r} is not ported yet")
-        if self.activation != "gelu" or self.norm != "layernorm":
-            raise NotImplementedError("only gelu + layernorm blocks are ported yet")
-        if not self.tie_embeddings:
-            raise NotImplementedError("only tied embeddings are ported yet")
         if self.attention_impl not in ("auto", "xla", "flash"):
             raise ValueError(f"invalid attention_impl {self.attention_impl!r}")
         if self.kv_cache_dtype not in ("auto", "int8"):
@@ -143,11 +155,6 @@ class ModelConfig:
             raise ValueError(f"invalid param_quant {self.param_quant!r}")
         if self.remat_policy not in ("none", "dots", "qkv_mlp"):
             raise ValueError(f"invalid remat_policy {self.remat_policy!r}")
-        if self.remat and self.remat_policy != "none":
-            raise NotImplementedError(
-                f"remat_policy {self.remat_policy!r} is not ported yet: remat saves nothing "
-                "inside a block (policy 'none')"
-            )
         if self.cp_impl not in ("ring", "ulysses"):
             raise ValueError(f"invalid cp_impl {self.cp_impl!r}")
         if self.cp_impl == "ulysses":
@@ -185,8 +192,8 @@ class ServingConfig:
             raise ValueError("serving.page_pool_tokens must be >= 0 and a multiple of page_size")
 
 
-# The GPT-2/ALiBi entries of configs/models.yaml, as Python data (the MoE
-# and Llama variants byte_2m_moe / byte_2m_llama are not ported).
+# The dense entries of configs/models.yaml, as Python data (the MoE
+# entries moe_1b, moe_test and byte_2m_moe are not ported).
 MODEL_ZOO = {
     "test": dict(d_model=64, vocab_size=256, n_heads=4, max_seq_len=32, dropout=0.1, n_layers=2),
     "125m": dict(d_model=768, vocab_size=50304, n_heads=12, max_seq_len=1024, dropout=0.0, n_layers=12),
@@ -202,6 +209,15 @@ MODEL_ZOO = {
                      doc_sep_token=0),
     "byte_2m": dict(d_model=192, vocab_size=256, n_heads=6, max_seq_len=512, dropout=0.0, n_layers=3,
                     doc_sep_token=0),
+    # the Llama family: RoPE, RMSNorm, SwiGLU, GQA, an untied head
+    "llama3_8b": dict(d_model=4096, vocab_size=128256, n_heads=32, n_kv_heads=8, max_seq_len=8192, dropout=0.0,
+                      n_layers=32, d_ff=14336, position="rope", rope_theta=500000.0, activation="swiglu",
+                      norm="rmsnorm", tie_embeddings=False),
+    "llama3_test": dict(d_model=64, vocab_size=256, n_heads=4, n_kv_heads=2, max_seq_len=32, dropout=0.0,
+                        n_layers=2, position="rope", activation="swiglu", norm="rmsnorm", tie_embeddings=False),
+    "byte_2m_llama": dict(d_model=192, vocab_size=256, n_heads=6, n_kv_heads=2, max_seq_len=512, dropout=0.0,
+                          n_layers=3, position="rope", activation="swiglu", norm="rmsnorm", tie_embeddings=False,
+                          doc_sep_token=0),
 }
 
 

@@ -3,7 +3,10 @@
 The counterpart is the param layout of ``zero_transformer_tpu/models/gpt.py``:
 ``wte/embedding`` ``[V, d]``; per block ``ln_attn/scale``,
 ``attn/{query,key,value,out}/kernel`` and ``mlp/{wi,wo}/kernel`` (``[in,
-out]`` kernels), ``ln_mlp/scale``; ``ln_f/scale``. Blocks are either
+out]`` kernels; SwiGLU adds ``mlp/gate/kernel``), ``ln_mlp/scale`` (the
+LayerNorm's or the RMSNorm's); ``ln_f/scale``; learned positions add
+``wpe/embedding`` ``[max_seq_len, d]``, an untied head ``lm_head/kernel``
+``[d, V]`` (the port's ``lm_head.weight`` ``[V, d]``). Blocks are either
 scan-stacked under ``blocks/...`` with a leading ``[n_layers]`` axis
 (``gpt.py:621-630``) or unscanned under ``block_<i>/...``.
 
@@ -17,8 +20,9 @@ imports JAX.
 A weight-only int8 tree (``models/quant.py::quantize_params``, JAX's
 layout) converts too: a Dense's ``kernel_q`` ``[in, out]`` int8 and
 ``scale`` ``[out]`` become ``weight_q`` ``[out, in]`` (still int8) and
-``scale``; ``wte/embedding_q`` and ``wte/scale`` become ``wte.embedding_q``
-and ``wte.scale``. Float leaves come out float32, int8 leaves stay int8.
+``scale`` (``lm_head`` and ``gate`` alike); ``wte/embedding_q`` and
+``wte/scale`` become ``wte.embedding_q`` and ``wte.scale``. Float leaves
+come out float32, int8 leaves stay int8.
 
 To write the ``.npz`` that ``serve --params`` reads, on a machine with JAX::
 
@@ -38,7 +42,7 @@ import numpy as np
 import torch
 
 _DENSE = (("attn", "query"), ("attn", "key"), ("attn", "value"), ("attn", "out"),
-          ("mlp", "wi"), ("mlp", "wo"))
+          ("mlp", "wi"), ("mlp", "gate"), ("mlp", "wo"))  # gate: SwiGLU blocks only
 _NORMS = ("ln_attn", "ln_mlp")
 
 
@@ -74,18 +78,21 @@ def _layer(stacked: Mapping[str, Any], i: int) -> Dict[str, Any]:
     }
 
 
+def _dense_state(leaves: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    """A flax Dense's leaves -> the port's: kernel ``[in, out]`` -> weight
+    ``[out, in]``, or int8 ``kernel_q`` + ``scale`` -> ``weight_q`` + ``scale``."""
+    if "kernel_q" in leaves:
+        return {f"{prefix}.weight_q": np.asarray(leaves["kernel_q"]).T, f"{prefix}.scale": np.asarray(leaves["scale"])}
+    return {f"{prefix}.weight": np.asarray(leaves["kernel"]).T}
+
+
 def _block_state(block: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
     out = {}
     for norm in _NORMS:
         out[f"{prefix}.{norm}.scale"] = np.asarray(block[norm]["scale"])
     for mod, name in _DENSE:
-        leaves = block[mod][name]
-        # flax kernel [in, out] -> torch weight [out, in]
-        if "kernel_q" in leaves:
-            out[f"{prefix}.{mod}.{name}.weight_q"] = np.asarray(leaves["kernel_q"]).T
-            out[f"{prefix}.{mod}.{name}.scale"] = np.asarray(leaves["scale"])
-        else:
-            out[f"{prefix}.{mod}.{name}.weight"] = np.asarray(leaves["kernel"]).T
+        if name in block[mod]:
+            out.update(_dense_state(block[mod][name], f"{prefix}.{mod}.{name}"))
     return out
 
 
@@ -109,8 +116,10 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     else:
         state = {"wte.embedding": np.asarray(wte["embedding"])}
     state["ln_f.scale"] = np.asarray(tree["ln_f"]["scale"])
+    if "wpe" in tree:
+        state["wpe.embedding"] = np.asarray(tree["wpe"]["embedding"])
     if "lm_head" in tree:
-        raise NotImplementedError("untied heads are not ported yet")
+        state.update(_dense_state(tree["lm_head"], "lm_head"))
     if "blocks" in tree:
         stacked = tree["blocks"]
         n_layers = np.asarray(stacked["ln_attn"]["scale"]).shape[0]
@@ -140,6 +149,12 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         flat["wte/embedding_q"], flat["wte/scale"] = arr(state["wte.embedding_q"]), arr(state["wte.scale"])
     else:
         flat["wte/embedding"] = arr(state["wte.embedding"])
+    if "wpe.embedding" in state:
+        flat["wpe/embedding"] = arr(state["wpe.embedding"])
+    if "lm_head.weight_q" in state:
+        flat["lm_head/kernel_q"], flat["lm_head/scale"] = arr(state["lm_head.weight_q"]).T, arr(state["lm_head.scale"])
+    elif "lm_head.weight" in state:
+        flat["lm_head/kernel"] = arr(state["lm_head.weight"]).T
     n_layers = 1 + max(int(k.split(".")[1]) for k in state if k.startswith("blocks."))
 
     def stack(suffix: str, transpose: bool = False) -> np.ndarray:
@@ -152,7 +167,7 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         if f"blocks.0.{mod}.{name}.weight_q" in state:
             flat[f"blocks/{mod}/{name}/kernel_q"] = stack(f"{mod}.{name}.weight_q", transpose=True)
             flat[f"blocks/{mod}/{name}/scale"] = stack(f"{mod}.{name}.scale")
-        else:
+        elif f"blocks.0.{mod}.{name}.weight" in state:
             flat[f"blocks/{mod}/{name}/kernel"] = stack(f"{mod}.{name}.weight", transpose=True)
     return flat
 

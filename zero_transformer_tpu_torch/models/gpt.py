@@ -1,22 +1,37 @@
-"""Decoder-only transformer LM (GPT-2 block with ALiBi), in PyTorch.
+"""Decoder-only transformer LM (the GPT-2/ALiBi and Llama blocks), in PyTorch.
 
 Counterpart of ``zero_transformer_tpu/models/gpt.py``: ``Attention`` (:157),
-``MLP`` (:416), ``Block`` (:448), ``Transformer`` (:497) with the tied head.
-Ported: the full-sequence forward, with the next-token loss for training
-(``forward(tokens, labels, train=True)``, JAX ``Transformer.__call__``
-:512-684), the chunked loss for ``loss_chunk`` models (``(None, loss)``,
-:651-668: the ``[B, T, vocab]`` logits never exist), dropout in training
-(:413, :445, :605), packed documents for ``doc_sep_token`` models
-(``doc_ids_from_tokens`` and ``mask_boundary_labels``, :63-81: the ids ride
-through every block into the attention, and the loss skips each document's
-first label), and the PAGED decode variant the serving engine runs, which
-never packs. Params are built with ``requires_grad=False`` (serving runs
-under ``no_grad``); the trainer turns them on with ``requires_grad_(True)``.
+``MLP`` (:416), ``Block`` (:448), ``Transformer`` (:497), the norms
+(``_norm`` :120), the untied ``LMHead`` (:132) and the remat policies
+(``resolve_remat_policy`` :95). Ported: the full-sequence forward, with the
+next-token loss for training (``forward(tokens, labels, train=True)``, JAX
+``Transformer.__call__`` :512-684), the chunked loss for ``loss_chunk``
+models (``(None, loss)``, :651-668: the ``[B, T, vocab]`` logits never
+exist), dropout in training (:413, :445, :605), packed documents for
+``doc_sep_token`` models (``doc_ids_from_tokens`` and
+``mask_boundary_labels``, :63-81: the ids ride through every block into the
+attention, and the loss skips each document's first label), and the PAGED
+decode variant the serving engine runs, which never packs. Params are built
+with ``requires_grad=False`` (serving runs under ``no_grad``); the trainer
+turns them on with ``requires_grad_(True)``. The config picks the block:
+
+- ``position``: "alibi" (the bias inside the attention kernels), "rope"
+  (q and k rotated at their positions, ``ops/positions.py::apply_rope``;
+  the paged cache stores rotated keys) or "learned" (a ``wpe`` table
+  ``[max_seq_len, d]`` added to the token embedding);
+- ``norm``: "layernorm" or "rmsnorm"; ``activation``: "gelu" or "swiglu"
+  (``silu(gate(x)) * wi(x)``, then ``wo``);
+- ``n_kv_heads`` < ``n_heads``: grouped-query attention (the kernels take
+  the groups themselves);
+- ``tie_embeddings`` False: an untied head ``lm_head`` (a bias-free Dense,
+  ``[vocab, d]`` here, JAX's ``[d, vocab]`` kernel transposed).
+
 Numerics follow flax where it matters:
 
 - bias-free LayerNorm with eps 1e-6 (flax's default, not torch's 1e-5),
   statistics in float32 as E[x^2] - E[x]^2 clipped at 0, scale in float32,
-  result in the compute dtype;
+  result in the compute dtype; RMSNorm the same without the mean:
+  ``x * (rsqrt(E[x^2] + 1e-6) * scale)``;
 - ``nn.gelu`` is the tanh approximation;
 - ``nn.Dense`` computes in the compute dtype from float32 params. Flax casts
   the params on every call; ``cast_for_inference`` casts the Dense and
@@ -25,9 +40,11 @@ Numerics follow flax where it matters:
   so the tied table gets gradient from both the lookup and the head;
 - training keeps the float32 master params: every Dense and the embedding
   cast per call, and autograd carries the grads back to float32;
-- ``param_quant="int8"`` swaps every Dense and the token table for their
-  weight-only int8 counterparts (``models/quant.py``, JAX ``_dense`` :43-60
-  and ``Transformer`` :524-541), an inference-only configuration;
+- ``param_quant="int8"`` swaps every Dense (the untied head and the gate
+  included) and the token table for their weight-only int8 counterparts
+  (``models/quant.py``, JAX ``_dense`` :43-60 and ``Transformer``
+  :524-541), an inference-only configuration; ``wpe`` stays float, as in
+  JAX;
 - ``kv_cache_dtype="int8"`` stores the paged K/V as int8 with one float32
   scale per (token, kv head) (``_quantize_kv``, JAX :84-92), dequantized
   (int8 -> f32) * scale -> compute dtype wherever it is read;
@@ -43,6 +60,17 @@ Numerics follow flax where it matters:
   draw different masks and a resumed run draws the masks the uninterrupted
   run drew.
 
+``remat`` runs every block under ``torch.utils.checkpoint``; what its
+backward does not recompute follows ``remat_policy`` (JAX
+``resolve_remat_policy``): "none" saves nothing inside the block, "dots"
+saves every projection's output (``aten.mm``, JAX's
+``dots_with_no_batch_dims_saveable``), "qkv_mlp" only the outputs JAX names
+with ``checkpoint_name``: q, k and v before RoPE and the MLP's ``wi`` and
+``gate`` (torch's selective checkpointing, keyed on the name the projection
+runs under). The attention kernel's forward (K1) is recomputed under every
+policy, as the Pallas call is in JAX: two K1 launches a layer and a
+micro-step, one K2 and one K3.
+
 Layouts at the public surface are the JAX ones: q/k/v ``[B, T, H, D]``,
 page pools ``[n_pages, page, KVH, D]`` with page 0 the serving layer's trash
 page, block tables ``[B, n_blocks]`` int32.
@@ -52,23 +80,25 @@ Sequence parallelism (JAX ``Attention`` :392-401 under a mesh whose
 size n routes attention to ``ops/ring_attention.py``. Its ``forward`` takes
 the full row ``[B, T]``, which every rank of the group reads, computes the
 document ids, the boundary labels and the next-token shift on the whole
-row, and runs the rank's shard ``[r * T / n, (r + 1) * T / n)``: the local
-logits and the GLOBAL mean loss's share, (local CE sum) / (global count of
-labels), whose grads summed over the ranks are the grads of the mean. With
-``remat`` every block runs under ``torch.utils.checkpoint`` (JAX's
-``jax.checkpoint`` per block, policy "none"); its recompute runs the ring
-forward again, as JAX's does.
+row, and runs the rank's shard ``[r * T / n, (r + 1) * T / n)`` at those
+global positions (RoPE angles, learned positions): the local logits and
+the GLOBAL mean loss's share, (local CE sum) / (global count of labels),
+whose grads summed over the ranks are the grads of the mean. Under
+``remat`` the recompute runs the ring forward again, as JAX's does.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import threading
 from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from zero_transformer_tpu_torch.config import ModelConfig, resolve_dtype
 from zero_transformer_tpu_torch.models.quant import QuantDense, QuantEmbed
@@ -76,10 +106,11 @@ from zero_transformer_tpu_torch.ops import paged_attention as pa
 from zero_transformer_tpu_torch.ops.attention import dot_product_attention
 from zero_transformer_tpu_torch.ops.losses import (chunked_cross_entropy_sum, chunked_next_token_loss,
                                                    cross_entropy_sum, next_token_loss)
+from zero_transformer_tpu_torch.ops.positions import apply_rope
 from zero_transformer_tpu_torch.ops.ring_attention import ring_attention
 from zero_transformer_tpu_torch.parallel.mesh import SequenceGroup
 
-LN_EPS = 1e-6  # flax LayerNorm default
+LN_EPS = 1e-6  # flax LayerNorm and RMSNorm default
 _M64 = (1 << 64) - 1
 EMBED_SITE, ATTN_SITE, MLP_SITE = 0, 1, 2  # dropout sites; the embedding's layer is -1
 
@@ -116,6 +147,34 @@ def dropout(x: torch.Tensor, rate: float, seed: Optional[int]) -> torch.Tensor:
     gen.manual_seed(seed)
     keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+# the JAX checkpoint_name of the projection running now (selective remat)
+_NAME = threading.local()
+# the names remat_policy "qkv_mlp" saves (JAX resolve_remat_policy)
+QKV_MLP_NAMES = frozenset({"attn_q", "attn_k", "attn_v", "mlp_wi", "mlp_gate"})
+
+
+def _named(name: str, dense: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``dense(x)`` with its product tagged ``name`` for the remat policy
+    (JAX ``checkpoint_name``); outside a selective checkpoint it is ``dense(x)``."""
+    _NAME.current = name
+    try:
+        return dense(x)
+    finally:
+        _NAME.current = None
+
+
+def _save_policy(names: Optional[frozenset]):
+    """The selective checkpoint's policy: keep the output of every matrix
+    product (``names`` None, "dots") or of those run under one of ``names``
+    ("qkv_mlp"); recompute everything else."""
+    def policy(ctx, op, *args, **kwargs):
+        if op is torch.ops.aten.mm.default and (names is None or getattr(_NAME, "current", None) in names):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
 
 
 @dataclasses.dataclass
@@ -208,6 +267,19 @@ class LayerNorm(nn.Module):
         return y.to(self.compute_dtype)
 
 
+class RMSNorm(LayerNorm):
+    """flax ``RMSNorm``: LayerNorm's statistics without the mean."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        return (xf * (torch.rsqrt(ms + LN_EPS) * self.scale.float())).to(self.compute_dtype)
+
+
+def _norm(cfg: ModelConfig, device) -> LayerNorm:
+    return (RMSNorm if cfg.norm == "rmsnorm" else LayerNorm)(cfg.d_model, cfg, device)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -219,21 +291,28 @@ class Attention(nn.Module):
         self.out = _dense(H * D, d, cfg, device)
         self.seq_group: Optional[SequenceGroup] = None  # Transformer.set_sequence_group
 
-    def _qkv(self, x):
+    def _qkv(self, x, pos: torch.Tensor):
+        """q, k, v of ``x``; with RoPE, q and k rotated at ``pos`` (``[T]``
+        or ``[B, T]``)."""
         cfg = self.cfg
         B, T, _ = x.shape
-        q = self.query(x).reshape(B, T, cfg.n_heads, cfg.head_width)
-        k = self.key(x).reshape(B, T, cfg.kv_heads, cfg.head_width)
-        v = self.value(x).reshape(B, T, cfg.kv_heads, cfg.head_width)
+        q = _named("attn_q", self.query, x).reshape(B, T, cfg.n_heads, cfg.head_width)
+        k = _named("attn_k", self.key, x).reshape(B, T, cfg.kv_heads, cfg.head_width)
+        v = _named("attn_v", self.value, x).reshape(B, T, cfg.kv_heads, cfg.head_width)
+        if cfg.position == "rope":
+            q, k = apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta)
         return q, k, v
 
     def forward(self, x: torch.Tensor, doc_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, T, _ = x.shape
-        q, k, v = self._qkv(x)
+        # a sequence rank's shard starts at global position rank * T
+        first = 0 if self.seq_group is None else self.seq_group.rank * T
+        q, k, v = self._qkv(x, first + torch.arange(T, device=x.device))
+        alibi = self.cfg.position == "alibi"
         if self.seq_group is not None:
-            out = ring_attention(q, k, v, self.seq_group, causal=True, alibi=True, doc_ids=doc_ids)
+            out = ring_attention(q, k, v, self.seq_group, causal=True, alibi=alibi, doc_ids=doc_ids)
         else:
-            out = dot_product_attention(q, k, v, causal=True, alibi=True, doc_ids=doc_ids,
+            out = dot_product_attention(q, k, v, causal=True, alibi=alibi, doc_ids=doc_ids,
                                         impl=self.cfg.attention_impl)
         return self.out(out.reshape(B, T, -1))
 
@@ -241,15 +320,15 @@ class Attention(nn.Module):
         self, x: torch.Tensor, pools: KVPools, block_table: torch.Tensor, offsets: torch.Tensor,
     ) -> torch.Tensor:
         """Write this window's K/V through the block table (quantized for an
-        int8 cache), then attend over the row's cache. ``offsets`` [B] is
-        each row's first position."""
+        int8 cache; with RoPE, the rotated keys), then attend over the row's
+        cache. ``offsets`` [B] is each row's first position."""
         cfg = self.cfg
         B, T, _ = x.shape
-        q, k, v = self._qkv(x)
+        pos = offsets.long()[:, None] + torch.arange(T, device=x.device)  # [B, T]
+        q, k, v = self._qkv(x, pos)
         page = pools.k.shape[1]
         n_blocks = block_table.shape[1]
         cache_len = n_blocks * page
-        pos = offsets.long()[:, None] + torch.arange(T, device=x.device)  # [B, T]
         # out-of-range blocks clip to the last table entry: overflow is made
         # loud by the NaN poison below, and a parked row's zeroed table
         # routes its write to the trash page
@@ -265,6 +344,7 @@ class Attention(nn.Module):
             pools.k[page_ids, in_page] = k.to(pools.k.dtype)
             pools.v[page_ids, in_page] = v.to(pools.v.dtype)
         scales = dict(k_scale=pools.k_scale, v_scale=pools.v_scale)
+        alibi = cfg.position == "alibi"
         # writing past capacity poisons only the overflowing row's output
         overflow = (offsets + T > cache_len)[:, None, None, None]
         q = torch.where(overflow, torch.full((), math.nan, dtype=q.dtype, device=q.device),
@@ -274,26 +354,32 @@ class Attention(nn.Module):
             k_all, v_all, kv_valid = pa.gather_window(pools.k, pools.v, block_table, offsets, T,
                                                       dtype=q.dtype, **scales)
             out = dot_product_attention(
-                q, k_all, v_all, causal=True, alibi=True, q_offset=offsets,
+                q, k_all, v_all, causal=True, alibi=alibi, q_offset=offsets,
                 segment_ids=kv_valid, impl=cfg.attention_impl,
             )
         elif cfg.attention_impl == "xla":
-            out = pa.paged_reference(q, pools.k, pools.v, block_table, offsets, causal=T > 1, alibi=True,
+            out = pa.paged_reference(q, pools.k, pools.v, block_table, offsets, causal=T > 1, alibi=alibi,
                                      **scales)
         else:
-            out = pa.paged_attention(q, pools.k, pools.v, block_table, offsets, causal=T > 1, alibi=True,
+            out = pa.paged_attention(q, pools.k, pools.v, block_table, offsets, causal=T > 1, alibi=alibi,
                                      **scales)
         return self.out(out.reshape(B, T, -1))
 
 
 class MLP(nn.Module):
+    """``wo(gelu(wi(x)))``, or SwiGLU's ``wo(silu(gate(x)) * wi(x))``."""
+
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         self.wi = _dense(cfg.d_model, cfg.ff_dim, cfg, device)
+        self.gate = _dense(cfg.d_model, cfg.ff_dim, cfg, device) if cfg.activation == "swiglu" else None
         self.wo = _dense(cfg.ff_dim, cfg.d_model, cfg, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.wo(F.gelu(self.wi(x), approximate="tanh"))
+        h = _named("mlp_wi", self.wi, x)
+        if self.gate is not None:
+            return self.wo(F.silu(_named("mlp_gate", self.gate, x)) * h)
+        return self.wo(F.gelu(h, approximate="tanh"))
 
 
 class Block(nn.Module):
@@ -301,9 +387,9 @@ class Block(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        self.ln_attn = LayerNorm(cfg.d_model, cfg, device)
+        self.ln_attn = _norm(cfg, device)
         self.attn = Attention(cfg, device)
-        self.ln_mlp = LayerNorm(cfg.d_model, cfg, device)
+        self.ln_mlp = _norm(cfg, device)
         self.mlp = MLP(cfg, device)
 
     def forward(self, x: torch.Tensor, doc_ids: Optional[torch.Tensor] = None,
@@ -320,11 +406,14 @@ class Block(nn.Module):
 
 
 class Embed(nn.Module):
-    def __init__(self, cfg: ModelConfig, device):
+    """flax ``nn.Embed``: the token table ``[vocab, d]`` (``wte``), or the
+    learned position table ``[max_seq_len, d]`` (``wpe``, ``num``)."""
+
+    def __init__(self, cfg: ModelConfig, device, num: Optional[int] = None):
         super().__init__()
         self.compute_dtype = resolve_dtype(cfg.compute_dtype)
         self.embedding = nn.Parameter(
-            torch.empty(cfg.vocab_size, cfg.d_model, dtype=resolve_dtype(cfg.param_dtype), device=device),
+            torch.empty(num or cfg.vocab_size, cfg.d_model, dtype=resolve_dtype(cfg.param_dtype), device=device),
             requires_grad=False,
         )
 
@@ -344,8 +433,11 @@ class Transformer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.wte = QuantEmbed(cfg, device) if cfg.param_quant == "int8" else Embed(cfg, device)
+        # learned positions stay float under int8 weights, as in JAX
+        self.wpe = Embed(cfg, device, num=cfg.max_seq_len) if cfg.position == "learned" else None
         self.blocks = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
-        self.ln_f = LayerNorm(cfg.d_model, cfg, device)
+        self.ln_f = _norm(cfg, device)
+        self.lm_head = None if cfg.tie_embeddings else _dense(cfg.d_model, cfg.vocab_size, cfg, device)
         self.set_sequence_group(seq_group)
 
     def set_sequence_group(self, group: Optional[SequenceGroup]) -> "Transformer":
@@ -358,21 +450,28 @@ class Transformer(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "Transformer":
-        """The JAX init: normal(0.02) kernels and embedding, residual
-        projections (attention out, MLP wo) at 0.02 / sqrt(2 * n_layers),
-        LayerNorm scales at one. Draws from ``generator``, whose device must
-        be the model's. A weight-only int8 model has no float weights to draw:
-        initialise the float model, then ``quant.quantize_model``."""
+        """The JAX init: normal(0.02) kernels (the gate and the untied head
+        too) and embeddings, residual projections (attention out, MLP wo)
+        at 0.02 / sqrt(2 * n_layers), norm scales at one. Draws from
+        ``generator``, whose device must be the model's, in a fixed order
+        (a model without ``gate``, ``wpe`` or ``lm_head`` draws what it drew
+        before they existed). A weight-only int8 model has no float weights
+        to draw: initialise the float model, then ``quant.quantize_model``."""
         if self.cfg.param_quant != "none":
             raise ValueError("init_weights draws float weights: initialise a param_quant='none' model, "
                              "then quantize it with models.quant.quantize_model")
         resid_std = 0.02 / math.sqrt(2 * self.cfg.n_layers)
         self.wte.embedding.normal_(0.0, 0.02, generator=generator)
         for blk in self.blocks:
-            for dense in (blk.attn.query, blk.attn.key, blk.attn.value, blk.mlp.wi):
-                dense.weight.normal_(0.0, 0.02, generator=generator)
+            for dense in (blk.attn.query, blk.attn.key, blk.attn.value, blk.mlp.wi, blk.mlp.gate):
+                if dense is not None:
+                    dense.weight.normal_(0.0, 0.02, generator=generator)
             for dense in (blk.attn.out, blk.mlp.wo):
                 dense.weight.normal_(0.0, resid_std, generator=generator)
+        if self.wpe is not None:
+            self.wpe.embedding.normal_(0.0, 0.02, generator=generator)
+        if self.lm_head is not None:
+            self.lm_head.weight.normal_(0.0, 0.02, generator=generator)
         for mod in self.modules():
             if isinstance(mod, LayerNorm):
                 mod.scale.fill_(1.0)
@@ -395,13 +494,16 @@ class Transformer(nn.Module):
         return self
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
-        """Tied head: ``h @ wte.T`` in the compute dtype."""
-        return self.wte.attend(h)
+        """The head in the compute dtype: ``h @ wte.T`` tied, ``lm_head(h)``
+        untied."""
+        return self.wte.attend(h) if self.lm_head is None else self.lm_head(h)
 
     def head_weight(self) -> torch.Tensor:
-        """The tied head as ``[d, vocab]`` in the compute dtype (JAX's
-        ``w_dv``: the embedding transposed)."""
-        return self.wte.embedding.to(self.wte.compute_dtype).T
+        """The head as ``[d, vocab]`` in the compute dtype (JAX's ``w_dv``:
+        the embedding transposed, or the untied head's kernel)."""
+        if self.lm_head is None:
+            return self.wte.embedding.to(self.wte.compute_dtype).T
+        return self.lm_head.weight.to(self.lm_head.compute_dtype).T
 
     def forward(self, tokens: torch.Tensor, labels: Optional[torch.Tensor] = None,
                 train: bool = False, dropout_key: Optional[Tuple[int, ...]] = None):
@@ -425,11 +527,16 @@ class Transformer(nn.Module):
             if dropout_key is None:
                 raise ValueError("training with dropout > 0 needs a dropout_key (the masks' seed)")
             key = (*dropout_key, self.seq_group.rank if self.seq_group is not None else 0)
+        T = tokens.shape[1]
+        if self.wpe is not None and T > self.cfg.max_seq_len:
+            raise ValueError(f"sequence length {T} > max_seq_len {self.cfg.max_seq_len}: learned positions "
+                             "cannot extrapolate (use position='alibi' for that)")
         packed = self.cfg.doc_sep_token is not None
         doc_ids = doc_ids_from_tokens(tokens, self.cfg.doc_sep_token) if packed else None
         if self.seq_group is not None:
             return self._forward_shard(tokens, labels, doc_ids, key)
-        h = self.ln_f(self._blocks(self._embed(tokens, key), doc_ids, key))
+        h = self._embed(tokens, key, torch.arange(T, device=tokens.device))
+        h = self.ln_f(self._blocks(h, doc_ids, key))
         if labels is not None and self.cfg.loss_chunk:
             ignore = None
             if packed:
@@ -443,17 +550,35 @@ class Transformer(nn.Module):
             return logits, next_token_loss(logits, mask_boundary_labels(labels, doc_ids), ignore_index=-1)
         return logits, next_token_loss(logits, labels)
 
-    def _embed(self, tokens: torch.Tensor, key: Optional[Tuple[int, ...]]) -> torch.Tensor:
-        return dropout(self.wte(tokens), self.cfg.dropout,
-                       None if key is None else fold_seed(*key, -1, EMBED_SITE))
+    def _positions(self, pos: torch.Tensor) -> torch.Tensor:
+        """The learned position rows at ``pos``, clamped to the table: the
+        forwards refuse rows past ``max_seq_len`` and the engine requests
+        that would reach past it (as JAX's does), so only a prefill
+        window's padded tail reads a clamped row, whose K/V land on the
+        trash page and are never read."""
+        return self.wpe(torch.clamp(pos, 0, self.wpe.embedding.shape[0] - 1))
+
+    def _embed(self, tokens: torch.Tensor, key: Optional[Tuple[int, ...]], pos: torch.Tensor) -> torch.Tensor:
+        """Token embedding (plus the learned positions at ``pos``), then the
+        embedding's dropout."""
+        h = self.wte(tokens)
+        if self.wpe is not None:
+            h = h + self._positions(pos)
+        return dropout(h, self.cfg.dropout, None if key is None else fold_seed(*key, -1, EMBED_SITE))
 
     def _blocks(self, h: torch.Tensor, doc_ids: Optional[torch.Tensor],
                 key: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
-        remat = self.cfg.remat and torch.is_grad_enabled()
+        cfg = self.cfg
+        remat = cfg.remat and torch.is_grad_enabled()
+        context = noop_context_fn
+        if cfg.remat_policy != "none":
+            names = None if cfg.remat_policy == "dots" else QKV_MLP_NAMES
+            context = functools.partial(create_selective_checkpoint_contexts, _save_policy(names))
         for i, blk in enumerate(self.blocks):
-            drop = None if key is None else (self.cfg.dropout, fold_seed(*key, i, ATTN_SITE),
+            drop = None if key is None else (cfg.dropout, fold_seed(*key, i, ATTN_SITE),
                                              fold_seed(*key, i, MLP_SITE))
-            h = checkpoint(blk, h, doc_ids, drop, use_reentrant=False) if remat else blk(h, doc_ids, drop)
+            h = (checkpoint(blk, h, doc_ids, drop, use_reentrant=False, context_fn=context) if remat
+                 else blk(h, doc_ids, drop))
         return h
 
     def _forward_shard(self, tokens, labels, doc_ids, key):
@@ -470,8 +595,8 @@ class Transformer(nn.Module):
             raise ValueError(f"sequence length {T} not divisible by the sequence group's {group.size} ranks")
         t = T // group.size
         lo, hi = group.rank * t, (group.rank + 1) * t
-        h = self.ln_f(self._blocks(self._embed(tokens[:, lo:hi], key),
-                                   None if doc_ids is None else doc_ids[:, lo:hi], key))
+        h = self._embed(tokens[:, lo:hi], key, torch.arange(lo, hi, device=tokens.device))
+        h = self.ln_f(self._blocks(h, None if doc_ids is None else doc_ids[:, lo:hi], key))
         if labels is None:
             return self.logits(h)
         if doc_ids is not None:
@@ -493,8 +618,11 @@ class Transformer(nn.Module):
         """[B, T] tokens at positions ``offsets[b] + t`` -> final hidden states
         ``[B, T, d_model]`` (apply ``logits`` to the rows needed). Writes the
         window's K/V into ``pools`` in place. Decoding never packs (JAX
-        ``packed = ... and not self.decode``): a separator is a token."""
+        ``packed = ... and not self.decode``): a separator is a token.
+        Learned positions are each row's own (JAX's per-slot ``decode_pos``)."""
         h = self.wte(tokens)
+        if self.wpe is not None:
+            h = h + self._positions(offsets.long()[:, None] + torch.arange(tokens.shape[1], device=tokens.device))
         for blk, layer_pools in zip(self.blocks, pools):
             h = blk.forward_paged(h, layer_pools, block_table, offsets)
         return self.ln_f(h)

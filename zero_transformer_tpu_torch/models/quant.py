@@ -9,12 +9,16 @@ which is exact for per-output-channel scales (``x @ (q * s) == (x @ q) * s``).
 The port's weights are ``[out, in]`` (flax kernels transposed), so a Dense's
 ``weight_q`` is ``[out, in]`` int8 and its ``scale`` ``[out]``.
 
-Weights are quantized in one place, ``quantize_params`` on the host's numpy
-tree before any weight reaches the card (what ``serve --quantize int8`` and
-the eval CLI do, as in JAX), then converted by ``convert.params_from_jax``.
-``quantize_model`` takes a float32 port model already in memory (a seeded or
-a just-trained one) through that same route. MoE expert tensors do not occur
-in the port's zoo: ``quantize_params`` raises on them.
+The CLIs quantize with ``quantize_params`` on the host's numpy tree before
+any weight reaches the card (what ``serve --quantize int8`` and the eval CLI
+do, as in JAX), then convert with ``convert.params_from_jax``; every
+``kernel`` is quantized, the untied head's and SwiGLU's ``gate`` included,
+and ``wpe`` stays float, as in JAX. ``quantize_model`` takes a float32 port
+model already in memory (a seeded or a just-trained one) to the same int8
+values where its weights lie, one tensor at a time with ``quantize_rows``
+(bit-equal to ``quantize_array``: the same float32 divisions, rounded half
+to even): an 8B model's host tree would be several 32 GB copies. MoE expert
+tensors do not occur in the port's zoo: ``quantize_params`` raises on them.
 """
 from __future__ import annotations
 
@@ -37,6 +41,17 @@ def quantize_array(w, axis: int) -> Tuple[np.ndarray, np.ndarray]:
     scale = np.maximum(amax / 127.0, 1e-12).astype(np.float32)
     q = np.round(w / np.expand_dims(scale, axis)).astype(np.int8)
     return q, scale
+
+
+def quantize_rows(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``quantize_array`` over the last axis of a float32 tensor, on its
+    device: (int8 ``q``, float32 ``scale`` ``[rows]``). Both divisions are
+    tensor by tensor (on CUDA, division by a Python scalar is a reciprocal
+    multiply, which can miss numpy's correctly rounded quotient)."""
+    w = w.float()
+    amax = w.abs().amax(dim=-1)
+    scale = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-12)
+    return torch.round(w / scale[..., None]).to(torch.int8), scale
 
 
 def _convert(tree: Mapping[str, Any], path: tuple) -> Dict[str, Any]:
@@ -122,9 +137,10 @@ class QuantEmbed(nn.Module):
 @torch.no_grad()
 def quantize_model(model: nn.Module) -> nn.Module:
     """A float32 ``Transformer`` -> a new one with ``param_quant="int8"`` on
-    the same device, its weights through the host route: ``params_to_jax``,
-    ``quantize_params``, ``params_from_jax``."""
-    from zero_transformer_tpu_torch.convert import params_from_jax, params_to_jax
+    the same device: every Dense ``weight`` ``[out, in]`` (per output
+    channel) and the token table (per row) through ``quantize_rows`` where
+    they lie, the values ``params_from_jax(quantize_params(params_to_jax(
+    state)))`` gives; norm scales and ``wpe`` copied."""
     from zero_transformer_tpu_torch.models.gpt import Transformer
 
     state = model.state_dict()
@@ -132,5 +148,13 @@ def quantize_model(model: nn.Module) -> nn.Module:
         raise ValueError("quantize float32 weights (before cast_for_inference)")
     device = next(iter(state.values())).device
     qmodel = Transformer(dataclasses.replace(model.cfg, param_quant="int8"), device=device)
-    qmodel.load_state_dict(params_from_jax(quantize_params(params_to_jax(state))))
+    qstate = {}
+    for name, t in state.items():
+        if name.endswith(".weight"):  # Dense modules only have a "weight"
+            qstate[name + "_q"], qstate[name.removesuffix("weight") + "scale"] = quantize_rows(t)
+        elif name == "wte.embedding":
+            qstate["wte.embedding_q"], qstate["wte.scale"] = quantize_rows(t)
+        else:
+            qstate[name] = t
+    qmodel.load_state_dict(qstate)
     return qmodel.requires_grad_(False)

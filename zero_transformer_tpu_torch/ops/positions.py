@@ -1,8 +1,13 @@
-"""ALiBi slopes and additive attention biases.
+"""Position encodings: ALiBi slopes and additive attention biases, and RoPE.
 
-Counterpart of ``zero_transformer_tpu/ops/positions.py`` (ALiBi part). The
-slope table, including the non-power-of-two interpolation, and the mask
-constant are the JAX package's exactly.
+Counterpart of ``zero_transformer_tpu/ops/positions.py``. The slope table,
+including the non-power-of-two interpolation, and the mask constant are the
+JAX package's exactly. RoPE (:70-90) is the half-split rotation (the first
+and second halves of the head dim pair up, not neighbouring elements), its
+angles ``pos * inv_freq`` in float32. The inverse frequencies are computed
+once on the host in float32 in JAX's order and copied to the device, so the
+angles round the same on every device: at position 8191 one ulp of an
+inverse frequency moves an angle by ~1e-3.
 """
 from __future__ import annotations
 
@@ -41,6 +46,29 @@ def alibi_bias(n_heads: int, q_len: int, kv_len: int, offset: int = 0, device=No
     dist = torch.clamp(q_pos[:, None] - kv_pos[None, :], min=0).to(torch.float32)
     slopes = alibi_slopes(n_heads, device)
     return -slopes[:, None, None] * dist[None, :, :]
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_frequencies(head_dim: int, theta: float, device: str) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
+    return (1.0 / (theta**exponent)).to(device)
+
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0, device="cpu") -> torch.Tensor:
+    """Inverse frequencies ``[head_dim // 2]`` float32, computed on the host
+    and copied to ``device`` once (a copy per call would wait for the card)."""
+    return _rope_frequencies(head_dim, float(theta), str(device))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """Rotate ``x`` ``[..., T, heads, head_dim]`` by ``positions`` (``[T]``
+    or ``[B, T]``): the halves ``x1, x2`` become ``x1 cos - x2 sin`` and
+    ``x2 cos + x1 sin``, in float32, cast back to x's dtype."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = (positions.to(torch.float32)[..., None] * freqs)[..., None, :]  # [..., T, 1, hd/2]
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
 def causal_mask_bias(q_len: int, kv_len: int, offset: int = 0, device=None) -> torch.Tensor:

@@ -243,6 +243,8 @@ class ServingEngine:
         if T + request.max_new_tokens - 1 > self.cache_len:
             return (f"prompt ({T}) + max_new_tokens ({request.max_new_tokens}) "
                     f"exceeds cache_len ({self.cache_len})")
+        if self.cfg.position == "learned" and T + request.max_new_tokens > self.cfg.max_seq_len:
+            return "learned positions cannot extrapolate past max_seq_len"
         if self.slots.blocks_for(self._total_need_tokens(request)) > self.slots.n_pages - 1:
             return (f"prompt ({T}) + max_new_tokens ({request.max_new_tokens}) needs more KV "
                     f"pages than the whole pool holds ({self.page_pool_tokens} positions)")

@@ -4,7 +4,7 @@ with global-norm clipping: AdamW, Adafactor and Lion.
 Counterpart of ``zero_transformer_tpu/training/optimizer.py``:
 ``make_schedule`` (:27-50) with optax's formulas (``linear_schedule``,
 ``cosine_decay_schedule``, ``join_schedules``), ``weight_decay_mask``
-(:53-66) and ``make_optimizer`` (:293-366), each chain written out on
+(:53-66, JAX's rule by leaf path) and ``make_optimizer`` (:293-366), each chain written out on
 tensors in optax's order of operations:
 
 - ``adamw``: ``clip_by_global_norm(grad_clip)``, ``optax.adamw(b1, b2, eps,
@@ -117,16 +117,11 @@ def make_schedule(cfg: OptimizerConfig) -> Schedule:
 
 
 def weight_decay_mask(model: nn.Module) -> Dict[str, bool]:
-    """Parameter name -> decay? Dense kernels and the token embedding
-    decay; LayerNorm scales do not."""
-    from zero_transformer_tpu_torch.models.gpt import Dense, Embed
-
-    mask = {}
-    for prefix, mod in model.named_modules():
-        for name, _ in mod.named_parameters(recurse=False):
-            full = f"{prefix}.{name}" if prefix else name
-            mask[full] = isinstance(mod, (Dense, Embed))
-    return mask
+    """Parameter name -> decay? JAX's path rule on the port's names: Dense
+    weights (JAX's ``kernel``) and embedding tables decay, except the
+    learned positions (``wpe``); norm scales do not."""
+    return {name: "wpe" not in name and name.rsplit(".", 1)[-1] in ("weight", "embedding")
+            for name, _ in model.named_parameters()}
 
 
 def _global_norm(grads: Sequence[torch.Tensor], norm: Optional[torch.Tensor]) -> torch.Tensor:
