@@ -185,6 +185,33 @@ Phases, each fatal on failure (nothing is caught):
    predicted from the code; the trainer CLI on ``configs/train_125m.yaml
    --set model.size=llama3_8b model.n_layers=4 ...`` for 3 steps (no
    checkpoint: its saves are dropped; the cuts are printed).
+19. generate: ``inference.generate`` over the slab cache (a page view of
+   the ``[B, cache_len]`` slab through an identity block table, so K1 takes
+   the prompt and verify windows past 8 tokens, K4 every decode step and
+   shorter verify windows) and speculative decoding. (a) ``125m`` at full
+   width and depth, seed-0 weights, bf16, B 4 x T 256, 64 new tokens, cache
+   1024: greedy ``generate`` with exactly 12 K1 and 12 x 63 K4 launches and
+   no host sync (one a step with an EOS to watch), ``stream_tokens`` equal
+   to it greedy and sampled (one seed), ``generate_speculative`` at
+   draft_len 4 (K4 verify windows) and 8 (K1) on a repetitive prompt, with
+   exact launches and at most one sync a forward; the prefill logits no
+   farther from the float32 plain path than the bf16 plain path's plus
+   2e-2; on float32 models speculation equal to greedy decoding and the
+   kernel path's greedy tokens equal to the plain path's (``attention_impl=
+   "xla"``), both outside ties of twice the f32 bar (``agree_or_tie``), and
+   the prefill logits within 1e-4; then all of it but the sampled run with
+   int8 weights and an int8 cache (ties of two int8 caches within 2e-3;
+   their f32 logits reported). Readings: ms per token, prefill ms, tokens per forward, syncs
+   per forward, launches per token. (b) ``llama3_8b`` at full width and
+   depth, B 1 x T 512, 32 new tokens, cache 8192: (a)'s greedy checks and
+   readings in bf16, then its float32 checks on 32 GB models built one at
+   a time. The
+   kernel rows of those shapes. (c) The serve CLI in processes of its own
+   on an ``.npz`` of 125m (deleted after): ``--prompt``, ``--speculative
+   4`` and the REPL on piped stdin, each printing what the same
+   ``TextGenerator`` prints in process. (d) Phase 3's six requests on
+   float32 engines at ``--draft-k`` 0 and 4: streams equal outside ties of
+   twice the f32 bar, acceptance and ITL beside draft_k 0's.
 
 ``--phases k4_anatomy`` (never part of a full run) shows where the paged
 decode kernel's time goes at phase 2's main and long cases: it rebuilds
@@ -207,7 +234,7 @@ bf16 rounding.
 ``--phases a,b,...`` builds the kernels and runs the named phases only
 (kernels, serving, parity, profile, int8_kernels, int8_serving,
 train_kernels, training, resilience, train_1_3b, packed_kernels, packed, sp_kernels,
-sequence_parallel, data_parallel, llama_kernels, llama_serving, llama_training,
+sequence_parallel, data_parallel, llama_kernels, llama_serving, llama_training, generate,
 data_parallel_nccl, sequence_parallel_f32, k4_anatomy and tc_fit; parity needs serving); the kernel table then lists the kernels whose phases ran.
 
 The last two lines of standard output are the kernel table as one JSON
@@ -369,23 +396,34 @@ def paged_case(B, T, n_blocks, KVH, dtype, offsets, seed, trash_row=None, nan_ro
     return q, kp, vp, table.to("cuda"), offs
 
 
+def window_pairs(offsets, T: int, cache: int) -> int:
+    """(query, key) pairs one head computes for causal windows of T queries
+    at ``offsets``: query t of a row at offset o sees min(o + t + 1, cache)
+    keys."""
+    return sum(min(o + t + 1, cache) for o in offsets for t in range(T))
+
+
 def flash_bound(B, T, offsets, KVH, dtype, Hq=H, Dh=D, cache=CACHE):
     """Least time for this call: the bytes it must move (q, the K/V keys the
     causal limit admits, the validity mask, out) against HBM, or its flops
-    against the dtype's peak, whichever is larger."""
+    over the causal (query, key) pairs (``window_pairs``) against the
+    dtype's peak, whichever is larger."""
     el = torch.finfo(dtype).bits // 8
     keys = sum(min(o + T, cache) for o in offsets)
     nbytes = 2 * B * T * Hq * Dh * el + 2 * keys * KVH * Dh * el + 4 * B * cache
-    flops = sum(4 * T * min(o + T, cache) * Dh * Hq for o in offsets)
+    flops = 4 * window_pairs(offsets, T, cache) * Dh * Hq
     t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
 def paged_bound(B, T, offsets, KVH, dtype, Hq=H, Dh=D, cache=CACHE):
+    """Least time for K4 over bf16/f32 pools: q, the visible keys' K/V rows,
+    the table, the offsets and out against HBM, or the flops over the causal
+    (query, key) pairs against the dtype's peak, whichever is larger."""
     el = torch.finfo(dtype).bits // 8
     keys = sum(min(o + T, cache) for o in offsets)
     nbytes = 2 * B * T * Hq * Dh * el + 2 * keys * KVH * Dh * el + 4 * B * (cache // PAGE) + 4 * B
-    flops = sum(4 * T * min(o + T, cache) * Dh * Hq for o in offsets)
+    flops = 4 * window_pairs(offsets, T, cache) * Dh * Hq
     t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
@@ -766,12 +804,12 @@ def int8_paged_case(B, T, Hq, KVH, Dh, dtype, offsets, seed, trash_row=None, nan
 def int8_paged_bound(B, T, offsets, Hq, KVH, Dh, dtype, cache=CACHE):
     """Least time for K4 over int8 pools: q read and the output written in
     ``dtype``, each visible key's int8 K and V rows and float32 scales, the
-    table and offsets read once, against HBM; or the flops against the
-    dtype's peak, whichever is larger."""
+    table and offsets read once, against HBM; or the flops over the causal
+    (query, key) pairs against the dtype's peak, whichever is larger."""
     el = torch.finfo(dtype).bits // 8
     keys = sum(min(o + T, cache) for o in offsets)
     nbytes = 2 * B * T * Hq * Dh * el + 2 * keys * KVH * (Dh + 4) + 4 * B * (cache // PAGE) + 4 * B
-    flops = sum(4 * T * min(o + T, cache) * Dh * Hq for o in offsets)
+    flops = 4 * window_pairs(offsets, T, cache) * Dh * Hq
     t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
@@ -1029,7 +1067,7 @@ INT8 = dict(kv="int8", weights="int8")
 
 
 def build_engine(impl: str, dtype=torch.bfloat16, kv: str = "auto", weights: str = "none", name: str = "125m",
-                 state=None, cache_len: int = CACHE):
+                 state=None, cache_len: int = CACHE, draft_k: int = 0):
     """The serving engine over ``name`` with seed-``SEED`` weights (or
     ``state``), its KV cache in ``kv`` ("auto" or "int8"); ``weights="int8"``
     quantizes the weights with ``quant.quantize_model`` (the values of the
@@ -1050,7 +1088,7 @@ def build_engine(impl: str, dtype=torch.bfloat16, kv: str = "auto", weights: str
     if weights == "int8":
         model = quantize_model(model)
     return ServingEngine(model, n_slots=SLOTS, cache_len=cache_len, sampling=SamplingConfig(greedy=True),
-                         prefill_chunk=CHUNK, page_size=PAGE, device="cuda")
+                         prefill_chunk=CHUNK, page_size=PAGE, draft_k=draft_k, device="cuda")
 
 
 def http(method: str, url: str, body=None, timeout: float = 300.0):
@@ -1061,17 +1099,19 @@ def http(method: str, url: str, body=None, timeout: float = 300.0):
         return r.status, r.read().decode()
 
 
-def serving_phase(int8: bool = False, name: str = "125m", cache_len: int = CACHE, label: str = "serving"):
-    """``name`` (125m) behind the port's HTTP server; concurrent greedy
-    requests. With ``int8``: int8 weights and KV cache, served through K4's
-    int8 branch."""
+def serving_phase(int8: bool = False, name: str = "125m", cache_len: int = CACHE, label: str = "serving",
+                  draft_k: int = 0, dtype=torch.bfloat16):
+    """``name`` (125m) in ``dtype`` behind the port's HTTP server; concurrent
+    greedy requests. With ``int8``: int8 weights and KV cache, served through
+    K4's int8 branch. With ``draft_k``: every decode tick verifies that many
+    prompt-lookup drafts a slot (the CLI's ``--draft-k``)."""
     from zero_transformer_tpu_torch.ops import _build
     from zero_transformer_tpu_torch.serve import ByteTokenizer
     from zero_transformer_tpu_torch.serving import ServingServer
 
     label = f"int8_{label}" if int8 else label
     t_build = time.perf_counter()
-    engine = build_engine("auto", name=name, cache_len=cache_len, **(INT8 if int8 else {}))
+    engine = build_engine("auto", dtype, name=name, cache_len=cache_len, draft_k=draft_k, **(INT8 if int8 else {}))
     build_s = time.perf_counter() - t_build
     # warm-up (cuBLAS handles, the allocator, both kernels) through the
     # trash page only: an all-zero table at position 0 touches no slot
@@ -1147,6 +1187,8 @@ def serving_phase(int8: bool = False, name: str = "125m", cache_len: int = CACHE
         "launches": {k: c for k, c in launches.items() if c},
         "model": name, "layers": engine.cfg.n_layers, "cache_len": cache_len, "engine_build_s": build_s,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        **({k: metrics[k] for k in ("draft_k", "spec_ticks", "draft_tokens", "accepted_tokens", "acceptance_rate")}
+           if draft_k else {}),
     }
     log({label: summary})
     return launches, [r[2] for r in results], summary
@@ -1271,16 +1313,16 @@ def checked_reads(engine, prompts, table, forced, dtype=torch.float32):
     controlled = engine.cfg.kv_cache_dtype == "int8" and dtype == torch.float32
     reads = {"prefill": 0, "decode": 0}
 
-    def checked(x, pools, block_table, offsets, attn, plain):
+    def checked(x, pools, block_table, offsets, cache_len=None, *, attn, plain):
         before = KVPools(*(None if t is None else t.clone() for t in (pools.k, pools.v, pools.k_scale,
                                                                         pools.v_scale)))
-        out = fwd(attn, x, pools, block_table, offsets)
+        out = fwd(attn, x, pools, block_table, offsets, cache_len)
         got = seen.pop()
         if controlled:  # the pools as the call found them, each scale the next position's
             shifted = dataclasses.replace(before, k=before.k.clone(), v=before.v.clone(),
                                           k_scale=shift_scales(before.k_scale, "next_position"),
                                           v_scale=shift_scales(before.v_scale, "next_position"))
-        fwd(plain, x, before, block_table, offsets)
+        fwd(plain, x, before, block_table, offsets, cache_len)
         want = seen.pop()
         if not all(a is b or torch.equal(a, b) for a, b in ((pools.k, before.k), (pools.v, before.v),
                                                             (pools.k_scale, before.k_scale),
@@ -1290,7 +1332,7 @@ def checked_reads(engine, prompts, table, forced, dtype=torch.float32):
         err[kind] = max(err[kind], compare(got, want, dtype, f"{engine.cfg.kv_cache_dtype}-cache {kind} read"))
         reads[kind] += 1
         if kind == "decode" and controlled:
-            fwd(plain, x, shifted, block_table, offsets)
+            fwd(plain, x, shifted, block_table, offsets, cache_len)
             miss = float((got - seen.pop()).abs().max())
             if not miss > TOL[torch.float32]["atol"]:
                 raise AssertionError(f"the next-position scale control reads {miss}: within the bar")
@@ -1947,7 +1989,8 @@ def res_close(*trainers) -> None:
 
 def res_count_syncs(fn) -> list:
     """The synchronising CUDA calls ``fn`` makes, as ``set_sync_debug_mode``
-    warns of them: the Python line of each."""
+    warns of them ("called a synchronizing CUDA operation"; not the mode's
+    once-a-process notice that it is a prototype): the Python line of each."""
     import warnings
 
     with warnings.catch_warnings(record=True) as caught:
@@ -1958,7 +2001,8 @@ def res_count_syncs(fn) -> list:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+    return [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
 
 
 def res_optimizer_ms(state, reps: int = 5) -> dict:
@@ -2964,7 +3008,7 @@ def serve_cli(npz: Path, prompt: str) -> dict:
 
     cmd = [sys.executable, "-m", "zero_transformer_tpu_torch.serve", "--model", "byte_25m", "--params", str(npz),
            "--server", "--port", "0", "--cache-len", str(CTX), "--kv-cache-dtype", "int8", "--quantize", "int8",
-           "--greedy"]
+           "--greedy", "--temperature", "1.0", "--top-p", "0.0", "--repetition-penalty", "1.0"]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                             cwd=Path(__file__).resolve().parent)
     lines: "queue.Queue[str]" = queue.Queue()
@@ -4372,6 +4416,500 @@ def llama_training_phase():
     return {n + "_llama": c for n, c in launches_none.items()}
 
 
+# ------------------------------------------------------------------ generate
+
+GEN_B, GEN_T, GEN_NEW = 4, 256, 64  # 125m: B 4 x T 256 prompts, 64 new tokens
+GEN_LLAMA_T, GEN_LLAMA_NEW = 512, 32  # llama3_8b: B 1 x T 512, 32 new tokens
+GEN_CLI_NEW = 32
+# greedy token ties, as parity_phase's greedy_ties allows them: a path may
+# leave the other only where the reference path's top two logits lie within
+# twice the logit bar of the precision. float32: 1e-4 (the f32 bar); two
+# caches in int8, each written by its own path: 1e-3 (a last-bit difference
+# moves an element near a rounding edge by a whole step, ~1e-3 of the logits
+# after 12 layers, parity_phase)
+TIE_F32, TIE_INT8_F32 = 2 * TOL[torch.float32]["atol"], 2 * 1e-3
+GEN_SAMPLED = dict(temperature=0.8, top_p=0.9, repetition_penalty=1.1)  # the serve CLI's defaults
+
+
+def gen_model(name: str, dtype, impl: str, kv: str = "auto", weights: str = "none"):
+    """``name`` with seed-``SEED`` weights on the card, cast for inference
+    (int8 weights quantized where they lie); earlier models collected first."""
+    from zero_transformer_tpu_torch.models import model_getter
+    from zero_transformer_tpu_torch.models.quant import quantize_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = model_getter(name, dtype=dtype, device="cuda", seed=SEED, attention_impl=impl, kv_cache_dtype=kv)
+    if weights == "int8":
+        model = quantize_model(model)
+    return model.cast_for_inference()
+
+
+def gen_prompts(B: int, T: int, salt: int, repetitive: bool = False) -> torch.Tensor:
+    """[B, T] byte-token prompts on the host; ``repetitive``: a 37-byte
+    phrase over and over (prompt lookup finds drafts in it)."""
+    rows = [(prompt_text(37, salt + b) * (T // 37 + 1))[:T] if repetitive else prompt_text(T, salt + b)
+            for b in range(B)]
+    return torch.tensor([list(r.encode()) for r in rows], dtype=torch.long)
+
+
+def timed_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def counted(fn):
+    """``fn()`` once: its result, ms (host clock to a device sync), launch
+    counts (zeroed just before, read just after) and host syncs
+    (``gen_syncs``)."""
+    from zero_transformer_tpu_torch.ops import _build
+
+    box = {}
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    where = gen_syncs(lambda: box.setdefault("out", fn()))  # ends in a device sync
+    ms = (time.perf_counter() - t0) * 1e3
+    return box["out"], ms, {k: c for k, c in _build.LAUNCHES.items() if c}, where
+
+
+def agree_or_tie(got: torch.Tensor, ref: torch.Tensor, ref_model, prompt: torch.Tensor, margin: float,
+                 what: str) -> dict:
+    """Greedy tokens of two paths, row by row: equal, or the first token where
+    they part comes where ``ref_model``'s top two logits (a full forward over
+    the prompt and ``ref``'s tokens before it) lie within ``margin``. The
+    tokens after a tie are not compared: the contexts differ."""
+    got, ref = got.cpu(), ref.cpu()
+    equal, ties = 0, []
+    for b in range(ref.shape[0]):
+        diff = torch.nonzero(got[b] != ref[b]).flatten()
+        if not len(diff):
+            equal += 1
+            continue
+        t = int(diff[0])
+        seq = torch.cat([prompt[b], ref[b, :t]])[None].cuda()
+        with torch.no_grad():
+            top2 = torch.topk(ref_model(seq)[0, -1].float(), 2).values
+        gap = float(top2[0] - top2[1])
+        ties.append([b, t, gap])
+        if not gap <= margin:
+            raise AssertionError(f"{what}: row {b} parts at token {t} where the reference's top-2 gap is {gap} "
+                                 f"(> {margin}): {got[b, t:t + 4].tolist()} vs {ref[b, t:t + 4].tolist()}")
+    return {"rows_equal": equal, "ties": ties}
+
+
+def gen_syncs(fn) -> list:
+    """The host syncs ``fn()`` makes (``res_count_syncs``): [source line, count]."""
+    lines = res_count_syncs(fn)
+    return [[line, lines.count(line)] for line in sorted(set(lines))]
+
+
+def gen_spec_run(model, prompt, new: int, K: int, cache_len: int, L: int, paged: str) -> tuple:
+    """``generate_speculative`` at ``draft_len`` K as the main path runs it:
+    tokens, readings and the launches of the verify windows' kernel (K4 for
+    K + 1 <= 8, K1 past it)."""
+    from zero_transformer_tpu_torch.inference import generate_speculative
+    from zero_transformer_tpu_torch.ops.paged_attention import MAX_DECODE_T
+
+    run = functools.partial(generate_speculative, model, prompt, new, draft_len=K, return_stats=True,
+                            cache_len=cache_len)
+    (out, stats), ms, counts, where = counted(run)
+    fwd = stats["forwards"]
+    verify = "flash_serving_fwd" if K + 1 > MAX_DECODE_T else paged
+    want = {"flash_serving_fwd": L * (fwd if verify == "flash_serving_fwd" else 1)}
+    if verify == paged:
+        want[paged] = L * (fwd - 1)
+    if counts != want:
+        raise AssertionError(f"draft_len {K}: launches {counts}, want {want} ({fwd} forwards)")
+    syncs = sum(n for _, n in where)
+    if syncs > fwd:
+        raise AssertionError(f"draft_len {K}: {syncs} syncs for {fwd} forwards: {where}")
+    return out, {"draft_len": K, "verify_kernel": verify, "forwards": fwd, "tokens_per_forward":
+                 stats["tokens_per_forward"], "ms": ms, "ms_per_token": ms / new, "syncs": syncs,
+                 "syncs_per_forward": syncs / fwd, "sync_lines": where, "launches": counts,
+                 "launches_per_token": {k: c / new for k, c in counts.items()}}
+
+
+def gen_main_path(model, prompt, rep, new: int, cache_len: int, paged: str, sampled: bool) -> tuple:
+    """The bf16 kernel path as a user runs it: greedy ``generate`` (launches
+    exact: K1 once a layer for the prompt, K4 once a layer for each of the
+    new tokens but the last, which is never fed back), its prefill, its
+    syncs (none; with an EOS to watch one a step), ``stream_tokens`` equal to
+    it, sampled too (one seed), then ``generate_speculative`` at draft_len
+    4 and 8 on a repetitive prompt. Returns (readings, the greedy run's
+    launches, the speculative runs' readings)."""
+    from zero_transformer_tpu_torch.inference import (SamplingConfig, generate, init_cache, prefill,
+                                                      stream_tokens)
+
+    L = model.cfg.n_layers
+    greedy = SamplingConfig(greedy=True)
+    B = prompt.shape[0]
+    run = functools.partial(generate, model, prompt, new, sampling=greedy, cache_len=cache_len)
+    generate(model, prompt, 4, sampling=greedy, cache_len=cache_len)  # warm-up
+    out, ms, counts, where = counted(run)
+    want = {"flash_serving_fwd": L, paged: L * (new - 1)}
+    if counts != want:
+        raise AssertionError(f"generate launches {counts}, want {want}")
+    _, prefill_ms = timed_ms(lambda: prefill(model, prompt.cuda(), init_cache(model, B, cache_len)))
+    eos = model.cfg.vocab_size  # never sampled: the loop reads `done` every step and runs to the end
+    eos_where = gen_syncs(lambda: generate(model, prompt, new, sampling=greedy, eos_token_id=eos,
+                                           cache_len=cache_len))
+    syncs, eos_syncs = sum(n for _, n in where), sum(n for _, n in eos_where)
+    if syncs or eos_syncs > new - 1:
+        raise AssertionError(f"generate syncs {where} (want none), with an EOS {eos_where} "
+                             f"(want at most {new - 1})")
+    streamed = torch.stack(list(stream_tokens(model, prompt, new, sampling=greedy, cache_len=cache_len)), 1)
+    if not torch.equal(streamed, out):
+        raise AssertionError("stream_tokens differs from generate (greedy)")
+    reading = {"batch": B, "prompt": prompt.shape[1], "new_tokens": new, "cache_len": cache_len,
+               "generate_ms": ms, "prefill_ms": prefill_ms,
+               "decode_ms_per_token": (ms - prefill_ms) / (new - 1), "syncs": syncs,
+               "syncs_with_eos": eos_syncs, "syncs_per_forward_with_eos": eos_syncs / new, "launches": counts,
+               "launches_per_token": {k: c / new for k, c in counts.items()}}
+    if sampled:
+        sampling = SamplingConfig(**GEN_SAMPLED)
+        gen = lambda: torch.Generator(device="cuda").manual_seed(1)  # noqa: E731
+        s_out, s_ms = timed_ms(lambda: generate(model, prompt, new, gen(), sampling, cache_len=cache_len))
+        s_stream = torch.stack(list(stream_tokens(model, prompt, new, gen(), sampling, cache_len=cache_len)), 1)
+        if not torch.equal(s_stream, s_out):
+            raise AssertionError("stream_tokens differs from generate (sampled, one seed)")
+        reading["sampled_ms"] = s_ms
+    spec, spec_out = [], {}
+    greedy_rep = generate(model, rep, new, sampling=greedy, cache_len=cache_len)
+    for K in (4, 8):
+        spec_out[K], r = gen_spec_run(model, rep, new, K, cache_len, L, paged)
+        r["identical_to_greedy_prefix"] = next(
+            (i for i, (a, b) in enumerate(zip(spec_out[K][0].tolist(), greedy_rep[0].tolist())) if a != b), new)
+        spec.append(r)
+    reading["speculative"] = spec
+    return reading, counts, spec
+
+
+def gen_exact(model, rep, new: int, cache_len: int, margin: float, what: str) -> dict:
+    """On a float32 model: ``generate_speculative`` at draft_len 4 and 8 equal
+    to greedy ``generate`` on the repetitive prompt, outside ties of
+    ``margin``."""
+    from zero_transformer_tpu_torch.inference import SamplingConfig, generate, generate_speculative
+
+    greedy = generate(model, rep, new, sampling=SamplingConfig(greedy=True), cache_len=cache_len)
+    out = {}
+    for K in (4, 8):
+        spec = generate_speculative(model, rep, new, draft_len=K, cache_len=cache_len)
+        out[f"draft_len_{K}_vs_greedy"] = agree_or_tie(spec, greedy, model, rep, margin, f"{what} draft_len {K}")
+    return out
+
+
+def gen_float32(name: str, over: dict, prompt, rep, new: int, cache_len: int, margin: float,
+                logits_bar: bool) -> dict:
+    """float32 models, one on the card at a time (llama3_8b's are 32 GB):
+    the kernel path's speculation against its greedy decoding
+    (``gen_exact``), then the kernel path against the plain path: prefill
+    logits within the f32 bar (``logits_bar``; else reported) and greedy
+    tokens equal outside ties of ``margin``."""
+    from zero_transformer_tpu_torch.inference import SamplingConfig, generate, init_cache, prefill
+
+    B, what = prompt.shape[0], f"{name} {over or ''}".strip()
+    greedy = SamplingConfig(greedy=True)
+    kernel = gen_model(name, torch.float32, "auto", **over)
+    out = {"speculative": gen_exact(kernel, rep, new, cache_len, margin, what)}
+    lk = prefill(kernel, prompt.cuda(), init_cache(kernel, B, cache_len)).cpu()
+    tk = generate(kernel, prompt, new, sampling=greedy, cache_len=cache_len)
+    del kernel
+    plain = gen_model(name, torch.float32, "xla", **over)
+    lp = prefill(plain, prompt.cuda(), init_cache(plain, B, cache_len)).cpu()
+    tp = generate(plain, prompt, new, sampling=greedy, cache_len=cache_len)
+    out["prefill_logits_max_abs_err"] = (compare(lk, lp, torch.float32, f"{what} float32 prefill logits")
+                                         if logits_bar else float((lk - lp).abs().max()))
+    out["greedy_kernel_vs_plain"] = agree_or_tie(tk, tp, plain, prompt, margin, f"{what} float32 kernel vs plain")
+    del plain
+    return out
+
+
+def generate_125m(int8: bool) -> tuple:
+    """Phase (a): 125m at full width and depth, B 4 x T 256, 64 new tokens,
+    cache 1024: the bf16 kernel path's main run and readings
+    (``gen_main_path``, sampled too in bf16); its prefill logits no farther from the
+    float32 plain path than the bf16 plain path's plus 2e-2 (parity_phase's
+    bf16 bar); on float32 models speculation against greedy decoding and the
+    kernel path against the plain path (``gen_float32``). ``int8``: int8
+    weights and an int8 cache on every path (ties of two int8 caches:
+    ``TIE_INT8_F32``; the float32 logits over two int8 caches are reported
+    without a bar, as in parity_phase). Returns the main run's launches and
+    the speculative runs' readings."""
+    from zero_transformer_tpu_torch.inference import init_cache, prefill
+
+    over = INT8 if int8 else {}
+    paged = "paged_attention_int8" if int8 else "paged_attention"
+    prompt, rep = gen_prompts(GEN_B, GEN_T, 0), gen_prompts(1, GEN_T, 5, repetitive=True)
+    model = gen_model("125m", torch.bfloat16, "auto", **over)
+    reading, counts, spec = gen_main_path(model, prompt, rep, GEN_NEW, CACHE, paged, sampled=not int8)
+    bf_k = prefill(model, prompt.cuda(), init_cache(model, GEN_B, CACHE))
+    del model
+    plain = gen_model("125m", torch.bfloat16, "xla", **over)
+    bf_x = prefill(plain, prompt.cuda(), init_cache(plain, GEN_B, CACHE))
+    plain = gen_model("125m", torch.float32, "xla", **over)
+    ref = prefill(plain, prompt.cuda(), init_cache(plain, GEN_B, CACHE))
+    del plain
+    e_k, e_x = float((bf_k - ref).abs().max()), float((bf_x - ref).abs().max())
+    reading["bf16_prefill_logits_from_f32"] = {"kernel": e_k, "plain": e_x}
+    if not e_k <= e_x + TOL[torch.bfloat16]["atol"]:
+        raise AssertionError(f"bf16 prefill logits: kernel path {e_k} from float32 vs plain {e_x}")
+    reading["float32"] = gen_float32("125m", over, prompt, rep, GEN_NEW, CACHE, TIE_INT8_F32 if int8 else TIE_F32,
+                                     logits_bar=not int8)
+    log({"generate_125m_int8" if int8 else "generate_125m": reading})
+    return counts, spec
+
+
+def generate_llama() -> tuple:
+    """Phase (b): llama3_8b at full width and depth (32 layers), B 1 x T 512,
+    32 new tokens, cache 8192: the bf16 kernel path's main run and readings
+    (``gen_main_path``, greedy), then ``gen_float32`` (at this depth the
+    bf16 paths lie ~0.4 of the logits apart, parity_phase, so the bars hold
+    in float32)."""
+    prompt, rep = gen_prompts(1, GEN_LLAMA_T, 9), gen_prompts(1, GEN_LLAMA_T, 3, repetitive=True)
+    model = gen_model(LLAMA, torch.bfloat16, "auto")
+    if model.cfg.n_layers != 32:
+        raise AssertionError("llama3_8b must run at full depth")
+    reading, counts, spec = gen_main_path(model, prompt, rep, GEN_LLAMA_NEW, LCACHE, "paged_attention",
+                                          sampled=False)
+    del model
+    reading["float32"] = gen_float32(LLAMA, {}, prompt, rep, GEN_LLAMA_NEW, LCACHE, TIE_F32, logits_bar=True)
+    log({"generate_llama3_8b": reading})
+    return counts, spec
+
+
+def generate_cli() -> dict:
+    """Phase (c): the serve CLI in processes of their own on an ``.npz`` of
+    125m's seed-0 weights, with its default sampling flags and 32 new
+    tokens: ``--prompt ... --greedy``, the same with ``--speculative 4``, and
+    the REPL on piped stdin, started together; each one's standard output
+    must equal what the same ``TextGenerator`` prints in this process, and
+    say something (at least half the new tokens' bytes printed). The
+    ``.npz`` is deleted."""
+    import contextlib
+    import io
+
+    from zero_transformer_tpu_torch import serve
+    from zero_transformer_tpu_torch.convert import params_to_jax
+    from zero_transformer_tpu_torch.models import model_getter
+
+    out = Path("build") / "generate"
+    out.mkdir(parents=True, exist_ok=True)
+    npz = out / "125m.npz"
+    try:
+        state = model_getter("125m", device="cuda", seed=SEED).state_dict()
+        # the tied table's rows past the 256 byte ids zeroed, so that greedy decoding picks bytes the
+        # byte tokenizer prints (with every row random it picks ids above 255, which print nothing)
+        state["wte.embedding"][256:] = 0.0
+        np.savez(npz, **params_to_jax(state))
+        del state
+        prompts = [prompt_text(200, 80), prompt_text(120, 81)]
+        base = ["--model", "125m", "--params", str(npz), "--max-new-tokens", str(GEN_CLI_NEW), "--greedy"]
+        runs = {"one_shot": (base + ["--prompt", prompts[0]], None),
+                "speculative_4": (base + ["--prompt", prompts[0], "--speculative", "4"], None),
+                "repl": (base, "\n".join(prompts) + "\n\n")}
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen([sys.executable, "-m", "zero_transformer_tpu_torch.serve", *argv],
+                                     stdin=subprocess.PIPE if stdin else subprocess.DEVNULL, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True, cwd=Path(__file__).resolve().parent)
+                 for k, (argv, stdin) in runs.items()}
+        try:
+            args = serve.build_parser().parse_args(base)
+            gen = serve.build_generator(args)
+            kw = serve._sampling_kwargs(args)
+            want = {"one_shot": gen(prompts[0], **kw) + "\n"}
+            gen.speculative = 4
+            want["speculative_4"] = gen(prompts[0], **kw) + "\n"
+            gen.speculative = 0
+            stdin, stdout = sys.stdin, io.StringIO()
+            try:
+                sys.stdin = io.StringIO(runs["repl"][1])
+                with contextlib.redirect_stdout(stdout):
+                    serve._repl(gen, args)
+            finally:
+                sys.stdin = stdin
+            want["repl"] = stdout.getvalue()
+            got = {}
+            for k, proc in procs.items():
+                text, err = proc.communicate(runs[k][1], timeout=600)
+                if proc.returncode:
+                    raise AssertionError(f"serve CLI ({k}) exit {proc.returncode}: {err[-3000:]}")
+                got[k] = text
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall = time.perf_counter() - t0
+    finally:
+        npz.unlink(missing_ok=True)
+    for k in runs:
+        if got[k] != want[k]:
+            raise AssertionError(f"serve CLI ({k}) printed {got[k]!r}, in process {want[k]!r}")
+    if len(got["one_shot"].encode()) < GEN_CLI_NEW // 2:
+        raise AssertionError(f"the one-shot completion printed almost nothing: {got['one_shot']!r}")
+    reading = {"modes": list(runs), "new_tokens": GEN_CLI_NEW, "wall_s": wall,
+               "chars": {k: len(v) for k, v in got.items()}, "repl_turns": got["repl"].count(">>> ")}
+    log({"generate_cli": reading})
+    return reading
+
+
+def generate_engine() -> dict:
+    """Phase (d): the serving phase's six concurrent greedy requests over HTTP
+    on float32 engines (125m) at ``draft_k`` 0 and 4: every stream of
+    draft_k 4 equal to draft_k 0's outside float32 ties (``TIE_F32``: the
+    verify forward computes a window's logits in other GEMM and attention
+    shapes than the one-token tick; in bf16 those roundings part streams at
+    gaps no bar of bf16 tells from a wrong token); acceptance and ITL
+    beside draft_k 0's."""
+    _, plain_tokens, plain = serving_phase(label="serving_f32", dtype=torch.float32)
+    launches, tokens, spec = serving_phase(label="spec_serving_f32", draft_k=4, dtype=torch.float32)
+    if not (launches["paged_attention"] and spec["spec_ticks"]):
+        raise AssertionError(f"draft_k 4 served without verify ticks through K4: {spec}")
+    model = gen_model("125m", torch.float32, "auto")
+    ties = []
+    for i, n in enumerate(PROMPT_LENS):
+        prompt = torch.tensor([list(prompt_text(n, i).encode())])
+        ties.append(agree_or_tie(torch.tensor([tokens[i]]), torch.tensor([plain_tokens[i]]), model, prompt, TIE_F32,
+                                 f"draft_k 4 request {i}"))
+    del model
+    keys = ("itl_ms_p50", "itl_ms_p99", "ttft_ms_p50", "decode_tok_s", "decode_ticks")
+    reading = {"dtype": "float32", "acceptance_rate": spec["acceptance_rate"], "draft_tokens": spec["draft_tokens"],
+               "accepted_tokens": spec["accepted_tokens"], "spec_ticks": spec["spec_ticks"],
+               "streams_vs_draft_k_0": ties, "draft_k_4_vs_0": {k: [spec[k], plain[k]] for k in keys}}
+    log({"generate_engine": reading})
+    return reading
+
+
+def gen_k1_row(key: str, B: int, T: int, S: int, Hq: int, KVH: int, Dh: int, offs_l, alibi: bool, rows: dict):
+    """K1 (``flash_serving``) at a generate shape: a window of T queries at
+    ``offs_l`` over the slab's S gathered keys and its validity mask, bf16,
+    against its plain version; timed with SDPA as the yardstick."""
+    import torch.nn.functional as F
+
+    from zero_transformer_tpu_torch.ops import flash
+
+    dtype = torch.bfloat16
+    q, k, v, offs, seg = flash_case(B, T, S, KVH, dtype, offs_l, [o + T for o in offs_l], seed=len(key) + 900,
+                                    Hq=Hq, Dh=Dh)
+    kw = dict(causal=True, alibi=alibi, q_offset=offs, segment_ids=seg)
+    err = compare(flash.flash_serving(q, k, v, **kw), flash.flash_reference(q, k, v, **kw)[0], dtype, key)
+    bias = sdpa_bias(B, T, S, offs_l, seg, dtype, Hq, alibi=alibi)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    bound, by = flash_bound(B, T, offs_l, KVH, dtype, Hq, Dh, S)
+    rows[key] = dict(
+        max_abs_err=err, ms=time_ms(lambda: flash.flash_serving(q, k, v, **kw)),
+        device_ms=device_ms(lambda: flash.flash_serving(q, k, v, **kw)),
+        plain_ms=time_ms(lambda: flash.flash_reference(q, k, v, **kw)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias,
+                                                                  enable_gqa=KVH != Hq)),
+        bound_ms=bound, bound_by=by)
+    log({"kernel": key, "shape": [B, T, S, Hq, KVH, Dh], "offsets": offs_l, **rows[key]})
+
+
+def gen_k4_row(key: str, B: int, T: int, S: int, Hq: int, KVH: int, Dh: int, offs_l, alibi: bool, rows: dict,
+               int8: bool = False):
+    """K4 (``paged_attention``) at a generate shape: a window of T <= 8
+    queries at ``offs_l`` over a slab of S keys seen as pages through the
+    identity table (row b owns pages 1 + b * S / page on), bf16 (``int8``:
+    int8 pools with float32 scales), against its plain version; timed with
+    the page gather + SDPA as the yardstick."""
+    import torch.nn.functional as F
+
+    from zero_transformer_tpu_torch.ops import paged_attention as pa
+
+    dtype, n_blocks, seed = torch.bfloat16, S // PAGE, len(key) + 950
+    if int8:
+        q, kq, vq, ks, vs, _, offs = int8_paged_case(B, T, Hq, KVH, Dh, dtype, offs_l, seed, cache=S)
+        pools, scales = (kq, vq, ks, vs), dict(k_scale=ks, v_scale=vs)
+    else:
+        q, kp, vp, _, offs = paged_case(B, T, n_blocks, KVH, dtype, offs_l, seed, Hq=Hq, Dh=Dh)
+        pools, scales = (kp, vp), {}
+    table = (1 + torch.arange(B * n_blocks, dtype=torch.int32, device="cuda")).view(B, n_blocks)
+    kw = dict(causal=T > 1, alibi=alibi)
+
+    def call():
+        return pa.paged_attention(q, *pools[:2], table, offs, **scales, **kw)
+
+    err = compare(call(), pa.paged_reference(q, *pools[:2], table, offs, **scales, **kw), dtype, key)
+    valid = (torch.arange(S, device="cuda")[None, :] < offs[:, None] + T).int()
+    bias = sdpa_bias(B, T, S, offs_l, valid, dtype, Hq, alibi=alibi)
+
+    def library():  # gather (and dequantize) the pages, then SDPA
+        if int8:
+            kk = pa.dequantize(pa.gather_pages(kq, table), pa.gather_pages(ks, table), dtype)
+            vv = pa.dequantize(pa.gather_pages(vq, table), pa.gather_pages(vs, table), dtype)
+        else:
+            kk, vv = pa.gather_pages(kp, table), pa.gather_pages(vp, table)
+        return F.scaled_dot_product_attention(q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+                                              attn_mask=bias, enable_gqa=KVH != Hq)
+
+    if int8:
+        bound, by = int8_paged_bound(B, T, offs_l, Hq, KVH, Dh, dtype, S)
+    else:
+        bound, by = paged_bound(B, T, offs_l, KVH, dtype, Hq, Dh, S)
+    rows[key] = dict(max_abs_err=err, ms=time_ms(call), device_ms=device_ms(call),
+                     plain_ms=time_ms(lambda: pa.paged_reference(q, *pools[:2], table, offs, **scales, **kw)),
+                     library_ms=time_ms(library), bound_ms=bound, bound_by=by)
+    log({"kernel": key, "shape": [B, T, S, Hq, KVH, Dh], "offsets": offs_l, **rows[key]})
+
+
+def generate_phase() -> tuple:
+    """(a) 125m (``generate_125m``, bf16 then int8), (b) llama3_8b
+    (``generate_llama``), the kernel rows of their shapes (K1: the prompt's
+    prefill and a 9-token verify window; K4: a decode step through the
+    identity table and a 5-token verify window), (c) the CLI
+    (``generate_cli``), (d) the engine's ``--draft-k 4`` over HTTP
+    (``generate_engine``). Every part runs; the phase fails after them if
+    any failed. Returns the kernel rows and their main-path launches: the
+    greedy run's (prefill and decode rows) and the speculative runs' at
+    draft_len 8 (K1's verify row) and 4 (K4's)."""
+    t_phase = time.perf_counter()
+    rows, launches, failed = {}, {}, []
+
+    def main_runs(suffix, run):
+        counts, spec = run()
+        launches[f"flash_serving_fwd_generate{suffix}"] = counts["flash_serving_fwd"]
+        launches[f"paged_attention_generate{suffix}"] = counts["paged_attention"]
+        launches[f"flash_serving_fwd_verify{suffix}"] = spec[1]["launches"]["flash_serving_fwd"]
+        launches[f"paged_attention_verify{suffix}"] = spec[0]["launches"]["paged_attention"]
+
+    def int8_run():
+        counts, _ = generate_125m(True)
+        launches["paged_attention_int8_generate"] = counts["paged_attention_int8"]
+
+    def kernel_rows():
+        decode_125m = [GEN_T + 15 * b for b in range(GEN_B)]  # positions the 64-token decode passes
+        gen_k1_row("flash_serving_fwd_generate", GEN_B, GEN_T, CACHE, H, H, D, [0] * GEN_B, True, rows)
+        gen_k1_row("flash_serving_fwd_verify", 1, 9, CACHE, H, H, D, [GEN_T + 40], True, rows)
+        gen_k4_row("paged_attention_generate", GEN_B, 1, CACHE, H, H, D, decode_125m, True, rows)
+        gen_k4_row("paged_attention_verify", 1, 5, CACHE, H, H, D, [GEN_T + 40], True, rows)
+        gen_k4_row("paged_attention_int8_generate", GEN_B, 1, CACHE, H, H, D, decode_125m, True, rows, int8=True)
+        gen_k1_row("flash_serving_fwd_generate_llama", 1, GEN_LLAMA_T, LCACHE, LH, LKVH, LD, [0], False, rows)
+        gen_k1_row("flash_serving_fwd_verify_llama", 1, 9, LCACHE, LH, LKVH, LD, [GEN_LLAMA_T + 40], False, rows)
+        gen_k4_row("paged_attention_generate_llama", 1, 1, LCACHE, LH, LKVH, LD, [GEN_LLAMA_T + 40], False, rows)
+        gen_k4_row("paged_attention_verify_llama", 1, 5, LCACHE, LH, LKVH, LD, [GEN_LLAMA_T + 40], False, rows)
+
+    parts = [("125m", lambda: main_runs("", lambda: generate_125m(False))), ("125m int8", int8_run),
+             ("llama3_8b", lambda: main_runs("_llama", generate_llama)), ("kernel rows", kernel_rows),
+             ("cli", generate_cli), ("engine draft_k", generate_engine)]
+    for what, part in parts:
+        try:
+            part()
+        except AssertionError as e:
+            failed.append(what)
+            log({"generate_failed": what, "error": str(e)})
+        gc.collect()
+        torch.cuda.empty_cache()
+    log({"generate_s": time.perf_counter() - t_phase})
+    if failed:
+        raise AssertionError(f"generate: {failed} failed")
+    return rows, launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4382,7 +4920,7 @@ def card_line() -> str:
 
 PHASES = ("kernels", "serving", "parity", "profile", "int8_kernels", "int8_serving", "train_kernels", "training",
           "resilience", "train_1_3b", "packed_kernels", "packed", "sp_kernels", "sequence_parallel", "data_parallel",
-          "llama_kernels", "llama_serving", "llama_training")
+          "llama_kernels", "llama_serving", "llama_training", "generate")
 # named with --phases only: the ring's parity with every kernel on its f32 path, K4's
 # anatomy, data parallelism over NCCL with a card per rank (4 cards), and the
 # fit of the tensor cores' adder that the ALiBi-off K1 emulation uses
@@ -4451,6 +4989,18 @@ SOURCES = {
                        "zero_transformer_tpu/ops/pallas/flash.py:176"),
     "flash_dkv_llama": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
                         "zero_transformer_tpu/ops/pallas/flash.py:214"),
+    # generate() over the slab cache (125m and llama3_8b): K1 on the prompt's
+    # prefill and on a 9-token verify window of generate_speculative, K4 on a
+    # decode step through the identity table (bf16 and int8) and on a 5-token
+    # verify window
+    **{f"{kernel}_{what}{model}": (src, tpu)
+       for kernel, src, tpu in (("flash_serving_fwd", "zero_transformer_tpu_torch/csrc/flash_fwd.cu",
+                                 "zero_transformer_tpu/ops/pallas/flash.py:127"),
+                                ("paged_attention", "zero_transformer_tpu_torch/csrc/paged_attention.cu",
+                                 "zero_transformer_tpu/ops/pallas/paged_attention.py:100"))
+       for what in ("generate", "verify") for model in ("", "_llama")},
+    "paged_attention_int8_generate": ("zero_transformer_tpu_torch/csrc/paged_attention.cu",
+                                      "zero_transformer_tpu/ops/pallas/paged_attention.py:100"),
 }
 
 
@@ -4536,6 +5086,10 @@ def main(argv) -> int:
         launches.update(llama_serving_phase())
     if "llama_training" in phases:
         launches.update(llama_training_phase())
+    if "generate" in phases:
+        gen_rows, gen_launches = generate_phase()
+        rows.update(gen_rows)
+        launches.update(gen_launches)
     table = [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu, "launches": launches[name],
          **rows[name]}

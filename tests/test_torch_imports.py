@@ -4,8 +4,9 @@
   ``chip_smoke.py`` finds no import of jax, flax, yaml or the JAX package
   (a ``sys.modules`` check cannot work here: this interpreter imports jax
   at startup).
-- Entry points (the model getter, the serving engine and CLI, the trainer
-  and its CLI, the eval CLI) default to CUDA and raise without it unless the caller
+- Entry points (the model getter, the serving engine, the serve CLI's
+  server, one-shot and REPL modes, the trainer and its CLI, the eval CLI)
+  default to CUDA and raise without it unless the caller
   passes ``device="cpu"``; ``chip_smoke.py`` exits non-zero and prints no
   result without a card, also when it is alone in a directory.
 - The port's copy of the model zoo equals the JAX ``model_config``.
@@ -53,6 +54,8 @@ def test_scan_sees_the_whole_package():
     assert {"data/tarshards.py", "data/prepare.py", "evalharness/__init__.py", "evalharness/__main__.py",
             "evalharness/scoring.py", "evalharness/tasks.py", "evalharness/cli.py", "models/quant.py"} <= names
     assert {"ops/ring_attention.py", "parallel/mesh.py"} <= names
+    assert {"inference/generate.py", "inference/speculative.py", "inference/sampling.py", "inference/__init__.py",
+            "serving/detok.py"} <= names
     assert {"resilience/__init__.py", "resilience/anomaly.py", "resilience/chaos.py", "resilience/supervisor.py",
             "resilience/watchdog.py", "obs/__init__.py", "obs/spans.py", "obs/flight.py", "obs/metrics.py",
             "obs/exporter.py", "obs/profiling.py", "obs/logging.py"} <= names
@@ -78,8 +81,10 @@ def test_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(model, cache_len=32, prefill_chunk=16, page_size=8)
     ServingEngine(model, cache_len=32, prefill_chunk=16, page_size=8, device="cpu")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        serve.main(["--model", "test", "--params", "absent.npz", "--server"])
+    for mode in (["--server"], ["--prompt", "hello"], ["--prompt", "hello", "--speculative", "4"], []):
+        # the HTTP server, one-shot generation (plain and speculative) and the REPL
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--model", "test", "--params", "absent.npz", *mode])
     with pytest.raises(RuntimeError, match="CUDA"):
         model_getter("test", seed=0, trainable=True)
     assert all(p.requires_grad for p in model_getter("test", device="cpu", seed=0, trainable=True).parameters())

@@ -178,6 +178,7 @@ class ServingConfig:
     prefill_chunk: int = 64
     page_size: int = 16
     page_pool_tokens: int = 0  # 0 = slots x cache_len
+    draft_k: int = 0  # speculative drafts verified per slot and tick (0 = off)
 
     def __post_init__(self):
         if self.slots < 1:
@@ -190,6 +191,8 @@ class ServingConfig:
             raise ValueError("serving.page_size must be >= 1 and divide prefill_chunk")
         if self.page_pool_tokens < 0 or self.page_pool_tokens % self.page_size:
             raise ValueError("serving.page_pool_tokens must be >= 0 and a multiple of page_size")
+        if self.draft_k < 0:
+            raise ValueError("serving.draft_k must be >= 0 (0 disables)")
 
 
 # The dense entries of configs/models.yaml, as Python data (the MoE

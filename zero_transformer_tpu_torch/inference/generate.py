@@ -1,21 +1,50 @@
-"""The paged decode model and its KV page pools.
+"""KV-cached autoregressive generation, and the paged decode model's pools.
 
-Counterpart of ``zero_transformer_tpu/inference/generate.py`` (``decode_model``
-:30-50 and the cache allocation of ``init_cache``). In JAX the decode
-variant is a separate flax module whose cache is a pytree returned by every
-apply; in the port the one ``Transformer`` has a ``forward_paged`` method and
-the cache is a list of per-layer ``KVPools`` (K/V pools, plus their scale
-pools for an int8 cache) that the forward updates IN PLACE (where the JAX
-engine donates its cache buffers to the step).
+Counterpart of ``zero_transformer_tpu/inference/generate.py``: ``decode_model``
+(:30-50), ``init_cache`` (:94), ``prefill`` (:181), ``generate`` (:193) with
+its decode loop (``_start_decode`` :241, ``_decode_loop`` :275),
+``stream_tokens`` (:351, the fused step of ``_stream_step`` :334) and
+``generate_tokens`` (:402). In JAX the decode variant is a separate flax
+module whose cache is a pytree returned by every apply; in the port the one
+``Transformer`` has a ``forward_paged`` method and the cache is a list of
+per-layer ``KVPools`` that the forward updates IN PLACE (where JAX donates
+its cache buffers).
+
+The slab cache of ``generate`` (JAX's per-layer ``cached_key`` /
+``cached_value`` ``[B, cache_len, KVH, D]``, int8 with float32 scales under
+``kv_cache_dtype: int8``, and one scalar ``cache_index``) is a
+``SlabCache``: the same slab, rounded up to whole pages of ``SLAB_PAGE``
+positions, seen without a copy as a page pool ``[B * n_blocks, page, KVH,
+D]`` through an identity block table (row b owns pages ``b * n_blocks`` to
+``(b + 1) * n_blocks - 1``), its cursor a host int broadcast to ``[B]``
+offsets. So the serving engine's ``forward_paged`` runs it unchanged: a
+window of at most ``MAX_DECODE_T`` tokens (a decode step, a short verify
+window) reads the slab through the paged decode kernel, a longer one (the
+prompt, a long verify window) through the flash kernel over the gathered
+rows and their validity mask. The overflow poison keeps the requested
+``cache_len``. JAX's slab path leaves single-token decode to XLA; on CUDA
+the port's wrappers take a kernel or raise, so here the kernels take it.
+
+The loop runs eagerly in ``stream_tokens``, which hands each step's tokens
+to its caller; ``generate`` collects them and pads after EOS. It reads the
+device only to stop early once every row has emitted EOS (one read per
+decode step, none without ``eos_token_id``; a host prompt goes to the card
+through pinned memory, which does not wait either).
+Categorical draws come from one ``torch.Generator`` (a [B, V] draw per
+sampled step) or from injected ``uniforms`` (``sampling.sample_token``).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Iterator, Optional, Tuple
 
 import torch
 
 from zero_transformer_tpu_torch.config import ModelConfig, resolve_dtype
+from zero_transformer_tpu_torch.inference.sampling import SamplingConfig, sample_token
 from zero_transformer_tpu_torch.models.gpt import KVPools, Pools, Transformer
+
+SLAB_PAGE = 16  # positions per page of the slab's page view (the serving default)
 
 
 def decode_model(model: Transformer, cache_len: int, kv_pages: Tuple[int, int]) -> Transformer:
@@ -37,7 +66,7 @@ def allocate_pools(cfg: ModelConfig, n_pages: int, page_size: int, device,
     """One zeroed ``[n_pages, page, KVH, D]`` K/V pool pair per layer: in
     the compute dtype (``kv_cache_dtype: auto``), or int8 with zeroed
     float32 scale pools ``[n_pages, page, KVH, 1]`` (``int8``, JAX
-    ``gpt.py:233-237``). Page 0 is the trash page, scales included."""
+    ``gpt.py:233-237``). The serving engine keeps page 0 as its trash page."""
     shape = (n_pages, page_size, cfg.kv_heads, cfg.head_width)
     if cfg.kv_cache_dtype == "int8":
         sc_shape = shape[:-1] + (1,)
@@ -51,3 +80,195 @@ def allocate_pools(cfg: ModelConfig, n_pages: int, page_size: int, device,
         KVPools(torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
         for _ in range(cfg.n_layers)
     ]
+
+
+@dataclasses.dataclass
+class SlabCache:
+    """The ``[B, cache_len]`` KV cache of ``generate``: per layer a slab
+    seen as pages (``pools``), the identity ``table`` [B, n_blocks] int32
+    and the cursor ``index`` (JAX's scalar ``cache_index``) on the host."""
+
+    pools: Pools
+    table: torch.Tensor
+    cache_len: int
+    index: int = 0
+
+    @property
+    def batch(self) -> int:
+        return self.table.shape[0]
+
+    def slab(self, layer: int, name: str = "k") -> torch.Tensor:
+        """JAX's ``cached_key`` (``"k"``), ``cached_value`` (``"v"``),
+        ``key_scale`` (``"k_scale"``) or ``value_scale`` (``"v_scale"``) of
+        ``layer``: a ``[B, cache_len, KVH, D or 1]`` view."""
+        t = getattr(self.pools[layer], name)
+        return t.view(self.batch, -1, *t.shape[2:])[:, :self.cache_len]
+
+    def forward(self, model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+        """``tokens`` [B, T] at positions ``index`` ..: writes their K/V,
+        advances the cursor by T and returns the final hidden states."""
+        offsets = torch.full((self.batch,), self.index, dtype=torch.int32, device=self.table.device)
+        h = model.forward_paged(tokens, self.pools, self.table, offsets, self.cache_len)
+        self.index += tokens.shape[1]
+        return h
+
+
+def model_device(model: Transformer) -> torch.device:
+    return next(model.parameters()).device
+
+
+def init_cache(model: Transformer, batch: int, cache_len: Optional[int] = None) -> SlabCache:
+    """A zeroed slab cache for ``batch`` rows of ``cache_len`` positions
+    (default ``max_seq_len``, as JAX's ``model.cache_len or
+    cfg.max_seq_len``) on the model's device."""
+    cfg = model.cfg
+    cache_len = cache_len or cfg.max_seq_len
+    device = model_device(model)
+    n_blocks = -(-cache_len // SLAB_PAGE)
+    pools = allocate_pools(cfg, batch * n_blocks, SLAB_PAGE, device)
+    table = torch.arange(batch * n_blocks, dtype=torch.int32, device=device).view(batch, n_blocks)
+    return SlabCache(pools, table, cache_len)
+
+
+@torch.no_grad()
+def prefill(model: Transformer, prompt: torch.Tensor, cache: SlabCache) -> torch.Tensor:
+    """Run the prompt [B, T] through the model at the cache's cursor,
+    filling the cache. Returns the last position's logits [B, V] in float32."""
+    h = cache.forward(model, prompt)
+    return model.logits(h[:, -1]).float()
+
+
+def to_device(values, device) -> torch.Tensor:
+    """Token ids (a list, a host or device tensor) as an int64 tensor on
+    ``device``. A host copy to the card is staged through pinned memory and
+    does not wait for it (a copy from pageable memory would)."""
+    t = torch.as_tensor(values, dtype=torch.long)
+    if t.device.type == "cpu" and torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _prompt(model: Transformer, prompt) -> torch.Tensor:
+    prompt = to_device(prompt, model_device(model))
+    return prompt[None] if prompt.ndim == 1 else prompt
+
+
+def check_positions(cfg: ModelConfig, T: int, max_new_tokens: int) -> None:
+    """Learned positions stop at ``max_seq_len``: refuse a run past them (the
+    table would be read clamped)."""
+    if cfg.position == "learned" and T + max_new_tokens > cfg.max_seq_len:
+        raise ValueError(
+            f"prompt ({T}) + max_new_tokens ({max_new_tokens}) exceeds max_seq_len ({cfg.max_seq_len}) "
+            "and learned positions cannot extrapolate (use position='alibi' or 'rope')"
+        )
+
+
+def _start_decode(model: Transformer, prompt: torch.Tensor, max_new_tokens: int,
+                  cache_len: Optional[int]):
+    """The guards and the prefill shared by ``generate`` and
+    ``stream_tokens``: returns (last logits, cache, penalty mask)."""
+    cfg = model.cfg
+    cache_len = cache_len or cfg.max_seq_len
+    B, T = prompt.shape
+    # the final sampled token is never fed back, so the cache holds T + max_new - 1
+    if T + max_new_tokens - 1 > cache_len:
+        raise ValueError(f"prompt ({T}) + max_new_tokens ({max_new_tokens}) exceeds cache_len ({cache_len})")
+    check_positions(cfg, T, max_new_tokens)
+    cache = init_cache(model, B, cache_len)
+    last_logits = prefill(model, prompt, cache)
+    # presence mask of GENERATED tokens for the repetition penalty
+    gen_mask = torch.zeros(B, last_logits.shape[-1], dtype=torch.bool, device=last_logits.device)
+    return last_logits, cache, gen_mask
+
+
+def _step_uniforms(uniforms: Optional[torch.Tensor], step: int) -> Optional[torch.Tensor]:
+    return None if uniforms is None else uniforms[step]
+
+
+@torch.no_grad()
+def generate(
+    model: Transformer,
+    prompt,
+    max_new_tokens: int,
+    generator: Optional[torch.Generator] = None,
+    sampling: SamplingConfig = SamplingConfig(),
+    eos_token_id: Optional[int] = None,
+    pad_token_id: int = 0,
+    cache_len: Optional[int] = None,
+    uniforms: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Generate ``max_new_tokens`` continuations of a [B, T] prompt.
+
+    Returns [B, max_new_tokens] int64 on the model's device. Rows that hit
+    ``eos_token_id`` are padded with ``pad_token_id`` afterwards; the loop
+    stops once every row is done. ``generator`` (default: seed 0 on the
+    model's device) draws the categorical noise, or ``uniforms``
+    [max_new_tokens, B, V] gives each step's. ``cache_len`` defaults to
+    ``max_seq_len``. The tokens are ``stream_tokens``'s, padded after EOS
+    (a done row's later tokens feed only its own penalty mask)."""
+    prompt = _prompt(model, prompt)
+    out = torch.full((prompt.shape[0], max_new_tokens), pad_token_id, dtype=torch.long, device=prompt.device)
+    done = torch.zeros(prompt.shape[0], dtype=torch.bool, device=prompt.device)
+    steps = stream_tokens(model, prompt, max_new_tokens, generator, sampling, eos_token_id, cache_len, uniforms)
+    for step, token in enumerate(steps):
+        out[:, step] = torch.where(done, pad_token_id, token)
+        if eos_token_id is not None:
+            done |= token == eos_token_id
+    return out
+
+
+@torch.no_grad()
+def stream_tokens(
+    model: Transformer,
+    prompt,
+    max_new_tokens: int,
+    generator: Optional[torch.Generator] = None,
+    sampling: SamplingConfig = SamplingConfig(),
+    eos_token_id: Optional[int] = None,
+    cache_len: Optional[int] = None,
+    uniforms: Optional[torch.Tensor] = None,
+) -> Iterator[torch.Tensor]:
+    """Yield tokens one step at a time (a [B] int64 tensor per yield): the
+    first sampled from the prefill's logits, each later one from the
+    forward of the token before it. The final token's forward is skipped
+    and the draws come in ``generate``'s order, so the tokens are
+    ``generate``'s before its padding. With ``eos_token_id`` the stream
+    stops when every row has emitted it (rows that are done keep streaming
+    until then), reading the device once a step but the last."""
+    prompt = _prompt(model, prompt)
+    logits, cache, gen_mask = _start_decode(model, prompt, max_new_tokens, cache_len)
+    B = prompt.shape[0]
+    dev = logits.device
+    generator = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    token = sample_token(logits, sampling, gen_mask, generator, _step_uniforms(uniforms, 0))
+    # a scalar fill: an index_put of a Python True would copy it from the host and wait
+    gen_mask.scatter_(1, token[:, None], True)
+    for step in range(max_new_tokens):
+        yield token
+        # the last emitted token is never fed back
+        if step + 1 == max_new_tokens:
+            return
+        if eos_token_id is not None:
+            done |= token == eos_token_id
+            if bool(done.all()):
+                return
+        logits = model.logits(cache.forward(model, token[:, None])[:, 0]).float()
+        token = sample_token(logits, sampling, gen_mask, generator, _step_uniforms(uniforms, step + 1))
+        gen_mask.scatter_(1, token[:, None], True)
+
+
+def generate_tokens(
+    model: Transformer,
+    prompt,
+    max_new_tokens: int,
+    generator: Optional[torch.Generator] = None,
+    cache_len: Optional[int] = None,
+    **kwargs,
+) -> torch.Tensor:
+    """Convenience wrapper: a 1-D or [B, T] prompt, a cache of
+    ``max(max_seq_len, prompt + new)`` positions unless ``cache_len`` is
+    given, then ``generate``."""
+    prompt = _prompt(model, prompt)
+    cache_len = cache_len or max(model.cfg.max_seq_len, prompt.shape[1] + max_new_tokens)
+    return generate(model, prompt, max_new_tokens, generator, cache_len=cache_len, **kwargs)

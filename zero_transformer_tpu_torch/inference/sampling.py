@@ -96,10 +96,16 @@ def sample_token(
     A categorical draw is ``argmax(logits + gumbel)`` with gumbel =
     ``-log(-log(u))``; ``u`` is ``uniforms`` [B, V] in (0, 1) when given,
     else drawn from ``generator``."""
-    logits = process_logits(logits, cfg, generated_mask)
-    if cfg.greedy:
-        return torch.argmax(logits, dim=-1)
+    return draw(process_logits(logits, cfg, generated_mask), cfg.greedy, generator, uniforms)
+
+
+def draw(processed: torch.Tensor, greedy: bool, generator: Optional[torch.Generator] = None,
+         uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The token of already processed logits [B, V]: their argmax
+    (``greedy``), else the Gumbel-max draw of ``sample_token``."""
+    if greedy:
+        return torch.argmax(processed, dim=-1)
     if uniforms is None:
-        uniforms = torch.rand(logits.shape, generator=generator, device=logits.device)
-    u = uniforms.to(logits.device, torch.float32).clamp(min=torch.finfo(torch.float32).tiny, max=1.0 - 2**-24)
-    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+        uniforms = torch.rand(processed.shape, generator=generator, device=processed.device)
+    u = uniforms.to(processed.device, torch.float32).clamp(min=torch.finfo(torch.float32).tiny, max=1.0 - 2**-24)
+    return torch.argmax(processed - torch.log(-torch.log(u)), dim=-1)

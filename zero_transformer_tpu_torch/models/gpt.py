@@ -318,17 +318,21 @@ class Attention(nn.Module):
 
     def forward_paged(
         self, x: torch.Tensor, pools: KVPools, block_table: torch.Tensor, offsets: torch.Tensor,
+        cache_len: Optional[int] = None,
     ) -> torch.Tensor:
         """Write this window's K/V through the block table (quantized for an
         int8 cache; with RoPE, the rotated keys), then attend over the row's
-        cache. ``offsets`` [B] is each row's first position."""
+        cache. ``offsets`` [B] is each row's first position. ``cache_len``
+        (default: the table's ``n_blocks * page``) is the capacity past
+        which a write poisons the row: a slab cache rounded up to whole
+        pages keeps its requested length."""
         cfg = self.cfg
         B, T, _ = x.shape
         pos = offsets.long()[:, None] + torch.arange(T, device=x.device)  # [B, T]
         q, k, v = self._qkv(x, pos)
         page = pools.k.shape[1]
         n_blocks = block_table.shape[1]
-        cache_len = n_blocks * page
+        cache_len = n_blocks * page if cache_len is None else cache_len
         # out-of-range blocks clip to the last table entry: overflow is made
         # loud by the NaN poison below, and a parked row's zeroed table
         # routes its write to the trash page
@@ -400,8 +404,8 @@ class Block(nn.Module):
         x = x + dropout(self.attn(self.ln_attn(x), doc_ids), rate, attn_seed)
         return x + dropout(self.mlp(self.ln_mlp(x)), rate, mlp_seed)
 
-    def forward_paged(self, x, pools, block_table, offsets) -> torch.Tensor:
-        x = x + self.attn.forward_paged(self.ln_attn(x), pools, block_table, offsets)
+    def forward_paged(self, x, pools, block_table, offsets, cache_len: Optional[int] = None) -> torch.Tensor:
+        x = x + self.attn.forward_paged(self.ln_attn(x), pools, block_table, offsets, cache_len)
         return x + self.mlp(self.ln_mlp(x))
 
 
@@ -613,17 +617,18 @@ class Transformer(nn.Module):
 
     def forward_paged(
         self, tokens: torch.Tensor, pools: Pools, block_table: torch.Tensor,
-        offsets: torch.Tensor,
+        offsets: torch.Tensor, cache_len: Optional[int] = None,
     ) -> torch.Tensor:
         """[B, T] tokens at positions ``offsets[b] + t`` -> final hidden states
         ``[B, T, d_model]`` (apply ``logits`` to the rows needed). Writes the
-        window's K/V into ``pools`` in place. Decoding never packs (JAX
+        window's K/V into ``pools`` in place; ``cache_len`` as in
+        ``Attention.forward_paged``. Decoding never packs (JAX
         ``packed = ... and not self.decode``): a separator is a token.
         Learned positions are each row's own (JAX's per-slot ``decode_pos``)."""
         h = self.wte(tokens)
         if self.wpe is not None:
             h = h + self._positions(offsets.long()[:, None] + torch.arange(tokens.shape[1], device=tokens.device))
         for blk, layer_pools in zip(self.blocks, pools):
-            h = blk.forward_paged(h, layer_pools, block_table, offsets)
+            h = blk.forward_paged(h, layer_pools, block_table, offsets, cache_len)
         return self.ln_f(h)
 

@@ -1,25 +1,39 @@
-"""Serving CLI for the PyTorch/CUDA port.
+"""Text-generation CLI and serving server for the PyTorch/CUDA port.
 
 Counterpart of ``zero_transformer_tpu/serve.py`` (``ByteTokenizer`` :31,
-the ``--server`` path :358-436, ``main`` :496-). Runs as::
+``TextGenerator`` :59-219, the ``--server`` path :358-436, ``_repl`` :439,
+``_ui`` :462, ``main`` :496-). Runs as::
 
-    python -m zero_transformer_tpu_torch.serve --model 125m --params p.npz --server \
-        [--kv-cache-dtype int8] [--quantize int8]
+    python -m zero_transformer_tpu_torch.serve --model 125m --params p.npz \\
+        [--prompt "..."] [--ui] [--server] [--speculative K] [--draft-k K]
 
-``--params`` is an ``.npz`` of the flat flax param tree (``convert.py`` says
-how to write one from the JAX package), a flax ``.msgpack`` (JAX
-``export_params_msgpack``) or a trainer checkpoint's step directory
-(``<checkpoint.directory>/<step>``). ``--quantize int8`` quantizes that
-tree on the host before any weight reaches the card (JAX ``serve.py``
-:314-322); an ``.npz`` that is already quantized needs the flag. The
-continuous-batching HTTP server (``--server``) is the only mode of this
-slice. The CLI runs on the CUDA card unless ``--device cpu`` is given;
-without a card it refuses to start.
+- with ``--server``: the continuous-batching HTTP server (``--draft-k K``
+  verifies K prompt-lookup drafts per slot and tick; it needs
+  ``--repetition-penalty 1.0`` and is switched off otherwise, as in JAX);
+- else with ``--ui``: a Gradio UI when gradio is importable (it exits with
+  a message when it is not);
+- else with ``--prompt``: one-shot generation to stdout;
+- else an interactive REPL on stdin that streams each reply.
+
+One-shot and REPL generation run ``inference.generate`` over a slab KV cache
+of ``--cache-len`` positions (default ``max_seq_len``); ``--speculative K``
+sends greedy one-shot generation through ``generate_speculative`` with K
+shrunk to what the cache leaves. The sampling flags default to JAX's
+(temperature 0.8, top-k 0, top-p 0.9, repetition penalty 1.1) on every
+path. ``--params`` is an ``.npz`` of the flat flax param tree
+(``convert.py`` says how to write one from the JAX package), a flax
+``.msgpack`` (JAX ``export_params_msgpack``) or a trainer checkpoint's step
+directory (``<checkpoint.directory>/<step>``). ``--quantize int8``
+quantizes that tree on the host before any weight reaches the card (JAX
+``serve.py`` :314-322); an ``.npz`` that is already quantized needs the
+flag. The tokenizer is the byte-level one. The CLI runs on the CUDA card
+unless ``--device cpu`` is given; without a card it refuses to start.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+from typing import Optional
 
 import torch
 
@@ -42,22 +56,114 @@ class ByteTokenizer:
         return bytes(t for t in toks if 0 <= t < 256).decode("utf-8", errors="replace")
 
 
+class TextGenerator:
+    """Tokenizer + model + slab-cache decode behind one ``__call__`` (and
+    ``stream``). ``model`` lies on its device with its weights cast for
+    inference; ``speculative`` K > 0 sends greedy ``__call__`` through
+    prompt-lookup speculative decoding."""
+
+    def __init__(self, model, tokenizer, cache_len: Optional[int] = None, speculative: int = 0):
+        self.model = model
+        self.cfg = model.cfg
+        self.tokenizer = tokenizer
+        self.cache_len = cache_len or model.cfg.max_seq_len
+        self.speculative = speculative
+        self.device = next(model.parameters()).device
+
+    def _decode(self, toks) -> str:
+        from zero_transformer_tpu_torch.serving.detok import decode_tokens
+
+        return decode_tokens(self.tokenizer, toks)
+
+    def _prepare(self, prompt, max_new_tokens, temperature, top_k, top_p, repetition_penalty, greedy):
+        """Encode and truncate the prompt, build the sampling config: one
+        preamble for ``__call__`` and ``stream``."""
+        from zero_transformer_tpu_torch.inference.sampling import SamplingConfig
+
+        ids = self.tokenizer.encode(prompt.strip())
+        budget = self.cache_len - max_new_tokens
+        if budget < 1:
+            raise ValueError("max_new_tokens leaves no room for the prompt")
+        ids = ids[-budget:]  # keep the tail
+        sampling = SamplingConfig(temperature=temperature, top_k=top_k, top_p=top_p,
+                                  repetition_penalty=repetition_penalty, greedy=greedy)
+        return ids, sampling, self.tokenizer.eos_token_id
+
+    def __call__(self, prompt: str, max_new_tokens: int = 128, temperature: float = 0.8, top_k: int = 0,
+                 top_p: float = 0.9, repetition_penalty: float = 1.1, greedy: bool = False,
+                 seed: int = 0) -> str:
+        from zero_transformer_tpu_torch.inference import generate, generate_speculative
+
+        ids, sampling, eos = self._prepare(prompt, max_new_tokens, temperature, top_k, top_p,
+                                           repetition_penalty, greedy)
+        prompt_t = torch.tensor([ids], dtype=torch.long)
+        pad = eos if eos is not None else 0
+        # the draft window must fit the cache (prompt + new + K): shrink K to what fits
+        spec_k = min(self.speculative, self.cache_len - len(ids) - max_new_tokens)
+        if spec_k > 0 and greedy:
+            out = generate_speculative(
+                self.model, prompt_t, max_new_tokens, draft_len=spec_k, eos_token_id=eos, pad_token_id=pad,
+                repetition_penalty=repetition_penalty, temperature=temperature, cache_len=self.cache_len,
+            )
+        else:
+            out = generate(
+                self.model, prompt_t, max_new_tokens, torch.Generator(device=self.device).manual_seed(seed),
+                sampling, eos_token_id=eos, pad_token_id=pad, cache_len=self.cache_len,
+            )
+        return self._decode([t for t in out[0].tolist() if t != eos])
+
+    def stream(self, prompt: str, max_new_tokens: int = 128, temperature: float = 0.8, top_k: int = 0,
+               top_p: float = 0.9, repetition_penalty: float = 1.1, greedy: bool = False, seed: int = 0):
+        """Yield decoded text increments as the tokens come."""
+        from zero_transformer_tpu_torch.inference import stream_tokens
+        from zero_transformer_tpu_torch.serving.detok import StreamDecoder
+
+        ids, sampling, eos = self._prepare(prompt, max_new_tokens, temperature, top_k, top_p,
+                                           repetition_penalty, greedy)
+        decoder = StreamDecoder(self.tokenizer)
+        for token in stream_tokens(
+            self.model, torch.tensor([ids], dtype=torch.long), max_new_tokens,
+            torch.Generator(device=self.device).manual_seed(seed), sampling, eos_token_id=eos,
+            cache_len=self.cache_len,
+        ):
+            t = int(token[0])
+            if eos is not None and t == eos:
+                break
+            piece = decoder.push(t)
+            if piece is not None:
+                yield piece
+        tail = decoder.flush()
+        if tail is not None:
+            yield tail
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="zero_transformer_tpu_torch.serve", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model", required=True, help="model zoo name (config.MODEL_ZOO)")
     p.add_argument("--params", required=True,
                    help=".npz of the flat flax param tree, a flax .msgpack, or a checkpoint step directory")
+    p.add_argument("--prompt", default=None, help="one-shot generation")
+    p.add_argument("--max-new-tokens", type=int, default=128)
+    p.add_argument("--speculative", type=int, default=0, metavar="K",
+                   help="prompt-lookup speculative decoding with K-token drafts (greedy one-shot "
+                        "generation; the same output in fewer model forwards)")
+    p.add_argument("--ui", action="store_true", help="launch the Gradio UI (needs gradio)")
     p.add_argument("--server", action="store_true", help="run the continuous-batching HTTP server")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--slots", type=int, default=_DEFAULTS.slots)
     p.add_argument("--max-queue", type=int, default=_DEFAULTS.max_queue)
-    p.add_argument("--cache-len", type=int, default=None, help="KV positions per slot (default: max_seq_len)")
+    p.add_argument("--cache-len", type=int, default=None,
+                   help="KV positions per sequence (default: max_seq_len)")
     p.add_argument("--prefill-chunk", type=int, default=_DEFAULTS.prefill_chunk)
     p.add_argument("--page-size", type=int, default=_DEFAULTS.page_size)
     p.add_argument("--page-pool-tokens", type=int, default=_DEFAULTS.page_pool_tokens,
                    help="KV pool size in positions (0 = slots x cache_len)")
+    p.add_argument("--draft-k", type=int, default=_DEFAULTS.draft_k,
+                   help="speculative serving: verify K prompt-lookup drafts per slot per tick in one "
+                        "batched forward (greedy: the same output; sampling: the rejection rule); needs "
+                        f"--repetition-penalty 1.0; 0 = off; default {_DEFAULTS.draft_k}")
     p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     p.add_argument("--quantize", default="none", choices=("none", "int8"),
                    help="weight-only int8 serving: Dense kernels + token table "
@@ -66,17 +172,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "the compute dtype, so decode is not faster")
     p.add_argument("--kv-cache-dtype", default="auto", choices=("auto", "int8"),
                    help="int8 K/V with one float32 scale per token and kv head: "
-                        "about half the KV pool's bytes, at slight quantization cost")
+                        "about half the KV cache's bytes, at slight quantization cost")
     p.add_argument("--attention-impl", default="auto", choices=("auto", "xla", "flash"),
                    help="'auto' runs the CUDA kernels wherever their gates accept, "
                         "'xla' the plain PyTorch reference, 'flash' kernel-or-raise")
-    p.add_argument("--temperature", type=float, default=1.0)
+    # the sampling defaults are JAX serve.py's, for every mode
+    p.add_argument("--temperature", type=float, default=0.8)
     p.add_argument("--top-k", type=int, default=0)
-    p.add_argument("--top-p", type=float, default=0.0)
-    p.add_argument("--repetition-penalty", type=float, default=1.0)
+    p.add_argument("--top-p", type=float, default=0.9)
+    p.add_argument("--repetition-penalty", type=float, default=1.1)
     p.add_argument("--greedy", action="store_true")
     p.add_argument("--tokenizer", default="bytes", choices=("bytes",),
-                   help="the byte-level tokenizer is the one this slice ships")
+                   help="the byte-level tokenizer (HF tokenizers come with a later slice)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
@@ -100,11 +207,9 @@ def load_params(path: str, quantize: str):
     return params_from_jax(tree)
 
 
-def build_engine(args):
-    """Model + weights + engine from parsed CLI arguments."""
-    from zero_transformer_tpu_torch.inference.sampling import SamplingConfig
+def build_model(args):
+    """The model with the CLI's weights on its device, cast for inference."""
     from zero_transformer_tpu_torch.models import model_getter
-    from zero_transformer_tpu_torch.serving.engine import ServingEngine
 
     device = resolve_device(args.device)
     state = load_params(args.params, args.quantize)
@@ -114,29 +219,100 @@ def build_engine(args):
         kv_cache_dtype=args.kv_cache_dtype, param_quant=args.quantize,
     )
     model.load_state_dict(state)
+    return model.cast_for_inference()
+
+
+def build_generator(args) -> TextGenerator:
+    return TextGenerator(build_model(args), ByteTokenizer(), cache_len=args.cache_len,
+                         speculative=args.speculative)
+
+
+def build_engine(args):
+    """Model + weights + engine from parsed CLI arguments. ``--draft-k``
+    with a repetition penalty other than 1.0 is switched off with a message
+    (JAX ``_server``)."""
+    from zero_transformer_tpu_torch.inference.sampling import SamplingConfig
+    from zero_transformer_tpu_torch.serving.engine import ServingEngine
+
+    model = build_model(args)
     sampling = SamplingConfig(
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         repetition_penalty=args.repetition_penalty, greedy=args.greedy,
     )
+    draft_k = args.draft_k
+    if draft_k and args.repetition_penalty != 1.0:
+        print("serve: --draft-k requires --repetition-penalty 1.0 (the batched verify step cannot emulate "
+              "the in-block penalty); speculation DISABLED for this run", flush=True)
+        draft_k = 0
     tokenizer = ByteTokenizer()
     engine = ServingEngine(
         model, n_slots=args.slots, cache_len=args.cache_len, sampling=sampling,
         eos_token_id=tokenizer.eos_token_id, max_queue=args.max_queue,
         prefill_chunk=args.prefill_chunk, page_size=args.page_size,
-        page_pool_tokens=args.page_pool_tokens, device=device,
+        page_pool_tokens=args.page_pool_tokens, draft_k=draft_k, device=next(model.parameters()).device,
     )
     return engine, tokenizer
+
+
+def _sampling_kwargs(args) -> dict:
+    return dict(max_new_tokens=args.max_new_tokens, temperature=args.temperature, top_k=args.top_k,
+                top_p=args.top_p, repetition_penalty=args.repetition_penalty, greedy=args.greedy)
+
+
+def _repl(gen: TextGenerator, args) -> None:
+    print("zero_transformer_tpu_torch generation REPL - empty line to exit")
+    while True:
+        try:
+            prompt = input(">>> ")
+        except EOFError:
+            return
+        if not prompt.strip():
+            return
+        for piece in gen.stream(prompt, **_sampling_kwargs(args)):
+            print(piece, end="", flush=True)
+        print()
+
+
+def _ui(gen: TextGenerator) -> None:
+    try:
+        import gradio as gr
+    except ImportError:
+        raise SystemExit("gradio is not installed in this environment; use the CLI/REPL surface instead")
+    demo = gr.Interface(
+        fn=lambda prompt, steps, temp, tk, tp, rp, greedy: gen(
+            prompt, max_new_tokens=int(steps), temperature=temp, top_k=int(tk), top_p=tp,
+            repetition_penalty=rp, greedy=greedy,
+        ),
+        inputs=[
+            gr.Textbox(label="Prompt"),
+            gr.Slider(1, 512, value=128, label="Max new tokens"),
+            gr.Slider(0.1, 2.0, value=0.8, label="Temperature"),
+            gr.Slider(0, 100, value=0, label="Top-k (0 = off)"),
+            gr.Slider(0.0, 0.99, value=0.9, label="Top-p (0 = off)"),
+            gr.Slider(1.0, 2.0, value=1.1, label="Repetition penalty"),
+            gr.Checkbox(label="Greedy"),
+        ],
+        outputs=gr.Textbox(label="Completion"),
+    )
+    demo.launch()
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     resolve_device(args.device)  # refuse to start without the requested device
-    if not args.server:
-        sys.exit("this slice serves over HTTP only: pass --server")
-    from zero_transformer_tpu_torch.serving.server import run_server
+    if args.server:
+        from zero_transformer_tpu_torch.serving.server import run_server
 
-    engine, tokenizer = build_engine(args)
-    run_server(engine, tokenizer, host=args.host, port=args.port)
+        engine, tokenizer = build_engine(args)
+        run_server(engine, tokenizer, host=args.host, port=args.port)
+        return
+    gen = build_generator(args)
+    if args.ui:
+        _ui(gen)
+    elif args.prompt is not None:
+        sys.stdout.write(gen(args.prompt, **_sampling_kwargs(args)) + "\n")
+    else:
+        _repl(gen, args)
 
 
 if __name__ == "__main__":

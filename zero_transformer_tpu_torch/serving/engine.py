@@ -6,8 +6,10 @@ chunked admission (``_admit_chunked`` :1730), the chunked-prefill tick
 (``_prefill_tick`` :1901 with ``_paged_chunk_prefill_impl`` :627 semantics),
 decode page growth (``_grow_decode_pages`` :3144), the decode tick (``step``
 :2291: the sampling tail, then the forward of ``_fused_step_impl`` :485,
-with the per-row non-finite guard), retirement on ``max_new_tokens``/EOS,
-``run``/``run_until_idle`` and a ``metrics_snapshot`` subset.
+with the per-row non-finite guard), the speculative tick of ``draft_k``
+(``_spec_step_impl`` :679, ``_dispatch_spec`` :2539), retirement on
+``max_new_tokens``/EOS, ``run``/``run_until_idle`` and a
+``metrics_snapshot`` subset.
 
 PyTorch runs eagerly, so the prefill chunk runs over the prefilling rows
 only (the JAX program is fixed-shape over every slot and routes the other
@@ -15,8 +17,22 @@ rows to the trash page). The decode tick runs over every slot, as in JAX:
 rows that are not decoding ride along with a zeroed block table (the trash
 page) at position 0, and their outputs are discarded.
 
-Speculation, the prefix cache, QoS, migration, hot reload and the circuit
-breaker come with later slices.
+With ``draft_k`` K > 0 every decode tick is speculative: it samples one
+token per row as the plain tick does (masking the row's veto after the
+logit processors), then verifies K host-proposed drafts per row
+(``ngram_propose(history, K)`` or the engine's ``draft_fn``) in one
+``[S, K + 1]`` forward over the paged pools. Greedy keeps a draft while it
+equals the processed argmax; sampling accepts draft ``d`` with probability
+``p(d)`` and, at the first rejection, carries ``d`` as the row's veto into
+the next tick's sample (the residual of a point-mass draft), so the emitted
+process is plain sampling's. A row emits its token and its accepted drafts;
+its cursor is its prompt plus what it emitted, so the rejected positions
+are rewritten by the next tick. A row whose verify logits are not all
+finite emits only its first token. The repetition penalty must be 1.0 (it
+would make positions inside a block depend on each other).
+
+The prefix cache, QoS, migration, hot reload and the circuit breaker come
+with later slices.
 """
 from __future__ import annotations
 
@@ -28,14 +44,15 @@ import threading
 import time
 import uuid
 from collections import deque
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from zero_transformer_tpu_torch.config import resolve_device
 from zero_transformer_tpu_torch.inference.generate import allocate_pools, decode_model
-from zero_transformer_tpu_torch.inference.sampling import SamplingConfig, sample_token
+from zero_transformer_tpu_torch.inference.sampling import NEG_INF, SamplingConfig, draw, process_logits, sample_token
+from zero_transformer_tpu_torch.inference.speculative import ngram_propose
 from zero_transformer_tpu_torch.models.gpt import Transformer
 from zero_transformer_tpu_torch.ops import _build
 from zero_transformer_tpu_torch.serving.slots import PagedKVCache
@@ -154,7 +171,9 @@ class ServingEngine:
     caller asks for the CPU); its Dense and embedding weights are cast to
     the compute dtype once (``cast_for_inference``). Sampling settings are
     engine-level, like the JAX engine's; requests vary prompt, token
-    budget, seed and deadline."""
+    budget, seed and deadline. ``draft_k`` > 0 makes every decode tick
+    speculative (the module doc); ``draft_fn(history, k)`` replaces the
+    prompt-lookup proposer."""
 
     def __init__(
         self,
@@ -167,6 +186,8 @@ class ServingEngine:
         prefill_chunk: int = 64,
         page_size: int = 16,
         page_pool_tokens: int = 0,
+        draft_k: int = 0,
+        draft_fn: Optional[Callable[[Sequence[int], int], List[int]]] = None,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -185,6 +206,16 @@ class ServingEngine:
             page_pool_tokens = n_slots * self.cache_len  # the slab-equivalent budget
         if page_pool_tokens % page_size:
             raise ValueError(f"page_pool_tokens ({page_pool_tokens}) must be a multiple of page_size ({page_size})")
+        if draft_k < 0:
+            raise ValueError("draft_k must be >= 0 (0 disables speculation)")
+        if draft_k and sampling.repetition_penalty != 1.0:
+            raise ValueError(
+                "speculative serving (draft_k > 0) requires repetition_penalty == 1.0: the penalty makes "
+                "in-block positions interdependent (one-shot generate_speculative emulates it; the batched "
+                "verify step does not)"
+            )
+        self.draft_k = int(draft_k)
+        self.draft_fn = draft_fn or ngram_propose
         if next(model.parameters()).device != self.device:
             raise ValueError(f"model lives on {next(model.parameters()).device}, engine on {self.device}")
         self.page_size = page_size
@@ -207,6 +238,8 @@ class ServingEngine:
         self._last_logits = torch.zeros(n_slots, V, dtype=torch.float32, device=self.device)
         self._gen_mask = torch.zeros(n_slots, V, dtype=torch.bool, device=self.device)
         self._gens = [torch.Generator(device=self.device) for _ in range(n_slots)]
+        # the draft each row rejected last tick, masked out of its next sample (-1: none)
+        self._veto = torch.full((n_slots,), -1, dtype=torch.long, device=self.device)
         self._active: List[Optional[_ActiveSlot]] = [None] * n_slots
         self._prefilling: Dict[int, _PrefillJob] = {}
         self._queue: deque = deque()
@@ -219,6 +252,8 @@ class ServingEngine:
             "rejected_invalid": 0, "cancelled": 0, "expired": 0,
             "tokens_out": 0, "prefill_ticks": 0, "prefill_chunks": 0, "decode_ticks": 0,
             "poisoned_slots": 0, "peak_occupancy": 0,
+            # speculation: acceptance_rate = accepted / drafted
+            "spec_ticks": 0, "draft_tokens": 0, "accepted_tokens": 0,
         }
         self._ttft: deque = deque(maxlen=10_000)
         self._itl: deque = deque(maxlen=10_000)
@@ -228,8 +263,9 @@ class ServingEngine:
     # ------------------------------------------------------------- admission
 
     def _total_need_tokens(self, request: Request) -> int:
-        """Worst-case cache positions the request can ever write."""
-        return min(len(request.prompt) + request.max_new_tokens, self.cache_len)
+        """Worst-case cache positions the request can ever write: prompt +
+        budget, plus the draft window when speculating."""
+        return min(len(request.prompt) + request.max_new_tokens + self.draft_k, self.cache_len)
 
     def _validate(self, request: Request) -> Optional[str]:
         T = len(request.prompt)
@@ -248,6 +284,10 @@ class ServingEngine:
         if self.slots.blocks_for(self._total_need_tokens(request)) > self.slots.n_pages - 1:
             return (f"prompt ({T}) + max_new_tokens ({request.max_new_tokens}) needs more KV "
                     f"pages than the whole pool holds ({self.page_pool_tokens} positions)")
+        # the verify forward writes K positions past the final cursor
+        if self.draft_k and T + request.max_new_tokens + self.draft_k > self.cache_len:
+            return (f"prompt ({T}) + max_new_tokens ({request.max_new_tokens}) + draft_k ({self.draft_k}) "
+                    f"exceeds cache_len ({self.cache_len}); lower one of them")
         return None
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32, seed: int = 0,
@@ -358,6 +398,7 @@ class ServingEngine:
         dest = torch.tensor([s for _, s in completed], device=self.device)
         self._last_logits[dest] = last[rows]
         self._gen_mask[dest] = False
+        self._veto[dest] = -1
         t_done = self.now()
         for _, slot in completed:
             job = self._prefilling.pop(slot)
@@ -368,12 +409,12 @@ class ServingEngine:
 
     def _grow_decode_pages(self) -> None:
         """Extend each decoding slot's block table to cover this tick's
-        write (its cursor + 1)."""
+        writes (its cursor + 1, plus the draft window when speculating)."""
         for slot, act in enumerate(self._active):
             if act is None:
                 continue
             cursor = len(act.handle.request.prompt) + act.emitted
-            if not self.slots.ensure(slot, min(cursor + 1, self.cache_len)):
+            if not self.slots.ensure(slot, min(cursor + 1 + self.draft_k, self.cache_len)):
                 raise RuntimeError("KV page pool exhausted during decode despite the admission reservation")
 
     # ------------------------------------------------------------ retirement
@@ -426,9 +467,22 @@ class ServingEngine:
 
     # ------------------------------------------------------------ decode tick
 
+    def _cursors(self) -> torch.Tensor:
+        """Each slot's write position: prompt + emitted (0 for rows that are
+        not decoding)."""
+        return torch.tensor([len(a.handle.request.prompt) + a.emitted if a is not None else 0
+                             for a in self._active], dtype=torch.int32, device=self.device)
+
+    def _decoding_table(self) -> torch.Tensor:
+        """The block tables with the rows that are not decoding zeroed (the
+        trash page)."""
+        decoding = np.array([a is not None for a in self._active])
+        return torch.from_numpy(self.slots.table * decoding[:, None]).to(self.device)
+
     def _decode(self):
         """The sampling tail, then one forward of every slot's sampled token:
-        returns host (tokens [S], non-finite flags [S]) in one transfer."""
+        returns host (blocks [S][1], emitted counts [S], non-finite flags
+        [S]) from one transfer."""
         S, dev = self.n_slots, self.device
         V = self.cfg.vocab_size
         uniforms = None
@@ -442,24 +496,85 @@ class ServingEngine:
             ])
         token = sample_token(self._last_logits, self.sampling, self._gen_mask, uniforms=uniforms)
         self._gen_mask[torch.arange(S, device=dev), token] = True
-        cursors = [
-            len(a.handle.request.prompt) + a.emitted if a is not None else 0 for a in self._active
-        ]
-        decoding = np.array([a is not None for a in self._active])
-        table = self.slots.table * decoding[:, None]  # parked rows: trash page
         logits = self.model.logits(self.model.forward_paged(
-            token[:, None], self.pools, torch.from_numpy(table).to(dev),
-            torch.tensor(cursors, dtype=torch.int32, device=dev),
-        )[:, 0]).float()
+            token[:, None], self.pools, self._decoding_table(), self._cursors())[:, 0]).float()
         bad = ~torch.isfinite(logits).all(dim=-1)
         self._last_logits = logits
         host = torch.cat([token, bad.long()]).cpu().tolist()
-        return host[:S], host[S:]
+        return [[t] for t in host[:S]], [1] * S, host[S:]
+
+    def _decode_spec(self):
+        """The speculative tick (JAX ``_spec_step_impl`` :679 and
+        ``_dispatch_spec`` :2539): draft K tokens per decoding slot on the
+        host, sample each row's token (its veto masked after processing),
+        verify ``[token, drafts]`` in one forward and accept. Returns host
+        (blocks [S][K + 1], emitted counts [S], non-finite flags [S]) from
+        one transfer; a row with a non-finite verify logit emits its first
+        token only."""
+        K, S, dev = self.draft_k, self.n_slots, self.device
+        V = self.cfg.vocab_size
+        active = [a is not None for a in self._active]
+        drafts = [[0] * K for _ in range(S)]
+        for slot, act in enumerate(self._active):
+            if act is None:
+                continue
+            d = [int(t) for t in self.draft_fn(list(act.handle.request.prompt) + act.handle.tokens, K)]
+            # a misbehaving draft_fn (wrong length, out of vocabulary) degrades acceptance, never the tick
+            drafts[slot] = [t % V for t in d[:K]] + [0] * (K - len(d))
+        draft = torch.tensor(drafts, dtype=torch.long, device=dev)
+        tok_u = acc_u = None
+        if not self.sampling.greedy:
+            # per slot from its own generator: the token's draw, then the K acceptance draws
+            tok_u, acc_u = [], []
+            for s in range(S):
+                if active[s]:
+                    tok_u.append(torch.rand(V, generator=self._gens[s], device=dev))
+                    acc_u.append(torch.rand(K, generator=self._gens[s], device=dev))
+                else:
+                    tok_u.append(torch.full((V,), 0.5, device=dev))
+                    acc_u.append(torch.ones(K, device=dev))
+            tok_u, acc_u = torch.stack(tok_u), torch.stack(acc_u)
+        vocab = torch.arange(V, device=dev)
+        # no mask of generated tokens: the penalty is 1.0 whenever draft_k is set
+        proc = process_logits(self._last_logits, self.sampling)
+        proc = torch.where(vocab[None, :] == self._veto[:, None], NEG_INF, proc)
+        token = draw(proc, self.sampling.greedy, uniforms=tok_u)
+        x = torch.cat([token[:, None], draft], dim=1)  # [S, K + 1]
+        logits32 = self.model.logits(self.model.forward_paged(
+            x, self.pools, self._decoding_table(), self._cursors())).float()  # [S, K + 1, V]
+        flat = process_logits(logits32.reshape(S * (K + 1), V), self.sampling)
+        if self.sampling.greedy:
+            ok = draft == torch.argmax(flat, dim=-1).view(S, K + 1)[:, :K]
+        else:
+            p = torch.softmax(flat, dim=-1).view(S, K + 1, V)
+            ok = acc_u < torch.gather(p[:, :K], 2, draft[..., None])[..., 0]
+        n_acc = torch.cumprod(ok.long(), dim=1).sum(dim=1)  # [S] in [0, K]
+        rows = torch.arange(S, device=dev)
+        live = torch.tensor(active, device=dev)
+        # next tick samples from the distribution after the last accepted token
+        self._last_logits = logits32[rows, n_acc]
+        rejected = draft[rows, torch.clamp(n_acc, max=K - 1)]
+        self._veto = torch.where(live, torch.where(n_acc < K, rejected, -1), self._veto)
+        bad = ~torch.isfinite(logits32).flatten(1).all(dim=-1)
+        host = torch.cat([x.flatten(), n_acc, bad.long()]).cpu().tolist()
+        blocks = [host[s * (K + 1):(s + 1) * (K + 1)] for s in range(S)]
+        n_accs, bad_rows = host[S * (K + 1):S * (K + 2)], host[S * (K + 2):]
+        self.stats["spec_ticks"] += 1
+        n_emits = [1] * S
+        for slot in range(S):
+            if not active[slot]:
+                continue
+            self.stats["draft_tokens"] += K
+            if not bad_rows[slot]:
+                self.stats["accepted_tokens"] += n_accs[slot]
+                n_emits[slot] = 1 + n_accs[slot]
+        return blocks, n_emits, bad_rows
 
     def step(self) -> bool:
         """One scheduler tick: sweep, admit, one prefill chunk per
-        mid-prefill slot, grow decode pages, decode every slot, emit,
-        retire. Returns False when there was nothing to do."""
+        mid-prefill slot, grow decode pages, decode every slot (a
+        speculative tick with ``draft_k``), emit, retire. Returns False when
+        there was nothing to do."""
         self._sweep()
         self._admit_chunked()
         ran_prefill = self._prefill_tick()
@@ -468,7 +583,7 @@ class ServingEngine:
             return ran_prefill
         t0 = self.now()
         with torch.no_grad():
-            tokens, bad_rows = self._decode()
+            blocks, n_emits, bad_rows = self._decode_spec() if self.draft_k else self._decode()
         now = self.now()
         self._decode_s += now - t0
         self.stats["decode_ticks"] += 1
@@ -476,23 +591,28 @@ class ServingEngine:
         for slot, act in enumerate(self._active):
             if act is None:
                 continue
+            toks = blocks[slot][:n_emits[slot]]
             if act.emitted == 0:
                 self._ttft.append(now - act.handle.submitted_at)
             elif act.last_emit_at is not None:
-                self._itl.append(now - act.last_emit_at)
-            # the token was sampled from the PREVIOUS (finite) logits, so it
-            # is valid even when this tick's logits went bad
-            t = int(tokens[slot])
-            act.handle._emit(t, now)
-            act.emitted += 1
-            act.last_emit_at = now
-            self.stats["tokens_out"] += 1
-            hit_eos = self.eos_token_id is not None and t == self.eos_token_id
-            if hit_eos or act.emitted >= act.handle.request.max_new_tokens:
-                act.handle._finish(DONE, now)
-                self.stats["completed"] += 1
-                finished.append(slot)
-            elif bad_rows[slot]:
+                # a speculative block arrives at once: one amortized sample per token
+                self._itl.extend([(now - act.last_emit_at) / len(toks)] * len(toks))
+            # the first token was sampled from the PREVIOUS (finite) logits,
+            # so it is valid even when this tick's logits went bad
+            done_now = False
+            for t in toks:
+                act.handle._emit(int(t), now)
+                act.emitted += 1
+                act.last_emit_at = now
+                self.stats["tokens_out"] += 1
+                hit_eos = self.eos_token_id is not None and int(t) == self.eos_token_id
+                if hit_eos or act.emitted >= act.handle.request.max_new_tokens:
+                    act.handle._finish(DONE, now)
+                    self.stats["completed"] += 1
+                    finished.append(slot)
+                    done_now = True
+                    break
+            if not done_now and bad_rows[slot]:
                 act.handle._finish(FAILED, now, error="non-finite logits in decode (retryable)",
                                    retryable=True)
                 self.stats["poisoned_slots"] += 1
@@ -565,6 +685,9 @@ class ServingEngine:
             "param_quant": self.cfg.param_quant,
             "weight_bytes": self.weight_bytes,
             "kernel_launches": dict(_build.LAUNCHES),
+            "draft_k": self.draft_k,
+            "acceptance_rate": (self.stats["accepted_tokens"] / self.stats["draft_tokens"]
+                                if self.stats["draft_tokens"] else 0.0),
         }
         for name, samples in (("ttft_ms", self._ttft), ("itl_ms", self._itl)):
             for key, value in _percentiles(list(samples)).items():

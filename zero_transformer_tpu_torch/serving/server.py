@@ -26,42 +26,10 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional
 
+from zero_transformer_tpu_torch.serving.detok import StreamDecoder, decode_tokens
 from zero_transformer_tpu_torch.serving.engine import FAILED, READY, REJECTED, ServingEngine
 
 _LIVENESS_POLL_S = 1.0
-
-
-def decode_tokens(tokenizer, toks) -> str:
-    """Detokenize without clean-up passes, so a streamed decode joins to
-    exactly the one-shot decode."""
-    try:
-        return tokenizer.decode(toks, clean_up_tokenization_spaces=False)
-    except TypeError:
-        return tokenizer.decode(toks)
-
-
-class StreamDecoder:
-    """Feed token ids, get decoded text increments; holds back a tail that
-    is an incomplete multi-byte character."""
-
-    def __init__(self, tokenizer):
-        self.tokenizer = tokenizer
-        self._pending: List[int] = []
-
-    def push(self, token: int) -> Optional[str]:
-        self._pending.append(token)
-        text = decode_tokens(self.tokenizer, self._pending)
-        if text.endswith("�"):
-            return None
-        self._pending = []
-        return text
-
-    def flush(self) -> Optional[str]:
-        if not self._pending:
-            return None
-        text = decode_tokens(self.tokenizer, self._pending)
-        self._pending = []
-        return text
 
 
 class ServingServer:
