@@ -213,6 +213,34 @@ Phases, each fatal on failure (nothing is caught):
    float32 engines at ``--draft-k`` 0 and 4: streams equal outside ties of
    twice the f32 bar, acceptance and ITL beside draft_k 0's.
 
+20. serving_policy: serving's policy layer on the paged engine. (a)
+   ``125m`` at full width and depth: eight requests on a 512-token system
+   prompt (8 chunks) with suffixes of 20-100 tokens, 32 new tokens, greedy,
+   the first alone until its prefill is banked, on engines with the prefix
+   cache on (256 chunks, the serve CLI's default) and off, in float32
+   (streams equal outside ties of twice the f32 bar) and bf16 (the first
+   divergence and its gap, no bar), then once over an int8 cache; exact
+   counts (56 hits, the misses as ``PrefixCache.lookup`` counts them, 56
+   prefill chunks saved, one K1 launch a layer and prefill tick, one K4 a
+   layer and decode tick, no copy-on-write, after retirement every page in
+   use held once, by the index); the TTFT p50 of the seven hit requests on
+   and off; the kernel rows of K1 on the chunk after a hit and K4 over rows
+   whose leading pages are shared. (b) Inside llama_serving: ``llama3_8b``
+   at 32 layers, four requests on a 1,024-token prefix, exact counts, every
+   attention read against the plain read of the same pools at the bf16
+   bar. (c) The serve CLI (125m, float32, ``.npz`` files under
+   ``build/serving_policy``, deleted): ``/healthz`` until READY, ``POST
+   /admin/reload`` with a stream in flight (200, the stream whole, prefix
+   entries 0, the next greedy stream equal to a fresh engine's on the new
+   weights), a truncated file 409 with the engine READY, SIGTERM with a
+   stream in flight (it finishes, ``drain_done``, exit 0). (d) In process:
+   ``/healthz`` 503 before the scheduler runs, tick faults (one, then three
+   in a row: the breaker, the rebuild, READY; device memory back within one
+   pool), a gold request preempting one of four batch streams, ``/metrics``
+   as Prometheus text equal to the snapshot. (e) Host ms per decode tick
+   and ITL p50 with the CLI's defaults against ``--prefix-cache 0
+   --no-trace``.
+
 ``--phases k4_anatomy`` (never part of a full run) shows where the paged
 decode kernel's time goes at phase 2's main and long cases: it rebuilds
 ``csrc/paged_attention.cu`` apart as the kernel, a variant that skips the
@@ -235,7 +263,7 @@ bf16 rounding.
 (kernels, serving, parity, profile, int8_kernels, int8_serving,
 train_kernels, training, resilience, train_1_3b, packed_kernels, packed, sp_kernels,
 sequence_parallel, data_parallel, llama_kernels, llama_serving, llama_training, generate,
-data_parallel_nccl, sequence_parallel_f32, k4_anatomy and tc_fit; parity needs serving); the kernel table then lists the kernels whose phases ran.
+serving_policy, data_parallel_nccl, sequence_parallel_f32, k4_anatomy and tc_fit; parity needs serving); the kernel table then lists the kernels whose phases ran.
 
 The last two lines of standard output are the kernel table as one JSON
 object and ``{"ok": true, "device": {...}}`` (a full run only). Without CUDA the script exits
@@ -416,12 +444,14 @@ def flash_bound(B, T, offsets, KVH, dtype, Hq=H, Dh=D, cache=CACHE):
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
-def paged_bound(B, T, offsets, KVH, dtype, Hq=H, Dh=D, cache=CACHE):
+def paged_bound(B, T, offsets, KVH, dtype, Hq=H, Dh=D, cache=CACHE, shared_keys=0):
     """Least time for K4 over bf16/f32 pools: q, the visible keys' K/V rows,
     the table, the offsets and out against HBM, or the flops over the causal
-    (query, key) pairs against the dtype's peak, whichever is larger."""
+    (query, key) pairs against the dtype's peak, whichever is larger. The
+    ``shared_keys`` leading keys that every row maps to the same pages are
+    one input, read once."""
     el = torch.finfo(dtype).bits // 8
-    keys = sum(min(o + T, cache) for o in offsets)
+    keys = sum(min(o + T, cache) for o in offsets) - (B - 1) * shared_keys
     nbytes = 2 * B * T * Hq * Dh * el + 2 * keys * KVH * Dh * el + 4 * B * (cache // PAGE) + 4 * B
     flops = 4 * window_pairs(offsets, T, cache) * Dh * Hq
     t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
@@ -1100,11 +1130,12 @@ def http(method: str, url: str, body=None, timeout: float = 300.0):
 
 
 def serving_phase(int8: bool = False, name: str = "125m", cache_len: int = CACHE, label: str = "serving",
-                  draft_k: int = 0, dtype=torch.bfloat16):
+                  draft_k: int = 0, dtype=torch.bfloat16, after=None):
     """``name`` (125m) in ``dtype`` behind the port's HTTP server; concurrent
     greedy requests. With ``int8``: int8 weights and KV cache, served through
     K4's int8 branch. With ``draft_k``: every decode tick verifies that many
-    prompt-lookup drafts a slot (the CLI's ``--draft-k``)."""
+    prompt-lookup drafts a slot (the CLI's ``--draft-k``). ``after(engine)``
+    runs once the readings are printed, on the same engine."""
     from zero_transformer_tpu_torch.ops import _build
     from zero_transformer_tpu_torch.serve import ByteTokenizer
     from zero_transformer_tpu_torch.serving import ServingServer
@@ -1191,6 +1222,8 @@ def serving_phase(int8: bool = False, name: str = "125m", cache_len: int = CACHE
            if draft_k else {}),
     }
     log({label: summary})
+    if after is not None:
+        after(engine)
     return launches, [r[2] for r in results], summary
 
 
@@ -4207,9 +4240,12 @@ def llama_serving_phase():
     1e-4 with equal greedy tokens outside ties, bf16 no farther from float32
     than the bf16 plain path plus 2e-2) and a profiled decode; then all of
     it with int8 weights (the untied head and the gate included) and an int8
-    cache. Returns the launches of both HTTP runs."""
+    cache. After the bf16 HTTP run, on the same model, the serving_policy
+    phase's (b): a prefix-cache burst (``llama_policy_burst``). Returns the
+    launches of both HTTP runs."""
     t_phase = time.perf_counter()
-    launches, tokens, bf16 = serving_phase(name=LLAMA, cache_len=LCACHE, label="llama_serving")
+    launches, tokens, bf16 = serving_phase(name=LLAMA, cache_len=LCACHE, label="llama_serving",
+                                           after=llama_policy_burst)
     if bf16["layers"] != 32 or not (launches["flash_serving_fwd"] and launches["paged_attention"]):
         raise AssertionError(f"llama3_8b was not served at full depth through K1 and K4: {bf16}")
     parity_phase(tokens, name=LLAMA, cache_len=LCACHE, label="llama_parity", deep=True)
@@ -4811,12 +4847,14 @@ def gen_k1_row(key: str, B: int, T: int, S: int, Hq: int, KVH: int, Dh: int, off
 
 
 def gen_k4_row(key: str, B: int, T: int, S: int, Hq: int, KVH: int, Dh: int, offs_l, alibi: bool, rows: dict,
-               int8: bool = False):
+               int8: bool = False, shared_blocks: int = 0):
     """K4 (``paged_attention``) at a generate shape: a window of T <= 8
     queries at ``offs_l`` over a slab of S keys seen as pages through the
     identity table (row b owns pages 1 + b * S / page on), bf16 (``int8``:
     int8 pools with float32 scales), against its plain version; timed with
-    the page gather + SDPA as the yardstick."""
+    the page gather + SDPA as the yardstick. ``shared_blocks``: every row
+    maps its leading blocks to the same pages (1, 2, ...), as streams behind
+    a prefix-cache hit do."""
     import torch.nn.functional as F
 
     from zero_transformer_tpu_torch.ops import paged_attention as pa
@@ -4829,6 +4867,7 @@ def gen_k4_row(key: str, B: int, T: int, S: int, Hq: int, KVH: int, Dh: int, off
         q, kp, vp, _, offs = paged_case(B, T, n_blocks, KVH, dtype, offs_l, seed, Hq=Hq, Dh=Dh)
         pools, scales = (kp, vp), {}
     table = (1 + torch.arange(B * n_blocks, dtype=torch.int32, device="cuda")).view(B, n_blocks)
+    table[:, :shared_blocks] = 1 + torch.arange(shared_blocks, dtype=torch.int32, device="cuda")
     kw = dict(causal=T > 1, alibi=alibi)
 
     def call():
@@ -4850,7 +4889,7 @@ def gen_k4_row(key: str, B: int, T: int, S: int, Hq: int, KVH: int, Dh: int, off
     if int8:
         bound, by = int8_paged_bound(B, T, offs_l, Hq, KVH, Dh, dtype, S)
     else:
-        bound, by = paged_bound(B, T, offs_l, KVH, dtype, Hq, Dh, S)
+        bound, by = paged_bound(B, T, offs_l, KVH, dtype, Hq, Dh, S, shared_keys=shared_blocks * PAGE)
     rows[key] = dict(max_abs_err=err, ms=time_ms(call), device_ms=device_ms(call),
                      plain_ms=time_ms(lambda: pa.paged_reference(q, *pools[:2], table, offs, **scales, **kw)),
                      library_ms=time_ms(library), bound_ms=bound, bound_by=by)
@@ -4910,6 +4949,557 @@ def generate_phase() -> tuple:
     return rows, launches
 
 
+# --------------------------------------------------------- serving policy
+
+POLICY_DIR = Path("build") / "serving_policy"  # the CLI's .npz files; deleted at the end of the phase
+POLICY_SYSTEM, POLICY_NEW = 512, 32  # a 512-token system prompt (8 chunks of 64), 32 new tokens
+POLICY_SUFFIXES = (20, 31, 43, 56, 67, 78, 89, 100)  # each request's own suffix
+LLAMA_POLICY_PREFIX, LLAMA_POLICY_NEW = 1024, 16  # llama3_8b: 4 requests on a 1,024-token prefix
+LLAMA_POLICY_SUFFIXES = (24, 40, 56, 72)
+POLICY_CHUNKS = 256  # the serve CLI's --prefix-cache default (JAX ServingConfig.prefix_cache_chunks)
+
+
+def policy_prompts(system: int, suffixes, salt: int) -> list:
+    """Byte-token prompts sharing a ``system``-token prefix, each with its
+    own suffix."""
+    head = list(prompt_text(system, salt).encode())
+    return [head + list(prompt_text(n, salt + 1 + i).encode()) for i, n in enumerate(suffixes)]
+
+
+def policy_engine(model, prefix_chunks: int, cache_len: int = CACHE, **kw):
+    from zero_transformer_tpu_torch.inference.sampling import SamplingConfig
+    from zero_transformer_tpu_torch.serving import ServingEngine
+
+    return ServingEngine(model, n_slots=SLOTS, cache_len=cache_len, sampling=SamplingConfig(greedy=True),
+                         prefill_chunk=CHUNK, page_size=PAGE, prefix_cache_chunks=prefix_chunks, device="cuda", **kw)
+
+
+def policy_burst(engine, prompts, new: int) -> dict:
+    """The first request alone until its prefill is done (and banked), then
+    the others together, synchronously: the launch counts (zeroed just
+    before, read just after), the rows, offsets and block tables of the
+    forwards after the first request's prefill (recorded around
+    ``forward_paged``), each request's TTFT."""
+    from zero_transformer_tpu_torch.ops import _build
+
+    calls = []
+    forward = engine.model.forward_paged
+
+    def recording(x, pools, table, offsets, *args, **kw):
+        calls.append((x.shape[1], offsets, table))  # read after the run: no sync here
+        return forward(x, pools, table, offsets, *args, **kw)
+
+    engine.model.forward_paged = recording
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        first = engine.submit(prompts[0], max_new_tokens=new)
+        while first.prefill_done_at is None and first.status in ("queued", "running"):
+            engine.step()
+        first_calls = len(calls)
+        rest = [engine.submit(p, max_new_tokens=new) for p in prompts[1:]]
+        engine.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    finally:
+        del engine.model.forward_paged
+    handles = [first] + rest
+    for h, p in zip(handles, prompts):
+        if h.status != "done" or len(h.tokens) != new:
+            raise AssertionError(f"a {len(p)}-token request ended {h.status} with {len(h.tokens)} tokens: {h.error}")
+    return {"handles": handles, "launches": launches, "wall_s": wall, "snap": engine.metrics_snapshot(),
+            "calls": [(T, offs.tolist(), table) for T, offs, table in calls[first_calls:]],
+            "ttft_ms": [(h.first_token_at - h.submitted_at) * 1e3 for h in handles]}
+
+
+def policy_expect(engine, prompts, hit_chunks: int, run: dict, label: str) -> dict:
+    """The counts the code predicts for a burst over ``prompts`` whose first
+    request banks ``hit_chunks`` shared chunks: hits and misses as
+    ``PrefixCache.lookup`` counts them, the chunks saved, one K1 launch a
+    layer and prefill tick, one K4 a layer and decode tick, no copy-on-write,
+    and after retirement every page in use held once, by the index."""
+    snap, launches, L = run["snap"], run["launches"], engine.cfg.n_layers
+    # the engine's supervision turns an exception in a tick into a retryable
+    # failure: none may have happened
+    faults = {k: snap[k] for k in ("prefill_faults", "tick_faults", "poisoned_slots", "preemptions")}
+    if any(faults.values()):
+        raise AssertionError(f"{label}: the burst met faults {faults}")
+    lens = [len(p) for p in prompts]
+    want = {"prefix_hits": hit_chunks * (len(prompts) - 1),
+            "prefix_misses": (lens[0] - 1) // CHUNK + sum((n - 1) // CHUNK - hit_chunks for n in lens[1:]),
+            "prefill_chunks": -(-lens[0] // CHUNK) + sum(-(-(n - hit_chunks * CHUNK) // CHUNK) for n in lens[1:]),
+            "flash_serving_fwd": L * snap["prefill_ticks"], "cow_copies": 0}
+    paged = "paged_attention_int8" if engine.cfg.kv_cache_dtype == "int8" else "paged_attention"
+    want[paged] = L * snap["decode_ticks"]
+    got = {k: snap[k] for k in ("prefix_hits", "prefix_misses", "prefill_chunks", "cow_copies")}
+    got.update({k: launches[k] for k in ("flash_serving_fwd", paged)})
+    if got != want:
+        raise AssertionError(f"{label}: counts {got} != predicted {want}")
+    other = "paged_attention" if paged.endswith("int8") else "paged_attention_int8"
+    if launches[other]:
+        raise AssertionError(f"{label}: the {other} kernel launched on a {engine.cfg.kv_cache_dtype} cache")
+    index = engine._prefix_cache
+    held = [p for pages in index._entries.values() for p in pages]
+    pool = engine.slots.pool
+    if not (all(pool.refs[p] == 1 for p in held) and pool.in_use == len(held) and pool.reserved == 0):
+        raise AssertionError(f"{label}: pages leaked: {pool.in_use} in use, {len(held)} held by the index, "
+                             f"refs {sorted(set(pool.refs[p] for p in held))}, {pool.reserved} reserved")
+    return {**got, "prefix_stores": snap["prefix_stores"], "index_pages": len(held)}
+
+
+def policy_prefix(dtype, kv: str = "auto", both: bool = True) -> dict:
+    """(a) The 8-request burst on 125m in ``dtype`` with the prefix cache on
+    (256 chunks) and, with ``both``, off: exact counts, the streams of the
+    two runs (float32: equal but at ties of ``TIE_F32``; bf16: the first
+    divergence and its top-2 gap, no bar), the TTFT p50 of the seven hit
+    requests and the launches of the cache-on run."""
+    model = gen_model("125m", dtype, "auto", kv=kv)
+    prompts = policy_prompts(POLICY_SYSTEM, POLICY_SUFFIXES, 90)
+    on_engine = policy_engine(model, POLICY_CHUNKS)
+    on = policy_burst(on_engine, prompts, POLICY_NEW)
+    label = f"serving_policy {str(dtype)[6:]} {kv}-cache prefix"
+    counts = policy_expect(on_engine, prompts, POLICY_SYSTEM // CHUNK, on, label)
+    del on_engine
+    reading = {"dtype": str(dtype)[6:], "kv_cache_dtype": kv, "requests": len(prompts),
+               "prompt_lens": [len(p) for p in prompts], "counts": counts,
+               "ttft_ms_p50_hits_cache_on": sorted(on["ttft_ms"][1:])[3], "wall_s_cache_on": on["wall_s"],
+               "launches_cache_on": {k: c for k, c in on["launches"].items() if c}}
+    if both:
+        off_engine = policy_engine(model, 0)
+        off = policy_burst(off_engine, prompts, POLICY_NEW)
+        del off_engine
+        saved = off["snap"]["prefill_chunks"] - on["snap"]["prefill_chunks"]
+        if saved != 7 * (POLICY_SYSTEM // CHUNK) or off["snap"]["prefix_hits"]:
+            raise AssertionError(f"{label}: the cache saved {saved} chunks, predicted {7 * POLICY_SYSTEM // CHUNK}")
+        got = torch.tensor([h.tokens for h in on["handles"]])
+        ref = torch.tensor([h.tokens for h in off["handles"]])
+        rows = [torch.tensor(p) for p in prompts]
+        margin = TIE_F32 if dtype == torch.float32 else float("inf")
+        reading.update({
+            "streams_cache_on_vs_off": agree_or_tie(got, ref, model, rows, margin, f"{label} on vs off"),
+            "ttft_ms_p50_hits_cache_off": sorted(off["ttft_ms"][1:])[3], "wall_s_cache_off": off["wall_s"],
+            "prefill_chunks_on_off": [on["snap"]["prefill_chunks"], off["snap"]["prefill_chunks"]],
+            "prefill_ticks_on_off": [on["snap"]["prefill_ticks"], off["snap"]["prefill_ticks"]],
+            "k1_launches_on_off": [on["launches"]["flash_serving_fwd"], off["launches"]["flash_serving_fwd"]],
+        })
+    del model
+    return reading, on
+
+
+def policy_kernel_rows(on: dict, rows: dict) -> dict:
+    """K1 at the chunk after a hit (the first prefill call once the first
+    request is decoding: its rows at offset 512, keys 512 + 64 of the
+    1024-key window) and K4 at
+    a decode tick whose four rows share their 32 leading pages, with the
+    offsets of that tick (bf16)."""
+    hit = POLICY_SYSTEM
+    prefill = next((offs for T, offs, _ in on["calls"] if T > 1 and hit in offs), None)
+    decode = next((offs for T, offs, table in on["calls"]
+                   if T == 1 and min(offs) > hit and bool((table[:, :hit // PAGE] == table[:1, :hit // PAGE]).all())),
+                  None)
+    if prefill is None or decode is None:
+        raise AssertionError(f"no chunk at the hit or no decode tick over shared pages was recorded")
+    offs = [o for o in prefill if o == hit]
+    gen_k1_row("flash_serving_fwd_prefix", len(offs), CHUNK, CACHE, H, H, D, offs, True, rows)
+    gen_k4_row("paged_attention_prefix", len(decode), 1, CACHE, H, H, D, decode, True, rows,
+               shared_blocks=hit // PAGE)
+    return {"k1_rows_at_hit": len(offs), "k4_offsets": decode}
+
+
+def policy_cli(tmp: Path) -> dict:
+    """(c) ``python -m zero_transformer_tpu_torch.serve --server`` on 125m in
+    float32 (an ``.npz`` of seed-0 weights; another of seed 1 to reload):
+    the first answered ``/healthz`` is 200 READY; ``POST /admin/reload``
+    with a stream in flight answers 200, the stream finishes whole, the
+    prefix entries read 0 after the swap, and the next greedy stream equals
+    an in-process engine's on the new weights (``agree_or_tie``); a
+    truncated file answers 409 and the engine stays READY; SIGTERM with a
+    stream in flight: it finishes, ``drain_done`` is printed, exit 0."""
+    import queue
+    import signal
+
+    from zero_transformer_tpu_torch.convert import params_to_jax
+    from zero_transformer_tpu_torch.inference.sampling import SamplingConfig
+    from zero_transformer_tpu_torch.models import model_getter
+
+    tmp.mkdir(parents=True, exist_ok=True)
+    files = {}
+    for seed, name in ((SEED, "a.npz"), (SEED + 1, "b.npz")):
+        m = model_getter("125m", dtype=torch.float32, device="cuda", seed=seed)
+        np.savez(tmp / name, **params_to_jax(m.state_dict()))
+        files[name] = tmp / name
+        if seed != SEED:
+            new_model = m.cast_for_inference()
+        else:
+            del m
+    bad = tmp / "bad.npz"
+    bad.write_bytes(files["b.npz"].read_bytes()[:4096])
+    cmd = [sys.executable, "-m", "zero_transformer_tpu_torch.serve", "--model", "125m", "--params",
+           str(files["a.npz"]), "--server", "--port", "0", "--dtype", "float32", "--greedy",
+           "--repetition-penalty", "1.0"]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            cwd=Path(__file__).resolve().parent)
+    lines: "queue.Queue[str]" = queue.Queue()
+    out_lines = []
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout], daemon=True).start()
+
+    def drain_lines():
+        while True:
+            try:
+                out_lines.append(lines.get_nowait())
+            except queue.Empty:
+                return
+
+    def stream(body, first_seen: threading.Event, box: dict):
+        req = urllib.request.Request(base + "/generate", data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            events = []
+            for raw in r:
+                if raw.startswith(b"data: "):
+                    events.append(json.loads(raw[6:]))
+                    first_seen.set()
+            box["events"] = events
+
+    reading = {}
+    try:
+        t_start, base = time.perf_counter(), None
+        while base is None:
+            try:
+                line = lines.get(timeout=300)
+            except queue.Empty:
+                raise AssertionError(f"serve CLI printed no address within 300 s: {out_lines[-20:]}") from None
+            out_lines.append(line)
+            found = re.search(r"serving on (http://[0-9.]+:[0-9]+)", line)
+            base = found.group(1) if found else None
+        answers = []  # every /healthz answer until READY: 503 unless the state is ready
+        for _ in range(600):
+            try:
+                code, text = http("GET", base + "/healthz", timeout=10)
+            except urllib.error.HTTPError as e:
+                code, text = e.code, e.read().decode()
+            answers.append((code, json.loads(text)["state"]))
+            if code == 200:
+                break
+            time.sleep(0.05)
+        if answers[-1] != (200, "ready") or any((c == 200) != (s == "ready") for c, s in answers):
+            raise AssertionError(f"serve CLI /healthz answers: {answers}")
+        reading["healthz_until_ready"] = answers
+        reading["startup_s"] = time.perf_counter() - t_start
+        # a stream in flight across the reload: still streaming when the swap is done
+        seen, box = threading.Event(), {}
+        t = threading.Thread(target=stream, args=({"prompt": prompt_text(40, 3), "max_new_tokens": 600}, seen, box))
+        t.start()
+        seen.wait(120)
+        t0 = time.perf_counter()
+        code, text = http("POST", base + "/admin/reload", {"params": str(files["b.npz"])})
+        reading["reload_ms"] = (time.perf_counter() - t0) * 1e3
+        crossed = t.is_alive()
+        after = json.loads(http("GET", base + "/metrics")[1])
+        t.join(300)
+        events = box.get("events") or [{}]
+        toks = [e["token"] for e in events if "token" in e]
+        reading["stream_crossed_the_swap"] = crossed
+        if code != 200 or not json.loads(text)["reloaded"] or events[-1].get("status") != "done" \
+                or len(toks) != 600 or not crossed:
+            raise AssertionError(f"reload with a stream in flight: HTTP {code} {text}, stream {events[-1]} with "
+                                 f"{len(toks)} tokens, crossed the swap: {crossed}")
+        if after["prefix_entries"] != 0 or after["reloads"] != 1:
+            raise AssertionError(f"after the swap: prefix_entries {after['prefix_entries']}, reloads {after['reloads']}")
+        prompt = prompt_text(300, 11)
+        code, text = http("POST", base + "/generate", {"prompt": prompt, "max_new_tokens": POLICY_NEW,
+                                                      "stream": False})
+        got = json.loads(text)["tokens"]
+        from zero_transformer_tpu_torch.serving import ServingEngine
+
+        fresh = ServingEngine(new_model, n_slots=SLOTS, cache_len=CACHE, device="cuda",
+                              sampling=SamplingConfig(temperature=0.8, top_p=0.9, greedy=True),
+                              prefill_chunk=CHUNK, page_size=PAGE)
+        h = fresh.submit(list(prompt.encode()), max_new_tokens=POLICY_NEW)
+        fresh.run_until_idle()
+        reading["after_reload_vs_fresh_engine"] = agree_or_tie(
+            torch.tensor([got]), torch.tensor([h.tokens]), new_model, [torch.tensor(list(prompt.encode()))],
+            TIE_F32, "the stream after the reload vs a fresh engine on the new weights")
+        del fresh
+        try:
+            code, text = http("POST", base + "/admin/reload", {"params": str(bad)})
+        except urllib.error.HTTPError as e:
+            code, text = e.code, e.read().decode()
+        health = http("GET", base + "/healthz")[0]
+        if code != 409 or json.loads(text)["state"] != "ready" or health != 200:
+            raise AssertionError(f"truncated reload: HTTP {code} {text}, /healthz {health}")
+        # SIGTERM with a stream in flight
+        seen, box = threading.Event(), {}
+        t = threading.Thread(target=stream, args=({"prompt": prompt_text(60, 5), "max_new_tokens": 200}, seen, box))
+        t.start()
+        seen.wait(120)
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        t.join(300)
+        try:
+            proc.wait(120)
+        except subprocess.TimeoutExpired:
+            raise AssertionError("the serve CLI did not exit within 120 s of SIGTERM") from None
+        reading["sigterm_to_exit_s"] = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        time.sleep(0.2)
+        drain_lines()
+        del new_model
+    events = box.get("events") or [{}]
+    toks = [e["token"] for e in events if "token" in e]
+    drained = [x.strip() for x in out_lines if "EVENT drain_done" in x]
+    if proc.returncode != 0 or not drained or events[-1].get("status") != "done" or len(toks) != 200:
+        raise AssertionError(f"SIGTERM drain: exit {proc.returncode}, drain_done {drained}, stream {events[-1]} "
+                             f"with {len(toks)} tokens; {out_lines[-10:]}")
+    reading.update({"exit": proc.returncode, "drain_done": drained[0][-120:], "stream_tokens_through_drain": len(toks)})
+    return reading
+
+
+def policy_faults_and_qos() -> dict:
+    """(d) In process, 125m bf16: ``/healthz`` 503 until the scheduler runs;
+    one faulted tick fails only the four decoding slots (retryably) and the
+    queued fifth request completes; three faulted ticks in a row trip the
+    breaker (DEGRADED), each rebuilds the device state, and a clean tick
+    closes it (READY); the card's allocated bytes return to their level
+    before the faults within one pool's bytes, and a rebuild on an idle
+    engine raises their peak by less than one pool's bytes (the old pools go
+    before the new ones come); four batch streams fill the slots and a gold
+    request preempts exactly one of them and is admitted on the same tick;
+    ``/metrics`` as Prometheus text parses and its counters equal
+    ``metrics_snapshot()``."""
+    from zero_transformer_tpu_torch.serve import ByteTokenizer
+    from zero_transformer_tpu_torch.serving import ServeFault, ServingChaosMonkey, ServingServer
+
+    model = gen_model("125m", torch.bfloat16, "auto")
+    chaos = ServingChaosMonkey([])
+    engine = policy_engine(model, POLICY_CHUNKS, chaos=chaos)
+    server = ServingServer(engine, ByteTokenizer(), port=0)
+    server.start(start_scheduler=False)
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        try:
+            code = http("GET", base + "/healthz")[0]
+        except urllib.error.HTTPError as e:
+            code = e.code
+        if code != 503:
+            raise AssertionError(f"/healthz answered {code} before the scheduler ran")
+    finally:
+        server.stop()
+    # warm-up, then the faulted ticks, synchronously (prompts of one chunk:
+    # a request admitted on a tick decodes on it)
+    engine.submit(list(prompt_text(40, 1).encode()), max_new_tokens=4)
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    victims = [engine.submit(list(prompt_text(40 + i, 2 + i).encode()), max_new_tokens=16) for i in range(SLOTS)]
+    queued = engine.submit(list(prompt_text(30, 9).encode()), max_new_tokens=8)
+    chaos.faults.append(ServeFault("tick_fault", step=engine._tick + 1, duration=1))
+    engine.run_until_idle()
+    storm = [engine.submit(list(prompt_text(30 + i, 40 + i).encode()), max_new_tokens=8) for i in range(3 * SLOTS)]
+    chaos.faults.append(ServeFault("tick_fault", step=engine._tick, duration=3))
+    for _ in range(3):
+        engine.step()
+    state_at_trip = engine.lifecycle.state
+    recovered = engine.submit(list(prompt_text(30, 60).encode()), max_new_tokens=8)
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    idle = torch.cuda.memory_allocated()
+    engine._rebuild_device_state()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    one_pool = engine.pools[0].k.nbytes
+    faults = {"tick_faults": engine.stats["tick_faults"], "breaker_trips": engine.stats["breaker_trips"],
+              "state_at_trip": state_at_trip, "state_after": engine.lifecycle.state,
+              "one_tick_victims": [v.status for v in victims], "queued": queued.status,
+              "storm_failed": sum(h.status == "failed" and h.retryable for h in storm),
+              "allocated_before_after": [before, after], "rebuild_peak_over_idle": peak - idle,
+              "one_pool_bytes": one_pool, "kv_pool_bytes": engine.kv_pool_bytes}
+    if not (faults["tick_faults"] == 4 and faults["breaker_trips"] == 1 and state_at_trip == "degraded"
+            and faults["state_after"] == "ready" and all(v.status == "failed" and v.retryable for v in victims)
+            and queued.status == "done" and recovered.status == "done" and faults["storm_failed"] == 3 * SLOTS
+            and abs(after - before) < one_pool and peak - idle < one_pool):
+        raise AssertionError(f"breaker: {faults}")
+    # QoS: gold preempts one of four running batch streams, admitted the same tick
+    batch = [engine.submit(list(prompt_text(60 + i, 20 + i).encode()), max_new_tokens=64, qos="batch")
+             for i in range(SLOTS)]
+    while sum(a is not None for a in engine._active) < SLOTS:
+        engine.step()
+    gold = engine.submit(list(prompt_text(50, 30).encode()), max_new_tokens=8, qos="gold")
+    engine.step()
+    preempted = [b for b in batch if b.status == "failed"]
+    qos = {"gold_after_one_tick": gold.status, "batch_preempted": len(preempted),
+           "preempted_for_class": engine.stats["preempted_for_class"]}
+    if not (gold.status == "running" and len(preempted) == 1 and preempted[0].retryable
+            and engine.stats["preempted_for_class"] == 1):
+        raise AssertionError(f"QoS preemption: {qos}")
+    engine.run_until_idle()
+    # Prometheus text over HTTP against the snapshot
+    server = ServingServer(engine, ByteTokenizer(), port=0)
+    server.start(start_scheduler=False)
+    try:
+        req = urllib.request.Request(f"http://127.0.0.1:{server.port}/metrics", headers={"Accept": "text/plain"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            ctype, text = r.headers.get("Content-Type"), r.read().decode()
+    finally:
+        server.stop()
+    snap = engine.metrics_snapshot()
+    families = dict(re.findall(r"^# TYPE (\S+) (\S+)$", text, re.M))
+    samples = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            samples[name] = float(value)
+    counters = [n for n, t in families.items() if t == "counter"]
+    wrong = {n: (samples.get(n), snap[n[len("serve_"):-len("_total")]]) for n in counters
+             if samples.get(n) != snap[n[len("serve_"):-len("_total")]]}
+    if not ctype.startswith("text/plain; version=0.0.4") or len(counters) < 38 or wrong:
+        raise AssertionError(f"/metrics as Prometheus text: {ctype}, {len(counters)} counters, mismatches {wrong}")
+    del engine, model
+    return {"breaker": faults, "qos": qos, "prometheus_families": len(families), "prometheus_counters": len(counters)}
+
+
+def policy_cost(reps: int = 2) -> dict:
+    """(e) The policy layer's host cost on 125m bf16: four 300-token streams
+    of 48 new tokens, host ms per decode-only tick (the wall time of
+    ``step()`` on ticks without prefill work) and ITL p50, with the serve
+    CLI's defaults (prefix cache 256, spans on, the inert QoS policy)
+    against ``--prefix-cache 0 --no-trace``, alternated ``reps`` times."""
+    model = gen_model("125m", torch.bfloat16, "auto")
+    arms = {"defaults": dict(prefix_chunks=POLICY_CHUNKS), "prefix_0_no_trace": dict(prefix_chunks=0, trace=False)}
+    out = {k: {"host_ms_per_decode_tick": [], "itl_ms_p50": []} for k in arms}
+    for _ in range(reps):
+        for arm, kw in arms.items():
+            engine = policy_engine(model, kw["prefix_chunks"], **{k: v for k, v in kw.items() if k != "prefix_chunks"})
+            for i in range(SLOTS):
+                engine.submit(list(prompt_text(300, 70 + i).encode()), max_new_tokens=48)
+            ticks = []
+            while True:
+                t0 = time.perf_counter()
+                busy = engine.step()
+                dt = time.perf_counter() - t0
+                if not busy:
+                    break
+                if not engine._prefill_work and engine.active_count == SLOTS:
+                    ticks.append(dt * 1e3)
+            out[arm]["host_ms_per_decode_tick"].append(sum(ticks) / len(ticks))
+            out[arm]["itl_ms_p50"].append(engine.metrics_snapshot()["itl_ms_p50"])
+            del engine
+    del model
+    return out
+
+
+def serving_policy_phase() -> tuple:
+    """Serving's policy layer on the card (the module doc, phase 20): (a)
+    prefix hits on 125m in float32 and bf16 with the cache on and off, and
+    over an int8 cache; the kernel rows of K1 after a hit and K4 over
+    shared pages; (c) the serve CLI's reload and SIGTERM drain; (d) the
+    breaker and QoS in process; (e) the layer's host cost. Every part runs;
+    the phase fails after them if any failed. Returns the kernel rows and
+    their launches (the bf16 cache-on burst's)."""
+    t_phase = time.perf_counter()
+    rows, launches, failed, reading = {}, {}, [], {"card": card_line()}
+
+    def bf16_prefix():
+        reading["prefix_bf16"], on = policy_prefix(torch.bfloat16)
+        launches["flash_serving_fwd_prefix"] = on["launches"]["flash_serving_fwd"]
+        launches["paged_attention_prefix"] = on["launches"]["paged_attention"]
+        reading["kernel_rows"] = policy_kernel_rows(on, rows)
+
+    parts = [("prefix float32", lambda: reading.__setitem__("prefix_f32", policy_prefix(torch.float32)[0])),
+             ("prefix bf16", bf16_prefix),
+             ("prefix int8 cache", lambda: reading.__setitem__("prefix_int8_cache",
+                                                               policy_prefix(torch.bfloat16, "int8", False)[0])),
+             ("cli", lambda: reading.__setitem__("cli", policy_cli(POLICY_DIR))),
+             ("faults and qos", lambda: reading.__setitem__("faults_qos", policy_faults_and_qos())),
+             ("cost", lambda: reading.__setitem__("cost", policy_cost()))]
+    for what, part in parts:
+        t0 = time.perf_counter()
+        try:
+            part()
+        except AssertionError as e:
+            failed.append(what)
+            log({"serving_policy_failed": what, "error": str(e)})
+        reading.setdefault("part_s", {})[what] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(POLICY_DIR, ignore_errors=True)
+    reading["serving_policy_s"] = time.perf_counter() - t_phase
+    log({"serving_policy": reading})
+    if failed:
+        raise AssertionError(f"serving_policy: {failed} failed")
+    return rows, launches
+
+
+def llama_policy_burst(engine) -> dict:
+    """(b) llama3_8b at 32 layers, bf16, on the model the llama_serving phase
+    built (a second engine over it, the prefix cache on): four requests on a
+    1,024-token prefix, the first alone until banked; exact counts (48 hits)
+    and every layer's attention read, kernel against the plain read of the
+    same pools, within the bf16 bar (GQA pages shared across streams)."""
+    from zero_transformer_tpu_torch.ops.paged_attention import MAX_DECODE_T
+
+    model = engine.model
+    burst_engine = policy_engine(model, POLICY_CHUNKS, cache_len=LCACHE)
+    prompts = policy_prompts(LLAMA_POLICY_PREFIX, LLAMA_POLICY_SUFFIXES, 40)
+    seen, err, reads, missed = [], {"prefill": 0.0, "decode": 0.0}, {"prefill": 0, "decode": 0}, []
+    hooks = [blk.attn.out.register_forward_pre_hook(lambda _m, args: seen.append(args[0].float()))
+             for blk in model.blocks]
+    fwd = type(model.blocks[0].attn).forward_paged
+    import copy
+
+    def checked(x, pools, block_table, offsets, cache_len=None, *, attn, plain):
+        out = fwd(attn, x, pools, block_table, offsets, cache_len)
+        got = seen.pop()
+        fwd(plain, x, pools, block_table, offsets, cache_len)  # rewrites the same K/V, then the plain read
+        want = seen.pop()
+        # the positions a row maps: parked rows (a zeroed table) and a
+        # window's tail past the prompt write to the trash page, which
+        # several rows share, so what they read there is whichever write
+        # landed last, and the engine drops it
+        pos = offsets.long()[:, None] + torch.arange(x.shape[1], device=x.device)
+        blocks = torch.clamp(pos // PAGE, max=block_table.shape[1] - 1)
+        mapped = torch.gather(block_table.long(), 1, blocks) != 0
+        kind = "prefill" if x.shape[1] > MAX_DECODE_T else "decode"
+        try:
+            err[kind] = max(err[kind], compare(got[mapped], want[mapped], torch.bfloat16,
+                                               f"llama3_8b shared-page {kind} read"))
+        except AssertionError as e:  # raised here, the engine would take it for a tick fault
+            missed.append(str(e))
+        reads[kind] += 1
+        return out
+
+    for blk in model.blocks:
+        plain = copy.copy(blk.attn)
+        plain.cfg = dataclasses.replace(blk.attn.cfg, attention_impl="xla")
+        blk.attn.forward_paged = functools.partial(checked, attn=blk.attn, plain=plain)
+    try:
+        run = policy_burst(burst_engine, prompts, LLAMA_POLICY_NEW)
+    finally:
+        for blk in model.blocks:
+            del blk.attn.forward_paged
+        for h in hooks:
+            h.remove()
+    if missed:
+        raise AssertionError(f"llama3_8b shared-page reads beyond the bf16 bar: {missed[:3]}")
+    counts = policy_expect(burst_engine, prompts, LLAMA_POLICY_PREFIX // CHUNK, run, "llama3_8b prefix")
+    reading = {"layers": model.cfg.n_layers, "prompt_lens": [len(p) for p in prompts], "counts": counts,
+               "read_max_abs_err": err, "reads": reads, "read_tol": TOL[torch.bfloat16],
+               "ttft_ms": run["ttft_ms"], "wall_s": run["wall_s"],
+               "launches": {k: c for k, c in run["launches"].items() if c}}
+    log({"serving_policy_llama": reading})
+    del burst_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return reading
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4920,7 +5510,7 @@ def card_line() -> str:
 
 PHASES = ("kernels", "serving", "parity", "profile", "int8_kernels", "int8_serving", "train_kernels", "training",
           "resilience", "train_1_3b", "packed_kernels", "packed", "sp_kernels", "sequence_parallel", "data_parallel",
-          "llama_kernels", "llama_serving", "llama_training", "generate")
+          "llama_kernels", "llama_serving", "llama_training", "generate", "serving_policy")
 # named with --phases only: the ring's parity with every kernel on its f32 path, K4's
 # anatomy, data parallelism over NCCL with a card per rank (4 cards), and the
 # fit of the tensor cores' adder that the ALiBi-off K1 emulation uses
@@ -5001,6 +5591,13 @@ SOURCES = {
        for what in ("generate", "verify") for model in ("", "_llama")},
     "paged_attention_int8_generate": ("zero_transformer_tpu_torch/csrc/paged_attention.cu",
                                       "zero_transformer_tpu/ops/pallas/paged_attention.py:100"),
+    # the serving policy layer's prefix cache (125m, bf16): K1 on the chunk
+    # after a hit (its rows at offset 512 read keys another request wrote into
+    # now-shared pages) and K4 decoding rows whose 32 leading pages are shared
+    "flash_serving_fwd_prefix": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
+                                 "zero_transformer_tpu/ops/pallas/flash.py:127"),
+    "paged_attention_prefix": ("zero_transformer_tpu_torch/csrc/paged_attention.cu",
+                               "zero_transformer_tpu/ops/pallas/paged_attention.py:100"),
 }
 
 
@@ -5090,6 +5687,10 @@ def main(argv) -> int:
         gen_rows, gen_launches = generate_phase()
         rows.update(gen_rows)
         launches.update(gen_launches)
+    if "serving_policy" in phases:
+        policy_rows, policy_launches = serving_policy_phase()
+        rows.update(policy_rows)
+        launches.update(policy_launches)
     table = [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu, "launches": launches[name],
          **rows[name]}

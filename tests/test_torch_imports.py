@@ -131,3 +131,6 @@ def test_serving_defaults_match_jax():
     for field in dataclasses.fields(port):
         assert getattr(port, field.name) == getattr(ref, field.name), field.name
     assert ref.kv_layout == "paged" and ref.draft_k == 0
+    # the serve CLI builds its engine from these: the prefix cache on, a 30 s drain
+    assert port.prefix_cache_chunks == ref.prefix_cache_chunks == 256
+    assert port.drain_deadline_s == ref.drain_deadline_s == 30.0

@@ -171,14 +171,24 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
     """Continuous-batching serving defaults (JAX ``ServingConfig``): a paged
-    KV cache with 16-token pages, 64-token prefill chunks, 4 slots."""
+    KV cache with 16-token pages, 64-token prefill chunks, 4 slots, a
+    256-chunk prefix cache and a 30 s drain deadline. ``max_prefill_buckets``,
+    ``kv_layout``, ``fused_tail`` and ``role`` carry JAX's defaults; the
+    paths they select otherwise come with later slices (ROADMAP Queue 1)
+    and raise NotImplementedError here."""
 
     slots: int = 4
     max_queue: int = 64
     prefill_chunk: int = 64
+    prefix_cache_chunks: int = 256  # chunk entries of the prefix cache (0 = off)
+    max_prefill_buckets: int = 8
+    drain_deadline_s: float = 30.0
+    kv_layout: str = "paged"
     page_size: int = 16
     page_pool_tokens: int = 0  # 0 = slots x cache_len
     draft_k: int = 0  # speculative drafts verified per slot and tick (0 = off)
+    fused_tail: bool = True
+    role: str = "mixed"
 
     def __post_init__(self):
         if self.slots < 1:
@@ -187,12 +197,26 @@ class ServingConfig:
             raise ValueError("serving.max_queue must be >= 1")
         if self.prefill_chunk < 1:
             raise ValueError("serving.prefill_chunk must be >= 1 (paged KV needs chunked prefill)")
+        if self.prefix_cache_chunks < 0:
+            raise ValueError("serving.prefix_cache_chunks must be >= 0 (0 disables)")
+        if self.max_prefill_buckets < 1:
+            raise ValueError("serving.max_prefill_buckets must be >= 1")
+        if self.drain_deadline_s < 0:
+            raise ValueError("serving.drain_deadline_s must be >= 0")
         if self.page_size < 1 or self.prefill_chunk % self.page_size:
             raise ValueError("serving.page_size must be >= 1 and divide prefill_chunk")
         if self.page_pool_tokens < 0 or self.page_pool_tokens % self.page_size:
             raise ValueError("serving.page_pool_tokens must be >= 0 and a multiple of page_size")
         if self.draft_k < 0:
             raise ValueError("serving.draft_k must be >= 0 (0 disables)")
+        for field, default, item in (
+            ("role", "mixed", "ROADMAP Queue 1 item 1, step 1: the disaggregated roles and stream migration"),
+            ("kv_layout", "paged", "ROADMAP Queue 1 item 1, step 2: the slab layout and one-shot prefill"),
+            ("max_prefill_buckets", 8, "ROADMAP Queue 1 item 1, step 2: the slab layout and one-shot prefill"),
+            ("fused_tail", True, "ROADMAP Queue 1 item 1, step 2: the fused-tail A/B control"),
+        ):
+            if getattr(self, field) != default:
+                raise NotImplementedError(f"serving.{field}={getattr(self, field)!r} is not ported yet ({item})")
 
 
 # The dense entries of configs/models.yaml, as Python data (the MoE

@@ -8,7 +8,8 @@ each iteration starts it and stops it N iterations later). The capture is
 ``torch.profiler`` with CPU and CUDA activity (CPU only off a card),
 written as a Chrome trace, ``<directory>/<name>/trace.json`` (the trainer's
 ``directory`` is ``training.profile_dir``, by default
-``<checkpoint.directory>/profile``).
+``<checkpoint.directory>/profile``; the serving engine's is
+``<obs_dir>/profiles``, staged by ``POST /admin/profile``).
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ class ProfileWindow:
         self._pending: Optional[Tuple[int, str]] = None
         self._active: Optional[list] = None  # [target tick, path, profiler]
         self._busy = False
+        self.completed: list = []  # directories of finished captures
 
     @property
     def active(self) -> bool:
@@ -109,4 +111,5 @@ class ProfileWindow:
         except Exception:
             log.exception("profiler: stop or export failed")
             return
+        self.completed.append(path)
         log.info("profiler: capture finished -> %s", trace)

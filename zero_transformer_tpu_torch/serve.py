@@ -9,7 +9,13 @@ Counterpart of ``zero_transformer_tpu/serve.py`` (``ByteTokenizer`` :31,
 
 - with ``--server``: the continuous-batching HTTP server (``--draft-k K``
   verifies K prompt-lookup drafts per slot and tick; it needs
-  ``--repetition-penalty 1.0`` and is switched off otherwise, as in JAX);
+  ``--repetition-penalty 1.0`` and is switched off otherwise, as in JAX),
+  with JAX's serving defaults: a 256-chunk prefix cache (``--prefix-cache``,
+  off with ``--prefill-chunk 0``, which the port refuses), SIGTERM drains
+  within ``--drain-deadline`` seconds and exits 0, SIGHUP and ``POST
+  /admin/reload`` hot-swap the weights (``--params`` again, or the request's
+  path) between ticks, ``--obs-dir`` receives flight-recorder dumps,
+  profiles and span traces, ``--metrics-dir`` the metrics timeline;
 - else with ``--ui``: a Gradio UI when gradio is importable (it exits with
   a message when it is not);
 - else with ``--prompt``: one-shot generation to stdout;
@@ -157,6 +163,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cache-len", type=int, default=None,
                    help="KV positions per sequence (default: max_seq_len)")
     p.add_argument("--prefill-chunk", type=int, default=_DEFAULTS.prefill_chunk)
+    p.add_argument("--prefix-cache", type=int, default=_DEFAULTS.prefix_cache_chunks, metavar="CHUNKS",
+                   help="capacity of the chunk-aligned token-prefix cache, in chunks (0 disables)")
+    p.add_argument("--drain-deadline", type=float, default=_DEFAULTS.drain_deadline_s,
+                   help="graceful-drain budget on SIGTERM: admission closes at once, in-flight generations "
+                        "get this many seconds, then are force-finished (retryable)")
+    p.add_argument("--metrics-dir", default=None, help="JSONL sink (metrics.jsonl) for serving metrics and events")
+    p.add_argument("--metrics-interval", type=int, default=200, help="log serving metrics every N scheduler ticks")
+    p.add_argument("--obs-dir", default=None,
+                   help="observability directory: flight-recorder dumps, POST /admin/profile captures and span "
+                        "traces (defaults to --metrics-dir)")
+    p.add_argument("--no-trace", action="store_true", help="disable span tracing (/metrics histograms stay on)")
+    p.add_argument("--admin-token", default=None,
+                   help="bearer token for /admin/* from non-loopback peers (loopback is always allowed)")
     p.add_argument("--page-size", type=int, default=_DEFAULTS.page_size)
     p.add_argument("--page-pool-tokens", type=int, default=_DEFAULTS.page_pool_tokens,
                    help="KV pool size in positions (0 = slots x cache_len)")
@@ -228,12 +247,18 @@ def build_generator(args) -> TextGenerator:
 
 
 def build_engine(args):
-    """Model + weights + engine from parsed CLI arguments. ``--draft-k``
-    with a repetition penalty other than 1.0 is switched off with a message
-    (JAX ``_server``)."""
+    """Model + weights + engine from parsed CLI arguments (JAX ``_server``
+    :358-437). ``--draft-k`` with a repetition penalty other than 1.0 is
+    switched off with a message, and ``--prefill-chunk 0`` turns the prefix
+    cache off, as in JAX; the port then refuses the chunk of 0 (the
+    one-shot prefill comes with a later slice)."""
     from zero_transformer_tpu_torch.inference.sampling import SamplingConfig
+    from zero_transformer_tpu_torch.obs import MetricsLogger
     from zero_transformer_tpu_torch.serving.engine import ServingEngine
 
+    if args.prefill_chunk == 0:
+        raise NotImplementedError("--prefill-chunk 0 (one-shot bucketed prefill over the slab layout) is not "
+                                  "ported yet (ROADMAP Queue 1 item 1, step 2)")
     model = build_model(args)
     sampling = SamplingConfig(
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
@@ -250,8 +275,27 @@ def build_engine(args):
         eos_token_id=tokenizer.eos_token_id, max_queue=args.max_queue,
         prefill_chunk=args.prefill_chunk, page_size=args.page_size,
         page_pool_tokens=args.page_pool_tokens, draft_k=draft_k, device=next(model.parameters()).device,
+        prefix_cache_chunks=args.prefix_cache if args.prefill_chunk else 0,
+        metrics=MetricsLogger(directory=args.metrics_dir), metrics_interval=args.metrics_interval,
+        obs_dir=args.obs_dir or args.metrics_dir, trace=not args.no_trace,
     )
     return engine, tokenizer
+
+
+def _reload_loader(args):
+    """The loader of a hot reload (SIGHUP / ``POST /admin/reload``): the
+    startup path again (``load_params``: read, ``--quantize int8`` on the
+    host), on the request's path or ``--params``. It runs on the reload's
+    thread; the engine validates the state dict, casts it to the serving
+    dtypes and swaps it in between ticks."""
+
+    def load(path: Optional[str] = None):
+        try:
+            return load_params(path or args.params, args.quantize)
+        except SystemExit as exc:  # the startup refusal, as a rejected reload
+            raise ValueError(str(exc)) from None
+
+    return load
 
 
 def _sampling_kwargs(args) -> dict:
@@ -304,7 +348,8 @@ def main(argv=None) -> None:
         from zero_transformer_tpu_torch.serving.server import run_server
 
         engine, tokenizer = build_engine(args)
-        run_server(engine, tokenizer, host=args.host, port=args.port)
+        run_server(engine, tokenizer, host=args.host, port=args.port, reload_source=_reload_loader(args),
+                   drain_deadline_s=args.drain_deadline, admin_token=args.admin_token)
         return
     gen = build_generator(args)
     if args.ui:

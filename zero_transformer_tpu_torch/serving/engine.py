@@ -1,15 +1,44 @@
-"""Continuous-batching scheduler over the paged KV cache.
+"""Continuous-batching scheduler over the paged KV cache, with serving's
+policy layer.
 
-Counterpart of the core of ``zero_transformer_tpu/serving/engine.py``:
-``Request``/``RequestHandle``, ``submit`` behind a bounded queue,
-chunked admission (``_admit_chunked`` :1730), the chunked-prefill tick
-(``_prefill_tick`` :1901 with ``_paged_chunk_prefill_impl`` :627 semantics),
-decode page growth (``_grow_decode_pages`` :3144), the decode tick (``step``
-:2291: the sampling tail, then the forward of ``_fused_step_impl`` :485,
-with the per-row non-finite guard), the speculative tick of ``draft_k``
-(``_spec_step_impl`` :679, ``_dispatch_spec`` :2539), retirement on
-``max_new_tokens``/EOS, ``run``/``run_until_idle`` and a
-``metrics_snapshot`` subset.
+Counterpart of ``zero_transformer_tpu/serving/engine.py`` on its paged
+layout (``kv_layout="paged"``, chunked prefill):
+
+- ``Request``/``RequestHandle``, ``submit`` behind a bounded per-class
+  queue (``qos.ClassQueue``: deficit-weighted round-robin over the gold /
+  standard / batch classes, per-tenant token buckets, slot and page floors,
+  queue-full shedding of a lower class, the brownout rungs, and the
+  infeasible-deadline shed);
+- chunked admission (``_admit_chunked`` :1730) with the PREFIX CACHE
+  (``prefix_cache.PagedPrefixIndex``): a hit maps the cached pages into the
+  slot's block table by refcount and the prefill starts at the first novel
+  chunk, whose attention reads the shared pages (K1 with ``q_offset`` at
+  the hit); a completed prefill banks its chunk-aligned pages before the
+  first decode write (``_bank_prefix`` :2163); a pool that cannot cover an
+  admission reclaims cold prefix pages once (a page fault) and otherwise
+  leaves the request at the queue head;
+- the chunked-prefill tick (``_prefill_tick`` :1901), decode page growth
+  with the copy-on-write guard (``_grow_decode_pages`` :3144), the decode
+  tick (``step`` :2291: the sampling tail, then the forward, with the
+  per-row non-finite guard), the speculative tick of ``draft_k``
+  (``_spec_step_impl`` :679, ``_dispatch_spec`` :2539), retirement on
+  ``max_new_tokens``/EOS;
+- resilience (``serving/resilience.py``): the ``Lifecycle`` that
+  ``/healthz`` reflects; a supervised decode tick whose fault fails only
+  that tick's slots, retryably, and rebuilds the device state (fresh pools,
+  a fresh ``PagedKVCache`` and prefix index), with a circuit breaker that
+  goes DEGRADED at its threshold, self-probes back to READY when idle and
+  aborts after ``max_rebuilds`` consecutive rebuilds; prefill faults fail
+  only the prefilling slots; ``begin_drain``/``poll_drain`` (SIGTERM);
+  ``reload_params`` (SIGHUP, ``POST /admin/reload``), validated off the
+  tick thread and swapped between ticks with no slot retired and the
+  prefix cache flushed;
+- observability (``obs/``): each request's span tree (``request`` over
+  ``queue``/``prefill``/``decode``, keyed by its request id) and the
+  engine's per-tick spans in a ``Tracer``; a ``FlightRecorder`` dumped on a
+  breaker trip, a drain and an abort; ``request_profile`` (a
+  ``torch.profiler`` window of N ticks); ``metrics_snapshot`` and the
+  Prometheus text of ``prometheus_text``, with JAX's family names.
 
 PyTorch runs eagerly, so the prefill chunk runs over the prefilling rows
 only (the JAX program is fixed-shape over every slot and routes the other
@@ -31,8 +60,9 @@ are rewritten by the next tick. A row whose verify logits are not all
 finite emits only its first token. The repetition penalty must be 1.0 (it
 would make positions inside a block depend on each other).
 
-The prefix cache, QoS, migration, hot reload and the circuit breaker come
-with later slices.
+Stream migration and the disaggregated roles, the slab layout with
+one-shot bucketed prefill, and the fused-tail A/B control come with later
+slices (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -40,11 +70,14 @@ import dataclasses
 import itertools
 import math
 import queue as queue_mod
+import re
 import threading
 import time
+import traceback
 import uuid
 from collections import deque
-from typing import Callable, Dict, List, Optional, Sequence
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -54,11 +87,21 @@ from zero_transformer_tpu_torch.inference.generate import allocate_pools, decode
 from zero_transformer_tpu_torch.inference.sampling import NEG_INF, SamplingConfig, draw, process_logits, sample_token
 from zero_transformer_tpu_torch.inference.speculative import ngram_propose
 from zero_transformer_tpu_torch.models.gpt import Transformer
+from zero_transformer_tpu_torch.obs import LATENCY_BUCKETS, FlightRecorder, ProfileWindow, Registry, Tracer
+from zero_transformer_tpu_torch.obs.logging import hbm_device_stats
 from zero_transformer_tpu_torch.ops import _build
+from zero_transformer_tpu_torch.serving.prefix_cache import PagedPrefixIndex
+from zero_transformer_tpu_torch.serving.qos import BROWNOUT_RUNGS, ClassQueue, QosPolicy, TenantBuckets, \
+    reserved_above, rung_at_least
+from zero_transformer_tpu_torch.serving.resilience import DEGRADED, DRAINING, READY, STARTING, STOPPED, \
+    CircuitBreaker, ItlEwma, Lifecycle, ReloadError, infeasible_deadline, validate_reload
 from zero_transformer_tpu_torch.serving.slots import PagedKVCache
 
-# lifecycle states (JAX serving/resilience.py): /healthz is 200 only when READY
-STARTING, READY, STOPPED = "starting", "ready", "stopped"
+__all__ = ["STARTING", "READY", "DEGRADED", "DRAINING", "STOPPED", "Request", "RequestHandle", "ServingEngine"]
+
+# characters stripped from client-supplied request ids (the usual trace-id
+# alphabets: alnum plus - _ . : / =); the id is echoed into a header
+_RID_UNSAFE = re.compile(r"[^A-Za-z0-9._:/=-]")
 
 # request states
 QUEUED = "queued"
@@ -79,15 +122,23 @@ class Request:
     seed: int = 0
     # absolute deadline on the engine's clock; None = no deadline
     deadline: Optional[float] = None
+    # the billing identity and QoS class this request admits under
+    tenant: str = "anon"
+    qos: str = "standard"
 
 
 class RequestHandle:
     """Thread-safe view of a submitted request: token stream + final state."""
 
-    def __init__(self, request: Request, rid: int, submitted_at: float):
+    def __init__(self, request: Request, rid: int, submitted_at: float, request_id: Optional[str] = None):
         self.request = request
         self.id = rid
-        self.rid = uuid.uuid4().hex
+        # correlation id: client-supplied (X-Request-Id), sanitized to a
+        # safe header charset, or generated
+        if request_id:
+            self.rid = _RID_UNSAFE.sub("", str(request_id))[:128] or uuid.uuid4().hex
+        else:
+            self.rid = uuid.uuid4().hex
         self.submitted_at = submitted_at
         self.status = QUEUED
         self.tokens: List[int] = []
@@ -96,11 +147,28 @@ class RequestHandle:
         self.prefill_done_at: Optional[float] = None
         self.finished_at: Optional[float] = None
         self.error: Optional[str] = None
-        # a failure the client should retry (the server answers 503)
+        # a failure the client should retry (the server answers 503/429
+        # with Retry-After)
         self.retryable = False
+        self.retry_after: Optional[float] = None
+        # prompt tokens a prefix-cache hit covered at admission
+        self.prefix_hit_tokens = 0
+        self._tracer: Optional[Tracer] = None
+        # per-request cost ledger (the tick thread bumps the counters)
+        self.ledger: Dict[str, int] = {
+            "prefill_chunks": 0, "decode_ticks": 0, "tokens_out": 0,
+            "draft_tokens": 0, "accepted_tokens": 0, "pages_held_ticks": 0, "migrations": 0,
+        }
         self._events: queue_mod.Queue = queue_mod.Queue()
         self._done = threading.Event()
         self._cancel = threading.Event()
+        # bounded emit buffer: once a streaming consumer attached and stops
+        # draining, token events past emit_buffer_max are dropped and the
+        # scheduler finishes the stream retryably (the done event always
+        # delivers)
+        self.emit_buffer_max: int = 1024
+        self.consumer_attached = False
+        self.overflowed = False
 
     def cancel(self) -> None:
         """Ask the scheduler to drop this request at the next tick."""
@@ -120,20 +188,58 @@ class RequestHandle:
             raise TimeoutError(f"request {self.id} still {self.status}")
         return list(self.tokens)
 
+    def ledger_snapshot(self, now: Optional[float] = None) -> Dict[str, Any]:
+        """The cost ledger as the terminal event reports it: the counters
+        plus the queue/prefill/decode milliseconds from the lifecycle
+        timestamps (up to ``now`` for a live snapshot)."""
+        sub, adm, pre, fin = self.submitted_at, self.admitted_at, self.prefill_done_at, self.finished_at
+        end = fin if fin is not None else (now if now is not None else (pre or adm or sub))
+        queue_ms = ((adm if adm is not None else end) - sub) * 1e3
+        prefill_ms = ((pre if pre is not None else end) - adm) * 1e3 if adm is not None else 0.0
+        decode_ms = (end - pre) * 1e3 if pre is not None else 0.0
+        return {
+            **{k: int(v) for k, v in self.ledger.items()},
+            "queue_ms": round(max(0.0, queue_ms), 3),
+            "prefill_ms": round(max(0.0, prefill_ms), 3),
+            "decode_ms": round(max(0.0, decode_ms), 3),
+        }
+
     def _emit(self, token: int, now: float) -> None:
         if self.first_token_at is None:
             self.first_token_at = now
         self.tokens.append(token)
+        if self.consumer_attached and self._events.qsize() >= self.emit_buffer_max:
+            self.overflowed = True  # the scheduler finishes the stream this tick
+            return
         self._events.put(("token", token))
 
-    def _finish(self, status: str, now: float, error: Optional[str] = None,
-                retryable: bool = False) -> None:
+    def _finish(self, status: str, now: float, error: Optional[str] = None, retryable: bool = False,
+                retry_after: Optional[float] = None) -> None:
         self.status = status
         self.error = error
         self.retryable = retryable
+        self.retry_after = retry_after
         self.finished_at = now
+        if self._tracer is not None and self._tracer.enabled:
+            self._emit_spans(now)
         self._events.put(("done", status))
         self._done.set()
+
+    def _emit_spans(self, fin: float) -> None:
+        """The request's span tree from its lifecycle timestamps: root
+        ``request`` [submitted, finished], partitioned by ``queue``,
+        ``prefill`` and ``decode`` as far as the request got."""
+        tr = self._tracer
+        sub, adm, pre = self.submitted_at, self.admitted_at, self.prefill_done_at
+        attrs: Dict[str, Any] = {"id": self.rid, "outcome": self.status, "tokens": len(self.tokens)}
+        if self.error:
+            attrs["error"] = self.error
+        tr.add("request", self.rid, sub, fin, attrs)
+        tr.add("queue", self.rid, sub, adm if adm is not None else fin, None)
+        if adm is not None:
+            tr.add("prefill", self.rid, adm, pre if pre is not None else fin, None)
+        if pre is not None:
+            tr.add("decode", self.rid, pre, fin, None)
 
 
 @dataclasses.dataclass
@@ -146,7 +252,7 @@ class _ActiveSlot:
 @dataclasses.dataclass
 class _PrefillJob:
     """A slot mid-chunked-prefill: ``fill`` prompt tokens have K/V in the
-    slot's pages."""
+    slot's pages (a prefix hit's shared pages included)."""
 
     handle: RequestHandle
     fill: int = 0
@@ -164,6 +270,49 @@ def _percentiles(values: Sequence[float], qs=(50, 90, 99)) -> Dict[str, float]:
     return out
 
 
+# the stats counters exported as serve_<key>_total, JAX's families (the
+# migration and one-shot counters stay 0 until their slices come)
+_COUNTER_HELP = (
+    ("submitted", "Requests submitted (accepted + rejected)"),
+    ("completed", "Requests finished with status done"),
+    ("rejected_queue_full", "Admission rejections: queue full"),
+    ("rejected_invalid", "Admission rejections: invalid request"),
+    ("rejected_draining", "Admission rejections while draining"),
+    ("shed_infeasible", "Deadline-infeasible sheds at admission"),
+    ("expired_queued", "Deadline expiries while queued"),
+    ("expired_prefilling", "Deadline expiries during prefill"),
+    ("expired_decoding", "Deadline expiries mid-decode"),
+    ("cancelled", "Client cancellations honored"),
+    ("tokens_out", "Tokens emitted to clients"),
+    ("tick_faults", "Supervised decode-tick faults"),
+    ("poisoned_slots", "Slots retired by the non-finite guard"),
+    ("breaker_trips", "Circuit-breaker trips (DEGRADED + rebuild)"),
+    ("drain_forced", "Generations force-finished at drain deadline"),
+    ("reloads", "Hot weight reloads swapped in"),
+    ("reloads_rejected", "Hot weight reloads rejected"),
+    ("prefill_chunks", "Chunk-prefill row dispatches"),
+    ("prefill_faults", "Supervised chunk-prefill faults"),
+    ("prefill_bucket_capped", "One-shot prefill bucket-cap events"),
+    ("page_faults", "Page-pool exhaustions that reclaimed prefix pages"),
+    ("pages_reclaimed", "Prefix-cache pages reclaimed under pressure"),
+    ("preemptions", "Requests preempted for KV pages (last resort)"),
+    ("spec_ticks", "Speculative decode ticks"),
+    ("draft_tokens", "Draft tokens proposed"),
+    ("accepted_tokens", "Draft tokens accepted by verify"),
+    ("migrations_out", "Streams shipped to another replica"),
+    ("migrations_in", "Migrated streams imported and continued"),
+    ("migration_failures", "Ship failures (fell back to recompute)"),
+    ("prefill_handoffs", "Disaggregated prefill-to-decode handoffs"),
+    ("import_replayed_tokens", "Tokens recomputed by imported streams (0 by construction)"),
+    ("rejected_quota", "Admission rejections: tenant quota exhausted"),
+    ("rejected_brownout", "Admission rejections: brownout suspended the class"),
+    ("shed_lower_class", "Queue-full sheds that evicted a lower QoS class"),
+    ("preempted_for_class", "Running streams preempted for a waiting higher class"),
+    ("brownout_transitions", "Brownout rung transitions"),
+    ("stalled_streams", "Streams retired because the client stalled (emit overflow)"),
+)
+
+
 class ServingEngine:
     """Slot-scheduled continuous batching over the paged decode model.
 
@@ -171,9 +320,14 @@ class ServingEngine:
     caller asks for the CPU); its Dense and embedding weights are cast to
     the compute dtype once (``cast_for_inference``). Sampling settings are
     engine-level, like the JAX engine's; requests vary prompt, token
-    budget, seed and deadline. ``draft_k`` > 0 makes every decode tick
-    speculative (the module doc); ``draft_fn(history, k)`` replaces the
-    prompt-lookup proposer."""
+    budget, seed, deadline, tenant and QoS class. ``prefix_cache_chunks``
+    > 0 turns the prefix cache on (the serve CLI's default is 256, JAX's
+    ``ServingConfig``; the engine's own default is 0, as JAX's engine).
+    ``draft_k`` > 0 makes every decode tick speculative (the module doc);
+    ``draft_fn(history, k)`` replaces the prompt-lookup proposer. ``clock``
+    is the engine's clock (deadlines, latencies, drain), injectable for
+    tests; ``chaos`` a ``ServingChaosMonkey``; ``qos`` a ``QosPolicy`` or
+    its config dict (None: the inert defaults)."""
 
     def __init__(
         self,
@@ -189,6 +343,18 @@ class ServingEngine:
         draft_k: int = 0,
         draft_fn: Optional[Callable[[Sequence[int], int], List[int]]] = None,
         device="cuda",
+        prefix_cache_chunks: int = 0,
+        metrics=None,
+        metrics_interval: int = 0,
+        clock: Callable[[], float] = time.monotonic,
+        breaker_threshold: int = 3,
+        max_rebuilds: int = 3,
+        shed_warmup: int = 8,
+        chaos=None,
+        obs_dir: Optional[str] = None,
+        trace: bool = True,
+        qos=None,
+        emit_buffer_max: int = 1024,
     ):
         self.device = resolve_device(device)
         cfg = model.cfg
@@ -196,6 +362,8 @@ class ServingEngine:
         self.cache_len = cache_len or cfg.max_seq_len
         if prefill_chunk < 1:
             raise ValueError("the paged KV cache needs chunked prefill (prefill_chunk >= 1)")
+        if prefix_cache_chunks < 0:
+            raise ValueError("prefix_cache_chunks must be >= 0 (0 disables)")
         # a chunk larger than the cache degenerates to cache-sized windows
         self.prefill_chunk = min(prefill_chunk, self.cache_len)
         if page_size < 1 or self.cache_len % page_size:
@@ -220,45 +388,202 @@ class ServingEngine:
             raise ValueError(f"model lives on {next(model.parameters()).device}, engine on {self.device}")
         self.page_size = page_size
         self.page_pool_tokens = page_pool_tokens
-        n_pages = page_pool_tokens // page_size + 1  # + trash page
-        self.model = decode_model(model, self.cache_len, (n_pages, page_size)).cast_for_inference()
-        self.pools = allocate_pools(cfg, n_pages, page_size, self.device)
-        # device bytes of the KV pools (scales included) and of the weights
-        # as served (int8 ones at one byte each)
-        self.kv_pool_bytes = sum(p.nbytes for p in self.pools)
-        self.weight_bytes = sum(t.numel() * t.element_size() for t in self.model.state_dict().values())
-        self.slots = PagedKVCache(n_slots, n_pages, page_size, self.cache_len)
+        self.n_pages = page_pool_tokens // page_size + 1  # + trash page
+        self.model = decode_model(model, self.cache_len, (self.n_pages, page_size)).cast_for_inference()
         self.n_slots = n_slots
         self.sampling = sampling
         self.eos_token_id = eos_token_id
         self.max_queue = max_queue
-        self.now = time.monotonic
-
-        V = cfg.vocab_size
-        self._last_logits = torch.zeros(n_slots, V, dtype=torch.float32, device=self.device)
-        self._gen_mask = torch.zeros(n_slots, V, dtype=torch.bool, device=self.device)
-        self._gens = [torch.Generator(device=self.device) for _ in range(n_slots)]
-        # the draft each row rejected last tick, masked out of its next sample (-1: none)
-        self._veto = torch.full((n_slots,), -1, dtype=torch.long, device=self.device)
+        self.now = clock
+        self.metrics = metrics
+        self.metrics_interval = metrics_interval
+        self._prefix_cache_chunks = int(prefix_cache_chunks)
+        self.pools = None
+        self.slots: Optional[PagedKVCache] = None
+        self._prefix_cache: Optional[PagedPrefixIndex] = None
         self._active: List[Optional[_ActiveSlot]] = [None] * n_slots
         self._prefilling: Dict[int, _PrefillJob] = {}
-        self._queue: deque = deque()
+        self._allocate_device_state()
+        # device bytes of the KV pools (scales included) and of the weights
+        # as served (int8 ones at one byte each)
+        self.kv_pool_bytes = sum(p.nbytes for p in self.pools)
+        self.weight_bytes = sum(t.numel() * t.element_size() for t in self.model.state_dict().values())
+
+        # QoS: the declared class policy (inert defaults without a config),
+        # per-(tenant, class) buckets, and the per-class DWRR queue
+        self.qos = qos if isinstance(qos, QosPolicy) else QosPolicy.from_config(qos)
+        self._tenant_buckets = TenantBuckets(self.qos)
+        self.emit_buffer_max = max(1, int(emit_buffer_max))
+        self._queue = ClassQueue(self.qos, cost=lambda h: self._total_need_tokens(h.request),
+                                 class_of=lambda h: h.request.qos)
+        self._brownout_rung = BROWNOUT_RUNGS[0]
         self._lock = threading.Lock()
         self._ids = itertools.count()
+        self._tick = 0
         self._dead: Optional[str] = None
-        self.state = STARTING
-        self.stats: Dict[str, float] = {
-            "submitted": 0, "completed": 0, "rejected_queue_full": 0,
-            "rejected_invalid": 0, "cancelled": 0, "expired": 0,
-            "tokens_out": 0, "prefill_ticks": 0, "prefill_chunks": 0, "decode_ticks": 0,
-            "poisoned_slots": 0, "peak_occupancy": 0,
-            # speculation: acceptance_rate = accepted / drafted
-            "spec_ticks": 0, "draft_tokens": 0, "accepted_tokens": 0,
-        }
+        self._prefill_work = False
+
+        # resilience
+        self.lifecycle = Lifecycle(clock)
+        self._breaker = CircuitBreaker(breaker_threshold)
+        self.max_rebuilds = max_rebuilds
+        self._rebuilds_since_recovery = 0
+        self._itl_ewma = ItlEwma(warmup=shed_warmup)
+        self._chaos = chaos
+        self._pending_params = None
+        self._last_reload_event: Optional[threading.Event] = None
+        self._drain_deadline: Optional[float] = None
+        self._drain_started: Optional[float] = None
+        self.drain_latency_s: Optional[float] = None
+
+        self.stats: Dict[str, Any] = {key: 0 for key, _ in _COUNTER_HELP}
+        self.stats.update({"peak_occupancy": 0, "peak_queue_depth": 0, "prefill_ticks": 0, "decode_ticks": 0})
+
+        # observability: spans, the Prometheus registry, the flight
+        # recorder, profile windows; latency samples in fixed-bucket
+        # histograms (Prometheus) and in bounded deques (the JSON
+        # snapshot's exact percentiles)
+        self.obs_dir = str(obs_dir) if obs_dir else None
+        self.tracer = Tracer(enabled=trace, clock=clock)
+        self.registry = Registry()
+        self.flight = FlightRecorder(directory=self.obs_dir, tracer=self.tracer, clock=clock)
+        self._profiler = ProfileWindow(str(Path(self.obs_dir) / "profiles") if self.obs_dir else None)
+        hist = self.registry.histogram
+        self._h_ttft = hist("serve_ttft_seconds", "Submit-to-first-token latency (queue wait included)",
+                            LATENCY_BUCKETS)
+        self._h_itl = hist("serve_itl_seconds", "Inter-token latency, all decode ticks", LATENCY_BUCKETS)
+        self._h_itl_decode = hist("serve_itl_decode_seconds",
+                                  "Inter-token latency on ticks with no prefill work (decode floor)", LATENCY_BUCKETS)
+        self._h_queue_wait = hist("serve_queue_wait_seconds", "Submit-to-slot-admission wait", LATENCY_BUCKETS)
+        self._h_prefill = hist("serve_prefill_seconds", "Admission-to-install prefill latency (prefix hits included)",
+                               LATENCY_BUCKETS)
+        self._h_ttft_class = {name: hist(f"serve_ttft_seconds_{name}", f"Submit-to-first-token latency, {name} class",
+                                         LATENCY_BUCKETS) for name in self.qos.names()}
+        self._h_itl_class = {name: hist(f"serve_itl_seconds_{name}", f"Inter-token latency, {name} class",
+                                        LATENCY_BUCKETS) for name in self.qos.names()}
         self._ttft: deque = deque(maxlen=10_000)
         self._itl: deque = deque(maxlen=10_000)
+        self._itl_decode: deque = deque(maxlen=10_000)
         self._decode_s = 0.0
+        self._register_exports()
         self._started = self.now()
+
+    # ----------------------------------------------------- device-state build
+
+    def _allocate_device_state(self) -> None:
+        """Pools, slot bookkeeping, the prefix index over them, and the
+        per-slot sampling carries: built at start and by every rebuild. The
+        caller has dropped every reference to the old state first."""
+        S, V, dev = self.n_slots, self.cfg.vocab_size, self.device
+        self.pools = allocate_pools(self.cfg, self.n_pages, self.page_size, dev)
+        self.slots = PagedKVCache(S, self.n_pages, self.page_size, self.cache_len)
+        # page-id entries refcounted against THIS pool instance: rebuilt
+        # whenever the pool is (a reload keeps the pool and only flushes)
+        self._prefix_cache = (PagedPrefixIndex(self.prefill_chunk, self._prefix_cache_chunks, self.slots.pool)
+                              if self._prefix_cache_chunks else None)
+        self._last_logits = torch.zeros(S, V, dtype=torch.float32, device=dev)
+        self._gen_mask = torch.zeros(S, V, dtype=torch.bool, device=dev)
+        self._gens = [torch.Generator(device=dev) for _ in range(S)]
+        # the draft each row rejected last tick, masked out of its next sample (-1: none)
+        self._veto = torch.full((S,), -1, dtype=torch.long, device=dev)
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy-on-write's device half: page ``src``'s rows of every pool
+        (scale pools too) into page ``dst``."""
+        with torch.no_grad():
+            for layer in self.pools:
+                for pool in (layer.k, layer.v, layer.k_scale, layer.v_scale):
+                    if pool is not None:
+                        pool[dst] = pool[src]
+
+    # -------------------------------------------------------- qos / brownout
+
+    def _class_slots_in_use(self) -> Dict[str, int]:
+        """Decode + mid-prefill slots held, per class."""
+        counts = {name: 0 for name in self.qos.names()}
+        for h in self._held_handles():
+            counts[self.qos.normalize(h.request.qos)] += 1
+        return counts
+
+    def _class_pages_in_use(self) -> Dict[str, int]:
+        """KV pages reserved per class (the admission-time worst case)."""
+        counts = {name: 0 for name in self.qos.names()}
+        for h in self._held_handles():
+            counts[self.qos.normalize(h.request.qos)] += self.slots.blocks_for(self._total_need_tokens(h.request))
+        return counts
+
+    def _held_handles(self) -> List[RequestHandle]:
+        return ([a.handle for a in self._active if a is not None]
+                + [job.handle for job in self._prefilling.values()])
+
+    def _slot_eligible(self, cls: str, in_use: Dict[str, int]) -> bool:
+        """May class ``cls`` take a free slot now? Only if that leaves the
+        unmet slot floors of every higher class free."""
+        floors = {name: float(c.slot_floor) for name, c in self.qos.classes.items()}
+        held = reserved_above(self.qos, cls, floors, {k: float(v) for k, v in in_use.items()})
+        return self.slots.free_count > held
+
+    def _pages_reserved_above(self, cls: str) -> int:
+        """Pool pages held back from class ``cls`` by higher-class floors."""
+        total = self.slots.pool.n_pages - 1
+        floors = {name: float(int(c.page_floor_frac * total)) for name, c in self.qos.classes.items()}
+        if not any(floors.values()):
+            return 0
+        in_use = {k: float(v) for k, v in self._class_pages_in_use().items()}
+        return int(reserved_above(self.qos, cls, floors, in_use))
+
+    @property
+    def brownout_rung(self) -> str:
+        return self._brownout_rung
+
+    def set_brownout(self, rung: str) -> Dict[str, Any]:
+        """Apply a brownout rung. Idempotent; each transition is counted and
+        flight-recorded. ``no_spec`` turns speculation off,
+        ``shrink_batch`` also clamps the batch class's token budget,
+        ``suspend_batch`` also rejects batch admission (retryable)."""
+        if rung not in BROWNOUT_RUNGS:
+            raise ValueError(f"unknown brownout rung {rung!r} (rungs: {BROWNOUT_RUNGS})")
+        old = self._brownout_rung
+        if rung != old:
+            self._brownout_rung = rung
+            self.stats["brownout_transitions"] += 1
+            self._event("brownout_rung", old=old, new=rung)
+        return {"rung": self._brownout_rung, "previous": old}
+
+    @property
+    def _spec_enabled(self) -> bool:
+        return not rung_at_least(self._brownout_rung, "no_spec")
+
+    def _maybe_preempt_for_class(self) -> None:
+        """With no free slot and a top-class request waiting, preempt ONE
+        running stream of the lowest active class strictly below it (the
+        least-progressed among equals), retryably; the freed slot admits the
+        waiter this same tick."""
+        if self.slots.free_count:
+            return
+        with self._lock:
+            waiting = self._queue.best_waiting_rank()
+        if waiting is None or waiting != 0:
+            return
+        victim_slot, victim_rank, victim_emitted = None, -1, -1
+        for slot, act in enumerate(self._active):
+            if act is None:
+                continue
+            rank = self.qos.rank(act.handle.request.qos)
+            if rank <= waiting:
+                continue
+            if rank > victim_rank or (rank == victim_rank and act.emitted < victim_emitted):
+                victim_slot, victim_rank, victim_emitted = slot, rank, act.emitted
+        if victim_slot is None:
+            return
+        victim = self._active[victim_slot]
+        cls = self.qos.class_of(victim.handle.request.qos)
+        victim.handle._finish(FAILED, self.now(),
+                              error=f"preempted for higher QoS class (retryable): {cls.name} stream yielded its slot",
+                              retryable=True, retry_after=cls.retry_after_s)
+        self.stats["preempted_for_class"] += 1
+        self._retire([victim_slot])
+        self._event("qos_preemption", victim_class=cls.name, emitted=victim_emitted)
 
     # ------------------------------------------------------------- admission
 
@@ -279,42 +604,96 @@ class ServingEngine:
         if T + request.max_new_tokens - 1 > self.cache_len:
             return (f"prompt ({T}) + max_new_tokens ({request.max_new_tokens}) "
                     f"exceeds cache_len ({self.cache_len})")
-        if self.cfg.position == "learned" and T + request.max_new_tokens > self.cfg.max_seq_len:
-            return "learned positions cannot extrapolate past max_seq_len"
         if self.slots.blocks_for(self._total_need_tokens(request)) > self.slots.n_pages - 1:
             return (f"prompt ({T}) + max_new_tokens ({request.max_new_tokens}) needs more KV "
-                    f"pages than the whole pool holds ({self.page_pool_tokens} positions)")
+                    f"pages than the whole pool holds ({self.page_pool_tokens} token positions); raise "
+                    f"--page-pool-tokens or lower the request")
         # the verify forward writes K positions past the final cursor
         if self.draft_k and T + request.max_new_tokens + self.draft_k > self.cache_len:
             return (f"prompt ({T}) + max_new_tokens ({request.max_new_tokens}) + draft_k ({self.draft_k}) "
                     f"exceeds cache_len ({self.cache_len}); lower one of them")
+        if self.cfg.position == "learned" and T + request.max_new_tokens > self.cfg.max_seq_len:
+            return "learned positions cannot extrapolate past max_seq_len"
         return None
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32, seed: int = 0,
-               timeout: Optional[float] = None) -> RequestHandle:
-        """Enqueue a request; returns its handle at once. ``timeout`` (seconds
-        from now) sets the request's deadline. A full queue or an invalid
-        request returns a handle already finished as ``rejected``."""
+               deadline: Optional[float] = None, timeout: Optional[float] = None,
+               request_id: Optional[str] = None, tenant: str = "anon",
+               qos: Optional[str] = None) -> RequestHandle:
+        """Enqueue a request; returns its handle at once. ``timeout``
+        (seconds from now) is sugar for an absolute ``deadline``.
+        ``request_id`` threads an inbound correlation id (X-Request-Id);
+        ``tenant``/``qos`` (X-Tenant-Key / X-QoS-Class) select the token
+        bucket and the class. A rejection returns a handle already finished
+        as ``rejected`` (retryable for drain, quota, brownout, a full queue
+        and a shed; not for an invalid request)."""
         now = self.now()
-        deadline = None if timeout is None else now + timeout
-        request = Request([int(t) for t in prompt], int(max_new_tokens), int(seed), deadline)
-        handle = RequestHandle(request, next(self._ids), now)
+        if timeout is not None:
+            deadline = now + timeout if deadline is None else min(deadline, now + timeout)
+        qos_name = self.qos.normalize(qos)
+        cls = self.qos.classes[qos_name]
+        max_new_tokens = int(max_new_tokens)
+        if (rung_at_least(self._brownout_rung, "shrink_batch") and cls.brownout_max_new_tokens is not None
+                and max_new_tokens > cls.brownout_max_new_tokens):
+            max_new_tokens = cls.brownout_max_new_tokens
+        request = Request([int(t) for t in prompt], max_new_tokens, int(seed), deadline,
+                          tenant=str(tenant or "anon")[:64], qos=qos_name)
+        handle = RequestHandle(request, next(self._ids), now, request_id=request_id)
+        handle._tracer = self.tracer
+        handle.emit_buffer_max = self.emit_buffer_max
         invalid = self._validate(request)
         with self._lock:
             if self._dead is not None:
                 handle._finish(FAILED, now, error=self._dead)
+                return handle
+            if self.lifecycle.state == DRAINING:
+                self.stats["rejected_draining"] += 1
+                left = max(1.0, self._drain_deadline - now) if self._drain_deadline is not None else 1.0
+                handle._finish(REJECTED, now, error="server draining; retry elsewhere", retryable=True,
+                               retry_after=left)
                 return handle
             self.stats["submitted"] += 1
             if invalid is not None:
                 self.stats["rejected_invalid"] += 1
                 handle._finish(REJECTED, now, error=invalid)
                 return handle
+            if rung_at_least(self._brownout_rung, "suspend_batch") and \
+                    self.qos.rank(qos_name) == len(self.qos.names()) - 1:
+                self.stats["rejected_brownout"] += 1
+                handle._finish(REJECTED, now,
+                               error=f"brownout ({self._brownout_rung}): {qos_name} admission suspended; retry later",
+                               retryable=True, retry_after=cls.retry_after_s)
+                return handle
+            quota_wait = self._tenant_buckets.take(request.tenant, qos_name,
+                                                   len(request.prompt) + request.max_new_tokens, now)
+            if quota_wait > 0:
+                self.stats["rejected_quota"] += 1
+                handle._finish(REJECTED, now, error=f"tenant quota exhausted ({qos_name}); retry later",
+                               retryable=True, retry_after=quota_wait)
+                return handle
             if len(self._queue) >= self.max_queue:
-                self.stats["rejected_queue_full"] += 1
-                handle._finish(REJECTED, now, error=f"queue full ({self.max_queue} waiting); retry later",
-                               retryable=True)
+                # evict the newest STRICTLY lower-class waiter before turning
+                # a higher one away
+                victim = self._queue.pop_lowest_class(above_rank=self.qos.rank(qos_name))
+                if victim is not None:
+                    vcls = self.qos.class_of(victim.request.qos)
+                    self.stats["shed_lower_class"] += 1
+                    victim._finish(REJECTED, now,
+                                   error=f"queue full; shed for higher QoS class ({vcls.name} yielded); retry later",
+                                   retryable=True, retry_after=vcls.retry_after_s)
+                else:
+                    self.stats["rejected_queue_full"] += 1
+                    handle._finish(REJECTED, now, error=f"queue full ({self.max_queue} waiting); retry later",
+                                   retryable=True, retry_after=max(1.0, cls.retry_after_s))
+                    return handle
+            if request.deadline is not None and infeasible_deadline(
+                    request.deadline, now, request.max_new_tokens, len(self._queue), self.n_slots, self._itl_ewma):
+                self.stats["shed_infeasible"] += 1
+                handle._finish(REJECTED, now, error="deadline infeasible at current load (shed)", retryable=True,
+                               retry_after=1.0)
                 return handle
             self._queue.append(handle)
+            self.stats["peak_queue_depth"] = max(self.stats["peak_queue_depth"], len(self._queue))
         return handle
 
     @property
@@ -326,35 +705,102 @@ class ServingEngine:
     def active_count(self) -> int:
         return sum(1 for a in self._active if a is not None)
 
+    @property
+    def free_pages(self) -> int:
+        """Spare KV capacity: free pool pages."""
+        return self.slots.pool.free_count
+
+    def _pop_queue(self, eligible=None) -> Optional[RequestHandle]:
+        """Pop the next admissible queued handle (DWRR across classes;
+        ``eligible`` gates classes a higher floor holds back), finishing
+        cancelled / expired ones on the way."""
+        with self._lock:
+            now = self.now()
+            while self._queue:
+                cand = self._queue.popleft(eligible=eligible)
+                if cand is None:
+                    return None
+                if cand._cancel.is_set():
+                    self.stats["cancelled"] += 1
+                    cand._finish(CANCELLED, now)
+                elif cand.request.deadline is not None and now > cand.request.deadline:
+                    self.stats["expired_queued"] += 1
+                    cand._finish(EXPIRED, now, error="deadline expired in queue")
+                else:
+                    return cand
+        return None
+
     def _admit_chunked(self) -> None:
         """Claim a slot per admissible queued request and start its chunked
-        prefill. Admission reserves the request's worst case in the page
-        pool; when the pool cannot cover it the request waits at the head."""
+        prefill. A prefix hit maps the cached pages into the slot's block
+        table (refcount bumps, no K/V moves) BEFORE the reservation, and the
+        job starts at the first novel chunk. Admission reserves the
+        request's worst case beyond the hit; when the pool cannot cover it,
+        even after reclaiming cold prefix pages once, the request waits at
+        the queue head."""
+        self._maybe_preempt_for_class()
         while self.slots.free_count:
-            with self._lock:
-                if not self._queue:
-                    return
-                handle = self._queue.popleft()
-                need = self.slots.blocks_for(self._total_need_tokens(handle.request))
-                if not self.slots.can_admit(need):
+            in_use = self._class_slots_in_use()
+            handle = self._pop_queue(eligible=lambda c: self._slot_eligible(c, in_use))
+            if handle is None:
+                return
+            if not self._paged_admission_fits(handle):
+                with self._lock:
                     self._queue.appendleft(handle)
-                    return
+                return
             slot = self.slots.acquire()
-            self.slots.reserve(slot, self._total_need_tokens(handle.request))
+            fill = 0
+            try:
+                if self._prefix_cache is not None:
+                    fill, hits = self._prefix_cache.lookup(handle.request.prompt)
+                    if hits:
+                        self.slots.share(slot, [p for entry in hits for p in entry])
+                self.slots.reserve(slot, self._total_need_tokens(handle.request))
+            except Exception as exc:
+                # in neither the queue nor a slot table: finish it here
+                handle._finish(FAILED, self.now(), error=f"admission failed: {exc!r}")
+                raise
+            handle.prefix_hit_tokens = fill
             handle.admitted_at = self.now()
+            self._h_queue_wait.observe(handle.admitted_at - handle.submitted_at)
             handle.status = RUNNING
-            self._prefilling[slot] = _PrefillJob(handle)
+            self._prefilling[slot] = _PrefillJob(handle, fill=fill)
+
+    def _paged_admission_fits(self, handle: RequestHandle) -> bool:
+        """Whether the pool covers the request's reservation after the hit
+        it is about to take, pages held back for higher classes aside. A
+        shortfall reclaims cold prefix pages once (a page fault), then
+        gives up."""
+        need_total = self.slots.blocks_for(self._total_need_tokens(handle.request))
+        held_above = self._pages_reserved_above(handle.request.qos)
+        for attempt in (0, 1):
+            hit_blocks = 0
+            if self._prefix_cache is not None:
+                fill, _ = self._prefix_cache.walk(handle.request.prompt)
+                hit_blocks = fill // self.page_size
+            shortfall = (need_total - hit_blocks) - (self.slots.pool.available - held_above)
+            if shortfall <= 0:
+                return True
+            if attempt or self._prefix_cache is None or not len(self._prefix_cache):
+                return False
+            # reclaim may evict the very entries the hit would use: the
+            # re-walk above recomputes the hit
+            self.stats["page_faults"] += 1
+            self.stats["pages_reclaimed"] += self._prefix_cache.reclaim(shortfall)
+        return False
 
     # ------------------------------------------------------- chunked prefill
 
     def _prefill_tick(self) -> bool:
         """One prefill chunk for every mid-prefill slot, as one batched
         forward over those rows; slots whose prompt completes install into
-        the decode set (their decode starts this same tick)."""
+        the decode set (their decode starts this same tick) and bank their
+        prefix. Supervised: a fault fails only the prefilling slots."""
         if not self._prefilling:
             return False
+        self._prefill_work = True
         C, L = self.prefill_chunk, self.cache_len
-        slots, tokens, starts, lens = [], [], [], []
+        slots, tokens, starts, lens, faulted = [], [], [], [], []
         for slot, job in self._prefilling.items():
             prompt = job.handle.request.prompt
             # clamp the window to capacity: a final chunk near the cap
@@ -362,28 +808,51 @@ class ServingEngine:
             w = min(job.fill, L - C)
             # pages cover only REAL prompt positions: the padded tail of the
             # window writes to the trash page through unmapped blocks
-            if not self.slots.ensure(slot, min(w + C, len(prompt))):
-                raise RuntimeError("KV page pool exhausted during prefill despite the admission reservation")
+            if not self._ensure_pages_or_reclaim(slot, min(w + C, len(prompt))):
+                faulted.append(slot)
+                continue
             window = list(prompt[w:w + C])
             slots.append(slot)
             tokens.append(window + [0] * (C - len(window)))
             starts.append(w)
             lens.append(len(prompt))
+        if faulted:
+            # reservations make this unreachable unless bookkeeping rots:
+            # fail ONLY the starved jobs, loudly
+            now = self.now()
+            for slot in faulted:
+                self.stats["preemptions"] += 1
+                self._prefilling.pop(slot).handle._finish(
+                    FAILED, now, error="KV page pool exhausted during prefill (retryable)", retryable=True)
+            self.slots.release(faulted)
+            self._event("page_preemption", slots=len(faulted), phase="prefill")
+            if not slots:
+                return True
         dev = self.device
-        with torch.no_grad():
-            h = self.model.forward_paged(
-                torch.tensor(tokens, dtype=torch.long, device=dev), self.pools,
-                torch.from_numpy(self.slots.table[slots]).to(dev),
-                torch.tensor(starts, dtype=torch.int32, device=dev),
-            )
-            last_idx = [min(max(n - 1 - s, 0), C - 1) for n, s in zip(lens, starts)]
-            last = self.model.logits(h[torch.arange(len(slots), device=dev),
-                                       torch.tensor(last_idx, device=dev)]).float()
+        t_chunk = self.now() if self.tracer.enabled else 0.0
+        try:
+            if self._chaos is not None:
+                self._chaos.on_prefill_chunk(self._tick)
+            with torch.no_grad():
+                h = self.model.forward_paged(
+                    torch.tensor(tokens, dtype=torch.long, device=dev), self.pools,
+                    torch.from_numpy(self.slots.table[slots]).to(dev),
+                    torch.tensor(starts, dtype=torch.int32, device=dev),
+                )
+                last_idx = [min(max(n - 1 - s, 0), C - 1) for n, s in zip(lens, starts)]
+                last = self.model.logits(h[torch.arange(len(slots), device=dev),
+                                           torch.tensor(last_idx, device=dev)]).float()
+        except Exception as exc:
+            self._on_prefill_fault(exc)
+            return True
+        if self.tracer.enabled:
+            self.tracer.add("prefill_chunk", "engine", t_chunk, self.now(), {"tick": self._tick, "slots": len(slots)})
         self.stats["prefill_ticks"] += 1
         self.stats["prefill_chunks"] += len(slots)
         completed = []
         for row, slot in enumerate(slots):
             job = self._prefilling[slot]
+            job.handle.ledger["prefill_chunks"] += 1
             job.fill = min(starts[row] + C, lens[row])
             if job.fill >= lens[row]:
                 completed.append((row, slot))
@@ -391,9 +860,24 @@ class ServingEngine:
             self._install_completed(completed, last)
         return True
 
+    def _ensure_pages_or_reclaim(self, slot: int, tokens: int) -> bool:
+        """Grow ``slot``'s block table to cover ``tokens`` positions; on pool
+        exhaustion reclaim cold prefix pages (a page fault) and retry once."""
+        tokens = min(tokens, self.cache_len)
+        if self.slots.ensure(slot, tokens):
+            return True
+        self.stats["page_faults"] += 1
+        if self._prefix_cache is not None and len(self._prefix_cache):
+            need = self.slots.blocks_for(tokens) - self.slots.alloc_blocks[slot]
+            self.stats["pages_reclaimed"] += self._prefix_cache.reclaim(need)
+            if self.slots.ensure(slot, tokens):
+                return True
+        return False
+
     def _install_completed(self, completed, last: torch.Tensor) -> None:
         """Rows whose prefill finished get their last-position logits, a
-        cleared penalty mask and a fresh generator seeded from the request."""
+        cleared penalty mask and a fresh generator seeded from the request;
+        then their prefix is banked, before the first decode write."""
         rows = torch.tensor([r for r, _ in completed], device=self.device)
         dest = torch.tensor([s for _, s in completed], device=self.device)
         self._last_logits[dest] = last[rows]
@@ -404,18 +888,63 @@ class ServingEngine:
             job = self._prefilling.pop(slot)
             self._gens[slot].manual_seed(job.handle.request.seed)
             job.handle.prefill_done_at = t_done
+            if job.handle.admitted_at is not None:
+                self._h_prefill.observe(t_done - job.handle.admitted_at)
             self._active[slot] = _ActiveSlot(job.handle)
+            self._bank_prefix(slot, job.handle)
         self.stats["peak_occupancy"] = max(self.stats["peak_occupancy"], self.active_count)
+
+    def _bank_prefix(self, slot: int, handle: RequestHandle) -> None:
+        """Bank a completed prefill's chunk-aligned pages so the next prompt
+        sharing the prefix skips them: the slot's pages get one more
+        reference and their ids land in the index; nothing moves. Skipped
+        when the index already holds the whole prefix."""
+        if self._prefix_cache is None:
+            return
+        prompt = handle.request.prompt
+        C = self.prefill_chunk
+        n_chunks = len(prompt) // C
+        if n_chunks and not all(self._prefix_cache.contains(prompt, j) for j in range(1, n_chunks + 1)):
+            bpc = C // self.page_size  # blocks per chunk
+            pages = self.slots.bank(slot, n_chunks * bpc)
+            for j in range(1, n_chunks + 1):
+                self._prefix_cache.store_pages(prompt, j, pages[(j - 1) * bpc:j * bpc])
+
+    def _on_prefill_fault(self, exc: Exception) -> None:
+        """A chunk forward failed: fail ONLY the mid-prefill slots
+        (retryably). Decoding slots' pages were not written by it, so
+        nothing is rebuilt and the breaker is not fed."""
+        self.stats["prefill_faults"] += 1
+        now = self.now()
+        failed = sorted(self._prefilling)
+        for slot in failed:
+            self._prefilling.pop(slot).handle._finish(
+                FAILED, now, error=f"prefill chunk failed (retryable): {exc!r}", retryable=True)
+        self.slots.release(failed)
+        self._event("prefill_fault", error=repr(exc), slots_failed=len(failed))
 
     def _grow_decode_pages(self) -> None:
         """Extend each decoding slot's block table to cover this tick's
-        writes (its cursor + 1, plus the draft window when speculating)."""
+        writes (its cursor + 1, plus the draft window when speculating),
+        with the copy-on-write guard on the first written block. A slot the
+        pool cannot cover is preempted retryably."""
+        victims: List[int] = []
         for slot, act in enumerate(self._active):
             if act is None:
                 continue
             cursor = len(act.handle.request.prompt) + act.emitted
-            if not self.slots.ensure(slot, min(cursor + 1 + self.draft_k, self.cache_len)):
-                raise RuntimeError("KV page pool exhausted during decode despite the admission reservation")
+            if not self._ensure_pages_or_reclaim(slot, cursor + 1 + self.draft_k):
+                victims.append(slot)
+            elif not self.slots.cow(slot, cursor // self.page_size, self._copy_page):
+                victims.append(slot)
+        if victims:
+            now = self.now()
+            for slot in victims:
+                self.stats["preemptions"] += 1
+                self._active[slot].handle._finish(
+                    FAILED, now, error="KV page pool exhausted; request preempted (retryable)", retryable=True)
+            self._retire(victims)
+            self._event("page_preemption", slots=len(victims), phase="decode")
 
     # ------------------------------------------------------------ retirement
 
@@ -424,43 +953,55 @@ class ServingEngine:
         for slot in finished:
             self._active[slot] = None
 
-    def _sweep(self) -> None:
-        """Finish cancelled / past-deadline requests, queued or running,
-        at the tick boundary."""
+    def _sweep_queue(self) -> None:
+        """Finish cancelled / past-deadline requests still waiting, every
+        tick."""
         now = self.now()
-
-        def verdict(handle):
-            if handle._cancel.is_set():
-                self.stats["cancelled"] += 1
-                return CANCELLED, None
-            if handle.request.deadline is not None and now > handle.request.deadline:
-                self.stats["expired"] += 1
-                return EXPIRED, "deadline expired"
-            return None, None
-
         with self._lock:
-            kept = deque()
-            for handle in self._queue:
-                status, err = verdict(handle)
-                if status is None:
-                    kept.append(handle)
+            kept: List[RequestHandle] = []
+            dropped = False
+            for cand in self._queue:
+                if cand._cancel.is_set():
+                    self.stats["cancelled"] += 1
+                    cand._finish(CANCELLED, now)
+                    dropped = True
+                elif cand.request.deadline is not None and now > cand.request.deadline:
+                    self.stats["expired_queued"] += 1
+                    cand._finish(EXPIRED, now, error="deadline expired in queue")
+                    dropped = True
                 else:
-                    handle._finish(status, now, error=err)
-            self._queue = kept
+                    kept.append(cand)
+            if dropped:
+                self._queue.rebuild(kept)
+
+    def _sweep_active(self) -> None:
+        """Drop cancelled / past-deadline slots, decoding or mid-prefill, at
+        the tick boundary."""
+        now = self.now()
         finished = []
         for slot, act in enumerate(self._active):
-            if act is not None:
-                status, err = verdict(act.handle)
-                if status is not None:
-                    act.handle._finish(status, now, error=err)
-                    finished.append(slot)
+            if act is None:
+                continue
+            if act.handle._cancel.is_set():
+                self.stats["cancelled"] += 1
+                act.handle._finish(CANCELLED, now)
+                finished.append(slot)
+            elif act.handle.request.deadline is not None and now > act.handle.request.deadline:
+                self.stats["expired_decoding"] += 1
+                act.handle._finish(EXPIRED, now, error="deadline expired mid-decode")
+                finished.append(slot)
         self._retire(finished)
         dropped = []
         for slot, job in self._prefilling.items():
-            status, err = verdict(job.handle)
-            if status is not None:
-                job.handle._finish(status, now, error=err)
-                dropped.append(slot)
+            if job.handle._cancel.is_set():
+                self.stats["cancelled"] += 1
+                job.handle._finish(CANCELLED, now)
+            elif job.handle.request.deadline is not None and now > job.handle.request.deadline:
+                self.stats["expired_prefilling"] += 1
+                job.handle._finish(EXPIRED, now, error="deadline expired during prefill")
+            else:
+                continue
+            dropped.append(slot)
         for slot in dropped:
             del self._prefilling[slot]
         self.slots.release(dropped)
@@ -498,6 +1039,9 @@ class ServingEngine:
         self._gen_mask[torch.arange(S, device=dev), token] = True
         logits = self.model.logits(self.model.forward_paged(
             token[:, None], self.pools, self._decoding_table(), self._cursors())[:, 0]).float()
+        if self._chaos is not None:
+            # injected NaNs meet the same non-finite criterion as organic ones
+            logits = self._chaos.poison_logits(self._tick, logits)
         bad = ~torch.isfinite(logits).all(dim=-1)
         self._last_logits = logits
         host = torch.cat([token, bad.long()]).cpu().tolist()
@@ -556,6 +1100,9 @@ class ServingEngine:
         rejected = draft[rows, torch.clamp(n_acc, max=K - 1)]
         self._veto = torch.where(live, torch.where(n_acc < K, rejected, -1), self._veto)
         bad = ~torch.isfinite(logits32).flatten(1).all(dim=-1)
+        if self._chaos is not None:
+            self._last_logits = self._chaos.poison_logits(self._tick, self._last_logits)
+            bad = bad | ~torch.isfinite(self._last_logits).all(dim=-1)
         host = torch.cat([x.flatten(), n_acc, bad.long()]).cpu().tolist()
         blocks = [host[s * (K + 1):(s + 1) * (K + 1)] for s in range(S)]
         n_accs, bad_rows = host[S * (K + 1):S * (K + 2)], host[S * (K + 2):]
@@ -565,38 +1112,89 @@ class ServingEngine:
             if not active[slot]:
                 continue
             self.stats["draft_tokens"] += K
+            self._active[slot].handle.ledger["draft_tokens"] += K
             if not bad_rows[slot]:
                 self.stats["accepted_tokens"] += n_accs[slot]
+                self._active[slot].handle.ledger["accepted_tokens"] += n_accs[slot]
                 n_emits[slot] = 1 + n_accs[slot]
         return blocks, n_emits, bad_rows
 
     def step(self) -> bool:
-        """One scheduler tick: sweep, admit, one prefill chunk per
-        mid-prefill slot, grow decode pages, decode every slot (a
-        speculative tick with ``draft_k``), emit, retire. Returns False when
-        there was nothing to do."""
-        self._sweep()
+        """One scheduler tick: profile window, reload swap, sweep, admit, one
+        prefill chunk per mid-prefill slot, grow decode pages, the
+        supervised decode of every slot (a speculative tick with
+        ``draft_k``), emit, retire. Returns False when there was nothing to
+        do."""
+        self._profiler.poll(self._tick)
+        tr = self.tracer
+        tick_idx = self._tick
+        t_tick = self.now() if tr.enabled else 0.0
+        self._swap_pending_params()
+        self._sweep_queue()
+        self._sweep_active()
+        self._prefill_work = False
         self._admit_chunked()
         ran_prefill = self._prefill_tick()
         self._grow_decode_pages()
-        if self.active_count == 0:
-            return ran_prefill
+        # an idle DEGRADED engine runs the decode over parked rows as a
+        # self-probe: a load balancer honoring the 503 sends no traffic, and
+        # without the probe the breaker could never close
+        probe = self._breaker.open and self.active_count == 0
+        if self.active_count == 0 and not probe:
+            if ran_prefill:
+                if tr.enabled:
+                    tr.add("tick", "engine", t_tick, self.now(), {"tick": tick_idx, "phase": "prefill_only"})
+                self.flight.tick({"tick": tick_idx, "prefilling": len(self._prefilling), "active": 0,
+                                  "queued": len(self._queue), "emitted": 0})
+                self._tick += 1
+                return True
+            return False
+
+        # supervised region: a fault here fails at most this tick's slots
         t0 = self.now()
-        with torch.no_grad():
-            blocks, n_emits, bad_rows = self._decode_spec() if self.draft_k else self._decode()
+        try:
+            if self._chaos is not None:
+                self._chaos.on_tick(self._tick)
+            with torch.no_grad():
+                if self.draft_k and self._spec_enabled:
+                    blocks, n_emits, bad_rows = self._decode_spec()
+                else:
+                    blocks, n_emits, bad_rows = self._decode()
+        except Exception as exc:
+            # ring entry first: a breaker trip dumps the recorder
+            self.flight.tick({"tick": tick_idx, "fault": True, "error": repr(exc), "queued": len(self._queue)})
+            self._on_tick_fault(exc)
+            self._tick += 1
+            return True
         now = self.now()
         self._decode_s += now - t0
+        if tr.enabled:
+            tr.add("decode_step", "engine", t0, now,
+                   {"tick": tick_idx, "active": self.active_count, "spec": bool(self.draft_k)})
+        if self._breaker.record_clean():
+            self._rebuilds_since_recovery = 0
+            if not self.draining:
+                self.lifecycle.to(READY, reason="breaker closed after clean tick")
+            self._event("breaker_closed")
         self.stats["decode_ticks"] += 1
         finished: List[int] = []
+        poisoned: List[int] = []
+        ttft_new: List[tuple] = []
+        itl_new: List[tuple] = []
+        tokens_before = self.stats["tokens_out"]
         for slot, act in enumerate(self._active):
             if act is None:
                 continue
+            qos_cls = self.qos.normalize(act.handle.request.qos)
             toks = blocks[slot][:n_emits[slot]]
+            act.handle.ledger["decode_ticks"] += 1
+            act.handle.ledger["pages_held_ticks"] += self.slots.alloc_blocks[slot]
             if act.emitted == 0:
-                self._ttft.append(now - act.handle.submitted_at)
+                ttft_new.append((now - act.handle.submitted_at, qos_cls))
             elif act.last_emit_at is not None:
                 # a speculative block arrives at once: one amortized sample per token
-                self._itl.extend([(now - act.last_emit_at) / len(toks)] * len(toks))
+                gap = now - act.last_emit_at
+                itl_new.extend([(gap / len(toks), qos_cls)] * len(toks))
             # the first token was sampled from the PREVIOUS (finite) logits,
             # so it is valid even when this tick's logits went bad
             done_now = False
@@ -605,6 +1203,7 @@ class ServingEngine:
                 act.emitted += 1
                 act.last_emit_at = now
                 self.stats["tokens_out"] += 1
+                act.handle.ledger["tokens_out"] += 1
                 hit_eos = self.eos_token_id is not None and int(t) == self.eos_token_id
                 if hit_eos or act.emitted >= act.handle.request.max_new_tokens:
                     act.handle._finish(DONE, now)
@@ -613,40 +1212,266 @@ class ServingEngine:
                     done_now = True
                     break
             if not done_now and bad_rows[slot]:
-                act.handle._finish(FAILED, now, error="non-finite logits in decode (retryable)",
-                                   retryable=True)
+                act.handle._finish(FAILED, now, error="non-finite logits in decode (retryable)", retryable=True)
                 self.stats["poisoned_slots"] += 1
+                poisoned.append(slot)
                 finished.append(slot)
+            elif not done_now and act.handle.overflowed:
+                # the streaming consumer stopped draining past the bound
+                act.handle._finish(FAILED, now, error="client stalled mid-stream; emit buffer overflowed (retryable)",
+                                   retryable=True)
+                self.stats["stalled_streams"] += 1
+                finished.append(slot)
+                self._event("stalled_stream", request_id=act.handle.rid)
         if any(bad_rows):
             # a parked slot must never feed NaN into the next tick's sample
             keep = torch.tensor([not b for b in bad_rows], device=self.device)
             self._last_logits = torch.where(keep[:, None], self._last_logits, 0.0)
+        if poisoned:
+            self._event("poisoned_slots", slots=len(poisoned))
+        for sample, cls in ttft_new:
+            self._ttft.append(sample)
+            self._h_ttft.observe(sample)
+            self._h_ttft_class[cls].observe(sample)
+        for sample, cls in itl_new:
+            self._itl.append(sample)
+            self._h_itl.observe(sample)
+            self._h_itl_class[cls].observe(sample)
+            if not self._prefill_work:
+                # no prefill work this tick: the pure-decode ITL floor
+                self._itl_decode.append(sample)
+                self._h_itl_decode.observe(sample)
+            self._itl_ewma.update(sample)
         self._retire(finished)
+        if tr.enabled:
+            tr.add("emit", "engine", now, self.now(), {"tick": tick_idx, "finished": len(finished)})
+            tr.add("tick", "engine", t_tick, self.now(), {"tick": tick_idx})
+        self.flight.tick({"tick": tick_idx, "active": self.active_count, "prefilling": len(self._prefilling),
+                          "queued": len(self._queue), "emitted": self.stats["tokens_out"] - tokens_before,
+                          "finished": len(finished), "poisoned": len(poisoned)})
+        self._tick += 1
+        if self.metrics is not None and self.metrics_interval and self._tick % self.metrics_interval == 0:
+            self.metrics.log(self.metrics_snapshot(), step=self._tick, prefix="serve")
+        return not probe
+
+    # ------------------------------------------------------ tick supervision
+
+    def _event(self, name: str, **fields) -> None:
+        """An incident into the flight recorder's ring and, with a metrics
+        logger, the metrics timeline (stdout and ``metrics.jsonl``)."""
+        self.flight.event(name, tick=self._tick, **fields)
+        if self.metrics is not None:
+            self.metrics.event(name, step=self._tick, **fields)
+
+    def _on_tick_fault(self, exc: Exception) -> None:
+        """One decode tick failed: fail ONLY its slots, decoding and
+        mid-prefill (retryable), rebuild the device state, and let the
+        breaker escalate: DEGRADED at its threshold, an abort after
+        ``max_rebuilds`` consecutive rebuilds."""
+        self.stats["tick_faults"] += 1
+        now = self.now()
+        error = f"decode tick failed (retryable): {exc!r}"
+        failed = [s for s, a in enumerate(self._active) if a is not None]
+        for slot in failed:
+            self._active[slot].handle._finish(FAILED, now, error=error, retryable=True)
+            self._active[slot] = None
+        for slot in sorted(self._prefilling):
+            self._prefilling.pop(slot).handle._finish(FAILED, now, error=error, retryable=True)
+            failed.append(slot)
+        # the traceback's frames may hold device tensors (the pools passed to
+        # the forward): let them go before the rebuild allocates afresh
+        traceback.clear_frames(exc.__traceback__)
+        self._event("tick_fault", error=repr(exc), slots_failed=len(failed))
+        if self._breaker.record_fault():
+            self.stats["breaker_trips"] += 1
+            self._rebuilds_since_recovery += 1
+            if self._rebuilds_since_recovery > self.max_rebuilds:
+                reason = f"engine faulted through {self.max_rebuilds} rebuilds; last error: {exc!r}"
+                self._abort(reason)
+                raise RuntimeError(reason) from exc
+            self.lifecycle.to(DEGRADED, reason=f"breaker open after {self._breaker.threshold} faults")
+            self._event("breaker_trip", trips=self.stats["breaker_trips"])
+            self.flight.dump("breaker_open", extra={"error": repr(exc), "tick": self._tick,
+                                                    "trips": self.stats["breaker_trips"]})
+        # the pools and carries are suspect after every fault: the forward
+        # may have written some rows and not others
+        self._rebuild_device_state()
+
+    def _rebuild_device_state(self) -> None:
+        """Reallocate every device buffer the tick thread owns, on the same
+        device: fresh pools, a fresh ``PagedKVCache`` (allocator and
+        refcounts) and a prefix index over them. Every reference to the old
+        pools is dropped before the new ones are allocated, so device
+        memory does not double. Host state (queue, stats, lifecycle) and the
+        weights are untouched."""
+        self._active = [None] * self.n_slots
+        self._prefilling.clear()
+        self.pools = self.slots = self._prefix_cache = None
+        self._last_logits = self._gen_mask = self._veto = None
+        self._allocate_device_state()
+        self._event("engine_rebuilt")
+
+    # ----------------------------------------------------------------- drain
+
+    @property
+    def draining(self) -> bool:
+        return self.lifecycle.state == DRAINING
+
+    def begin_drain(self, deadline_s: Optional[float] = 30.0) -> bool:
+        """Stop admission and finish in-flight generations (SIGTERM maps
+        here). Queued requests finish at once as retryable rejections;
+        actives run until ``deadline_s``, after which ``poll_drain``
+        force-finishes them. Thread-safe; idempotent."""
+        now = self.now()
+        if not self.lifecycle.to(DRAINING, reason="drain requested"):
+            return False
+        with self._lock:
+            self._drain_started = now
+            self._drain_deadline = now + deadline_s if deadline_s is not None else None
+            queued = list(self._queue)
+            self._queue.clear()
+        for handle in queued:
+            self.stats["rejected_draining"] += 1
+            handle._finish(REJECTED, now, error="server draining; retry elsewhere", retryable=True,
+                           retry_after=max(1.0, deadline_s) if deadline_s else 1.0)
+        self._event("drain_begin", queued_rejected=len(queued), active=self.active_count)
         return True
+
+    def poll_drain(self) -> bool:
+        """Between ticks while draining: True once the engine has drained
+        (or the deadline forced it) and is STOPPED."""
+        if not self.draining:
+            return self.lifecycle.state == STOPPED
+        now = self.now()
+        if self.active_count == 0 and not self._prefilling and self.queue_depth == 0:
+            self._finish_drain(forced=0)
+            return True
+        if self._drain_deadline is not None and now > self._drain_deadline:
+            error = "drain deadline exceeded; generation force-finished"
+            forced = [s for s, a in enumerate(self._active) if a is not None]
+            for slot in forced:
+                self._active[slot].handle._finish(FAILED, now, error=error, retryable=True)
+            self._retire(forced)
+            still_prefilling = sorted(self._prefilling)
+            for slot in still_prefilling:
+                self._prefilling.pop(slot).handle._finish(FAILED, now, error=error, retryable=True)
+            self.slots.release(still_prefilling)
+            self.stats["drain_forced"] += len(forced) + len(still_prefilling)
+            self._finish_drain(forced=len(forced) + len(still_prefilling))
+            return True
+        return False
+
+    def _finish_drain(self, forced: int) -> None:
+        now = self.now()
+        self.drain_latency_s = now - self._drain_started if self._drain_started is not None else 0.0
+        with self._lock:
+            self._dead = "engine drained (stopped)"
+        self.lifecycle.to(STOPPED, reason="drained")
+        self._event("drain_done", forced=forced, drain_latency_s=self.drain_latency_s)
+        self._profiler.abort()
+        self.flight.dump("drain", extra={"forced": forced, "drain_latency_s": self.drain_latency_s})
+        self.export_trace()
+
+    # ------------------------------------------------------------ hot reload
+
+    def reload_params(self, source) -> Dict[str, Any]:
+        """Stage a standby state dict and swap it in between ticks: no slot
+        is retired, in-flight generations continue on the new weights from
+        their next token.
+
+        ``source`` is a state dict (the names of ``model.state_dict()``) or
+        a zero-arg callable returning one; called OFF the tick thread (an
+        HTTP handler, the SIGHUP thread), which loads, validates
+        (``validate_reload``), casts each tensor to the serving dtype and
+        moves it to the device here; the tick thread only copies it into the
+        engine's model (the one it was built from) in place. A
+        corrupt or mismatched artifact raises ``ReloadError`` and the engine
+        keeps serving the old weights, READY throughout."""
+        try:
+            state = source() if callable(source) else source
+            if self._chaos is not None:
+                state = self._chaos.corrupt_reload(state)
+            current = self.model.state_dict()
+            validate_reload(current, state)
+            state = {k: v.to(device=self.device, dtype=current[k].dtype, copy=True) for k, v in state.items()}
+        except ReloadError as exc:
+            self.stats["reloads_rejected"] += 1
+            self._event("reload_rejected", error=str(exc))
+            raise
+        except Exception as exc:
+            self.stats["reloads_rejected"] += 1
+            self._event("reload_rejected", error=repr(exc))
+            raise ReloadError(f"reload failed to load: {exc!r}") from exc
+        swap_event = threading.Event()
+        with self._lock:
+            if self._dead is not None:
+                self.stats["reloads_rejected"] += 1
+                raise ReloadError(f"engine is not serving: {self._dead}")
+            # a superseded staged predecessor never serves: its event stays unset
+            self._pending_params = (state, swap_event)
+            self._last_reload_event = swap_event
+        return {"staged": True, "swapped": swap_event, "reloads": self.stats["reloads"]}
+
+    def _swap_pending_params(self) -> None:
+        """Tick-thread side of reload: copy the staged weights in at a tick
+        boundary, so a tick's prefill and decode always see one set. The
+        prefix cache is flushed (its K/V belongs to the old weights), and
+        slots mid-prefill restart from token zero on fresh pages (their
+        pages hold old-weight K/V, some of it shared)."""
+        with self._lock:
+            pending, self._pending_params = self._pending_params, None
+        if pending is None:
+            return
+        state, swap_event = pending
+        with torch.no_grad():
+            self.model.load_state_dict(state)
+        del state
+        self.stats["reloads"] += 1
+        if self._prefix_cache is not None:
+            flushed = self._prefix_cache.flush()
+            if flushed:
+                self._event("prefix_cache_flushed", entries=flushed)
+        for slot, job in self._prefilling.items():
+            job.fill = 0
+            job.handle.prefix_hit_tokens = 0
+            self.slots.reset_slot_pages(slot)
+            self.slots.reserve(slot, self._total_need_tokens(job.handle.request))
+        swap_event.set()
+        self._event("reload_swapped", reloads=self.stats["reloads"])
+
+    def wait_reload(self, timeout: Optional[float] = 10.0) -> bool:
+        """Block until the most recently staged reload has swapped in."""
+        event = self._last_reload_event
+        return event.wait(timeout=timeout) if event is not None else False
 
     # --------------------------------------------------------------- drivers
 
     def run(self, stop: threading.Event, idle_sleep: float = 0.001) -> None:
-        """Scheduler loop for a background thread: step until ``stop``. A
-        scheduler exception fails every outstanding request loudly (so no
-        client waits forever), then re-raises."""
-        self.state = READY
+        """Scheduler loop for a background thread: step until ``stop`` or a
+        completed drain. A scheduler exception fails every outstanding
+        request loudly (so no client waits forever), then re-raises."""
+        self.lifecycle.to(READY, reason="scheduler started")
         while not stop.is_set():
             try:
                 busy = self.step()
             except Exception as exc:
                 self._abort(f"scheduler died: {exc!r}")
                 raise
+            if self.draining and self.poll_drain():
+                return
             if not busy:
                 time.sleep(idle_sleep)
         self._abort("engine stopped")
 
     def _abort(self, reason: str) -> None:
+        """Finish every outstanding request as ``failed`` and mark the engine
+        dead, so later ``submit()`` calls fail fast too."""
         now = self.now()
-        self.state = STOPPED
+        self.lifecycle.to(STOPPED, reason=reason)
         with self._lock:
             self._dead = reason
-            queued, self._queue = list(self._queue), deque()
+            queued = list(self._queue)
+            self._queue.clear()
         for handle in queued:
             handle._finish(FAILED, now, error=reason)
         for slot, act in enumerate(self._active):
@@ -655,6 +1480,10 @@ class ServingEngine:
                 self._active[slot] = None
         for slot in sorted(self._prefilling):
             self._prefilling.pop(slot).handle._finish(FAILED, now, error=reason)
+        self._profiler.abort()
+        if "drained" not in reason:
+            self.flight.dump("abort", extra={"reason": reason})
+            self.export_trace()
 
     def run_until_idle(self, max_ticks: int = 100_000) -> None:
         """Drive the scheduler synchronously until queue and slots drain."""
@@ -665,32 +1494,148 @@ class ServingEngine:
 
     # --------------------------------------------------------------- metrics
 
-    def metrics_snapshot(self) -> Dict[str, object]:
-        """Serving metrics: latencies in milliseconds (host clock around work
-        that ends in a device sync), decode tokens per second of decode-tick
-        time, and each kernel's launch count."""
+    def metrics_snapshot(self) -> Dict[str, Any]:
+        """Serving metrics (JAX's key set, latencies in milliseconds, exact
+        nearest-rank percentiles over the last 10,000 samples) plus the
+        port's device, pool and kernel-launch readings. Keys of later
+        slices (migration, roles, the one-shot buckets) read 0 / their
+        defaults."""
         elapsed = max(self.now() - self._started, 1e-9)
-        snap: Dict[str, object] = {
-            "state": self.state,
-            "device": str(self.device),
+        snap: Dict[str, Any] = {
             "tokens_per_sec": self.stats["tokens_out"] / elapsed,
-            "decode_tok_s": self.stats["tokens_out"] / self._decode_s if self._decode_s else 0.0,
             "slot_occupancy": self.active_count,
+            "queue_depth": len(self._queue),
+            "state": self.lifecycle.state,
+            "uptime_s": self.lifecycle.uptime_s,
+            "breaker_open": self._breaker.open,
+            "itl_ewma_ms": (self._itl_ewma.value or 0.0) * 1e3,
+            "prefill_chunk": self.prefill_chunk,
             "prefilling": len(self._prefilling),
-            "queue_depth": self.queue_depth,
+            "prefill_buckets": 0,
+            "kv_layout": "paged",
+            "draft_k": self.draft_k,
             "page_pool_util": self.slots.page_pool_util,
             "page_pool_peak": self.slots.pool.peak_in_use,
+            "cow_copies": self.slots.cow_copies,
+            "acceptance_rate": (self.stats["accepted_tokens"] / self.stats["draft_tokens"]
+                                if self.stats["draft_tokens"] else 0.0),
+            "kernel_paged_attention": int(self.device.type == "cuda"),
+            "fused_tail": 1,
+            "role": "mixed",
+            "free_pages": self.free_pages,
+            "migrations_in_flight": 0,
+            "pending_imports": 0,
+            "device": str(self.device),
+            "decode_tok_s": self.stats["tokens_out"] / self._decode_s if self._decode_s else 0.0,
             "kv_cache_dtype": self.cfg.kv_cache_dtype,
             "kv_pool_bytes": self.kv_pool_bytes,
             "param_quant": self.cfg.param_quant,
             "weight_bytes": self.weight_bytes,
             "kernel_launches": dict(_build.LAUNCHES),
-            "draft_k": self.draft_k,
-            "acceptance_rate": (self.stats["accepted_tokens"] / self.stats["draft_tokens"]
-                                if self.stats["draft_tokens"] else 0.0),
         }
-        for name, samples in (("ttft_ms", self._ttft), ("itl_ms", self._itl)):
+        if self._prefix_cache is not None:
+            snap.update(self._prefix_cache.stats())
+        else:
+            snap.update({"prefix_hits": 0, "prefix_misses": 0, "prefix_stores": 0, "prefix_evictions": 0,
+                         "prefix_entries": 0, "prefix_hit_rate": 0.0})
+        for name, samples in (("ttft_ms", self._ttft), ("itl_ms", self._itl), ("itl_decode_ms", self._itl_decode)):
             for key, value in _percentiles(list(samples)).items():
                 snap[f"{name}_{key}"] = value * 1e3
         snap.update(self.stats)
+        snap["brownout_rung"] = self._brownout_rung
+        snap["queue_by_class"] = self._queue.counts()
         return snap
+
+    def prometheus_text(self) -> str:
+        """Prometheus text exposition (``text/plain; version=0.0.4``):
+        histograms directly, host counters and gauges through scrape-time
+        callbacks."""
+        return self.registry.render()
+
+    def _register_exports(self) -> None:
+        """Wire the host counters and live gauges into the registry as
+        scrape-time callbacks, under JAX's family names."""
+        reg = self.registry
+        for key, help_text in _COUNTER_HELP:
+            reg.counter_func(f"serve_{key}", help_text, (lambda k=key: self.stats[k]))
+        gauges = (
+            ("serve_queue_depth", "Requests waiting for a slot", lambda: len(self._queue)),
+            ("serve_brownout_rung", "Brownout rung index (0=normal .. 3=suspend_batch)",
+             lambda: BROWNOUT_RUNGS.index(self._brownout_rung)),
+            ("serve_slot_occupancy", "Slots actively decoding", lambda: self.active_count),
+            ("serve_prefilling_slots", "Slots mid-chunked-prefill", lambda: len(self._prefilling)),
+            ("serve_slots", "Configured decode slots", lambda: self.n_slots),
+            ("serve_breaker_open", "1 while the circuit breaker is open", lambda: 1 if self._breaker.open else 0),
+            ("serve_uptime_seconds", "Engine lifetime on its own clock", lambda: self.lifecycle.uptime_s),
+            ("serve_itl_ewma_seconds", "Shedding's measured ITL EWMA", lambda: self._itl_ewma.value or 0.0),
+            ("serve_prefill_buckets", "Compiled one-shot prefill buckets", lambda: 0),
+            ("serve_page_pool_util", "Paged-KV pool utilization (0 when slab)", lambda: self.slots.page_pool_util),
+            ("serve_free_pages", "Spare KV capacity (free pool pages, or free slots when slab)",
+             lambda: self.free_pages),
+        )
+        for name, help_text, fn in gauges:
+            reg.gauge_func(name, help_text, fn)
+        reg.counter_func("serve_cow_copies", "Copy-on-write page copies (shared page written post-import/share)",
+                         lambda: self.slots.cow_copies)
+        for name, help_text, fn in (
+            ("serve_migrations_in_flight", "Streams exported and awaiting their ship acknowledgement", lambda: 0),
+            ("serve_pending_imports", "Imported streams awaiting placement into a slot", lambda: 0),
+            ("serve_prefix_cache_entries", "Prefix-cache entries resident",
+             lambda: len(self._prefix_cache) if self._prefix_cache is not None else 0),
+            ("serve_trace_spans_dropped", "Spans pushed out of the bounded trace ring", lambda: self.tracer.dropped),
+            ("obs_spans_dropped", "Spans dropped by ring overflow (trace truncation honesty)",
+             lambda: self.tracer.dropped),
+        ):
+            reg.gauge_func(name, help_text, fn)
+        # device memory: one read shared by the three gauges of a scrape
+        hbm_cache = {"t": -1.0, "v": None}
+
+        def _hbm() -> dict:
+            t = time.monotonic()
+            if t - hbm_cache["t"] > 0.25:
+                hbm_cache["v"] = hbm_device_stats(self.device)
+                hbm_cache["t"] = t
+            return hbm_cache["v"] or {}
+
+        reg.gauge_func("hbm_used_gigabytes", "Per-device HBM in use",
+                       lambda: [({"device": str(i)}, gb) for i, gb in enumerate(_hbm().get("per_device_gb", []))])
+        reg.gauge_func("hbm_used_gigabytes_max", "Max HBM in use across local devices", lambda: _hbm().get("max_gb"))
+        reg.gauge_func("hbm_used_gigabytes_mean", "Mean HBM in use across local devices",
+                       lambda: _hbm().get("mean_gb"))
+
+    # ------------------------------------------------------------- profiling
+
+    def request_profile(self, ticks: int) -> Dict[str, Any]:
+        """Stage a ``torch.profiler`` capture of the next ``ticks`` busy
+        ticks into ``<obs_dir>/profiles`` (``POST /admin/profile``); the
+        tick thread starts and stops it. RuntimeError while draining or
+        stopped, without an ``obs_dir``, or while a capture runs."""
+        with self._lock:
+            if self._dead is not None:
+                raise RuntimeError(f"engine is not serving: {self._dead}")
+            if self.lifecycle.state == DRAINING:
+                raise RuntimeError("engine is draining; profile capture rejected")
+            info = self._profiler.request(ticks, name=f"serve_tick{self._tick}")
+        self._event("profile_requested", ticks=ticks, path=info["path"])
+        return info
+
+    @property
+    def profile_active(self) -> bool:
+        return self._profiler.active
+
+    @property
+    def profiles_completed(self) -> List[str]:
+        return list(self._profiler.completed)
+
+    def export_trace(self, path: Optional[str] = None) -> Optional[str]:
+        """Write the span ring as a Perfetto/Chrome trace (default
+        ``<obs_dir>/trace_serve.json``) and append it to
+        ``<obs_dir>/spans.jsonl``."""
+        if path is None:
+            if self.obs_dir is None:
+                return None
+            path = str(Path(self.obs_dir) / "trace_serve.json")
+        out = self.tracer.write_chrome_trace(path)
+        if self.obs_dir is not None:
+            self.tracer.write_jsonl(Path(self.obs_dir) / "spans.jsonl")
+        return out

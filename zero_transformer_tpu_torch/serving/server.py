@@ -1,46 +1,115 @@
 """Streaming HTTP front end for the continuous-batching engine.
 
-Counterpart of ``zero_transformer_tpu/serving/server.py`` (``run_server``
-:893), the subset the slice needs, on the standard library's threading HTTP
-server:
+Counterpart of ``zero_transformer_tpu/serving/server.py`` on the standard
+library's threading HTTP server, with the same wire format for every route
+it serves:
 
 - ``POST /generate``: JSON body ``{"prompt": str | "tokens": [int],
-  "max_new_tokens": int, "seed": int, "timeout": float, "stream": bool}``.
-  With ``stream`` (default true) the response is ``text/event-stream``: one
-  ``data: {"token": id, "text": piece}`` event per token (``text`` is empty
-  while the detokenizer holds back an incomplete UTF-8 sequence) and a final
-  ``data: {"done": true, "status": ..., "text": full}``. Without, one JSON
-  document ``{"status", "tokens", "text", "request_id"}``. A full queue
-  answers 429 with ``Retry-After``, an invalid request 400, a dead engine 503.
+  "max_new_tokens": int, "seed": int, "timeout": float, "stream": bool,
+  "tenant": str, "qos": str, "request_id": str}``. With ``stream`` (default
+  true) the response is ``text/event-stream``: one ``data: {"token": id,
+  "text": piece}`` event per token (``text`` is empty while the
+  detokenizer holds back an incomplete UTF-8 sequence) and a final ``data:
+  {"done": true, "status", "text", "error", "retryable", "request_id",
+  "ledger"}``. Without, one JSON document ``{"status", "tokens", "text",
+  "request_id", "ledger"}``. ``X-Request-Id`` (or the body's
+  ``request_id``) is echoed in the response headers and the final event;
+  ``X-Tenant-Key`` and ``X-QoS-Class`` win over the body's ``tenant`` and
+  ``qos``. A retryable rejection answers 429 (full queue, tenant quota,
+  brownout) or 503 (draining, shed) with ``Retry-After``; an invalid
+  request 400; a dead engine 503; a body over the bound 413.
 - ``GET /healthz``: 200 only when the engine is READY and its scheduler
-  thread is alive, 503 otherwise (starting, stopped).
-- ``GET /metrics``: the engine's JSON metrics snapshot.
+  thread is alive; 503 while starting, degraded, draining or stopped.
+- ``GET /metrics``: the JSON snapshot, or the Prometheus text exposition
+  when ``Accept`` names ``text/plain`` or ``openmetrics`` (or with
+  ``?format=prometheus``).
+- ``POST /admin/reload`` (``{"params": path}``, optional), ``POST
+  /admin/profile`` (``{"ticks": N}``), ``POST /admin/brownout``
+  (``{"rung": ...}``), ``GET /admin/spans?request_id=&tail=``: loopback
+  peers, or others with ``Authorization: Bearer <admin token>``.
+- ``/attach``, ``/ingest``, ``/admin/migrate`` and ``/admin/migrate_all``
+  (stream migration and the disaggregated roles) answer 501.
 
-One scheduler thread drives ``engine.step()``; handler threads only submit
-and drain per-request event queues, so a slow client never stalls decode.
+``install_signal_handlers``: SIGTERM drains (admission closes, in-flight
+streams finish up to the drain deadline, then the server stops and
+``serve_forever`` returns, so the process exits 0); SIGHUP hot-reloads
+from the configured source. One scheduler thread drives ``engine.step()``;
+handler threads only submit and drain per-request event queues, so a slow
+client never stalls decode.
 """
 from __future__ import annotations
 
 import json
+import math
+import select
+import signal
+import socket
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional
+from urllib.parse import parse_qs
 
 from zero_transformer_tpu_torch.serving.detok import StreamDecoder, decode_tokens
-from zero_transformer_tpu_torch.serving.engine import FAILED, READY, REJECTED, ServingEngine
+from zero_transformer_tpu_torch.serving.engine import FAILED, READY, REJECTED, STOPPED, ServingEngine
+from zero_transformer_tpu_torch.serving.resilience import ReloadError
 
-_LIVENESS_POLL_S = 1.0
+# how long an SSE handler blocks on the next token before checking that the
+# client is still connected
+_LIVENESS_POLL_S = 0.5
+
+# the routes of later slices: 501 with the ROADMAP item that brings them
+_LATER_ROUTES = {
+    "/attach": "stream migration and the disaggregated roles (ROADMAP Queue 1 item 1, step 1)",
+    "/ingest": "stream migration and the disaggregated roles (ROADMAP Queue 1 item 1, step 1)",
+    "/admin/migrate": "stream migration (ROADMAP Queue 1 item 1, step 1)",
+    "/admin/migrate_all": "stream migration (ROADMAP Queue 1 item 1, step 1)",
+}
+_POST_ROUTES = ("/generate", "/admin/reload", "/admin/profile", "/admin/brownout", *_LATER_ROUTES)
+
+
+def _client_gone(conn) -> bool:
+    """True when the peer has closed its end: an SSE client sends nothing
+    after the POST body, so a readable socket whose peek returns b'' is a
+    FIN."""
+    try:
+        readable, _, _ = select.select([conn], [], [], 0)
+        if readable:
+            return conn.recv(1, socket.MSG_PEEK) == b""
+    except OSError:
+        return True
+    return False
+
+
+def _load_state(path: str):
+    """The default reload loader: the port's state dict from ``path``
+    (``.npz``, flax ``.msgpack`` or a trainer step directory)."""
+    from zero_transformer_tpu_torch.convert import params_from_jax, read_params_tree
+
+    return params_from_jax(read_params_tree(path))
 
 
 class ServingServer:
-    """Own the HTTP server and the engine's scheduler thread."""
+    """Own the HTTP server and the engine's scheduler thread.
+    ``reload_source``: a path, or a loader called with the request's path
+    (or with none) that returns a state dict. ``admin_token``: the bearer
+    token non-loopback peers need for ``/admin/*``."""
 
-    def __init__(self, engine: ServingEngine, tokenizer, host: str = "127.0.0.1",
-                 port: int = 8000, max_body_bytes: int = 1 << 20):
+    def __init__(self, engine: ServingEngine, tokenizer, host: str = "127.0.0.1", port: int = 8000,
+                 max_body_bytes: int = 1 << 20, reload_source=None, admin_token: Optional[str] = None):
         self.engine = engine
         self.tokenizer = tokenizer
         self.max_body_bytes = max_body_bytes
+        self.reload_source = reload_source
+        self.admin_token = admin_token
         self._stop = threading.Event()
+        self._stop_lock = threading.Lock()
+        self._stopped = False
+        # /generate responses still being written: a drain waits for them
+        # before it stops the server, so a drained stream's last events land
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
+        self._serving = False
         self._scheduler = threading.Thread(
             target=engine.run, args=(self._stop,), name="serve-scheduler", daemon=True,
         )
@@ -62,29 +131,51 @@ class ServingServer:
                 self.wfile.write(body)
 
             def do_GET(self):  # noqa: N802
-                path = self.path.partition("?")[0]
+                path, _, query = self.path.partition("?")
                 if path == "/healthz":
                     self._json(*outer._healthz())
+                elif path == "/admin/spans":
+                    if not outer._admin_allowed(self):
+                        self._json(403, {"error": "admin endpoint: loopback or bearer token required"})
+                        return
+                    self._json(*outer._admin_spans(query))
                 elif path == "/metrics":
-                    self._json(200, outer.engine.metrics_snapshot())
+                    accept = self.headers.get("Accept") or ""
+                    if "format=prometheus" in query or "text/plain" in accept or "openmetrics" in accept:
+                        body = outer.engine.prometheus_text().encode()
+                        self.send_response(200)
+                        self.send_header("Content-Type", "text/plain; version=0.0.4; charset=utf-8")
+                        self.send_header("Content-Length", str(len(body)))
+                        self.end_headers()
+                        self.wfile.write(body)
+                    else:
+                        self._json(200, outer.engine.metrics_snapshot())
                 else:
                     self._json(404, {"error": f"no route {self.path}"})
 
             def do_POST(self):  # noqa: N802
-                if self.path != "/generate":
+                if self.path not in _POST_ROUTES:
                     self._json(404, {"error": f"no route {self.path}"})
+                    return
+                if self.path in _LATER_ROUTES:
+                    # the body is left unread: close the connection
+                    self.close_connection = True
+                    self._json(501, {"error": f"{self.path} is not served by this port yet: "
+                                              f"{_LATER_ROUTES[self.path]}"})
                     return
                 try:
                     length = int(self.headers.get("Content-Length", 0))
                 except ValueError:
                     self._json(400, {"error": "bad Content-Length"})
                     return
-                if length < 0 or length > outer.max_body_bytes:
+                if length < 0:
+                    self._json(400, {"error": "bad Content-Length"})
+                    return
+                if length > outer.max_body_bytes:
                     # bound BEFORE reading; the unread body would
                     # desynchronise the connection, so close it
                     self.close_connection = True
-                    self._json(413 if length > 0 else 400,
-                               {"error": f"body must be 0..{outer.max_body_bytes} bytes"})
+                    self._json(413, {"error": f"body exceeds {outer.max_body_bytes} bytes"})
                     return
                 try:
                     req = json.loads(self.rfile.read(length) or b"{}")
@@ -94,7 +185,24 @@ class ServingServer:
                 if not isinstance(req, dict):
                     self._json(400, {"error": "body must be a JSON object"})
                     return
-                outer._generate(self, req)
+                if self.path.startswith("/admin/"):
+                    if not outer._admin_allowed(self):
+                        self._json(403, {"error": "admin endpoint: loopback or bearer token required"})
+                        return
+                    if self.path == "/admin/reload":
+                        self._json(*outer._reload(req))
+                    elif self.path == "/admin/brownout":
+                        self._json(*outer._brownout(req))
+                    else:
+                        self._json(*outer._profile(req))
+                else:
+                    with outer._inflight_lock:
+                        outer._inflight += 1
+                    try:
+                        outer._generate(self, req)
+                    finally:
+                        with outer._inflight_lock:
+                            outer._inflight -= 1
 
         self._httpd = ThreadingHTTPServer((host, port), Handler)
         self._httpd.daemon_threads = True
@@ -103,15 +211,16 @@ class ServingServer:
     def port(self) -> int:
         return self._httpd.server_address[1]
 
+    # ------------------------------------------------------------ lifecycle
+
     def start(self, start_scheduler: bool = True) -> None:
         """Serve HTTP in a background thread. ``start_scheduler=False`` keeps
         the engine STARTING (``/healthz`` answers 503) until
         ``start_scheduler()``."""
         if start_scheduler:
             self.start_scheduler()
-        self._server_thread = threading.Thread(
-            target=self._httpd.serve_forever, name="serve-http", daemon=True,
-        )
+        self._serving = True
+        self._server_thread = threading.Thread(target=self._httpd.serve_forever, name="serve-http", daemon=True)
         self._server_thread.start()
 
     def start_scheduler(self) -> None:
@@ -119,34 +228,173 @@ class ServingServer:
             self._scheduler.start()
 
     def serve_forever(self) -> None:
+        """Serve in the calling thread until ``stop()`` (a drain ends with
+        it) or an interrupt."""
         self.start_scheduler()
+        self._serving = True
         try:
             self._httpd.serve_forever()
         finally:
+            self._serving = False
             self.stop()
 
     def stop(self, timeout: float = 30.0) -> None:
         """Stop the scheduler (outstanding requests finish as failed) and
-        the HTTP server, and wait for both threads."""
-        self._stop.set()
-        if self._server_thread is not None:
-            self._httpd.shutdown()
-            self._server_thread.join(timeout)
-        self._httpd.server_close()
-        if self._scheduler.ident:
-            self._scheduler.join(timeout)
+        the HTTP server, and wait for both threads. Idempotent; safe from
+        any thread but the one running ``serve_forever``."""
+        with self._stop_lock:
+            if self._stopped:
+                return
+            self._stopped = True
+            self._stop.set()
+            if self._serving:
+                self._httpd.shutdown()
+            if self._server_thread is not None:
+                self._server_thread.join(timeout)
+            self._httpd.server_close()
+            if self._scheduler.ident and self._scheduler is not threading.current_thread():
+                self._scheduler.join(timeout)
+
+    def drain(self, deadline_s: Optional[float] = 30.0) -> None:
+        """Begin a graceful drain and, once the engine is STOPPED (or the
+        deadline plus a 10 s grace has passed) and the responses in flight
+        are written (up to 5 s more), stop the server. ``deadline_s=None``
+        waits for in-flight generations however long they take."""
+        self.engine.begin_drain(deadline_s)
+        give_up = None if deadline_s is None else time.monotonic() + deadline_s + 10.0
+        while self.engine.lifecycle.state != STOPPED and (give_up is None or time.monotonic() < give_up):
+            time.sleep(0.05)
+        written_by = time.monotonic() + 5.0
+        while self._inflight and time.monotonic() < written_by:
+            time.sleep(0.01)
+        self.stop()
+
+    def install_signal_handlers(self, drain_deadline_s: Optional[float] = 30.0) -> None:
+        """SIGTERM -> ``drain`` in a helper thread (a handler must return
+        at once); SIGHUP -> a hot reload from ``reload_source``. Call from
+        the main thread."""
+
+        def on_term(signum, frame):
+            threading.Thread(target=self.drain, args=(drain_deadline_s,), name="serve-drain", daemon=True).start()
+
+        def on_hup(signum, frame):
+            if self.reload_source is None:
+                return
+            # the engine counts and records a rejected reload itself
+            threading.Thread(target=self._reload, args=({},), name="serve-reload", daemon=True).start()
+
+        signal.signal(signal.SIGTERM, on_term)
+        if hasattr(signal, "SIGHUP"):
+            signal.signal(signal.SIGHUP, on_hup)
+
+    # ------------------------------------------------------------ endpoints
 
     def _healthz(self):
-        state = self.engine.state
-        alive = self._scheduler.is_alive()
+        """(code, body) for /healthz: 200 ONLY when the engine is READY and
+        its scheduler thread is alive."""
+        eng = self.engine
+        state = eng.lifecycle.state
+        alive = self._scheduler.is_alive() or not self._scheduler.ident
+        if not alive and state != STOPPED:
+            state = "scheduler dead"
         ok = state == READY and alive
         return (200 if ok else 503), {
-            "state": state if alive or not self._scheduler.ident else "scheduler dead",
-            "queue_depth": self.engine.queue_depth,
-            "slot_occupancy": self.engine.active_count,
+            "status": "ok" if ok else state,
+            "state": state,
+            "clock_monotonic": eng.now(),
+            "uptime_s": round(eng.lifecycle.uptime_s, 3),
+            "reloads": eng.stats["reloads"],
+            "breaker_open": eng._breaker.open,
+            "slots": eng.n_slots,
+            "active": eng.active_count,
+            "prefilling": len(eng._prefilling),
+            "queued": eng.queue_depth,
+            "itl_ewma_ms": round((eng._itl_ewma.value or 0.0) * 1e3, 4),
+            "queue_depth": eng.queue_depth,
+            "active_slots": eng.active_count,
+            "free_pages": eng.free_pages,
+            "role": "mixed",
+            "kv_layout": "paged",
+            "draft_k": eng.draft_k,
+            "migrations_in_flight": 0,
+            "page_faults": eng.stats["page_faults"],
+            "cow_copies": eng.slots.cow_copies,
+            "brownout_rung": eng.brownout_rung,
+            "queue_by_class": eng._queue.counts(),
         }
 
-    def _submit(self, req: dict):
+    def _admin_allowed(self, handler) -> bool:
+        peer = handler.client_address[0]
+        if peer in ("127.0.0.1", "::1", "::ffff:127.0.0.1"):
+            return True
+        if self.admin_token:
+            return handler.headers.get("Authorization", "") == f"Bearer {self.admin_token}"
+        return False
+
+    def _admin_spans(self, query: str):
+        """(code, body) for GET /admin/spans?request_id=<rid>[&tail=N]."""
+        params = parse_qs(query)
+        rid = (params.get("request_id") or [None])[0]
+        try:
+            tail = int((params.get("tail") or [2000])[0])
+        except (TypeError, ValueError):
+            return 400, {"error": "tail must be an integer"}
+        spans = self.engine.tracer.track_dicts(track=rid if rid else None, tail=max(1, min(tail, 20000)))
+        return 200, {"request_id": rid or "", "clock_monotonic": self.engine.now(), "role": "mixed",
+                     "spans": spans, "spans_dropped": self.engine.tracer.dropped}
+
+    def _reload(self, req: dict):
+        """(code, body) for POST /admin/reload: load and validate in this
+        thread, swap between ticks; 409 on a corrupt or mismatched artifact
+        (the engine stays READY on the old weights)."""
+        path = req.get("params")
+        if callable(self.reload_source):
+            loader = self.reload_source
+            source = (lambda: loader(path)) if path else loader
+        elif path or isinstance(self.reload_source, str):
+            load_path = path or self.reload_source
+            source = lambda: _load_state(load_path)  # noqa: E731
+        else:
+            return 400, {"error": "no reload source: pass {\"params\": <path>}"}
+        try:
+            info = self.engine.reload_params(source)
+        except ReloadError as exc:
+            return 409, {"error": str(exc), "state": self.engine.lifecycle.state,
+                         "reloads": self.engine.stats["reloads"]}
+        swapped = info["swapped"].wait(timeout=30.0)
+        return (200 if swapped else 202), {"reloaded": swapped, "reloads": self.engine.stats["reloads"],
+                                           "state": self.engine.lifecycle.state}
+
+    def _profile(self, req: dict):
+        """(code, body) for POST /admin/profile: 202, the capture runs on
+        the tick thread; 409 while draining, while a capture runs, or
+        without an obs directory."""
+        try:
+            ticks = int(req.get("ticks", 20))
+        except (TypeError, ValueError):
+            return 400, {"error": "ticks must be an integer"}
+        try:
+            info = self.engine.request_profile(ticks)
+        except ValueError as exc:
+            return 400, {"error": str(exc)}
+        except RuntimeError as exc:
+            return 409, {"error": str(exc), "state": self.engine.lifecycle.state}
+        return 202, {"accepted": True, **info}
+
+    def _brownout(self, req: dict):
+        """(code, body) for POST /admin/brownout ``{"rung": ...}``."""
+        rung = req.get("rung")
+        if not isinstance(rung, str):
+            return 400, {"error": "rung must be a string"}
+        try:
+            return 200, self.engine.set_brownout(rung)
+        except ValueError as exc:
+            return 400, {"error": str(exc)}
+
+    # -------------------------------------------------------------- request
+
+    def _submit(self, req: dict, request_id: Optional[str] = None, tenant: Optional[str] = None,
+                qos: Optional[str] = None):
         if "tokens" in req:
             ids = [int(t) for t in req["tokens"]]
         else:
@@ -156,38 +404,46 @@ class ServingServer:
             max_new_tokens=int(req.get("max_new_tokens", 32)),
             seed=int(req.get("seed", 0)),
             timeout=float(req["timeout"]) if "timeout" in req else None,
+            request_id=request_id,
+            tenant=str(tenant or req.get("tenant") or "anon"),
+            qos=qos if qos is not None else req.get("qos"),
         )
 
     def _generate(self, handler, req: dict) -> None:
+        if req.get("prefill_to"):
+            handler._json(501, {"error": "prefill_to (disaggregated prefill) is not served by this port yet: "
+                                         f"{_LATER_ROUTES['/ingest']}"})
+            return
+        rid_in = handler.headers.get("X-Request-Id") or req.get("request_id")
         try:
-            handle = self._submit(req)
+            handle = self._submit(req, request_id=rid_in, tenant=handler.headers.get("X-Tenant-Key"),
+                                  qos=handler.headers.get("X-QoS-Class"))
         except (TypeError, ValueError) as exc:
             handler._json(400, {"error": f"bad request field: {exc}"})
             return
         rid_hdr = {"X-Request-Id": handle.rid}
         if handle.status == REJECTED:
             if handle.retryable:
-                handler._json(429, {"error": handle.error, "status": handle.status,
-                                    "request_id": handle.rid},
-                              headers={"Retry-After": "1", **rid_hdr})
+                err = handle.error or ""
+                code = 429 if ("queue full" in err or "quota" in err or "brownout" in err) else 503
+                handler._json(code, {"error": handle.error, "status": handle.status, "request_id": handle.rid},
+                              headers={"Retry-After": str(max(1, math.ceil(handle.retry_after or 1.0))), **rid_hdr})
             else:
-                handler._json(400, {"error": handle.error, "status": handle.status,
-                                    "request_id": handle.rid}, headers=rid_hdr)
+                handler._json(400, {"error": handle.error, "status": handle.status, "request_id": handle.rid},
+                              headers=rid_hdr)
             return
         if handle.status == FAILED:
-            handler._json(503, {"error": handle.error, "status": handle.status,
-                                "request_id": handle.rid}, headers=rid_hdr)
+            handler._json(503, {"error": handle.error, "status": handle.status, "request_id": handle.rid},
+                          headers=rid_hdr)
             return
         if not req.get("stream", True):
             tokens = handle.result()
             if handle.status == FAILED:
-                handler._json(503, {"error": handle.error, "status": handle.status,
-                                    "request_id": handle.rid}, headers=rid_hdr)
+                handler._json(503, {"error": handle.error, "status": handle.status, "request_id": handle.rid},
+                              headers=rid_hdr)
                 return
-            handler._json(200, {
-                "status": handle.status, "tokens": tokens, "text": self._full_text(tokens),
-                "request_id": handle.rid,
-            }, headers=rid_hdr)
+            handler._json(200, {"status": handle.status, "tokens": tokens, "text": self._full_text(tokens),
+                                "request_id": handle.rid, "ledger": handle.ledger_snapshot()}, headers=rid_hdr)
             return
         handler.send_response(200)
         handler.send_header("Content-Type", "text/event-stream")
@@ -200,14 +456,30 @@ class ServingServer:
         decoder = StreamDecoder(self.tokenizer)
         pieces: List[str] = []
         eos = self.engine.eos_token_id
+        # a live consumer drains the events from here on: arm the bound
+        handle.consumer_attached = True
+        chaos = self.engine._chaos
+        events_out = 0
         try:
+            # the EOS token is swallowed, not broken on: the loop ends on the
+            # done event, so the status the final event reports is terminal
             while True:
                 event = handle.next_event(timeout=_LIVENESS_POLL_S)
                 if event is None:
+                    # no token yet: a disconnected client must not hold a
+                    # queue position or a slot
+                    if _client_gone(handler.connection):
+                        handle.cancel()
+                        return
                     continue
                 kind, token = event
                 if kind != "token":
                     break
+                events_out += 1
+                if chaos is not None:
+                    stall = chaos.client_stall_s(events_out)
+                    if stall > 0:
+                        time.sleep(stall)
                 if eos is not None and token == eos:
                     continue
                 piece = decoder.push(token)
@@ -219,9 +491,8 @@ class ServingServer:
                 pieces.append(tail)
                 self._event(handler, {"text": tail})
             self._event(handler, {
-                "done": True, "status": handle.status, "text": "".join(pieces),
-                "error": handle.error, "retryable": handle.retryable,
-                "request_id": handle.rid,
+                "done": True, "status": handle.status, "text": "".join(pieces), "error": handle.error,
+                "retryable": handle.retryable, "request_id": handle.rid, "ledger": handle.ledger_snapshot(),
             })
         except (BrokenPipeError, ConnectionResetError):
             # the client went away: free the slot instead of decoding into the void
@@ -238,16 +509,23 @@ class ServingServer:
 
 
 def run_server(engine: ServingEngine, tokenizer, host: str = "127.0.0.1", port: int = 8000,
-               background: bool = False) -> Optional[ServingServer]:
+               background: bool = False, reload_source=None, drain_deadline_s: Optional[float] = 30.0,
+               max_body_bytes: int = 1 << 20, admin_token: Optional[str] = None) -> Optional[ServingServer]:
     """Start the serving front end. ``background=True`` returns the running
-    server; otherwise block until interrupted."""
-    server = ServingServer(engine, tokenizer, host=host, port=port)
+    server; otherwise block until SIGTERM (a graceful drain, then return:
+    the process exits 0) or an interrupt, with SIGHUP hot-reloading from
+    ``reload_source``."""
+    server = ServingServer(engine, tokenizer, host=host, port=port, max_body_bytes=max_body_bytes,
+                           reload_source=reload_source, admin_token=admin_token)
     if background:
         server.start()
         return server
+    server.install_signal_handlers(drain_deadline_s=drain_deadline_s)
     print(
-        f"serving on http://{host}:{server.port} ({engine.n_slots} slots, cache_len "
-        f"{engine.cache_len}, {engine.device}) - POST /generate, GET /healthz, GET /metrics",
+        f"serving on http://{host}:{server.port} ({engine.n_slots} slots, cache_len {engine.cache_len}, "
+        f"{engine.device}) - POST /generate, GET /healthz, GET /metrics (JSON; Prometheus text via Accept: "
+        f"text/plain), POST /admin/reload, POST /admin/profile; SIGTERM drains ({drain_deadline_s}s deadline), "
+        "SIGHUP reloads",
         flush=True,
     )
     try:

@@ -1,15 +1,19 @@
 """Host-side KV page allocation for the paged serving cache.
 
 Counterpart of ``zero_transformer_tpu/serving/slots.py`` (``PagePool`` :494,
-``PagedKVCache`` :563), the subset the slice needs: refcounted pages with
-the trash page 0, admission reservations, the per-slot block tables kept on
-the host, and slot acquire/release. Prefix sharing, copy-on-write and the
-page-span wire format come with a later slice. The device state (the pools
-themselves) lives with the engine: ``inference.generate.allocate_pools``.
+``PagedKVCache`` :563): refcounted pages with the trash page 0, admission
+reservations, the per-slot block tables kept on the host, slot
+acquire/release, and prefix sharing (``share`` maps a prefix hit's pages
+by refcount, ``bank`` takes the prefix index's reference, ``cow`` gives a
+slot a private copy of a shared page before it writes there). The page-span
+wire format of stream migration comes with a later slice. The device state
+(the pools themselves) lives with the engine
+(``inference.generate.allocate_pools``); ``cow`` copies a page through the
+engine's callback.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
@@ -52,6 +56,12 @@ class PagePool:
         self.peak_in_use = max(self.peak_in_use, self.in_use)
         return page
 
+    def incref(self, pages) -> None:
+        for p in pages:
+            if p == self.TRASH or self.refs[p] < 1:
+                raise ValueError(f"incref of unallocated page {p}")
+            self.refs[p] += 1
+
     def decref(self, pages) -> int:
         """Drop one reference per page; pages reaching zero return to the
         free list. Returns how many were freed."""
@@ -88,6 +98,7 @@ class PagedKVCache:
         self.alloc_blocks = [0] * n_slots  # leading blocks mapped, per slot
         self.reserved_blocks = [0] * n_slots  # admission promise, per slot
         self._free: List[int] = list(range(n_slots))
+        self.cow_copies = 0
 
     def blocks_for(self, tokens: int) -> int:
         return -(-tokens // self.page_size)  # ceil
@@ -123,9 +134,63 @@ class PagedKVCache:
                 self.pool.reserved -= 1
         return True
 
+    def share(self, slot: int, pages: Sequence[int]) -> None:
+        """Prefix hit: map ``pages`` as the slot's leading blocks and bump
+        their refcounts; no K/V moves."""
+        if not pages:
+            return
+        if self.alloc_blocks[slot] != 0:
+            raise ValueError("share() must precede any allocation for the slot")
+        self.pool.incref(pages)
+        for b, p in enumerate(pages):
+            self.table[slot, b] = p
+        self.alloc_blocks[slot] = len(pages)
+
+    def bank(self, slot: int, n_blocks: int) -> List[int]:
+        """Page ids of the slot's first ``n_blocks`` blocks, refcounts bumped
+        for the prefix index's hold (the caller stores them)."""
+        pages = [int(p) for p in self.table[slot, :n_blocks]]
+        self.pool.incref(pages)
+        return pages
+
+    def cow(self, slot: int, block: int, copy_page: Callable[[int, int], None]) -> bool:
+        """Copy-on-write guard: before the slot WRITES into block ``block``,
+        a page other holders share is replaced by a private copy
+        (``copy_page(src, dst)`` copies the pools' rows). Chunk-aligned
+        sharing makes this unreachable; the guard keeps "a shared page is
+        never written" a local check. False when no page is free."""
+        if block >= self.alloc_blocks[slot]:
+            return True
+        page = int(self.table[slot, block])
+        if page == PagePool.TRASH or self.pool.refs[page] <= 1:
+            return True
+        fresh = self.pool.alloc()
+        if fresh is None:
+            return False
+        copy_page(page, fresh)
+        self.table[slot, block] = fresh
+        self.pool.decref([page])
+        self.cow_copies += 1
+        return True
+
+    def reset_slot_pages(self, slot: int) -> None:
+        """Drop every page the slot maps without freeing the slot (a hot
+        reload restarts a mid-prefill slot: pages shared before the reload
+        must not be rewritten under the new weights). The caller re-reserves."""
+        n = self.alloc_blocks[slot]
+        if not n:
+            return
+        self.pool.decref(int(p) for p in self.table[slot, :n])
+        self.table[slot, :n] = 0
+        self.alloc_blocks[slot] = 0
+
     @property
     def free_count(self) -> int:
         return len(self._free)
+
+    @property
+    def active_count(self) -> int:
+        return self.n_slots - len(self._free)
 
     @property
     def page_pool_util(self) -> float:
