@@ -241,6 +241,31 @@ Phases, each fatal on failure (nothing is caught):
    and ITL p50 with the CLI's defaults against ``--prefix-cache 0
    --no-trace``.
 
+21. disagg: disaggregated prefill/decode roles and live stream migration.
+   (a) ``125m`` at full width and depth in float32, bf16 and over an int8
+   cache: a prefill-role and a decode-role engine over one model, joined
+   in process through the page-span wire format; four prompts of 130-512
+   tokens, each alone on the prefill engine, 32 new tokens: the imported
+   pages (scale pools included) and carries bit-equal to the exported
+   ones, K1 once a layer and chunk and no K4 on the prefill engine, no K1
+   and K4 once a layer and decode tick on the decode engine, no prefill
+   chunk and no replayed token there, the streams equal to a mixed
+   engine's outside ties (float32 twice the f32 bar, bf16 and int8 0.03);
+   bytes a token, and each stream's prefill, export (to the host),
+   encode, decode and import (to the card) times. (b) Two mixed bf16
+   engines, greedy and sampled: one stream moved mid-decode and one
+   mid-prefill, both equal to their unmoved streams, two exports two
+   device syncs and their imports none (``set_sync_debug_mode``). (c) Two serve CLI processes,
+   ``--role prefill`` and ``--role decode`` (125m, float32, serving_policy's
+   seed-0 ``.npz``): ``/healthz`` roles, ``/generate`` with ``prefill_to``
+   ends ``migrated``, ``/attach`` streams (a)'s mixed tokens, a ship to a
+   dead port fails the stream retryably with a flight dump, SIGTERM exits
+   0. (d) ``llama3_8b`` at 32 layers, bf16 then its cache in int8 (the
+   same weights): a 512-token prompt handed off (pages bit-equal, launches
+   exact), then again with every attention read held to the plain read of
+   the same pools at the bf16 bar. The kernel rows of K1 on a prefill
+   chunk and K4 over imported pages (bf16, int8).
+
 ``--phases k4_anatomy`` (never part of a full run) shows where the paged
 decode kernel's time goes at phase 2's main and long cases: it rebuilds
 ``csrc/paged_attention.cu`` apart as the kernel, a variant that skips the
@@ -263,7 +288,7 @@ bf16 rounding.
 (kernels, serving, parity, profile, int8_kernels, int8_serving,
 train_kernels, training, resilience, train_1_3b, packed_kernels, packed, sp_kernels,
 sequence_parallel, data_parallel, llama_kernels, llama_serving, llama_training, generate,
-serving_policy, data_parallel_nccl, sequence_parallel_f32, k4_anatomy and tc_fit; parity needs serving); the kernel table then lists the kernels whose phases ran.
+serving_policy, disagg, data_parallel_nccl, sequence_parallel_f32, k4_anatomy and tc_fit; parity needs serving); the kernel table then lists the kernels whose phases ran.
 
 The last two lines of standard output are the kernel table as one JSON
 object and ``{"ok": true, "device": {...}}`` (a full run only). Without CUDA the script exits
@@ -271,6 +296,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -4044,6 +4070,10 @@ LH, LKVH, LD, LCACHE = 32, 8, 128, 8192
 LLAMA_N = 8_030_261_248
 LLAMA_TRAIN_LAYERS, LLAMA_TRAIN_N = 4, 1_923_125_248  # the training cut: 32 -> 4 layers
 LLAMA_T, LLAMA_CHUNK, LLAMA_PARITY_T = 8192, 1024, 2048
+# llama_serving's decode profiles: 5 ticks, not the 125m phase's 20 (their
+# trace of ~2,400 kernels a tick took 42 of the phase's 159 s on one card;
+# the per-tick readings are those of a whole 32-layer tick either way)
+LLAMA_PROFILE_TICKS = 5
 LLAMA_SERVE_OFFSETS = [0, 1000, 4096, 8128]  # K1's 64-token prefill windows across the cache
 LLAMA_DECODE_OFFSETS = [3, 1000, 4097, 8191]  # K4's decode positions (at 3 one key is 1/4 of the row)
 # (label, B, T, H, KVH, D, dtype, causal, alibi): the training shape and an f32 case
@@ -4241,23 +4271,36 @@ def llama_serving_phase():
     than the bf16 plain path plus 2e-2) and a profiled decode; then all of
     it with int8 weights (the untied head and the gate included) and an int8
     cache. After the bf16 HTTP run, on the same model, the serving_policy
-    phase's (b): a prefix-cache burst (``llama_policy_burst``). Returns the
-    launches of both HTTP runs."""
+    phase's (b): a prefix-cache burst (``llama_policy_burst``). The decode
+    profiles trace ``LLAMA_PROFILE_TICKS`` ticks. Returns the launches of
+    both HTTP runs and logs each part's seconds."""
     t_phase = time.perf_counter()
-    launches, tokens, bf16 = serving_phase(name=LLAMA, cache_len=LCACHE, label="llama_serving",
-                                           after=llama_policy_burst)
+    part_s = {}
+
+    def timed(what, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        part_s[what] = time.perf_counter() - t0
+        return out
+
+    launches, tokens, bf16 = timed("serving", lambda: serving_phase(name=LLAMA, cache_len=LCACHE,
+                                                                    label="llama_serving", after=llama_policy_burst))
     if bf16["layers"] != 32 or not (launches["flash_serving_fwd"] and launches["paged_attention"]):
         raise AssertionError(f"llama3_8b was not served at full depth through K1 and K4: {bf16}")
-    parity_phase(tokens, name=LLAMA, cache_len=LCACHE, label="llama_parity", deep=True)
-    profile_phase(name=LLAMA, cache_len=LCACHE, label="llama_profile")
-    int8_launches, int8_tokens, int8 = serving_phase(int8=True, name=LLAMA, cache_len=LCACHE, label="llama_serving")
+    timed("parity", lambda: parity_phase(tokens, name=LLAMA, cache_len=LCACHE, label="llama_parity", deep=True))
+    timed("profile", lambda: profile_phase(LLAMA_PROFILE_TICKS, name=LLAMA, cache_len=LCACHE,
+                                           label="llama_profile"))
+    int8_launches, int8_tokens, int8 = timed("int8_serving", lambda: serving_phase(
+        int8=True, name=LLAMA, cache_len=LCACHE, label="llama_serving"))
     keys = ("ttft_ms_p50", "ttft_ms_p99", "itl_ms_p50", "itl_ms_p99", "decode_tok_s", "kv_pool_bytes", "weight_bytes")
     log({"llama_int8_vs_bf16_serving": {k: [int8[k], bf16[k]] for k in keys}})
-    parity_phase(int8_tokens, int8=True, name=LLAMA, cache_len=LCACHE, label="llama_parity", deep=True)
-    profile_phase(int8=True, name=LLAMA, cache_len=LCACHE, label="llama_profile")
+    timed("int8_parity", lambda: parity_phase(int8_tokens, int8=True, name=LLAMA, cache_len=LCACHE,
+                                              label="llama_parity", deep=True))
+    timed("int8_profile", lambda: profile_phase(LLAMA_PROFILE_TICKS, int8=True, name=LLAMA, cache_len=LCACHE,
+                                                label="llama_profile"))
     gc.collect()
     torch.cuda.empty_cache()
-    log({"llama_serving_s": time.perf_counter() - t_phase})
+    log({"llama_serving_s": time.perf_counter() - t_phase, "llama_serving_part_s": part_s})
     return {"flash_serving_fwd_llama": launches["flash_serving_fwd"],
             "paged_attention_llama": launches["paged_attention"],
             "paged_attention_int8_llama": int8_launches["paged_attention_int8"]}
@@ -4951,7 +4994,9 @@ def generate_phase() -> tuple:
 
 # --------------------------------------------------------- serving policy
 
-POLICY_DIR = Path("build") / "serving_policy"  # the CLI's .npz files; deleted at the end of the phase
+# the CLI's .npz files: seed 0's is kept for the disagg phase's CLIs, and the
+# directory deleted at the end of the run
+POLICY_DIR = Path("build") / "serving_policy"
 POLICY_SYSTEM, POLICY_NEW = 512, 32  # a 512-token system prompt (8 chunks of 64), 32 new tokens
 POLICY_SUFFIXES = (20, 31, 43, 56, 67, 78, 89, 100)  # each request's own suffix
 LLAMA_POLICY_PREFIX, LLAMA_POLICY_NEW = 1024, 16  # llama3_8b: 4 requests on a 1,024-token prefix
@@ -5108,6 +5153,39 @@ def policy_kernel_rows(on: dict, rows: dict) -> dict:
     return {"k1_rows_at_hit": len(offs), "k4_offsets": decode}
 
 
+def cli_server(args: list):
+    """``python -m zero_transformer_tpu_torch.serve`` with ``args`` in a
+    process of its own: (process, a queue of its output lines)."""
+    import queue
+
+    proc = subprocess.Popen([sys.executable, "-m", "zero_transformer_tpu_torch.serve", *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, cwd=Path(__file__).resolve().parent)
+    lines: "queue.Queue[str]" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout], daemon=True).start()
+    return proc, lines
+
+
+def cli_base(lines, out: list, label: str) -> str:
+    """The base URL the serve CLI prints once it listens."""
+    import queue
+
+    while True:
+        try:
+            line = lines.get(timeout=300)
+        except queue.Empty:
+            raise AssertionError(f"{label} printed no address within 300 s: {out[-20:]}") from None
+        out.append(line)
+        found = re.search(r"serving on (http://[0-9.]+:[0-9]+)", line)
+        if found:
+            return found.group(1)
+
+
+def sse_post(url: str, body: dict) -> list:
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return [json.loads(raw[6:]) for raw in r if raw.startswith(b"data: ")]
+
+
 def policy_cli(tmp: Path) -> dict:
     """(c) ``python -m zero_transformer_tpu_torch.serve --server`` on 125m in
     float32 (an ``.npz`` of seed-0 weights; another of seed 1 to reload):
@@ -5136,14 +5214,9 @@ def policy_cli(tmp: Path) -> dict:
             del m
     bad = tmp / "bad.npz"
     bad.write_bytes(files["b.npz"].read_bytes()[:4096])
-    cmd = [sys.executable, "-m", "zero_transformer_tpu_torch.serve", "--model", "125m", "--params",
-           str(files["a.npz"]), "--server", "--port", "0", "--dtype", "float32", "--greedy",
-           "--repetition-penalty", "1.0"]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                            cwd=Path(__file__).resolve().parent)
-    lines: "queue.Queue[str]" = queue.Queue()
+    proc, lines = cli_server(["--model", "125m", "--params", str(files["a.npz"]), "--server", "--port", "0",
+                              "--dtype", "float32", "--greedy", "--repetition-penalty", "1.0"])
     out_lines = []
-    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout], daemon=True).start()
 
     def drain_lines():
         while True:
@@ -5165,15 +5238,8 @@ def policy_cli(tmp: Path) -> dict:
 
     reading = {}
     try:
-        t_start, base = time.perf_counter(), None
-        while base is None:
-            try:
-                line = lines.get(timeout=300)
-            except queue.Empty:
-                raise AssertionError(f"serve CLI printed no address within 300 s: {out_lines[-20:]}") from None
-            out_lines.append(line)
-            found = re.search(r"serving on (http://[0-9.]+:[0-9]+)", line)
-            base = found.group(1) if found else None
+        t_start = time.perf_counter()
+        base = cli_base(lines, out_lines, "serve CLI")
         answers = []  # every /healthz answer until READY: 503 unless the state is ready
         for _ in range(600):
             try:
@@ -5429,7 +5495,8 @@ def serving_policy_phase() -> tuple:
         reading.setdefault("part_s", {})[what] = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
-    shutil.rmtree(POLICY_DIR, ignore_errors=True)
+    for name in ("b.npz", "bad.npz"):
+        (POLICY_DIR / name).unlink(missing_ok=True)
     reading["serving_policy_s"] = time.perf_counter() - t_phase
     log({"serving_policy": reading})
     if failed:
@@ -5443,54 +5510,14 @@ def llama_policy_burst(engine) -> dict:
     1,024-token prefix, the first alone until banked; exact counts (48 hits)
     and every layer's attention read, kernel against the plain read of the
     same pools, within the bf16 bar (GQA pages shared across streams)."""
-    from zero_transformer_tpu_torch.ops.paged_attention import MAX_DECODE_T
-
     model = engine.model
     burst_engine = policy_engine(model, POLICY_CHUNKS, cache_len=LCACHE)
     prompts = policy_prompts(LLAMA_POLICY_PREFIX, LLAMA_POLICY_SUFFIXES, 40)
-    seen, err, reads, missed = [], {"prefill": 0.0, "decode": 0.0}, {"prefill": 0, "decode": 0}, []
-    hooks = [blk.attn.out.register_forward_pre_hook(lambda _m, args: seen.append(args[0].float()))
-             for blk in model.blocks]
-    fwd = type(model.blocks[0].attn).forward_paged
-    import copy
-
-    def checked(x, pools, block_table, offsets, cache_len=None, *, attn, plain):
-        out = fwd(attn, x, pools, block_table, offsets, cache_len)
-        got = seen.pop()
-        fwd(plain, x, pools, block_table, offsets, cache_len)  # rewrites the same K/V, then the plain read
-        want = seen.pop()
-        # the positions a row maps: parked rows (a zeroed table) and a
-        # window's tail past the prompt write to the trash page, which
-        # several rows share, so what they read there is whichever write
-        # landed last, and the engine drops it
-        pos = offsets.long()[:, None] + torch.arange(x.shape[1], device=x.device)
-        blocks = torch.clamp(pos // PAGE, max=block_table.shape[1] - 1)
-        mapped = torch.gather(block_table.long(), 1, blocks) != 0
-        kind = "prefill" if x.shape[1] > MAX_DECODE_T else "decode"
-        try:
-            err[kind] = max(err[kind], compare(got[mapped], want[mapped], torch.bfloat16,
-                                               f"llama3_8b shared-page {kind} read"))
-        except AssertionError as e:  # raised here, the engine would take it for a tick fault
-            missed.append(str(e))
-        reads[kind] += 1
-        return out
-
-    for blk in model.blocks:
-        plain = copy.copy(blk.attn)
-        plain.cfg = dataclasses.replace(blk.attn.cfg, attention_impl="xla")
-        blk.attn.forward_paged = functools.partial(checked, attn=blk.attn, plain=plain)
-    try:
+    with attention_reads_checked(model, "llama3_8b shared-page") as checked:
         run = policy_burst(burst_engine, prompts, LLAMA_POLICY_NEW)
-    finally:
-        for blk in model.blocks:
-            del blk.attn.forward_paged
-        for h in hooks:
-            h.remove()
-    if missed:
-        raise AssertionError(f"llama3_8b shared-page reads beyond the bf16 bar: {missed[:3]}")
     counts = policy_expect(burst_engine, prompts, LLAMA_POLICY_PREFIX // CHUNK, run, "llama3_8b prefix")
     reading = {"layers": model.cfg.n_layers, "prompt_lens": [len(p) for p in prompts], "counts": counts,
-               "read_max_abs_err": err, "reads": reads, "read_tol": TOL[torch.bfloat16],
+               "read_max_abs_err": checked["max_abs_err"], "reads": checked["reads"], "read_tol": checked["tol"],
                "ttft_ms": run["ttft_ms"], "wall_s": run["wall_s"],
                "launches": {k: c for k, c in run["launches"].items() if c}}
     log({"serving_policy_llama": reading})
@@ -5498,6 +5525,493 @@ def llama_policy_burst(engine) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return reading
+
+
+DISAGG_DIR = Path("build") / "disagg"  # the prefill CLI's flight dumps; deleted at the end of the phase
+DISAGG_LENS, DISAGG_NEW = (130, 300, 451, 512), 32  # 125m prompts (3-8 chunks of 64), new tokens
+DISAGG_LLAMA_T, DISAGG_LLAMA_NEW, DISAGG_LLAMA_CACHE = 512, 16, 1024
+# bf16 (and int8-cache) streams may part from a mixed engine's only where its
+# top two logits lie closer than this (PR 14's bar for bf16 streams)
+TIE_BF16_SERVE = 0.03
+
+
+def disagg_engine(model, role: str = "mixed", cache_len: int = CACHE, sampling=None, **kw):
+    from zero_transformer_tpu_torch.inference.sampling import SamplingConfig
+    from zero_transformer_tpu_torch.serving import ServingEngine
+
+    return ServingEngine(model, n_slots=SLOTS, cache_len=cache_len, sampling=sampling or SamplingConfig(greedy=True),
+                         prefill_chunk=CHUNK, page_size=PAGE, device="cuda", role=role, **kw)
+
+
+def span_bytes(payload) -> int:
+    """Bytes of a payload's page leaves (the carry aside)."""
+    return sum(t.numel() * t.element_size() for k, t in payload["leaves"].items() if not k.startswith("carry/"))
+
+
+def leaf_bits(t: torch.Tensor) -> bytes:
+    return t.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+
+
+def link(src, dst, timed: bool = True) -> dict:
+    """Join ``src`` to ``dst`` in process through the wire format. With
+    ``timed``, time each stream's legs on the host clock: the export (its
+    copy to the host waits for the card; a device sync first, so the
+    prefill's tail is not counted), the encode, the decode and the import
+    (device syncs around it); untimed, the spans move exactly as the
+    engines move them (no sync of the harness's own). Returns the record
+    the legs append to."""
+    from zero_transformer_tpu_torch.serving import page_span_from_wire, page_span_to_wire
+
+    rec = {k: [] for k in ("ready_at", "export_ms", "encode_ms", "decode_ms", "import_ms", "payloads", "wire_bytes",
+                           "handles")}
+    export, place = src.slots.export_page_span, dst.slots.import_page_span
+
+    def timed_export(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec["ready_at"].append(t0)
+        out = export(*args, **kw)
+        rec["export_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_import(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = place(*args, **kw)
+        torch.cuda.synchronize()
+        rec["import_ms"].append((time.perf_counter() - t0) * 1e3)
+        return ok
+
+    def ship(payload, target, on_done):
+        t0 = time.perf_counter()
+        blob = page_span_to_wire(payload)
+        t1 = time.perf_counter()
+        back = page_span_from_wire(blob)
+        t2 = time.perf_counter()
+        rec["encode_ms"].append((t1 - t0) * 1e3)
+        rec["decode_ms"].append((t2 - t1) * 1e3)
+        rec["wire_bytes"].append(len(blob))
+        rec["payloads"].append(payload)
+        handle = dst.import_stream(back)
+        rec["handles"].append(handle)
+        on_done(None if handle.status in ("queued", "running") else (handle.error or handle.status))
+
+    if timed:
+        src.slots.export_page_span, dst.slots.import_page_span = timed_export, timed_import
+    src.page_shipper = ship
+    return rec
+
+
+def imported_pages_equal(dst, rec, label: str) -> int:
+    """Place the queued imports, then hold every page leaf the receiver now
+    maps (scale pools included) and its decode carry to the exported bytes,
+    bit for bit. Returns the leaves compared."""
+    dst._service_imports()
+    by_rid = {p["request_id"]: p for p in rec["payloads"]}
+    compared = 0
+    for slot, act in enumerate(dst._active):
+        if act is None:
+            continue
+        sent = by_rid[act.handle.rid]
+        got = dst.slots.export_page_span(slot, sent["n_tokens"], dst.pools, dst.cfg.scan_layers)["leaves"]
+        got["carry/last_logits"] = dst._last_logits[slot].cpu()
+        got["carry/gen_mask"] = dst._gen_mask[slot].cpu()
+        for key, want in sent["leaves"].items():
+            if key in got and leaf_bits(got[key]) != leaf_bits(want):
+                raise AssertionError(f"{label}: leaf {key} of stream {act.handle.rid} is not the exported bytes")
+            compared += key in got
+    pages = [k for k in rec["payloads"][0]["leaves"] if not k.startswith("carry/")]
+    if compared != len(rec["payloads"]) * (len(pages) + 2):
+        raise AssertionError(f"{label}: compared {compared} leaves of {len(rec['payloads'])} streams")
+    return compared
+
+
+def disagg_handoff(model, prompts, new: int, cache_len: int, label: str) -> dict:
+    """A prefill-role and a decode-role engine over ``model``, joined by
+    ``link``: each prompt alone on the prefill engine until it has
+    shipped (its prefill time: submit to the export's start), then the
+    imports placed and their pages checked bit-equal, then the decode
+    engine to the end. Launch counts are zeroed before and read after each
+    engine's run: K1 one a layer and chunk on the prefill engine and no K4;
+    no K1 on the decode engine and K4 one a layer and decode tick."""
+    from zero_transformer_tpu_torch.ops import _build
+
+    L = model.cfg.n_layers
+    paged = "paged_attention_int8" if model.cfg.kv_cache_dtype == "int8" else "paged_attention"
+    pre, dec = disagg_engine(model, "prefill", cache_len), disagg_engine(model, "decode", cache_len)
+    rec = link(pre, dec)
+    submitted = []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for p in prompts:
+        t0 = time.perf_counter()
+        h = pre.submit(p, max_new_tokens=new, prefill_to="http://decode")
+        submitted.append(t0)
+        while h.status in ("queued", "running"):
+            pre.step()
+        if h.status != "migrated":
+            raise AssertionError(f"{label}: a {len(p)}-token handoff ended {h.status}: {h.error}")
+    torch.cuda.synchronize()
+    pre_launches = dict(_build.LAUNCHES)
+    chunks = sum(-(-len(p) // CHUNK) for p in prompts)
+    want = {"flash_serving_fwd": L * chunks, paged: 0, "prefill_chunks": chunks, "prefill_handoffs": len(prompts),
+            "decode_ticks": 0}
+    got = {"flash_serving_fwd": pre_launches["flash_serving_fwd"], paged: pre_launches[paged],
+           "prefill_chunks": pre.stats["prefill_chunks"], "prefill_handoffs": pre.stats["prefill_handoffs"],
+           "decode_ticks": pre.stats["decode_ticks"]}
+    if got != want:
+        raise AssertionError(f"{label}: prefill engine counts {got} != {want}")
+    compared = imported_pages_equal(dec, rec, label)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    dec.run_until_idle()
+    torch.cuda.synchronize()
+    dec_launches = dict(_build.LAUNCHES)
+    conts = {h.rid: h for h in rec["handles"]}
+    for h in conts.values():
+        if h.status != "done" or len(h.tokens) != new:
+            raise AssertionError(f"{label}: an imported stream ended {h.status} with {len(h.tokens)} tokens: {h.error}")
+    want = {"flash_serving_fwd": 0, paged: L * dec.stats["decode_ticks"], "prefill_chunks": 0,
+            "import_replayed_tokens": 0, "migrations_in": len(prompts)}
+    got = {"flash_serving_fwd": dec_launches["flash_serving_fwd"], paged: dec_launches[paged],
+           "prefill_chunks": dec.stats["prefill_chunks"], "import_replayed_tokens": dec.stats["import_replayed_tokens"],
+           "migrations_in": dec.stats["migrations_in"]}
+    if got != want:
+        raise AssertionError(f"{label}: decode engine counts {got} != {want}")
+    per_token = [span_bytes(p) / (p["n_blocks"] * PAGE) for p in rec["payloads"]]
+    streams = [{"prompt": len(p), "prefill_ms": (r - s) * 1e3, "export_ms": e, "encode_ms": en, "decode_ms": de,
+                "import_ms": im, "wire_bytes": w}
+               for p, r, s, e, en, de, im, w in zip(prompts, rec["ready_at"], submitted, rec["export_ms"],
+                                                    rec["encode_ms"], rec["decode_ms"], rec["import_ms"],
+                                                    rec["wire_bytes"])]
+    return {"tokens": [conts[h.rid].tokens for h in rec["handles"]], "rids": [h.rid for h in rec["handles"]],
+            "bytes_per_token": sorted(set(per_token)), "leaves_bit_equal": compared, "streams": streams,
+            "prefill_launches": {k: c for k, c in pre_launches.items() if c},
+            "decode_launches": {k: c for k, c in dec_launches.items() if c},
+            "decode_ticks": dec.stats["decode_ticks"]}
+
+
+def mixed_streams(model, prompts, new: int, sampling=None, seeds=None) -> list:
+    """A mixed engine's streams for ``prompts``, each prompt alone until its
+    prefill is done (the prefill engine's GEMM shapes), the decode ticks
+    over every slot as always."""
+    eng = disagg_engine(model, sampling=sampling)
+    handles = []
+    for i, p in enumerate(prompts):
+        h = eng.submit(p, max_new_tokens=new, seed=seeds[i] if seeds else 0)
+        while h.prefill_done_at is None and h.status in ("queued", "running"):
+            eng.step()
+        handles.append(h)
+    eng.run_until_idle()
+    for h in handles:
+        if h.status != "done":
+            raise AssertionError(f"the mixed engine's stream ended {h.status}: {h.error}")
+    return [h.tokens for h in handles]
+
+
+def disagg_125m(dtype, kv: str, prompts) -> tuple:
+    """(a) at one precision: the handoff's readings, its streams against a
+    mixed engine's (float32: equal outside ties of ``TIE_F32``; bf16 and
+    the int8 cache: of ``TIE_BF16_SERVE``), and the model."""
+    model = gen_model("125m", dtype, "auto", kv=kv)
+    label = f"disagg 125m {str(dtype)[6:]} {kv}-cache"
+    run = disagg_handoff(model, prompts, DISAGG_NEW, CACHE, label)
+    ref = mixed_streams(model, prompts, DISAGG_NEW)
+    margin = TIE_F32 if dtype == torch.float32 else TIE_BF16_SERVE
+    run["vs_mixed"] = agree_or_tie(torch.tensor(run["tokens"]), torch.tensor(ref), model,
+                                   [torch.tensor(p) for p in prompts], margin, f"{label} handoff vs mixed")
+    run["mixed_tokens"] = ref
+    return run, model
+
+
+def disagg_live(model, prompts, sampled: bool) -> dict:
+    """(b) Two mixed engines: stream A migrated mid-decode (4 tokens out)
+    and stream B mid-prefill (3 of its chunks done), each continuing equal
+    to its unmoved stream (sampled too: the generator's state moves); the
+    migration's export makes one device sync a stream and the import none;
+    no token is replayed and the receiver prefills only B's remaining
+    chunks."""
+    from zero_transformer_tpu_torch.inference.sampling import SamplingConfig
+
+    sampling = SamplingConfig(temperature=0.8, top_p=0.9) if sampled else SamplingConfig(greedy=True)
+    seeds = [7, 8]
+    unmoved = [mixed_streams(model, [p], DISAGG_NEW, sampling, [s])[0] for p, s in zip(prompts, seeds)]
+    src, dst = disagg_engine(model, sampling=sampling), disagg_engine(model, sampling=sampling)
+    rec = link(src, dst, timed=False)
+    a = src.submit(prompts[0], max_new_tokens=DISAGG_NEW, seed=seeds[0])
+    while a.prefill_done_at is None and a.status in ("queued", "running"):
+        src.step()
+    b = src.submit(prompts[1], max_new_tokens=DISAGG_NEW, seed=seeds[1])
+    for _ in range(3):
+        src.step()
+    fill = next(j.fill for j in src._prefilling.values() if j.handle is b)
+    moved_at = [len(a.tokens), fill]
+    if not (a.tokens and 0 < fill < len(prompts[1])):
+        raise AssertionError(f"disagg live: not mid-decode and mid-prefill: {moved_at}")
+    for h in (a, b):
+        if not src.request_migration(h.rid, "http://peer"):
+            raise AssertionError("disagg live: request_migration found no stream")
+    syncs = gen_syncs(src._service_migrations)
+    n_syncs = sum(c for _, c in syncs)
+    if [a.status, b.status] != ["migrated", "migrated"] or n_syncs != 2:
+        raise AssertionError(f"disagg live: {a.status}/{b.status}, {n_syncs} syncs for two exports: {syncs}")
+    import_syncs = gen_syncs(dst._service_imports)
+    if import_syncs:
+        raise AssertionError(f"disagg live: placing two imports synced: {import_syncs}")
+    dst.run_until_idle()
+    conts = {h.rid: h for h in rec["handles"]}
+    got = [a.tokens + conts[a.rid].tokens, b.tokens + conts[b.rid].tokens]
+    chunks_left = -(-len(prompts[1]) // CHUNK) - fill // CHUNK
+    if got != unmoved or dst.stats["prefill_chunks"] != chunks_left or dst.stats["import_replayed_tokens"]:
+        raise AssertionError(f"disagg live ({'sampled' if sampled else 'greedy'}): moved {got} vs unmoved "
+                             f"{unmoved}; receiver prefill chunks {dst.stats['prefill_chunks']} (want "
+                             f"{chunks_left})")
+    return {"moved_at_tokens_and_fill": moved_at, "export_syncs": syncs, "import_syncs": import_syncs,
+            "streams_equal_unmoved": 2, "receiver_prefill_chunks": chunks_left, "encode_ms": rec["encode_ms"],
+            "decode_ms": rec["decode_ms"], "wire_bytes": rec["wire_bytes"]}
+
+
+def disagg_cli(prompt: list, expect: list, model) -> dict:
+    """(c) Two serve CLI processes on the card, ``--role prefill`` and
+    ``--role decode``, 125m in float32 on the serving_policy phase's seed-0
+    ``.npz``: ``/healthz`` names both roles; ``/generate`` with
+    ``prefill_to`` ends its SSE ``migrated`` to the decode replica, whose
+    ``/attach`` streams tokens equal to the in-process mixed engine's
+    (``expect``, outside ties of ``TIE_F32``); a ship to a port nothing
+    listens on ends the stream failed and retryable and dumps the flight
+    recorder; SIGTERM stops both (exit 0)."""
+    import signal
+    import socket
+
+    from zero_transformer_tpu_torch.convert import params_to_jax
+
+    params = POLICY_DIR / "a.npz"
+    if not params.exists():  # the serving_policy phase did not run
+        POLICY_DIR.mkdir(parents=True, exist_ok=True)
+        np.savez(params, **params_to_jax(model.state_dict()))
+    obs = DISAGG_DIR / "obs"
+    common = ["--model", "125m", "--params", str(params), "--server", "--port", "0", "--dtype", "float32",
+              "--greedy", "--repetition-penalty", "1.0"]
+    t0 = time.perf_counter()
+    procs = {"prefill": cli_server(common + ["--role", "prefill", "--obs-dir", str(obs)]),
+             "decode": cli_server(common + ["--role", "decode"])}
+    outs = {role: [] for role in procs}
+    reading = {}
+    try:
+        base = {role: cli_base(procs[role][1], outs[role], f"the {role} CLI") for role in procs}
+        for role, url in base.items():
+            for _ in range(600):
+                try:
+                    code, text = http("GET", url + "/healthz", timeout=10)
+                except urllib.error.HTTPError as e:
+                    code, text = e.code, e.read().decode()
+                if code == 200:
+                    break
+                time.sleep(0.05)
+            health = json.loads(text)
+            if code != 200 or health["role"] != role:
+                raise AssertionError(f"the {role} CLI's /healthz: {code} {health}")
+            reading[f"healthz_{role}"] = {k: health[k] for k in ("role", "free_pages", "migrations_in_flight")}
+        reading["startup_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        events = sse_post(base["prefill"] + "/generate", {"tokens": prompt, "max_new_tokens": DISAGG_NEW,
+                                                          "prefill_to": base["decode"], "request_id": "disagg-cli"})
+        t2 = time.perf_counter()
+        done = events[-1]
+        if done.get("status") != "migrated" or done.get("migrated_to") != base["decode"] or len(events) != 1:
+            raise AssertionError(f"prefill CLI: {events[-3:]}")
+        attached = sse_post(base["decode"] + "/attach", {"request_id": "disagg-cli"})
+        t3 = time.perf_counter()
+        tokens = [e["token"] for e in attached if "token" in e]
+        if attached[-1].get("status") != "done" or len(tokens) != DISAGG_NEW:
+            raise AssertionError(f"decode CLI /attach: {attached[-1]} after {len(tokens)} tokens")
+        reading["vs_mixed"] = agree_or_tie(torch.tensor([tokens]), torch.tensor([expect]), model,
+                                           [torch.tensor(prompt)], TIE_F32, "disagg CLI vs mixed engine")
+        reading["handoff_ms"], reading["attach_ms"] = (t2 - t1) * 1e3, (t3 - t2) * 1e3
+        with socket.socket() as probe:  # a port nothing listens on
+            probe.bind(("127.0.0.1", 0))
+            dead = probe.getsockname()[1]
+        failed = sse_post(base["prefill"] + "/generate", {"tokens": prompt, "max_new_tokens": 4,
+                                                          "prefill_to": f"http://127.0.0.1:{dead}"})[-1]
+        dumps = sorted(p.name for p in (obs / "flightrec").glob("*migration_failed*"))
+        if failed.get("status") != "failed" or not failed.get("retryable") or not dumps:
+            raise AssertionError(f"a ship to a dead port: {failed}, flight dumps {dumps}")
+        reading["dead_port"] = {"status": failed["status"], "retryable": failed["retryable"], "dumps": dumps}
+        pre_m = json.loads(http("GET", base["prefill"] + "/metrics")[1])
+        dec_m = json.loads(http("GET", base["decode"] + "/metrics")[1])
+        want = {"prefill_handoffs": 1, "migration_failures": 1, "decode_ticks": 0}
+        got = {k: pre_m[k] for k in want}
+        got_d = {k: dec_m[k] for k in ("migrations_in", "prefill_chunks", "import_replayed_tokens")}
+        if got != want or got_d != {"migrations_in": 1, "prefill_chunks": 0, "import_replayed_tokens": 0}:
+            raise AssertionError(f"CLI counters: prefill {got}, decode {got_d}")
+        for proc, _ in procs.values():
+            proc.send_signal(signal.SIGTERM)
+        for proc, _ in procs.values():
+            proc.wait(120)
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    codes = {role: proc.returncode for role, (proc, _) in procs.items()}
+    if codes != {"prefill": 0, "decode": 0}:
+        raise AssertionError(f"the CLIs exited {codes}")
+    reading["exit"] = codes
+    return reading
+
+
+@contextlib.contextmanager
+def attention_reads_checked(model, label: str):
+    """Inside the block, every layer's attention read on the kernel path is
+    held to the plain read of the same pools (``attention_impl="xla"``,
+    which rewrites the same K/V first) at the bf16 bar, at the positions a
+    row maps: parked rows (a zeroed table) and a window's tail past the
+    prompt write to the trash page, which several rows share, so what they
+    read there is whichever write landed last, and the engine drops it. A
+    miss is recorded (raised inside the forward, the engine would take it
+    for a tick fault) and raised at the end. Yields the largest errors and
+    the reads counted, by prefill and decode."""
+    import copy
+
+    from zero_transformer_tpu_torch.ops.paged_attention import MAX_DECODE_T
+
+    out = {"max_abs_err": {"prefill": 0.0, "decode": 0.0}, "reads": {"prefill": 0, "decode": 0},
+           "tol": TOL[torch.bfloat16]}
+    seen, missed = [], []
+    hooks = [blk.attn.out.register_forward_pre_hook(lambda _m, args: seen.append(args[0].float()))
+             for blk in model.blocks]
+    fwd = type(model.blocks[0].attn).forward_paged
+
+    def checked(x, pools, block_table, offsets, cache_len=None, *, attn, plain):
+        result = fwd(attn, x, pools, block_table, offsets, cache_len)
+        got = seen.pop()
+        fwd(plain, x, pools, block_table, offsets, cache_len)
+        want = seen.pop()
+        pos = offsets.long()[:, None] + torch.arange(x.shape[1], device=x.device)
+        blocks = torch.clamp(pos // PAGE, max=block_table.shape[1] - 1)
+        mapped = torch.gather(block_table.long(), 1, blocks) != 0
+        kind = "prefill" if x.shape[1] > MAX_DECODE_T else "decode"
+        try:
+            out["max_abs_err"][kind] = max(out["max_abs_err"][kind], compare(
+                got[mapped], want[mapped], torch.bfloat16, f"{label} {kind} read"))
+        except AssertionError as e:
+            missed.append(str(e))
+        out["reads"][kind] += 1
+        return result
+
+    for blk in model.blocks:
+        plain = copy.copy(blk.attn)
+        plain.cfg = dataclasses.replace(blk.attn.cfg, attention_impl="xla")
+        blk.attn.forward_paged = functools.partial(checked, attn=blk.attn, plain=plain)
+    try:
+        yield out
+    finally:
+        for blk in model.blocks:
+            del blk.attn.forward_paged
+        for h in hooks:
+            h.remove()
+    if missed:
+        raise AssertionError(f"{label}: attention reads beyond the bf16 bar: {missed[:3]}")
+
+
+@contextlib.contextmanager
+def kv_cache_dtype(model, kv: str):
+    """``model``'s K/V cache in ``kv`` for the block (the same weights): the
+    model's and each attention's config swapped, then restored."""
+    old = model.cfg
+    model.cfg = dataclasses.replace(old, kv_cache_dtype=kv)
+    for blk in model.blocks:
+        blk.attn.cfg = dataclasses.replace(blk.attn.cfg, kv_cache_dtype=kv)
+    try:
+        yield model
+    finally:
+        model.cfg = old
+        for blk in model.blocks:
+            blk.attn.cfg = dataclasses.replace(blk.attn.cfg, kv_cache_dtype=old.kv_cache_dtype)
+
+
+def disagg_llama() -> dict:
+    """(d) llama3_8b at 32 layers, bf16, then its cache in int8 (the same
+    weights, held once): a 512-token prompt handed off between two engines
+    over the model (pages bit-equal, exact launches), then again with every
+    attention read held to the plain read of the same pools at the bf16
+    bar."""
+    model = gen_model(LLAMA, torch.bfloat16, "auto")
+    prompts = [list(prompt_text(DISAGG_LLAMA_T, 61).encode())]
+    reading = {}
+    for kv in ("auto", "int8"):
+        with kv_cache_dtype(model, kv):
+            label = f"disagg llama3_8b {kv}-cache"
+            run = disagg_handoff(model, prompts, DISAGG_LLAMA_NEW, DISAGG_LLAMA_CACHE, label)
+            with attention_reads_checked(model, label) as reads:
+                checked = disagg_handoff(model, prompts, DISAGG_LLAMA_NEW, DISAGG_LLAMA_CACHE, label + " checked")
+            run["reads"] = reads
+            run["checked_tokens_equal"] = checked["tokens"] == run["tokens"]
+            # the second handoff's legs, the pinned buffers of its sizes cached
+            run["second_streams"] = checked["streams"]
+            reading[kv] = run
+    del model
+    return reading
+
+
+def disagg_phase() -> tuple:
+    """Disaggregated roles and live stream migration on the card (the
+    module doc, phase 21): (a) 125m handoffs in float32, bf16 and over an
+    int8 cache; (b) live migration between two mixed engines, greedy and
+    sampled; (c) the serve CLI as a prefill and a decode replica; (d)
+    llama3_8b handoffs in bf16 and over an int8 cache; the kernel rows of K1
+    on the prefill role and K4 over imported pages. Every part runs; the
+    phase fails after them if any failed. Returns the rows and their
+    launches (bf16 and int8 handoffs of (a))."""
+    t_phase = time.perf_counter()
+    rows, launches, failed, reading = {}, {}, [], {"card": card_line()}
+    prompts = [list(prompt_text(n, 70 + i).encode()) for i, n in enumerate(DISAGG_LENS)]
+    f32 = {}
+
+    def handoff(dtype, kv, key):
+        run, model = disagg_125m(dtype, kv, prompts)
+        reading[key] = {k: v for k, v in run.items() if k not in ("tokens", "mixed_tokens", "rids")}
+        if dtype == torch.float32:
+            f32.update(model=model, expect=run["mixed_tokens"][1])
+            return
+        if kv == "int8":
+            launches["paged_attention_int8_disagg"] = run["decode_launches"]["paged_attention_int8"]
+            return
+        launches["flash_serving_fwd_disagg"] = run["prefill_launches"]["flash_serving_fwd"]
+        launches["paged_attention_disagg"] = run["decode_launches"]["paged_attention"]
+        reading["live_greedy"] = disagg_live(model, prompts[1:3], sampled=False)
+        reading["live_sampled"] = disagg_live(model, prompts[1:3], sampled=True)
+
+    def kernel_rows():
+        gen_k1_row("flash_serving_fwd_disagg", 1, CHUNK, CACHE, H, H, D, [4 * CHUNK], True, rows)
+        gen_k4_row("paged_attention_disagg", len(DISAGG_LENS), 1, CACHE, H, H, D, list(DISAGG_LENS), True, rows)
+        gen_k4_row("paged_attention_int8_disagg", len(DISAGG_LENS), 1, CACHE, H, H, D, list(DISAGG_LENS), True, rows,
+                   int8=True)
+
+    parts = [("handoff float32", lambda: handoff(torch.float32, "auto", "handoff_f32")),
+             ("cli", lambda: reading.__setitem__("cli", disagg_cli(prompts[1], f32["expect"], f32["model"]))),
+             ("handoff bf16 and live migration", lambda: handoff(torch.bfloat16, "auto", "handoff_bf16")),
+             ("handoff int8 cache", lambda: handoff(torch.bfloat16, "int8", "handoff_int8_cache")),
+             ("llama3_8b", lambda: reading.__setitem__("llama3_8b", disagg_llama())),
+             ("kernel rows", kernel_rows)]
+    for what, part in parts:
+        t0 = time.perf_counter()
+        try:
+            part()
+        except (AssertionError, KeyError) as e:
+            failed.append(what)
+            log({"disagg_failed": what, "error": repr(e)})
+        reading.setdefault("part_s", {})[what] = time.perf_counter() - t0
+        if what == "cli":
+            f32.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(DISAGG_DIR, ignore_errors=True)
+    reading["disagg_s"] = time.perf_counter() - t_phase
+    log({"disagg": reading})
+    if failed:
+        raise AssertionError(f"disagg: {failed} failed")
+    return rows, launches
 
 
 def card_line() -> str:
@@ -5510,7 +6024,7 @@ def card_line() -> str:
 
 PHASES = ("kernels", "serving", "parity", "profile", "int8_kernels", "int8_serving", "train_kernels", "training",
           "resilience", "train_1_3b", "packed_kernels", "packed", "sp_kernels", "sequence_parallel", "data_parallel",
-          "llama_kernels", "llama_serving", "llama_training", "generate", "serving_policy")
+          "llama_kernels", "llama_serving", "llama_training", "generate", "serving_policy", "disagg")
 # named with --phases only: the ring's parity with every kernel on its f32 path, K4's
 # anatomy, data parallelism over NCCL with a card per rank (4 cards), and the
 # fit of the tensor cores' adder that the ALiBi-off K1 emulation uses
@@ -5598,6 +6112,14 @@ SOURCES = {
                                  "zero_transformer_tpu/ops/pallas/flash.py:127"),
     "paged_attention_prefix": ("zero_transformer_tpu_torch/csrc/paged_attention.cu",
                                "zero_transformer_tpu/ops/pallas/paged_attention.py:100"),
+    # disaggregated serving (125m): K1 on a prefill-role replica's chunk, K4
+    # decoding a decode-role replica's imported pages (bf16 and int8)
+    "flash_serving_fwd_disagg": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
+                                 "zero_transformer_tpu/ops/pallas/flash.py:127"),
+    "paged_attention_disagg": ("zero_transformer_tpu_torch/csrc/paged_attention.cu",
+                               "zero_transformer_tpu/ops/pallas/paged_attention.py:100"),
+    "paged_attention_int8_disagg": ("zero_transformer_tpu_torch/csrc/paged_attention.cu",
+                                    "zero_transformer_tpu/ops/pallas/paged_attention.py:100"),
 }
 
 
@@ -5691,6 +6213,11 @@ def main(argv) -> int:
         policy_rows, policy_launches = serving_policy_phase()
         rows.update(policy_rows)
         launches.update(policy_launches)
+    if "disagg" in phases:
+        disagg_rows, disagg_launches = disagg_phase()
+        rows.update(disagg_rows)
+        launches.update(disagg_launches)
+    shutil.rmtree(POLICY_DIR, ignore_errors=True)
     table = [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu, "launches": launches[name],
          **rows[name]}

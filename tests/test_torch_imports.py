@@ -1,7 +1,7 @@
 """Boundaries of the PyTorch/CUDA port.
 
 - An AST scan of every module of ``zero_transformer_tpu_torch`` and of
-  ``chip_smoke.py`` finds no import of jax, flax, yaml or the JAX package
+  ``chip_smoke.py`` finds no import of jax, flax, yaml, ml_dtypes or the JAX package
   (a ``sys.modules`` check cannot work here: this interpreter imports jax
   at startup).
 - Entry points (the model getter, the serving engine, the serve CLI's
@@ -26,7 +26,7 @@ from zero_transformer_tpu_torch import config as tconfig
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "zero_transformer_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "yaml", "zero_transformer_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "yaml", "ml_dtypes", "zero_transformer_tpu")
 SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -59,6 +59,8 @@ def test_scan_sees_the_whole_package():
     assert {"resilience/__init__.py", "resilience/anomaly.py", "resilience/chaos.py", "resilience/supervisor.py",
             "resilience/watchdog.py", "obs/__init__.py", "obs/spans.py", "obs/flight.py", "obs/metrics.py",
             "obs/exporter.py", "obs/profiling.py", "obs/logging.py"} <= names
+    assert {"serving/wire.py", "serving/slots.py", "serving/server.py", "serving/prefix_cache.py", "serving/qos.py",
+            "serving/resilience.py"} <= names
     for source in ("flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh", "paged_attention.cu"):
         assert (PACKAGE / "csrc" / source).exists(), source
 

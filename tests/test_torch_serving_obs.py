@@ -14,10 +14,11 @@ float32, greedy.
   writes ``trace_serve.json`` and ``spans.jsonl``; ``POST /admin/profile``
   captures a ``torch.profiler`` trace of N busy ticks (202; 409 while one
   runs or without an obs directory); admin routes are loopback-or-token;
-  the later slices' routes answer 501.
+  the migration routes (once 501) answer their own refusals.
 """
 import json
 import re
+import socket
 from types import SimpleNamespace
 
 import pytest
@@ -234,14 +235,25 @@ def test_admin_routes_need_loopback_or_token(pair):
 
 @pytest.mark.parametrize("path", ["/attach", "/ingest", "/admin/migrate", "/admin/migrate_all"])
 def test_later_slice_routes_answer_501(pair, path):
+    """The migration routes, once answered 501, are served: each answers
+    its own refusal of a request that names no live or pending stream (or a
+    body that is not a page span), an unknown route stays 404, and a
+    ``prefill_to`` whose target is down ends the stream ``failed`` and
+    retryable."""
     server = ServingServer(port_engine(pair[2]), ByteTokenizer(), port=0)
     server.start()
     try:
         code, _, body = http_call(server.port, "POST", path, {"request_id": "x", "target": "y"})
-        assert code == 501 and "ROADMAP Queue 1" in json.loads(body)["error"]
+        want = {"/attach": 404, "/ingest": 400, "/admin/migrate": 404, "/admin/migrate_all": 202}[path]
+        assert code == want, (code, body)
         assert http_call(server.port, "POST", "/nope", {})[0] == 404
-        code, _, body = http_call(server.port, "POST", "/generate", {"prompt": "a", "prefill_to": "http://x"})
-        assert code == 501
+        with socket.socket() as probe:  # a port nothing listens on
+            probe.bind(("127.0.0.1", 0))
+            dead = probe.getsockname()[1]
+        code, _, body = http_call(server.port, "POST", "/generate",
+                                  {"prompt": "a", "prefill_to": f"http://127.0.0.1:{dead}"})
+        done = sse_events(body)[-1]
+        assert code == 200 and done["status"] == "failed" and done["retryable"], done
     finally:
         server.stop()
 

@@ -653,17 +653,19 @@ def test_serve_cli_reload_sighup_and_sigterm_drain(pair, pair2, tmp_path):
 
 def test_serving_config_and_cli_defaults(pair, tmp_path):
     """``serve --server`` without flags builds JAX's default engine: the
-    prefix cache at 256 chunks and a 30 s drain; the later slices' settings
-    raise naming their ROADMAP item; ``--prefill-chunk 0`` turns the cache
-    off and is refused (the one-shot prefill is a later slice)."""
+    prefix cache at 256 chunks and a 30 s drain; the later slice's settings
+    raise naming their ROADMAP item; the roles are accepted and validated
+    as JAX's; ``--prefill-chunk 0`` turns the cache off and is refused (the
+    one-shot prefill is a later slice)."""
     from zero_transformer_tpu_torch.config import ServingConfig
     from zero_transformer_tpu_torch.serve import build_engine, build_parser
 
-    for field, value in (("role", "prefill"), ("kv_layout", "slab"), ("max_prefill_buckets", 4),
-                         ("fused_tail", False)):
+    for field, value in (("kv_layout", "slab"), ("max_prefill_buckets", 4), ("fused_tail", False)):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
             ServingConfig(**{field: value})
-    for bad in (dict(prefix_cache_chunks=-1), dict(drain_deadline_s=-1.0)):
+    assert [ServingConfig(role=r).role for r in ("mixed", "prefill", "decode")] == ["mixed", "prefill", "decode"]
+    for bad in (dict(prefix_cache_chunks=-1), dict(drain_deadline_s=-1.0), dict(role="router"),
+                dict(role="prefill", draft_k=2)):
         with pytest.raises(ValueError):
             ServingConfig(**bad)
     params = _write_npz(pair[2], tmp_path / "p.npz")

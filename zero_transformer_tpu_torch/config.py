@@ -172,10 +172,11 @@ class ModelConfig:
 class ServingConfig:
     """Continuous-batching serving defaults (JAX ``ServingConfig``): a paged
     KV cache with 16-token pages, 64-token prefill chunks, 4 slots, a
-    256-chunk prefix cache and a 30 s drain deadline. ``max_prefill_buckets``,
-    ``kv_layout``, ``fused_tail`` and ``role`` carry JAX's defaults; the
-    paths they select otherwise come with later slices (ROADMAP Queue 1)
-    and raise NotImplementedError here."""
+    256-chunk prefix cache and a 30 s drain deadline. ``role`` is JAX's
+    (``mixed``, ``prefill`` or ``decode``, validated as JAX does).
+    ``max_prefill_buckets``, ``kv_layout`` and ``fused_tail`` carry JAX's
+    defaults; the paths they select otherwise come with a later slice
+    (ROADMAP Queue 1 item 1, step 2) and raise NotImplementedError here."""
 
     slots: int = 4
     max_queue: int = 64
@@ -209,8 +210,14 @@ class ServingConfig:
             raise ValueError("serving.page_pool_tokens must be >= 0 and a multiple of page_size")
         if self.draft_k < 0:
             raise ValueError("serving.draft_k must be >= 0 (0 disables)")
+        if self.role not in ("mixed", "prefill", "decode"):
+            raise ValueError(f"serving.role must be mixed|prefill|decode, got {self.role!r}")
+        if self.role != "mixed" and self.kv_layout != "paged":
+            raise ValueError(f"serving.role={self.role!r} requires kv_layout='paged': KV pages are the unit that "
+                             "ships between replicas")
+        if self.role == "prefill" and self.draft_k:
+            raise ValueError("serving.role='prefill' replicas never decode; draft_k must be 0")
         for field, default, item in (
-            ("role", "mixed", "ROADMAP Queue 1 item 1, step 1: the disaggregated roles and stream migration"),
             ("kv_layout", "paged", "ROADMAP Queue 1 item 1, step 2: the slab layout and one-shot prefill"),
             ("max_prefill_buckets", 8, "ROADMAP Queue 1 item 1, step 2: the slab layout and one-shot prefill"),
             ("fused_tail", True, "ROADMAP Queue 1 item 1, step 2: the fused-tail A/B control"),

@@ -86,12 +86,14 @@ class FlightRecorder:
             "written_at_unix": time.time(),
             "clock_now": self.clock(),
             "extra": extra or {},
+            # snapshots: a migration's failure dumps from the shipper's
+            # thread while the tick thread appends
             "ticks": [
-                {"t": t, **summary} for t, summary in self._ticks
+                {"t": t, **summary} for t, summary in self.ticks()
             ],
             "events": [
                 {"t": t, "event": name, **fields}
-                for t, name, fields in self._events
+                for t, name, fields in self.events()
             ],
         }
         if self.tracer is not None:

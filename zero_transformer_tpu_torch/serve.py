@@ -16,6 +16,10 @@ Counterpart of ``zero_transformer_tpu/serve.py`` (``ByteTokenizer`` :31,
   /admin/reload`` hot-swap the weights (``--params`` again, or the request's
   path) between ticks, ``--obs-dir`` receives flight-recorder dumps,
   profiles and span traces, ``--metrics-dir`` the metrics timeline;
+  ``--role prefill`` or ``decode`` makes it one side of a disaggregated
+  fleet (a prefill replica ships each finished prompt's KV pages to the
+  decode replica its request names in ``prefill_to``), and ``POST
+  /admin/migrate`` moves a live stream to another replica;
 - else with ``--ui``: a Gradio UI when gradio is importable (it exits with
   a message when it is not);
 - else with ``--prompt``: one-shot generation to stdout;
@@ -183,6 +187,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="speculative serving: verify K prompt-lookup drafts per slot per tick in one "
                         "batched forward (greedy: the same output; sampling: the rejection rule); needs "
                         f"--repetition-penalty 1.0; 0 = off; default {_DEFAULTS.draft_k}")
+    p.add_argument("--role", default=_DEFAULTS.role, choices=("mixed", "prefill", "decode"),
+                   help="disaggregated fleet role: 'prefill' runs only chunked prefill and ships finished KV "
+                        "pages to the decode replica each request names (prefill_to); 'decode' serves imported "
+                        "streams plus the recompute fallback; 'mixed' (default) is the classic standalone "
+                        "replica")
     p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     p.add_argument("--quantize", default="none", choices=("none", "int8"),
                    help="weight-only int8 serving: Dense kernels + token table "
@@ -277,7 +286,7 @@ def build_engine(args):
         page_pool_tokens=args.page_pool_tokens, draft_k=draft_k, device=next(model.parameters()).device,
         prefix_cache_chunks=args.prefix_cache if args.prefill_chunk else 0,
         metrics=MetricsLogger(directory=args.metrics_dir), metrics_interval=args.metrics_interval,
-        obs_dir=args.obs_dir or args.metrics_dir, trace=not args.no_trace,
+        obs_dir=args.obs_dir or args.metrics_dir, trace=not args.no_trace, role=args.role,
     )
     return engine, tokenizer
 

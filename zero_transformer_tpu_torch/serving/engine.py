@@ -60,9 +60,32 @@ are rewritten by the next tick. A row whose verify logits are not all
 finite emits only its first token. The repetition penalty must be 1.0 (it
 would make positions inside a block depend on each other).
 
-Stream migration and the disaggregated roles, the slab layout with
-one-shot bucketed prefill, and the fused-tail A/B control come with later
-slices (ROADMAP Queue 1).
+Disaggregated roles and stream migration (JAX :2054-2112, :2624-3142): a
+``prefill`` replica runs only chunked prefill and ships every finished
+stream to the decode replica its request names (``prefill_to``): the
+pages covering the prompt, the logits row at ``true_len - 1``, a cleared
+penalty mask and the sampling generator's state; a ``decode`` replica
+serves imported streams (and plain requests, the recompute fallback);
+``mixed`` is the standalone replica. ``request_migration`` and
+``request_migrate_all`` move live streams, mid-decode (pages over prompt
++ emitted and the decode carry) or mid-prefill (the finished chunks'
+pages and the fill cursor), between ticks. A ship goes through the
+``page_shipper`` seam (the server POSTs it to ``<target>/ingest``); its
+handle stays running until the ship is acknowledged, then finishes
+``migrated`` (``migrated_to`` names the new home), or retryably ``failed``
+with a flight-recorder dump. ``import_stream`` (any thread) validates a
+payload and queues it; the tick thread places imports ahead of normal
+admission (waiting at the head of their queue on pool pressure), copies
+the pages in and installs the carry, so the destination recomputes no
+token. The generator's state (``get_state()``) rides as
+``carry/torch_rng``: a sampled stream moved between port replicas draws
+what it would have drawn unmoved. JAX's ``carry/rng`` (its
+``PRNGKey(seed)``) rides too, so a JAX replica accepts the payload; an
+import without ``carry/torch_rng`` (a JAX peer's) seeds from the request's
+seed, so across packages only greedy streams continue equal.
+
+The slab layout with one-shot bucketed prefill and the fused-tail A/B
+control come with a later slice (ROADMAP Queue 1 item 1, step 2).
 """
 from __future__ import annotations
 
@@ -96,8 +119,10 @@ from zero_transformer_tpu_torch.serving.qos import BROWNOUT_RUNGS, ClassQueue, Q
 from zero_transformer_tpu_torch.serving.resilience import DEGRADED, DRAINING, READY, STARTING, STOPPED, \
     CircuitBreaker, ItlEwma, Lifecycle, ReloadError, infeasible_deadline, validate_reload
 from zero_transformer_tpu_torch.serving.slots import PagedKVCache
+from zero_transformer_tpu_torch.serving.wire import as_host_tensor
 
-__all__ = ["STARTING", "READY", "DEGRADED", "DRAINING", "STOPPED", "Request", "RequestHandle", "ServingEngine"]
+__all__ = ["STARTING", "READY", "DEGRADED", "DRAINING", "STOPPED", "MIGRATED", "ROLES", "Request", "RequestHandle",
+           "ServingEngine"]
 
 # characters stripped from client-supplied request ids (the usual trace-id
 # alphabets: alnum plus - _ . : / =); the id is echoed into a header
@@ -111,6 +136,12 @@ CANCELLED = "cancelled"
 EXPIRED = "expired"
 REJECTED = "rejected"
 FAILED = "failed"
+# the stream now lives on another replica (``RequestHandle.migrated_to``)
+MIGRATED = "migrated"
+_FINISHED = (DONE, CANCELLED, EXPIRED, REJECTED, FAILED, MIGRATED)
+
+# engine roles of a disaggregated fleet (the module doc)
+ROLES = ("mixed", "prefill", "decode")
 
 
 @dataclasses.dataclass
@@ -122,6 +153,9 @@ class Request:
     seed: int = 0
     # absolute deadline on the engine's clock; None = no deadline
     deadline: Optional[float] = None
+    # the decode replica the finished prefill ships to instead of decoding
+    # here (required on a prefill-role engine)
+    prefill_to: Optional[str] = None
     # the billing identity and QoS class this request admits under
     tenant: str = "anon"
     qos: str = "standard"
@@ -151,6 +185,10 @@ class RequestHandle:
         # with Retry-After)
         self.retryable = False
         self.retry_after: Optional[float] = None
+        # status ``migrated``: the replica URL now serving the stream
+        self.migrated_to: Optional[str] = None
+        # the router's hop index of this dispatch (X-Trace-Hop)
+        self.trace_hop: Optional[int] = None
         # prompt tokens a prefix-cache hit covered at admission
         self.prefix_hit_tokens = 0
         self._tracer: Optional[Tracer] = None
@@ -159,6 +197,8 @@ class RequestHandle:
             "prefill_chunks": 0, "decode_ticks": 0, "tokens_out": 0,
             "draft_tokens": 0, "accepted_tokens": 0, "pages_held_ticks": 0, "migrations": 0,
         }
+        # milliseconds a migrated stream spent on its earlier hops
+        self._ledger_ms_base = {"queue_ms": 0.0, "prefill_ms": 0.0, "decode_ms": 0.0}
         self._events: queue_mod.Queue = queue_mod.Queue()
         self._done = threading.Event()
         self._cancel = threading.Event()
@@ -191,17 +231,19 @@ class RequestHandle:
     def ledger_snapshot(self, now: Optional[float] = None) -> Dict[str, Any]:
         """The cost ledger as the terminal event reports it: the counters
         plus the queue/prefill/decode milliseconds from the lifecycle
-        timestamps (up to ``now`` for a live snapshot)."""
+        timestamps (up to ``now`` for a live snapshot, as a migration export
+        takes it), added to what earlier hops of a migrated stream spent."""
         sub, adm, pre, fin = self.submitted_at, self.admitted_at, self.prefill_done_at, self.finished_at
         end = fin if fin is not None else (now if now is not None else (pre or adm or sub))
         queue_ms = ((adm if adm is not None else end) - sub) * 1e3
         prefill_ms = ((pre if pre is not None else end) - adm) * 1e3 if adm is not None else 0.0
         decode_ms = (end - pre) * 1e3 if pre is not None else 0.0
+        base = self._ledger_ms_base
         return {
             **{k: int(v) for k, v in self.ledger.items()},
-            "queue_ms": round(max(0.0, queue_ms), 3),
-            "prefill_ms": round(max(0.0, prefill_ms), 3),
-            "decode_ms": round(max(0.0, decode_ms), 3),
+            "queue_ms": round(base["queue_ms"] + max(0.0, queue_ms), 3),
+            "prefill_ms": round(base["prefill_ms"] + max(0.0, prefill_ms), 3),
+            "decode_ms": round(base["decode_ms"] + max(0.0, decode_ms), 3),
         }
 
     def _emit(self, token: int, now: float) -> None:
@@ -232,6 +274,8 @@ class RequestHandle:
         tr = self._tracer
         sub, adm, pre = self.submitted_at, self.admitted_at, self.prefill_done_at
         attrs: Dict[str, Any] = {"id": self.rid, "outcome": self.status, "tokens": len(self.tokens)}
+        if self.trace_hop is not None:
+            attrs["hop"] = self.trace_hop
         if self.error:
             attrs["error"] = self.error
         tr.add("request", self.rid, sub, fin, attrs)
@@ -271,7 +315,7 @@ def _percentiles(values: Sequence[float], qs=(50, 90, 99)) -> Dict[str, float]:
 
 
 # the stats counters exported as serve_<key>_total, JAX's families (the
-# migration and one-shot counters stay 0 until their slices come)
+# one-shot bucket counter stays 0 until its slice comes)
 _COUNTER_HELP = (
     ("submitted", "Requests submitted (accepted + rejected)"),
     ("completed", "Requests finished with status done"),
@@ -327,7 +371,11 @@ class ServingEngine:
     ``draft_fn(history, k)`` replaces the prompt-lookup proposer. ``clock``
     is the engine's clock (deadlines, latencies, drain), injectable for
     tests; ``chaos`` a ``ServingChaosMonkey``; ``qos`` a ``QosPolicy`` or
-    its config dict (None: the inert defaults)."""
+    its config dict (None: the inert defaults). ``role`` is ``mixed``,
+    ``prefill`` or ``decode`` (the module doc); ``page_shipper(payload,
+    target, on_done)`` ships an exported stream and calls ``on_done(None)``
+    once the target accepted it, ``on_done(reason)`` otherwise (the server
+    installs one that POSTs to ``<target>/ingest``)."""
 
     def __init__(
         self,
@@ -355,6 +403,8 @@ class ServingEngine:
         trace: bool = True,
         qos=None,
         emit_buffer_max: int = 1024,
+        role: str = "mixed",
+        page_shipper: Optional[Callable[..., None]] = None,
     ):
         self.device = resolve_device(device)
         cfg = model.cfg
@@ -384,6 +434,12 @@ class ServingEngine:
             )
         self.draft_k = int(draft_k)
         self.draft_fn = draft_fn or ngram_propose
+        if role not in ROLES:
+            raise ValueError(f"role must be one of {ROLES}, got {role!r}")
+        if role == "prefill" and draft_k:
+            raise ValueError("role='prefill' replicas never decode; draft_k must be 0")
+        self.role = role
+        self.page_shipper = page_shipper
         if next(model.parameters()).device != self.device:
             raise ValueError(f"model lives on {next(model.parameters()).device}, engine on {self.device}")
         self.page_size = page_size
@@ -422,6 +478,13 @@ class ServingEngine:
         self._tick = 0
         self._dead: Optional[str] = None
         self._prefill_work = False
+        # migration: imports awaiting placement (handle, payload), the live
+        # streams tagged to move (request id, or "*" for all -> target), the
+        # exported streams awaiting their ship's answer
+        self._pending_imports: deque = deque()
+        self._migrate_requests: Dict[str, str] = {}
+        self._migrating: Dict[int, RequestHandle] = {}
+        self._migrations_in_flight = 0
 
         # resilience
         self.lifecycle = Lifecycle(clock)
@@ -614,15 +677,20 @@ class ServingEngine:
                     f"exceeds cache_len ({self.cache_len}); lower one of them")
         if self.cfg.position == "learned" and T + request.max_new_tokens > self.cfg.max_seq_len:
             return "learned positions cannot extrapolate past max_seq_len"
+        if self.role == "prefill" and request.prefill_to is None:
+            return "this is a prefill-role replica: requests must name a decode target (prefill_to)"
         return None
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32, seed: int = 0,
                deadline: Optional[float] = None, timeout: Optional[float] = None,
-               request_id: Optional[str] = None, tenant: str = "anon",
+               request_id: Optional[str] = None, prefill_to: Optional[str] = None,
+               trace_hop: Optional[int] = None, tenant: str = "anon",
                qos: Optional[str] = None) -> RequestHandle:
         """Enqueue a request; returns its handle at once. ``timeout``
         (seconds from now) is sugar for an absolute ``deadline``.
         ``request_id`` threads an inbound correlation id (X-Request-Id);
+        ``prefill_to`` names the decode replica the finished prefill ships
+        to; ``trace_hop`` is the router's hop index (X-Trace-Hop);
         ``tenant``/``qos`` (X-Tenant-Key / X-QoS-Class) select the token
         bucket and the class. A rejection returns a handle already finished
         as ``rejected`` (retryable for drain, quota, brownout, a full queue
@@ -636,10 +704,11 @@ class ServingEngine:
         if (rung_at_least(self._brownout_rung, "shrink_batch") and cls.brownout_max_new_tokens is not None
                 and max_new_tokens > cls.brownout_max_new_tokens):
             max_new_tokens = cls.brownout_max_new_tokens
-        request = Request([int(t) for t in prompt], max_new_tokens, int(seed), deadline,
+        request = Request([int(t) for t in prompt], max_new_tokens, int(seed), deadline, prefill_to=prefill_to,
                           tenant=str(tenant or "anon")[:64], qos=qos_name)
         handle = RequestHandle(request, next(self._ids), now, request_id=request_id)
         handle._tracer = self.tracer
+        handle.trace_hop = trace_hop
         handle.emit_buffer_max = self.emit_buffer_max
         invalid = self._validate(request)
         with self._lock:
@@ -877,7 +946,15 @@ class ServingEngine:
     def _install_completed(self, completed, last: torch.Tensor) -> None:
         """Rows whose prefill finished get their last-position logits, a
         cleared penalty mask and a fresh generator seeded from the request;
-        then their prefix is banked, before the first decode write."""
+        then their prefix is banked, before the first decode write.
+        Completions whose request names a decode target (``prefill_to``)
+        ship instead."""
+        ship = [(r, s) for r, s in completed if self._prefilling[s].handle.request.prefill_to is not None]
+        if ship:
+            self._handoff_completed(ship, last)
+            completed = [(r, s) for r, s in completed if s in self._prefilling]
+            if not completed:
+                return
         rows = torch.tensor([r for r, _ in completed], device=self.device)
         dest = torch.tensor([s for _, s in completed], device=self.device)
         self._last_logits[dest] = last[rows]
@@ -893,6 +970,43 @@ class ServingEngine:
             self._active[slot] = _ActiveSlot(job.handle)
             self._bank_prefix(slot, job.handle)
         self.stats["peak_occupancy"] = max(self.stats["peak_occupancy"], self.active_count)
+
+    def _handoff_completed(self, ship, last: torch.Tensor) -> None:
+        """Disaggregation's send (JAX ``_handoff_completed`` :2054): each
+        finished prefill whose request names a decode target ships its pages
+        and the carry a local install would make (the logits row at
+        ``true_len - 1``, a cleared mask and veto, the generator seeded from
+        the request) there, so the handed-off stream is the one it would
+        have been here, with no token recomputed. The prefix is banked
+        before the slot is detached, so the prefill replica's chunk cache
+        keeps the pages."""
+        now = self.now()
+        for row, slot in ship:
+            handle = self._prefilling[slot].handle
+            handle.prefill_done_at = now
+            if handle.admitted_at is not None:
+                self._h_prefill.observe(now - handle.admitted_at)
+            self._bank_prefix(slot, handle)
+            try:
+                span = self.slots.export_page_span(slot, len(handle.request.prompt), self.pools,
+                                                   self.cfg.scan_layers, carry={"carry/last_logits": last[row]})
+                gen = self._gens[slot]
+                gen.manual_seed(handle.request.seed)
+                leaves = dict(span["leaves"])
+                leaves.update(self._host_carry(handle.request.seed, gen))
+                leaves["carry/gen_mask"] = torch.zeros(self.cfg.vocab_size, dtype=torch.bool)
+            except Exception as exc:  # a bad export fails ONLY this stream, retryably
+                self._detach_slot(slot, True)
+                self._migration_failed(handle, f"export failed: {exc!r}")
+                continue
+            payload = {**self._stream_meta(handle, list(handle.request.prompt), handle.request.max_new_tokens),
+                       "kind": "decode", "veto": -1, "page_size": span["page_size"], "n_blocks": span["n_blocks"],
+                       "n_tokens": span["n_tokens"], "leaves": leaves}
+            self._detach_slot(slot, True)
+            with self._lock:
+                self._migrating[handle.id] = handle
+                self._migrations_in_flight += 1
+            self._ship(payload, handle.request.prefill_to, handle)
 
     def _bank_prefix(self, slot: int, handle: RequestHandle) -> None:
         """Bank a completed prefill's chunk-aligned pages so the next prompt
@@ -945,6 +1059,374 @@ class ServingEngine:
                     FAILED, now, error="KV page pool exhausted; request preempted (retryable)", retryable=True)
             self._retire(victims)
             self._event("page_preemption", slots=len(victims), phase="decode")
+
+    # ------------------------------------------ transferable streams (migration)
+
+    @property
+    def migrations_in_flight(self) -> int:
+        """Streams exported and awaiting their ship's answer."""
+        return self._migrations_in_flight
+
+    def request_migration(self, request_id: str, target: str) -> bool:
+        """Ask the tick thread to move the live stream ``request_id``
+        (decoding or mid-prefill) to ``target``, a replica's base URL.
+        Thread-safe; False when no live stream carries that id. The export
+        happens between ticks: the device state stays the tick thread's."""
+        active = list(self._active)
+        prefilling = list(self._prefilling.values())
+        found = any(a is not None and a.handle.rid == request_id for a in active) or \
+            any(j.handle.rid == request_id for j in prefilling)
+        if not found:
+            return False
+        with self._lock:
+            self._migrate_requests[request_id] = target
+        return True
+
+    def request_migrate_all(self, target: str) -> int:
+        """Move every live stream to ``target`` (a drain by migration);
+        returns how many were tagged."""
+        n = sum(1 for a in list(self._active) if a is not None) + len(self._prefilling)
+        if n:
+            with self._lock:
+                self._migrate_requests["*"] = target
+        return n
+
+    def _service_migrations(self) -> None:
+        """Migration's send, on the tick thread: export each tagged slot's
+        pages and carry, free the slot and hand the payload to the shipper.
+        The handle stays running until the ship answers (``migrated``, or a
+        retryable failure the router recomputes from)."""
+        with self._lock:
+            reqs, self._migrate_requests = self._migrate_requests, {}
+        if not reqs:
+            return
+        every = reqs.pop("*", None)
+        jobs = []  # (slot, handle, mid-prefill, target)
+        for slot, act in enumerate(self._active):
+            if act is not None and reqs.get(act.handle.rid, every):
+                jobs.append((slot, act.handle, False, reqs.get(act.handle.rid, every)))
+        for slot, job in list(self._prefilling.items()):
+            if reqs.get(job.handle.rid, every):
+                jobs.append((slot, job.handle, True, reqs.get(job.handle.rid, every)))
+        for slot, handle, is_prefill, target in jobs:
+            try:
+                payload = self._export_prefill(slot) if is_prefill else self._export_decoding(slot)
+            except Exception as exc:  # a bad export fails ONLY this stream, retryably
+                self._detach_slot(slot, is_prefill)
+                self._migration_failed(handle, f"export failed: {exc!r}")
+                continue
+            self._detach_slot(slot, is_prefill)
+            with self._lock:
+                self._migrating[handle.id] = handle
+                self._migrations_in_flight += 1
+            self._ship(payload, target, handle)
+
+    def _detach_slot(self, slot: int, is_prefill: bool) -> None:
+        """Free the slot without finishing its handle (the ship decides)."""
+        if is_prefill:
+            self._prefilling.pop(slot, None)
+        else:
+            self._active[slot] = None
+        self.slots.release([slot])
+
+    def _stream_meta(self, handle: RequestHandle, consumed: List[int], remaining: int) -> Dict[str, Any]:
+        """A payload's stream fields: the tokens whose K/V ship (its prompt
+        at the target), the budget left, the seed, the deadline left, the
+        speculation width, the cost ledger so far and the trace hop."""
+        req = handle.request
+        return {
+            "request_id": handle.rid,
+            "prompt": [int(t) for t in consumed],
+            "max_new_tokens": int(remaining),
+            "seed": int(req.seed),
+            "deadline_s": max(0.05, req.deadline - self.now()) if req.deadline is not None else None,
+            "draft_k": self.draft_k,
+            "ledger": handle.ledger_snapshot(now=self.now()),
+            "hop": handle.trace_hop,
+        }
+
+    @staticmethod
+    def _host_carry(seed: int, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+        """The sampling carry's host leaves: the generator's state
+        (``carry/torch_rng``, what a port replica continues from) and JAX's
+        ``PRNGKey(seed)`` (``carry/rng``, uint32 [0, seed mod 2^32], what a
+        JAX replica reads)."""
+        key = np.array([0, int(seed) & 0xFFFFFFFF], dtype=np.uint32)
+        return {"carry/torch_rng": gen.get_state(), "carry/rng": torch.from_numpy(key)}
+
+    def _export_decoding(self, slot: int) -> Dict[str, Any]:
+        """A mid-decode stream's payload: the pages over every consumed
+        position (prompt + emitted) and the decode carry (its logits row,
+        penalty mask, veto and generator), gathered in one copy to the
+        host."""
+        handle = self._active[slot].handle
+        consumed = list(handle.request.prompt) + [int(t) for t in handle.tokens]
+        span = self.slots.export_page_span(
+            slot, len(consumed), self.pools, self.cfg.scan_layers,
+            carry={"carry/last_logits": self._last_logits[slot], "carry/gen_mask": self._gen_mask[slot],
+                   "carry/veto": self._veto[slot]})
+        leaves = dict(span["leaves"])
+        veto = int(leaves.pop("carry/veto"))
+        leaves.update(self._host_carry(handle.request.seed, self._gens[slot]))
+        meta = self._stream_meta(handle, consumed, handle.request.max_new_tokens - len(handle.tokens))
+        return {**meta, "kind": "decode", "veto": veto, "page_size": span["page_size"],
+                "n_blocks": span["n_blocks"], "n_tokens": span["n_tokens"], "leaves": leaves}
+
+    def _export_prefill(self, slot: int) -> Dict[str, Any]:
+        """A mid-prefill stream's payload: the pages over its finished
+        chunks and the fill cursor; the target runs the remaining chunks."""
+        job = self._prefilling[slot]
+        span = self.slots.export_page_span(slot, job.fill, self.pools, self.cfg.scan_layers)
+        meta = self._stream_meta(job.handle, list(job.handle.request.prompt), job.handle.request.max_new_tokens)
+        return {**meta, "kind": "prefill", "fill": int(job.fill), "page_size": span["page_size"],
+                "n_blocks": span["n_blocks"], "n_tokens": span["n_tokens"], "leaves": dict(span["leaves"])}
+
+    def _ship(self, payload: Dict[str, Any], target: str, handle: RequestHandle) -> None:
+        shipper = self.page_shipper
+        if shipper is None:
+            self._migration_failed(handle, "no page shipper configured")
+            return
+
+        def on_done(err: Optional[str]) -> None:
+            if err is None:
+                self._migration_done(handle, target)
+            else:
+                self._migration_failed(handle, err)
+
+        try:
+            shipper(payload, target, on_done)
+        except Exception as exc:  # a shipper crash fails this stream retryably
+            self._migration_failed(handle, f"shipper raised: {exc!r}")
+
+    def _migration_done(self, handle: RequestHandle, target: str) -> None:
+        # on the shipper's thread: the bookkeeping races the tick thread's,
+        # so it sits under the engine lock
+        with self._lock:
+            self._migrating.pop(handle.id, None)
+            self._migrations_in_flight = max(0, self._migrations_in_flight - 1)
+            if handle.status in _FINISHED:
+                return  # an abort beat the ship's answer
+            handle.migrated_to = target
+            self.stats["migrations_out"] += 1
+            if handle.request.prefill_to is not None:
+                self.stats["prefill_handoffs"] += 1
+        handle._finish(MIGRATED, self.now())
+        self._event("stream_migrated", target=target, request_id=handle.rid, tokens_done=len(handle.tokens))
+
+    def _migration_failed(self, handle: RequestHandle, err: str) -> None:
+        with self._lock:
+            self._migrating.pop(handle.id, None)
+            self._migrations_in_flight = max(0, self._migrations_in_flight - 1)
+            finished = handle.status in _FINISHED
+            if not finished:
+                self.stats["migration_failures"] += 1
+        if finished:
+            return  # an abort beat the ship's answer
+        self._event("migration_failed", error=err, request_id=handle.rid)
+        self.flight.dump("migration_failed", extra={"error": err, "request_id": handle.rid})
+        handle._finish(FAILED, self.now(), error=f"migration failed: {err} (retryable)", retryable=True)
+
+    # ---- receive side
+
+    @staticmethod
+    def _validate_import_payload(payload) -> Optional[str]:
+        """Structural check of a migrated stream's payload: everything the
+        tick thread will read must exist and parse, so a bad peer costs one
+        rejected import, not the scheduler."""
+        if not isinstance(payload, dict):
+            return "payload must be a dict"
+        for key in ("kind", "prompt", "max_new_tokens", "page_size", "n_blocks", "leaves"):
+            if key not in payload:
+                return f"missing field {key!r}"
+        if payload["kind"] not in ("decode", "prefill"):
+            return f"unknown kind {payload['kind']!r}"
+        if not isinstance(payload["leaves"], dict):
+            return "leaves must be a dict"
+        try:
+            int(payload["max_new_tokens"])
+            int(payload["page_size"])
+            int(payload["n_blocks"])
+            int(payload.get("veto", -1))
+            [int(t) for t in payload["prompt"]]
+            if payload.get("deadline_s") is not None:
+                float(payload["deadline_s"])
+            if payload["kind"] == "prefill":
+                int(payload["fill"])
+        except (TypeError, ValueError, KeyError) as exc:
+            return f"unparseable field: {exc!r}"
+        if payload["kind"] == "decode":
+            for leaf in ("carry/last_logits", "carry/gen_mask", "carry/rng"):
+                if leaf not in payload["leaves"]:
+                    return f"missing decode carry leaf {leaf!r}"
+        return None
+
+    def import_stream(self, payload: Dict[str, Any]) -> RequestHandle:
+        """Accept a migrated stream (any thread): validate it and queue it
+        for the tick thread to place. The handle streams the continuation
+        only. A handle that could not be accepted comes back finished
+        (rejected or failed, retryable where the condition passes)."""
+        now = self.now()
+        structural = self._validate_import_payload(payload)
+        if structural is not None:
+            handle = RequestHandle(Request([0], 1), next(self._ids), now,
+                                   request_id=payload.get("request_id") if isinstance(payload, dict) else None)
+            handle._tracer = self.tracer
+            handle._finish(REJECTED, now, error=f"bad import payload: {structural}", retryable=True)
+            return handle
+        deadline = now + float(payload["deadline_s"]) if payload.get("deadline_s") is not None else None
+        request = Request([int(t) for t in payload["prompt"]], int(payload["max_new_tokens"]),
+                          int(payload.get("seed", 0)), deadline)
+        handle = RequestHandle(request, next(self._ids), now, request_id=payload.get("request_id"))
+        handle._tracer = self.tracer
+        handle.emit_buffer_max = self.emit_buffer_max
+        self._seed_imported_ledger(handle, payload)
+        if self.role == "prefill":
+            handle._finish(REJECTED, now, error="prefill-role replica cannot import streams")
+            return handle
+        if int(payload.get("draft_k", 0)) != self.draft_k:
+            # the veto and rewind carry are draft_k's: a mismatched fleet
+            # falls back to recompute rather than continue wrong
+            handle._finish(REJECTED, now, error=f"draft_k mismatch: stream {payload.get('draft_k')}, replica "
+                                                f"{self.draft_k}", retryable=True)
+            return handle
+        invalid = self._validate(request)
+        if invalid is not None:
+            handle._finish(REJECTED, now, error=invalid)
+            return handle
+        with self._lock:
+            if self._dead is not None:
+                handle._finish(FAILED, now, error=self._dead)
+                return handle
+            if self.lifecycle.state == DRAINING:
+                handle._finish(REJECTED, now, error="server draining; retry elsewhere", retryable=True,
+                               retry_after=1.0)
+                return handle
+            if len(self._pending_imports) >= self.max_queue:
+                # each queued import holds a whole span in host memory
+                handle._finish(REJECTED, now, error=f"import queue full ({self.max_queue} waiting)",
+                               retryable=True, retry_after=1.0)
+                return handle
+            self._pending_imports.append((handle, payload))
+        return handle
+
+    @staticmethod
+    def _seed_imported_ledger(handle: RequestHandle, payload: Dict[str, Any]) -> None:
+        """Continue the stream's cumulative cost ledger: counters carry
+        over, the source's milliseconds become the base, and the crossing
+        counts as one migration. A peer's malformed ledger reads as zeros."""
+        led = payload.get("ledger")
+        if isinstance(led, dict):
+            for key in handle.ledger:
+                try:
+                    handle.ledger[key] = int(led.get(key, 0) or 0)
+                except (TypeError, ValueError):
+                    pass
+            for key in handle._ledger_ms_base:
+                try:
+                    handle._ledger_ms_base[key] = float(led.get(key, 0.0) or 0.0)
+                except (TypeError, ValueError):
+                    pass
+        handle.ledger["migrations"] += 1
+        hop = payload.get("hop")
+        if hop is not None:
+            try:
+                handle.trace_hop = int(hop) + 1  # the attach is the next hop
+            except (TypeError, ValueError):
+                pass
+
+    def _service_imports(self) -> None:
+        """Migration's receive, on the tick thread: place queued imports
+        ahead of normal admission (their tokens are paid for elsewhere).
+        One that cannot fit yet (no slot, or the pool even after reclaiming
+        cold prefix pages once) waits at the head of the queue. Entries are
+        popped under the lock, so a concurrent drain never finishes a handle
+        this thread is placing."""
+        while True:
+            with self._lock:
+                if not self._pending_imports:
+                    return
+                handle, payload = self._pending_imports.popleft()
+            now = self.now()
+            if handle.status in _FINISHED:
+                continue  # an abort beat us to it
+            if handle._cancel.is_set():
+                self.stats["cancelled"] += 1
+                handle._finish(CANCELLED, now)
+                continue
+            if handle.request.deadline is not None and now > handle.request.deadline:
+                self.stats["expired_queued"] += 1
+                handle._finish(EXPIRED, now, error="deadline expired awaiting import")
+                continue
+            wait = not self.slots.free_count
+            if not wait:
+                total_blocks = self.slots.blocks_for(self._total_need_tokens(handle.request))
+                short = total_blocks - self.slots.pool.available
+                if short > 0 and self._prefix_cache is not None and len(self._prefix_cache):
+                    self.stats["page_faults"] += 1
+                    self.stats["pages_reclaimed"] += self._prefix_cache.reclaim(short)
+                wait = total_blocks > self.slots.pool.available
+            if not wait and self._place_import(handle, payload):
+                continue
+            with self._lock:
+                if self._dead is None and self.lifecycle.state != DRAINING:
+                    self._pending_imports.appendleft((handle, payload))
+                    return
+            handle._finish(REJECTED, now, error="server draining; retry elsewhere", retryable=True, retry_after=1.0)
+            return
+
+    def _place_import(self, handle: RequestHandle, payload: Dict[str, Any]) -> bool:
+        """Materialize one import into a slot: its pages and, for a decode
+        import, its carry (logits row, penalty mask, veto, generator) in one
+        host-to-device copy. True when the handle left the queue (placed or
+        failed for good); False to retry next tick."""
+        slot = self.slots.acquire()
+        now = self.now()
+        fill, veto = int(payload.get("fill", 0)), int(payload.get("veto", -1))
+        leaves = payload["leaves"]
+        decode = payload["kind"] == "decode"
+        carry = None
+        try:
+            if decode:
+                carry = {"last_logits": as_host_tensor(leaves["carry/last_logits"]).to(torch.float32),
+                         "gen_mask": as_host_tensor(leaves["carry/gen_mask"]).to(torch.bool)}
+            ok = self.slots.import_page_span(
+                slot, {"page_size": payload["page_size"], "n_blocks": payload["n_blocks"],
+                       "leaves": {k: v for k, v in leaves.items() if not k.startswith("carry/")}},
+                self.pools, self.cfg.scan_layers, carry=carry)
+        except Exception as exc:  # geometry or dtype skew fails ONE import, never the tick thread
+            self.slots.release([slot])
+            handle._finish(FAILED, now, error=f"import rejected: {exc}", retryable=True)
+            return True
+        if not ok:
+            self.slots.release([slot])
+            return False  # the pool raced away: retry next tick
+        try:
+            self.slots.reserve(slot, self._total_need_tokens(handle.request))
+            handle.status = RUNNING
+            handle.admitted_at = now
+            self._h_queue_wait.observe(now - handle.submitted_at)
+            if decode:
+                self._last_logits[slot].copy_(carry["last_logits"])
+                self._gen_mask[slot].copy_(carry["gen_mask"])
+                self._veto[slot].fill_(veto)  # a scalar argument: no copy from the host
+                if "carry/torch_rng" in leaves:
+                    self._gens[slot].set_state(as_host_tensor(leaves["carry/torch_rng"]).to(torch.uint8))
+                else:  # a JAX peer's stream: its key cannot drive this generator
+                    self._gens[slot].manual_seed(handle.request.seed)
+                handle.prefill_done_at = now
+                self._active[slot] = _ActiveSlot(handle)
+                self.stats["peak_occupancy"] = max(self.stats["peak_occupancy"], self.active_count)
+            else:
+                self._prefilling[slot] = _PrefillJob(handle, fill=fill)
+        except Exception as exc:  # a bad carry fails ONE import, never the tick thread
+            self._prefilling.pop(slot, None)
+            self._active[slot] = None
+            self.slots.release([slot])
+            handle._finish(FAILED, now, error=f"import install failed: {exc!r}", retryable=True)
+            return True
+        self.stats["migrations_in"] += 1
+        self._event("stream_imported", request_id=handle.rid, kind=payload["kind"], blocks=int(payload["n_blocks"]))
+        return True
 
     # ------------------------------------------------------------ retirement
 
@@ -1120,8 +1602,8 @@ class ServingEngine:
         return blocks, n_emits, bad_rows
 
     def step(self) -> bool:
-        """One scheduler tick: profile window, reload swap, sweep, admit, one
-        prefill chunk per mid-prefill slot, grow decode pages, the
+        """One scheduler tick: profile window, reload swap, sweep, export the
+        streams tagged to migrate, place imports, admit, one prefill chunk per mid-prefill slot, grow decode pages, the
         supervised decode of every slot (a speculative tick with
         ``draft_k``), emit, retire. Returns False when there was nothing to
         do."""
@@ -1132,6 +1614,8 @@ class ServingEngine:
         self._swap_pending_params()
         self._sweep_queue()
         self._sweep_active()
+        self._service_migrations()
+        self._service_imports()
         self._prefill_work = False
         self._admit_chunked()
         ran_prefill = self._prefill_tick()
@@ -1330,6 +1814,8 @@ class ServingEngine:
             self._drain_deadline = now + deadline_s if deadline_s is not None else None
             queued = list(self._queue)
             self._queue.clear()
+            pending, self._pending_imports = list(self._pending_imports), deque()
+        queued = queued + [h for h, _ in pending]
         for handle in queued:
             self.stats["rejected_draining"] += 1
             handle._finish(REJECTED, now, error="server draining; retry elsewhere", retryable=True,
@@ -1343,7 +1829,8 @@ class ServingEngine:
         if not self.draining:
             return self.lifecycle.state == STOPPED
         now = self.now()
-        if self.active_count == 0 and not self._prefilling and self.queue_depth == 0:
+        if (self.active_count == 0 and not self._prefilling and self.queue_depth == 0 and not self._migrating
+                and not self._pending_imports):
             self._finish_drain(forced=0)
             return True
         if self._drain_deadline is not None and now > self._drain_deadline:
@@ -1480,6 +1967,12 @@ class ServingEngine:
                 self._active[slot] = None
         for slot in sorted(self._prefilling):
             self._prefilling.pop(slot).handle._finish(FAILED, now, error=reason)
+        with self._lock:
+            migrating = list(self._migrating.values())
+            self._migrating.clear()
+            pending, self._pending_imports = list(self._pending_imports), deque()
+        for handle in migrating + [h for h, _ in pending]:
+            handle._finish(FAILED, now, error=reason, retryable=True)
         self._profiler.abort()
         if "drained" not in reason:
             self.flight.dump("abort", extra={"reason": reason})
@@ -1497,9 +1990,8 @@ class ServingEngine:
     def metrics_snapshot(self) -> Dict[str, Any]:
         """Serving metrics (JAX's key set, latencies in milliseconds, exact
         nearest-rank percentiles over the last 10,000 samples) plus the
-        port's device, pool and kernel-launch readings. Keys of later
-        slices (migration, roles, the one-shot buckets) read 0 / their
-        defaults."""
+        port's device, pool and kernel-launch readings. The one-shot bucket
+        keys of a later slice read 0 / their defaults."""
         elapsed = max(self.now() - self._started, 1e-9)
         snap: Dict[str, Any] = {
             "tokens_per_sec": self.stats["tokens_out"] / elapsed,
@@ -1521,10 +2013,10 @@ class ServingEngine:
                                 if self.stats["draft_tokens"] else 0.0),
             "kernel_paged_attention": int(self.device.type == "cuda"),
             "fused_tail": 1,
-            "role": "mixed",
+            "role": self.role,
             "free_pages": self.free_pages,
-            "migrations_in_flight": 0,
-            "pending_imports": 0,
+            "migrations_in_flight": self._migrations_in_flight,
+            "pending_imports": len(self._pending_imports),
             "device": str(self.device),
             "decode_tok_s": self.stats["tokens_out"] / self._decode_s if self._decode_s else 0.0,
             "kv_cache_dtype": self.cfg.kv_cache_dtype,
@@ -1578,8 +2070,10 @@ class ServingEngine:
         reg.counter_func("serve_cow_copies", "Copy-on-write page copies (shared page written post-import/share)",
                          lambda: self.slots.cow_copies)
         for name, help_text, fn in (
-            ("serve_migrations_in_flight", "Streams exported and awaiting their ship acknowledgement", lambda: 0),
-            ("serve_pending_imports", "Imported streams awaiting placement into a slot", lambda: 0),
+            ("serve_migrations_in_flight", "Streams exported and awaiting their ship acknowledgement",
+             lambda: self._migrations_in_flight),
+            ("serve_pending_imports", "Imported streams awaiting placement into a slot",
+             lambda: len(self._pending_imports)),
             ("serve_prefix_cache_entries", "Prefix-cache entries resident",
              lambda: len(self._prefix_cache) if self._prefix_cache is not None else 0),
             ("serve_trace_spans_dropped", "Spans pushed out of the bounded trace ring", lambda: self.tracer.dropped),

@@ -6,13 +6,15 @@ it serves:
 
 - ``POST /generate``: JSON body ``{"prompt": str | "tokens": [int],
   "max_new_tokens": int, "seed": int, "timeout": float, "stream": bool,
-  "tenant": str, "qos": str, "request_id": str}``. With ``stream`` (default
+  "tenant": str, "qos": str, "request_id": str, "prefill_to": url}``. With ``stream`` (default
   true) the response is ``text/event-stream``: one ``data: {"token": id,
   "text": piece}`` event per token (``text`` is empty while the
   detokenizer holds back an incomplete UTF-8 sequence) and a final ``data:
   {"done": true, "status", "text", "error", "retryable", "request_id",
   "ledger"}``. Without, one JSON document ``{"status", "tokens", "text",
-  "request_id", "ledger"}``. ``X-Request-Id`` (or the body's
+  "request_id", "ledger"}``. A stream that moved to another replica (a
+  ``prefill_to`` handoff or a live migration) ends ``migrated`` with
+  ``"migrated_to": url`` in either. ``X-Request-Id`` (or the body's
   ``request_id``) is echoed in the response headers and the final event;
   ``X-Tenant-Key`` and ``X-QoS-Class`` win over the body's ``tenant`` and
   ``qos``. A retryable rejection answers 429 (full queue, tenant quota,
@@ -27,8 +29,17 @@ it serves:
   /admin/profile`` (``{"ticks": N}``), ``POST /admin/brownout``
   (``{"rung": ...}``), ``GET /admin/spans?request_id=&tail=``: loopback
   peers, or others with ``Authorization: Bearer <admin token>``.
-- ``/attach``, ``/ingest``, ``/admin/migrate`` and ``/admin/migrate_all``
-  (stream migration and the disaggregated roles) answer 501.
+- ``POST /ingest``: a migrated stream's page span in the wire format
+  (``wire.py``), bounded by ``max_ingest_bytes`` (256 MiB); the imported
+  stream waits in the pending-stream table (dropped and cancelled after
+  ``attach_ttl_s``) for its ``POST /attach {"request_id"}``, which streams
+  its continuation as SSE and consumes the entry. 400 on a torn blob, 503
+  (retryable) or 409 when the engine refuses it.
+- ``POST /admin/migrate {"request_id", "target"}`` and ``POST
+  /admin/migrate_all {"target"}`` (202; 404 for an unknown stream) tag live
+  streams; the engine exports them between ticks and the shipper thread
+  POSTs each payload to ``<target>/ingest`` with ``http.client``, so the
+  tick thread never waits on a peer.
 
 ``install_signal_handlers``: SIGTERM drains (admission closes, in-flight
 streams finish up to the drain deadline, then the server stops and
@@ -39,33 +50,30 @@ client never stalls decode.
 """
 from __future__ import annotations
 
+import http.client
 import json
 import math
+import queue as queue_mod
 import select
 import signal
 import socket
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import List, Optional
-from urllib.parse import parse_qs
+from typing import Dict, List, Optional
+from urllib.parse import parse_qs, urlsplit
 
 from zero_transformer_tpu_torch.serving.detok import StreamDecoder, decode_tokens
-from zero_transformer_tpu_torch.serving.engine import FAILED, READY, REJECTED, STOPPED, ServingEngine
+from zero_transformer_tpu_torch.serving.engine import FAILED, MIGRATED, READY, REJECTED, STOPPED, ServingEngine
 from zero_transformer_tpu_torch.serving.resilience import ReloadError
+from zero_transformer_tpu_torch.serving.wire import page_span_from_wire, page_span_to_wire
 
 # how long an SSE handler blocks on the next token before checking that the
 # client is still connected
 _LIVENESS_POLL_S = 0.5
 
-# the routes of later slices: 501 with the ROADMAP item that brings them
-_LATER_ROUTES = {
-    "/attach": "stream migration and the disaggregated roles (ROADMAP Queue 1 item 1, step 1)",
-    "/ingest": "stream migration and the disaggregated roles (ROADMAP Queue 1 item 1, step 1)",
-    "/admin/migrate": "stream migration (ROADMAP Queue 1 item 1, step 1)",
-    "/admin/migrate_all": "stream migration (ROADMAP Queue 1 item 1, step 1)",
-}
-_POST_ROUTES = ("/generate", "/admin/reload", "/admin/profile", "/admin/brownout", *_LATER_ROUTES)
+_POST_ROUTES = ("/generate", "/attach", "/ingest", "/admin/reload", "/admin/profile", "/admin/migrate",
+                "/admin/migrate_all", "/admin/brownout")
 
 
 def _client_gone(conn) -> bool:
@@ -93,13 +101,28 @@ class ServingServer:
     """Own the HTTP server and the engine's scheduler thread.
     ``reload_source``: a path, or a loader called with the request's path
     (or with none) that returns a state dict. ``admin_token``: the bearer
-    token non-loopback peers need for ``/admin/*``."""
+    token non-loopback peers need for ``/admin/*``. ``max_ingest_bytes``
+    bounds an ``/ingest`` body (raw KV pages) apart from the JSON bound.
+    Unless the engine has a page shipper, the server installs its own."""
 
     def __init__(self, engine: ServingEngine, tokenizer, host: str = "127.0.0.1", port: int = 8000,
-                 max_body_bytes: int = 1 << 20, reload_source=None, admin_token: Optional[str] = None):
+                 max_body_bytes: int = 1 << 20, reload_source=None, admin_token: Optional[str] = None,
+                 max_ingest_bytes: int = 256 << 20):
         self.engine = engine
         self.tokenizer = tokenizer
         self.max_body_bytes = max_body_bytes
+        self.max_ingest_bytes = max_ingest_bytes
+        # imported streams awaiting their /attach: rid -> (handle, ingested
+        # at); the attach pops (consume-once) and a TTL sweep cancels orphans
+        self._pending_streams: Dict[str, tuple] = {}
+        self._streams_lock = threading.Lock()
+        self.attach_ttl_s = 300.0
+        # the page shipper: the tick thread enqueues (payload, target,
+        # on_done), this thread encodes and POSTs to <target>/ingest
+        self._ship_queue: "queue_mod.Queue" = queue_mod.Queue()
+        self._ship_thread = threading.Thread(target=self._ship_loop, name="serve-shipper", daemon=True)
+        if engine.page_shipper is None:
+            engine.page_shipper = self._enqueue_ship
         self.reload_source = reload_source
         self.admin_token = admin_token
         self._stop = threading.Event()
@@ -157,16 +180,19 @@ class ServingServer:
                 if self.path not in _POST_ROUTES:
                     self._json(404, {"error": f"no route {self.path}"})
                     return
-                if self.path in _LATER_ROUTES:
-                    # the body is left unread: close the connection
-                    self.close_connection = True
-                    self._json(501, {"error": f"{self.path} is not served by this port yet: "
-                                              f"{_LATER_ROUTES[self.path]}"})
-                    return
                 try:
                     length = int(self.headers.get("Content-Length", 0))
                 except ValueError:
                     self._json(400, {"error": "bad Content-Length"})
+                    return
+                if self.path == "/ingest":
+                    # raw page bytes: their own bound, no JSON parse
+                    if length < 0 or length > outer.max_ingest_bytes:
+                        self.close_connection = True
+                        self._json(413 if length > 0 else 400,
+                                   {"error": f"ingest body must be 0..{outer.max_ingest_bytes} bytes"})
+                        return
+                    outer._ingest(self, self.rfile.read(length))
                     return
                 if length < 0:
                     self._json(400, {"error": "bad Content-Length"})
@@ -193,8 +219,20 @@ class ServingServer:
                         self._json(*outer._reload(req))
                     elif self.path == "/admin/brownout":
                         self._json(*outer._brownout(req))
+                    elif self.path == "/admin/migrate":
+                        self._json(*outer._migrate(req))
+                    elif self.path == "/admin/migrate_all":
+                        self._json(*outer._migrate_all(req))
                     else:
                         self._json(*outer._profile(req))
+                elif self.path == "/attach":
+                    with outer._inflight_lock:
+                        outer._inflight += 1
+                    try:
+                        outer._attach(self, req)
+                    finally:
+                        with outer._inflight_lock:
+                            outer._inflight -= 1
                 else:
                     with outer._inflight_lock:
                         outer._inflight += 1
@@ -217,6 +255,7 @@ class ServingServer:
         """Serve HTTP in a background thread. ``start_scheduler=False`` keeps
         the engine STARTING (``/healthz`` answers 503) until
         ``start_scheduler()``."""
+        self._start_shipper()
         if start_scheduler:
             self.start_scheduler()
         self._serving = True
@@ -224,8 +263,13 @@ class ServingServer:
         self._server_thread.start()
 
     def start_scheduler(self) -> None:
+        self._start_shipper()
         if not self._scheduler.ident:
             self._scheduler.start()
+
+    def _start_shipper(self) -> None:
+        if not self._ship_thread.ident:
+            self._ship_thread.start()
 
     def serve_forever(self) -> None:
         """Serve in the calling thread until ``stop()`` (a drain ends with
@@ -254,6 +298,8 @@ class ServingServer:
             self._httpd.server_close()
             if self._scheduler.ident and self._scheduler is not threading.current_thread():
                 self._scheduler.join(timeout)
+            if self._ship_thread.ident:
+                self._ship_thread.join(timeout)
 
     def drain(self, deadline_s: Optional[float] = 30.0) -> None:
         """Begin a graceful drain and, once the engine is STOPPED (or the
@@ -291,7 +337,9 @@ class ServingServer:
 
     def _healthz(self):
         """(code, body) for /healthz: 200 ONLY when the engine is READY and
-        its scheduler thread is alive."""
+        its scheduler thread is alive. The health poll (routers probe every
+        replica) also sweeps imported streams nobody attached."""
+        self._sweep_pending_streams()
         eng = self.engine
         state = eng.lifecycle.state
         alive = self._scheduler.is_alive() or not self._scheduler.ident
@@ -313,10 +361,10 @@ class ServingServer:
             "queue_depth": eng.queue_depth,
             "active_slots": eng.active_count,
             "free_pages": eng.free_pages,
-            "role": "mixed",
+            "role": eng.role,
             "kv_layout": "paged",
             "draft_k": eng.draft_k,
-            "migrations_in_flight": 0,
+            "migrations_in_flight": eng.migrations_in_flight,
             "page_faults": eng.stats["page_faults"],
             "cow_copies": eng.slots.cow_copies,
             "brownout_rung": eng.brownout_rung,
@@ -340,7 +388,7 @@ class ServingServer:
         except (TypeError, ValueError):
             return 400, {"error": "tail must be an integer"}
         spans = self.engine.tracer.track_dicts(track=rid if rid else None, tail=max(1, min(tail, 20000)))
-        return 200, {"request_id": rid or "", "clock_monotonic": self.engine.now(), "role": "mixed",
+        return 200, {"request_id": rid or "", "clock_monotonic": self.engine.now(), "role": self.engine.role,
                      "spans": spans, "spans_dropped": self.engine.tracer.dropped}
 
     def _reload(self, req: dict):
@@ -391,10 +439,126 @@ class ServingServer:
         except ValueError as exc:
             return 400, {"error": str(exc)}
 
+    # ------------------------------------------------ disaggregation / migration
+
+    def _enqueue_ship(self, payload: dict, target: str, on_done) -> None:
+        """The engine's ``page_shipper``: hand the export to the shipper
+        thread and return at once."""
+        self._ship_queue.put((payload, target, on_done))
+
+    def _ship_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                payload, target, on_done = self._ship_queue.get(timeout=0.2)
+            except queue_mod.Empty:
+                continue
+            try:
+                err = self._ship_once(payload, target)
+            except Exception as exc:  # a shipper crash fails ONE migration, not the thread
+                err = f"{type(exc).__name__}: {exc}"
+            on_done(err)
+
+    def _ship_once(self, payload: dict, target: str) -> Optional[str]:
+        """POST one payload to ``<target>/ingest``: None once the target
+        accepted it, else the reason."""
+        blob = page_span_to_wire(payload)
+        parts = urlsplit(target if "//" in target else f"http://{target}")
+        conn = http.client.HTTPConnection(parts.hostname or "127.0.0.1", parts.port or 80, timeout=30.0)
+        try:
+            conn.request("POST", "/ingest", blob, {"Content-Type": "application/octet-stream",
+                                                   "X-Request-Id": str(payload.get("request_id", ""))})
+            resp = conn.getresponse()
+            body = resp.read()
+            if resp.status != 200:
+                try:
+                    doc = json.loads(body or b"{}")
+                except ValueError:
+                    doc = {}
+                return f"ingest at {target} returned {resp.status}: {doc.get('error', '')}"
+            return None
+        except (OSError, http.client.HTTPException) as exc:
+            return f"ship to {target} failed: {type(exc).__name__}: {exc}"
+        finally:
+            conn.close()
+
+    def _ingest(self, handler, blob: bytes) -> None:
+        """POST /ingest: accept a migrated stream; its handle waits in the
+        pending-stream table for the attach (tokens decoded meanwhile wait
+        in its event queue)."""
+        try:
+            payload = page_span_from_wire(blob)
+        except ValueError as exc:
+            handler._json(400, {"error": f"bad page-span body: {exc}"})
+            return
+        handle = self.engine.import_stream(payload)
+        if handle.status in (REJECTED, FAILED):
+            handler._json(503 if handle.retryable else 409,
+                          {"error": handle.error, "status": handle.status, "request_id": handle.rid},
+                          headers={"X-Request-Id": handle.rid})
+            return
+        self._sweep_pending_streams()
+        with self._streams_lock:
+            displaced = self._pending_streams.pop(handle.rid, None)
+            self._pending_streams[handle.rid] = (handle, time.monotonic())
+        if displaced is not None:
+            # a re-shipped stream: the new import is the live one
+            displaced[0].cancel()
+        handler._json(200, {"accepted": True, "request_id": handle.rid}, headers={"X-Request-Id": handle.rid})
+
+    def _sweep_pending_streams(self) -> None:
+        """Cancel and drop imported streams nobody attached within the TTL."""
+        cutoff = time.monotonic() - self.attach_ttl_s
+        with self._streams_lock:
+            stale = [rid for rid, (_, t0) in self._pending_streams.items() if t0 < cutoff]
+            dropped = [self._pending_streams.pop(rid) for rid in stale]
+        for handle, _ in dropped:
+            handle.cancel()
+
+    def _attach(self, handler, req: dict) -> None:
+        """POST /attach {"request_id"}: stream an imported stream's
+        continuation as SSE. Consume-once; an unknown id is a 404 (the
+        router then recomputes)."""
+        self._sweep_pending_streams()
+        rid = str(req.get("request_id", ""))
+        with self._streams_lock:
+            handle, _ = self._pending_streams.pop(rid, (None, 0.0))
+        if handle is None:
+            handler._json(404, {"error": f"no pending stream {rid!r}", "request_id": rid},
+                          headers={"X-Request-Id": rid})
+            return
+        try:
+            handler.send_response(200)
+            handler.send_header("Content-Type", "text/event-stream")
+            handler.send_header("Cache-Control", "no-cache")
+            handler.send_header("X-Request-Id", handle.rid)
+            handler.end_headers()
+        except OSError:
+            # the attacher left before the headers: the entry is consumed,
+            # so the stream must not decode into the void
+            handle.cancel()
+            return
+        self._stream_events(handler, handle)
+
+    def _migrate(self, req: dict):
+        """(code, body) for POST /admin/migrate {"request_id", "target"}."""
+        rid, target = str(req.get("request_id", "")), str(req.get("target", ""))
+        if not rid or not target:
+            return 400, {"error": "request_id and target are required"}
+        if self.engine.request_migration(rid, target):
+            return 202, {"requested": True, "request_id": rid, "target": target}
+        return 404, {"error": f"no live stream {rid!r}", "request_id": rid}
+
+    def _migrate_all(self, req: dict):
+        """(code, body) for POST /admin/migrate_all {"target"}."""
+        target = str(req.get("target", ""))
+        if not target:
+            return 400, {"error": "target is required"}
+        return 202, {"requested": self.engine.request_migrate_all(target), "target": target}
+
     # -------------------------------------------------------------- request
 
-    def _submit(self, req: dict, request_id: Optional[str] = None, tenant: Optional[str] = None,
-                qos: Optional[str] = None):
+    def _submit(self, req: dict, request_id: Optional[str] = None, trace_hop: Optional[int] = None,
+                tenant: Optional[str] = None, qos: Optional[str] = None):
         if "tokens" in req:
             ids = [int(t) for t in req["tokens"]]
         else:
@@ -405,19 +569,26 @@ class ServingServer:
             seed=int(req.get("seed", 0)),
             timeout=float(req["timeout"]) if "timeout" in req else None,
             request_id=request_id,
+            prefill_to=str(req["prefill_to"]) if req.get("prefill_to") else None,
+            trace_hop=trace_hop,
             tenant=str(tenant or req.get("tenant") or "anon"),
             qos=qos if qos is not None else req.get("qos"),
         )
 
+    @staticmethod
+    def _trace_hop_of(handler) -> Optional[int]:
+        """The router's hop index (X-Trace-Hop); a garbled header is a
+        dropped span attribute, never a rejected request."""
+        try:
+            return int(handler.headers["X-Trace-Hop"])
+        except (KeyError, TypeError, ValueError):
+            return None
+
     def _generate(self, handler, req: dict) -> None:
-        if req.get("prefill_to"):
-            handler._json(501, {"error": "prefill_to (disaggregated prefill) is not served by this port yet: "
-                                         f"{_LATER_ROUTES['/ingest']}"})
-            return
         rid_in = handler.headers.get("X-Request-Id") or req.get("request_id")
         try:
-            handle = self._submit(req, request_id=rid_in, tenant=handler.headers.get("X-Tenant-Key"),
-                                  qos=handler.headers.get("X-QoS-Class"))
+            handle = self._submit(req, request_id=rid_in, trace_hop=self._trace_hop_of(handler),
+                                  tenant=handler.headers.get("X-Tenant-Key"), qos=handler.headers.get("X-QoS-Class"))
         except (TypeError, ValueError) as exc:
             handler._json(400, {"error": f"bad request field: {exc}"})
             return
@@ -442,8 +613,11 @@ class ServingServer:
                 handler._json(503, {"error": handle.error, "status": handle.status, "request_id": handle.rid},
                               headers=rid_hdr)
                 return
-            handler._json(200, {"status": handle.status, "tokens": tokens, "text": self._full_text(tokens),
-                                "request_id": handle.rid, "ledger": handle.ledger_snapshot()}, headers=rid_hdr)
+            doc = {"status": handle.status, "tokens": tokens, "text": self._full_text(tokens),
+                   "request_id": handle.rid, "ledger": handle.ledger_snapshot()}
+            if handle.status == MIGRATED:
+                doc["migrated_to"] = handle.migrated_to
+            handler._json(200, doc, headers=rid_hdr)
             return
         handler.send_response(200)
         handler.send_header("Content-Type", "text/event-stream")
@@ -490,10 +664,12 @@ class ServingServer:
             if tail is not None:
                 pieces.append(tail)
                 self._event(handler, {"text": tail})
-            self._event(handler, {
-                "done": True, "status": handle.status, "text": "".join(pieces), "error": handle.error,
-                "retryable": handle.retryable, "request_id": handle.rid, "ledger": handle.ledger_snapshot(),
-            })
+            done = {"done": True, "status": handle.status, "text": "".join(pieces), "error": handle.error,
+                    "retryable": handle.retryable, "request_id": handle.rid, "ledger": handle.ledger_snapshot()}
+            if handle.status == MIGRATED:
+                # the stream continues there: a router attaches at it
+                done["migrated_to"] = handle.migrated_to
+            self._event(handler, done)
         except (BrokenPipeError, ConnectionResetError):
             # the client went away: free the slot instead of decoding into the void
             handle.cancel()
@@ -523,9 +699,9 @@ def run_server(engine: ServingEngine, tokenizer, host: str = "127.0.0.1", port: 
     server.install_signal_handlers(drain_deadline_s=drain_deadline_s)
     print(
         f"serving on http://{host}:{server.port} ({engine.n_slots} slots, cache_len {engine.cache_len}, "
-        f"{engine.device}) - POST /generate, GET /healthz, GET /metrics (JSON; Prometheus text via Accept: "
-        f"text/plain), POST /admin/reload, POST /admin/profile; SIGTERM drains ({drain_deadline_s}s deadline), "
-        "SIGHUP reloads",
+        f"{engine.device}, role {engine.role}) - POST /generate, GET /healthz, GET /metrics (JSON; Prometheus text "
+        f"via Accept: text/plain), POST /attach, POST /ingest, POST /admin/reload, POST /admin/profile, POST "
+        f"/admin/migrate, POST /admin/migrate_all; SIGTERM drains ({drain_deadline_s}s deadline), SIGHUP reloads",
         flush=True,
     )
     try:

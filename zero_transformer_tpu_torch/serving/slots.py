@@ -5,17 +5,112 @@ Counterpart of ``zero_transformer_tpu/serving/slots.py`` (``PagePool`` :494,
 reservations, the per-slot block tables kept on the host, slot
 acquire/release, and prefix sharing (``share`` maps a prefix hit's pages
 by refcount, ``bank`` takes the prefix index's reference, ``cow`` gives a
-slot a private copy of a shared page before it writes there). The page-span
-wire format of stream migration comes with a later slice. The device state
-(the pools themselves) lives with the engine
-(``inference.generate.allocate_pools``); ``cow`` copies a page through the
-engine's callback.
+slot a private copy of a shared page before it writes there), and the
+transferable page spans of stream migration (``export_page_span`` /
+``import_page_span``, JAX :724-826; the wire format is ``wire.py``). The
+device state (the pools themselves) lives with the engine
+(``inference.generate.allocate_pools``): ``cow`` copies a page through the
+engine's callback, and the span methods take the pools as an argument.
+
+A span's leaves carry JAX's cache keys (``jax.tree_util.keystr`` of the
+decode model's cache): with ``scan_layers`` (every zoo model) one key per
+pool kind over all layers, ``['blocks']['attn']['cached_key']`` as
+``[n_blocks, L, page, KVH, D]``, and ``key_scale``/``value_scale``
+``[n_blocks, L, page, KVH, 1]`` with an int8 cache; without, one key per
+layer (``['block_3']['attn']['cached_key']``, ``[n_blocks, page, KVH,
+D]``). So a span exported by either package imports into the other. JAX
+pads the page list to a power of two to bound its compile family; the port
+gathers exactly ``n_blocks`` pages. JAX's ``set_cursor`` has no
+counterpart: the port's cursor is a host value (prompt + emitted, or a
+prefill job's fill) and the decode tick uploads the block table every tick.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
+
+from zero_transformer_tpu_torch.serving.wire import as_host_tensor
+
+# the pool kinds of a span by JAX's cache leaf names
+_POOL_FIELDS = (("k", "cached_key"), ("v", "cached_value"), ("k_scale", "key_scale"), ("v_scale", "value_scale"))
+_ALIGN = 16  # byte alignment of each leaf in a transfer buffer
+
+
+def span_keys(pools, scanned: bool = True) -> Dict[str, List[torch.Tensor]]:
+    """Wire key -> the per-layer pools it holds (every layer under one key
+    when ``scanned``, one layer per key otherwise)."""
+    out: Dict[str, List[torch.Tensor]] = {}
+    for field, name in _POOL_FIELDS:
+        if getattr(pools[0], field) is None:
+            continue
+        layers = [getattr(p, field) for p in pools]
+        if scanned:
+            out[f"['blocks']['attn']['{name}']"] = layers
+        else:
+            for i, t in enumerate(layers):
+                out[f"['block_{i}']['attn']['{name}']"] = [t]
+    return out
+
+
+def _span_shape(layers: List[torch.Tensor], scanned: bool) -> tuple:
+    """A leaf's per-page shape: ``(L, page, KVH, D)`` scanned, else ``(page,
+    KVH, D)``."""
+    per_page = tuple(layers[0].shape[1:])
+    return (len(layers),) + per_page if scanned else per_page
+
+
+def _layout(tensors: Dict[str, torch.Tensor]):
+    """(key, offset, nbytes) of each tensor in one aligned byte buffer, and
+    the buffer's size."""
+    spans, off = [], 0
+    for key, t in tensors.items():
+        nbytes = t.numel() * t.element_size()
+        spans.append((key, off, nbytes))
+        off += -(-nbytes // _ALIGN) * _ALIGN
+    return spans, off
+
+
+def _views(buf: torch.Tensor, spans, like: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
+    """Typed views into ``buf`` (uint8) at ``spans``; ``like``: key ->
+    (dtype, shape)."""
+    return {key: buf[off:off + n].view(like[key][0]).view(like[key][1]) for key, off, n in spans}
+
+
+def _device_to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Device tensors as host tensors through ONE copy: packed into one
+    device byte buffer, copied into pinned memory (the copy waits: the
+    designed sync of a migration send), returned as views of it."""
+    spans, total = _layout(tensors)
+    like = {k: (t.dtype, t.shape) for k, t in tensors.items()}
+    first = next(iter(tensors.values()), None)
+    if first is None:
+        return {}
+    flat = torch.empty(total, dtype=torch.uint8, device=first.device)
+    for key, off, n in spans:
+        flat[off:off + n].view(like[key][0]).view(like[key][1]).copy_(tensors[key])
+    if flat.device.type != "cuda":
+        return _views(flat, spans, like)
+    host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    host.copy_(flat)
+    return _views(host, spans, like)
+
+
+def _host_to_device(tensors: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tensor]:
+    """Host tensors on ``device`` through ONE copy: packed into one host
+    byte buffer (pinned for a card) and copied without waiting. The pinned
+    buffer outlives its copy: the caching host allocator records the copy's
+    stream and hands the block out again only after it has finished."""
+    device = torch.device(device)
+    spans, total = _layout(tensors)
+    like = {k: (t.dtype, t.shape) for k, t in tensors.items()}
+    host = torch.empty(total, dtype=torch.uint8, pin_memory=device.type == "cuda")
+    for key, off, n in spans:
+        host[off:off + n].copy_(tensors[key].reshape(-1).view(torch.uint8))
+    if device.type == "cpu":
+        return _views(host, spans, like)
+    return _views(host.to(device, non_blocking=True), spans, like)
 
 
 class PagePool:
@@ -171,6 +266,86 @@ class PagedKVCache:
         self.table[slot, block] = fresh
         self.pool.decref([page])
         self.cow_copies += 1
+        return True
+
+    # ---- transferable page spans (export / import) -----------------------
+
+    def export_page_span(self, slot: int, n_tokens: int, pools, scanned: bool = True,
+                         carry: Optional[Dict[str, torch.Tensor]] = None) -> Dict:
+        """The host image of the slot's leading pages covering positions
+        ``[0, n_tokens)``: every pool's rows of exactly those pages (scale
+        pools too) under JAX's keys, and the span's geometry. ``carry``
+        (device tensors, the decode carry) rides the same single copy to the
+        host, under its own keys. Read-only: the slot keeps its pages and
+        refcounts, so a failed ship leaves the source stream intact."""
+        n_blocks = self.blocks_for(n_tokens)
+        if n_blocks > self.alloc_blocks[slot]:
+            raise ValueError(f"slot {slot} maps {self.alloc_blocks[slot]} blocks; export of {n_blocks} requested")
+        device = pools[0].k.device
+        ids = torch.as_tensor([int(p) for p in self.table[slot, :n_blocks]], dtype=torch.long)
+        if device.type == "cuda":
+            ids = ids.pin_memory().to(device, non_blocking=True)
+        gathered: Dict[str, torch.Tensor] = {}
+        with torch.no_grad():
+            for key, layers in span_keys(pools, scanned).items():
+                rows = [t.index_select(0, ids) for t in layers]
+                gathered[key] = torch.stack(rows, dim=1) if scanned else rows[0]
+        gathered.update(carry or {})
+        return {"page_size": self.page_size, "n_blocks": n_blocks, "n_tokens": int(n_tokens),
+                "leaves": _device_to_host(gathered)}
+
+    def import_page_span(self, slot: int, payload: Dict, pools, scanned: bool = True,
+                         carry: Optional[Dict[str, torch.Tensor]] = None) -> bool:
+        """Materialize an exported span as ``slot``'s leading blocks:
+        allocate fresh pages, copy the bytes in (one host-to-device copy,
+        then one ``index_copy_`` per pool) and map them in the host table.
+        Bit-exact: raw bytes, the same dtypes. Returns False when the pool
+        cannot cover the span (the partial allocation is rolled back);
+        raises ValueError on a page size, leaf set, shape or dtype that does
+        not fit. Imported pages are ordinary refcounted pages (ref 1, owned
+        by the slot), so copy-on-write guards any later write to one that is
+        shared. ``carry`` (host tensors) rides the same copy; on success
+        each of its entries is replaced by its device copy."""
+        if self.alloc_blocks[slot] != 0:
+            raise ValueError("import_page_span needs an empty slot")
+        page_size, n_blocks = int(payload["page_size"]), int(payload["n_blocks"])
+        if page_size != self.page_size:
+            raise ValueError(f"page-span page_size {page_size} != pool page_size {self.page_size}")
+        if n_blocks > self.n_blocks:
+            raise ValueError(f"span of {n_blocks} blocks exceeds per-slot capacity {self.n_blocks}")
+        targets = span_keys(pools, scanned)
+        leaves = {k: as_host_tensor(v) for k, v in payload["leaves"].items()}
+        if set(leaves) != set(targets):
+            raise ValueError(f"page-span leaves {sorted(leaves)} != pool leaves {sorted(targets)}")
+        for key, arr in leaves.items():
+            layers = targets[key]
+            shape = (n_blocks,) + _span_shape(layers, scanned)
+            if tuple(arr.shape) != shape or arr.dtype != layers[0].dtype:
+                raise ValueError(f"page-span leaf {key} is {arr.dtype}{list(arr.shape)}; pool expects "
+                                 f"{layers[0].dtype}{list(shape)}")
+        fresh: List[int] = []
+        for _ in range(n_blocks):
+            page = self.pool.alloc()
+            if page is None:
+                self.pool.decref(fresh)  # roll the partial allocation back
+                return False
+            fresh.append(page)
+        device = pools[0].k.device
+        host = dict(leaves)
+        host["__ids__"] = torch.as_tensor(fresh, dtype=torch.long)
+        host.update(carry or {})
+        moved = _host_to_device(host, device)
+        ids = moved.pop("__ids__")
+        with torch.no_grad():
+            for key, layers in targets.items():
+                src = moved.pop(key)
+                for i, t in enumerate(layers):
+                    t.index_copy_(0, ids, src[:, i] if scanned else src)
+        if carry is not None:
+            carry.update(moved)
+        for b, p in enumerate(fresh):
+            self.table[slot, b] = p
+        self.alloc_blocks[slot] = n_blocks
         return True
 
     def reset_slot_pages(self, slot: int) -> None:
