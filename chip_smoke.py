@@ -30,7 +30,7 @@ Phases, each fatal on failure (nothing is caught):
    against the kernels on prefill logits and four decode steps: float32
    within atol 1e-4, bf16 no farther from the float32 plain path than the
    bf16 plain path plus 2e-2; then greedy agreement of a whole engine run;
-5. profile: twenty decode ticks of four streams under ``torch.profiler``:
+5. profile: ten decode ticks of four streams under ``torch.profiler``:
    device busy time per tick against the ticks' wall time;
 6. training kernels: the differentiable flash entry (K1 with lse, K2 dq,
    K3 dk/dv) through ``torch.autograd`` against ``flash_reference`` and
@@ -103,7 +103,8 @@ Phases, each fatal on failure (nothing is caught):
    on a past shard write the same bits; times of kernel, plain version and
    SDPA with the block's float bias (and its backward); K1 twice on a past
    shard writes the same bits;
-13. sequence_parallel: 580m at T 8192 over 4 ranks (NCCL with a card per
+13. sequence_parallel: 580m at full width with its depth cut 18 -> 4
+   (``SP_LAYERS``) at T 8192 over 4 ranks (NCCL with a card per
    rank on a 4-card machine, else 4 ranks sharing card 0 over gloo): the
    ring at the layer shape against the one-card ``flash_attention`` on the
    gathered tensors, one ring train step against the one-card step (loss,
@@ -170,11 +171,12 @@ Phases, each fatal on failure (nothing is caught):
    timed against its plain version and SDPA with ``enable_gqa``;
 17. llama_serving: ``llama3_8b`` at full width and depth (32 layers, seed-0
    weights, bf16) behind the HTTP server with paged KV (page 16, cache
-   8192, chunk 64, 4 slots): phase 3's six requests, phase 4's parity at
-   the same bars (and the float32 paths' greedy tokens equal outside ties)
-   and phase 5's profile; then the same with int8 weights (the untied head
-   and the gate included, quantized on the card with ``quantize_model``)
-   and an int8 cache, with phase 11's parity;
+   8192, chunk 64, 4 slots): phase 3's six requests and phase 5's profile;
+   phase 4's parity at the same bars (and the float32 paths' greedy tokens
+   equal outside ties) on its width at 8 layers (``LLAMA_PARITY_LAYERS``);
+   then the same with int8 weights (the untied head and the gate included,
+   quantized on the card with ``quantize_model``) and an int8 cache, with
+   phase 11's parity;
 18. llama_training: ``llama3_8b`` at full width with its depth cut 32 -> 4
    (1,923,125,248 params), bf16 over float32 master params, AdamW, B 1 x T
    8192, remat, ``loss_chunk`` 1024: one micro-batch at T 2048 through the
@@ -204,9 +206,9 @@ Phases, each fatal on failure (nothing is caught):
    their f32 logits reported). Readings: ms per token, prefill ms, tokens per forward, syncs
    per forward, launches per token. (b) ``llama3_8b`` at full width and
    depth, B 1 x T 512, 32 new tokens, cache 8192: (a)'s greedy checks and
-   readings in bf16, then its float32 checks on 32 GB models built one at
-   a time. The
-   kernel rows of those shapes. (c) The serve CLI in processes of its own
+   readings in bf16, then its float32 checks at full width with the depth
+   cut to 8 layers (8 GB models, built one at a time). The kernel rows of
+   those shapes. (c) The serve CLI in processes of its own
    on an ``.npz`` of 125m (deleted after): ``--prompt``, ``--speculative
    4`` and the REPL on piped stdin, each printing what the same
    ``TextGenerator`` prints in process. (d) Phase 3's six requests on
@@ -266,6 +268,48 @@ Phases, each fatal on failure (nothing is caught):
    the same pools at the bf16 bar. The kernel rows of K1 on a prefill
    chunk and K4 over imported pages (bf16, int8).
 
+22. slab_serving: the slab KV layout (``kv_layout="slab"``: each slot a
+   fixed row of the cache, the pools seen through an identity table). (a)
+   ``125m`` at full width and depth, seed-0 weights, bf16: phase 3's six
+   requests through the one-shot bucketed prefill (``prefill_chunk=0``):
+   K1 launches 12 a prompt, K4 12 a decode tick, no chunk tick, each
+   prompt's bucket the host rule's, every attention read within the bf16
+   bar of the plain read of the same pools; in float32 each stream against
+   ``generate()`` of its prompt alone (equal outside ties of twice the f32
+   bar); each prompt's bucket, TTFT and ITL beside the paged engine's on
+   the same requests, a lone 512-token prompt's TTFT one-shot and chunked,
+   the decode tick's host and device ms. (b) Ten lengths with
+   ``max_prefill_buckets=2``: buckets, ``prefill_bucket_capped`` and
+   ``prefill_buckets`` equal the host rule's; streams as in (a). (c) The
+   chunked slab with the prefix cache (span copies) against the paged
+   engine (page sharing) on serving_policy's burst: hits, misses and
+   chunks saved equal, streams equal outside ties of 0.03; the bytes and
+   ms of one hit's copy. (d) ``fused_tail=False``: streams byte-identical
+   to the fused tick's, greedy and sampled, and one host sync a tick more.
+   (e) The serve CLI with ``--prefill-chunk 0``: JAX's fallback message, a
+   request on the slab answered, SIGTERM exit 0. The kernel rows of K1 on a
+   512-token bucket over 1,024 keys and K4 on the slab's decode.
+
+23. router: the fleet router (``python -m
+   zero_transformer_tpu_torch.serve_router``) in processes on the card,
+   125m in bf16 on the kept seed-0 ``.npz``: two mixed replicas (the serve
+   CLI and ``--replica-worker``), a router; a ``--role prefill`` and a
+   ``--role decode`` CLI and a second router. (a) Requests on one shared
+   prompt go where ``PrefixAffinity`` sends them, the routed SSE ids equal
+   a direct request's, both replicas run K4; (e) the router's Prometheus
+   ``/metrics`` parses, ``/slo`` lists every default objective,
+   ``/admin/trace`` passes ``verify_stitched``; routed against direct TTFT
+   and ITL; (b) a rolling ``POST /admin/reload`` with two live streams
+   drops none; (c) SIGKILL of the replica serving a live stream: it resumes
+   on the survivor, equal to the unkilled stream outside ties of 0.03, one
+   failover, the dead replica's relayed tokens replayed; (d) the
+   prefill/decode split: one disaggregated dispatch, none replayed, the
+   stream equal to the mixed one. Every child exits 0 but the killed one.
+
+Each phase prints its seconds and the disk it leaves, after its step,
+checkpoint and build directories are deleted; the run prints every
+phase's seconds and the total before the kernel table.
+
 ``--phases k4_anatomy`` (never part of a full run) shows where the paged
 decode kernel's time goes at phase 2's main and long cases: it rebuilds
 ``csrc/paged_attention.cu`` apart as the kernel, a variant that skips the
@@ -288,7 +332,7 @@ bf16 rounding.
 (kernels, serving, parity, profile, int8_kernels, int8_serving,
 train_kernels, training, resilience, train_1_3b, packed_kernels, packed, sp_kernels,
 sequence_parallel, data_parallel, llama_kernels, llama_serving, llama_training, generate,
-serving_policy, disagg, data_parallel_nccl, sequence_parallel_f32, k4_anatomy and tc_fit; parity needs serving); the kernel table then lists the kernels whose phases ran.
+serving_policy, disagg, slab_serving, router, data_parallel_nccl, sequence_parallel_f32, k4_anatomy and tc_fit; parity needs serving); the kernel table then lists the kernels whose phases ran.
 
 The last two lines of standard output are the kernel table as one JSON
 object and ``{"ok": true, "device": {...}}`` (a full run only). Without CUDA the script exits
@@ -1123,13 +1167,13 @@ INT8 = dict(kv="int8", weights="int8")
 
 
 def build_engine(impl: str, dtype=torch.bfloat16, kv: str = "auto", weights: str = "none", name: str = "125m",
-                 state=None, cache_len: int = CACHE, draft_k: int = 0):
+                 state=None, cache_len: int = CACHE, draft_k: int = 0, **cfg):
     """The serving engine over ``name`` with seed-``SEED`` weights (or
     ``state``), its KV cache in ``kv`` ("auto" or "int8"); ``weights="int8"``
     quantizes the weights with ``quant.quantize_model`` (the values of the
-    CLI's host route ``--quantize int8``, computed where the weights lie).
-    An earlier engine's memory is collected first: an 8B model in float32
-    is 32 GB."""
+    CLI's host route ``--quantize int8``, computed where the weights lie);
+    ``cfg``: more config overrides (``n_layers``). An earlier engine's
+    memory is collected first: an 8B model in float32 is 32 GB."""
     from zero_transformer_tpu_torch.inference.sampling import SamplingConfig
     from zero_transformer_tpu_torch.models import model_getter
     from zero_transformer_tpu_torch.models.quant import quantize_model
@@ -1138,7 +1182,7 @@ def build_engine(impl: str, dtype=torch.bfloat16, kv: str = "auto", weights: str
     gc.collect()
 
     model = model_getter(name, dtype=dtype, device="cuda", seed=SEED if state is None else None,
-                         attention_impl=impl, kv_cache_dtype=kv)
+                         attention_impl=impl, kv_cache_dtype=kv, **cfg)
     if state is not None:
         model.load_state_dict(state)
     if weights == "int8":
@@ -1279,7 +1323,7 @@ def top_kernels(kernels: dict, n: int, per: int, width: int) -> dict:
     return out
 
 
-def profile_phase(ticks: int = 20, int8: bool = False, name: str = "125m", cache_len: int = CACHE,
+def profile_phase(ticks: int = 10, int8: bool = False, name: str = "125m", cache_len: int = CACHE,
                   label: str = "profile"):
     """Where a decode tick's time goes: four 300-token streams prefilled,
     then ``ticks`` decode ticks under ``torch.profiler``. Device busy time is
@@ -1372,16 +1416,16 @@ def checked_reads(engine, prompts, table, forced, dtype=torch.float32):
     controlled = engine.cfg.kv_cache_dtype == "int8" and dtype == torch.float32
     reads = {"prefill": 0, "decode": 0}
 
-    def checked(x, pools, block_table, offsets, cache_len=None, *, attn, plain):
+    def checked(x, pools, block_table, offsets, cache_len=None, flash=False, *, attn, plain):
         before = KVPools(*(None if t is None else t.clone() for t in (pools.k, pools.v, pools.k_scale,
                                                                         pools.v_scale)))
-        out = fwd(attn, x, pools, block_table, offsets, cache_len)
+        out = fwd(attn, x, pools, block_table, offsets, cache_len, flash)
         got = seen.pop()
         if controlled:  # the pools as the call found them, each scale the next position's
             shifted = dataclasses.replace(before, k=before.k.clone(), v=before.v.clone(),
                                           k_scale=shift_scales(before.k_scale, "next_position"),
                                           v_scale=shift_scales(before.v_scale, "next_position"))
-        fwd(plain, x, before, block_table, offsets, cache_len)
+        fwd(plain, x, before, block_table, offsets, cache_len, flash)
         want = seen.pop()
         if not all(a is b or torch.equal(a, b) for a, b in ((pools.k, before.k), (pools.v, before.v),
                                                             (pools.k_scale, before.k_scale),
@@ -1431,7 +1475,7 @@ def greedy_ties(kernel, plain, atol: float) -> dict:
 
 
 def parity_phase(kernel_tokens, int8: bool = False, name: str = "125m", cache_len: int = CACHE,
-                 label: str = "parity", deep: bool = False):
+                 label: str = "parity", deep: bool = False, layers=None):
     """The kernels against the plain path (``attention_impl="xla"``): logits
     of a prefill (last position) and four decode steps at the serving
     shapes, every run fed the same tokens, then greedy token agreement of a
@@ -1462,14 +1506,18 @@ def parity_phase(kernel_tokens, int8: bool = False, name: str = "125m", cache_le
     so which of the two is nearer at one step is noise of that size. There
     the bf16 kernel path's every attention read is held against the plain
     read of the same pools at the bf16 bar (``checked_reads``), and the
-    whole-model bar compares each path's worst step."""
+    whole-model bar compares each path's worst step.
+
+    ``layers``: every model at that depth (full width), and the whole
+    engine run compared with the kernel path's own engine run on the same
+    requests (``kernel_tokens`` None) instead of the serving phase's."""
     lens = (65, 300, 900)
     n_blocks = cache_len // PAGE
     table = torch.stack([
         torch.arange(1 + b * n_blocks, 1 + (b + 1) * n_blocks, dtype=torch.int32) for b in range(len(lens))
     ]).to("cuda")
     prompts = [[ord(c) for c in prompt_text(n, 50 + b)] for b, n in enumerate(lens)]
-    model_of = dict(name=name, cache_len=cache_len)
+    model_of = dict(name=name, cache_len=cache_len, **({"n_layers": layers} if layers else {}))
     quant = dict(INT8 if int8 else {}, **model_of)
     ref, forced = forced_logits(build_engine("xla", torch.float32, **quant), prompts, table)
     int8_cache = {}
@@ -1508,6 +1556,13 @@ def parity_phase(kernel_tokens, int8: bool = False, name: str = "125m", cache_le
         worst["kernel_vs_plain"] = max(worst["kernel_vs_plain"], float((k - x).abs().max()))
         agree += int((k.argmax(-1) == x.argmax(-1)).sum())
     # a whole plain-path engine run on the serving phase's requests
+    if kernel_tokens is None:
+        eng_k = build_engine("auto", **quant)
+        hk = [eng_k.submit(list(prompt_text(n, i).encode()), max_new_tokens=MAX_NEW, seed=i)
+              for i, n in enumerate(PROMPT_LENS)]
+        eng_k.run_until_idle()
+        kernel_tokens = [h.tokens for h in hk]
+        del eng_k
     eng_x = build_engine("xla", **quant)
     handles = [eng_x.submit(list(prompt_text(n, i).encode()), max_new_tokens=MAX_NEW, seed=i)
                for i, n in enumerate(PROMPT_LENS)]
@@ -3039,13 +3094,21 @@ def packed_int8(model, heldout, tokens, bpb_bf16: float, out: Path) -> None:
     cmd = [sys.executable, "-m", "zero_transformer_tpu_torch.evalharness", "--model", "byte_25m", "--params",
            str(npz), "--task", "bpb", "--data", str(data), "--seq-len", str(CTX), "--batch-size", str(EVAL_BATCH),
            "--quantize", "int8"]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=Path(__file__).resolve().parent)
+    # the eval CLI runs while the serve CLI starts and answers (neither is timed)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=Path(__file__).resolve().parent)
+    try:
+        served = serve_cli(npz, paras[0])
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     if proc.returncode != 0:
-        raise AssertionError(f"eval CLI exit {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    cli = json.loads(proc.stdout.strip().splitlines()[-1])
+        raise AssertionError(f"eval CLI exit {proc.returncode}:\n{stdout[-3000:]}\n{stderr[-3000:]}")
+    cli = json.loads(stdout.strip().splitlines()[-1])
     if not cli["device"].startswith("cuda") or abs(cli["bits_per_byte"] - bpb_q) > CLI_BPB_ATOL:
         raise AssertionError(f"eval CLI --quantize int8: {cli} vs in-process {bpb_q}")
-    served = serve_cli(npz, paras[0])
     log({"packed_int8_clis": {"eval_bits_per_byte": cli["bits_per_byte"], "in_process": bpb_q,
                               "serve": served, "serve_tokens_agree_with_engine": sum(
                                   int(a == b) for a, b in zip(served["tokens"], streams["int8"][0]))}})
@@ -3351,6 +3414,10 @@ def sp_kernel_phase(cases=SP_CASES, timed=SP_TIMED, alibi=True):
 # -------------------------------------------------------- sequence parallel
 
 SP_RANKS, SP_SEQ, SP_MODEL, SP_LR = 4, 8192, "580m", 1e-4
+# 580m at full width with its depth cut 18 -> 4 in the step parity and the
+# trainer CLIs: their gloo transfers through the host scale with the layers
+# (the op-level ring runs one layer's shape either way)
+SP_LAYERS = 4
 SP_SEPARATORS = (1000, 2047, 2048, 3000, 6100, 8191)  # packed case: across and on shard edges
 SP_STEP_CASES = {"plain": {}, "packed": {"doc_sep_token": 0}}  # 580m overrides
 
@@ -3377,7 +3444,7 @@ def sp_model(overrides: dict, device, dtype=torch.bfloat16):
     from zero_transformer_tpu_torch.models import model_getter
 
     return model_getter(SP_MODEL, dtype=dtype, device=device, seed=SEED, trainable=True, dropout=0.0,
-                        remat=True, **overrides)
+                        remat=True, n_layers=SP_LAYERS, **overrides)
 
 
 def param_checksum(model) -> int:
@@ -3489,8 +3556,9 @@ def _sp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str, 
 
 
 def sequence_parallel_phase(dtype=torch.bfloat16) -> dict:
-    """580m at T 8192 over 4 ranks: NCCL with a card per rank when the
-    machine has 4, else 4 ranks sharing card 0 over gloo (each rank's
+    """580m at full width, its depth cut to ``SP_LAYERS``, at T 8192 over 4
+    ranks: NCCL with a card per rank when the machine has 4, else 4 ranks
+    sharing card 0 over gloo (each rank's
     kernels run on the card; the transfers stage through pinned host
     memory). Before the ranks start, the one-card reference: one 580m step's
     loss and grads (remat, the same seeded weights and batch) per case,
@@ -3528,7 +3596,7 @@ def sequence_parallel_phase(dtype=torch.bfloat16) -> dict:
     log({f"sequence_parallel{tag}_topology": topology})
     out = Path("build") / "sp"
     out.mkdir(parents=True, exist_ok=True)
-    L = model_config(SP_MODEL).n_layers
+    L = SP_LAYERS
 
     # the one-card reference, before the ranks take the card's memory
     ref_loss, one_card_launches = {}, {}
@@ -3611,9 +3679,10 @@ def sequence_parallel_phase(dtype=torch.bfloat16) -> dict:
         return launches
 
     # the trainer CLI under torch.distributed.run, then on one card
-    sets = ["training.gradient_accumulation_steps=1", "training.log_frequency=1"]  # 580m at its own dropout 0.1
+    # 580m at its own dropout 0.1, its depth cut to SP_LAYERS
+    sets = ["training.gradient_accumulation_steps=1", "training.log_frequency=1", f"model.n_layers={SP_LAYERS}"]
     flops = (f"tokens/s * 3 * (2 * N + 4 * L * d * T) / (989e12 * cards), "
-             f"N = {model_config(SP_MODEL).num_params}, L = {L}, d = 1536, T = {SP_SEQ}")
+             f"N = {model_config(SP_MODEL, n_layers=L).num_params}, L = {L}, d = 1536, T = {SP_SEQ}")
     ring_cli, proc = trainer_cli_580m(
         ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(SP_RANKS), "-m",
          "zero_transformer_tpu_torch.train", "--dist-backend", backend], [f"mesh.sequence={SP_RANKS}", *sets],
@@ -3664,15 +3733,18 @@ DP_RANKS, DP_B, DP_STEPS = 4, 8, 3  # 4 ranks x B 8 x T 1024: a global batch of 
 DP_LR = 6e-4  # configs/train_125m.yaml's peak learning rate, held constant
 GRAD_NORM_RTOL = 1e-3
 DP_TIMED_STEPS = 3  # steps timed after the parity steps (data_parallel_nccl only)
-N_125M = 123_587_328
+# 125m at full width with its depth cut 12 -> 2: the phase checks the ZeRO
+# stages, checkpoints and the CLI, none of which depends on the depth
+DP_LAYERS = 2
+N_DP = 52_793_088  # 125m's params at DP_LAYERS layers
 
 
 def dp_overrides(run_dir: Path, stage: int, accum: int = 1, **more) -> dict:
-    """configs/train_125m.yaml cut for the phase: a global batch of 32 rows
-    a step (B 8 a rank at accum 1, B 4 at accum 2), synthetic tokens, a
-    constant learning rate, a log line each step, saves at step 2 (keep 2)
-    and at the end."""
-    return {"data.source": "synthetic", "training.batch_size": DP_RANKS * DP_B // accum,
+    """configs/train_125m.yaml cut for the phase: ``DP_LAYERS`` layers, a
+    global batch of 32 rows a step (B 8 a rank at accum 1, B 4 at accum 2),
+    synthetic tokens, a constant learning rate, a log line each step, saves
+    at step 2 (keep 2) and at the end."""
+    return {"model.n_layers": DP_LAYERS, "data.source": "synthetic", "training.batch_size": DP_RANKS * DP_B // accum,
             "training.gradient_accumulation_steps": accum, "training.log_frequency": 1,
             "training.evaluation_frequency": 0, "optimizer.schedule": "constant",
             "optimizer.peak_learning_rate": DP_LR, "mesh.zero_stage": stage,
@@ -3868,7 +3940,7 @@ def check_dp_stage(name: str, ranks: list, ref: dict, stage: int, accum: int) ->
     step's loss within LOSS_MARGIN, the grad norm within GRAD_NORM_RTOL,
     the params bit-equal across the ranks (digests; the replica audit sees
     no divergence), each rank's persistent bytes equal to the formula for
-    ``N_125M`` params, exactly 12 x accum launches of each training kernel
+    ``N_DP`` params, exactly ``DP_LAYERS`` x accum launches of each training kernel
     a rank a step."""
     first = ranks[0][name]
     summary = {"losses": first["losses"], "one_card_losses": ref["losses"], "grad_norms": first["grad_norms"],
@@ -3890,13 +3962,13 @@ def check_dp_stage(name: str, ranks: list, ref: dict, stage: int, accum: int) ->
         raise AssertionError(f"{name}: params differ across the ranks: "
                              f"{[(r[name]['params_digest'], r[name]['audit_diverged']) for r in ranks]}")
     world = len(ranks)
-    params = N_125M if stage < 3 else N_125M // world
-    moments = 2 * (N_125M if stage == 0 else N_125M // world)
+    params = N_DP if stage < 3 else N_DP // world
+    moments = 2 * (N_DP if stage == 0 else N_DP // world)
     want_bytes = 4 * (params + moments)
     if any(r[name]["persistent_bytes"] != want_bytes for r in ranks):
         raise AssertionError(f"{name}: persistent bytes {summary['persistent_bytes_per_rank']}, want {want_bytes}")
     steps = first["end_step"] - first["start_step"]
-    want = {n: 12 * accum * steps for n in ("flash_train_fwd", "flash_dq", "flash_dkv")}
+    want = {n: DP_LAYERS * accum * steps for n in ("flash_train_fwd", "flash_dq", "flash_dkv")}
     for r in ranks:
         if {n: r[name]["launches"].get(n, 0) for n in want} != want:
             raise AssertionError(f"{name} rank {r[name]['rank']} launches {r[name]['launches']}, want {want}")
@@ -3905,9 +3977,9 @@ def check_dp_stage(name: str, ranks: list, ref: dict, stage: int, accum: int) ->
 
 
 def data_parallel_phase(backend: str = "gloo") -> dict:
-    """125m at full width and depth over 4 data-parallel ranks, bf16 over
-    float32 master params, AdamW, T 1024, a global batch of 32 rows a step,
-    synthetic tokens, seed-0 weights (configs/train_125m.yaml cut as
+    """125m at full width, its depth cut to ``DP_LAYERS``, over 4
+    data-parallel ranks, bf16 over float32 master params, AdamW, T 1024, a
+    global batch of 32 rows a step, synthetic tokens, seed-0 weights (configs/train_125m.yaml cut as
     ``dp_overrides`` says). ``gloo``: the 4 ranks share card 0 (a
     correctness rig: the collectives stage through pinned host memory);
     ``nccl`` (the ``data_parallel_nccl`` phase, 4 cards): a card per rank.
@@ -4033,6 +4105,7 @@ def data_parallel_phase(backend: str = "gloo") -> dict:
     launch = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(DP_RANKS),
               "-m", "zero_transformer_tpu_torch.train", "--cfg", "configs/train_125m.yaml", "--dist-backend",
               backend, "--set", f"mesh.data={DP_RANKS}", f"training.batch_size={DP_RANKS * DP_B}",
+              f"model.n_layers={DP_LAYERS}",
               "data.source=synthetic", "training.log_frequency=1", "training.evaluation_frequency=0",
               f"checkpoint.directory={cli_dir}"]
     cli = {}
@@ -4074,6 +4147,10 @@ LLAMA_T, LLAMA_CHUNK, LLAMA_PARITY_T = 8192, 1024, 2048
 # trace of ~2,400 kernels a tick took 42 of the phase's 159 s on one card;
 # the per-tick readings are those of a whole 32-layer tick either way)
 LLAMA_PROFILE_TICKS = 5
+# llama3_8b's parity against the plain path at full width, depth 32 -> 8:
+# its float32 models (32 GB each at full depth, five builds over the two
+# parity runs) were most of the phase; the HTTP runs and profiles stay at 32
+LLAMA_PARITY_LAYERS = 8
 LLAMA_SERVE_OFFSETS = [0, 1000, 4096, 8128]  # K1's 64-token prefill windows across the cache
 LLAMA_DECODE_OFFSETS = [3, 1000, 4097, 8191]  # K4's decode positions (at 3 one key is 1/4 of the row)
 # (label, B, T, H, KVH, D, dtype, causal, alibi): the training shape and an f32 case
@@ -4266,9 +4343,10 @@ def llama_serving_phase():
     """llama3_8b at full width and depth (32 layers, seed-0 weights, bf16,
     paged KV: page 16, cache 8192, chunk 64, 4 slots) behind the HTTP
     server: the serving phase's six concurrent greedy requests, then its
-    parity against the plain path (``forced_logits``: float32 within atol
-    1e-4 with equal greedy tokens outside ties, bf16 no farther from float32
-    than the bf16 plain path plus 2e-2) and a profiled decode; then all of
+    parity against the plain path at ``LLAMA_PARITY_LAYERS`` layers
+    (``forced_logits``: float32 within atol 1e-4 with equal greedy tokens
+    outside ties, every bf16 attention read at the bf16 bar) and a profiled
+    decode at full depth; then all of
     it with int8 weights (the untied head and the gate included) and an int8
     cache. After the bf16 HTTP run, on the same model, the serving_policy
     phase's (b): a prefix-cache burst (``llama_policy_burst``). The decode
@@ -4283,19 +4361,20 @@ def llama_serving_phase():
         part_s[what] = time.perf_counter() - t0
         return out
 
-    launches, tokens, bf16 = timed("serving", lambda: serving_phase(name=LLAMA, cache_len=LCACHE,
+    launches, _, bf16 = timed("serving", lambda: serving_phase(name=LLAMA, cache_len=LCACHE,
                                                                     label="llama_serving", after=llama_policy_burst))
     if bf16["layers"] != 32 or not (launches["flash_serving_fwd"] and launches["paged_attention"]):
         raise AssertionError(f"llama3_8b was not served at full depth through K1 and K4: {bf16}")
-    timed("parity", lambda: parity_phase(tokens, name=LLAMA, cache_len=LCACHE, label="llama_parity", deep=True))
+    timed("parity", lambda: parity_phase(None, name=LLAMA, cache_len=LCACHE, label="llama_parity", deep=True,
+                                         layers=LLAMA_PARITY_LAYERS))
     timed("profile", lambda: profile_phase(LLAMA_PROFILE_TICKS, name=LLAMA, cache_len=LCACHE,
                                            label="llama_profile"))
-    int8_launches, int8_tokens, int8 = timed("int8_serving", lambda: serving_phase(
+    int8_launches, _, int8 = timed("int8_serving", lambda: serving_phase(
         int8=True, name=LLAMA, cache_len=LCACHE, label="llama_serving"))
     keys = ("ttft_ms_p50", "ttft_ms_p99", "itl_ms_p50", "itl_ms_p99", "decode_tok_s", "kv_pool_bytes", "weight_bytes")
     log({"llama_int8_vs_bf16_serving": {k: [int8[k], bf16[k]] for k in keys}})
-    timed("int8_parity", lambda: parity_phase(int8_tokens, int8=True, name=LLAMA, cache_len=LCACHE,
-                                              label="llama_parity", deep=True))
+    timed("int8_parity", lambda: parity_phase(None, int8=True, name=LLAMA, cache_len=LCACHE,
+                                              label="llama_parity", deep=True, layers=LLAMA_PARITY_LAYERS))
     timed("int8_profile", lambda: profile_phase(LLAMA_PROFILE_TICKS, int8=True, name=LLAMA, cache_len=LCACHE,
                                                 label="llama_profile"))
     gc.collect()
@@ -4499,6 +4578,7 @@ def llama_training_phase():
 
 GEN_B, GEN_T, GEN_NEW = 4, 256, 64  # 125m: B 4 x T 256 prompts, 64 new tokens
 GEN_LLAMA_T, GEN_LLAMA_NEW = 512, 32  # llama3_8b: B 1 x T 512, 32 new tokens
+GEN_LLAMA_F32_LAYERS = 8  # llama3_8b's float32 checks at full width, depth cut 32 -> 8
 GEN_CLI_NEW = 32
 # greedy token ties, as parity_phase's greedy_ties allows them: a path may
 # leave the other only where the reference path's top two logits lie within
@@ -4510,15 +4590,16 @@ TIE_F32, TIE_INT8_F32 = 2 * TOL[torch.float32]["atol"], 2 * 1e-3
 GEN_SAMPLED = dict(temperature=0.8, top_p=0.9, repetition_penalty=1.1)  # the serve CLI's defaults
 
 
-def gen_model(name: str, dtype, impl: str, kv: str = "auto", weights: str = "none"):
+def gen_model(name: str, dtype, impl: str, kv: str = "auto", weights: str = "none", **cfg):
     """``name`` with seed-``SEED`` weights on the card, cast for inference
-    (int8 weights quantized where they lie); earlier models collected first."""
+    (int8 weights quantized where they lie); ``cfg``: more config
+    overrides (``n_layers``); earlier models collected first."""
     from zero_transformer_tpu_torch.models import model_getter
     from zero_transformer_tpu_torch.models.quant import quantize_model
 
     gc.collect()
     torch.cuda.empty_cache()
-    model = model_getter(name, dtype=dtype, device="cuda", seed=SEED, attention_impl=impl, kv_cache_dtype=kv)
+    model = model_getter(name, dtype=dtype, device="cuda", seed=SEED, attention_impl=impl, kv_cache_dtype=kv, **cfg)
     if weights == "int8":
         model = quantize_model(model)
     return model.cast_for_inference()
@@ -4745,9 +4826,11 @@ def generate_125m(int8: bool) -> tuple:
 def generate_llama() -> tuple:
     """Phase (b): llama3_8b at full width and depth (32 layers), B 1 x T 512,
     32 new tokens, cache 8192: the bf16 kernel path's main run and readings
-    (``gen_main_path``, greedy), then ``gen_float32`` (at this depth the
-    bf16 paths lie ~0.4 of the logits apart, parity_phase, so the bars hold
-    in float32)."""
+    (``gen_main_path``, greedy), then ``gen_float32`` (the bf16 paths lie
+    ~0.4 of the logits apart at full depth, parity_phase, so the bars hold
+    in float32) on its width at ``GEN_LLAMA_F32_LAYERS`` layers (two 32 GB
+    float32 models at full depth cost the run most of this part's
+    time)."""
     prompt, rep = gen_prompts(1, GEN_LLAMA_T, 9), gen_prompts(1, GEN_LLAMA_T, 3, repetitive=True)
     model = gen_model(LLAMA, torch.bfloat16, "auto")
     if model.cfg.n_layers != 32:
@@ -4755,7 +4838,9 @@ def generate_llama() -> tuple:
     reading, counts, spec = gen_main_path(model, prompt, rep, GEN_LLAMA_NEW, LCACHE, "paged_attention",
                                           sampled=False)
     del model
-    reading["float32"] = gen_float32(LLAMA, {}, prompt, rep, GEN_LLAMA_NEW, LCACHE, TIE_F32, logits_bar=True)
+    reading["float32"] = gen_float32(LLAMA, {"n_layers": GEN_LLAMA_F32_LAYERS}, prompt, rep, GEN_LLAMA_NEW, LCACHE,
+                                     TIE_F32, logits_bar=True)
+    reading["float32"]["layers"] = GEN_LLAMA_F32_LAYERS
     log({"generate_llama3_8b": reading})
     return counts, spec
 
@@ -5156,26 +5241,39 @@ def policy_kernel_rows(on: dict, rows: dict) -> dict:
 def cli_server(args: list):
     """``python -m zero_transformer_tpu_torch.serve`` with ``args`` in a
     process of its own: (process, a queue of its output lines)."""
+    return module_proc("zero_transformer_tpu_torch.serve", args)
+
+
+def cli_base(lines, out: list, label: str) -> str:
+    """The base URL the serve CLI prints once it listens."""
+    return printed(lines, out, r"serving on (http://[0-9.]+:[0-9]+)", label)
+
+
+def module_proc(module: str, args: list):
+    """``python -m <module> <args>`` in a process of its own: (process, a
+    queue of its output lines)."""
     import queue
 
-    proc = subprocess.Popen([sys.executable, "-m", "zero_transformer_tpu_torch.serve", *args], stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True, cwd=Path(__file__).resolve().parent)
+    proc = subprocess.Popen([sys.executable, "-m", module, *args], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, cwd=Path(__file__).resolve().parent)
     lines: "queue.Queue[str]" = queue.Queue()
     threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout], daemon=True).start()
     return proc, lines
 
 
-def cli_base(lines, out: list, label: str) -> str:
-    """The base URL the serve CLI prints once it listens."""
+def printed(lines, out: list, pattern: str, label: str, timeout: float = 300.0) -> str:
+    """The first group of ``pattern`` in a line the process prints (each
+    line read is kept in ``out``)."""
     import queue
 
+    deadline = time.monotonic() + timeout
     while True:
         try:
-            line = lines.get(timeout=300)
+            line = lines.get(timeout=max(0.1, deadline - time.monotonic()))
         except queue.Empty:
-            raise AssertionError(f"{label} printed no address within 300 s: {out[-20:]}") from None
+            raise AssertionError(f"{label} printed no {pattern!r} within {timeout} s: {out[-20:]}") from None
         out.append(line)
-        found = re.search(r"serving on (http://[0-9.]+:[0-9]+)", line)
+        found = re.search(pattern, line)
         if found:
             return found.group(1)
 
@@ -5771,30 +5869,36 @@ def disagg_live(model, prompts, sampled: bool) -> dict:
             "decode_ms": rec["decode_ms"], "wire_bytes": rec["wire_bytes"]}
 
 
-def disagg_cli(prompt: list, expect: list, model) -> dict:
-    """(c) Two serve CLI processes on the card, ``--role prefill`` and
+def disagg_cli_start() -> dict:
+    """(c)'s two processes, started when the phase starts (they load while
+    (a) runs in this process): the serve CLI as ``--role prefill`` and
     ``--role decode``, 125m in float32 on the serving_policy phase's seed-0
-    ``.npz``: ``/healthz`` names both roles; ``/generate`` with
-    ``prefill_to`` ends its SSE ``migrated`` to the decode replica, whose
-    ``/attach`` streams tokens equal to the in-process mixed engine's
-    (``expect``, outside ties of ``TIE_F32``); a ship to a port nothing
-    listens on ends the stream failed and retryable and dumps the flight
-    recorder; SIGTERM stops both (exit 0)."""
-    import signal
-    import socket
-
+    ``.npz`` (written here when that phase did not run)."""
     from zero_transformer_tpu_torch.convert import params_to_jax
 
     params = POLICY_DIR / "a.npz"
-    if not params.exists():  # the serving_policy phase did not run
+    if not params.exists():
         POLICY_DIR.mkdir(parents=True, exist_ok=True)
-        np.savez(params, **params_to_jax(model.state_dict()))
-    obs = DISAGG_DIR / "obs"
+        np.savez(params, **params_to_jax(gen_model("125m", torch.float32, "auto").state_dict()))
     common = ["--model", "125m", "--params", str(params), "--server", "--port", "0", "--dtype", "float32",
               "--greedy", "--repetition-penalty", "1.0"]
+    return {"prefill": cli_server(common + ["--role", "prefill", "--obs-dir", str(DISAGG_DIR / "obs")]),
+            "decode": cli_server(common + ["--role", "decode"])}
+
+
+def disagg_cli(procs: dict, prompt: list, expect: list, model) -> dict:
+    """(c) The two serve CLI processes (``disagg_cli_start``): ``/healthz``
+    names both roles; ``/generate`` with ``prefill_to`` ends its SSE
+    ``migrated`` to the decode replica, whose ``/attach`` streams tokens
+    equal to the in-process mixed engine's (``expect``, outside ties of
+    ``TIE_F32``); a ship to a port nothing listens on ends the stream
+    failed and retryable and dumps the flight recorder; SIGTERM stops both
+    (exit 0)."""
+    import signal
+    import socket
+
+    obs = DISAGG_DIR / "obs"
     t0 = time.perf_counter()
-    procs = {"prefill": cli_server(common + ["--role", "prefill", "--obs-dir", str(obs)]),
-             "decode": cli_server(common + ["--role", "decode"])}
     outs = {role: [] for role in procs}
     reading = {}
     try:
@@ -5882,15 +5986,15 @@ def attention_reads_checked(model, label: str):
              for blk in model.blocks]
     fwd = type(model.blocks[0].attn).forward_paged
 
-    def checked(x, pools, block_table, offsets, cache_len=None, *, attn, plain):
-        result = fwd(attn, x, pools, block_table, offsets, cache_len)
+    def checked(x, pools, block_table, offsets, cache_len=None, flash=False, *, attn, plain):
+        result = fwd(attn, x, pools, block_table, offsets, cache_len, flash)
         got = seen.pop()
-        fwd(plain, x, pools, block_table, offsets, cache_len)
+        fwd(plain, x, pools, block_table, offsets, cache_len, flash)
         want = seen.pop()
         pos = offsets.long()[:, None] + torch.arange(x.shape[1], device=x.device)
         blocks = torch.clamp(pos // PAGE, max=block_table.shape[1] - 1)
         mapped = torch.gather(block_table.long(), 1, blocks) != 0
-        kind = "prefill" if x.shape[1] > MAX_DECODE_T else "decode"
+        kind = "prefill" if flash or x.shape[1] > MAX_DECODE_T else "decode"
         try:
             out["max_abs_err"][kind] = max(out["max_abs_err"][kind], compare(
                 got[mapped], want[mapped], torch.bfloat16, f"{label} {kind} read"))
@@ -5967,6 +6071,7 @@ def disagg_phase() -> tuple:
     rows, launches, failed, reading = {}, {}, [], {"card": card_line()}
     prompts = [list(prompt_text(n, 70 + i).encode()) for i, n in enumerate(DISAGG_LENS)]
     f32 = {}
+    cli_procs = disagg_cli_start()
 
     def handoff(dtype, kv, key):
         run, model = disagg_125m(dtype, kv, prompts)
@@ -5989,29 +6094,770 @@ def disagg_phase() -> tuple:
                    int8=True)
 
     parts = [("handoff float32", lambda: handoff(torch.float32, "auto", "handoff_f32")),
-             ("cli", lambda: reading.__setitem__("cli", disagg_cli(prompts[1], f32["expect"], f32["model"]))),
+             ("cli", lambda: reading.__setitem__("cli", disagg_cli(cli_procs, prompts[1], f32["expect"],
+                                                                  f32["model"]))),
              ("handoff bf16 and live migration", lambda: handoff(torch.bfloat16, "auto", "handoff_bf16")),
              ("handoff int8 cache", lambda: handoff(torch.bfloat16, "int8", "handoff_int8_cache")),
              ("llama3_8b", lambda: reading.__setitem__("llama3_8b", disagg_llama())),
              ("kernel rows", kernel_rows)]
-    for what, part in parts:
-        t0 = time.perf_counter()
-        try:
-            part()
-        except (AssertionError, KeyError) as e:
-            failed.append(what)
-            log({"disagg_failed": what, "error": repr(e)})
-        reading.setdefault("part_s", {})[what] = time.perf_counter() - t0
-        if what == "cli":
-            f32.clear()
-        gc.collect()
-        torch.cuda.empty_cache()
+    try:
+        for what, part in parts:
+            t0 = time.perf_counter()
+            try:
+                part()
+            except (AssertionError, KeyError) as e:
+                failed.append(what)
+                log({"disagg_failed": what, "error": repr(e)})
+            reading.setdefault("part_s", {})[what] = time.perf_counter() - t0
+            if what == "cli":
+                f32.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        for proc, _ in cli_procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     shutil.rmtree(DISAGG_DIR, ignore_errors=True)
     reading["disagg_s"] = time.perf_counter() - t_phase
     log({"disagg": reading})
     if failed:
         raise AssertionError(f"disagg: {failed} failed")
     return rows, launches
+
+
+# ------------------------------------------------------------ slab serving
+
+SLAB_DIR = Path("build") / "slab_serving"  # the CLI's flight dumps; deleted at the end of the phase
+# (b): ten distinct prompt lengths past a cap of two buckets
+SLAB_BUCKET_LENS, SLAB_BUCKETS_MAX, SLAB_BUCKET_NEW = (3, 9, 17, 33, 65, 129, 200, 257, 513, 700), 2, 8
+SLAB_TICKS = 10  # decode ticks of (a)'s host and device ms and of (d)'s sync count
+SLAB_AB_BLOCKS = 4  # (d): blocks of SLAB_TICKS ticks, fused and defused in turns
+SLAB_LONE_T = 512  # (a): a lone prompt's TTFT, one-shot against 64-token chunks
+
+
+def slab_engine(model, chunk: int = 0, **kw):
+    """125m's serving engine on the slab layout: 4 slots, cache 1024, greedy
+    unless ``sampling`` is given; ``chunk`` 0 is the one-shot prefill."""
+    from zero_transformer_tpu_torch.inference.sampling import SamplingConfig
+    from zero_transformer_tpu_torch.serving import ServingEngine
+
+    kw.setdefault("sampling", SamplingConfig(greedy=True))
+    return ServingEngine(model, n_slots=SLOTS, cache_len=CACHE, kv_layout="slab", prefill_chunk=chunk,
+                         device="cuda", **kw)
+
+
+def host_buckets(lengths, cap: int, max_buckets: int) -> tuple:
+    """The one-shot bucket rule written out from its statement: the smallest
+    power of two >= the length, floor 8, at most ``cap``; past
+    ``max_buckets`` distinct buckets a new one rounds up to the smallest
+    bucket already used that fits, else to the cap, and is counted. Returns
+    (each length's bucket, the count of capped lengths, distinct buckets)."""
+    seen, out, capped = [], [], 0
+    for n in lengths:
+        b = min(max(8, 1 << (n - 1).bit_length()), cap)
+        if b not in seen:
+            if len(seen) >= max_buckets:
+                capped += 1
+                b = min([x for x in seen if x >= n] or [cap])
+            if b not in seen:
+                seen.append(b)
+        out.append(b)
+    return out, capped, len(seen)
+
+
+def record_buckets(engine) -> list:
+    """The bucket of each one-shot prefill ``engine`` runs from now on."""
+    seen, bucket = [], engine._bucket
+
+    def recording(n):
+        seen.append(bucket(n))
+        return seen[-1]
+
+    engine._bucket = recording
+    return seen
+
+
+def slab_run(engine, prompts, new: int, seeds=None) -> dict:
+    """Every request submitted at once and run to the end synchronously:
+    the launch counts (zeroed just before, read just after), each request's
+    TTFT and ITL (ms), the wall time and the snapshot; every request must
+    end done with ``new`` tokens."""
+    from zero_transformer_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    handles = [engine.submit(p, max_new_tokens=new, seed=seeds[i] if seeds else i) for i, p in enumerate(prompts)]
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    for h, p in zip(handles, prompts):
+        if h.status != "done" or len(h.tokens) != new:
+            raise AssertionError(f"a {len(p)}-token request ended {h.status} with {len(h.tokens)} tokens: {h.error}")
+    return {"handles": handles, "launches": launches, "wall_s": wall, "snap": engine.metrics_snapshot(),
+            "ttft_ms": [(h.first_token_at - h.submitted_at) * 1e3 for h in handles],
+            "itl_ms": [(h.finished_at - h.first_token_at) * 1e3 / max(1, len(h.tokens) - 1) for h in handles]}
+
+
+def lone_ttft_ms(engine, prompt) -> float:
+    """TTFT of ``prompt`` alone on an idle engine (the second of two runs:
+    the first warms the shapes), host clock to the first token."""
+    out = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        h = engine.submit(prompt, max_new_tokens=2)
+        while not h.tokens and h.status in ("queued", "running"):
+            engine.step()
+        out.append((h.first_token_at - h.submitted_at) * 1e3)
+        engine.run_until_idle()
+    return out[-1]
+
+
+def decode_tick_ms(engine, prompts, ticks: int = SLAB_TICKS) -> dict:
+    """Host ms of ``ticks`` decode ticks with every slot decoding (the tick
+    ends in its host sync) and the device's busy ms of as many more under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i, p in enumerate(prompts):
+        engine.submit(p, max_new_tokens=2 * ticks + 8, seed=i)
+    while engine.active_count < len(prompts):
+        engine.step()
+    engine.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        engine.step()
+    host_ms = (time.perf_counter() - t0) * 1e3 / ticks
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(ticks):
+            engine.step()
+        torch.cuda.synchronize()
+    kernels = kernel_times(prof)
+    engine.run_until_idle()
+    busy = sum(ms for ms, _ in kernels.values())
+    return {"host_ms_per_tick": host_ms, "device_busy_ms_per_tick": busy / ticks if kernels else "not measured"}
+
+
+def slab_oneshot(f32_model) -> dict:
+    """(a) The serving phase's six requests on the slab engine with the
+    one-shot prefill: exact launches (K1 12 a prompt, K4 12 a decode tick,
+    no chunk tick); bf16 reads within the bf16 bar (``attention_reads_
+    checked``); float32 streams against ``generate()`` of each prompt alone
+    (equal outside ties of ``TIE_F32``); buckets, TTFT, ITL, the paged
+    engine's TTFT on the same requests, a lone 512-token prompt's TTFT on
+    both, the tick's host and device ms. Returns the reading and the bf16
+    run (the kernel rows' launches)."""
+    from zero_transformer_tpu_torch.inference import SamplingConfig, generate
+
+    prompts = [list(prompt_text(n, i).encode()) for i, n in enumerate(PROMPT_LENS)]
+    model = gen_model("125m", torch.bfloat16, "auto")
+    engine = slab_engine(model)
+    buckets = record_buckets(engine)
+    with attention_reads_checked(model, "slab one-shot") as checked:
+        run = slab_run(engine, prompts, MAX_NEW)
+    L, snap, launches = model.cfg.n_layers, run["snap"], run["launches"]
+    want = {"flash_serving_fwd": L * len(prompts), "paged_attention": L * snap["decode_ticks"], "prefill_ticks": 0,
+            "prefill_chunks": 0}
+    got = {"flash_serving_fwd": launches["flash_serving_fwd"], "paged_attention": launches["paged_attention"],
+           "prefill_ticks": snap["prefill_ticks"], "prefill_chunks": snap["prefill_chunks"]}
+    if got != want:
+        raise AssertionError(f"slab one-shot: counts {got} != predicted {want}")
+    want_b = host_buckets([len(p) for p in prompts], CACHE, 8)
+    if buckets != want_b[0] or snap["prefill_buckets"] != want_b[2] or snap["prefill_bucket_capped"]:
+        raise AssertionError(f"slab one-shot buckets {buckets} ({snap['prefill_buckets']} distinct), host rule "
+                             f"{want_b}")
+    reading = {"prompt_lens": PROMPT_LENS, "buckets": buckets, "launches": got,
+               "read_max_abs_err": checked["max_abs_err"], "reads": checked["reads"], "read_tol": checked["tol"]}
+    timed = slab_run(slab_engine(model), prompts, MAX_NEW)  # untraced: the latency readings
+    paged = slab_run(policy_engine(model, 0), prompts, MAX_NEW)
+    reading.update(ttft_ms=timed["ttft_ms"], itl_ms=timed["itl_ms"], paged_ttft_ms=paged["ttft_ms"],
+                   paged_itl_ms=paged["itl_ms"], wall_s=[timed["wall_s"], paged["wall_s"]])
+    lone = list(prompt_text(SLAB_LONE_T, 33).encode())
+    reading["lone_512_ttft_ms"] = {"oneshot": lone_ttft_ms(slab_engine(model), lone),
+                                   "chunked_paged": lone_ttft_ms(policy_engine(model, 0), lone)}
+    reading["tick"] = decode_tick_ms(slab_engine(model), [list(prompt_text(300, 70 + i).encode())
+                                                          for i in range(SLOTS)])
+    del engine, model
+    gc.collect()
+    # float32: each stream against generate() of its prompt alone
+    f32 = slab_run(slab_engine(f32_model), prompts, MAX_NEW)
+    greedy = SamplingConfig(greedy=True)
+    ref = [generate(f32_model, torch.tensor([p]), MAX_NEW, sampling=greedy, cache_len=CACHE)[0].tolist()
+           for p in prompts]
+    ties = [agree_or_tie(torch.tensor([h.tokens]), torch.tensor([r]), f32_model, [torch.tensor(p)], TIE_F32,
+                         f"slab one-shot float32, {len(p)} tokens") for h, r, p in zip(f32["handles"], ref, prompts)]
+    reading["float32_vs_generate"] = {"rows_equal": sum(t["rows_equal"] for t in ties),
+                                      "ties": [t["ties"] for t in ties if t["ties"]]}
+    return reading, run
+
+
+def slab_bucket_cap(f32_model) -> dict:
+    """(b) Ten distinct lengths through a slab engine capped at two buckets:
+    each prompt's bucket, ``prefill_bucket_capped`` and ``prefill_buckets``
+    equal the host rule's, and each stream equals ``generate()`` of its
+    prompt alone outside ties of ``TIE_F32``."""
+    from zero_transformer_tpu_torch.inference import SamplingConfig, generate
+
+    prompts = [list(prompt_text(n, 40 + i).encode()) for i, n in enumerate(SLAB_BUCKET_LENS)]
+    engine = slab_engine(f32_model, max_prefill_buckets=SLAB_BUCKETS_MAX)
+    buckets = record_buckets(engine)
+    run = slab_run(engine, prompts, SLAB_BUCKET_NEW)
+    want, capped, distinct = host_buckets(SLAB_BUCKET_LENS, CACHE, SLAB_BUCKETS_MAX)
+    got = (buckets, run["snap"]["prefill_bucket_capped"], run["snap"]["prefill_buckets"])
+    if got != (want, capped, distinct):
+        raise AssertionError(f"bucket cap: engine {got}, host rule {(want, capped, distinct)}")
+    greedy = SamplingConfig(greedy=True)
+    ties = []
+    for h, p in zip(run["handles"], prompts):
+        ref = generate(f32_model, torch.tensor([p]), SLAB_BUCKET_NEW, sampling=greedy, cache_len=CACHE)
+        ties.append(agree_or_tie(torch.tensor([h.tokens]), ref, f32_model, [torch.tensor(p)], TIE_F32,
+                                 f"bucket cap, {len(p)} tokens"))
+    return {"lens": SLAB_BUCKET_LENS, "buckets": buckets, "capped": got[1], "distinct": got[2],
+            "rows_equal": sum(t["rows_equal"] for t in ties), "ties": [t["ties"] for t in ties if t["ties"]]}
+
+
+def slab_prefix() -> dict:
+    """(c) The serving_policy phase's burst (a 512-token system prompt, eight
+    suffixes, the first alone until banked) on the chunked slab with the
+    prefix cache (256 chunks: span copies) and on the paged engine (page
+    sharing), bf16: hits, misses and chunks saved equal; streams equal
+    outside ties of ``TIE_BF16_SERVE``; the bytes a hit copies, and the ms
+    of one hit's copy (CUDA events) with its bound."""
+    model = gen_model("125m", torch.bfloat16, "auto")
+    prompts = policy_prompts(POLICY_SYSTEM, POLICY_SUFFIXES, 90)
+    slab = slab_engine(model, CHUNK, prefix_cache_chunks=POLICY_CHUNKS)
+    s = policy_burst(slab, prompts, POLICY_NEW)
+    paged = policy_engine(model, POLICY_CHUNKS)
+    p = policy_burst(paged, prompts, POLICY_NEW)
+    no_cache = sum(-(-len(x) // CHUNK) for x in prompts)
+    keys = ("prefix_hits", "prefix_misses")
+    got = {**{k: s["snap"][k] for k in keys}, "chunks_saved": no_cache - s["snap"]["prefill_chunks"]}
+    want = {**{k: p["snap"][k] for k in keys}, "chunks_saved": no_cache - p["snap"]["prefill_chunks"]}
+    if got != want or got["chunks_saved"] != 7 * (POLICY_SYSTEM // CHUNK):
+        raise AssertionError(f"slab prefix counts {got} != paged {want}")
+    L = model.cfg.n_layers
+    if s["launches"]["flash_serving_fwd"] != L * s["snap"]["prefill_ticks"] or \
+            s["launches"]["paged_attention"] != L * s["snap"]["decode_ticks"]:
+        raise AssertionError(f"slab prefix launches {s['launches']} vs ticks {s['snap']}")
+    vs = agree_or_tie(torch.tensor([h.tokens for h in s["handles"]]), torch.tensor([h.tokens for h in p["handles"]]),
+                      model, [torch.tensor(x) for x in prompts], TIE_BF16_SERVE, "slab prefix vs paged")
+    # one hit's copy: the banked spans of the shared prefix into a free slot
+    _, hits = slab._prefix_cache.walk(prompts[1])
+    span_bytes_chunk = sum(t.numel() * t.element_size() for t in hits[0].values())
+    slot = slab.slots.acquire()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    slab.slots.write_spans(hits, slot, slab.pools)
+    start.record()
+    for _ in range(10):
+        slab.slots.write_spans(hits, slot, slab.pools)
+    end.record()
+    torch.cuda.synchronize()
+    slab.slots.release([slot])
+    copy_bytes = span_bytes_chunk * len(hits)
+    reading = {**got, "rows_equal": vs["rows_equal"], "ties": vs["ties"], "span_bytes_per_chunk": span_bytes_chunk,
+               "hit_chunks": len(hits), "hit_copy_ms": start.elapsed_time(end) / 10,
+               "hit_copy_bound_ms": 2 * copy_bytes / HBM_BYTES_PER_S * 1e3,
+               "ttft_ms_p50_hits": [sorted(s["ttft_ms"][1:])[3], sorted(p["ttft_ms"][1:])[3]],
+               "order": "slab, paged"}
+    want_bytes = CHUNK * L * model.cfg.d_model * 2 * 2
+    if span_bytes_chunk != want_bytes:
+        raise AssertionError(f"a chunk's span holds {span_bytes_chunk} bytes, predicted {want_bytes}")
+    return reading
+
+
+def slab_defused() -> dict:
+    """(d) ``fused_tail=False`` against the fused tick on the one-shot slab,
+    bf16, greedy and sampled (the serve CLI's sampling defaults): streams
+    byte-identical; over ``SLAB_TICKS`` decode ticks of four streams, one
+    host sync a tick more (``set_sync_debug_mode``). The host ms a tick of
+    each: one engine's four streams, the setting switched every
+    ``SLAB_TICKS`` ticks over ``SLAB_AB_BLOCKS`` blocks of each (host ticks
+    spread 1.5-2x, so a comparison needs turns), the medians of the blocks."""
+    from zero_transformer_tpu_torch.inference import SamplingConfig
+
+    model = gen_model("125m", torch.bfloat16, "auto")
+    prompts = [list(prompt_text(n, 60 + i).encode()) for i, n in enumerate((100, 200, 300, 400))]
+    reading = {}
+    for label, sampling in (("greedy", SamplingConfig(greedy=True)), ("sampled", SamplingConfig(**GEN_SAMPLED))):
+        streams, syncs = {}, {}
+        for fused in (True, False):
+            engine = slab_engine(model, sampling=sampling, fused_tail=fused)
+            handles = [engine.submit(p, max_new_tokens=3 * SLAB_TICKS + 4, seed=i) for i, p in enumerate(prompts)]
+            while engine.active_count < len(prompts):
+                engine.step()
+            engine.step()
+            syncs[fused] = len(res_count_syncs(lambda: [engine.step() for _ in range(SLAB_TICKS)])) / SLAB_TICKS
+            engine.run_until_idle()
+            streams[fused] = [h.tokens for h in handles]
+            if any(h.status != "done" for h in handles):
+                raise AssertionError(f"fused_tail={fused} {label}: {[h.status for h in handles]}")
+        if streams[True] != streams[False]:
+            raise AssertionError(f"fused_tail=False {label} streams differ from the fused tick's")
+        if syncs[False] != syncs[True] + 1:
+            raise AssertionError(f"{label}: host syncs a tick fused {syncs[True]}, defused {syncs[False]}")
+        reading[label] = {"syncs_per_tick": [syncs[True], syncs[False]], "order": "fused, defused"}
+    engine = slab_engine(model)
+    for i, p in enumerate(prompts):
+        engine.submit(p, max_new_tokens=2 * SLAB_AB_BLOCKS * SLAB_TICKS + 8, seed=i)
+    while engine.active_count < len(prompts):
+        engine.step()
+    blocks = {True: [], False: []}
+    for b in range(2 * SLAB_AB_BLOCKS):
+        engine.fused_tail = b % 2 == 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SLAB_TICKS):
+            engine.step()
+        blocks[engine.fused_tail].append((time.perf_counter() - t0) * 1e3 / SLAB_TICKS)
+    engine.run_until_idle()
+    reading["host_ms_per_tick_blocks"] = {"fused": blocks[True], "defused": blocks[False]}
+    reading["host_ms_per_tick_median"] = [sorted(blocks[f])[SLAB_AB_BLOCKS // 2] for f in (True, False)]
+    return reading
+
+
+def slab_cli_start(f32_model):
+    """(e)'s process, started when the phase starts (it loads while (a)-(d)
+    run in this process): ``python -m zero_transformer_tpu_torch.serve
+    --server --prefill-chunk 0`` on 125m in float32, the kept seed-0
+    ``.npz``."""
+    from zero_transformer_tpu_torch.convert import params_to_jax
+
+    params = POLICY_DIR / "a.npz"
+    if not params.exists():  # the serving_policy phase did not run
+        POLICY_DIR.mkdir(parents=True, exist_ok=True)
+        np.savez(params, **params_to_jax(f32_model.state_dict()))
+    return cli_server(["--model", "125m", "--params", str(params), "--server", "--port", "0", "--dtype", "float32",
+                       "--greedy", "--repetition-penalty", "1.0", "--prefill-chunk", "0", "--obs-dir",
+                       str(SLAB_DIR / "obs")])
+
+
+def slab_cli(f32_model, proc, lines) -> dict:
+    """(e) The serve CLI with ``--prefill-chunk 0`` (``slab_cli_start``):
+    JAX's fallback message, ``/healthz`` on the slab layout, one request
+    answered equal to an in-process slab engine outside ties of
+    ``TIE_F32``, SIGTERM exits 0."""
+    import signal
+
+    out, reading = [], {}
+    try:
+        base = cli_base(lines, out, "the slab CLI")
+        message = ("serve: --prefill-chunk 0 (legacy one-shot prefill) has no block-table path; falling back to "
+                   "--kv-layout slab")
+        if not any(message in line for line in out):
+            raise AssertionError(f"the slab CLI did not print JAX's fallback message: {out[-10:]}")
+        health = wait_ready(base)
+        if health["kv_layout"] != "slab":
+            raise AssertionError(f"the slab CLI's /healthz: {health}")
+        prompt = list(prompt_text(300, 11).encode())
+        events = sse_post(base + "/generate", {"tokens": prompt, "max_new_tokens": MAX_NEW})
+        tokens = [e["token"] for e in events if "token" in e]
+        if events[-1].get("status") != "done" or len(tokens) != MAX_NEW:
+            raise AssertionError(f"the slab CLI's stream: {events[-1]} after {len(tokens)} tokens")
+        engine = slab_engine(f32_model)
+        h = engine.submit(prompt, max_new_tokens=MAX_NEW)
+        engine.run_until_idle()
+        reading["vs_engine"] = agree_or_tie(torch.tensor([tokens]), torch.tensor([h.tokens]), f32_model,
+                                            [torch.tensor(prompt)], TIE_F32, "slab CLI vs in-process engine")
+        snap = json.loads(http("GET", base + "/metrics")[1])
+        reading["metrics"] = {k: snap[k] for k in ("kv_layout", "prefill_buckets", "prefill_ticks", "fused_tail")}
+        if reading["metrics"] != {"kv_layout": "slab", "prefill_buckets": 1, "prefill_ticks": 0, "fused_tail": 1}:
+            raise AssertionError(f"the slab CLI's metrics: {reading['metrics']}")
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"the slab CLI exited {proc.returncode}: {out[-10:]}")
+    reading["exit"] = proc.returncode
+    return reading
+
+
+def wait_ready(base: str, timeout: float = 300.0) -> dict:
+    """Poll ``base``'s ``/healthz`` until it answers 200; its body."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            code, text = http("GET", base + "/healthz", timeout=10)
+        except (urllib.error.HTTPError, urllib.error.URLError, OSError):
+            code, text = 0, "{}"
+        if code == 200:
+            return json.loads(text)
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{base}/healthz never answered 200")
+        time.sleep(0.05)
+
+
+def slab_serving_phase() -> tuple:
+    """The slab layout on the card (the module doc, phase 22): (a) the
+    one-shot prefill, (b) the bucket cap, (c) the chunked slab with the
+    prefix cache against the paged engine, (d) the fused-tail control, (e)
+    the serve CLI's ``--prefill-chunk 0``; the kernel rows of K1 on a
+    512-token bucket over 1,024 keys and K4 on the slab's decode. Every part
+    runs; the phase fails after them if any failed. Returns the rows and
+    their launches ((a)'s bf16 run)."""
+    t_phase = time.perf_counter()
+    rows, launches, failed, reading = {}, {}, [], {"card": card_line()}
+    f32 = {"model": gen_model("125m", torch.float32, "auto")}
+    cli = slab_cli_start(f32["model"])
+
+    def oneshot():
+        reading["oneshot"], run = slab_oneshot(f32["model"])
+        launches["flash_serving_fwd_oneshot"] = run["launches"]["flash_serving_fwd"]
+        launches["paged_attention_slab"] = run["launches"]["paged_attention"]
+
+    def kernel_rows():
+        gen_k1_row("flash_serving_fwd_oneshot", 1, SLAB_LONE_T, CACHE, H, H, D, [0], True, rows)
+        gen_k4_row("paged_attention_slab", SLOTS, 1, CACHE, H, H, D, [n + MAX_NEW // 2 for n in PROMPT_LENS[:SLOTS]],
+                   True, rows)
+
+    # the untimed bucket-cap check first, while the CLI process loads
+    parts = [("bucket cap", lambda: reading.__setitem__("bucket_cap", slab_bucket_cap(f32["model"]))),
+             ("one-shot", oneshot),
+             ("prefix", lambda: reading.__setitem__("prefix", slab_prefix())),
+             ("fused tail", lambda: reading.__setitem__("fused_tail", slab_defused())),
+             ("cli", lambda: reading.__setitem__("cli", slab_cli(f32["model"], *cli))),
+             ("kernel rows", kernel_rows)]
+    try:
+        for what, part in parts:
+            t0 = time.perf_counter()
+            try:
+                part()
+            except (AssertionError, KeyError) as e:
+                failed.append(what)
+                log({"slab_serving_failed": what, "error": repr(e)})
+            reading.setdefault("part_s", {})[what] = time.perf_counter() - t0
+            if what == "cli":
+                f32.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        if cli[0].poll() is None:
+            cli[0].kill()
+            cli[0].wait()
+    shutil.rmtree(SLAB_DIR, ignore_errors=True)
+    reading["slab_serving_s"] = time.perf_counter() - t_phase
+    log({"slab_serving": reading})
+    if failed:
+        raise AssertionError(f"slab_serving: {failed} failed")
+    return rows, launches
+
+
+# ------------------------------------------------------------------ router
+
+ROUTER_DIR = Path("build") / "router"  # the router's obs directory; deleted at the end of the phase
+ROUTER_SHARED, ROUTER_NEW = 256, 32  # (a): a 256-token shared prompt (4 chunks of 64), 32 new tokens
+ROUTER_KILL_AFTER, ROUTER_LONG_NEW = 8, 96  # (c): SIGKILL after 8 tokens of a 96-token stream
+ROUTER_AB = 3  # routed and direct requests in turns, for the router's added TTFT and ITL
+ROUTER_RELOAD_NEW = 300  # (b): streams long enough to be live through both replicas' reloads
+
+
+def sse_timed(url: str, body: dict, on_token=None) -> tuple:
+    """POST an SSE request and read it event by event: (events, the host
+    time of each). ``on_token(n)`` runs after the n-th token arrives."""
+    import http.client
+    from urllib.parse import urlsplit
+
+    parts = urlsplit(url)
+    conn = http.client.HTTPConnection(parts.hostname, parts.port, timeout=300)
+    events, times = [], []
+    try:
+        conn.request("POST", parts.path, json.dumps(body), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f"{url}: HTTP {resp.status} {resp.read()[:300]}")
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if not line.startswith(b"data: "):
+                continue
+            events.append(json.loads(line[6:]))
+            times.append(time.perf_counter())
+            if "token" in events[-1] and on_token is not None:
+                on_token(sum(1 for e in events if "token" in e))
+            if events[-1].get("done"):
+                break
+    finally:
+        conn.close()
+    return events, times
+
+
+def sse_tokens(events) -> list:
+    return [e["token"] for e in events if "token" in e]
+
+
+def router_metrics(base: str) -> dict:
+    return json.loads(http("GET", base + "/metrics")[1])
+
+
+def router_phase() -> dict:
+    """The fleet router on the card (the module doc, phase 23): 125m in bf16
+    on the kept seed-0 ``.npz``. Processes: two mixed replicas (the serve
+    CLI and ``serve_router --replica-worker`` on the same seed's weights),
+    a ``--role prefill`` and a ``--role decode`` serve CLI, and a router in
+    front of each pair (``python -m zero_transformer_tpu_torch.serve_router``).
+    (a) requests on one shared prompt go where ``PrefixAffinity`` sends them,
+    the SSE ids equal a direct request's, both replicas report
+    ``kernel_paged_attention`` 1 on ``/healthz`` and ``/metrics``; (e) the
+    router's Prometheus ``/metrics`` parses with ``parse_exposition``,
+    ``/slo`` answers with every default objective, ``/admin/trace`` passes
+    ``verify_stitched``; (b) a rolling ``POST /admin/reload`` with two live
+    streams drops none; (c) SIGKILL of the replica serving a live stream
+    after 8 tokens: the stream resumes on the survivor and equals the
+    unkilled stream outside ties of ``TIE_BF16_SERVE``, one failover, the
+    replayed tokens the tokens the dead replica relayed; (d) one
+    disaggregated dispatch, none replayed, the stream equal to the mixed
+    one. Every child exits 0 on SIGTERM but the killed one. Prints each
+    part's seconds."""
+    import signal
+
+    from zero_transformer_tpu_torch.convert import params_to_jax
+    from zero_transformer_tpu_torch.obs import parse_exposition, verify_stitched
+    from zero_transformer_tpu_torch.obs.slo import default_objectives
+    from zero_transformer_tpu_torch.serving.router import PrefixAffinity
+
+    t_phase = time.perf_counter()
+    reading, failed = {"card": card_line()}, []
+    model = gen_model("125m", torch.bfloat16, "auto")  # the tie gaps' reference
+    params = POLICY_DIR / "a.npz"
+    if not params.exists():  # the serving_policy phase did not run
+        POLICY_DIR.mkdir(parents=True, exist_ok=True)
+        f32 = gen_model("125m", torch.float32, "auto")
+        np.savez(params, **params_to_jax(f32.state_dict()))
+        del f32
+    serve = ["--model", "125m", "--params", str(params), "--server", "--port", "0", "--greedy",
+             "--repetition-penalty", "1.0"]
+    procs = {
+        "cli": cli_server(serve),
+        "worker": module_proc("zero_transformer_tpu_torch.serve_router", [
+            "--replica-worker", "--model", "125m", "--init-seed", str(SEED), "--dtype", "bfloat16", "--port", "0",
+            "--greedy", "--slots", str(SLOTS), "--cache-len", str(CACHE), "--prefill-chunk", str(CHUNK),
+            "--page-size", str(PAGE), "--prefix-cache", str(POLICY_CHUNKS)]),
+        "prefill": cli_server(serve + ["--role", "prefill"]),
+        "decode": cli_server(serve + ["--role", "decode"]),
+    }
+    outs = {k: [] for k in procs}
+    killed = set()
+    part_s = reading.setdefault("part_s", {})
+    try:
+        t0 = time.perf_counter()
+        base = {k: cli_base(procs[k][1], outs[k], f"the {k} CLI") for k in ("cli", "prefill", "decode")}
+        base["worker"] = "http://127.0.0.1:" + printed(procs["worker"][1], outs["worker"], r"REPLICA_PORT=(\d+)",
+                                                       "the replica worker")
+        health = {k: wait_ready(url) for k, url in base.items()}
+        router_args = ["--port", "0", "--chunk-tokens", str(CHUNK), "--probe-interval", "0.1", "--stream-timeout",
+                       "120", "--metrics-scrape-interval", "0.25", "--obs-dir", str(ROUTER_DIR / "obs")]
+        routers = (("router", ("cli", "worker")), ("router_pd", ("prefill", "decode")))
+        for name, pair in routers:  # both start at once
+            procs[name] = module_proc("zero_transformer_tpu_torch.serve_router",
+                                      [a for k in pair for a in ("--replica", base[k])] + router_args)
+            outs[name] = []
+        for name, _ in routers:
+            base[name] = printed(procs[name][1], outs[name], r"routing on (http://[0-9.]+:[0-9]+)", name)
+            wait_ready(base[name])
+        part_s["startup"] = time.perf_counter() - t0
+        mixed = {k: f"{base[k].split('//')[1]}" for k in ("cli", "worker")}  # the router's replica ids
+
+        def part(what, fn):
+            t1 = time.perf_counter()
+            try:
+                reading[what] = fn()
+            except (AssertionError, KeyError) as e:
+                failed.append(what)
+                log({"router_failed": what, "error": repr(e)})
+            part_s[what] = time.perf_counter() - t1
+
+        head = list(prompt_text(ROUTER_SHARED, 21).encode())
+        prompts = [head + list(prompt_text(n, 22 + i).encode()) for i, n in enumerate((10, 30, 50, 70))]
+
+        def affinity():
+            got = {}
+            for k in ("cli", "worker"):
+                if health[k].get("kv_layout") != "paged" or health[k].get("kernel_paged_attention") != 1:
+                    raise AssertionError(f"{k}'s /healthz: {health[k]}")
+                prom = parse_exposition(urllib.request.urlopen(urllib.request.Request(
+                    base[k] + "/metrics", headers={"Accept": "text/plain"}), timeout=30).read().decode())
+                flag = json.loads(http("GET", base[k] + "/metrics")[1])["kernel_paged_attention"]
+                got[k] = {"healthz_kernel_paged_attention": health[k]["kernel_paged_attention"],
+                          "metrics_kernel_paged_attention": flag, "prometheus_families": len(prom)}
+                if flag != 1:
+                    raise AssertionError(f"{k} does not run K4: {flag}")
+            host = PrefixAffinity(chunk_tokens=CHUNK)
+            routed, direct = [], {}
+            for i, p in enumerate(prompts):
+                doc = json.loads(http("POST", base["router"] + "/generate", {
+                    "tokens": p, "max_new_tokens": ROUTER_NEW, "stream": False, "request_id": f"aff-{i}"})[1])
+                want = host.lookup(p)
+                if doc.get("status") != "done" or (want is not None and doc["replica"] != want):
+                    raise AssertionError(f"request {i} went to {doc.get('replica')}, the host rule says {want}: "
+                                         f"{doc.get('status')}")
+                host.record(p, doc["replica"])
+                routed.append(doc["replica"])
+            events, _ = sse_timed(base["router"] + "/generate", {"tokens": prompts[0], "max_new_tokens": ROUTER_NEW,
+                                                                 "request_id": "trace-me"})
+            for k in ("cli", "worker"):
+                direct[k] = sse_tokens(sse_post(base[k] + "/generate", {"tokens": prompts[0],
+                                                                         "max_new_tokens": ROUTER_NEW}))
+            if events[-1].get("status") != "done" or not (sse_tokens(events) == direct["cli"] == direct["worker"]):
+                raise AssertionError(f"routed SSE ids differ from a direct request's: {events[-1]}")
+            got.update(routed=routed, host_rule=[host.lookup(p) for p in prompts],
+                       affinity_hits=router_metrics(base["router"])["affinity_hits"])
+            reading["_direct"] = direct["cli"]
+            return got
+
+        def fleet_views():
+            text = urllib.request.urlopen(urllib.request.Request(base["router"] + "/metrics", headers={
+                "Accept": "text/plain"}), timeout=30).read().decode()
+            fams = parse_exposition(text)
+            if not any(k.startswith("fleet_") for k in fams) or "router_requests_total" not in fams:
+                raise AssertionError(f"the router's Prometheus text lacks the fleet families: {sorted(fams)[:20]}")
+            slo = json.loads(http("GET", base["router"] + "/slo")[1])
+            names = {o.name for o in default_objectives()}
+            if not names <= set(slo.get("objectives", {})):
+                raise AssertionError(f"/slo objectives {sorted(slo.get('objectives', {}))}, defaults {sorted(names)}")
+            doc = json.loads(http("GET", base["router"] + "/admin/trace?request_id=trace-me")[1])
+            verdict = verify_stitched(doc, "trace-me", slack_s=0.25)
+            if verdict["orphans"] or verdict["coverage"] < 0.95:
+                raise AssertionError(f"the stitched trace: {verdict}")
+            return {"families": len(fams), "slo_verdict": slo.get("verdict"), "objectives": sorted(slo["objectives"]),
+                    "trace": {k: verdict[k] for k in ("coverage", "orphans", "hops_ordered", "spans")}}
+
+        def rolling_reload():
+            results = {}
+
+            def client(i):
+                results[i] = sse_timed(base["router"] + "/generate", {"tokens": prompts[1 + i],
+                                                                      "max_new_tokens": ROUTER_RELOAD_NEW})[0]
+
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+            for t in threads:
+                t.start()
+            time.sleep(0.3)
+            code, text = http("POST", base["router"] + "/admin/reload", {"params": str(params),
+                                                                          "drain_timeout": 120,
+                                                                          "ready_timeout": 120})
+            doc = json.loads(text)
+            for t in threads:
+                t.join(300)
+            done = [results.get(i, [{}])[-1].get("status") for i in range(2)]
+            lens = [len(sse_tokens(results.get(i, []))) for i in range(2)]
+            if code != 200 or not doc.get("reloaded") or doc.get("dropped_streams") != 0 or \
+                    done != ["done", "done"] or lens != [ROUTER_RELOAD_NEW] * 2:
+                raise AssertionError(f"rolling reload: HTTP {code} {doc}, streams {done} {lens}")
+            return {"dropped_streams": doc["dropped_streams"], "replicas": doc.get("replicas"), "stream_s": [
+                        results[i][-1].get("ledger", {}).get("relay_ms") for i in range(2)],
+                    "migration_resumes": router_metrics(base["router"]).get("migration_resumes")}
+
+        def failover():
+            before = router_metrics(base["router"])
+            victim = {}
+            prompt = prompts[3]
+
+            def on_token(n):
+                if n == ROUTER_KILL_AFTER and not victim:
+                    reps = router_metrics(base["router"])["replicas"]
+                    rid = next(r for r, v in reps.items() if v.get("active_relays"))
+                    name = next(k for k, v in mixed.items() if v == rid)
+                    procs[name][0].send_signal(signal.SIGKILL)
+                    killed.add(name)
+                    victim.update(name=name, rid=rid, t=time.perf_counter())
+
+            events, times = sse_timed(base["router"] + "/generate", {"tokens": prompt,
+                                                                     "max_new_tokens": ROUTER_LONG_NEW,
+                                                                     "request_id": "failover"}, on_token)
+            done = events[-1]
+            tokens = sse_tokens(events)
+            if done.get("status") != "done" or done.get("failovers") != 1 or len(tokens) != ROUTER_LONG_NEW:
+                raise AssertionError(f"failover: {done} after {len(tokens)} tokens")
+            after = router_metrics(base["router"])
+            relayed = after["replicas"][victim["rid"]]["tokens_relayed"] - before["replicas"][victim["rid"]][
+                "tokens_relayed"]
+            replayed = done["ledger"]["resume_replayed_tokens"]
+            if after["failovers"] - before["failovers"] != 1 or replayed != relayed or not \
+                    ROUTER_KILL_AFTER <= replayed < ROUTER_LONG_NEW:
+                raise AssertionError(f"failover counts: {after['failovers'] - before['failovers']} failovers, "
+                                     f"{replayed} replayed, {relayed} relayed by the dead replica")
+            survivor = next(k for k in mixed if k != victim["name"])
+            ref = sse_tokens(sse_post(base[survivor] + "/generate", {"tokens": prompt,
+                                                                      "max_new_tokens": ROUTER_LONG_NEW}))
+            vs = agree_or_tie(torch.tensor([tokens]), torch.tensor([ref]), model, [torch.tensor(prompt)],
+                              TIE_BF16_SERVE, "failover vs the unkilled stream")
+            gaps = [b - a for a, b in zip(times, times[1:])]
+            return {"victim": victim["name"], "replayed_tokens": replayed, "failovers": 1,
+                    "gap_ms": max(gaps) * 1e3, "itl_ms_p50": sorted(gaps)[len(gaps) // 2] * 1e3, **vs}
+
+        def split():
+            before = router_metrics(base["router_pd"])
+            events, times = sse_timed(base["router_pd"] + "/generate", {"tokens": prompts[0],
+                                                                        "max_new_tokens": ROUTER_NEW})
+            after = router_metrics(base["router_pd"])
+            tokens = sse_tokens(events)
+            d = {k: after[k] - before.get(k, 0) for k in ("disagg_dispatches", "resume_replayed_tokens")}
+            if events[-1].get("status") != "done" or d != {"disagg_dispatches": 1, "resume_replayed_tokens": 0}:
+                raise AssertionError(f"prefill/decode split: {events[-1]}, {d}")
+            vs = agree_or_tie(torch.tensor([tokens]), torch.tensor([reading["_direct"]]), model,
+                              [torch.tensor(prompts[0])], TIE_BF16_SERVE, "split vs mixed")
+            return {**d, **vs}
+
+        def overhead():
+            """TTFT and ITL p50 of one request routed and sent straight to
+            the replica that serves it, in turns (routed, direct, direct,
+            routed, ...): the medians of ``ROUTER_AB`` of each."""
+            p = prompts[2]
+            runs = {"routed": [], "direct": []}
+            target = None
+            for i in range(2 * ROUTER_AB):
+                label = ("routed", "direct")[(i + i // 2) % 2]
+                if label == "direct" and target is None:
+                    continue
+                url = base["router"] if label == "routed" else "http://" + target
+                t0 = time.perf_counter()
+                _, times = sse_timed(url + "/generate", {"tokens": p, "max_new_tokens": ROUTER_NEW})
+                gaps = sorted(b - a for a, b in zip(times[:-1], times[1:-1]))
+                runs[label].append(((times[0] - t0) * 1e3, gaps[len(gaps) // 2] * 1e3))
+                if target is None:
+                    reps = router_metrics(base["router"])["replicas"]
+                    target = max(reps, key=lambda r: reps[r]["tokens_relayed"])
+            return {label: {"ttft_ms_median": sorted(t for t, _ in r)[len(r) // 2],
+                            "itl_ms_p50_median": sorted(g for _, g in r)[len(r) // 2], "runs": len(r)}
+                    for label, r in runs.items()}
+
+        part("affinity", affinity)
+        part("fleet_views", fleet_views)
+        part("overhead", overhead)
+        part("rolling_reload", rolling_reload)
+        part("failover", failover)
+        part("split", split)
+        reading.pop("_direct", None)
+        for name, (proc, _) in procs.items():
+            if name not in killed:
+                proc.send_signal(signal.SIGTERM)
+        for name, (proc, _) in procs.items():
+            proc.wait(120)
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    codes = {name: proc.returncode for name, (proc, _) in procs.items() if name not in killed}
+    reading["exit"] = codes
+    if any(codes.values()):
+        failed.append("exit codes")
+        log({"router_failed": "exit codes", "codes": codes, "tail": {k: outs[k][-5:] for k in codes if codes[k]}})
+    if len(killed) != 1:
+        failed.append("kill")
+    del model
+    shutil.rmtree(ROUTER_DIR, ignore_errors=True)
+    reading["router_s"] = time.perf_counter() - t_phase
+    log({"router": reading})
+    if failed:
+        raise AssertionError(f"router: {failed} failed")
+    return reading
 
 
 def card_line() -> str:
@@ -6024,7 +6870,11 @@ def card_line() -> str:
 
 PHASES = ("kernels", "serving", "parity", "profile", "int8_kernels", "int8_serving", "train_kernels", "training",
           "resilience", "train_1_3b", "packed_kernels", "packed", "sp_kernels", "sequence_parallel", "data_parallel",
-          "llama_kernels", "llama_serving", "llama_training", "generate", "serving_policy", "disagg")
+          "llama_kernels", "llama_serving", "llama_training", "generate", "serving_policy", "disagg", "slab_serving",
+          "router")
+# what the phases write under build/ (the kernels' libraries and POLICY_DIR aside)
+PHASE_DIRS = ("resilience", "train_1_3b", "packed", "sp", "train_580m_8k_sp", "train_580m_8k_one_card", "data_parallel",
+              "data_parallel_nccl", "llama_training", "generate", "disagg", "slab_serving", "router")
 # named with --phases only: the ring's parity with every kernel on its f32 path, K4's
 # anatomy, data parallelism over NCCL with a card per rank (4 cards), and the
 # fit of the tensor cores' adder that the ALiBi-off K1 emulation uses
@@ -6120,6 +6970,13 @@ SOURCES = {
                                "zero_transformer_tpu/ops/pallas/paged_attention.py:100"),
     "paged_attention_int8_disagg": ("zero_transformer_tpu_torch/csrc/paged_attention.cu",
                                     "zero_transformer_tpu/ops/pallas/paged_attention.py:100"),
+    # the slab layout (125m, bf16): K1 on a one-shot prefill (B 1, a
+    # 512-token bucket over the row's 1,024 keys) and K4 on the slab
+    # engine's decode tick (B 4, through the fixed identity table)
+    "flash_serving_fwd_oneshot": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
+                                  "zero_transformer_tpu/ops/pallas/flash.py:127"),
+    "paged_attention_slab": ("zero_transformer_tpu_torch/csrc/paged_attention.cu",
+                             "zero_transformer_tpu/ops/pallas/paged_attention.py:100"),
 }
 
 
@@ -6139,7 +6996,7 @@ def main(argv) -> int:
     from zero_transformer_tpu_torch.ops import _build
 
     log(card_line())
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     fresh = _build.build_all()
     log({"build_s": time.perf_counter() - t0, "per_source_s": fresh})
     for name, report in _build.ptxas_report.items():
@@ -6147,76 +7004,116 @@ def main(argv) -> int:
             if "registers" in line or "spill" in line or "Performance" in line:
                 log(f"ptxas {name}: {line.strip()}")
     rows, launches = {}, {}
+    phase_s = {}
+
+    @contextlib.contextmanager
+    def timed(name):
+        """A phase's seconds, then its step, checkpoint and build
+        directories deleted (the machine's disk is ~45 GiB; serving_policy's
+        ``.npz`` stays for the later phases' CLIs until the end of the run)
+        and the disk it leaves."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            phase_s[name] = time.perf_counter() - t0
+            for sub in PHASE_DIRS:
+                shutil.rmtree(Path("build") / sub, ignore_errors=True)
+            usage = shutil.disk_usage(".")
+            log({"phase_s": {name: phase_s[name]}, "disk_used_gb": usage.used / 1e9, "disk_free_gb": usage.free / 1e9,
+                 "build_gb": sum(f.stat().st_size for f in Path("build").rglob("*") if f.is_file()) / 1e9})
+
     if "kernels" in phases:
-        rows.update(kernel_phase())
+        with timed("kernels"):
+            rows.update(kernel_phase())
     bf16_serving = None
     if "serving" in phases:
-        serving_launches, kernel_tokens, bf16_serving = serving_phase()
-        launches.update({k: serving_launches[k] for k in ("flash_serving_fwd", "paged_attention")})
+        with timed("serving"):
+            serving_launches, kernel_tokens, bf16_serving = serving_phase()
+            launches.update({k: serving_launches[k] for k in ("flash_serving_fwd", "paged_attention")})
         if "parity" in phases:
-            parity_phase(kernel_tokens)
+            with timed("parity"):
+                parity_phase(kernel_tokens)
     if "profile" in phases:
-        profile_phase()
+        with timed("profile"):
+            profile_phase()
     if "int8_kernels" in phases:
-        rows.update(int8_kernel_phase())
+        with timed("int8_kernels"):
+            rows.update(int8_kernel_phase())
     if "int8_serving" in phases:
-        int8_launches, int8_tokens, int8_serving = serving_phase(int8=True)
-        launches["paged_attention_int8"] = int8_launches["paged_attention_int8"]
-        if bf16_serving is not None:
-            keys = ("ttft_ms_p50", "ttft_ms_p99", "itl_ms_p50", "itl_ms_p99", "decode_tok_s", "kv_pool_bytes",
-                    "weight_bytes")
-            log({"int8_vs_bf16_serving": {k: [int8_serving[k], bf16_serving[k]] for k in keys}})
-        parity_phase(int8_tokens, int8=True)
-        profile_phase(int8=True)
+        with timed("int8_serving"):
+            int8_launches, int8_tokens, int8_serving = serving_phase(int8=True)
+            launches["paged_attention_int8"] = int8_launches["paged_attention_int8"]
+            if bf16_serving is not None:
+                keys = ("ttft_ms_p50", "ttft_ms_p99", "itl_ms_p50", "itl_ms_p99", "decode_tok_s", "kv_pool_bytes",
+                        "weight_bytes")
+                log({"int8_vs_bf16_serving": {k: [int8_serving[k], bf16_serving[k]] for k in keys}})
+            parity_phase(int8_tokens, int8=True)
+            profile_phase(int8=True)
     if "train_kernels" in phases:
-        rows.update(train_kernel_phase())
+        with timed("train_kernels"):
+            rows.update(train_kernel_phase())
     if "training" in phases:
-        train_launches = training_phase()
-        launches.update({k: train_launches[k] for k in ("flash_train_fwd", "flash_dq", "flash_dkv")})
+        with timed("training"):
+            train_launches = training_phase()
+            launches.update({k: train_launches[k] for k in ("flash_train_fwd", "flash_dq", "flash_dkv")})
     if "resilience" in phases:
-        resilience_phase()
+        with timed("resilience"):
+            resilience_phase()
     if "train_1_3b" in phases:
-        t13_rows, t13_launches = train_1_3b_phase()
-        rows.update(t13_rows)
-        launches.update(t13_launches)
+        with timed("train_1_3b"):
+            t13_rows, t13_launches = train_1_3b_phase()
+            rows.update(t13_rows)
+            launches.update(t13_launches)
     if "packed_kernels" in phases:
-        rows.update(packed_kernel_phase())
+        with timed("packed_kernels"):
+            rows.update(packed_kernel_phase())
     if "packed" in phases:
-        packed_launches = packed_phase()
-        launches.update({k: packed_launches[k] for k in ("flash_train_fwd_docs", "flash_dq_docs",
-                                                         "flash_dkv_docs")})
+        with timed("packed"):
+            packed_launches = packed_phase()
+            launches.update({k: packed_launches[k] for k in ("flash_train_fwd_docs", "flash_dq_docs",
+                                                             "flash_dkv_docs")})
     if "sp_kernels" in phases:
-        rows.update(sp_kernel_phase())
+        with timed("sp_kernels"):
+            rows.update(sp_kernel_phase())
     if "sequence_parallel" in phases:
-        launches.update(sequence_parallel_phase())
+        with timed("sequence_parallel"):
+            launches.update(sequence_parallel_phase())
     if "data_parallel" in phases:
-        data_parallel_phase()
+        with timed("data_parallel"):
+            data_parallel_phase()
     if "data_parallel_nccl" in phases:
-        data_parallel_phase("nccl")
+        with timed("data_parallel_nccl"):
+            data_parallel_phase("nccl")
     if "k4_anatomy" in phases:
-        k4_anatomy_phase()
+        with timed("k4_anatomy"):
+            k4_anatomy_phase()
     if "sequence_parallel_f32" in phases:
-        sequence_parallel_phase(torch.float32)
+        with timed("sequence_parallel_f32"):
+            sequence_parallel_phase(torch.float32)
     if "tc_fit" in phases:
-        tc_fit_phase()
+        with timed("tc_fit"):
+            tc_fit_phase()
     if "llama_kernels" in phases:
-        rows.update(llama_kernel_phase())
+        with timed("llama_kernels"):
+            rows.update(llama_kernel_phase())
     if "llama_serving" in phases:
-        launches.update(llama_serving_phase())
+        with timed("llama_serving"):
+            launches.update(llama_serving_phase())
     if "llama_training" in phases:
-        launches.update(llama_training_phase())
-    if "generate" in phases:
-        gen_rows, gen_launches = generate_phase()
-        rows.update(gen_rows)
-        launches.update(gen_launches)
-    if "serving_policy" in phases:
-        policy_rows, policy_launches = serving_policy_phase()
-        rows.update(policy_rows)
-        launches.update(policy_launches)
-    if "disagg" in phases:
-        disagg_rows, disagg_launches = disagg_phase()
-        rows.update(disagg_rows)
-        launches.update(disagg_launches)
+        with timed("llama_training"):
+            launches.update(llama_training_phase())
+    for name, fn in (("generate", generate_phase), ("serving_policy", serving_policy_phase),
+                     ("disagg", disagg_phase), ("slab_serving", slab_serving_phase)):
+        if name in phases:
+            with timed(name):
+                phase_rows, phase_launches = fn()
+                rows.update(phase_rows)
+                launches.update(phase_launches)
+    if "router" in phases:
+        with timed("router"):
+            router_phase()
+    log({"phase_s": phase_s, "total_s": time.perf_counter() - t_start})
     shutil.rmtree(POLICY_DIR, ignore_errors=True)
     table = [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu, "launches": launches[name],

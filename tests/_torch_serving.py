@@ -32,13 +32,14 @@ MIN_GAP = 1e-4
 WEIGHT_SCALE = 4.0
 
 
-def make_pair(seed: int = 0, scale: float = WEIGHT_SCALE):
+def make_pair(seed: int = 0, scale: float = WEIGHT_SCALE, name: str = "test", **overrides):
     """(JAX cfg, JAX params, port model) with the same float32 weights:
-    JAX's init of the ``test`` model, every matrix times ``scale``."""
-    jcfg = jax_model_config("test", dropout=0.0, compute_dtype="float32")
+    JAX's init of the zoo model ``name`` (``test`` by default; config
+    ``overrides`` on both sides), every matrix times ``scale``."""
+    jcfg = jax_model_config(name, dropout=0.0, compute_dtype="float32", **overrides)
     params = JaxTransformer(jcfg).init(jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32))["params"]
     tree = jax.tree.map(lambda a: np.asarray(a) * (scale if a.ndim >= 2 else 1), unbox(params))
-    model = Transformer(model_config("test", dropout=0.0, compute_dtype="float32"), device="cpu")
+    model = Transformer(model_config(name, dropout=0.0, compute_dtype="float32", **overrides), device="cpu")
     model.load_state_dict(params_from_jax(tree))
     return jcfg, jax.tree.map(jnp.asarray, tree), model
 

@@ -1,6 +1,7 @@
-"""The port's disaggregated replicas over HTTP, fronted by JAX's router.
+"""The port's disaggregated replicas over HTTP, fronted by JAX's router
+and by the port's (each case runs under both).
 
-- JAX's ``RouterServer`` (HTTP only, no device code) over a port
+- A ``RouterServer`` (HTTP only, no device code) over a port
   ``--role prefill`` server and a port ``--role decode`` server splits a
   request by phase (``prefill_to`` dispatch, the page ship to
   ``/ingest``, ``/attach``): the client's SSE ids equal JAX ``generate``,
@@ -28,9 +29,9 @@ from _torch_serving import WEIGHT_SCALE, http_call, make_pair, sse_events, wait_
 from zero_transformer_tpu.inference.generate import decode_model as jax_decode_model
 from zero_transformer_tpu.inference.generate import generate as jax_generate
 from zero_transformer_tpu.inference.sampling import SamplingConfig as JaxSampling
-from zero_transformer_tpu.serving import RouterServer
+from zero_transformer_tpu.serving import RouterServer as JaxRouterServer
 from zero_transformer_tpu_torch.inference.sampling import SamplingConfig
-from zero_transformer_tpu_torch.serving import ServingEngine, ServingServer, page_span_to_wire
+from zero_transformer_tpu_torch.serving import RouterServer, ServingEngine, ServingServer, page_span_to_wire
 
 torch.set_num_threads(1)
 
@@ -47,6 +48,12 @@ class _Tok:
 
     def decode(self, ids, **kw):
         return "".join(f"<{t}>" for t in ids)
+
+
+@pytest.fixture(params=["jax", "port"])
+def router_cls(request):
+    """The fleet router of either package."""
+    return {"jax": JaxRouterServer, "port": RouterServer}[request.param]
 
 
 @pytest.fixture(scope="module")
@@ -86,18 +93,18 @@ def _sse(port, path, body, timeout=120.0):
     return status, ids, done
 
 
-def _router(*servers):
-    router = RouterServer([f"127.0.0.1:{s.port}" for s in servers], probe_interval=0.05, chunk_tokens=CHUNK,
+def _router(router_cls, *servers):
+    router = router_cls([f"127.0.0.1:{s.port}" for s in servers], probe_interval=0.05, chunk_tokens=CHUNK,
                           stream_timeout=120.0)
     router.start()
     assert router.wait_ready(30)
     return router
 
 
-def test_router_disaggregates_and_stream_is_jax_generate(pair):
+def test_router_disaggregates_and_stream_is_jax_generate(pair, router_cls):
     ed, sd = _server(pair, "decode")
     ep, sp = _server(pair, "prefill")
-    router = _router(sp, sd)
+    router = _router(router_cls, sp, sd)
     try:
         wait_for(lambda: any(r.role == "prefill" for r in router.registry.routable()), 30, "role scrape")
         prompt = _prompt(13)
@@ -123,10 +130,10 @@ def test_router_disaggregates_and_stream_is_jax_generate(pair):
         sp.stop()
 
 
-def test_admin_migrate_moves_a_live_routed_stream(pair):
+def test_admin_migrate_moves_a_live_routed_stream(pair, router_cls):
     e1, s1 = _server(pair, "mixed", tick_s=0.02)
     e2, s2 = _server(pair, "mixed", tick_s=0.02)
-    router = _router(s1, s2)
+    router = _router(router_cls, s1, s2)
     try:
         prompt = _prompt(13)
         expect = jax_reference(pair, prompt, 24)
@@ -176,6 +183,7 @@ def test_port_routes_health_ingest_and_failed_ship(pair, tmp_path):
             health = json.loads(raw)
             assert status == 200 and health["role"] == role
             assert health["migrations_in_flight"] == 0 and health["free_pages"] == ed.free_pages
+            assert health["kernel_paged_attention"] == 0  # the CPU's plain path
         assert http_call(sd.port, "POST", "/ingest", b"ZTPG1 torn")[0] == 400
         assert http_call(sp.port, "POST", "/ingest", b"x" * 65)[0] == 413
         blob = page_span_to_wire({"kind": "decode", "prompt": [1], "max_new_tokens": 2, "page_size": PAGE,

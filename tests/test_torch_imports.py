@@ -5,7 +5,8 @@
   (a ``sys.modules`` check cannot work here: this interpreter imports jax
   at startup).
 - Entry points (the model getter, the serving engine, the serve CLI's
-  server, one-shot and REPL modes, the trainer and its CLI, the eval CLI)
+  server, one-shot and REPL modes, the fleet router's replica worker, the
+  trainer and its CLI, the eval CLI)
   default to CUDA and raise without it unless the caller
   passes ``device="cpu"``; ``chip_smoke.py`` exits non-zero and prints no
   result without a card, also when it is alone in a directory.
@@ -61,6 +62,7 @@ def test_scan_sees_the_whole_package():
             "obs/exporter.py", "obs/profiling.py", "obs/logging.py"} <= names
     assert {"serving/wire.py", "serving/slots.py", "serving/server.py", "serving/prefix_cache.py", "serving/qos.py",
             "serving/resilience.py"} <= names
+    assert {"serving/router.py", "obs/slo.py", "obs/fleet.py", "serve_router.py"} <= names
     for source in ("flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh", "paged_attention.cu"):
         assert (PACKAGE / "csrc" / source).exists(), source
 
@@ -98,6 +100,11 @@ def test_entry_points_raise_without_cuda(no_cuda):
         train.main(["--cfg", "configs/train_test.yaml"])
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(tconfig.Config())
+    from zero_transformer_tpu_torch import serve_router
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        # the fleet's replica worker, on its default device
+        serve_router.main(["--replica-worker", "--port", "0"])
     from zero_transformer_tpu_torch.evalharness import cli as eval_cli
 
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -477,10 +477,12 @@ def test_healthz_lifecycle_codes_and_body(pair):
         code, _, body = http_call(server.port, "GET", "/healthz")
         body = json.loads(body)
         assert code == 503 and body["state"] == "starting"
-        # the body's keys are JAX's
+        # the body's keys are JAX's, plus the paged-attention kernel gauge
+        # that JAX keeps on /metrics only: a replica's probe reads it there
         jserver = JaxServer(jax_engine(jcfg, params), ByteTokenizer(), port=0)
         try:
-            assert set(body) == set(jserver._healthz()[1])
+            assert set(body) == set(jserver._healthz()[1]) | {"kernel_paged_attention"}
+            assert body["kernel_paged_attention"] == 0  # the CPU's plain path
         finally:
             jserver._httpd.server_close()
         server.start_scheduler()
@@ -651,23 +653,29 @@ def test_serve_cli_reload_sighup_and_sigterm_drain(pair, pair2, tmp_path):
     assert (tmp_path / "obs" / "flightrec").is_dir() and (tmp_path / "obs" / "trace_serve.json").is_file()
 
 
-def test_serving_config_and_cli_defaults(pair, tmp_path):
+def test_serving_config_and_cli_defaults(pair, tmp_path, capsys):
     """``serve --server`` without flags builds JAX's default engine: the
-    prefix cache at 256 chunks and a 30 s drain; the later slice's settings
-    raise naming their ROADMAP item; the roles are accepted and validated
-    as JAX's; ``--prefill-chunk 0`` turns the cache off and is refused (the
-    one-shot prefill is a later slice)."""
+    prefix cache at 256 chunks and a 30 s drain; the slab layout, the
+    bucket cap and the fused-tail control are accepted and validated as
+    JAX's, and so are the roles; ``--prefill-chunk 0`` turns the cache off
+    and falls back to the slab layout with JAX's message."""
+    from zero_transformer_tpu.config import ServingConfig as JaxServing
     from zero_transformer_tpu_torch.config import ServingConfig
     from zero_transformer_tpu_torch.serve import build_engine, build_parser
 
-    for field, value in (("kv_layout", "slab"), ("max_prefill_buckets", 4), ("fused_tail", False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-            ServingConfig(**{field: value})
+    for fields in (dict(kv_layout="slab", prefill_chunk=0, prefix_cache_chunks=0), dict(max_prefill_buckets=2),
+                   dict(fused_tail=False), dict(kv_layout="slab", prefill_chunk=24)):
+        assert ServingConfig(**fields) == ServingConfig(**fields) and JaxServing(**fields)
     assert [ServingConfig(role=r).role for r in ("mixed", "prefill", "decode")] == ["mixed", "prefill", "decode"]
     for bad in (dict(prefix_cache_chunks=-1), dict(drain_deadline_s=-1.0), dict(role="router"),
-                dict(role="prefill", draft_k=2)):
-        with pytest.raises(ValueError):
+                dict(role="prefill", draft_k=2), dict(kv_layout="slab", prefill_chunk=0), dict(kv_layout="ring"),
+                dict(prefill_chunk=0, prefix_cache_chunks=0), dict(max_prefill_buckets=0),
+                dict(fused_tail=False, draft_k=2), dict(role="decode", kv_layout="slab")):
+        with pytest.raises(ValueError) as port_exc:
             ServingConfig(**bad)
+        with pytest.raises(ValueError) as jax_exc:
+            JaxServing(**bad)
+        assert str(port_exc.value) == str(jax_exc.value)
     params = _write_npz(pair[2], tmp_path / "p.npz")
     args = build_parser().parse_args(["--model", "test", "--params", str(params), "--device", "cpu", "--server",
                                       "--dtype", "float32", "--cache-len", "64", "--prefill-chunk", "16",
@@ -675,6 +683,9 @@ def test_serving_config_and_cli_defaults(pair, tmp_path):
     assert args.prefix_cache == 256 and args.drain_deadline == 30.0
     engine, _ = build_engine(args)
     assert engine._prefix_cache is not None and engine._prefix_cache.capacity == 256
+    assert engine.kv_layout == "paged" and engine.fused_tail and engine.max_prefill_buckets == 8
     args.prefill_chunk = 0
-    with pytest.raises(NotImplementedError, match="prefill-chunk 0"):
-        build_engine(args)
+    capsys.readouterr()
+    engine, _ = build_engine(args)
+    assert "falling back to --kv-layout slab" in capsys.readouterr().out
+    assert engine.kv_layout == "slab" and engine._prefix_cache is None and engine.prefill_chunk == 0

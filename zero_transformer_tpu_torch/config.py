@@ -170,13 +170,15 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
-    """Continuous-batching serving defaults (JAX ``ServingConfig``): a paged
-    KV cache with 16-token pages, 64-token prefill chunks, 4 slots, a
-    256-chunk prefix cache and a 30 s drain deadline. ``role`` is JAX's
-    (``mixed``, ``prefill`` or ``decode``, validated as JAX does).
-    ``max_prefill_buckets``, ``kv_layout`` and ``fused_tail`` carry JAX's
-    defaults; the paths they select otherwise come with a later slice
-    (ROADMAP Queue 1 item 1, step 2) and raise NotImplementedError here."""
+    """Continuous-batching serving defaults and their validation (JAX
+    ``ServingConfig``, with JAX's messages): a paged KV cache with 16-token
+    pages, 64-token prefill chunks, 4 slots, a 256-chunk prefix cache and a
+    30 s drain deadline. ``kv_layout="slab"`` is the fixed ``[slots,
+    cache_len]`` layout, the only one that takes ``prefill_chunk=0`` (the
+    one-shot bucketed prefill, at most ``max_prefill_buckets`` distinct
+    buckets); ``fused_tail=False`` is the A/B control that brings each
+    tick's sampled tokens to the host before the forward; ``role`` is
+    ``mixed``, ``prefill`` or ``decode`` (non-mixed roles need paged)."""
 
     slots: int = 4
     max_queue: int = 64
@@ -196,20 +198,34 @@ class ServingConfig:
             raise ValueError("serving.slots must be >= 1")
         if self.max_queue < 1:
             raise ValueError("serving.max_queue must be >= 1")
-        if self.prefill_chunk < 1:
-            raise ValueError("serving.prefill_chunk must be >= 1 (paged KV needs chunked prefill)")
+        if self.prefill_chunk < 0:
+            raise ValueError("serving.prefill_chunk must be >= 0 (0 disables)")
         if self.prefix_cache_chunks < 0:
             raise ValueError("serving.prefix_cache_chunks must be >= 0 (0 disables)")
+        if self.prefix_cache_chunks > 0 and self.prefill_chunk == 0:
+            raise ValueError("serving.prefix_cache_chunks requires prefill_chunk > 0: the prefix cache is keyed on "
+                             "chunk-aligned token spans")
         if self.max_prefill_buckets < 1:
             raise ValueError("serving.max_prefill_buckets must be >= 1")
         if self.drain_deadline_s < 0:
             raise ValueError("serving.drain_deadline_s must be >= 0")
-        if self.page_size < 1 or self.prefill_chunk % self.page_size:
-            raise ValueError("serving.page_size must be >= 1 and divide prefill_chunk")
-        if self.page_pool_tokens < 0 or self.page_pool_tokens % self.page_size:
-            raise ValueError("serving.page_pool_tokens must be >= 0 and a multiple of page_size")
+        if self.kv_layout not in ("slab", "paged"):
+            raise ValueError(f"serving.kv_layout must be 'slab' or 'paged', got {self.kv_layout!r}")
+        if self.kv_layout == "paged" and self.prefill_chunk == 0:
+            raise ValueError("serving.kv_layout='paged' requires prefill_chunk > 0 (the legacy one-shot prefill has "
+                             "no block-table path); set kv_layout='slab' to keep prefill_chunk=0 (serve --server "
+                             "falls back to slab automatically for this combination)")
+        if self.page_size < 1:
+            raise ValueError("serving.page_size must be >= 1")
+        if self.kv_layout == "paged" and self.prefill_chunk and self.prefill_chunk % self.page_size:
+            raise ValueError("serving.page_size must divide prefill_chunk (page-aligned chunk sharing)")
+        if self.page_pool_tokens < 0:
+            raise ValueError("serving.page_pool_tokens must be >= 0 (0 = slots x cache_len)")
         if self.draft_k < 0:
             raise ValueError("serving.draft_k must be >= 0 (0 disables)")
+        if not self.fused_tail and self.draft_k:
+            raise ValueError("serving.fused_tail=False (the A/B control) covers the plain decode path only; "
+                             "speculative verify (draft_k > 0) is inseparable from its in-program sampling")
         if self.role not in ("mixed", "prefill", "decode"):
             raise ValueError(f"serving.role must be mixed|prefill|decode, got {self.role!r}")
         if self.role != "mixed" and self.kv_layout != "paged":
@@ -217,13 +233,6 @@ class ServingConfig:
                              "ships between replicas")
         if self.role == "prefill" and self.draft_k:
             raise ValueError("serving.role='prefill' replicas never decode; draft_k must be 0")
-        for field, default, item in (
-            ("kv_layout", "paged", "ROADMAP Queue 1 item 1, step 2: the slab layout and one-shot prefill"),
-            ("max_prefill_buckets", 8, "ROADMAP Queue 1 item 1, step 2: the slab layout and one-shot prefill"),
-            ("fused_tail", True, "ROADMAP Queue 1 item 1, step 2: the fused-tail A/B control"),
-        ):
-            if getattr(self, field) != default:
-                raise NotImplementedError(f"serving.{field}={getattr(self, field)!r} is not ported yet ({item})")
 
 
 # The dense entries of configs/models.yaml, as Python data (the MoE

@@ -318,14 +318,17 @@ class Attention(nn.Module):
 
     def forward_paged(
         self, x: torch.Tensor, pools: KVPools, block_table: torch.Tensor, offsets: torch.Tensor,
-        cache_len: Optional[int] = None,
+        cache_len: Optional[int] = None, flash: bool = False,
     ) -> torch.Tensor:
         """Write this window's K/V through the block table (quantized for an
         int8 cache; with RoPE, the rotated keys), then attend over the row's
         cache. ``offsets`` [B] is each row's first position. ``cache_len``
         (default: the table's ``n_blocks * page``) is the capacity past
         which a write poisons the row: a slab cache rounded up to whole
-        pages keeps its requested length."""
+        pages keeps its requested length. A window longer than
+        ``MAX_DECODE_T``, or any window with ``flash`` (a prompt's one-shot
+        prefill), reads through the flash kernel; a shorter one through the
+        paged decode kernel."""
         cfg = self.cfg
         B, T, _ = x.shape
         pos = offsets.long()[:, None] + torch.arange(T, device=x.device)  # [B, T]
@@ -353,8 +356,8 @@ class Attention(nn.Module):
         overflow = (offsets + T > cache_len)[:, None, None, None]
         q = torch.where(overflow, torch.full((), math.nan, dtype=q.dtype, device=q.device),
                         torch.ones((), dtype=q.dtype, device=q.device)) * q
-        if T > pa.MAX_DECODE_T:
-            # a prefill chunk: gather the row's pages once, then the flash kernel
+        if T > pa.MAX_DECODE_T or flash:
+            # a prefill window: gather the row's pages once, then the flash kernel
             k_all, v_all, kv_valid = pa.gather_window(pools.k, pools.v, block_table, offsets, T,
                                                       dtype=q.dtype, **scales)
             out = dot_product_attention(
@@ -404,8 +407,9 @@ class Block(nn.Module):
         x = x + dropout(self.attn(self.ln_attn(x), doc_ids), rate, attn_seed)
         return x + dropout(self.mlp(self.ln_mlp(x)), rate, mlp_seed)
 
-    def forward_paged(self, x, pools, block_table, offsets, cache_len: Optional[int] = None) -> torch.Tensor:
-        x = x + self.attn.forward_paged(self.ln_attn(x), pools, block_table, offsets, cache_len)
+    def forward_paged(self, x, pools, block_table, offsets, cache_len: Optional[int] = None,
+                      flash: bool = False) -> torch.Tensor:
+        x = x + self.attn.forward_paged(self.ln_attn(x), pools, block_table, offsets, cache_len, flash=flash)
         return x + self.mlp(self.ln_mlp(x))
 
 
@@ -617,18 +621,18 @@ class Transformer(nn.Module):
 
     def forward_paged(
         self, tokens: torch.Tensor, pools: Pools, block_table: torch.Tensor,
-        offsets: torch.Tensor, cache_len: Optional[int] = None,
+        offsets: torch.Tensor, cache_len: Optional[int] = None, flash: bool = False,
     ) -> torch.Tensor:
         """[B, T] tokens at positions ``offsets[b] + t`` -> final hidden states
         ``[B, T, d_model]`` (apply ``logits`` to the rows needed). Writes the
-        window's K/V into ``pools`` in place; ``cache_len`` as in
-        ``Attention.forward_paged``. Decoding never packs (JAX
+        window's K/V into ``pools`` in place; ``cache_len`` and ``flash`` as
+        in ``Attention.forward_paged``. Decoding never packs (JAX
         ``packed = ... and not self.decode``): a separator is a token.
         Learned positions are each row's own (JAX's per-slot ``decode_pos``)."""
         h = self.wte(tokens)
         if self.wpe is not None:
             h = h + self._positions(offsets.long()[:, None] + torch.arange(tokens.shape[1], device=tokens.device))
         for blk, layer_pools in zip(self.blocks, pools):
-            h = blk.forward_paged(h, layer_pools, block_table, offsets, cache_len)
+            h = blk.forward_paged(h, layer_pools, block_table, offsets, cache_len, flash=flash)
         return self.ln_f(h)
 

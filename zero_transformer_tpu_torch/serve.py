@@ -11,15 +11,19 @@ Counterpart of ``zero_transformer_tpu/serve.py`` (``ByteTokenizer`` :31,
   verifies K prompt-lookup drafts per slot and tick; it needs
   ``--repetition-penalty 1.0`` and is switched off otherwise, as in JAX),
   with JAX's serving defaults: a 256-chunk prefix cache (``--prefix-cache``,
-  off with ``--prefill-chunk 0``, which the port refuses), SIGTERM drains
-  within ``--drain-deadline`` seconds and exits 0, SIGHUP and ``POST
-  /admin/reload`` hot-swap the weights (``--params`` again, or the request's
-  path) between ticks, ``--obs-dir`` receives flight-recorder dumps,
+  off with ``--prefill-chunk 0``, the one-shot bucketed prefill, which runs
+  on ``--kv-layout slab``: the paged default falls back to it with JAX's
+  message; ``--max-prefill-buckets`` caps its distinct buckets), SIGTERM
+  drains within ``--drain-deadline`` seconds and exits 0, SIGHUP and
+  ``POST /admin/reload`` hot-swap the weights (``--params`` again, or the
+  request's path) between ticks, ``--obs-dir`` receives flight-recorder dumps,
   profiles and span traces, ``--metrics-dir`` the metrics timeline;
   ``--role prefill`` or ``decode`` makes it one side of a disaggregated
   fleet (a prefill replica ships each finished prompt's KV pages to the
-  decode replica its request names in ``prefill_to``), and ``POST
-  /admin/migrate`` moves a live stream to another replica;
+  decode replica its request names in ``prefill_to``), ``POST
+  /admin/migrate`` moves a live stream to another replica, and
+  ``--no-fused-tail`` runs the fused-tail A/B control (it switches
+  ``--draft-k`` off, as in JAX);
 - else with ``--ui``: a Gradio UI when gradio is importable (it exits with
   a message when it is not);
 - else with ``--prompt``: one-shot generation to stdout;
@@ -30,7 +34,8 @@ of ``--cache-len`` positions (default ``max_seq_len``); ``--speculative K``
 sends greedy one-shot generation through ``generate_speculative`` with K
 shrunk to what the cache leaves. The sampling flags default to JAX's
 (temperature 0.8, top-k 0, top-p 0.9, repetition penalty 1.1) on every
-path. ``--params`` is an ``.npz`` of the flat flax param tree
+path; ``--approx-top-k`` (the TPU's approximate top-k) parses and is
+refused before any weight loads. ``--params`` is an ``.npz`` of the flat flax param tree
 (``convert.py`` says how to write one from the JAX package), a flax
 ``.msgpack`` (JAX ``export_params_msgpack``) or a trainer checkpoint's step
 directory (``<checkpoint.directory>/<step>``). ``--quantize int8``
@@ -180,6 +185,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-trace", action="store_true", help="disable span tracing (/metrics histograms stay on)")
     p.add_argument("--admin-token", default=None,
                    help="bearer token for /admin/* from non-loopback peers (loopback is always allowed)")
+    # the four flags of the slab slice carry JAX's help word for word
+    p.add_argument("--kv-layout", default=None, choices=("slab", "paged"),
+                   help="KV cache layout: 'paged' (default) = block-table page pool (PagedAttention) \u2014 HBM "
+                        "scales with ACTUAL sequence lengths, not slots x cache_len, and prefix hits are "
+                        "page-refcount bumps; 'slab' = the classic fixed [slots, cache_len] rows")
+    p.add_argument("--max-prefill-buckets", type=int, default=_DEFAULTS.max_prefill_buckets,
+                   help="cap on distinct compiled one-shot prefill buckets (legacy --prefill-chunk 0 path): past "
+                        "it, new prompt lengths round up to an existing bucket instead of compiling another "
+                        "program")
+    p.add_argument("--no-fused-tail", action="store_true", default=None,
+                   help="A/B CONTROL: run sampling as its own dispatch after the forward instead of inside the "
+                        "single jitted decode program (byte-identical output; exists so the bench can price the "
+                        "fused tail \u2014 disables --draft-k)")
     p.add_argument("--page-size", type=int, default=_DEFAULTS.page_size)
     p.add_argument("--page-pool-tokens", type=int, default=_DEFAULTS.page_pool_tokens,
                    help="KV pool size in positions (0 = slots x cache_len)")
@@ -207,6 +225,9 @@ def build_parser() -> argparse.ArgumentParser:
     # the sampling defaults are JAX serve.py's, for every mode
     p.add_argument("--temperature", type=float, default=0.8)
     p.add_argument("--top-k", type=int, default=0)
+    p.add_argument("--approx-top-k", action="store_true",
+                   help="use the TPU partial-reduce (lax.approx_max_k) for the top-k cutoff instead of the exact "
+                        "vocab sort; the kept set can be slightly wider than k")
     p.add_argument("--top-p", type=float, default=0.9)
     p.add_argument("--repetition-penalty", type=float, default=1.1)
     p.add_argument("--greedy", action="store_true")
@@ -255,29 +276,43 @@ def build_generator(args) -> TextGenerator:
                          speculative=args.speculative)
 
 
+def sampling_config(args):
+    """The CLI's sampling flags as a ``SamplingConfig``; ``--approx-top-k``
+    raises its ``NotImplementedError``."""
+    from zero_transformer_tpu_torch.inference.sampling import SamplingConfig
+
+    return SamplingConfig(
+        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+        repetition_penalty=args.repetition_penalty, greedy=args.greedy,
+        top_k_impl="approx" if args.approx_top_k else "exact",
+    )
+
+
 def build_engine(args):
     """Model + weights + engine from parsed CLI arguments (JAX ``_server``
-    :358-437). ``--draft-k`` with a repetition penalty other than 1.0 is
-    switched off with a message, and ``--prefill-chunk 0`` turns the prefix
-    cache off, as in JAX; the port then refuses the chunk of 0 (the
-    one-shot prefill comes with a later slice)."""
-    from zero_transformer_tpu_torch.inference.sampling import SamplingConfig
+    :358-437), with JAX's adjustments and messages: ``--prefill-chunk 0``
+    on the paged layout falls back to ``--kv-layout slab`` and turns the
+    prefix cache off; ``--draft-k`` with a repetition penalty other than
+    1.0, or with ``--no-fused-tail``, is switched off."""
     from zero_transformer_tpu_torch.obs import MetricsLogger
     from zero_transformer_tpu_torch.serving.engine import ServingEngine
 
-    if args.prefill_chunk == 0:
-        raise NotImplementedError("--prefill-chunk 0 (one-shot bucketed prefill over the slab layout) is not "
-                                  "ported yet (ROADMAP Queue 1 item 1, step 2)")
-    model = build_model(args)
-    sampling = SamplingConfig(
-        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
-        repetition_penalty=args.repetition_penalty, greedy=args.greedy,
-    )
+    sampling = sampling_config(args)
+    kv_layout = args.kv_layout or _DEFAULTS.kv_layout
+    if kv_layout == "paged" and args.prefill_chunk == 0:
+        print("serve: --prefill-chunk 0 (legacy one-shot prefill) has no block-table path; falling back to "
+              "--kv-layout slab", flush=True)
+        kv_layout = "slab"
     draft_k = args.draft_k
     if draft_k and args.repetition_penalty != 1.0:
         print("serve: --draft-k requires --repetition-penalty 1.0 (the batched verify step cannot emulate "
               "the in-block penalty); speculation DISABLED for this run", flush=True)
         draft_k = 0
+    if draft_k and args.no_fused_tail:
+        print("serve: --no-fused-tail (the fused-tail A/B control) covers the plain decode path only; "
+              "speculation DISABLED for this run", flush=True)
+        draft_k = 0
+    model = build_model(args)
     tokenizer = ByteTokenizer()
     engine = ServingEngine(
         model, n_slots=args.slots, cache_len=args.cache_len, sampling=sampling,
@@ -287,6 +322,7 @@ def build_engine(args):
         prefix_cache_chunks=args.prefix_cache if args.prefill_chunk else 0,
         metrics=MetricsLogger(directory=args.metrics_dir), metrics_interval=args.metrics_interval,
         obs_dir=args.obs_dir or args.metrics_dir, trace=not args.no_trace, role=args.role,
+        kv_layout=kv_layout, max_prefill_buckets=args.max_prefill_buckets, fused_tail=not args.no_fused_tail,
     )
     return engine, tokenizer
 
@@ -353,6 +389,7 @@ def _ui(gen: TextGenerator) -> None:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     resolve_device(args.device)  # refuse to start without the requested device
+    sampling_config(args)  # refuse bad sampling flags (--approx-top-k too) before any weight loads
     if args.server:
         from zero_transformer_tpu_torch.serving.server import run_server
 

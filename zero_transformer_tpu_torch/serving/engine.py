@@ -1,8 +1,9 @@
 """Continuous-batching scheduler over the paged KV cache, with serving's
 policy layer.
 
-Counterpart of ``zero_transformer_tpu/serving/engine.py`` on its paged
-layout (``kv_layout="paged"``, chunked prefill):
+Counterpart of ``zero_transformer_tpu/serving/engine.py``, on its paged
+layout (``kv_layout="paged"``, chunked prefill, the default) and its slab
+layout (below):
 
 - ``Request``/``RequestHandle``, ``submit`` behind a bounded per-class
   queue (``qos.ClassQueue``: deficit-weighted round-robin over the gold /
@@ -84,8 +85,25 @@ what it would have drawn unmoved. JAX's ``carry/rng`` (its
 import without ``carry/torch_rng`` (a JAX peer's) seeds from the request's
 seed, so across packages only greedy streams continue equal.
 
-The slab layout with one-shot bucketed prefill and the fused-tail A/B
-control come with a later slice (ROADMAP Queue 1 item 1, step 2).
+The slab layout (``kv_layout="slab"``, JAX's ``SlotKVCache``): each slot
+owns a fixed row of ``cache_len`` positions, the pools seen through a fixed
+identity table (``slots.SlotKVCache``), so K1 and K4 run over it as over
+pages. With ``prefill_chunk=0`` each admitted prompt prefills in one
+forward (``_admit_oneshot`` :1822, ``_prefill_padded`` :1668), right-padded
+to a power-of-two bucket of at least 8 (``_bucket`` :1640, at most
+``max_prefill_buckets`` distinct ones) and written straight into its slot's
+rows: JAX prefills into a one-row cache and inserts it, which the port has
+no need for. With a chunk the slab prefills chunk by chunk, and the prefix
+cache copies K/V spans out of a finished prompt's row and into a hit's row
+(JAX :1774, :2190) instead of mapping pages. A slab engine has nothing to
+migrate: ``request_migration`` is False, ``request_migrate_all`` 0 and an
+import is rejected, as in JAX. The decode tick runs K4 over the slab (in
+JAX slab decode takes XLA's attention).
+
+``fused_tail=False`` is JAX's A/B control (``_dispatch_defused`` :2603):
+the tick's sampled tokens come to the host and go back up before the
+forward, one more host sync a tick, with the same draws in the same order,
+so the streams are byte-identical to the fused tick's.
 """
 from __future__ import annotations
 
@@ -106,19 +124,19 @@ import numpy as np
 import torch
 
 from zero_transformer_tpu_torch.config import resolve_device
-from zero_transformer_tpu_torch.inference.generate import allocate_pools, decode_model
+from zero_transformer_tpu_torch.inference.generate import SLAB_PAGE, allocate_pools, decode_model
 from zero_transformer_tpu_torch.inference.sampling import NEG_INF, SamplingConfig, draw, process_logits, sample_token
 from zero_transformer_tpu_torch.inference.speculative import ngram_propose
 from zero_transformer_tpu_torch.models.gpt import Transformer
 from zero_transformer_tpu_torch.obs import LATENCY_BUCKETS, FlightRecorder, ProfileWindow, Registry, Tracer
 from zero_transformer_tpu_torch.obs.logging import hbm_device_stats
 from zero_transformer_tpu_torch.ops import _build
-from zero_transformer_tpu_torch.serving.prefix_cache import PagedPrefixIndex
+from zero_transformer_tpu_torch.serving.prefix_cache import PagedPrefixIndex, PrefixCache
 from zero_transformer_tpu_torch.serving.qos import BROWNOUT_RUNGS, ClassQueue, QosPolicy, TenantBuckets, \
     reserved_above, rung_at_least
 from zero_transformer_tpu_torch.serving.resilience import DEGRADED, DRAINING, READY, STARTING, STOPPED, \
     CircuitBreaker, ItlEwma, Lifecycle, ReloadError, infeasible_deadline, validate_reload
-from zero_transformer_tpu_torch.serving.slots import PagedKVCache
+from zero_transformer_tpu_torch.serving.slots import PagedKVCache, SlotKVCache
 from zero_transformer_tpu_torch.serving.wire import as_host_tensor
 
 __all__ = ["STARTING", "READY", "DEGRADED", "DRAINING", "STOPPED", "MIGRATED", "ROLES", "Request", "RequestHandle",
@@ -314,8 +332,7 @@ def _percentiles(values: Sequence[float], qs=(50, 90, 99)) -> Dict[str, float]:
     return out
 
 
-# the stats counters exported as serve_<key>_total, JAX's families (the
-# one-shot bucket counter stays 0 until its slice comes)
+# the stats counters exported as serve_<key>_total, JAX's families
 _COUNTER_HELP = (
     ("submitted", "Requests submitted (accepted + rejected)"),
     ("completed", "Requests finished with status done"),
@@ -358,7 +375,7 @@ _COUNTER_HELP = (
 
 
 class ServingEngine:
-    """Slot-scheduled continuous batching over the paged decode model.
+    """Slot-scheduled continuous batching over the paged or slab KV cache.
 
     ``model`` is a ``Transformer`` already on ``device`` (CUDA unless the
     caller asks for the CPU); its Dense and embedding weights are cast to
@@ -375,7 +392,11 @@ class ServingEngine:
     ``prefill`` or ``decode`` (the module doc); ``page_shipper(payload,
     target, on_done)`` ships an exported stream and calls ``on_done(None)``
     once the target accepted it, ``on_done(reason)`` otherwise (the server
-    installs one that POSTs to ``<target>/ingest``)."""
+    installs one that POSTs to ``<target>/ingest``). ``kv_layout`` is
+    ``paged`` (the engine's default) or ``slab``; only slab takes
+    ``prefill_chunk=0``, the one-shot prefill, with at most
+    ``max_prefill_buckets`` distinct buckets; ``fused_tail=False`` is the
+    A/B control (the module doc)."""
 
     def __init__(
         self,
@@ -405,25 +426,52 @@ class ServingEngine:
         emit_buffer_max: int = 1024,
         role: str = "mixed",
         page_shipper: Optional[Callable[..., None]] = None,
+        kv_layout: str = "paged",
+        max_prefill_buckets: int = 8,
+        fused_tail: bool = True,
     ):
         self.device = resolve_device(device)
         cfg = model.cfg
         self.cfg = cfg
         self.cache_len = cache_len or cfg.max_seq_len
-        if prefill_chunk < 1:
-            raise ValueError("the paged KV cache needs chunked prefill (prefill_chunk >= 1)")
+        if prefill_chunk < 0:
+            raise ValueError("prefill_chunk must be >= 0 (0 = one-shot prefill)")
         if prefix_cache_chunks < 0:
             raise ValueError("prefix_cache_chunks must be >= 0 (0 disables)")
+        if prefix_cache_chunks > 0 and prefill_chunk == 0:
+            raise ValueError("prefix caching requires chunked prefill (prefill_chunk > 0): entries are keyed on "
+                             "chunk-aligned token spans")
+        if max_prefill_buckets < 1:
+            raise ValueError("max_prefill_buckets must be >= 1")
         # a chunk larger than the cache degenerates to cache-sized windows
         self.prefill_chunk = min(prefill_chunk, self.cache_len)
-        if page_size < 1 or self.cache_len % page_size:
-            raise ValueError(f"page_size ({page_size}) must divide cache_len ({self.cache_len})")
-        if self.prefill_chunk % page_size:
-            raise ValueError(f"page_size ({page_size}) must divide prefill_chunk ({self.prefill_chunk})")
-        if page_pool_tokens == 0:
-            page_pool_tokens = n_slots * self.cache_len  # the slab-equivalent budget
-        if page_pool_tokens % page_size:
-            raise ValueError(f"page_pool_tokens ({page_pool_tokens}) must be a multiple of page_size ({page_size})")
+        self.max_prefill_buckets = max_prefill_buckets
+        if kv_layout not in ("slab", "paged"):
+            raise ValueError(f"kv_layout must be 'slab' or 'paged', got {kv_layout!r}")
+        self.kv_layout = kv_layout
+        if kv_layout == "paged":
+            if self.prefill_chunk == 0:
+                raise ValueError("kv_layout='paged' requires chunked prefill (prefill_chunk > 0): the one-shot "
+                                 "prefill has no block-table path")
+            if page_size < 1 or self.cache_len % page_size:
+                raise ValueError(f"page_size ({page_size}) must divide cache_len ({self.cache_len})")
+            if self.prefill_chunk % page_size:
+                raise ValueError(f"page_size ({page_size}) must divide prefill_chunk ({self.prefill_chunk})")
+            if page_pool_tokens == 0:
+                page_pool_tokens = n_slots * self.cache_len  # the slab-equivalent budget
+            if page_pool_tokens % page_size:
+                raise ValueError(f"page_pool_tokens ({page_pool_tokens}) must be a multiple of page_size "
+                                 f"({page_size})")
+        else:
+            # the slab's rows seen as pages of SLAB_PAGE positions (JAX's
+            # slab has no page size, so ``page_size`` is not read)
+            page_size, page_pool_tokens = SLAB_PAGE, 0
+        # fused_tail=False is the A/B control: the tick brings its sampled
+        # tokens to the host and uploads them before the forward
+        self.fused_tail = bool(fused_tail)
+        if not self.fused_tail and draft_k:
+            raise ValueError("fused_tail=False (the A/B control) covers the plain decode path only; speculative "
+                             "verify (draft_k > 0) is inseparable from its in-program sampling")
         if draft_k < 0:
             raise ValueError("draft_k must be >= 0 (0 disables speculation)")
         if draft_k and sampling.repetition_penalty != 1.0:
@@ -436,6 +484,9 @@ class ServingEngine:
         self.draft_fn = draft_fn or ngram_propose
         if role not in ROLES:
             raise ValueError(f"role must be one of {ROLES}, got {role!r}")
+        if role != "mixed" and kv_layout != "paged":
+            raise ValueError(f"role={role!r} requires kv_layout='paged': KV pages are the unit that ships between "
+                             "disaggregated replicas")
         if role == "prefill" and draft_k:
             raise ValueError("role='prefill' replicas never decode; draft_k must be 0")
         self.role = role
@@ -444,8 +495,12 @@ class ServingEngine:
             raise ValueError(f"model lives on {next(model.parameters()).device}, engine on {self.device}")
         self.page_size = page_size
         self.page_pool_tokens = page_pool_tokens
-        self.n_pages = page_pool_tokens // page_size + 1  # + trash page
-        self.model = decode_model(model, self.cache_len, (self.n_pages, page_size)).cast_for_inference()
+        if kv_layout == "paged":
+            self.n_pages = page_pool_tokens // page_size + 1  # + trash page
+            model = decode_model(model, self.cache_len, (self.n_pages, page_size))
+        else:
+            self.n_pages = 1 + n_slots * -(-self.cache_len // page_size)  # + trash page
+        self.model = model.cast_for_inference()
         self.n_slots = n_slots
         self.sampling = sampling
         self.eos_token_id = eos_token_id
@@ -455,8 +510,11 @@ class ServingEngine:
         self.metrics_interval = metrics_interval
         self._prefix_cache_chunks = int(prefix_cache_chunks)
         self.pools = None
-        self.slots: Optional[PagedKVCache] = None
-        self._prefix_cache: Optional[PagedPrefixIndex] = None
+        self.slots = None  # a PagedKVCache, or a SlotKVCache when slab
+        self._prefix_cache: Optional[PrefixCache] = None
+        # the distinct one-shot prefill buckets used (bounded by
+        # max_prefill_buckets + the capacity bucket)
+        self._buckets_seen: set = set()
         self._active: List[Optional[_ActiveSlot]] = [None] * n_slots
         self._prefilling: Dict[int, _PrefillJob] = {}
         self._allocate_device_state()
@@ -539,11 +597,18 @@ class ServingEngine:
         caller has dropped every reference to the old state first."""
         S, V, dev = self.n_slots, self.cfg.vocab_size, self.device
         self.pools = allocate_pools(self.cfg, self.n_pages, self.page_size, dev)
-        self.slots = PagedKVCache(S, self.n_pages, self.page_size, self.cache_len)
-        # page-id entries refcounted against THIS pool instance: rebuilt
-        # whenever the pool is (a reload keeps the pool and only flushes)
-        self._prefix_cache = (PagedPrefixIndex(self.prefill_chunk, self._prefix_cache_chunks, self.slots.pool)
-                              if self._prefix_cache_chunks else None)
+        if self.kv_layout == "paged":
+            self.slots = PagedKVCache(S, self.n_pages, self.page_size, self.cache_len)
+            # page-id entries refcounted against THIS pool instance: rebuilt
+            # whenever the pool is (a reload keeps the pool and only flushes)
+            self._prefix_cache = (PagedPrefixIndex(self.prefill_chunk, self._prefix_cache_chunks, self.slots.pool)
+                                  if self._prefix_cache_chunks else None)
+        else:
+            self.slots = SlotKVCache(S, self.cache_len, self.page_size)
+            # span copies: they hold their own K/V, valid for the weights
+            # that made them (a reload flushes)
+            self._prefix_cache = (PrefixCache(self.prefill_chunk, self._prefix_cache_chunks)
+                                  if self._prefix_cache_chunks else None)
         self._last_logits = torch.zeros(S, V, dtype=torch.float32, device=dev)
         self._gen_mask = torch.zeros(S, V, dtype=torch.bool, device=dev)
         self._gens = [torch.Generator(device=dev) for _ in range(S)]
@@ -667,7 +732,8 @@ class ServingEngine:
         if T + request.max_new_tokens - 1 > self.cache_len:
             return (f"prompt ({T}) + max_new_tokens ({request.max_new_tokens}) "
                     f"exceeds cache_len ({self.cache_len})")
-        if self.slots.blocks_for(self._total_need_tokens(request)) > self.slots.n_pages - 1:
+        if self.kv_layout == "paged" and \
+                self.slots.blocks_for(self._total_need_tokens(request)) > self.slots.n_pages - 1:
             return (f"prompt ({T}) + max_new_tokens ({request.max_new_tokens}) needs more KV "
                     f"pages than the whole pool holds ({self.page_pool_tokens} token positions); raise "
                     f"--page-pool-tokens or lower the request")
@@ -677,6 +743,8 @@ class ServingEngine:
                     f"exceeds cache_len ({self.cache_len}); lower one of them")
         if self.cfg.position == "learned" and T + request.max_new_tokens > self.cfg.max_seq_len:
             return "learned positions cannot extrapolate past max_seq_len"
+        if request.prefill_to is not None and self.kv_layout != "paged":
+            return "prefill_to requires kv_layout='paged' (pages ship)"
         if self.role == "prefill" and request.prefill_to is None:
             return "this is a prefill-role replica: requests must name a decode target (prefill_to)"
         return None
@@ -776,8 +844,12 @@ class ServingEngine:
 
     @property
     def free_pages(self) -> int:
-        """Spare KV capacity: free pool pages."""
-        return self.slots.pool.free_count
+        """Spare KV capacity in the unit the layout allocates: free pool
+        pages when paged, free decode slots when slab (a router reads it
+        from ``/healthz``)."""
+        if self.kv_layout == "paged":
+            return self.slots.pool.free_count
+        return max(0, self.n_slots - self.active_count - len(self._prefilling))
 
     def _pop_queue(self, eligible=None) -> Optional[RequestHandle]:
         """Pop the next admissible queued handle (DWRR across classes;
@@ -799,21 +871,29 @@ class ServingEngine:
                     return cand
         return None
 
+    def _admit(self) -> None:
+        if self.prefill_chunk:
+            self._admit_chunked()
+        else:
+            self._admit_oneshot()
+
     def _admit_chunked(self) -> None:
         """Claim a slot per admissible queued request and start its chunked
         prefill. A prefix hit maps the cached pages into the slot's block
         table (refcount bumps, no K/V moves) BEFORE the reservation, and the
-        job starts at the first novel chunk. Admission reserves the
-        request's worst case beyond the hit; when the pool cannot cover it,
-        even after reclaiming cold prefix pages once, the request waits at
-        the queue head."""
+        job starts at the first novel chunk; on slab the hit's spans are
+        copied into the slot's rows. Paged admission reserves the request's
+        worst case beyond the hit; when the pool cannot cover it, even after
+        reclaiming cold prefix pages once, the request waits at the queue
+        head."""
+        paged = self.kv_layout == "paged"
         self._maybe_preempt_for_class()
         while self.slots.free_count:
             in_use = self._class_slots_in_use()
             handle = self._pop_queue(eligible=lambda c: self._slot_eligible(c, in_use))
             if handle is None:
                 return
-            if not self._paged_admission_fits(handle):
+            if paged and not self._paged_admission_fits(handle):
                 with self._lock:
                     self._queue.appendleft(handle)
                 return
@@ -822,9 +902,13 @@ class ServingEngine:
             try:
                 if self._prefix_cache is not None:
                     fill, hits = self._prefix_cache.lookup(handle.request.prompt)
-                    if hits:
+                    if hits and paged:
                         self.slots.share(slot, [p for entry in hits for p in entry])
-                self.slots.reserve(slot, self._total_need_tokens(handle.request))
+                    elif hits:
+                        self.slots.write_spans(hits, slot, self.pools)
+                        self._prefill_work = True
+                if paged:
+                    self.slots.reserve(slot, self._total_need_tokens(handle.request))
             except Exception as exc:
                 # in neither the queue nor a slot table: finish it here
                 handle._finish(FAILED, self.now(), error=f"admission failed: {exc!r}")
@@ -858,6 +942,96 @@ class ServingEngine:
             self.stats["pages_reclaimed"] += self._prefix_cache.reclaim(shortfall)
         return False
 
+    # ----------------------------------------------------- one-shot prefill
+
+    def _bucket(self, length: int) -> int:
+        """The smallest power of two >= ``length`` (floor 8) that the cache
+        admits (and, for learned positions, ``max_seq_len``). Past
+        ``max_prefill_buckets`` distinct buckets a new length rounds up to
+        the smallest bucket already used that fits, else to the cap, and
+        ``prefill_bucket_capped`` counts it. JAX's rule number for number:
+        there each bucket is a compiled program; here it bounds the prefill
+        shapes the card sees."""
+        cap = self.cache_len
+        if self.cfg.position == "learned":
+            cap = min(cap, self.cfg.max_seq_len)
+        b = 8
+        while b < length:
+            b *= 2
+        b = min(b, cap)
+        if b not in self._buckets_seen:
+            if len(self._buckets_seen) >= self.max_prefill_buckets:
+                self.stats["prefill_bucket_capped"] += 1
+                fitting = [x for x in self._buckets_seen if x >= length]
+                b = min(fitting) if fitting else cap
+            self._buckets_seen.add(b)  # the cap bucket may pass the budget by one
+        return b
+
+    def _prefill_oneshot(self, slot: int, prompt: Sequence[int]) -> torch.Tensor:
+        """The whole prompt, right-padded to its bucket, in one forward
+        written straight into ``slot``'s rows (B 1, T = bucket, over the
+        row's ``cache_len`` keys, through the flash kernel whatever the
+        bucket). Causality makes the K/V below the prompt's length and the
+        logits at ``len - 1`` exact whatever the padding; the padding's K/V
+        lands at positions >= the prompt's length, which the cursor hides
+        and decode overwrites. Returns the last logits row [V] in float32."""
+        T, dev = len(prompt), self.device
+        bucket = self._bucket(T)
+        padded = torch.tensor([list(prompt) + [0] * (bucket - T)], dtype=torch.long)
+        if dev.type == "cuda":
+            padded = padded.pin_memory()
+        h = self.model.forward_paged(padded.to(dev, non_blocking=True), self.pools,
+                                     torch.from_numpy(self.slots.table[slot:slot + 1]).to(dev),
+                                     torch.zeros(1, dtype=torch.int32, device=dev), self.cache_len, flash=True)
+        return self.model.logits(h[0, T - 1]).float()
+
+    def _admit_oneshot(self) -> None:
+        """The one-shot path (``prefill_chunk=0``, slab): each admitted
+        request prefills in one bucketed forward into its slot and decodes
+        from this tick on. The installs of one admission pass are made
+        together, and those before a failed admission still install (JAX's
+        ``finally``); the failed handle finishes ``failed`` and the error
+        propagates, as in JAX."""
+        installs: List[tuple] = []
+        try:
+            self._maybe_preempt_for_class()
+            while self.slots.free_count:
+                in_use = self._class_slots_in_use()
+                handle = self._pop_queue(eligible=lambda c: self._slot_eligible(c, in_use))
+                if handle is None:
+                    return
+                handle.admitted_at = self.now()
+                self._h_queue_wait.observe(handle.admitted_at - handle.submitted_at)
+                slot = self.slots.acquire()
+                try:
+                    with torch.no_grad():
+                        row = self._prefill_oneshot(slot, handle.request.prompt)
+                except Exception as exc:
+                    # in neither the queue nor a slot: finish it here
+                    self.slots.release([slot])
+                    handle._finish(FAILED, self.now(), error=f"admission failed: {exc!r}")
+                    raise
+                handle.status = RUNNING
+                handle.prefill_done_at = self.now()
+                self._h_prefill.observe(handle.prefill_done_at - handle.admitted_at)
+                self._active[slot] = _ActiveSlot(handle)
+                installs.append((slot, row, handle.request.seed))
+                self.stats["peak_occupancy"] = max(self.stats["peak_occupancy"], self.active_count)
+        finally:
+            if installs:
+                self._prefill_work = True
+                self._flush_installs(installs)
+
+    def _flush_installs(self, installs: List[tuple]) -> None:
+        """Install [(slot, logits row, seed), ...] in one pass: the rows'
+        logits, a cleared penalty mask and veto, the generators seeded."""
+        dest = torch.tensor([slot for slot, _, _ in installs], device=self.device)
+        self._last_logits[dest] = torch.stack([row for _, row, _ in installs])
+        self._gen_mask[dest] = False
+        self._veto[dest] = -1
+        for slot, _, seed in installs:
+            self._gens[slot].manual_seed(seed)
+
     # ------------------------------------------------------- chunked prefill
 
     def _prefill_tick(self) -> bool:
@@ -877,7 +1051,7 @@ class ServingEngine:
             w = min(job.fill, L - C)
             # pages cover only REAL prompt positions: the padded tail of the
             # window writes to the trash page through unmapped blocks
-            if not self._ensure_pages_or_reclaim(slot, min(w + C, len(prompt))):
+            if self.kv_layout == "paged" and not self._ensure_pages_or_reclaim(slot, min(w + C, len(prompt))):
                 faulted.append(slot)
                 continue
             window = list(prompt[w:w + C])
@@ -906,7 +1080,7 @@ class ServingEngine:
                 h = self.model.forward_paged(
                     torch.tensor(tokens, dtype=torch.long, device=dev), self.pools,
                     torch.from_numpy(self.slots.table[slots]).to(dev),
-                    torch.tensor(starts, dtype=torch.int32, device=dev),
+                    torch.tensor(starts, dtype=torch.int32, device=dev), self.cache_len,
                 )
                 last_idx = [min(max(n - 1 - s, 0), C - 1) for n, s in zip(lens, starts)]
                 last = self.model.logits(h[torch.arange(len(slots), device=dev),
@@ -955,15 +1129,10 @@ class ServingEngine:
             completed = [(r, s) for r, s in completed if s in self._prefilling]
             if not completed:
                 return
-        rows = torch.tensor([r for r, _ in completed], device=self.device)
-        dest = torch.tensor([s for _, s in completed], device=self.device)
-        self._last_logits[dest] = last[rows]
-        self._gen_mask[dest] = False
-        self._veto[dest] = -1
+        self._flush_installs([(s, last[r], self._prefilling[s].handle.request.seed) for r, s in completed])
         t_done = self.now()
         for _, slot in completed:
             job = self._prefilling.pop(slot)
-            self._gens[slot].manual_seed(job.handle.request.seed)
             job.handle.prefill_done_at = t_done
             if job.handle.admitted_at is not None:
                 self._h_prefill.observe(t_done - job.handle.admitted_at)
@@ -1009,20 +1178,25 @@ class ServingEngine:
             self._ship(payload, handle.request.prefill_to, handle)
 
     def _bank_prefix(self, slot: int, handle: RequestHandle) -> None:
-        """Bank a completed prefill's chunk-aligned pages so the next prompt
-        sharing the prefix skips them: the slot's pages get one more
-        reference and their ids land in the index; nothing moves. Skipped
-        when the index already holds the whole prefix."""
+        """Bank a completed prefill's chunk-aligned prefix so the next
+        prompt sharing it skips those chunks: paged, the slot's pages get
+        one more reference and their ids land in the index (nothing moves);
+        slab, one gather per pool kind copies the spans out. Skipped when
+        the index already holds the whole prefix."""
         if self._prefix_cache is None:
             return
         prompt = handle.request.prompt
         C = self.prefill_chunk
         n_chunks = len(prompt) // C
         if n_chunks and not all(self._prefix_cache.contains(prompt, j) for j in range(1, n_chunks + 1)):
-            bpc = C // self.page_size  # blocks per chunk
-            pages = self.slots.bank(slot, n_chunks * bpc)
-            for j in range(1, n_chunks + 1):
-                self._prefix_cache.store_pages(prompt, j, pages[(j - 1) * bpc:j * bpc])
+            if self.kv_layout == "paged":
+                bpc = C // self.page_size  # blocks per chunk
+                pages = self.slots.bank(slot, n_chunks * bpc)
+                for j in range(1, n_chunks + 1):
+                    self._prefix_cache.store_pages(prompt, j, pages[(j - 1) * bpc:j * bpc])
+            else:
+                for j, span in enumerate(self.slots.extract_spans(slot, C, n_chunks, self.pools), start=1):
+                    self._prefix_cache.store(prompt, j, span)
 
     def _on_prefill_fault(self, exc: Exception) -> None:
         """A chunk forward failed: fail ONLY the mid-prefill slots
@@ -1070,8 +1244,11 @@ class ServingEngine:
     def request_migration(self, request_id: str, target: str) -> bool:
         """Ask the tick thread to move the live stream ``request_id``
         (decoding or mid-prefill) to ``target``, a replica's base URL.
-        Thread-safe; False when no live stream carries that id. The export
-        happens between ticks: the device state stays the tick thread's."""
+        Thread-safe; False when no live stream carries that id, or on a
+        slab engine (nothing there is transferable). The export happens
+        between ticks: the device state stays the tick thread's."""
+        if self.kv_layout != "paged":
+            return False
         active = list(self._active)
         prefilling = list(self._prefilling.values())
         found = any(a is not None and a.handle.rid == request_id for a in active) or \
@@ -1084,7 +1261,9 @@ class ServingEngine:
 
     def request_migrate_all(self, target: str) -> int:
         """Move every live stream to ``target`` (a drain by migration);
-        returns how many were tagged."""
+        returns how many were tagged (0 on a slab engine)."""
+        if self.kv_layout != "paged":
+            return 0
         n = sum(1 for a in list(self._active) if a is not None) + len(self._prefilling)
         if n:
             with self._lock:
@@ -1282,6 +1461,9 @@ class ServingEngine:
         self._seed_imported_ledger(handle, payload)
         if self.role == "prefill":
             handle._finish(REJECTED, now, error="prefill-role replica cannot import streams")
+            return handle
+        if self.kv_layout != "paged":
+            handle._finish(REJECTED, now, error="import requires kv_layout='paged'")
             return handle
         if int(payload.get("draft_k", 0)) != self.draft_k:
             # the veto and rewind carry are draft_k's: a mismatched fleet
@@ -1519,13 +1701,23 @@ class ServingEngine:
             ])
         token = sample_token(self._last_logits, self.sampling, self._gen_mask, uniforms=uniforms)
         self._gen_mask[torch.arange(S, device=dev), token] = True
+        sampled = None
+        if not self.fused_tail:
+            # the A/B control (JAX ``_dispatch_defused``): the sampled
+            # tokens come to the host (one more sync) and go back up before
+            # the forward; the same draws in the same order
+            sampled = token.cpu().tolist()
+            up = torch.tensor(sampled, dtype=torch.long)
+            token = (up.pin_memory() if dev.type == "cuda" else up).to(dev, non_blocking=True)
         logits = self.model.logits(self.model.forward_paged(
-            token[:, None], self.pools, self._decoding_table(), self._cursors())[:, 0]).float()
+            token[:, None], self.pools, self._decoding_table(), self._cursors(), self.cache_len)[:, 0]).float()
         if self._chaos is not None:
             # injected NaNs meet the same non-finite criterion as organic ones
             logits = self._chaos.poison_logits(self._tick, logits)
         bad = ~torch.isfinite(logits).all(dim=-1)
         self._last_logits = logits
+        if sampled is not None:
+            return [[t] for t in sampled], [1] * S, bad.long().cpu().tolist()
         host = torch.cat([token, bad.long()]).cpu().tolist()
         return [[t] for t in host[:S]], [1] * S, host[S:]
 
@@ -1567,7 +1759,7 @@ class ServingEngine:
         token = draw(proc, self.sampling.greedy, uniforms=tok_u)
         x = torch.cat([token[:, None], draft], dim=1)  # [S, K + 1]
         logits32 = self.model.logits(self.model.forward_paged(
-            x, self.pools, self._decoding_table(), self._cursors())).float()  # [S, K + 1, V]
+            x, self.pools, self._decoding_table(), self._cursors(), self.cache_len)).float()  # [S, K + 1, V]
         flat = process_logits(logits32.reshape(S * (K + 1), V), self.sampling)
         if self.sampling.greedy:
             ok = draft == torch.argmax(flat, dim=-1).view(S, K + 1)[:, :K]
@@ -1617,9 +1809,10 @@ class ServingEngine:
         self._service_migrations()
         self._service_imports()
         self._prefill_work = False
-        self._admit_chunked()
+        self._admit()
         ran_prefill = self._prefill_tick()
-        self._grow_decode_pages()
+        if self.kv_layout == "paged":
+            self._grow_decode_pages()
         # an idle DEGRADED engine runs the decode over parked rows as a
         # self-probe: a load balancer honoring the 503 sends no traffic, and
         # without the probe the breaker could never close
@@ -1672,7 +1865,8 @@ class ServingEngine:
             qos_cls = self.qos.normalize(act.handle.request.qos)
             toks = blocks[slot][:n_emits[slot]]
             act.handle.ledger["decode_ticks"] += 1
-            act.handle.ledger["pages_held_ticks"] += self.slots.alloc_blocks[slot]
+            if self.kv_layout == "paged":  # a slab slot has no page unit: 0, as JAX's
+                act.handle.ledger["pages_held_ticks"] += self.slots.alloc_blocks[slot]
             if act.emitted == 0:
                 ttft_new.append((now - act.handle.submitted_at, qos_cls))
             elif act.last_emit_at is not None:
@@ -1921,8 +2115,9 @@ class ServingEngine:
         for slot, job in self._prefilling.items():
             job.fill = 0
             job.handle.prefix_hit_tokens = 0
-            self.slots.reset_slot_pages(slot)
-            self.slots.reserve(slot, self._total_need_tokens(job.handle.request))
+            if self.kv_layout == "paged":
+                self.slots.reset_slot_pages(slot)
+                self.slots.reserve(slot, self._total_need_tokens(job.handle.request))
         swap_event.set()
         self._event("reload_swapped", reloads=self.stats["reloads"])
 
@@ -1990,8 +2185,7 @@ class ServingEngine:
     def metrics_snapshot(self) -> Dict[str, Any]:
         """Serving metrics (JAX's key set, latencies in milliseconds, exact
         nearest-rank percentiles over the last 10,000 samples) plus the
-        port's device, pool and kernel-launch readings. The one-shot bucket
-        keys of a later slice read 0 / their defaults."""
+        port's device, pool and kernel-launch readings."""
         elapsed = max(self.now() - self._started, 1e-9)
         snap: Dict[str, Any] = {
             "tokens_per_sec": self.stats["tokens_out"] / elapsed,
@@ -2003,16 +2197,16 @@ class ServingEngine:
             "itl_ewma_ms": (self._itl_ewma.value or 0.0) * 1e3,
             "prefill_chunk": self.prefill_chunk,
             "prefilling": len(self._prefilling),
-            "prefill_buckets": 0,
-            "kv_layout": "paged",
+            "prefill_buckets": len(self._buckets_seen),
+            "kv_layout": self.kv_layout,
             "draft_k": self.draft_k,
             "page_pool_util": self.slots.page_pool_util,
-            "page_pool_peak": self.slots.pool.peak_in_use,
-            "cow_copies": self.slots.cow_copies,
+            "page_pool_peak": self.slots.pool.peak_in_use if self.kv_layout == "paged" else 0,
+            "cow_copies": self.cow_copies,
             "acceptance_rate": (self.stats["accepted_tokens"] / self.stats["draft_tokens"]
                                 if self.stats["draft_tokens"] else 0.0),
-            "kernel_paged_attention": int(self.device.type == "cuda"),
-            "fused_tail": 1,
+            "kernel_paged_attention": self.kernel_paged_attention,
+            "fused_tail": int(self.fused_tail),
             "role": self.role,
             "free_pages": self.free_pages,
             "migrations_in_flight": self._migrations_in_flight,
@@ -2038,6 +2232,17 @@ class ServingEngine:
         snap["queue_by_class"] = self._queue.counts()
         return snap
 
+    @property
+    def kernel_paged_attention(self) -> int:
+        """1 when the decode tick runs the paged-attention kernel (on CUDA,
+        either layout), 0 on the CPU's plain path."""
+        return int(self.device.type == "cuda")
+
+    @property
+    def cow_copies(self) -> int:
+        """Copy-on-write page copies (0 on a slab engine)."""
+        return self.slots.cow_copies if self.kv_layout == "paged" else 0
+
     def prometheus_text(self) -> str:
         """Prometheus text exposition (``text/plain; version=0.0.4``):
         histograms directly, host counters and gauges through scrape-time
@@ -2060,7 +2265,7 @@ class ServingEngine:
             ("serve_breaker_open", "1 while the circuit breaker is open", lambda: 1 if self._breaker.open else 0),
             ("serve_uptime_seconds", "Engine lifetime on its own clock", lambda: self.lifecycle.uptime_s),
             ("serve_itl_ewma_seconds", "Shedding's measured ITL EWMA", lambda: self._itl_ewma.value or 0.0),
-            ("serve_prefill_buckets", "Compiled one-shot prefill buckets", lambda: 0),
+            ("serve_prefill_buckets", "Compiled one-shot prefill buckets", lambda: len(self._buckets_seen)),
             ("serve_page_pool_util", "Paged-KV pool utilization (0 when slab)", lambda: self.slots.page_pool_util),
             ("serve_free_pages", "Spare KV capacity (free pool pages, or free slots when slab)",
              lambda: self.free_pages),
@@ -2068,7 +2273,7 @@ class ServingEngine:
         for name, help_text, fn in gauges:
             reg.gauge_func(name, help_text, fn)
         reg.counter_func("serve_cow_copies", "Copy-on-write page copies (shared page written post-import/share)",
-                         lambda: self.slots.cow_copies)
+                         lambda: self.cow_copies)
         for name, help_text, fn in (
             ("serve_migrations_in_flight", "Streams exported and awaiting their ship acknowledgement",
              lambda: self._migrations_in_flight),

@@ -362,11 +362,12 @@ class ServingServer:
             "active_slots": eng.active_count,
             "free_pages": eng.free_pages,
             "role": eng.role,
-            "kv_layout": "paged",
+            "kv_layout": eng.kv_layout,
             "draft_k": eng.draft_k,
             "migrations_in_flight": eng.migrations_in_flight,
             "page_faults": eng.stats["page_faults"],
-            "cow_copies": eng.slots.cow_copies,
+            "cow_copies": eng.cow_copies,
+            "kernel_paged_attention": eng.kernel_paged_attention,
             "brownout_rung": eng.brownout_rung,
             "queue_by_class": eng._queue.counts(),
         }

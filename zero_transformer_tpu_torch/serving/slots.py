@@ -1,7 +1,8 @@
-"""Host-side KV page allocation for the paged serving cache.
+"""Host-side KV bookkeeping for the serving engine's two layouts.
 
-Counterpart of ``zero_transformer_tpu/serving/slots.py`` (``PagePool`` :494,
-``PagedKVCache`` :563): refcounted pages with the trash page 0, admission
+Counterpart of ``zero_transformer_tpu/serving/slots.py``: ``SlotKVCache``
+(:153), the slab layout's slots and prefix-span copies (below), and
+``PagePool`` (:494) and ``PagedKVCache`` (:563) of the paged layout: refcounted pages with the trash page 0, admission
 reservations, the per-slot block tables kept on the host, slot
 acquire/release, and prefix sharing (``share`` maps a prefix hit's pages
 by refcount, ``bank`` takes the prefix index's reference, ``cow`` gives a
@@ -111,6 +112,92 @@ def _host_to_device(tensors: Dict[str, torch.Tensor], device) -> Dict[str, torch
     if device.type == "cpu":
         return _views(host, spans, like)
     return _views(host.to(device, non_blocking=True), spans, like)
+
+
+class SlotKVCache:
+    """The slab layout (JAX ``SlotKVCache``): every slot owns a fixed row of
+    ``seq_capacity`` positions. The rows are the engine's page pools seen
+    through a fixed identity table (as ``inference.generate.SlabCache``
+    sees its slab): slot ``s`` owns pages ``1 + s * n_blocks`` to ``(s + 1) *
+    n_blocks``, and page 0 is the trash page that a parked row's zeroed
+    table row writes to, so K1 and K4 run over it unchanged. The cursor is a
+    host value (prompt + emitted, or a prefill job's fill) as in the paged
+    engine: JAX's ``_reset_index`` on release and the index ``insert`` sets
+    have no device counterpart, and a one-shot prefill writes straight into
+    the slot's rows, so there is no ``insert`` either.
+
+    Prefix-cache entries are copies of K/V spans (JAX :195-236):
+    ``extract_spans`` gathers exactly ``count`` spans (JAX pads the count to
+    a power of two to bound its compile family; eager PyTorch has none) and
+    ``write_spans`` copies a hit's spans into a slot."""
+
+    def __init__(self, n_slots: int, seq_capacity: int, page_size: int):
+        if n_slots < 1:
+            raise ValueError("n_slots must be >= 1")
+        self.n_slots = n_slots
+        self.seq_capacity = seq_capacity
+        self.page_size = page_size
+        self.n_blocks = -(-seq_capacity // page_size)
+        self.n_pages = 1 + n_slots * self.n_blocks  # + the trash page
+        self.table = (1 + np.arange(n_slots * self.n_blocks, dtype=np.int32)).reshape(n_slots, self.n_blocks)
+        self._free: List[int] = list(range(n_slots))
+
+    def row(self, pool: torch.Tensor, slot: int) -> torch.Tensor:
+        """Slot ``slot``'s row of one pool ``[n_pages, page, ...]``: a view
+        ``[n_blocks * page, ...]`` over its pages (contiguous by the
+        identity table)."""
+        first = 1 + slot * self.n_blocks
+        return pool[first:first + self.n_blocks].flatten(0, 1)
+
+    def extract_spans(self, slot: int, length: int, count: int, pools) -> List[Dict[str, torch.Tensor]]:
+        """The first ``count`` consecutive ``length``-position spans of
+        ``slot`` (a prefix-cache store), in one gather per pool kind: each
+        span maps a pool kind (``k``, ``v`` and, for an int8 cache, the
+        scales) to ``[L, length, KVH, D or 1]``. The spans are views of one
+        copy; it is freed with the last of them."""
+        out = [dict() for _ in range(count)]
+        with torch.no_grad():
+            for field, _ in _POOL_FIELDS:
+                if getattr(pools[0], field) is None:
+                    continue
+                whole = torch.stack([self.row(getattr(p, field), slot)[:count * length] for p in pools])
+                for j, part in enumerate(whole.split(length, dim=1)):
+                    out[j][field] = part
+        return out
+
+    def write_spans(self, spans: Sequence[Dict[str, torch.Tensor]], slot: int, pools) -> None:
+        """Copy a prefix hit's spans into ``slot`` at their chunk-aligned
+        positions ``[0, len(spans) * length)``; the fill cursor stays with
+        the caller."""
+        if not spans:
+            return
+        with torch.no_grad():
+            for field in spans[0]:
+                whole = torch.cat([span[field] for span in spans], dim=1)
+                for i, p in enumerate(pools):
+                    self.row(getattr(p, field), slot)[:whole.shape[1]].copy_(whole[i])
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def active_count(self) -> int:
+        return self.n_slots - len(self._free)
+
+    @property
+    def page_pool_util(self) -> float:
+        return 0.0
+
+    def acquire(self) -> Optional[int]:
+        """Claim a free slot index, or None when fully occupied."""
+        return self._free.pop(0) if self._free else None
+
+    def release(self, slots: List[int]) -> None:
+        for s in slots:
+            if s in self._free:
+                raise ValueError(f"slot {s} double-released")
+            self._free.append(s)
 
 
 class PagePool:
