@@ -112,7 +112,15 @@ Phases, each fatal on failure (nothing is caught):
    memory, the transfers' share under ``torch.profiler``), plain and packed,
    then the trainer CLI under ``torch.distributed.run`` for 3 steps of
    ``configs/train_580m_8k.yaml`` and the same CLI on one card; the one-card
-   reference step's launches give the D 128 rows of the kernel table.
+   reference step's launches give the D 128 rows of the kernel table. In
+   the same 4-rank world, the same two steps with ``cp_impl: ulysses``
+   (three all-to-alls to the whole row at 3 heads a rank, one K1 call over
+   T 8192, the all-to-all back; K2/K3 in the backward): the ring's bars
+   against the same one-card steps, exactly 2L K1 and L K2/K3 launches a
+   rank (``_docs`` when packed), the all-to-alls' share of a profiled
+   step; then K1-K3 at that rank shape with the slopes of heads 3-5
+   against their plain versions (which the slopes of heads 0-2 must miss),
+   timed: the ``_ulysses`` rows.
 
 14. train_1_3b: ``configs/train_1_3b_1chip.yaml``'s path (1_3b, remat,
    ``loss_chunk`` 256, Adafactor, B 4 x accum 16, a bf16 accumulator):
@@ -306,6 +314,35 @@ Phases, each fatal on failure (nothing is caught):
    prefill/decode split: one disaggregated dispatch, none replayed, the
    stream equal to the mixed one. Every child exits 0 but the killed one.
 
+24. tensor_serving: tensor-parallel serving at TP 2 (NCCL with a card a
+   rank where two are visible, else two ranks sharing card 0 over gloo),
+   one world of ranks for (a)-(c), after the one-card references: (a)
+   125m in float32, the six serving requests through the engine (rank 0
+   schedules and announces each device program, rank 1 follows): streams
+   equal the one-card engine's, a forced prefill and decode step's logits
+   within 2e-4 of one card's, K1 and K4 launched on each rank as often as
+   on one card, each rank's weight and KV bytes half of one card's, and a
+   profiled decode tick (its ms, the ``tensor_group.*`` spans' share); (b)
+   125m in bf16, then int8 weights over the int8 KV cache (the first four
+   serving requests, 16 new tokens): every attention read of every rank
+   held to its plain read at the bf16 bar; (c)
+   llama3_8b at 32 layers in bf16 (weights drawn on the card a tensor at a
+   time, the rank's slice kept): K1 and K4 launched on each rank as often
+   as on one card, every attention read held to its plain read at the bf16
+   bar, each rank's weight and KV bytes half of one card's, peak memory per
+   rank; the forced prefill and decode step's logits within one card's own
+   bf16-to-float32 spread of one card's, and the streams' partings from one
+   card's only where one card's top-2 gap is within twice that bar (in bf16
+   another order of the row-parallel sums parts them at near ties); in
+   float32 at full width and 8 layers (as the generate phase holds
+   llama3_8b's float32 exactness), greedy streams equal one card's outside
+   top-2 gaps of 0.03 (gaps taken in float32 off the final hidden states); (d) ``serve --server --tensor 2`` (float32)
+   answers one HTTP request with the one-card stream and drains on
+   SIGTERM with exit 0, and ``--prompt ... --tensor 2`` answers. The
+   kernel rows of K1 and K4 at a rank's heads: 125m's heads 6-11 with
+   their slopes (the plain version with the slopes of heads 0-5 must miss
+   the bar), llama3_8b's 16 query on 4 kv heads.
+
 Each phase prints its seconds and the disk it leaves, after its step,
 checkpoint and build directories are deleted; the run prints every
 phase's seconds and the total before the kernel table.
@@ -332,7 +369,8 @@ bf16 rounding.
 (kernels, serving, parity, profile, int8_kernels, int8_serving,
 train_kernels, training, resilience, train_1_3b, packed_kernels, packed, sp_kernels,
 sequence_parallel, data_parallel, llama_kernels, llama_serving, llama_training, generate,
-serving_policy, disagg, slab_serving, router, data_parallel_nccl, sequence_parallel_f32, k4_anatomy and tc_fit; parity needs serving); the kernel table then lists the kernels whose phases ran.
+serving_policy, disagg, slab_serving, router, tensor_serving, data_parallel_nccl, sequence_parallel_f32, k4_anatomy
+and tc_fit; parity needs serving); the kernel table then lists the kernels whose phases ran.
 
 The last two lines of standard output are the kernel table as one JSON
 object and ``{"ok": true, "device": {...}}`` (a full run only). Without CUDA the script exits
@@ -735,15 +773,17 @@ def check_mma(got, lse, q, k, v, offs, seg, label, shifted, docs=None, doc_contr
     return out
 
 
-def sdpa_bias(B, T, S, offsets, seg, dtype, heads=H, alibi=True):
-    """The float bias of ALiBi (``alibi``), the causal limit at ``offsets``
-    and the validity mask ``seg``: ``[B, heads, T, S]``, or ``[B, 1, T, S]``
-    without ALiBi (the same for every head)."""
+def sdpa_bias(B, T, S, offsets, seg, dtype, heads=H, alibi=True, slopes=None):
+    """The float bias of ALiBi (``alibi``; ``slopes`` [heads]: a shard's own
+    table), the causal limit at ``offsets`` and the validity mask ``seg``:
+    ``[B, heads, T, S]``, or ``[B, 1, T, S]`` without ALiBi (the same for
+    every head)."""
     from zero_transformer_tpu_torch.ops.positions import NEG_INF, alibi_slopes
 
     q_pos = torch.tensor(offsets, device="cuda")[:, None] + torch.arange(T, device="cuda")
     dist = q_pos[:, :, None] - torch.arange(S, device="cuda")
-    slopes = alibi_slopes(heads, "cuda") if alibi else torch.zeros(1, device="cuda")
+    if slopes is None:
+        slopes = alibi_slopes(heads, "cuda") if alibi else torch.zeros(1, device="cuda")
     bias = -slopes[None, :, None, None] * dist.clamp(min=0)[:, None].float()
     bias = bias + torch.where(dist >= 0, 0.0, NEG_INF)[:, None]
     bias = bias + torch.where(seg != 0, 0.0, NEG_INF)[:, None, None, :]
@@ -3420,6 +3460,9 @@ SP_RANKS, SP_SEQ, SP_MODEL, SP_LR = 4, 8192, "580m", 1e-4
 SP_LAYERS = 4
 SP_SEPARATORS = (1000, 2047, 2048, 3000, 6100, 8191)  # packed case: across and on shard edges
 SP_STEP_CASES = {"plain": {}, "packed": {"doc_sep_token": 0}}  # 580m overrides
+# the same steps through Ulysses (cp_impl: ulysses), held to the same one-card references
+SP_ULYSSES_CASES = {"ulysses_plain": {"cp_impl": "ulysses"},
+                    "ulysses_packed": {"doc_sep_token": 0, "cp_impl": "ulysses"}}
 
 
 def sp_layer_inputs(docs: bool):
@@ -3486,7 +3529,7 @@ def _sp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str, 
         grads = torch.autograd.grad(o, (qs, ks, vs), do[:, sl].to(dev))
         torch.save([x.detach().cpu() for x in (o, *grads)], out / f"op_{int(docs)}_{rank}.pt")
         del q, k, v, do, qs, ks, vs, o, grads
-    for case, overrides in SP_STEP_CASES.items():
+    for case, overrides in {**SP_STEP_CASES, **SP_ULYSSES_CASES}.items():
         model = sp_model(overrides, dev, dtype).set_sequence_group(group)
         init_checksum = param_checksum(model)
         opt_cfg = OptimizerConfig(schedule="constant", peak_learning_rate=SP_LR)
@@ -3500,7 +3543,7 @@ def _sp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str, 
 
         st.optimizer.step = capture
         step = make_train_step(1, schedule, seq_group=group)
-        batch = sp_batch(case == "packed").to(dev)
+        batch = sp_batch(case.endswith("packed")).to(dev)
         torch.cuda.synchronize(dev)
         group.barrier()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3514,7 +3557,7 @@ def _sp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str, 
                 "launches": {n: c for n, c in launches.items() if c}, "init_checksum": init_checksum,
                 "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
         if rank == 0:
-            ref = torch.load(out / f"ref_{case}.pt", mmap=True, weights_only=True)
+            ref = torch.load(out / f"ref_{case.removeprefix('ulysses_')}.pt", mmap=True, weights_only=True)
             cos = {n: float(torch.nn.functional.cosine_similarity(
                 g.flatten().double(), ref["grads"][n].to(dev).flatten().double(), dim=0))
                 for n, g in captured["grads"].items()}
@@ -3542,6 +3585,9 @@ def _sp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str, 
                 "all_reduce_share": spans.get("sequence_group.all_reduce", 0.0) / wall_ms,
                 "rotate_ms": spans.get("sequence_group.rotate", 0.0),
                 "rotate_share": spans.get("sequence_group.rotate", 0.0) / wall_ms,
+                "all_to_all_ms": spans.get("sequence_group.all_to_all", 0.0),
+                "all_to_all_share": spans.get("sequence_group.all_to_all", 0.0) / wall_ms,
+                "all_gather_ms": spans.get("sequence_group.all_gather", 0.0),
                 "top_kernels_ms": top_kernels(kernels, 10, 1, 60)}
         else:
             step(st, batch)
@@ -3644,9 +3690,9 @@ def sequence_parallel_phase(dtype=torch.bfloat16) -> dict:
     log({f"sequence_parallel{tag}_op": op})
 
     launches = {}
-    for case in SP_STEP_CASES:
+    for case in {**SP_STEP_CASES, **SP_ULYSSES_CASES}:
         lines = [r[case] for r in results]
-        loss_ref, ref_init, _ = ref_loss[case]
+        loss_ref, ref_init, _ = ref_loss[case.removeprefix("ulysses_")]
         first = lines[0]
         summary = {"loss_ring": first["loss"], "loss_one_card": loss_ref, "loss_margin": LOSS_MARGIN,
                    "grad_cos_min": first["grad_cos_min"], "grad_cos_min_tensor": first["grad_cos_min_tensor"],
@@ -3663,20 +3709,27 @@ def sequence_parallel_phase(dtype=torch.bfloat16) -> dict:
             raise AssertionError(f"{case}: the ranks' seeded weights differ from the one-card model's")
         if len({x["checksum_after_update"] for x in lines}) != 1:
             raise AssertionError(f"{case}: params differ across the ranks after the update")
-        sfx = flash.DOCS if case == "packed" else ""
+        sfx = flash.DOCS if case.endswith("packed") else ""
         want = {"flash_partial_fwd" + sfx: L * SP_RANKS * 2, "flash_partial_dq" + sfx: L * SP_RANKS,
                 "flash_partial_dkv" + sfx: L * SP_RANKS}
+        if case in SP_ULYSSES_CASES:  # one call over the whole row a layer: the forward and its recompute
+            want = {"flash_train_fwd" + sfx: L * 2, "flash_dq" + sfx: L, "flash_dkv" + sfx: L}
         for x in lines:
             if x["launches"] != want:
                 raise AssertionError(f"{case} rank launches {x['launches']}, want exactly {want}")
-        launches.update(first["launches"])
+        if case in SP_ULYSSES_CASES:
+            launches.update({n.removesuffix(sfx) + ("_ulysses" if not sfx else "_ulysses_docs"): c
+                             for n, c in first["launches"].items()})
+        else:
+            launches.update(first["launches"])
     # the training entry at D 128: the one-card reference's launches
     launches.update({n + "_d128": one_card_launches["plain"].get(n, 0)
                      for n in ("flash_train_fwd", "flash_dq", "flash_dkv")})
+    sp_rows = ulysses_kernel_rows() if dtype == torch.bfloat16 else {}
     if dtype != torch.bfloat16:
         for f in out.glob("*.pt"):
             f.unlink()
-        return launches
+        return launches, sp_rows
 
     # the trainer CLI under torch.distributed.run, then on one card
     # 580m at its own dropout 0.1, its depth cut to SP_LAYERS
@@ -3698,7 +3751,78 @@ def sequence_parallel_phase(dtype=torch.bfloat16) -> dict:
     log({"one_card_trainer_cli_580m": {**one_cli, "model_flops_formula": flops}})
     for f in out.glob("*.pt"):
         f.unlink()
-    return launches
+    return launches, sp_rows
+
+
+def ulysses_kernel_rows() -> dict:
+    """K1 (training entry, with lse), K2 and K3 at a Ulysses rank's shape
+    (580m at T 8192 over 4 ranks: one row of the whole T at 3 heads of 128,
+    bf16) with the slopes of heads 3-5 (rank 1's), against their plain
+    versions; the plain versions handed the slopes of heads 0-2 must miss
+    the bars. Timed with SDPA as the yardstick: the kernel table's
+    ``_ulysses`` rows."""
+    import torch.nn.functional as F
+
+    from zero_transformer_tpu_torch.ops import flash
+
+    B, T, Hq, Dq, dtype = 1, SP_SEQ, 12 // SP_RANKS, 128, torch.bfloat16
+    slopes, wrong = shard_slopes((Hq, 12), Hq, True)
+    g = torch.Generator(device="cuda").manual_seed(77)
+    q, k, v, do = (torch.randn(B, T, Hq, Dq, generator=g, device="cuda").to(dtype) for _ in range(4))
+    scale = 1.0 / Dq**0.5
+    kw = dict(causal=True, alibi=True, scale=scale, slopes=slopes)
+
+    def fwd():
+        return flash._launch_fwd(q, k, v, causal=True, alibi=True, q_offset=0, segment_ids=None, scale=scale,
+                                 want_lse=True, counter=flash.TRAIN_KERNEL, slopes=slopes)
+
+    o, lse = fwd()
+    ref_o, _ = flash.flash_reference(q, k, v, causal=True, alibi=True, slopes=slopes)
+    fwd_err = compare(o, ref_o, dtype, "ulysses K1")
+    fwd_control = reject_unsliced(o, lambda sl: flash.flash_reference(q, k, v, causal=True, alibi=True,
+                                                                      slopes=sl)[0], wrong, "ulysses K1")
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    got = (flash.launch_dq(q, k, v, do, lse, delta, **kw), *flash.launch_dkv(q, k, v, do, lse, delta, **kw))
+    qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
+    ref = flash.flash_bwd_reference(qf, kf, vf, of, lse, dof, causal=True, alibi=True, slopes=slopes)
+    misses = [grad_miss(a, b) for a, b in zip(got, ref)]
+    if max(misses) > 1.0:
+        raise AssertionError(f"ulysses K2/K3: dq/dk/dv at {misses} of their bars")
+    errs = [float((a.float() - b).abs().max()) for a, b in zip(got, ref)]
+    del ref
+    off = flash.flash_bwd_reference(qf, kf, vf, of, lse, dof, causal=True, alibi=True, slopes=wrong)
+    wrong_misses = [grad_miss(a, b) for a, b in zip(got, off)]
+    if max(wrong_misses) <= 1.0:
+        raise AssertionError(f"ulysses K2/K3: the slopes of heads 0-2 pass the bars ({wrong_misses})")
+    del off, qf, kf, vf, of, dof
+    torch.cuda.empty_cache()
+    kern = {"flash_train_fwd": fwd,
+            "flash_dq": lambda: flash.launch_dq(q, k, v, do, lse, delta, **kw),
+            "flash_dkv": lambda: flash.launch_dkv(q, k, v, do, lse, delta, **kw)}
+    plain_fwd = time_ms(lambda: flash.flash_reference(q, k, v, causal=True, alibi=True, slopes=slopes), iters=3)
+    plain_bwd = time_ms(lambda: flash.flash_bwd_reference(q, k, v, o, lse, do, causal=True, alibi=True,
+                                                          slopes=slopes), iters=3)
+    bias = sdpa_bias(B, T, T, [0], torch.ones(B, T, dtype=torch.int32, device="cuda"), dtype, Hq, slopes=slopes)
+    qt, kt, vt = (x.transpose(1, 2).requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias), iters=10)
+    # the library backward computes dq, dk and dv together: one time for K2 and K3
+    lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
+                      iters=10)
+    bounds = train_bounds(B, T, Hq, Hq, Dq, dtype, True)
+    rows = {}
+    for name, fn in kern.items():
+        err = fwd_err if name == "flash_train_fwd" else (errs[0] if name == "flash_dq" else max(errs[1:]))
+        bound, by = bounds[name]
+        rows[name + "_ulysses"] = dict(max_abs_err=err, ms=time_ms(fn, iters=10), device_ms=device_ms(fn, iters=10),
+                                       plain_ms=plain_fwd if name == "flash_train_fwd" else plain_bwd,
+                                       library_ms=lib_fwd if name == "flash_train_fwd" else lib_bwd,
+                                       bound_ms=bound, bound_by=by)
+        log({"kernel": name + "_ulysses", "shape": [B, T, Hq, Hq, Dq], "heads": [Hq, 12], **rows[name + "_ulysses"]})
+    log({"ulysses_unsliced_slopes": {"k1_err": fwd_control, "k2_k3_over_bar": wrong_misses, "bars": misses}})
+    del lib_out, qt, kt, vt, bias
+    torch.cuda.empty_cache()
+    return rows
 
 
 def trainer_cli_580m(launcher: list, sets: list, run_dir: Path):
@@ -4146,7 +4270,7 @@ LLAMA_T, LLAMA_CHUNK, LLAMA_PARITY_T = 8192, 1024, 2048
 # llama_serving's decode profiles: 5 ticks, not the 125m phase's 20 (their
 # trace of ~2,400 kernels a tick took 42 of the phase's 159 s on one card;
 # the per-tick readings are those of a whole 32-layer tick either way)
-LLAMA_PROFILE_TICKS = 5
+LLAMA_PROFILE_TICKS = 3  # ticks each llama3_8b decode profile traces (few: the run has a time limit)
 # llama3_8b's parity against the plain path at full width, depth 32 -> 8:
 # its float32 models (32 GB each at full depth, five builds over the two
 # parity runs) were most of the phase; the HTTP runs and profiles stay at 32
@@ -4948,10 +5072,40 @@ def generate_engine() -> dict:
     return reading
 
 
-def gen_k1_row(key: str, B: int, T: int, S: int, Hq: int, KVH: int, Dh: int, offs_l, alibi: bool, rows: dict):
+def shard_slopes(heads, Hq: int, alibi: bool):
+    """``heads`` (lo, total): the ALiBi slopes of a tensor-parallel shard's
+    query heads lo .. lo + Hq - 1 of a model with ``total`` heads, and those
+    of heads 0 .. Hq - 1 (the unsliced table, which the bar must reject);
+    (None, None) for the whole model or without ALiBi."""
+    from zero_transformer_tpu_torch.ops.positions import alibi_slopes
+
+    if heads is None or not alibi:
+        return None, None
+    lo, total = heads
+    table = alibi_slopes(total, "cuda")
+    return table[lo:lo + Hq].contiguous(), table[:Hq].contiguous()
+
+
+def reject_unsliced(got, plain, wrong, key: str) -> float:
+    """The head-offset control: the plain version handed the unsliced slopes
+    (``wrong``, heads 0 .. H/N) must miss the bar the kernel met; returns
+    how far it lands."""
+    if wrong is None:
+        return 0.0
+    control = plain(wrong)
+    if within(got, control, torch.bfloat16):
+        raise AssertionError(f"{key}: the plain version with the slopes of heads 0.. passes the bar; the check "
+                             "cannot tell a shard's head range")
+    return float((got.float() - control.float()).abs().max())
+
+
+def gen_k1_row(key: str, B: int, T: int, S: int, Hq: int, KVH: int, Dh: int, offs_l, alibi: bool, rows: dict,
+               heads=None):
     """K1 (``flash_serving``) at a generate shape: a window of T queries at
     ``offs_l`` over the slab's S gathered keys and its validity mask, bf16,
-    against its plain version; timed with SDPA as the yardstick."""
+    against its plain version; timed with SDPA as the yardstick. ``heads``
+    (lo, total): a tensor-parallel shard's query heads, with their slopes
+    (``shard_slopes``; the unsliced table must miss the bar)."""
     import torch.nn.functional as F
 
     from zero_transformer_tpu_torch.ops import flash
@@ -4959,9 +5113,12 @@ def gen_k1_row(key: str, B: int, T: int, S: int, Hq: int, KVH: int, Dh: int, off
     dtype = torch.bfloat16
     q, k, v, offs, seg = flash_case(B, T, S, KVH, dtype, offs_l, [o + T for o in offs_l], seed=len(key) + 900,
                                     Hq=Hq, Dh=Dh)
-    kw = dict(causal=True, alibi=alibi, q_offset=offs, segment_ids=seg)
-    err = compare(flash.flash_serving(q, k, v, **kw), flash.flash_reference(q, k, v, **kw)[0], dtype, key)
-    bias = sdpa_bias(B, T, S, offs_l, seg, dtype, Hq, alibi=alibi)
+    slopes, wrong = shard_slopes(heads, Hq, alibi)
+    kw = dict(causal=True, alibi=alibi, q_offset=offs, segment_ids=seg, slopes=slopes)
+    got = flash.flash_serving(q, k, v, **kw)
+    err = compare(got, flash.flash_reference(q, k, v, **kw)[0], dtype, key)
+    control = reject_unsliced(got, lambda sl: flash.flash_reference(q, k, v, **{**kw, "slopes": sl})[0], wrong, key)
+    bias = sdpa_bias(B, T, S, offs_l, seg, dtype, Hq, alibi=alibi, slopes=slopes)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     bound, by = flash_bound(B, T, offs_l, KVH, dtype, Hq, Dh, S)
     rows[key] = dict(
@@ -4971,18 +5128,19 @@ def gen_k1_row(key: str, B: int, T: int, S: int, Hq: int, KVH: int, Dh: int, off
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias,
                                                                   enable_gqa=KVH != Hq)),
         bound_ms=bound, bound_by=by)
-    log({"kernel": key, "shape": [B, T, S, Hq, KVH, Dh], "offsets": offs_l, **rows[key]})
+    log({"kernel": key, "shape": [B, T, S, Hq, KVH, Dh], "offsets": offs_l, "heads": heads,
+         "unsliced_slopes_err": control, **rows[key]})
 
 
 def gen_k4_row(key: str, B: int, T: int, S: int, Hq: int, KVH: int, Dh: int, offs_l, alibi: bool, rows: dict,
-               int8: bool = False, shared_blocks: int = 0):
+               int8: bool = False, shared_blocks: int = 0, heads=None):
     """K4 (``paged_attention``) at a generate shape: a window of T <= 8
     queries at ``offs_l`` over a slab of S keys seen as pages through the
     identity table (row b owns pages 1 + b * S / page on), bf16 (``int8``:
     int8 pools with float32 scales), against its plain version; timed with
     the page gather + SDPA as the yardstick. ``shared_blocks``: every row
     maps its leading blocks to the same pages (1, 2, ...), as streams behind
-    a prefix-cache hit do."""
+    a prefix-cache hit do. ``heads`` as in ``gen_k1_row``."""
     import torch.nn.functional as F
 
     from zero_transformer_tpu_torch.ops import paged_attention as pa
@@ -4996,14 +5154,18 @@ def gen_k4_row(key: str, B: int, T: int, S: int, Hq: int, KVH: int, Dh: int, off
         pools, scales = (kp, vp), {}
     table = (1 + torch.arange(B * n_blocks, dtype=torch.int32, device="cuda")).view(B, n_blocks)
     table[:, :shared_blocks] = 1 + torch.arange(shared_blocks, dtype=torch.int32, device="cuda")
-    kw = dict(causal=T > 1, alibi=alibi)
+    slopes, wrong = shard_slopes(heads, Hq, alibi)
+    kw = dict(causal=T > 1, alibi=alibi, slopes=slopes)
 
     def call():
         return pa.paged_attention(q, *pools[:2], table, offs, **scales, **kw)
 
-    err = compare(call(), pa.paged_reference(q, *pools[:2], table, offs, **scales, **kw), dtype, key)
+    got = call()
+    err = compare(got, pa.paged_reference(q, *pools[:2], table, offs, **scales, **kw), dtype, key)
+    control = reject_unsliced(
+        got, lambda sl: pa.paged_reference(q, *pools[:2], table, offs, **scales, **{**kw, "slopes": sl}), wrong, key)
     valid = (torch.arange(S, device="cuda")[None, :] < offs[:, None] + T).int()
-    bias = sdpa_bias(B, T, S, offs_l, valid, dtype, Hq, alibi=alibi)
+    bias = sdpa_bias(B, T, S, offs_l, valid, dtype, Hq, alibi=alibi, slopes=slopes)
 
     def library():  # gather (and dequantize) the pages, then SDPA
         if int8:
@@ -5021,7 +5183,8 @@ def gen_k4_row(key: str, B: int, T: int, S: int, Hq: int, KVH: int, Dh: int, off
     rows[key] = dict(max_abs_err=err, ms=time_ms(call), device_ms=device_ms(call),
                      plain_ms=time_ms(lambda: pa.paged_reference(q, *pools[:2], table, offs, **scales, **kw)),
                      library_ms=time_ms(library), bound_ms=bound, bound_by=by)
-    log({"kernel": key, "shape": [B, T, S, Hq, KVH, Dh], "offsets": offs_l, **rows[key]})
+    log({"kernel": key, "shape": [B, T, S, Hq, KVH, Dh], "offsets": offs_l, "heads": heads,
+         "unsliced_slopes_err": control, **rows[key]})
 
 
 def generate_phase() -> tuple:
@@ -6860,6 +7023,510 @@ def router_phase() -> dict:
     return reading
 
 
+# ------------------------------------------ tensor-parallel serving (TP 2)
+
+TP_RANKS = 2
+TP_DIR = Path("build") / "tensor_serving"  # the ranks' results and the references; deleted after the phase
+TP_LLAMA_LENS, TP_LLAMA_NEW, TP_LLAMA_CACHE = (40, 300, 600), 16, 2048  # (c): llama3_8b's requests
+TP_B_LENS, TP_B_NEW = PROMPT_LENS[:4], 16  # (b): the serving requests' first four, cut for the run's time
+TP_PROFILE_LEN = 128  # (a)'s profiled tick: four streams of two prefill chunks each
+TP_PROFILE_TICKS = 3
+TP_FORCED = 4  # (a): rows of the forced prefill + decode step whose logits are held at 2e-4
+
+
+def tp_prompts(lens, salt: int = 0) -> list:
+    return [list(prompt_text(n, salt + i).encode()) for i, n in enumerate(lens)]
+
+
+def tp_engine(model, cache_len: int = CACHE, **kw):
+    """The serving engine the phase runs on one card and on each rank: the
+    serving phase's geometry, greedy."""
+    from zero_transformer_tpu_torch.inference.sampling import SamplingConfig
+    from zero_transformer_tpu_torch.serving import ServingEngine
+
+    return ServingEngine(model, n_slots=SLOTS, cache_len=cache_len, sampling=SamplingConfig(greedy=True),
+                         prefill_chunk=CHUNK, page_size=PAGE, device=next(model.parameters()).device, **kw)
+
+
+def tp_streams(engine, prompts, new: int) -> list:
+    """Every prompt submitted at once, the engine run to idle: the greedy
+    streams, in order."""
+    handles = [engine.submit(p, max_new_tokens=new) for p in prompts]
+    engine.run_until_idle()
+    return [h.tokens for h in handles]
+
+
+def tp_forced(engine, prompts) -> list:
+    """The engine's own device program on an idle engine: each prompt
+    prefilled in one window through K1 (rows on pages 1 + b * n_blocks on),
+    then one decode step of its greedy token through K4. Returns the last
+    prefill logits and the step's logits [B, V] on the host."""
+    B, dev = len(prompts), engine.device
+    n_blocks = engine.cache_len // PAGE
+    table = (1 + torch.arange(B * n_blocks, dtype=torch.int32, device=dev)).view(B, n_blocks)
+    T = max(len(p) for p in prompts)
+    tokens = torch.tensor([p + [0] * (T - len(p)) for p in prompts], device=dev)
+    lens = torch.tensor([len(p) for p in prompts], device=dev)
+    with torch.no_grad():
+        first = engine.forward_logits(tokens, table, torch.zeros(B, dtype=torch.int32, device=dev), flash=True,
+                                      pick=lens - 1)
+        step = engine.forward_logits(first.argmax(-1)[:, None], table, lens.int(),
+                                     pick=torch.zeros(B, dtype=torch.long, device=dev))
+    return [first.cpu(), step.cpu()]
+
+
+def tp_gaps(model, prompts, streams) -> list:
+    """Per stream, the one-card model's top-2 logit gap before each of its
+    greedy tokens (one full forward over the prompt and the stream). The
+    head runs in float32 on the final hidden states: bf16 logits near the
+    top (|x| 4-8 here) are quantized to 0.03125, coarser than the 0.03 bar
+    itself, so a gap read off them is 0, 0.03125 or 0.0625 whatever the
+    product's own gap."""
+    gaps = []
+    with torch.no_grad():
+        for p, s in zip(prompts, streams):
+            tokens = torch.tensor([p + s], device="cuda")
+            h = model._blocks(model._embed(tokens, None, torch.arange(tokens.shape[1], device="cuda")), None)
+            h = model.ln_f(h)[0, len(p) - 1:len(p) - 1 + len(s)]
+            logits = h.float() @ model.head_weight().float()
+            top2 = torch.topk(logits, 2, dim=-1).values
+            gaps.append((top2[:, 0] - top2[:, 1]).cpu().tolist())
+    return gaps
+
+
+def tp_one_card_references(out: Path) -> dict:
+    """(a) and (c) on one card, before the ranks take it: 125m float32's
+    streams, launches and forced logits; llama3_8b bf16's streams, forced
+    logits, the top-2 gaps along the streams and its bytes; in float32 at
+    32 layers its forced logits (the bf16 bar: one card's own bf16-to-
+    float32 spread), and at ``GEN_LLAMA_F32_LAYERS`` its streams and gaps.
+    Saved for the checks after the ranks; the models freed."""
+    from zero_transformer_tpu_torch.ops import _build
+
+    ref = {}
+    model = gen_model("125m", torch.float32, "auto")
+    engine = tp_engine(model)
+    ref["f32_forced"] = tp_forced(engine, tp_prompts(PROMPT_LENS[:TP_FORCED], 50))  # also the warm-up
+    _build.reset_launches()
+    ref["f32_streams"] = tp_streams(engine, tp_prompts(PROMPT_LENS), MAX_NEW)
+    ref["f32_launches"] = {k: c for k, c in _build.LAUNCHES.items() if c}
+    ref["f32_bytes"] = {"weight_bytes": engine.weight_bytes, "kv_pool_bytes": engine.kv_pool_bytes}
+    del engine, model
+    model = gen_model(LLAMA, torch.bfloat16, "auto")
+    engine = tp_engine(model, TP_LLAMA_CACHE)
+    prompts = tp_prompts(TP_LLAMA_LENS, 70)
+    _build.reset_launches()
+    ref["llama_streams"] = tp_streams(engine, prompts, TP_LLAMA_NEW)
+    ref["llama_launches"] = {k: c for k, c in _build.LAUNCHES.items() if c}
+    ref["llama_bytes"] = {"weight_bytes": engine.weight_bytes, "kv_pool_bytes": engine.kv_pool_bytes}
+    ref["llama_forced"] = tp_forced(engine, prompts)
+    ref["llama_gaps"] = tp_gaps(model, prompts, ref["llama_streams"])
+    del engine, model
+    model = gen_model(LLAMA, torch.float32, "auto")
+    ref["llama_f32_forced"] = tp_forced(tp_engine(model, TP_LLAMA_CACHE), prompts)
+    del model
+    model = gen_model(LLAMA, torch.float32, "auto", n_layers=GEN_LLAMA_F32_LAYERS)
+    engine = tp_engine(model, TP_LLAMA_CACHE)
+    ref["llama_f32_streams"] = tp_streams(engine, prompts, TP_LLAMA_NEW)
+    ref["llama_f32_gaps"] = tp_gaps(model, prompts, ref["llama_f32_streams"])
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.save(ref, out / "one_card.pt")
+    return ref
+
+
+def tp_session(engine, group, lead):
+    """One run of ``engine`` over the group whose launch counts every rank
+    reads: the counts zeroed on every rank, then rank 0 runs ``lead()``
+    while the others follow its plans; the counts read just after.
+    Returns (``lead()``'s result on rank 0, this rank's launches)."""
+    from zero_transformer_tpu_torch.ops import _build
+
+    torch.cuda.synchronize(group.device)
+    _build.reset_launches()
+    group.barrier()
+    result = None
+    if group.rank == 0:
+        engine._workers_stopped = False  # the others are back in serve_worker: plans may go out again
+        result = lead()
+        engine.shutdown_workers()
+    else:
+        engine.serve_worker()
+    torch.cuda.synchronize(group.device)
+    return result, {k: c for k, c in _build.LAUNCHES.items() if c}
+
+
+def tp_model(name: str, dtype, group, weights: str = "none", kv: str = "auto", **cfg):
+    """``name`` with seed-``SEED`` weights split over ``group``: drawn whole
+    one tensor at a time on the rank's card, the rank's slices kept
+    (``Transformer.init_weights``). int8 weights: the whole float32 model
+    quantized, then cut (a row split keeps its scale whole). ``cfg``: more
+    config overrides (``n_layers``)."""
+    from zero_transformer_tpu_torch.inference import shard_for_inference
+    from zero_transformer_tpu_torch.models import model_getter
+    from zero_transformer_tpu_torch.models.quant import quantize_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    if weights != "int8":
+        return model_getter(name, dtype=dtype, device=group.device, seed=SEED, kv_cache_dtype=kv,
+                            tensor_group=group, **cfg).cast_for_inference()
+    whole = quantize_model(model_getter(name, dtype=dtype, device=group.device, seed=SEED, kv_cache_dtype=kv))
+    model = model_getter(name, dtype=dtype, device=group.device, kv_cache_dtype=kv, param_quant="int8",
+                         tensor_group=group)
+    model.load_state_dict(shard_for_inference(model, whole.state_dict(), group))
+    del whole
+    return model.cast_for_inference()
+
+
+def tp_profile(engine, group) -> dict:
+    """Rank 0: ``TP_PROFILE_TICKS`` decode ticks of four ``TP_PROFILE_LEN``-token
+    streams under the profiler: the tick's wall time and the ``tensor_group.*``
+    spans' share of it (host time, the gloo staging included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def lead():
+        handles = [engine.submit(p, max_new_tokens=TP_PROFILE_TICKS + 4)
+                   for p in tp_prompts([TP_PROFILE_LEN] * SLOTS, 80)]
+        while engine._prefilling or engine.active_count < SLOTS:
+            engine.step()
+        engine.step()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TP_PROFILE_TICKS):
+                engine.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / TP_PROFILE_TICKS
+        engine.run_until_idle()
+        spans = {ev.key: ev.cpu_time_total / 1e3 / TP_PROFILE_TICKS for ev in prof.key_averages()
+                 if ev.key.startswith("tensor_group.") and str(ev.device_type).endswith("CPU")}
+        kernels = kernel_times(prof)
+        busy = sum(ms for ms, _ in kernels.values()) / TP_PROFILE_TICKS
+        del handles
+        return {"tick_ms": wall, "device_busy_ms": busy, "device_busy_share": busy / wall, "spans_ms": spans,
+                "tensor_group_share": sum(spans.values()) / wall}
+
+    return tp_session(engine, group, lead)[0]
+
+
+def _tp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str) -> None:
+    """One rank of the tensor_serving phase, one world for (a)-(c): (a) 125m
+    float32 (streams, forced logits, launches, bytes, the tick's profile on
+    rank 0), (b) 125m bf16 and int8 weights + int8 KV with every attention
+    read of every rank held to its plain read, (c) llama3_8b at 32 layers:
+    bf16 (streams, launches, bytes, peak, forced logits, every read held to
+    its plain read), then float32 at ``GEN_LLAMA_F32_LAYERS`` (streams)."""
+    from zero_transformer_tpu_torch.parallel.mesh import init_tensor_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = Path(out_dir)
+    group = init_tensor_group(world, rank, f"file://{init_file}", "cuda", backend)
+    dev = group.device
+    result = {"rank": rank, **group.describe(), "parts_s": {}}
+    t_part = time.perf_counter()
+    # (a) 125m float32
+    engine = tp_engine(tp_model("125m", torch.float32, group))
+    # the forced logits first: their session warms the engine up for the streams' run
+    logits, _ = tp_session(engine, group, lambda: tp_forced(engine, tp_prompts(PROMPT_LENS[:TP_FORCED], 50)))
+    torch.cuda.reset_peak_memory_stats(dev)
+    streams, launches = tp_session(engine, group, lambda: tp_streams(engine, tp_prompts(PROMPT_LENS), MAX_NEW))
+    result["f32"] = {"launches": launches, "weight_bytes": engine.weight_bytes, "kv_pool_bytes": engine.kv_pool_bytes,
+                     "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    if rank == 0:
+        result["f32"].update(streams=streams, decode_tick_ms=engine._decode_s / engine.stats["decode_ticks"] * 1e3)
+        torch.save(logits, out / "tp_forced.pt")
+    result["f32"]["profile"] = tp_profile(engine, group)
+    del engine
+    result["parts_s"]["a"], t_part = time.perf_counter() - t_part, time.perf_counter()
+    # (b) 125m bf16, then int8 weights and the int8 KV cache: every read held to the plain read
+    for label, weights, kv in (("bf16", "none", "auto"), ("int8", "int8", "int8")):
+        model = tp_model("125m", torch.bfloat16, group, weights, kv)
+        engine = tp_engine(model)
+        with attention_reads_checked(model, f"tensor_serving {label} rank {rank}") as reads:
+            streams, launches = tp_session(engine, group,
+                                           lambda: tp_streams(engine, tp_prompts(TP_B_LENS), TP_B_NEW))
+        result[label] = {"reads": reads, "launches": launches, "streams": streams,
+                         "weight_bytes": engine.weight_bytes, "kv_pool_bytes": engine.kv_pool_bytes}
+        del engine, model
+    result["parts_s"]["b"], t_part = time.perf_counter() - t_part, time.perf_counter()
+    # (c) llama3_8b bf16, 32 layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = tp_model(LLAMA, torch.bfloat16, group)
+    engine = tp_engine(model, TP_LLAMA_CACHE)
+    build_s = time.perf_counter() - t0
+    prompts = tp_prompts(TP_LLAMA_LENS, 70)
+    # the plain reads run the plain path (attention_impl "xla"): the kernels' launches stay the engine's
+    with attention_reads_checked(model, f"tensor_serving llama3_8b rank {rank}") as reads:
+        streams, launches = tp_session(engine, group, lambda: tp_streams(engine, prompts, TP_LLAMA_NEW))
+    result["llama"] = {"launches": launches, "streams": streams, "weight_bytes": engine.weight_bytes,
+                       "kv_pool_bytes": engine.kv_pool_bytes, "build_s": build_s, "layers": engine.cfg.n_layers,
+                       "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30, "reads": reads}
+    forced, _ = tp_session(engine, group, lambda: tp_forced(engine, prompts))
+    if rank == 0:
+        torch.save(forced, out / "tp_forced_llama.pt")
+    del engine, model
+    # the streams' exactness in float32 at GEN_LLAMA_F32_LAYERS layers (in bf16 two orders of summation
+    # part streams at near ties)
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = tp_engine(tp_model(LLAMA, torch.float32, group, n_layers=GEN_LLAMA_F32_LAYERS), TP_LLAMA_CACHE)
+    streams, _ = tp_session(engine, group, lambda: tp_streams(engine, prompts, TP_LLAMA_NEW))
+    result["llama_f32"] = {"streams": streams, "layers": engine.cfg.n_layers}
+    del engine
+    result["parts_s"]["c"] = time.perf_counter() - t_part
+    (out / f"rank{rank}.json").write_text(json.dumps(result))
+    group.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def tp_gemm_orders() -> dict:
+    """Why bf16 TP streams part from one card's at near ties: at
+    llama3_8b's layer shapes (M 4, a decode tick; M 192, a prefill chunk of
+    3 rows), the share of a GEMM's bf16 outputs that differ from one
+    card's: column-parallel (the shard's N / 2 columns by their own GEMM)
+    and row-parallel (two K / 2 halves summed in float32 and rounded once,
+    as the model does; summed in bf16, as it would with bf16 partials)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for M in (4, 192):
+        for name, N in (("q", LH * LD), ("kv", LKVH * LD), ("wi", 14336), ("head", 128256)):
+            x = torch.randn(M, 4096, generator=g, device="cuda").bfloat16()
+            w = (torch.randn(N, 4096, generator=g, device="cuda") * 0.02).bfloat16()
+            halves = torch.cat([F.linear(x, w[:N // 2]), F.linear(x, w[N // 2:])], dim=-1)
+            out[f"column_{name}_M{M}"] = float((F.linear(x, w) != halves).float().mean())
+        for name, K in (("out", LH * LD), ("wo", 14336)):
+            x = torch.randn(M, K, generator=g, device="cuda").bfloat16()
+            w = (torch.randn(4096, K, generator=g, device="cuda") * 0.02).bfloat16()
+            one, h = F.linear(x, w), K // 2
+            f32 = (torch.mm(x[:, :h], w[:, :h].T, out_dtype=torch.float32)
+                   + torch.mm(x[:, h:], w[:, h:].T, out_dtype=torch.float32)).bfloat16()
+            bf16 = F.linear(x[:, :h], w[:, :h]) + F.linear(x[:, h:], w[:, h:])
+            out[f"row_{name}_M{M}_f32_sums"] = float((one != f32).float().mean())
+            out[f"row_{name}_M{M}_bf16_sums"] = float((one != bf16).float().mean())
+    return out
+
+
+def tp_cli_start(params: Path, prompt: str) -> dict:
+    """(d)'s two processes, started when the phase starts (they load while
+    the one-card references and the rank world run): ``serve --server
+    --tensor 2`` and ``serve --prompt ... --tensor 2``, 125m in float32."""
+    common = ["--model", "125m", "--params", str(params), "--dtype", "float32", "--greedy", "--tensor",
+              str(TP_RANKS), "--max-new-tokens", str(MAX_NEW), "--repetition-penalty", "1.0"]
+    server, lines = cli_server([*common, "--server", "--port", "0", "--prefix-cache", "0", "--obs-dir",
+                                str(TP_DIR / "obs")])
+    one = subprocess.Popen([sys.executable, "-m", "zero_transformer_tpu_torch.serve", *common, "--prompt", prompt],
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                           cwd=Path(__file__).resolve().parent)
+    return {"server": server, "lines": lines, "one": one, "t0": time.perf_counter()}
+
+
+def tp_cli(procs: dict, prompt: str, expect: list) -> dict:
+    """(d) the server answers one request over HTTP with the one-card
+    engine's stream and drains on SIGTERM; the one-shot prints one answer;
+    both print their backend and exit 0."""
+    import signal
+
+    from zero_transformer_tpu_torch.serve import ByteTokenizer
+
+    reading, out = {}, []
+    proc, lines, one = procs["server"], procs["lines"], procs["one"]
+    try:
+        base = cli_base(lines, out, "the tensor-parallel serve CLI")
+        reading["ready_s_from_phase_start"] = time.perf_counter() - procs["t0"]
+        code, text = http("POST", base + "/generate", {"prompt": prompt, "max_new_tokens": MAX_NEW,
+                                                        "stream": False})
+        tokens = json.loads(text)["tokens"]
+        if code != 200 or tokens != expect:
+            raise AssertionError(f"the --tensor 2 server: HTTP {code}, {tokens} vs the one-card engine's {expect}")
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(120)
+        stdout, stderr = one.communicate(timeout=600)
+    finally:
+        for p in (proc, one):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    while not lines.empty():
+        out.append(lines.get())
+    if proc.returncode != 0:
+        raise AssertionError(f"the --tensor 2 server exited {proc.returncode}: {out[-10:]}")
+    reading["server_topology"] = next((json.loads(x) for x in out if x.startswith('{"tensor_ranks"')), None)
+    # the answer: what is printed after the topology lines (it may hold newlines of its own)
+    text = "".join(x for x in stdout.splitlines(keepends=True) if not x.startswith('{"tensor_'))[:-1]
+    if one.returncode != 0 or not text:
+        raise AssertionError(f"the --tensor 2 one-shot exited {one.returncode}: {stdout[-500:]} {stderr[-500:]}")
+    reading["one_shot_equals_engine_text"] = text == ByteTokenizer().decode(expect)
+    reading["one_shot_topology"] = next((json.loads(x) for x in stdout.splitlines()
+                                         if x.startswith('{"tensor_ranks"')), None)
+    # each rank's host peak: rank 0 read the weights and sent them a tensor at a time
+    for key, lines_of in (("server", out), ("one_shot", stdout.splitlines())):
+        reading[f"{key}_host_peak_gib_per_rank"] = next(
+            (json.loads(x)["tensor_host_peak_gib"] for x in lines_of if x.startswith('{"tensor_host_peak_gib"')),
+            None)
+    if None in (reading["server_topology"], reading["one_shot_topology"], reading["server_host_peak_gib_per_rank"],
+                reading["one_shot_host_peak_gib_per_rank"]):
+        raise AssertionError(f"a --tensor 2 CLI printed no topology or host peaks: {reading}")
+    return reading
+
+
+def tensor_serving_phase() -> tuple:
+    """Tensor-parallel serving on the card (the module doc, phase 24): the
+    one-card references, then one world of ``TP_RANKS`` ranks for (a)-(c)
+    (``_tp_rank``), the checks, (d) the CLI, and the kernel rows of K1 and
+    K4 at TP 2's local heads (125m: rank 1's heads 6-11 with their slopes;
+    llama3_8b: 16 query and 4 kv heads). Returns the rows and rank 0's
+    launches of (a) and (c)."""
+    from zero_transformer_tpu_torch.convert import params_to_jax
+
+    t_phase = time.perf_counter()
+    TP_DIR.mkdir(parents=True, exist_ok=True)
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= TP_RANKS else "gloo"
+    topology = {"ranks": TP_RANKS, "cards": min(cards, TP_RANKS), "backend": backend,
+                "transfers": "NCCL, card to card" if backend == "nccl" else "gloo through pinned host memory"}
+    log({"tensor_serving_topology": topology, "card": card_line()})
+    params = POLICY_DIR / "a.npz"
+    if not params.exists():  # the serving_policy phase did not run
+        POLICY_DIR.mkdir(parents=True, exist_ok=True)
+        np.savez(params, **params_to_jax(gen_model("125m", torch.float32, "auto").state_dict()))
+        gc.collect()
+    cli = tp_cli_start(params, prompt_text(PROMPT_LENS[0], 0))
+    try:
+        t0 = time.perf_counter()
+        ref = tp_one_card_references(TP_DIR)
+        refs_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = run_ranks(_tp_rank, TP_RANKS, backend, TP_DIR, what="tensor-serving")
+        ranks_s = time.perf_counter() - t0
+    except BaseException:
+        for proc in (cli["server"], cli["one"]):  # no process outlives the phase
+            proc.kill()
+            proc.wait()
+        raise
+    r0 = ranks[0]
+    failed = []  # every reading is logged first, then the phase fails on any miss
+    # (a) 125m float32: streams, logits, launches per rank, bytes
+    if r0["f32"]["streams"] != ref["f32_streams"]:
+        failed.append(f"(a) TP 2 streams differ from the one-card engine's: {r0['f32']['streams']} vs "
+                      f"{ref['f32_streams']}")
+    got = torch.load(TP_DIR / "tp_forced.pt")
+    logit_err = [float((a - b).abs().max()) for a, b in zip(got, ref["f32_forced"])]
+    if max(logit_err) > 2e-4:
+        failed.append(f"(a) TP 2 logits (prefill, decode step) beyond 2e-4 of one card's: {logit_err}")
+    for r in ranks:
+        for k in ("flash_serving_fwd", "paged_attention"):
+            if r["f32"]["launches"].get(k, 0) != ref["f32_launches"][k]:
+                failed.append(f"(a) rank {r['rank']} launched {k} {r['f32']['launches'].get(k, 0)} times, one "
+                              f"card {ref['f32_launches'][k]}")
+    # (b) every read within the bf16 bar (checked inside the ranks); the int8 path through K4's int8 branch
+    for r in ranks:
+        if r["int8"]["launches"].get("paged_attention", 0) or not r["int8"]["launches"].get("paged_attention_int8"):
+            failed.append(f"(b) rank {r['rank']}'s int8 launches: {r['int8']['launches']}")
+    # (c) llama3_8b. In float32 (GEN_LLAMA_F32_LAYERS layers) greedy tokens equal one card's up to a near
+    # tie (0.03). In bf16 at 32 layers the row-parallel sums' order moves the logits (~0.3): the forced
+    # logits must stay within one card's own bf16-to-float32 spread at 32 layers, and a stream may part
+    # only where one card's top-2 gap is within twice that bar (two logits each moved by it can swap there)
+    forced = torch.load(TP_DIR / "tp_forced_llama.pt")
+    one, f32 = ref["llama_forced"], ref["llama_f32_forced"]
+    # the decode step's logits only on rows whose three prefills agree on the token they fed
+    agree = (forced[0].argmax(-1) == one[0].argmax(-1)) & (one[0].argmax(-1) == f32[0].argmax(-1))
+    llama_logit_err = [float((forced[0] - one[0]).abs().max()),
+                       float((forced[1] - one[1])[agree].abs().max()) if bool(agree.any()) else None]
+    llama_bf16_spread = [float((one[0] - f32[0]).abs().max()),
+                         float((one[1] - f32[1])[agree].abs().max()) if bool(agree.any()) else None]
+    for what, err, bar in zip(("prefill", "decode step"), llama_logit_err, llama_bf16_spread):
+        if err is not None and not err <= bar:
+            failed.append(f"(c) llama3_8b bf16 {what} logits {err} from one card's, beyond one card's own bf16 "
+                          f"to float32 spread {bar}")
+    tie_bf16 = 2 * max(x for x in llama_bf16_spread if x is not None)
+    ties = {}
+    for label, got, want_all, gaps_all in (
+            ("f32", r0["llama_f32"]["streams"], ref["llama_f32_streams"], ref["llama_f32_gaps"]),
+            ("bf16", r0["llama"]["streams"], ref["llama_streams"], ref["llama_gaps"])):
+        ties[label] = []
+        for b, (g, want, gaps) in enumerate(zip(got, want_all, gaps_all)):
+            diff = [t for t, (x, y) in enumerate(zip(g, want)) if x != y]
+            if diff:
+                t = diff[0]
+                ties[label].append([b, t, gaps[t], g[t:t + 4], want[t:t + 4]])
+                bar = TIE_BF16_SERVE if label == "f32" else tie_bf16
+                if not gaps[t] <= bar:
+                    failed.append(f"(c) llama3_8b {label} row {b} parts at token {t} where one card's top-2 gap "
+                                  f"is {gaps[t]} (> {bar})")
+    for r in ranks:
+        for k in ("flash_serving_fwd", "paged_attention"):
+            if r["llama"]["launches"].get(k, 0) != ref["llama_launches"][k]:
+                failed.append(f"(c) rank {r['rank']} launched {k} {r['llama']['launches'].get(k, 0)} times, one "
+                              f"card {ref['llama_launches'][k]}")
+    llama_argmax_equal = int(agree.sum())
+    if r0["llama"]["layers"] != 32 or r0["llama_f32"]["layers"] != GEN_LLAMA_F32_LAYERS:
+        failed.append(f"(c) llama3_8b was not served at 32 layers in bf16 and {GEN_LLAMA_F32_LAYERS} in float32")
+    shares = {}
+    for label, one, key in (("125m_f32", ref["f32_bytes"], "f32"), ("llama3_8b", ref["llama_bytes"], "llama")):
+        for r in ranks:
+            for b in ("weight_bytes", "kv_pool_bytes"):
+                share = r[key][b] / one[b]
+                shares[f"{label}_{b}_rank{r['rank']}"] = share
+                if not 0.49 <= share <= 0.51:
+                    failed.append(f"{label} rank {r['rank']} holds {share:.4f} of one card's {b}")
+    log({"tensor_serving": {
+        "one_card_s": refs_s, "ranks_s": ranks_s, "topology": {k: r0[k] for k in ("backend", "device", "cards",
+                                                                                   "staged_through_host")},
+        "f32": {"logit_max_err": logit_err, "streams_equal": r0["f32"]["streams"] == ref["f32_streams"],
+                "launches_per_rank": [r["f32"]["launches"] for r in ranks], "one_card_launches": ref["f32_launches"],
+                "decode_tick_ms": r0["f32"]["decode_tick_ms"],
+                "peak_memory_gib_per_rank": [r["f32"]["peak_memory_gib"] for r in ranks],
+                "profile_rank0": r0["f32"]["profile"]},
+        "bf16_reads": [r["bf16"]["reads"] for r in ranks], "int8_reads": [r["int8"]["reads"] for r in ranks],
+        "bf16_streams_equal_f32": sum(a == b[:TP_B_NEW] for a, b in zip(r0["bf16"]["streams"], ref["f32_streams"])),
+        "int8_streams_equal_f32": sum(a == b[:TP_B_NEW] for a, b in zip(r0["int8"]["streams"], ref["f32_streams"])),
+        "llama": {"ties": ties, "rows_equal": {k: len(TP_LLAMA_LENS) - len(v) for k, v in ties.items()},
+                  "one_card_gaps": ref["llama_gaps"], "one_card_f32_gaps": ref["llama_f32_gaps"],
+                  "reads": [r["llama"]["reads"] for r in ranks],
+                  "forced_logit_max_err": llama_logit_err, "forced_argmax_equal_rows": llama_argmax_equal,
+                  "bf16_bar_one_card_bf16_to_f32": llama_bf16_spread, "bf16_tie_bar": tie_bf16,
+                  "build_s_per_rank": [r["llama"]["build_s"]
+                                                                                       for r in ranks],
+                  "peak_memory_gib_per_rank": [r["llama"]["peak_memory_gib"] for r in ranks],
+                  "launches_rank0": r0["llama"]["launches"], "one_card_launches": ref["llama_launches"]},
+        "parts_s_rank0": r0["parts_s"],
+        "bytes_share_of_one_card": shares}})
+    log({"tensor_serving_gemm_outputs_differing_from_one_card": tp_gemm_orders()})
+    # (d) the CLI, started with the phase
+    try:
+        log({"tensor_serving_cli": tp_cli(cli, prompt_text(PROMPT_LENS[0], 0), ref["f32_streams"][0])})
+    except AssertionError as e:
+        failed.append(str(e))
+    # the kernel rows at TP 2's local heads
+    rows = {}
+    gen_k1_row("flash_serving_fwd_tp", SLOTS, CHUNK, CACHE, H // 2, H // 2, D, [0, 256, 512, 896], True, rows,
+               heads=(H // 2, H))
+    gen_k4_row("paged_attention_tp", SLOTS, 1, CACHE, H // 2, H // 2, D, [n + MAX_NEW // 2 for n in
+                                                                       PROMPT_LENS[:SLOTS]], True, rows,
+               heads=(H // 2, H))
+    gen_k1_row("flash_serving_fwd_tp_llama", SLOTS, CHUNK, TP_LLAMA_CACHE, LH // 2, LKVH // 2, LD,
+               [0, 256, 1024, 1984], False, rows)
+    gen_k4_row("paged_attention_tp_llama", SLOTS, 1, TP_LLAMA_CACHE, LH // 2, LKVH // 2, LD, [40, 300, 600, 2000],
+               False, rows)
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    log({"tensor_serving_s": time.perf_counter() - t_phase})
+    if failed:
+        raise AssertionError(f"tensor_serving: {failed}")
+    launches = {"flash_serving_fwd_tp": r0["f32"]["launches"]["flash_serving_fwd"],
+                "paged_attention_tp": r0["f32"]["launches"]["paged_attention"],
+                "flash_serving_fwd_tp_llama": r0["llama"]["launches"]["flash_serving_fwd"],
+                "paged_attention_tp_llama": r0["llama"]["launches"]["paged_attention"]}
+    return rows, launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6871,10 +7538,10 @@ def card_line() -> str:
 PHASES = ("kernels", "serving", "parity", "profile", "int8_kernels", "int8_serving", "train_kernels", "training",
           "resilience", "train_1_3b", "packed_kernels", "packed", "sp_kernels", "sequence_parallel", "data_parallel",
           "llama_kernels", "llama_serving", "llama_training", "generate", "serving_policy", "disagg", "slab_serving",
-          "router")
+          "router", "tensor_serving")
 # what the phases write under build/ (the kernels' libraries and POLICY_DIR aside)
 PHASE_DIRS = ("resilience", "train_1_3b", "packed", "sp", "train_580m_8k_sp", "train_580m_8k_one_card", "data_parallel",
-              "data_parallel_nccl", "llama_training", "generate", "disagg", "slab_serving", "router")
+              "data_parallel_nccl", "llama_training", "generate", "disagg", "slab_serving", "router", "tensor_serving")
 # named with --phases only: the ring's parity with every kernel on its f32 path, K4's
 # anatomy, data parallelism over NCCL with a card per rank (4 cards), and the
 # fit of the tensor cores' adder that the ALiBi-off K1 emulation uses
@@ -6977,6 +7644,25 @@ SOURCES = {
                                   "zero_transformer_tpu/ops/pallas/flash.py:127"),
     "paged_attention_slab": ("zero_transformer_tpu_torch/csrc/paged_attention.cu",
                              "zero_transformer_tpu/ops/pallas/paged_attention.py:100"),
+    # tensor-parallel serving at TP 2: K1 on a prefill chunk and K4 on the
+    # decode tick at a rank's local heads (125m: 6 query heads with the
+    # slopes of heads 6-11; llama3_8b: 16 query on 4 kv heads)
+    "flash_serving_fwd_tp": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
+                             "zero_transformer_tpu/ops/pallas/flash.py:127"),
+    "paged_attention_tp": ("zero_transformer_tpu_torch/csrc/paged_attention.cu",
+                           "zero_transformer_tpu/ops/pallas/paged_attention.py:100"),
+    "flash_serving_fwd_tp_llama": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
+                                   "zero_transformer_tpu/ops/pallas/flash.py:127"),
+    "paged_attention_tp_llama": ("zero_transformer_tpu_torch/csrc/paged_attention.cu",
+                                 "zero_transformer_tpu/ops/pallas/paged_attention.py:100"),
+    # Ulysses (580m, T 8192 over 4 ranks): the training entry over the whole
+    # row at a rank's 3 heads, with the slopes of heads 3-5
+    "flash_train_fwd_ulysses": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
+                                "zero_transformer_tpu/ops/pallas/flash.py:127"),
+    "flash_dq_ulysses": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
+                         "zero_transformer_tpu/ops/pallas/flash.py:176"),
+    "flash_dkv_ulysses": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
+                          "zero_transformer_tpu/ops/pallas/flash.py:214"),
 }
 
 
@@ -7078,7 +7764,9 @@ def main(argv) -> int:
             rows.update(sp_kernel_phase())
     if "sequence_parallel" in phases:
         with timed("sequence_parallel"):
-            launches.update(sequence_parallel_phase())
+            sp_launches, sp_rows = sequence_parallel_phase()
+            launches.update(sp_launches)
+            rows.update(sp_rows)
     if "data_parallel" in phases:
         with timed("data_parallel"):
             data_parallel_phase()
@@ -7113,6 +7801,11 @@ def main(argv) -> int:
     if "router" in phases:
         with timed("router"):
             router_phase()
+    if "tensor_serving" in phases:
+        with timed("tensor_serving"):
+            tp_rows, tp_launches = tensor_serving_phase()
+            rows.update(tp_rows)
+            launches.update(tp_launches)
     log({"phase_s": phase_s, "total_s": time.perf_counter() - t_start})
     shutil.rmtree(POLICY_DIR, ignore_errors=True)
     table = [

@@ -323,3 +323,142 @@ def trainer_chaos_runs(mesh, runs: list) -> list:
                                if k.startswith("params/")}})
         mesh.barrier()
     return out
+
+
+# ------------------------------------------------- tensor parallelism, Ulysses
+
+
+def _tensor_group(mesh):
+    """The whole world as one tensor group (a pure tensor-parallel mesh)."""
+    from zero_transformer_tpu_torch.parallel.mesh import tensor_group_of_world
+
+    return tensor_group_of_world("gloo", mesh.device)
+
+
+def _tp_model(c: dict, group):
+    """The case's model over ``group``, this rank's shard of its whole
+    ``state`` loaded, cast for inference."""
+    from zero_transformer_tpu_torch import config as tconfig
+    from zero_transformer_tpu_torch.inference import shard_for_inference
+    from zero_transformer_tpu_torch.models.gpt import Transformer
+
+    model = Transformer(tconfig.model_config(c["zoo"], **c["over"]), device="cpu", tensor_group=group)
+    model.load_state_dict(shard_for_inference(model, {n: torch.from_numpy(p) for n, p in c["state"].items()},
+                                              group))
+    return model.cast_for_inference()
+
+
+def _scattered(c: dict, group) -> dict:
+    """``scatter_for_inference`` from rank 0's whole state: whether the
+    rank's weights equal its ``shard_for_inference`` slices, and the error
+    every rank raises when rank 0's tree lacks a name."""
+    from zero_transformer_tpu_torch import config as tconfig
+    from zero_transformer_tpu_torch.inference import scatter_for_inference, shard_for_inference
+    from zero_transformer_tpu_torch.models.gpt import Transformer
+
+    whole = {n: torch.from_numpy(p) for n, p in c["state"].items()}
+    model = Transformer(tconfig.model_config(c["zoo"], **c["over"]), device="cpu", tensor_group=group)
+    scatter_for_inference(model, whole if group.rank == 0 else None, group)
+    want = shard_for_inference(model, whole, group)
+    equal = sorted(model.state_dict()) == sorted(want) and all(
+        torch.equal(t, want[n]) for n, t in model.state_dict().items())
+    try:
+        scatter_for_inference(model, dict(list(whole.items())[1:]) if group.rank == 0 else None, group)
+        error = None
+    except RuntimeError as exc:
+        error = str(exc)
+    return dict(scattered_equal=equal, short_tree_error=error)
+
+
+def tp_generate_cases(mesh, cases: dict) -> dict:
+    """Every case's model split over the world: greedy ``generate`` tokens,
+    the prefill's last logits over a fresh cache, the cache's kv heads, the
+    rank's state shapes and its weights scattered from rank 0."""
+    from zero_transformer_tpu_torch.inference import SamplingConfig, generate, init_cache, prefill
+
+    group = _tensor_group(mesh)
+    out = {}
+    for name, c in cases.items():
+        model = _tp_model(c, group)
+        prompt = torch.from_numpy(c["prompt"])
+        tokens = generate(model, prompt, c["new"], sampling=SamplingConfig(greedy=True), cache_len=c["cache_len"])
+        cache = init_cache(model, prompt.shape[0], c["cache_len"])
+        with torch.no_grad():
+            logits = prefill(model, prompt, cache)
+        out[name] = dict(tokens=tokens.numpy(), logits=logits.numpy(), pool=tuple(cache.pools[0].k.shape),
+                         shapes={n: tuple(t.shape) for n, t in model.state_dict().items()}, **_scattered(c, group))
+    return out
+
+
+def tp_engine_cases(mesh, cases: dict) -> dict:
+    """Every case's serving engine split over the world: rank 0 submits each
+    wave of prompts and runs it to idle (so a later wave can hit the prefix
+    cache), then stops the others, which follow its plans in
+    ``serve_worker``. Rank 0 returns the streams and counters."""
+    from zero_transformer_tpu_torch.inference.sampling import SamplingConfig
+    from zero_transformer_tpu_torch.serving import ServingEngine
+
+    from zero_transformer_tpu_torch.serving import ServeFault, ServingChaosMonkey
+
+    group = _tensor_group(mesh)
+    out = {}
+    for name, c in cases.items():
+        chaos = ServingChaosMonkey([ServeFault(**c["fault"])]) if c.get("fault") else None
+        engine = ServingEngine(_tp_model(c, group), device="cpu", sampling=SamplingConfig(greedy=True), chaos=chaos,
+                               **c["engine"])
+        if c.get("cow"):  # every rank's pools filled alike, then rank 0's copy-on-write of page 3 into page 5
+            gen = torch.Generator().manual_seed(group.rank)
+            for layer in engine.pools:
+                for pool in (layer.k, layer.v, layer.k_scale, layer.v_scale):
+                    if pool is not None:
+                        pool.copy_(torch.randint(-127, 128, pool.shape, generator=gen).to(pool.dtype))
+        if group.rank:
+            engine.serve_worker()
+            out[name] = dict(kv_pool_bytes=engine.kv_pool_bytes, weight_bytes=engine.weight_bytes)
+        else:
+            if c.get("cow"):
+                engine._copy_page(3, 5)
+            streams, outcomes = [], []
+            for i, wave in enumerate(c["waves"]):
+                if i and c.get("reload"):  # the second wave on the reloaded weights
+                    engine.reload_params({n: torch.from_numpy(v) for n, v in c["reload"].items()})
+                handles = [engine.submit(list(p), max_new_tokens=c["new"]) for p in wave]
+                engine.run_until_idle()
+                streams += [h.tokens for h in handles]
+                outcomes += [(h.status, h.retryable) for h in handles]
+            engine.shutdown_workers()
+            snap = engine.metrics_snapshot()
+            out[name] = dict(streams=streams, outcomes=outcomes, kv_pool_bytes=engine.kv_pool_bytes,
+                             snapshot={k: v for k, v in snap.items() if isinstance(v, (int, float))},
+                             weight_bytes=engine.weight_bytes)
+        if c.get("cow"):
+            out[name]["copied"] = all(torch.equal(pool[5], pool[3]) for layer in engine.pools
+                                      for pool in (layer.k, layer.v, layer.k_scale, layer.v_scale)
+                                      if pool is not None)
+    return out
+
+
+def ulysses_world(mesh, payload: dict) -> dict:
+    """The Ulysses file's one world: op-level cases on the whole world's
+    sequence group (forward and grads of this rank's shards), the model's
+    local logits with ``cp_impl: ulysses``, and ``zero_cases`` over ``data
+    x sequence``."""
+    from zero_transformer_tpu_torch import config as tconfig
+    from zero_transformer_tpu_torch.models.gpt import Transformer
+    from zero_transformer_tpu_torch.ops.ulysses import ulysses_attention
+
+    group = mesh.sequence
+    ops = {}
+    for name, c in payload["ops"].items():
+        q, k, v = (torch.from_numpy(shard(c[x], group.rank, group.size)).requires_grad_() for x in "qkv")
+        ids = None if c["ids"] is None else torch.from_numpy(shard(c["ids"], group.rank, group.size))
+        o = ulysses_attention(q, k, v, group, causal=True, alibi=c["alibi"], doc_ids=ids)
+        grads = torch.autograd.grad(o, (q, k, v), torch.from_numpy(shard(c["g"], group.rank, group.size)))
+        ops[name] = tuple(x.detach().numpy() for x in (o, *grads))
+    models = {}
+    for name, c in payload["models"].items():
+        model = Transformer(tconfig.model_config(c["zoo"], **c["model"]), device="cpu", seq_group=group)
+        model.load_state_dict({n: torch.from_numpy(p) for n, p in c["params"].items()})
+        with torch.no_grad():
+            models[name] = model(torch.from_numpy(c["tokens"])).numpy()
+    return {"ops": ops, "models": models, "zero": zero_cases(mesh, payload["zero"])}

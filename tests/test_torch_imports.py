@@ -54,7 +54,7 @@ def test_scan_sees_the_whole_package():
             "data/sources.py", "data/loader.py", "data/__init__.py", "train.py"} <= names
     assert {"data/tarshards.py", "data/prepare.py", "evalharness/__init__.py", "evalharness/__main__.py",
             "evalharness/scoring.py", "evalharness/tasks.py", "evalharness/cli.py", "models/quant.py"} <= names
-    assert {"ops/ring_attention.py", "parallel/mesh.py"} <= names
+    assert {"ops/ring_attention.py", "ops/ulysses.py", "parallel/mesh.py"} <= names
     assert {"inference/generate.py", "inference/speculative.py", "inference/sampling.py", "inference/__init__.py",
             "serving/detok.py"} <= names
     assert {"resilience/__init__.py", "resilience/anomaly.py", "resilience/chaos.py", "resilience/supervisor.py",

@@ -278,12 +278,13 @@ def test_yaml_subset_scalars_match_pyyaml():
 def test_unported_training_features_raise():
     from zero_transformer_tpu_torch.training.trainer import build_training
 
-    # the remat policies are ported: dots and qkv_mlp build and train; ulysses is not
+    # the remat policies are ported: dots and qkv_mlp build and train; so is ulysses
     for policy in ("dots", "qkv_mlp"):
         cfg = tconfig.model_config("test", remat=True, remat_policy=policy)
         assert build_training(tconfig.Config(model=cfg), "cpu").state.model.cfg.remat_policy == policy
-    with pytest.raises(NotImplementedError):
-        tconfig.model_config("test", cp_impl="ulysses")
+    assert tconfig.model_config("test", cp_impl="ulysses").cp_impl == "ulysses"
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        tconfig.MeshConfig(tensor=2)
     # the chunked loss is ported: its chunk is validated as JAX does
     assert tconfig.model_config("test", loss_chunk=256).loss_chunk == 256
     for field in (dict(remat_policy="all"), dict(cp_impl="tree"), dict(loss_chunk=0)):

@@ -81,7 +81,8 @@ class ModelConfig:
     remat_policy: str = "none"
     attention_impl: str = "auto"  # "auto" | "xla" (plain torch) | "flash"
     # the context-parallel engine when mesh.sequence > 1: "ring" (K/V shards
-    # rotate around the ranks, ops/ring_attention.py); "ulysses" is not ported
+    # rotate around the ranks, ops/ring_attention.py) or "ulysses"
+    # (all-to-alls to whole rows over H / n heads, ops/ulysses.py)
     cp_impl: str = "ring"
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -157,11 +158,6 @@ class ModelConfig:
             raise ValueError(f"invalid remat_policy {self.remat_policy!r}")
         if self.cp_impl not in ("ring", "ulysses"):
             raise ValueError(f"invalid cp_impl {self.cp_impl!r}")
-        if self.cp_impl == "ulysses":
-            raise NotImplementedError(
-                "cp_impl 'ulysses' is not ported yet (ROADMAP Queue 1 item 13); "
-                "sequence parallelism runs the ring engine (cp_impl: ring)"
-            )
         if self.loss_chunk is not None and self.loss_chunk <= 0:
             raise ValueError("loss_chunk must be a positive chunk size or None")
         resolve_dtype(self.param_dtype)

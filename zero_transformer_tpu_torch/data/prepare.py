@@ -20,7 +20,10 @@ Usage::
       --rows-per-shard 1024 --doc-sep 0 --out data/corpus
 
 ``--tokenizer`` is ``bytes``, the byte-level tokenizer of the port's serve
-CLI (vocab 256, no download); a HuggingFace tokenizer name raises.
+CLI (vocab 256, no download), or a local directory holding a HuggingFace
+tokenizer (``serve.load_tokenizer``: needs the ``transformers`` package; a
+hub name raises). Documents are encoded without special tokens (JAX
+``_encode``).
 ``--input`` takes ``.txt`` (one document per file) and ``.jsonl`` (one
 document per line under a ``"text"`` key).
 """
@@ -64,12 +67,20 @@ def iter_documents(inputs: List[str]) -> Iterator[str]:
 
 
 def load_tokenizer(name: str):
-    """The serve CLI's byte tokenizer; other tokenizers are not ported."""
-    if name != "bytes":
-        raise NotImplementedError(f"tokenizer {name!r}: the port ships the byte tokenizer only")
-    from zero_transformer_tpu_torch.serve import ByteTokenizer
+    """The serve CLI's dispatch: ``bytes``, or a local HuggingFace
+    tokenizer directory."""
+    from zero_transformer_tpu_torch.serve import load_tokenizer as load
 
-    return ByteTokenizer()
+    return load(name)
+
+
+def _encode(tokenizer, doc: str) -> List[int]:
+    """Tokenize WITHOUT special tokens: a tokenizer that prepends BOS or
+    appends EOS would put stray tokens before every document."""
+    try:
+        return tokenizer.encode(doc, add_special_tokens=False)
+    except TypeError:  # the byte tokenizer takes no such keyword
+        return tokenizer.encode(doc)
 
 
 def pack_rows(
@@ -81,7 +92,7 @@ def pack_rows(
     buf: List[int] = []
     first = True
     for doc in docs:
-        ids = tokenizer.encode(doc)
+        ids = _encode(tokenizer, doc)
         # keyed on "not the first document", not on a non-empty buffer: a
         # document that fills rows exactly leaves the buffer empty and must
         # still be separated from the next one
@@ -152,7 +163,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="zero_transformer_tpu_torch.data.prepare", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--input", nargs="+", required=True, help=".txt / .jsonl files or globs")
-    p.add_argument("--tokenizer", default="bytes", help='"bytes" (the only one ported)')
+    p.add_argument("--tokenizer", default="bytes",
+                   help='"bytes", or a local directory holding a HuggingFace tokenizer (needs transformers)')
     p.add_argument("--max-context", type=int, default=2048, help="row length")
     p.add_argument("--format", choices=("memmap", "tar"), default="memmap")
     p.add_argument("--out", required=True, help="output file (memmap) or shard prefix (tar)")

@@ -16,9 +16,13 @@ evaluation. Data is pre-tokenized JSONL:
 
 It runs on the CUDA card unless ``--device cpu`` is given. ``--quantize
 int8`` scores the weight-only int8 model: the tree is quantized on the host
-(the conversion ``serve --quantize int8`` runs), then loaded. ``--tokenizer``
-(text fields through a HuggingFace tokenizer) is not ported and raises. The
-result is one JSON line on stdout.
+(the conversion ``serve --quantize int8`` runs), then loaded. ``--tokenizer
+<dir>`` (JAX :92-96) takes text fields instead of ids: a HuggingFace
+tokenizer saved in a local directory (``serve.load_tokenizer``: the
+``transformers`` package, no hub name) encodes each context as is and each
+target or choice with a leading space, without special tokens (JAX
+``_tok`` :40), and a string choice's byte length is that of the scored text.
+The result is one JSON line on stdout.
 """
 from __future__ import annotations
 
@@ -41,6 +45,17 @@ def _read_jsonl(path: str):
                 yield json.loads(line)
 
 
+def _tok(tokenizer, x, prefix_space: bool = False):
+    """Token ids of a data field: ids pass through; a string (with a
+    tokenizer) is encoded without BOS/EOS, a continuation with a leading
+    space (JAX ``_tok``)."""
+    if tokenizer is None:
+        return list(x)
+    if isinstance(x, str):
+        return tokenizer.encode((" " + x) if prefix_space else x, add_special_tokens=False)
+    return list(x)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="zero_transformer_tpu_torch.evalharness", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -54,7 +69,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     p.add_argument("--num-bytes", type=int, default=None, help="UTF-8 bytes for bpb")
     p.add_argument("--limit", type=int, default=None, help="cap example count")
-    p.add_argument("--tokenizer", default=None, help="not ported: data must be token ids")
+    p.add_argument("--tokenizer", default=None,
+                   help="a local directory holding a HuggingFace tokenizer (needs transformers): text fields")
     p.add_argument("--quantize", default="none", choices=("none", "int8"),
                    help="score the weight-only int8 serving path (the same "
                         "conversion serve --quantize runs) — measures what "
@@ -65,8 +81,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    tokenizer = None
     if args.tokenizer:
-        raise NotImplementedError("--tokenizer (HuggingFace text fields) is not ported: pass token ids")
+        from zero_transformer_tpu_torch.serve import load_tokenizer
+
+        tokenizer = load_tokenizer(args.tokenizer)
     device = resolve_device(args.device)
     from zero_transformer_tpu_torch.convert import params_from_jax, read_params_tree
     from zero_transformer_tpu_torch.evalharness import choice_accuracy, lambada, perplexity
@@ -90,7 +109,7 @@ def main(argv=None) -> None:
             num_bytes = args.num_bytes
         else:
             obj = json.loads(Path(args.data).read_text())
-            tokens = np.asarray(obj["tokens"], np.int32)
+            tokens = np.asarray(_tok(tokenizer, obj["tokens"]), np.int32)
             num_bytes = obj.get("num_bytes", args.num_bytes)
         if args.task == "bpb":
             if not num_bytes:
@@ -103,11 +122,17 @@ def main(argv=None) -> None:
             tokens = tokens[: args.limit]
         out = perplexity(model, tokens, args.seq_len, args.batch_size, num_bytes)
     elif args.task == "lambada":
-        examples = [(list(r["context"]), list(r["target"])) for r in rows()]
+        examples = [(_tok(tokenizer, r["context"]), _tok(tokenizer, r["target"], True)) for r in rows()]
         out = lambada(model, examples, args.seq_len, args.batch_size)
     else:  # choice
-        examples = [(list(r["context"]), [list(c) for c in r["choices"]], int(r["gold"]),
-                     r.get("choice_bytes")) for r in rows()]
+        examples = []
+        for r in rows():
+            byte_lens = r.get("choice_bytes")
+            if byte_lens is None and all(isinstance(c, str) for c in r["choices"]):
+                # lm-eval's convention: the UTF-8 length of the scored continuation, its space included
+                byte_lens = [len((" " + c).encode()) for c in r["choices"]]
+            examples.append((_tok(tokenizer, r["context"]), [_tok(tokenizer, c, True) for c in r["choices"]],
+                             int(r["gold"]), byte_lens))
         out = choice_accuracy(model, examples, args.seq_len, args.batch_size)
     print(json.dumps({"task": args.task, "model": args.model, "device": str(device), **out}))
 

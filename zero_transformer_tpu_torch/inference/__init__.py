@@ -1,9 +1,8 @@
 """Decode-side inference: the slab-cache generation loops, prompt-lookup
 speculative decoding, sampling and the paged decode model's pools
-(counterpart of ``zero_transformer_tpu/inference``).
-
-``serve_mesh`` and ``shard_for_inference`` (tensor-parallel serving) come
-with ROADMAP Queue 1 item 13; here they raise ``NotImplementedError``."""
+(counterpart of ``zero_transformer_tpu/inference``), and tensor-parallel
+serving's ``serve_mesh``, ``shard_for_inference`` and
+``scatter_for_inference``."""
 from zero_transformer_tpu_torch.inference.generate import (
     SlabCache,
     decode_model,
@@ -11,6 +10,9 @@ from zero_transformer_tpu_torch.inference.generate import (
     generate_tokens,
     init_cache,
     prefill,
+    scatter_for_inference,
+    serve_mesh,
+    shard_for_inference,
     stream_tokens,
 )
 from zero_transformer_tpu_torch.inference.sampling import (
@@ -22,14 +24,6 @@ from zero_transformer_tpu_torch.inference.sampling import (
     top_p_filter,
 )
 from zero_transformer_tpu_torch.inference.speculative import generate_speculative, ngram_propose
-
-
-def serve_mesh(tensor: int):
-    raise NotImplementedError("tensor-parallel serving (serve_mesh) is ROADMAP Queue 1 item 13")
-
-
-def shard_for_inference(model, params, mesh):
-    raise NotImplementedError("tensor-parallel serving (shard_for_inference) is ROADMAP Queue 1 item 13")
 
 
 __all__ = [
@@ -45,6 +39,7 @@ __all__ = [
     "prefill",
     "process_logits",
     "sample_token",
+    "scatter_for_inference",
     "serve_mesh",
     "shard_for_inference",
     "stream_tokens",

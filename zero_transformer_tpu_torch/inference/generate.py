@@ -32,6 +32,19 @@ decode step, none without ``eos_token_id``; a host prompt goes to the card
 through pinned memory, which does not wait either).
 Categorical draws come from one ``torch.Generator`` (a [B, V] draw per
 sampled step) or from injected ``uniforms`` (``sampling.sample_token``).
+
+Tensor-parallel serving (JAX ``serve_mesh`` :52, ``shard_for_inference``
+:66, ``init_cache(..., mesh=)`` :94): ``serve_mesh(N)`` is the
+``TensorGroup`` of N ranks, one process each (the serve CLI starts them);
+``shard_for_inference`` cuts a whole converted state dict into a rank's
+shard (``models/gpt.py::tp_split_dim``), and ``scatter_for_inference``
+loads each rank's shard from rank 0's whole tree, one tensor at a time; a
+model built over the group (``model_getter(..., tensor_group=)``) holds
+``KVH / N`` kv heads a rank, so ``init_cache`` and ``allocate_pools`` allocate those. ``generate``,
+``stream_tokens`` and ``generate_tokens`` run unchanged on every rank of the
+group (each forward's collectives pair up across the ranks); the logits are
+whole on every rank and each step's tokens are rank 0's, broadcast, so the
+ranks stop together.
 """
 from __future__ import annotations
 
@@ -42,7 +55,8 @@ import torch
 
 from zero_transformer_tpu_torch.config import ModelConfig, resolve_dtype
 from zero_transformer_tpu_torch.inference.sampling import SamplingConfig, sample_token
-from zero_transformer_tpu_torch.models.gpt import KVPools, Pools, Transformer
+from zero_transformer_tpu_torch.models.gpt import KVPools, Pools, Transformer, check_tensor_split, tp_split_dim
+from zero_transformer_tpu_torch.parallel.mesh import TensorGroup
 
 SLAB_PAGE = 16  # positions per page of the slab's page view (the serving default)
 
@@ -62,12 +76,13 @@ def decode_model(model: Transformer, cache_len: int, kv_pages: Tuple[int, int]) 
 
 
 def allocate_pools(cfg: ModelConfig, n_pages: int, page_size: int, device,
-                   dtype: Optional[torch.dtype] = None) -> Pools:
+                   dtype: Optional[torch.dtype] = None, kv_heads: Optional[int] = None) -> Pools:
     """One zeroed ``[n_pages, page, KVH, D]`` K/V pool pair per layer: in
     the compute dtype (``kv_cache_dtype: auto``), or int8 with zeroed
     float32 scale pools ``[n_pages, page, KVH, 1]`` (``int8``, JAX
-    ``gpt.py:233-237``). The serving engine keeps page 0 as its trash page."""
-    shape = (n_pages, page_size, cfg.kv_heads, cfg.head_width)
+    ``gpt.py:233-237``). ``kv_heads`` (default the model's) is a tensor
+    rank's ``KVH / N``. The serving engine keeps page 0 as its trash page."""
+    shape = (n_pages, page_size, kv_heads or cfg.kv_heads, cfg.head_width)
     if cfg.kv_cache_dtype == "int8":
         sc_shape = shape[:-1] + (1,)
         return [
@@ -125,7 +140,7 @@ def init_cache(model: Transformer, batch: int, cache_len: Optional[int] = None) 
     cache_len = cache_len or cfg.max_seq_len
     device = model_device(model)
     n_blocks = -(-cache_len // SLAB_PAGE)
-    pools = allocate_pools(cfg, batch * n_blocks, SLAB_PAGE, device)
+    pools = allocate_pools(cfg, batch * n_blocks, SLAB_PAGE, device, kv_heads=model.blocks[0].attn.kv_heads)
     table = torch.arange(batch * n_blocks, dtype=torch.int32, device=device).view(batch, n_blocks)
     return SlabCache(pools, table, cache_len)
 
@@ -241,7 +256,7 @@ def stream_tokens(
     dev = logits.device
     generator = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
-    token = sample_token(logits, sampling, gen_mask, generator, _step_uniforms(uniforms, 0))
+    token = _agree(model, sample_token(logits, sampling, gen_mask, generator, _step_uniforms(uniforms, 0)))
     # a scalar fill: an index_put of a Python True would copy it from the host and wait
     gen_mask.scatter_(1, token[:, None], True)
     for step in range(max_new_tokens):
@@ -254,8 +269,16 @@ def stream_tokens(
             if bool(done.all()):
                 return
         logits = model.logits(cache.forward(model, token[:, None])[:, 0]).float()
-        token = sample_token(logits, sampling, gen_mask, generator, _step_uniforms(uniforms, step + 1))
+        token = _agree(model, sample_token(logits, sampling, gen_mask, generator, _step_uniforms(uniforms, step + 1)))
         gen_mask.scatter_(1, token[:, None], True)
+
+
+def _agree(model: Transformer, token: torch.Tensor) -> torch.Tensor:
+    """Under a tensor group, rank 0's tokens on every rank (the ranks then
+    feed and stop on the same tokens); else ``token``."""
+    if getattr(model, "tp", None) is not None:
+        model.tp.broadcast_([token])
+    return token
 
 
 def generate_tokens(
@@ -272,3 +295,80 @@ def generate_tokens(
     prompt = _prompt(model, prompt)
     cache_len = cache_len or max(model.cfg.max_seq_len, prompt.shape[1] + max_new_tokens)
     return generate(model, prompt, max_new_tokens, generator, cache_len=cache_len, **kwargs)
+
+
+def serve_mesh(tensor: int, device="cuda", rank: Optional[int] = None, init_method: Optional[str] = None,
+               backend: Optional[str] = None, timeout_s: Optional[float] = None) -> TensorGroup:
+    """The pure tensor-parallel serving mesh of ``tensor`` ranks (JAX
+    ``serve_mesh``): this process's ``TensorGroup``. Inside an initialised
+    world of ``tensor`` ranks it is that world; else it joins one at
+    ``init_method`` as ``rank`` (default: ``torch.distributed.run``'s
+    ``RANK`` and ``env://``). NCCL with a card per rank when ``tensor``
+    cards are visible, else gloo (``parallel.mesh.init_tensor_group``).
+    ``timeout_s``: the collective timeout (default ``TENSOR_TIMEOUT_S``)."""
+    import os
+
+    import torch.distributed as dist
+
+    from zero_transformer_tpu_torch.parallel.mesh import TENSOR_TIMEOUT_S, init_tensor_group, tensor_group_of_world
+
+    timeout_s = TENSOR_TIMEOUT_S if timeout_s is None else timeout_s
+
+    if dist.is_initialized():
+        if dist.get_world_size() != tensor:
+            raise ValueError(f"serve_mesh({tensor}) inside a world of {dist.get_world_size()} ranks")
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return tensor_group_of_world(dist.get_backend(), dev, timeout_s)
+    if rank is None:
+        rank = int(os.environ.get("RANK", 0))
+    return init_tensor_group(tensor, rank, init_method or "env://", device, backend, timeout_s)
+
+
+def shard_for_inference(model: Transformer, params, group: Optional[TensorGroup]) -> dict:
+    """This rank's shard of a whole state dict (the port's names, from
+    ``convert.params_from_jax`` or ``model.state_dict()`` of a one-rank
+    model): every tensor ``tp_split_dim`` names cut into ``group.size``
+    slices along that dim and the rank's kept, the others whole. Raises
+    when the group does not divide the heads (before any weight moves)."""
+    n = 1 if group is None else group.size
+    check_tensor_split(model.cfg, n)
+    if n == 1:
+        return dict(params)
+    out = {}
+    for name, t in params.items():
+        dim = tp_split_dim(name)
+        if dim is None:
+            out[name] = t
+            continue
+        if t.shape[dim] % n:
+            raise ValueError(f"{name} {tuple(t.shape)}: dim {dim} does not split over {n} ranks")
+        width = t.shape[dim] // n
+        # a copy, never a view: the whole tensor is freed once its slices are taken
+        out[name] = t.narrow(dim, group.rank * width, width).clone()
+    return out
+
+
+def scatter_for_inference(model: Transformer, params, group: TensorGroup) -> None:
+    """Load this rank's shard of rank 0's whole state dict into ``model``.
+    Only rank 0 holds the whole tree (``params``; None on the others): it
+    sends the names, shapes and dtypes, then each tensor alone over the
+    group's device, and every rank copies its slices into its weights. No
+    rank holds more than one whole tensor beyond rank 0's tree. Raises on
+    every rank, before any weight moves, when the group does not divide the
+    heads or the names are not the model's."""
+    check_tensor_split(model.cfg, group.size)
+    specs = group.broadcast_object(
+        [(name, tuple(t.shape), t.dtype) for name, t in params.items()] if group.rank == 0 else None)
+    names, want = {name for name, _, _ in specs}, set(model.state_dict())
+    if names != want:
+        raise RuntimeError(f"the weights do not fit the model: missing {sorted(want - names)}, "
+                           f"unexpected {sorted(names - want)}")
+    with torch.no_grad():
+        for name, shape, dtype in specs:
+            whole = (params[name].to(group.device) if group.rank == 0
+                     else torch.empty(shape, dtype=dtype, device=group.device))
+            group.broadcast_([whole])
+            model.load_state_dict(shard_for_inference(model, {name: whole}, group), strict=False)
+            del whole

@@ -85,6 +85,27 @@ global positions (RoPE angles, learned positions): the local logits and
 the GLOBAL mean loss's share, (local CE sum) / (global count of labels),
 whose grads summed over the ranks are the grads of the mean. Under
 ``remat`` the recompute runs the ring forward again, as JAX's does.
+``cp_impl: ulysses`` routes the same shards through ``ops/ulysses.py``
+instead (all-to-alls to whole rows over ``H / n`` heads, JAX
+``ops/ulysses.py``).
+
+Tensor parallelism (JAX's ``vocab``, ``qheads``, ``kvheads`` and ``mlp``
+logical axes over ``tensor``, ``parallel/sharding.py:44-47``), for
+serving: a ``Transformer`` given a ``TensorGroup`` of N ranks holds the
+Megatron split of every layer. ``query``/``key``/``value``/``wi``/``gate``
+are column-parallel (the rank's ``H / N`` query heads, ``KVH / N`` kv
+heads, ``ff / N`` features); ``out``/``wo`` are row-parallel, their float32
+partial sums all-reduced and rounded once (``_row_parallel``); ``wte``
+(and an untied ``lm_head``) hold the rank's ``V / N`` vocabulary rows: the
+lookup is a masked local lookup plus an all-reduce, the logits ``[..,
+V / N]`` are gathered over the vocabulary. Norm scales and ``wpe`` are
+whole on every rank. ALiBi attends with the slopes of the rank's global
+head range (JAX ``ring_attention.py::_local_slopes`` :201). int8 weights:
+a column split carries its rows' per-output-channel scales, a row split
+keeps the scale whole (exact: the scale applies after the product). The
+collectives are autograd Functions (identity / all-reduce pairs).
+``tp_split_dim`` names each weight's split dimension;
+``inference.shard_for_inference`` cuts a whole state dict with it.
 """
 from __future__ import annotations
 
@@ -106,9 +127,10 @@ from zero_transformer_tpu_torch.ops import paged_attention as pa
 from zero_transformer_tpu_torch.ops.attention import dot_product_attention
 from zero_transformer_tpu_torch.ops.losses import (chunked_cross_entropy_sum, chunked_next_token_loss,
                                                    cross_entropy_sum, next_token_loss)
-from zero_transformer_tpu_torch.ops.positions import apply_rope
+from zero_transformer_tpu_torch.ops.positions import alibi_slopes_list, apply_rope
 from zero_transformer_tpu_torch.ops.ring_attention import ring_attention
-from zero_transformer_tpu_torch.parallel.mesh import SequenceGroup
+from zero_transformer_tpu_torch.ops.ulysses import ulysses_attention
+from zero_transformer_tpu_torch.parallel.mesh import SequenceGroup, TensorGroup
 
 LN_EPS = 1e-6  # flax LayerNorm and RMSNorm default
 _M64 = (1 << 64) - 1
@@ -226,13 +248,132 @@ def mask_boundary_labels(labels: torch.Tensor, doc_ids: torch.Tensor) -> torch.T
     return torch.cat([labels[:, :1], torch.where(boundary, -1, labels[:, 1:])], dim=1)
 
 
+# ------------------------------------------------------ tensor parallelism
+
+# the split dimension of each tensor-parallel weight, by the name's last
+# two parts: column splits (the rank's output rows, their int8 scales too),
+# row splits (the rank's input columns; the int8 scale stays whole) and the
+# vocabulary's rows
+_COLUMN = ("attn.query", "attn.key", "attn.value", "mlp.wi", "mlp.gate", "lm_head")
+_ROW = ("attn.out", "mlp.wo")
+
+
+def tp_split_dim(name: str) -> Optional[int]:
+    """The dimension a state-dict tensor ``name`` is split along over a
+    tensor group (0 or 1), or None for a tensor every rank holds whole."""
+    module, _, leaf = name.rpartition(".")
+    if module.endswith(_COLUMN) or module == "wte":
+        return 0
+    if module.endswith(_ROW) and leaf in ("weight", "weight_q"):
+        return 1
+    return None
+
+
+def check_tensor_split(cfg: ModelConfig, n: int) -> None:
+    """Raise unless ``n`` ranks divide the query heads, the kv heads, the
+    MLP features and the vocabulary (JAX warns and replicates an
+    indivisible cache instead; the port requires the split)."""
+    if n < 1:
+        raise ValueError(f"a tensor group needs >= 1 ranks, got {n}")
+    bad = [f"{what} {count}" for what, count in (("query heads", cfg.n_heads), ("kv heads", cfg.kv_heads),
+                                                  ("MLP features", cfg.ff_dim), ("vocab rows", cfg.vocab_size))
+           if count % n]
+    if bad:
+        raise ValueError(f"tensor parallelism over {n} ranks needs {n} to divide the {cfg.name} model's "
+                         f"{', '.join(bad)} (n_heads={cfg.n_heads}, n_kv_heads={cfg.kv_heads})")
+
+
+class _CopyToTensor(torch.autograd.Function):
+    """Megatron's f: identity forward, all-reduce backward (the input of a
+    column-parallel layer, whose grads each rank holds in part)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        ctx.group.all_reduce_([g])
+        return g, None
+
+
+class _ReduceFromTensor(torch.autograd.Function):
+    """Megatron's g: all-reduce forward (the partial sums of a row-parallel
+    layer), identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        group.all_reduce_([out])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromTensor(torch.autograd.Function):
+    """All-gather along ``dim`` forward (the vocabulary-split logits), the
+    rank's slice backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.width = group, dim, x.shape[dim]
+        return group.all_gather_(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.group.rank * ctx.width
+        return g.narrow(ctx.dim, lo, ctx.width).contiguous(), None, None
+
+
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` (``w`` ``[out, in]``) with a float32 result: on CUDA the
+    product of the compute-dtype operands accumulated and written in
+    float32 (``torch.mm``'s ``out_dtype``), on the CPU in float32."""
+    if x.device.type == "cuda" and x.dtype != torch.float32:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.T, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[0])
+    return F.linear(x.float(), w.float())
+
+
+def _row_parallel(dense: nn.Module, x: torch.Tensor, group: Optional[TensorGroup]) -> torch.Tensor:
+    """A row-parallel layer (``out``, ``wo``, built with ``float32_out``):
+    this rank's partial product kept in float32, summed over the group,
+    rounded once to the compute dtype, as one card rounds the whole
+    product once (a partial rounded to bf16 before the sum would round
+    twice)."""
+    if group is None:
+        return dense(x)
+    return _reduce_from(dense(x), group).to(dense.compute_dtype)
+
+
+def _copy_to(x: torch.Tensor, group: Optional[TensorGroup]) -> torch.Tensor:
+    return x if group is None else _CopyToTensor.apply(x, group)
+
+
+def _reduce_from(x: torch.Tensor, group: Optional[TensorGroup]) -> torch.Tensor:
+    return x if group is None else _ReduceFromTensor.apply(x, group)
+
+
+@functools.lru_cache(maxsize=None)
+def _shard_slopes(n_heads: int, lo: int, hi: int, device: str) -> torch.Tensor:
+    """[hi - lo] f32 ALiBi slopes of the model's heads ``lo .. hi - 1``,
+    kept on ``device``."""
+    return torch.tensor(alibi_slopes_list(n_heads)[lo:hi], dtype=torch.float32, device=device)
+
+
 class Dense(nn.Module):
     """Bias-free linear layer. ``weight`` is ``[out, in]`` (the flax kernel
-    transposed) and the product runs in the compute dtype."""
+    transposed) and the product runs in the compute dtype; with
+    ``float32_out`` (a row-parallel shard) its result stays float32."""
 
-    def __init__(self, d_in: int, d_out: int, cfg: ModelConfig, device):
+    def __init__(self, d_in: int, d_out: int, cfg: ModelConfig, device, float32_out: bool = False):
         super().__init__()
         self.compute_dtype = resolve_dtype(cfg.compute_dtype)
+        self.float32_out = float32_out
         self.weight = nn.Parameter(
             torch.empty(d_out, d_in, dtype=resolve_dtype(cfg.param_dtype), device=device),
             requires_grad=False,
@@ -240,13 +381,15 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = self.compute_dtype
+        if self.float32_out:
+            return _mm_f32(x.to(cdt), self.weight.to(cdt))
         return F.linear(x.to(cdt), self.weight.to(cdt))
 
 
-def _dense(d_in: int, d_out: int, cfg: ModelConfig, device) -> nn.Module:
+def _dense(d_in: int, d_out: int, cfg: ModelConfig, device, float32_out: bool = False) -> nn.Module:
     if cfg.param_quant == "int8":
-        return QuantDense(d_in, d_out, cfg, device)
-    return Dense(d_in, d_out, cfg, device)
+        return QuantDense(d_in, d_out, cfg, device, float32_out)
+    return Dense(d_in, d_out, cfg, device, float32_out)
 
 
 class LayerNorm(nn.Module):
@@ -281,24 +424,40 @@ def _norm(cfg: ModelConfig, device) -> LayerNorm:
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, device):
+    """Self-attention over this rank's heads: all of them, or ``H / N``
+    query and ``KVH / N`` kv heads of a tensor group of N ranks (the heads
+    ``rank * H / N ..``, with their ALiBi slopes)."""
+
+    def __init__(self, cfg: ModelConfig, device, tensor_group: Optional[TensorGroup] = None):
         super().__init__()
         self.cfg = cfg
-        H, KVH, D, d = cfg.n_heads, cfg.kv_heads, cfg.head_width, cfg.d_model
+        n = 1 if tensor_group is None else tensor_group.size
+        self.tp = tensor_group
+        self.n_heads, self.kv_heads = cfg.n_heads // n, cfg.kv_heads // n
+        H, KVH, D, d = self.n_heads, self.kv_heads, cfg.head_width, cfg.d_model
         self.query = _dense(d, H * D, cfg, device)
         self.key = _dense(d, KVH * D, cfg, device)
         self.value = _dense(d, KVH * D, cfg, device)
-        self.out = _dense(H * D, d, cfg, device)
+        self.out = _dense(H * D, d, cfg, device, float32_out=tensor_group is not None)
         self.seq_group: Optional[SequenceGroup] = None  # Transformer.set_sequence_group
+
+    def slopes(self, device) -> Optional[torch.Tensor]:
+        """The ALiBi slopes of this rank's global head range, or None (the
+        model's own table: one rank, or no ALiBi)."""
+        if self.tp is None or self.cfg.position != "alibi":
+            return None
+        lo = self.tp.rank * self.n_heads
+        return _shard_slopes(self.cfg.n_heads, lo, lo + self.n_heads, str(device))
 
     def _qkv(self, x, pos: torch.Tensor):
         """q, k, v of ``x``; with RoPE, q and k rotated at ``pos`` (``[T]``
         or ``[B, T]``)."""
         cfg = self.cfg
         B, T, _ = x.shape
-        q = _named("attn_q", self.query, x).reshape(B, T, cfg.n_heads, cfg.head_width)
-        k = _named("attn_k", self.key, x).reshape(B, T, cfg.kv_heads, cfg.head_width)
-        v = _named("attn_v", self.value, x).reshape(B, T, cfg.kv_heads, cfg.head_width)
+        x = _copy_to(x, self.tp)
+        q = _named("attn_q", self.query, x).reshape(B, T, self.n_heads, cfg.head_width)
+        k = _named("attn_k", self.key, x).reshape(B, T, self.kv_heads, cfg.head_width)
+        v = _named("attn_v", self.value, x).reshape(B, T, self.kv_heads, cfg.head_width)
         if cfg.position == "rope":
             q, k = apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta)
         return q, k, v
@@ -309,12 +468,17 @@ class Attention(nn.Module):
         first = 0 if self.seq_group is None else self.seq_group.rank * T
         q, k, v = self._qkv(x, first + torch.arange(T, device=x.device))
         alibi = self.cfg.position == "alibi"
-        if self.seq_group is not None:
+        if self.seq_group is not None and self.cfg.cp_impl == "ulysses":
+            out = ulysses_attention(q, k, v, self.seq_group, causal=True, alibi=alibi, doc_ids=doc_ids,
+                                    impl=self.cfg.attention_impl)
+        elif self.seq_group is not None:
             out = ring_attention(q, k, v, self.seq_group, causal=True, alibi=alibi, doc_ids=doc_ids)
         else:
+            # a shard's slope table only where there is one: the one-rank call is unchanged
+            shard = {} if self.tp is None else {"slopes": self.slopes(x.device)}
             out = dot_product_attention(q, k, v, causal=True, alibi=alibi, doc_ids=doc_ids,
-                                        impl=self.cfg.attention_impl)
-        return self.out(out.reshape(B, T, -1))
+                                        impl=self.cfg.attention_impl, **shard)
+        return _row_parallel(self.out, out.reshape(B, T, -1), self.tp)
 
     def forward_paged(
         self, x: torch.Tensor, pools: KVPools, block_table: torch.Tensor, offsets: torch.Tensor,
@@ -350,7 +514,7 @@ class Attention(nn.Module):
         else:
             pools.k[page_ids, in_page] = k.to(pools.k.dtype)
             pools.v[page_ids, in_page] = v.to(pools.v.dtype)
-        scales = dict(k_scale=pools.k_scale, v_scale=pools.v_scale)
+        scales = dict(k_scale=pools.k_scale, v_scale=pools.v_scale, slopes=self.slopes(x.device))
         alibi = cfg.position == "alibi"
         # writing past capacity poisons only the overflowing row's output
         overflow = (offsets + T > cache_len)[:, None, None, None]
@@ -358,11 +522,11 @@ class Attention(nn.Module):
                         torch.ones((), dtype=q.dtype, device=q.device)) * q
         if T > pa.MAX_DECODE_T or flash:
             # a prefill window: gather the row's pages once, then the flash kernel
-            k_all, v_all, kv_valid = pa.gather_window(pools.k, pools.v, block_table, offsets, T,
-                                                      dtype=q.dtype, **scales)
+            k_all, v_all, kv_valid = pa.gather_window(pools.k, pools.v, block_table, offsets, T, dtype=q.dtype,
+                                                      k_scale=pools.k_scale, v_scale=pools.v_scale)
             out = dot_product_attention(
                 q, k_all, v_all, causal=True, alibi=alibi, q_offset=offsets,
-                segment_ids=kv_valid, impl=cfg.attention_impl,
+                segment_ids=kv_valid, impl=cfg.attention_impl, slopes=scales["slopes"],
             )
         elif cfg.attention_impl == "xla":
             out = pa.paged_reference(q, pools.k, pools.v, block_table, offsets, causal=T > 1, alibi=alibi,
@@ -370,34 +534,38 @@ class Attention(nn.Module):
         else:
             out = pa.paged_attention(q, pools.k, pools.v, block_table, offsets, causal=T > 1, alibi=alibi,
                                      **scales)
-        return self.out(out.reshape(B, T, -1))
+        return _row_parallel(self.out, out.reshape(B, T, -1), self.tp)
 
 
 class MLP(nn.Module):
-    """``wo(gelu(wi(x)))``, or SwiGLU's ``wo(silu(gate(x)) * wi(x))``."""
+    """``wo(gelu(wi(x)))``, or SwiGLU's ``wo(silu(gate(x)) * wi(x))``; over
+    a tensor group, this rank's ``ff / N`` features and one all-reduce."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, tensor_group: Optional[TensorGroup] = None):
         super().__init__()
-        self.wi = _dense(cfg.d_model, cfg.ff_dim, cfg, device)
-        self.gate = _dense(cfg.d_model, cfg.ff_dim, cfg, device) if cfg.activation == "swiglu" else None
-        self.wo = _dense(cfg.ff_dim, cfg.d_model, cfg, device)
+        ff = cfg.ff_dim // (1 if tensor_group is None else tensor_group.size)
+        self.tp = tensor_group
+        self.wi = _dense(cfg.d_model, ff, cfg, device)
+        self.gate = _dense(cfg.d_model, ff, cfg, device) if cfg.activation == "swiglu" else None
+        self.wo = _dense(ff, cfg.d_model, cfg, device, float32_out=tensor_group is not None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _copy_to(x, self.tp)
         h = _named("mlp_wi", self.wi, x)
         if self.gate is not None:
-            return self.wo(F.silu(_named("mlp_gate", self.gate, x)) * h)
-        return self.wo(F.gelu(h, approximate="tanh"))
+            return _row_parallel(self.wo, F.silu(_named("mlp_gate", self.gate, x)) * h, self.tp)
+        return _row_parallel(self.wo, F.gelu(h, approximate="tanh"), self.tp)
 
 
 class Block(nn.Module):
     """Pre-norm transformer block."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, tensor_group: Optional[TensorGroup] = None):
         super().__init__()
         self.ln_attn = _norm(cfg, device)
-        self.attn = Attention(cfg, device)
+        self.attn = Attention(cfg, device, tensor_group)
         self.ln_mlp = _norm(cfg, device)
-        self.mlp = MLP(cfg, device)
+        self.mlp = MLP(cfg, device, tensor_group)
 
     def forward(self, x: torch.Tensor, doc_ids: Optional[torch.Tensor] = None,
                 drop: Optional[Tuple[float, int, int]] = None) -> torch.Tensor:
@@ -437,21 +605,34 @@ class Transformer(nn.Module):
     """Full decoder LM: ``forward`` over whole sequences, ``forward_paged``
     over a window per row against the paged KV cache."""
 
-    def __init__(self, cfg: ModelConfig, device="cpu", seq_group: Optional[SequenceGroup] = None):
+    def __init__(self, cfg: ModelConfig, device="cpu", seq_group: Optional[SequenceGroup] = None,
+                 tensor_group: Optional[TensorGroup] = None):
         super().__init__()
         self.cfg = cfg
-        self.wte = QuantEmbed(cfg, device) if cfg.param_quant == "int8" else Embed(cfg, device)
+        tp = tensor_group if tensor_group is not None and tensor_group.size > 1 else None
+        if tp is not None:
+            check_tensor_split(cfg, tp.size)
+        self.tp = tp
+        n = 1 if tp is None else tp.size
+        # this rank's vocabulary rows [vocab_lo, vocab_lo + vocab_rows)
+        self.vocab_rows = cfg.vocab_size // n
+        self.vocab_lo = 0 if tp is None else tp.rank * self.vocab_rows
+        self.wte = (QuantEmbed(cfg, device, num=self.vocab_rows) if cfg.param_quant == "int8"
+                    else Embed(cfg, device, num=self.vocab_rows))
         # learned positions stay float under int8 weights, as in JAX
         self.wpe = Embed(cfg, device, num=cfg.max_seq_len) if cfg.position == "learned" else None
-        self.blocks = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(Block(cfg, device, tp) for _ in range(cfg.n_layers))
         self.ln_f = _norm(cfg, device)
-        self.lm_head = None if cfg.tie_embeddings else _dense(cfg.d_model, cfg.vocab_size, cfg, device)
+        self.lm_head = None if cfg.tie_embeddings else _dense(cfg.d_model, self.vocab_rows, cfg, device)
         self.set_sequence_group(seq_group)
 
     def set_sequence_group(self, group: Optional[SequenceGroup]) -> "Transformer":
-        """Route attention through the ring over ``group`` (None or size 1:
-        the one-card path)."""
+        """Route attention through the ring (or Ulysses, ``cp_impl``) over
+        ``group`` (None or size 1: the one-card path)."""
         self.seq_group = group if group is not None and group.size > 1 else None
+        if self.seq_group is not None and self.tp is not None:
+            raise NotImplementedError("sequence parallelism under a tensor group (Ulysses x tensor, the ring x "
+                                      "tensor) is not ported yet (ROADMAP Queue 1 item 13)")
         for blk in self.blocks:
             blk.attn.seq_group = self.seq_group
         return self
@@ -469,21 +650,34 @@ class Transformer(nn.Module):
             raise ValueError("init_weights draws float weights: initialise a param_quant='none' model, "
                              "then quantize it with models.quant.quantize_model")
         resid_std = 0.02 / math.sqrt(2 * self.cfg.n_layers)
-        self.wte.embedding.normal_(0.0, 0.02, generator=generator)
+        self._draw(self.wte.embedding, 0, 0.02, generator)
         for blk in self.blocks:
             for dense in (blk.attn.query, blk.attn.key, blk.attn.value, blk.mlp.wi, blk.mlp.gate):
                 if dense is not None:
-                    dense.weight.normal_(0.0, 0.02, generator=generator)
+                    self._draw(dense.weight, 0, 0.02, generator)
             for dense in (blk.attn.out, blk.mlp.wo):
-                dense.weight.normal_(0.0, resid_std, generator=generator)
+                self._draw(dense.weight, 1, resid_std, generator)
         if self.wpe is not None:
             self.wpe.embedding.normal_(0.0, 0.02, generator=generator)
         if self.lm_head is not None:
-            self.lm_head.weight.normal_(0.0, 0.02, generator=generator)
+            self._draw(self.lm_head.weight, 0, 0.02, generator)
         for mod in self.modules():
             if isinstance(mod, LayerNorm):
                 mod.scale.fill_(1.0)
         return self
+
+    def _draw(self, param: torch.Tensor, dim: int, std: float, generator: torch.Generator) -> None:
+        """``param`` from normal(0, ``std``). Over a tensor group the whole
+        tensor is drawn (one at a time, on the param's device) and the
+        rank's slice along ``dim`` kept: every rank draws the one-card
+        model's values."""
+        if self.tp is None:
+            param.normal_(0.0, std, generator=generator)
+            return
+        shape = list(param.shape)
+        shape[dim] *= self.tp.size
+        whole = torch.empty(shape, dtype=param.dtype, device=param.device).normal_(0.0, std, generator=generator)
+        param.copy_(whole.narrow(dim, self.tp.rank * param.shape[dim], param.shape[dim]))
 
     @torch.no_grad()
     def cast_for_inference(self) -> "Transformer":
@@ -503,12 +697,32 @@ class Transformer(nn.Module):
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         """The head in the compute dtype: ``h @ wte.T`` tied, ``lm_head(h)``
-        untied."""
-        return self.wte.attend(h) if self.lm_head is None else self.lm_head(h)
+        untied; over a tensor group each rank's ``V / N`` columns gathered
+        into the whole ``[.., V]`` on every rank."""
+        if self.tp is None:
+            return self.wte.attend(h) if self.lm_head is None else self.lm_head(h)
+        h = _copy_to(h, self.tp)
+        local = self.wte.attend(h) if self.lm_head is None else self.lm_head(h)
+        return _GatherFromTensor.apply(local, self.tp, local.ndim - 1)
+
+    def _lookup(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The token embedding; over a tensor group the rank's rows looked
+        up where the token falls in its range, zeros elsewhere, summed over
+        the group (exact: one rank holds each row)."""
+        if self.tp is None:
+            return self.wte(tokens)
+        local = tokens - self.vocab_lo
+        inside = (local >= 0) & (local < self.vocab_rows)
+        h = self.wte(torch.where(inside, local, torch.zeros_like(local)))
+        h = torch.where(inside[..., None], h, torch.zeros((), dtype=h.dtype, device=h.device))
+        return _reduce_from(h, self.tp)
 
     def head_weight(self) -> torch.Tensor:
         """The head as ``[d, vocab]`` in the compute dtype (JAX's ``w_dv``:
         the embedding transposed, or the untied head's kernel)."""
+        if self.tp is not None:
+            raise NotImplementedError("the chunked loss over a tensor group (training with mesh.tensor) is not "
+                                      "ported yet (ROADMAP Queue 1 item 13)")
         if self.lm_head is None:
             return self.wte.embedding.to(self.wte.compute_dtype).T
         return self.lm_head.weight.to(self.lm_head.compute_dtype).T
@@ -525,6 +739,9 @@ class Transformer(nn.Module):
         dropout, and then needs ``dropout_key`` (ints, e.g. the train step's
         ``(seed, step, data rank, micro-step)``): every mask is a pure
         function of it. A weight-only int8 model computes logits only."""
+        if labels is not None and self.tp is not None:
+            raise NotImplementedError("the training loss over a tensor group (mesh.tensor) is not ported yet "
+                                      "(ROADMAP Queue 1 item 13): tensor parallelism serves")
         if labels is not None and self.cfg.param_quant != "none":
             raise NotImplementedError(
                 "param_quant='int8' is an inference configuration; the loss paths run on "
@@ -569,7 +786,7 @@ class Transformer(nn.Module):
     def _embed(self, tokens: torch.Tensor, key: Optional[Tuple[int, ...]], pos: torch.Tensor) -> torch.Tensor:
         """Token embedding (plus the learned positions at ``pos``), then the
         embedding's dropout."""
-        h = self.wte(tokens)
+        h = self._lookup(tokens)
         if self.wpe is not None:
             h = h + self._positions(pos)
         return dropout(h, self.cfg.dropout, None if key is None else fold_seed(*key, -1, EMBED_SITE))
@@ -629,7 +846,7 @@ class Transformer(nn.Module):
         in ``Attention.forward_paged``. Decoding never packs (JAX
         ``packed = ... and not self.decode``): a separator is a token.
         Learned positions are each row's own (JAX's per-slot ``decode_pos``)."""
-        h = self.wte(tokens)
+        h = self._lookup(tokens)
         if self.wpe is not None:
             h = h + self._positions(offsets.long()[:, None] + torch.arange(tokens.shape[1], device=tokens.device))
         for blk, layer_pools in zip(self.blocks, pools):

@@ -99,15 +99,20 @@ class QuantDense(nn.Module):
     per-output-channel ``scale`` ``[out]``: the product in the compute
     dtype, then the scale, both in the compute dtype (JAX's order)."""
 
-    def __init__(self, d_in: int, d_out: int, cfg: ModelConfig, device):
+    def __init__(self, d_in: int, d_out: int, cfg: ModelConfig, device, float32_out: bool = False):
         super().__init__()
         self.compute_dtype = resolve_dtype(cfg.compute_dtype)
+        self.float32_out = float32_out
         self.weight_q = nn.Parameter(torch.zeros(d_out, d_in, dtype=torch.int8, device=device),
                                      requires_grad=False)
         self.scale = nn.Parameter(torch.ones(d_out, dtype=torch.float32, device=device), requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = self.compute_dtype
+        if self.float32_out:  # a row-parallel shard: the product and the (whole) scale in float32
+            from zero_transformer_tpu_torch.models.gpt import _mm_f32
+
+            return _mm_f32(x.to(cdt), self.weight_q.to(cdt)) * self.scale.float()
         return F.linear(x.to(cdt), self.weight_q.to(cdt)) * self.scale.to(cdt)
 
 
@@ -116,14 +121,14 @@ class QuantEmbed(nn.Module):
     ``scale`` ``[V]``, dequantized the same way in the lookup and in the
     tied head's ``attend``."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, num=None):
         super().__init__()
         self.compute_dtype = resolve_dtype(cfg.compute_dtype)
+        rows = num or cfg.vocab_size  # a tensor-parallel rank's vocabulary rows
         self.embedding_q = nn.Parameter(
-            torch.zeros(cfg.vocab_size, cfg.d_model, dtype=torch.int8, device=device), requires_grad=False
+            torch.zeros(rows, cfg.d_model, dtype=torch.int8, device=device), requires_grad=False
         )
-        self.scale = nn.Parameter(torch.ones(cfg.vocab_size, dtype=torch.float32, device=device),
-                                  requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(rows, dtype=torch.float32, device=device), requires_grad=False)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         cdt = self.compute_dtype
@@ -143,6 +148,9 @@ def quantize_model(model: nn.Module) -> nn.Module:
     state)))`` gives; norm scales and ``wpe`` copied."""
     from zero_transformer_tpu_torch.models.gpt import Transformer
 
+    if getattr(model, "tp", None) is not None:
+        raise ValueError("quantize the whole model, then shard it (inference.shard_for_inference): a row split "
+                         "keeps its per-channel scale whole")
     state = model.state_dict()
     if any(t.is_floating_point() and t.dtype != torch.float32 for t in state.values()):
         raise ValueError("quantize float32 weights (before cast_for_inference)")

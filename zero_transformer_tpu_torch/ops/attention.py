@@ -22,8 +22,8 @@ import torch
 from zero_transformer_tpu_torch.ops.positions import (
     NEG_INF,
     alibi_bias,
-    alibi_slopes,
     causal_mask_bias,
+    head_slopes,
 )
 
 
@@ -44,6 +44,7 @@ def xla_attention(
     segment_ids: Optional[torch.Tensor] = None,
     doc_ids: Optional[torch.Tensor] = None,
     softmax_scale: Optional[float] = None,
+    slopes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention via explicit einsums, scores and softmax in float32.
 
@@ -52,6 +53,7 @@ def xla_attention(
     ``[B]`` tensor when every row sits at its own position.
     ``segment_ids`` ``[B, Tkv]``: 0 = not valid (masked out).
     ``doc_ids`` ``[B, T]`` (Tq == Tkv): different ids cannot attend.
+    ``slopes`` ``[H]`` overrides the ALiBi table (a shard's global heads).
     """
     B, Tq, H, D = q.shape
     _, Tkv, KVH, _ = k.shape
@@ -68,7 +70,7 @@ def xla_attention(
         q_pos = q_offset.to(dev, torch.int32)[:, None] + torch.arange(Tq, dtype=torch.int32, device=dev)
         kv_pos = torch.arange(Tkv, dtype=torch.int32, device=dev)
         if alibi:
-            s = alibi_slopes(H, dev)
+            s = head_slopes(H, dev, slopes)
             dist = torch.clamp(q_pos[:, :, None] - kv_pos[None, None, :], min=0).float()
             bias = -s[None, :, None, None] * dist[:, None]  # [B, H, Tq, Tkv]
             if causal:
@@ -80,7 +82,7 @@ def xla_attention(
     else:
         off = int(q_offset)
         if alibi:
-            bias = alibi_bias(H, Tq, Tkv, offset=off, device=dev)
+            bias = alibi_bias(H, Tq, Tkv, offset=off, device=dev, slopes=slopes)
             if causal:
                 bias = bias + causal_mask_bias(Tq, Tkv, offset=off, device=dev)[None]
             scores = scores + bias.reshape(1, KVH, G, Tq, Tkv)
@@ -110,21 +112,24 @@ def dot_product_attention(
     segment_ids: Optional[torch.Tensor] = None,
     doc_ids: Optional[torch.Tensor] = None,
     impl: str = "auto",
+    slopes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Dispatching attention entry point used by the model."""
+    """Dispatching attention entry point used by the model. ``slopes``
+    ``[H]`` overrides the ALiBi table: a tensor-parallel shard attends with
+    the slopes of its global head range."""
     if impl not in ("auto", "xla", "flash"):
         raise ValueError(f"invalid attention impl {impl!r}")
     if impl == "xla" or (impl == "auto" and q.device.type == "cpu"):
         return xla_attention(
             q, k, v, causal=causal, alibi=alibi, q_offset=q_offset,
-            segment_ids=segment_ids, doc_ids=doc_ids,
+            segment_ids=segment_ids, doc_ids=doc_ids, slopes=slopes,
         )
     from zero_transformer_tpu_torch.ops import flash_attention as fa
 
     # kernel-or-raise: off the CPU nothing silently takes the reference
     reason = fa.decline_reason(
         q, k, v, causal=causal, alibi=alibi, q_offset=q_offset,
-        segment_ids=segment_ids, doc_ids=doc_ids,
+        segment_ids=segment_ids, doc_ids=doc_ids, slopes=slopes,
     )
     if reason is not None:
         raise NotImplementedError(
@@ -133,5 +138,5 @@ def dot_product_attention(
         )
     return fa.flash_attention(
         q, k, v, causal=causal, alibi=alibi, q_offset=q_offset,
-        segment_ids=segment_ids, doc_ids=doc_ids,
+        segment_ids=segment_ids, doc_ids=doc_ids, slopes=slopes,
     )

@@ -351,22 +351,25 @@ def flash_serving(
     segment_ids: Optional[torch.Tensor] = None,
     softmax_scale: Optional[float] = None,
     return_lse: bool = False,
+    slopes: Optional[torch.Tensor] = None,
 ):
     """Forward-only flash attention. q ``[B, T, H, D]``; k, v ``[B, S, KVH, D]``;
-    ``q_offset`` int or ``[B]``; ``segment_ids`` ``[B, S]`` (0 = invalid).
-    Returns the output, or ``(output, lse [B, H, T] f32)`` with ``return_lse``."""
+    ``q_offset`` int or ``[B]``; ``segment_ids`` ``[B, S]`` (0 = invalid);
+    ``slopes`` ``[H]`` overrides the ALiBi table (a tensor-parallel shard's
+    heads). Returns the output, or ``(output, lse [B, H, T] f32)`` with
+    ``return_lse``."""
     _check(q, k, v, segment_ids)
     if q.device.type == "cpu":
         out, lse = flash_reference(
             q, k, v, causal=causal, alibi=alibi, q_offset=q_offset,
-            segment_ids=segment_ids, softmax_scale=softmax_scale,
+            segment_ids=segment_ids, softmax_scale=softmax_scale, slopes=slopes,
         )
         return (out, lse) if return_lse else out
     _check_kernel_inputs(q, k, v, "flash_serving")
     scale = softmax_scale if softmax_scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     out, lse = _launch_fwd(
         q, k, v, causal=causal, alibi=alibi, q_offset=q_offset, segment_ids=segment_ids,
-        scale=scale, want_lse=return_lse, counter=KERNEL,
+        scale=scale, want_lse=return_lse, counter=KERNEL, slopes=slopes,
     )
     return (out, lse) if return_lse else out
 
@@ -438,21 +441,23 @@ def _bwd_inputs(q, o, lse, do, delta):
 
 
 def flash_bwd(q, k, v, o, lse, do, *, causal: bool, alibi: bool,
-              doc_ids: Optional[torch.Tensor] = None, softmax_scale: Optional[float] = None):
+              doc_ids: Optional[torch.Tensor] = None, softmax_scale: Optional[float] = None,
+              slopes: Optional[torch.Tensor] = None):
     """The flash backward: ``(dq, dk, dv)`` from the forward's ``o`` and
     ``lse`` [B, H, T] and the output grad ``do``. K2 then K3 on CUDA tensors,
     ``flash_bwd_reference`` on CPU tensors."""
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, o, lse, do, causal=causal, alibi=alibi,
-                                   doc_ids=doc_ids, softmax_scale=softmax_scale)
+                                   doc_ids=doc_ids, softmax_scale=softmax_scale, slopes=slopes)
     _check(q, k, v, None, doc_ids)
     _check_kernel_inputs(q, k, v, "flash_bwd")
     scale = softmax_scale if softmax_scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     lse, delta = _bwd_inputs(q, o, lse, do, None)
     q, k, v, do = (x.contiguous() for x in (q, k, v, do))
-    dq = launch_dq(q, k, v, do, lse, delta, causal=causal, alibi=alibi, scale=scale, doc_ids=doc_ids)
+    dq = launch_dq(q, k, v, do, lse, delta, causal=causal, alibi=alibi, scale=scale, doc_ids=doc_ids,
+                   slopes=slopes)
     dk, dv = launch_dkv(q, k, v, do, lse, delta, causal=causal, alibi=alibi, scale=scale,
-                        doc_ids=doc_ids)
+                        doc_ids=doc_ids, slopes=slopes)
     return dq, dk, dv
 
 
@@ -516,40 +521,43 @@ class _FlashAttention(torch.autograd.Function):
     backward recomputes the probabilities from the lse. The ids get no grad."""
 
     @staticmethod
-    def forward(ctx, q, k, v, doc_ids, causal, alibi, scale):
+    def forward(ctx, q, k, v, doc_ids, causal, alibi, scale, slopes):
         if q.device.type == "cpu":
             o, lse = flash_reference(q, k, v, causal=causal, alibi=alibi, doc_ids=doc_ids,
-                                     softmax_scale=scale)
+                                     softmax_scale=scale, slopes=slopes)
         else:
             _check_kernel_inputs(q, k, v, "flash_attention")
             o, lse = _launch_fwd(
                 q, k, v, causal=causal, alibi=alibi, q_offset=0, segment_ids=None,
-                scale=scale, want_lse=True, counter=TRAIN_KERNEL, doc_ids=doc_ids,
+                scale=scale, want_lse=True, counter=TRAIN_KERNEL, doc_ids=doc_ids, slopes=slopes,
             )
-        ctx.save_for_backward(q, k, v, doc_ids, o, lse)
+        ctx.save_for_backward(q, k, v, doc_ids, o, lse, slopes)
         ctx.causal, ctx.alibi, ctx.scale = causal, alibi, scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, doc_ids, o, lse = ctx.saved_tensors
+        q, k, v, doc_ids, o, lse, slopes = ctx.saved_tensors
         dq, dk, dv = flash_bwd(q, k, v, o, lse, do.to(q.dtype), causal=ctx.causal,
-                               alibi=ctx.alibi, doc_ids=doc_ids, softmax_scale=ctx.scale)
-        return dq, dk, dv, None, None, None, None
+                               alibi=ctx.alibi, doc_ids=doc_ids, softmax_scale=ctx.scale, slopes=slopes)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
     alibi: bool = False, doc_ids: Optional[torch.Tensor] = None,
-    softmax_scale: Optional[float] = None,
+    softmax_scale: Optional[float] = None, slopes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Differentiable flash attention over full sequences (query and key
     offsets 0). q ``[B, T, H, D]``; k, v ``[B, S, KVH, D]``; ``doc_ids``
     ``[B, T]`` int (needs T == S): positions of different documents cannot
-    attend. Returns the output ``[B, T, H, D]``; autograd reaches q, k and v
-    through K2 and K3."""
+    attend; ``slopes`` ``[H]`` overrides the ALiBi table (a Ulysses rank's
+    head range). Returns the output ``[B, T, H, D]``; autograd reaches q, k
+    and v through K2 and K3."""
     _check(q, k, v, None, doc_ids)
     scale = softmax_scale if softmax_scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     if doc_ids is not None:
         doc_ids = doc_ids.detach()
-    return _FlashAttention.apply(q, k, v, doc_ids, causal, alibi, float(scale))
+    if slopes is not None:
+        slopes = _slopes_arg(slopes, q.shape[2], q.device, True)
+    return _FlashAttention.apply(q, k, v, doc_ids, causal, alibi, float(scale), slopes)

@@ -39,7 +39,7 @@ def _is_training_call(q_offset, segment_ids) -> bool:
 
 def decline_reason(
     q, k, v, *, causal: bool, alibi: bool = False, q_offset=0,
-    segment_ids=None, doc_ids=None,
+    segment_ids=None, doc_ids=None, slopes=None,
 ) -> Optional[str]:
     """Why the kernel cannot take this call, or None when it can."""
     B, T, H, D = q.shape
@@ -69,6 +69,8 @@ def decline_reason(
         return f"q_offset of {q_offset.shape[0]} rows for B={B}"
     if segment_ids is not None and tuple(segment_ids.shape) != (B, S):
         return f"segment_ids {tuple(segment_ids.shape)} not [B, S] = {(B, S)}"
+    if slopes is not None and slopes.numel() != H:
+        return f"slopes of {slopes.numel()} heads for H={H}"
     # causal and alibi impose no shape constraint; both are threaded to the
     # kernel below (the signature-parity test pins that)
     return None
@@ -76,23 +78,23 @@ def decline_reason(
 
 def supported(
     q, k, v, *, causal: bool, alibi: bool = False, q_offset=0,
-    segment_ids=None, doc_ids=None,
+    segment_ids=None, doc_ids=None, slopes=None,
 ) -> bool:
     return decline_reason(
         q, k, v, causal=causal, alibi=alibi, q_offset=q_offset,
-        segment_ids=segment_ids, doc_ids=doc_ids,
+        segment_ids=segment_ids, doc_ids=doc_ids, slopes=slopes,
     ) is None
 
 
 def flash_attention(
     q, k, v, *, causal: bool = True, alibi: bool = False, q_offset=0,
-    segment_ids=None, doc_ids=None,
+    segment_ids=None, doc_ids=None, slopes=None,
 ) -> torch.Tensor:
     """Kernel wrapper with EXACTLY the gate's keyword surface."""
     if _is_training_call(q_offset, segment_ids):
-        return flash.flash_attention(q, k, v, causal=causal, alibi=alibi, doc_ids=doc_ids)
+        return flash.flash_attention(q, k, v, causal=causal, alibi=alibi, doc_ids=doc_ids, slopes=slopes)
     if doc_ids is not None:
         raise NotImplementedError("the packed-document mask rides the training shape only")
     return flash.flash_serving(
-        q, k, v, causal=causal, alibi=alibi, q_offset=q_offset, segment_ids=segment_ids,
+        q, k, v, causal=causal, alibi=alibi, q_offset=q_offset, segment_ids=segment_ids, slopes=slopes,
     )

@@ -33,7 +33,7 @@ import torch
 
 from zero_transformer_tpu_torch.ops import _build
 from zero_transformer_tpu_torch.ops.attention import xla_attention
-from zero_transformer_tpu_torch.ops.flash import HEAD_DIMS, check_aligned, row_offsets, slopes_on
+from zero_transformer_tpu_torch.ops.flash import HEAD_DIMS, _slopes_arg, check_aligned, row_offsets, slopes_on
 
 KERNEL = "paged_attention"
 KERNEL_INT8 = "paged_attention_int8"
@@ -102,17 +102,17 @@ def _check_scales(k_pool, v_pool, k_scale, v_scale) -> None:
 
 def paged_reference(
     q, k_pool, v_pool, block_table, q_offset, *, causal: bool, alibi: bool = False,
-    softmax_scale: Optional[float] = None, k_scale=None, v_scale=None,
+    softmax_scale: Optional[float] = None, k_scale=None, v_scale=None, slopes=None,
 ) -> torch.Tensor:
     """The gather-to-slab path the kernel replaces (dequantized for int8
-    pools)."""
+    pools); ``slopes`` [H] as in ``paged_attention``."""
     B, T, _, _ = q.shape
     offs = row_offsets(q_offset, B, q.device)
     k, v, valid = gather_window(k_pool, v_pool, block_table, offs, T, k_scale=k_scale, v_scale=v_scale,
                                 dtype=q.dtype)
     return xla_attention(
         q, k, v, causal=causal, alibi=alibi, q_offset=offs, segment_ids=valid,
-        softmax_scale=softmax_scale,
+        softmax_scale=softmax_scale, slopes=slopes,
     )
 
 
@@ -128,6 +128,7 @@ def paged_attention(
     softmax_scale: Optional[float] = None,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    slopes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Decode attention straight off the page pool. q ``[B, T, H, D]``
     (overflow rows already NaN-poisoned by the caller); pools
@@ -135,7 +136,9 @@ def paged_attention(
     ``k_scale``/``v_scale`` ``[n_pages, page, KVH, 1]``; ``block_table``
     ``[B, n_blocks]`` int32 whose entries must be valid page ids (zeros =
     the trash page); ``q_offset`` ``[B]`` or int. Positions ``>= q_offset +
-    T`` are invalid."""
+    T`` are invalid. ``slopes`` ``[H]`` overrides the ALiBi table (JAX
+    ``slopes=`` :190): a tensor-parallel shard's query heads are heads
+    ``r * H .. (r + 1) * H - 1`` of the model, and attend with their slopes."""
     B, T, H, D = q.shape
     n_pages, page, KVH, Dk = k_pool.shape
     if v_pool.shape != k_pool.shape or Dk != D:
@@ -150,7 +153,7 @@ def paged_attention(
     if q.device.type == "cpu":
         return paged_reference(
             q, k_pool, v_pool, block_table, q_offset, causal=causal, alibi=alibi,
-            softmax_scale=softmax_scale, k_scale=k_scale, v_scale=v_scale,
+            softmax_scale=softmax_scale, k_scale=k_scale, v_scale=v_scale, slopes=slopes,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on CUDA or CPU tensors, got {q.device}")
@@ -164,10 +167,10 @@ def paged_attention(
     if n_pages * page * KVH >= 2**31:
         raise ValueError(f"paged kernel indexes pool rows in 32 bits: {n_pages} pages of {page} x {KVH} is too many")
     return _launch(q, k_pool, v_pool, block_table, q_offset, causal=causal, alibi=alibi, scale=softmax_scale,
-                   k_scale=k_scale, v_scale=v_scale)
+                   k_scale=k_scale, v_scale=v_scale, slopes=slopes)
 
 
-def _launch(q, k_pool, v_pool, block_table, q_offset, *, causal, alibi, scale, k_scale, v_scale):
+def _launch(q, k_pool, v_pool, block_table, q_offset, *, causal, alibi, scale, k_scale, v_scale, slopes=None):
     """Launch K4 on checked CUDA tensors, counting the launch. The kernel
     copies the pools 16 bytes at a time (``cp.async``), so they must start
     on a 16-byte boundary (``check_aligned``); q, the table and the scales
@@ -186,7 +189,8 @@ def _launch(q, k_pool, v_pool, block_table, q_offset, *, causal, alibi, scale, k
     scale = scale if scale is not None else 1.0 / (D**0.5)
     lib = _build.library("paged_attention")
     head = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr())
-    tail = (table.data_ptr(), offs.data_ptr(), slopes_on(H, str(dev), alibi).data_ptr(), out.data_ptr(),
+    table_slopes = _slopes_arg(slopes, H, dev, alibi) if alibi else slopes_on(H, str(dev), False)
+    tail = (table.data_ptr(), offs.data_ptr(), table_slopes.data_ptr(), out.data_ptr(),
             _DTYPE_CODES[q.dtype], B, T, H, KVH, D, page, table.shape[1], per_split, n_splits, float(scale),
             int(causal), int(alibi), torch.cuda.current_stream(dev).cuda_stream)
     if int8:

@@ -39,13 +39,23 @@ def alibi_slopes(n_heads: int, device=None) -> torch.Tensor:
     return torch.tensor(alibi_slopes_list(n_heads), dtype=torch.float32, device=device)
 
 
-def alibi_bias(n_heads: int, q_len: int, kv_len: int, offset: int = 0, device=None) -> torch.Tensor:
+def head_slopes(n_heads: int, device=None, slopes=None) -> torch.Tensor:
+    """[n_heads] f32: the caller's slope table (a tensor-parallel or
+    Ulysses shard's heads, JAX's ``slopes=`` override) or the model's."""
+    if slopes is None:
+        return alibi_slopes(n_heads, device)
+    slopes = slopes.to(device=device, dtype=torch.float32).reshape(-1)
+    if slopes.numel() != n_heads:
+        raise ValueError(f"slopes must hold one value per query head ({n_heads}), got {slopes.numel()}")
+    return slopes
+
+
+def alibi_bias(n_heads: int, q_len: int, kv_len: int, offset: int = 0, device=None, slopes=None) -> torch.Tensor:
     """[n_heads, q_len, kv_len] f32 additive bias: -slope * max(q_pos - k_pos, 0)."""
     q_pos = torch.arange(q_len, dtype=torch.int32, device=device) + offset
     kv_pos = torch.arange(kv_len, dtype=torch.int32, device=device)
     dist = torch.clamp(q_pos[:, None] - kv_pos[None, :], min=0).to(torch.float32)
-    slopes = alibi_slopes(n_heads, device)
-    return -slopes[:, None, None] * dist[None, :, :]
+    return -head_slopes(n_heads, device, slopes)[:, None, None] * dist[None, :, :]
 
 
 @functools.lru_cache(maxsize=None)

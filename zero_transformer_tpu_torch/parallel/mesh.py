@@ -1,8 +1,8 @@
-"""Process groups for data and sequence parallelism.
+"""Process groups for data, sequence and tensor parallelism.
 
-Counterpart of ``zero_transformer_tpu/parallel/mesh.py``'s ``data`` and
-``sequence`` axes (``make_mesh`` :35-119: ``data`` outer, ``sequence``
-inner) and of ``parallel/bootstrap.py::maybe_initialize`` (:29): JAX's mesh
+Counterpart of ``zero_transformer_tpu/parallel/mesh.py``'s ``data``,
+``sequence`` and ``tensor`` axes (``make_mesh`` :35-119: ``data`` outer,
+``sequence`` inner; the ``tensor`` axis :26-31) and of ``parallel/bootstrap.py::maybe_initialize`` (:29): JAX's mesh
 becomes ``torch.distributed`` groups of one process per rank, started by
 ``torch.distributed.run`` (or by a caller that passes rank, world size and
 an ``init_method`` itself, as the tests do with ``file://``). World rank
@@ -20,7 +20,8 @@ The backend is always explicit and printed, never switched silently:
   backend's transport. The kernels still run on the card.
 
 ``SequenceGroup.rotate_start`` is the ring's ``lax.ppermute`` to ``(r + 1) %
-n`` (``ops/ring_attention.py::_rotate``). ``DataGroup`` holds the ZeRO
+n`` (``ops/ring_attention.py::_rotate``); ``SequenceGroup.all_to_all_`` is
+Ulysses' ``lax.all_to_all`` (``ops/ulysses.py``). ``DataGroup`` holds the ZeRO
 collectives of ``parallel/zero.py``: ``reduce_scatter_`` (JAX
 ``psum_scatter``), ``all_gather_`` (``all_gather``) and ``all_reduce_``
 (``psum``). Every collective runs inside a ``torch.profiler`` span named
@@ -28,12 +29,20 @@ after its group and operation (``sequence_group.rotate``,
 ``data_group.reduce_scatter``, ...: host time, the staging copies
 included), so a profile of a step can say what share of it the transfers
 take. A group of one rank runs no collective at all.
+
+``TensorGroup`` is the ``tensor`` axis of tensor-parallel serving
+(``models/gpt.py``'s Megatron layers, ``serving/engine.py``'s SPMD plans):
+``all_reduce_`` (JAX ``psum``), ``all_gather_`` along a dim (the vocab-split
+logits) and ``broadcast_`` / ``broadcast_object`` from rank 0 (the engine's
+plans), each inside a ``tensor_group.*`` span. ``init_tensor_group`` joins
+or starts the world of a pure tensor-parallel mesh (JAX ``serve_mesh``).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
+from datetime import timedelta
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -44,6 +53,8 @@ from zero_transformer_tpu_torch.config import resolve_device
 
 BACKENDS = ("nccl", "gloo")
 BUCKET_BYTES = 256 << 20  # grads all-reduced per flat bucket
+TENSOR_TIMEOUT_S = 1800.0  # a tensor rank's longest wait inside one collective (gloo's own default)
+JOIN_TIMEOUT_S = 1800.0  # every rank of a tensor world joins its rendezvous within it
 
 
 def _torchrun_hint(data: int, sequence: int) -> str:
@@ -198,6 +209,118 @@ class SequenceGroup(_Group):
             return [r.to(self.device) for r in recvs]
 
         return _Pending(works, finish, sends)
+
+
+    def all_to_all_(self, x: torch.Tensor, split_dim: int, concat_dim: int) -> torch.Tensor:
+        """JAX ``lax.all_to_all(x, split_axis, concat_axis, tiled=True)``:
+        ``x`` split into ``size`` chunks along ``split_dim``, chunk ``j`` sent
+        to rank ``j``, the chunks received concatenated in rank order along
+        ``concat_dim``. A new tensor (no autograd: ``ops/ulysses.py`` wraps it)."""
+        n = self.size
+        if n == 1:
+            return x.clone()
+        if x.shape[split_dim] % n:
+            raise ValueError(f"all_to_all splits dim {split_dim} of {tuple(x.shape)} over {n} ranks")
+        with record_function("sequence_group.all_to_all"):
+            # [n, chunk...]: chunk j leaves for rank j
+            send = torch.stack(torch.chunk(x, n, dim=split_dim)).contiguous()
+            if self.staged:
+                src = self._flat_buffer(("a2a_in", send.dtype), send.numel(), send.dtype)
+                dst = self._flat_buffer(("a2a_out", send.dtype), send.numel(), send.dtype)
+                src.copy_(send.reshape(-1))
+                dist.all_to_all_single(dst, src, group=self.group)
+                recv = dst.view(send.shape).to(self.device)
+            else:
+                recv = torch.empty_like(send)
+                dist.all_to_all_single(recv, send, group=self.group)
+            return torch.cat(recv.unbind(0), dim=concat_dim)
+
+    def all_gather_dim(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``x`` concatenated in rank order along ``dim`` (JAX
+        ``all_gather(..., tiled=True)``; no autograd)."""
+        if self.size == 1:
+            return x
+        with record_function("sequence_group.all_gather"):
+            return _gather_dim(self, x, dim)
+
+
+# the flat all-gather (its newer name where torch has it)
+_all_gather_flat = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def _gather_dim(group: "_Group", x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``group``'s every ``x`` concatenated in rank order along ``dim``."""
+    x = x.contiguous()
+    n = group.size
+    if group.staged:
+        src = group._flat_buffer(("ag_dim_in", x.dtype), x.numel(), x.dtype)
+        dst = group._flat_buffer(("ag_dim_out", x.dtype), n * x.numel(), x.dtype)
+        src.copy_(x.reshape(-1))
+        _all_gather_flat(dst, src, group=group.group)
+        full = dst.view(n, *x.shape).to(group.device)
+    else:
+        full = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
+        _all_gather_flat(full, x.reshape(-1), group=group.group)
+        full = full.view(n, *x.shape)
+    return torch.cat(full.unbind(0), dim=dim)
+
+
+@dataclasses.dataclass
+class TensorGroup(_Group):
+    """The ranks that split every layer's heads and features between them
+    (``mesh.tensor``): each holds ``1/size`` of the attention heads, the MLP
+    features and the vocabulary; the activations are whole on every rank."""
+
+    SPAN = "tensor_group"
+    timeout_s: float = TENSOR_TIMEOUT_S
+
+    @property
+    def heartbeat_s(self) -> float:
+        """The longest rank 0 leaves the other ranks waiting for its next
+        plan or job: a quarter of the collective timeout. An idle server or
+        REPL sends a no-op at this interval, so an idle world never times
+        out."""
+        return self.timeout_s / 4
+
+    def all_gather_(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """A new tensor: every rank's ``x`` concatenated in rank order along
+        ``dim`` (no autograd; ``models/gpt.py`` wraps it)."""
+        if self.size == 1:
+            return x
+        with record_function("tensor_group.all_gather"):
+            return _gather_dim(self, x, dim)
+
+    def broadcast_(self, tensors: Sequence[torch.Tensor], src: int = 0) -> None:
+        """Each tensor overwritten, in place, by rank ``src``'s (every rank
+        passes tensors of the same shapes and dtypes, in the same order)."""
+        if self.size == 1:
+            return
+        with record_function("tensor_group.broadcast"):
+            root = src if self.group is None else dist.get_global_rank(self.group, src)
+            for t in tensors:
+                if self.staged:
+                    host = self._flat_buffer(("bcast", t.dtype), t.numel(), t.dtype)
+                    if self.rank == src:
+                        host.copy_(t.reshape(-1))
+                    dist.broadcast(host, src=root, group=self.group)
+                    if self.rank != src:
+                        t.copy_(host.view_as(t))
+                else:
+                    flat = t if t.is_contiguous() else t.contiguous()
+                    dist.broadcast(flat, src=root, group=self.group)
+                    if flat is not t:
+                        t.copy_(flat)
+
+    def broadcast_object(self, obj, src: int = 0):
+        """Rank ``src``'s picklable ``obj`` on every rank."""
+        if self.size == 1:
+            return obj
+        with record_function("tensor_group.broadcast"):
+            box = [obj if self.rank == src else None]
+            root = src if self.group is None else dist.get_global_rank(self.group, src)
+            dist.broadcast_object_list(box, src=root, group=self.group,
+                                       device=self.device if self.backend == "nccl" else None)
+            return box[0]
 
 
 @dataclasses.dataclass
@@ -363,6 +486,60 @@ def make_mesh(data: int, sequence: int, backend: str, device: torch.device) -> M
     return Mesh(rank=rank, world_size=world_size, backend=backend, device=device,
                 data=DataGroup(rank=d, size=data, backend=backend, device=device, group=data_pg),
                 sequence=SequenceGroup(rank=s, size=sequence, backend=backend, device=device, group=seq_pg))
+
+
+def tensor_group_of_world(backend: str, device: torch.device,
+                          timeout_s: float = TENSOR_TIMEOUT_S) -> TensorGroup:
+    """A ``TensorGroup`` over the whole initialised world (a pure
+    tensor-parallel mesh: rank r holds the r-th slice of every layer);
+    ``timeout_s`` is the world's collective timeout, at most."""
+    return TensorGroup(rank=dist.get_rank(), size=dist.get_world_size(), backend=backend, device=device,
+                       timeout_s=timeout_s)
+
+
+def init_tensor_group(tensor: int, rank: int, init_method: str, device="cuda",
+                      backend: Optional[str] = None, timeout_s: float = TENSOR_TIMEOUT_S) -> TensorGroup:
+    """Join (or start) the world of ``tensor`` ranks of a pure
+    tensor-parallel serving mesh (JAX ``serve_mesh``). ``backend`` None
+    takes nccl with a card per rank when ``tensor`` cards are visible, else
+    gloo with the ranks sharing card 0 (its collectives staged through
+    pinned host buffers); the CPU takes gloo. Rank 0 prints the backend and
+    the topology it chose: there is no silent switch. Every rank joins the
+    rendezvous first (within ``JOIN_TIMEOUT_S``: ranks start at their own
+    pace); the group then waits ``timeout_s`` at most inside a collective,
+    and rank 0 keeps an idle world alive at ``heartbeat_s``."""
+    if tensor < 1:
+        raise ValueError(f"tensor must be >= 1, got {tensor}")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        if backend is None:
+            backend = "nccl" if cards >= tensor else "gloo"
+        if backend == "nccl" and cards < tensor:
+            raise ValueError(f"nccl needs a card per rank: {tensor} ranks, {cards} cards")
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+    else:
+        if backend == "nccl":
+            raise ValueError("nccl runs on CUDA tensors; the CPU takes gloo")
+        backend = "gloo"
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if tensor == 1:
+        return TensorGroup(rank=0, size=1, backend="none", device=dev)
+    if not dist.is_initialized():
+        store, _, _ = next(dist.rendezvous(init_method, rank, tensor, timeout=timedelta(seconds=JOIN_TIMEOUT_S)))
+        store.set(f"tensor_joined/{rank}", "1")
+        store.wait([f"tensor_joined/{r}" for r in range(tensor)])
+        kwargs = dict(backend=backend, rank=rank, world_size=tensor, store=store,
+                      timeout=timedelta(seconds=timeout_s))
+        if backend == "nccl":
+            kwargs["device_id"] = dev
+        dist.init_process_group(**kwargs)
+    group = tensor_group_of_world(backend, dev, timeout_s)
+    if rank == 0:
+        print(json.dumps({"tensor_parallel": group.describe()}), flush=True)
+    return group
 
 
 def destroy(mesh: Optional[Mesh]) -> None:

@@ -41,13 +41,41 @@ refused before any weight loads. ``--params`` is an ``.npz`` of the flat flax pa
 directory (``<checkpoint.directory>/<step>``). ``--quantize int8``
 quantizes that tree on the host before any weight reaches the card (JAX
 ``serve.py`` :314-322); an ``.npz`` that is already quantized needs the
-flag. The tokenizer is the byte-level one. The CLI runs on the CUDA card
-unless ``--device cpu`` is given; without a card it refuses to start.
+flag. ``--tokenizer`` is ``bytes`` (the byte-level tokenizer, the default)
+or a local directory holding a HuggingFace tokenizer (``load_tokenizer``,
+JAX ``_load_tokenizer`` :47: it needs the ``transformers`` package and
+never resolves a hub name). The CLI runs on the CUDA card unless
+``--device cpu`` is given; without a card it refuses to start.
+
+``--tensor N`` (JAX :526) serves tensor-parallel over N ranks in every mode
+(one-shot, REPL, ``--server``): the CLI is rank 0 and starts the other N - 1
+itself (``torch.multiprocessing`` spawn, a ``file://`` rendezvous in a
+fresh temporary directory), so JAX's command line works unchanged. Rank
+0 alone reads the weights on the host and sends them one tensor at a time;
+each rank keeps its shard (``inference.scatter_for_inference``), and rank 0
+prints every rank's host memory peak. NCCL with a card per rank where N
+cards are visible, else gloo with the ranks sharing card 0; ``--device
+cpu`` runs gloo on the CPU. Rank 0 prints the backend and topology. One-shot
+and REPL generation announce each job to the other ranks, which run the
+same ``generate`` loop; the server's engine leads the others' worker loops
+(``serving/engine.py``). An idle rank 0 (a server without traffic, a REPL
+waiting on its user) sends a no-op every quarter of ``--tensor-timeout``,
+the longest a rank waits inside one collective, so an idle world never
+times out. ``--speculative`` is switched off under ``--tensor > 1`` with
+JAX's message; the disaggregated roles and the slab layout's prefix cache
+raise before any weight loads. A rank that dies ends every rank and the
+CLI exits non-zero.
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
+import tempfile
+import threading
+import time
+from pathlib import Path
 from typing import Optional
 
 import torch
@@ -71,19 +99,92 @@ class ByteTokenizer:
         return bytes(t for t in toks if 0 <= t < 256).decode("utf-8", errors="replace")
 
 
+def load_tokenizer(name_or_path: str):
+    """``bytes``: the byte-level tokenizer. Else a local directory holding a
+    HuggingFace tokenizer (``AutoTokenizer.from_pretrained(dir,
+    local_files_only=True)``); ``transformers`` is imported here, and a name
+    that is not a directory (a hub name) is refused: nothing is fetched."""
+    if name_or_path == "bytes":
+        return ByteTokenizer()
+    if not Path(name_or_path).is_dir():
+        raise NotImplementedError(
+            f"tokenizer {name_or_path!r} is not a local directory: the port loads a HuggingFace tokenizer from a "
+            "local directory only and never resolves a hub name; pass a directory written by "
+            "save_pretrained, or 'bytes' for the byte tokenizer")
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as exc:
+        raise ImportError(f"tokenizer directory {name_or_path!r} needs the 'transformers' package, which is not "
+                          "installed here; the byte tokenizer ('bytes') needs nothing") from exc
+    return AutoTokenizer.from_pretrained(name_or_path, local_files_only=True)
+
+
 class TextGenerator:
     """Tokenizer + model + slab-cache decode behind one ``__call__`` (and
     ``stream``). ``model`` lies on its device with its weights cast for
     inference; ``speculative`` K > 0 sends greedy ``__call__`` through
-    prompt-lookup speculative decoding."""
+    prompt-lookup speculative decoding. Under a tensor group (the model's
+    ``tp``) rank 0 announces each job and the other ranks run it in
+    ``serve_worker``; between jobs rank 0's heartbeat thread announces a
+    no-op every ``heartbeat_s``."""
 
     def __init__(self, model, tokenizer, cache_len: Optional[int] = None, speculative: int = 0):
         self.model = model
         self.cfg = model.cfg
         self.tokenizer = tokenizer
         self.cache_len = cache_len or model.cfg.max_seq_len
+        self.group = getattr(model, "tp", None)
+        if self.group is not None and speculative:
+            if self.group.rank == 0:
+                print("serve: --speculative is single-chip only and is DISABLED under --tensor>1 (requests take "
+                      "the plain decode path)", flush=True)
+            speculative = 0
         self.speculative = speculative
         self.device = next(model.parameters()).device
+        # rank 0: announcements (jobs, heartbeats) go out one at a time; no heartbeat inside a job
+        self._jobs = threading.Lock()
+        self._busy = False
+        self._stopped = threading.Event()
+        if self.group is not None and self.group.rank == 0:
+            threading.Thread(target=self._heartbeat, name="tensor-heartbeat", daemon=True).start()
+
+    def _announce(self, job: Optional[dict]) -> None:
+        """Rank 0 of a tensor group: the next job (None: stop) to the others;
+        the job holds the group until ``_job_done``."""
+        if self.group is None:
+            return
+        with self._jobs:
+            if job is None:
+                self._stopped.set()
+            self._busy = job is not None
+            self.group.broadcast_object(job)
+
+    def _job_done(self) -> None:
+        with self._jobs:
+            self._busy = False
+
+    def _heartbeat(self) -> None:
+        """Rank 0: a no-op job every ``heartbeat_s`` while no job runs, so
+        the other ranks' wait for the next job outlasts any idle spell."""
+        while not self._stopped.wait(self.group.heartbeat_s):
+            with self._jobs:
+                if not self._busy and not self._stopped.is_set():
+                    self.group.broadcast_object(dict(kind="noop"))
+
+    def serve_worker(self) -> None:
+        """A tensor group's rank > 0: run rank 0's jobs until it says stop."""
+        while True:
+            job = self.group.broadcast_object(None)
+            if job is None:
+                return
+            kind = job.pop("kind")
+            if kind == "noop":
+                continue
+            if kind == "call":
+                self(**job)
+            else:
+                for _ in self.stream(**job):
+                    pass
 
     def _decode(self, toks) -> str:
         from zero_transformer_tpu_torch.serving.detok import decode_tokens
@@ -107,6 +208,18 @@ class TextGenerator:
     def __call__(self, prompt: str, max_new_tokens: int = 128, temperature: float = 0.8, top_k: int = 0,
                  top_p: float = 0.9, repetition_penalty: float = 1.1, greedy: bool = False,
                  seed: int = 0) -> str:
+        lead = self.group is not None and self.group.rank == 0
+        if lead:
+            self._announce(dict(kind="call", prompt=prompt, max_new_tokens=max_new_tokens, temperature=temperature,
+                                top_k=top_k, top_p=top_p, repetition_penalty=repetition_penalty, greedy=greedy,
+                                seed=seed))
+        try:
+            return self._call(prompt, max_new_tokens, temperature, top_k, top_p, repetition_penalty, greedy, seed)
+        finally:
+            if lead:
+                self._job_done()
+
+    def _call(self, prompt, max_new_tokens, temperature, top_k, top_p, repetition_penalty, greedy, seed) -> str:
         from zero_transformer_tpu_torch.inference import generate, generate_speculative
 
         ids, sampling, eos = self._prepare(prompt, max_new_tokens, temperature, top_k, top_p,
@@ -130,6 +243,19 @@ class TextGenerator:
     def stream(self, prompt: str, max_new_tokens: int = 128, temperature: float = 0.8, top_k: int = 0,
                top_p: float = 0.9, repetition_penalty: float = 1.1, greedy: bool = False, seed: int = 0):
         """Yield decoded text increments as the tokens come."""
+        lead = self.group is not None and self.group.rank == 0
+        if lead:
+            self._announce(dict(kind="stream", prompt=prompt, max_new_tokens=max_new_tokens, temperature=temperature,
+                                top_k=top_k, top_p=top_p, repetition_penalty=repetition_penalty, greedy=greedy,
+                                seed=seed))
+        try:
+            yield from self._stream(prompt, max_new_tokens, temperature, top_k, top_p, repetition_penalty, greedy,
+                                    seed)
+        finally:
+            if lead:
+                self._job_done()
+
+    def _stream(self, prompt, max_new_tokens, temperature, top_k, top_p, repetition_penalty, greedy, seed):
         from zero_transformer_tpu_torch.inference import stream_tokens
         from zero_transformer_tpu_torch.serving.detok import StreamDecoder
 
@@ -231,8 +357,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--top-p", type=float, default=0.9)
     p.add_argument("--repetition-penalty", type=float, default=1.1)
     p.add_argument("--greedy", action="store_true")
-    p.add_argument("--tokenizer", default="bytes", choices=("bytes",),
-                   help="the byte-level tokenizer (HF tokenizers come with a later slice)")
+    p.add_argument("--tokenizer", default="bytes",
+                   help="'bytes' (the byte-level tokenizer) or a local directory holding a HuggingFace tokenizer "
+                        "(needs the transformers package; a hub name is refused)")
+    p.add_argument("--tensor", type=int, default=1, metavar="N",
+                   help="tensor-parallel serving over N ranks (params + KV cache shard over heads/features; "
+                        "serves models larger than one card's memory): NCCL with a card per rank where N cards "
+                        "are visible, else gloo with the ranks sharing card 0")
+    p.add_argument("--tensor-timeout", type=float, default=None, metavar="SECONDS",
+                   help="under --tensor: the longest a rank waits inside one collective before it fails (default "
+                        "1800); an idle rank 0 sends a no-op every quarter of it")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
@@ -256,23 +390,50 @@ def load_params(path: str, quantize: str):
     return params_from_jax(tree)
 
 
-def build_model(args):
-    """The model with the CLI's weights on its device, cast for inference."""
+def host_peak_gib() -> float:
+    """This process's peak resident memory in GiB: ``VmHWM`` where
+    ``/proc/self/status`` has it (this process image's own), else
+    ``ru_maxrss``, which also holds the peak of the process this one was
+    forked from before its exec."""
+    import resource
+
+    try:
+        for line in Path("/proc/self/status").read_text().splitlines():
+            if line.startswith("VmHWM:"):
+                return int(line.split()[1]) / 2**20
+    except OSError:
+        pass
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # KiB on Linux
+
+
+def build_model(args, group=None):
+    """The model with the CLI's weights on its device, cast for inference.
+    Over a tensor ``group`` only rank 0 reads the weights and each rank
+    keeps its shard (``scatter_for_inference``); rank 0 prints every rank's
+    host memory peak."""
+    from zero_transformer_tpu_torch.inference import scatter_for_inference
     from zero_transformer_tpu_torch.models import model_getter
 
-    device = resolve_device(args.device)
-    state = load_params(args.params, args.quantize)
+    device = group.device if group is not None else resolve_device(args.device)
     model = model_getter(
         args.model, dtype=getattr(torch, args.dtype), device=device,
         attention_impl=args.attention_impl, dropout=0.0,
-        kv_cache_dtype=args.kv_cache_dtype, param_quant=args.quantize,
+        kv_cache_dtype=args.kv_cache_dtype, param_quant=args.quantize, tensor_group=group,
     )
-    model.load_state_dict(state)
+    if model.tp is None:
+        model.load_state_dict(load_params(args.params, args.quantize))
+        return model.cast_for_inference()
+    scatter_for_inference(model, load_params(args.params, args.quantize) if model.tp.rank == 0 else None, model.tp)
+    # every rank's host peak, printed by rank 0 alone
+    peak = torch.tensor([host_peak_gib()], dtype=torch.float64, device=device)
+    peaks = model.tp.all_gather_(peak, 0).tolist()
+    if model.tp.rank == 0:
+        print(json.dumps({"tensor_host_peak_gib": peaks}), flush=True)
     return model.cast_for_inference()
 
 
-def build_generator(args) -> TextGenerator:
-    return TextGenerator(build_model(args), ByteTokenizer(), cache_len=args.cache_len,
+def build_generator(args, group=None) -> TextGenerator:
+    return TextGenerator(build_model(args, group), load_tokenizer(args.tokenizer), cache_len=args.cache_len,
                          speculative=args.speculative)
 
 
@@ -288,41 +449,54 @@ def sampling_config(args):
     )
 
 
-def build_engine(args):
-    """Model + weights + engine from parsed CLI arguments (JAX ``_server``
-    :358-437), with JAX's adjustments and messages: ``--prefill-chunk 0``
-    on the paged layout falls back to ``--kv-layout slab`` and turns the
-    prefix cache off; ``--draft-k`` with a repetition penalty other than
-    1.0, or with ``--no-fused-tail``, is switched off."""
-    from zero_transformer_tpu_torch.obs import MetricsLogger
-    from zero_transformer_tpu_torch.serving.engine import ServingEngine
-
-    sampling = sampling_config(args)
+def _engine_layout(args, say: bool = True) -> tuple:
+    """(kv_layout, draft_k) after JAX's adjustments, with its messages:
+    ``--prefill-chunk 0`` on the paged layout falls back to ``--kv-layout
+    slab``; ``--draft-k`` with a repetition penalty other than 1.0, or with
+    ``--no-fused-tail``, is switched off."""
     kv_layout = args.kv_layout or _DEFAULTS.kv_layout
     if kv_layout == "paged" and args.prefill_chunk == 0:
-        print("serve: --prefill-chunk 0 (legacy one-shot prefill) has no block-table path; falling back to "
-              "--kv-layout slab", flush=True)
+        if say:
+            print("serve: --prefill-chunk 0 (legacy one-shot prefill) has no block-table path; falling back to "
+                  "--kv-layout slab", flush=True)
         kv_layout = "slab"
     draft_k = args.draft_k
     if draft_k and args.repetition_penalty != 1.0:
-        print("serve: --draft-k requires --repetition-penalty 1.0 (the batched verify step cannot emulate "
-              "the in-block penalty); speculation DISABLED for this run", flush=True)
+        if say:
+            print("serve: --draft-k requires --repetition-penalty 1.0 (the batched verify step cannot emulate "
+                  "the in-block penalty); speculation DISABLED for this run", flush=True)
         draft_k = 0
     if draft_k and args.no_fused_tail:
-        print("serve: --no-fused-tail (the fused-tail A/B control) covers the plain decode path only; "
-              "speculation DISABLED for this run", flush=True)
+        if say:
+            print("serve: --no-fused-tail (the fused-tail A/B control) covers the plain decode path only; "
+                  "speculation DISABLED for this run", flush=True)
         draft_k = 0
-    model = build_model(args)
-    tokenizer = ByteTokenizer()
+    return kv_layout, draft_k
+
+
+def build_engine(args, group=None):
+    """Model + weights + engine from parsed CLI arguments (JAX ``_server``
+    :358-437), with JAX's adjustments (``_engine_layout``). Over a tensor
+    ``group`` every rank builds it; only rank 0 prints, logs metrics and
+    keeps the observability outputs."""
+    from zero_transformer_tpu_torch.obs import MetricsLogger
+    from zero_transformer_tpu_torch.serving.engine import ServingEngine
+
+    lead = group is None or group.rank == 0
+    sampling = sampling_config(args)
+    kv_layout, draft_k = _engine_layout(args, say=lead)
+    model = build_model(args, group)
+    tokenizer = load_tokenizer(args.tokenizer)
     engine = ServingEngine(
         model, n_slots=args.slots, cache_len=args.cache_len, sampling=sampling,
         eos_token_id=tokenizer.eos_token_id, max_queue=args.max_queue,
         prefill_chunk=args.prefill_chunk, page_size=args.page_size,
         page_pool_tokens=args.page_pool_tokens, draft_k=draft_k, device=next(model.parameters()).device,
         prefix_cache_chunks=args.prefix_cache if args.prefill_chunk else 0,
-        metrics=MetricsLogger(directory=args.metrics_dir), metrics_interval=args.metrics_interval,
-        obs_dir=args.obs_dir or args.metrics_dir, trace=not args.no_trace, role=args.role,
-        kv_layout=kv_layout, max_prefill_buckets=args.max_prefill_buckets, fused_tail=not args.no_fused_tail,
+        metrics=MetricsLogger(directory=args.metrics_dir) if lead else None, metrics_interval=args.metrics_interval,
+        obs_dir=(args.obs_dir or args.metrics_dir) if lead else None, trace=lead and not args.no_trace,
+        role=args.role, kv_layout=kv_layout, max_prefill_buckets=args.max_prefill_buckets,
+        fused_tail=not args.no_fused_tail,
     )
     return engine, tokenizer
 
@@ -386,24 +560,147 @@ def _ui(gen: TextGenerator) -> None:
     demo.launch()
 
 
+def check_tensor_args(args) -> None:
+    """Refuse a ``--tensor N`` run the port cannot serve, before any weight
+    loads: N must divide the model's query and kv heads (and its MLP
+    features and vocabulary); the disaggregated roles and the slab layout's
+    prefix cache are not ported under N > 1; the UI runs on one rank."""
+    from zero_transformer_tpu_torch.config import model_config
+    from zero_transformer_tpu_torch.models.gpt import check_tensor_split
+    from zero_transformer_tpu_torch.serving.engine import check_tensor_serving
+
+    if args.tensor < 1:
+        raise SystemExit(f"--tensor must be >= 1, got {args.tensor}")
+    if args.tensor_timeout is not None and args.tensor_timeout <= 0:
+        raise SystemExit(f"--tensor-timeout must be > 0 seconds, got {args.tensor_timeout}")
+    if args.tensor == 1:
+        return
+    check_tensor_split(model_config(args.model), args.tensor)
+    if args.ui:
+        raise SystemExit("--ui serves from one rank: drop --tensor or use --prompt / --server")
+    if args.server:
+        kv_layout, _ = _engine_layout(args, say=False)
+        check_tensor_serving(args.role, kv_layout, args.prefix_cache if args.prefill_chunk else 0)
+
+
+class TensorRanks:
+    """Rank 0's side of a ``--tensor N`` run: it starts ranks 1 .. N - 1
+    (``_tensor_rank``, spawned), joins the group with them, and watches
+    them: a rank that exits before ``close`` (or a ``fault()`` that turns
+    true) ends every rank and this process with exit code 1, so a dead rank
+    never leaves the others waiting in a collective."""
+
+    def __init__(self, argv, args):
+        import torch.multiprocessing as mp
+
+        from zero_transformer_tpu_torch import serve as module  # importable by the spawned ranks, also under -m
+        from zero_transformer_tpu_torch.inference import serve_mesh
+
+        self.tensor = args.tensor
+        self._dir = tempfile.mkdtemp(prefix="serve_tensor_")
+        init = f"file://{os.path.join(self._dir, 'rendezvous')}"
+        self._closing = False
+        self.fault = lambda: None
+        # daemonic: an exception in this process must not leave it joining ranks that wait on it
+        self._ctx = mp.start_processes(module._tensor_rank, args=(list(argv), self.tensor, init, os.getpid()),
+                                       nprocs=self.tensor - 1, join=False, daemon=True, start_method="spawn")
+        self._watch = threading.Thread(target=self._watch_ranks, name="tensor-ranks", daemon=True)
+        self._watch.start()
+        self.group = serve_mesh(self.tensor, args.device, rank=0, init_method=init, timeout_s=args.tensor_timeout)
+
+    def _watch_ranks(self) -> None:
+        while not self._closing:
+            for i, proc in enumerate(self._ctx.processes):
+                if proc.exitcode is not None and (proc.exitcode != 0 or not self._closing):
+                    self.fail(f"tensor rank {i + 1} exited with code {proc.exitcode}")
+            fault = self.fault()
+            if fault is not None:
+                self.fail(f"rank 0 failed: {fault!r}")
+            time.sleep(0.2)
+
+    def fail(self, why: str) -> None:
+        print(f"serve: {why}; stopping all {self.tensor} tensor ranks", file=sys.stderr, flush=True)
+        for proc in self._ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+        os._exit(1)
+
+    def close(self, timeout: float = 60.0) -> None:
+        """After rank 0 told the others to stop: wait for them to exit 0."""
+        self._closing = True
+        end = time.monotonic() + timeout
+        for i, proc in enumerate(self._ctx.processes):
+            proc.join(max(end - time.monotonic(), 0.0))
+            if proc.exitcode != 0:
+                self.fail(f"tensor rank {i + 1} ended with code {proc.exitcode}")
+        import shutil
+
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(self._dir, ignore_errors=True)
+
+
+def _tensor_rank(i: int, argv, tensor: int, init: str, parent: int) -> None:
+    """Rank ``i + 1`` of a ``--tensor`` run (a spawned process): join the
+    group, build this rank's shard, then follow rank 0's jobs (one-shot,
+    REPL) or its engine's plans (``--server``). It exits if rank 0's
+    process goes away."""
+    from zero_transformer_tpu_torch.inference import serve_mesh
+
+    args = build_parser().parse_args(argv)
+
+    def orphaned() -> None:
+        while os.getppid() == parent:
+            time.sleep(0.5)
+        os._exit(1)
+
+    threading.Thread(target=orphaned, daemon=True).start()
+    group = serve_mesh(tensor, args.device, rank=i + 1, init_method=init, timeout_s=args.tensor_timeout)
+    if args.server:
+        engine, _ = build_engine(args, group)
+        engine.serve_worker()
+    else:
+        build_generator(args, group).serve_worker()
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
 def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     resolve_device(args.device)  # refuse to start without the requested device
     sampling_config(args)  # refuse bad sampling flags (--approx-top-k too) before any weight loads
+    check_tensor_args(args)
+    ranks = TensorRanks(argv, args) if args.tensor > 1 else None
+    group = None if ranks is None else ranks.group
+    if ranks is not None:
+        print(json.dumps({"tensor_ranks": args.tensor, "backend": group.backend, "device": str(group.device),
+                          "cards": torch.cuda.device_count() if group.device.type == "cuda" else 0}), flush=True)
     if args.server:
         from zero_transformer_tpu_torch.serving.server import run_server
 
-        engine, tokenizer = build_engine(args)
+        engine, tokenizer = build_engine(args, group)
+        if ranks is not None:
+            ranks.fault = lambda: engine.tp_fault
         run_server(engine, tokenizer, host=args.host, port=args.port, reload_source=_reload_loader(args),
                    drain_deadline_s=args.drain_deadline, admin_token=args.admin_token)
+        if ranks is not None:
+            engine.shutdown_workers()
+            ranks.close()
         return
-    gen = build_generator(args)
+    gen = build_generator(args, group)
     if args.ui:
         _ui(gen)
     elif args.prompt is not None:
         sys.stdout.write(gen(args.prompt, **_sampling_kwargs(args)) + "\n")
     else:
         _repl(gen, args)
+    if ranks is not None:
+        gen._announce(None)
+        ranks.close()
 
 
 if __name__ == "__main__":

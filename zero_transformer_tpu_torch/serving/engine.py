@@ -100,6 +100,22 @@ migrate: ``request_migration`` is False, ``request_migrate_all`` 0 and an
 import is rejected, as in JAX. The decode tick runs K4 over the slab (in
 JAX slab decode takes XLA's attention).
 
+Tensor-parallel serving (JAX's ``mesh=`` :856,988, a single controller over
+N chips) is SPMD here: an engine whose model holds a ``TensorGroup`` of N
+ranks (``models/gpt.py``) runs on every rank. Rank 0 owns the scheduler,
+the host state and HTTP; the other ranks run ``serve_worker``. Before each
+device program rank 0 broadcasts a small plan (``_plan``): the op, its
+tokens, offsets, block-table rows and the rows whose logits it needs, or a
+page copy, a device-state rebuild, a hot reload (rank 0's whole tensors
+then go out one at a time, ``scatter_for_inference``), or stop (and, from an idle tick, a no-op every ``heartbeat_s``, so the others'
+wait for the next plan never reaches the collective timeout); every rank
+then runs the same program over its shard of the weights and
+its ``KVH / N`` kv heads of the pools, so the layers' all-reduces pair up.
+The logits come back whole on every rank (gathered over the vocabulary)
+and only rank 0 samples, so each stream is drawn once. The roles, the
+page-span export and import, migration and the slab's span copies of the
+prefix cache raise under a group of N > 1, before any weight loads.
+
 ``fused_tail=False`` is JAX's A/B control (``_dispatch_defused`` :2603):
 the tick's sampled tokens come to the host and go back up before the
 forward, one more host sync a tick, with the same draws in the same order,
@@ -124,7 +140,8 @@ import numpy as np
 import torch
 
 from zero_transformer_tpu_torch.config import resolve_device
-from zero_transformer_tpu_torch.inference.generate import SLAB_PAGE, allocate_pools, decode_model
+from zero_transformer_tpu_torch.inference.generate import SLAB_PAGE, allocate_pools, decode_model, \
+    scatter_for_inference, shard_for_inference
 from zero_transformer_tpu_torch.inference.sampling import NEG_INF, SamplingConfig, draw, process_logits, sample_token
 from zero_transformer_tpu_torch.inference.speculative import ngram_propose
 from zero_transformer_tpu_torch.models.gpt import Transformer
@@ -160,6 +177,19 @@ _FINISHED = (DONE, CANCELLED, EXPIRED, REJECTED, FAILED, MIGRATED)
 
 # engine roles of a disaggregated fleet (the module doc)
 ROLES = ("mixed", "prefill", "decode")
+
+
+def check_tensor_serving(role: str, kv_layout: str, prefix_cache_chunks: int) -> None:
+    """Raise on what the engine does not run under a tensor group of N > 1
+    (ROADMAP Queue 1 item 13): the disaggregated roles (and with them the
+    page-span export and import that migration ships) and the slab's
+    prefix cache, whose span copies live in rank 0's host index."""
+    if role != "mixed":
+        raise NotImplementedError(f"role={role!r} under tensor parallelism is not ported yet (ROADMAP Queue 1 "
+                                  "item 13): page spans and migration ship one rank's pools")
+    if kv_layout == "slab" and prefix_cache_chunks:
+        raise NotImplementedError("the slab layout's prefix cache under tensor parallelism is not ported yet "
+                                  "(ROADMAP Queue 1 item 13): pass --prefix-cache 0 or the paged layout")
 
 
 @dataclasses.dataclass
@@ -491,6 +521,16 @@ class ServingEngine:
             raise ValueError("role='prefill' replicas never decode; draft_k must be 0")
         self.role = role
         self.page_shipper = page_shipper
+        # the tensor group (None: one rank); rank 0 leads, the others follow its plans
+        self._tp = getattr(model, "tp", None)
+        self.leader = self._tp is None or self._tp.rank == 0
+        self._workers_stopped = False
+        self._last_plan = time.monotonic()
+        # an exception inside a device program under a tensor group: the
+        # ranks are no longer in step, so it is fatal (_check_tensor_fault)
+        self.tp_fault: Optional[BaseException] = None
+        if self._tp is not None:
+            check_tensor_serving(role, kv_layout, prefix_cache_chunks)
         if next(model.parameters()).device != self.device:
             raise ValueError(f"model lives on {next(model.parameters()).device}, engine on {self.device}")
         self.page_size = page_size
@@ -596,7 +636,8 @@ class ServingEngine:
         per-slot sampling carries: built at start and by every rebuild. The
         caller has dropped every reference to the old state first."""
         S, V, dev = self.n_slots, self.cfg.vocab_size, self.device
-        self.pools = allocate_pools(self.cfg, self.n_pages, self.page_size, dev)
+        self.pools = allocate_pools(self.cfg, self.n_pages, self.page_size, dev,
+                                    kv_heads=self.model.blocks[0].attn.kv_heads)
         if self.kv_layout == "paged":
             self.slots = PagedKVCache(S, self.n_pages, self.page_size, self.cache_len)
             # page-id entries refcounted against THIS pool instance: rebuilt
@@ -615,9 +656,99 @@ class ServingEngine:
         # the draft each row rejected last tick, masked out of its next sample (-1: none)
         self._veto = torch.full((S,), -1, dtype=torch.long, device=dev)
 
+    # ------------------------------------------------------- device programs
+
+    def _plan(self, op: str, tensors: Sequence[torch.Tensor] = (), **meta) -> None:
+        """Rank 0 of a tensor group: announce a device program to the other
+        ranks (the op, its scalars, then its tensors); a no-op on one rank."""
+        if self._tp is None:
+            return
+        self._last_plan = time.monotonic()
+        self._tp.broadcast_object((op, meta, [(tuple(t.shape), t.dtype) for t in tensors]))
+        self._tp.broadcast_([t.to(self.device) for t in tensors])
+
+    def forward_logits(self, tokens: torch.Tensor, table: torch.Tensor, offsets: torch.Tensor,
+                       flash: bool = False, pick: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The engine's one device program over the pools: ``tokens`` [B, T]
+        at ``offsets`` [B] through the block-table rows ``table``, then the
+        float32 logits of the positions ``pick`` [B] (one a row), or of
+        every position (None). Under a tensor group rank 0 announces it
+        first and every rank runs it over its shard."""
+        try:
+            self._plan("forward", [t for t in (tokens, table, offsets, pick) if t is not None], flash=flash,
+                       pick=pick is not None)
+            return self._forward_logits(tokens, table, offsets, flash, pick)
+        except Exception as exc:
+            if self._tp is not None:
+                self.tp_fault = exc
+            raise
+
+    def _forward_logits(self, tokens, table, offsets, flash, pick):
+        h = self.model.forward_paged(tokens, self.pools, table, offsets, self.cache_len, flash=flash)
+        if pick is not None:
+            h = h[torch.arange(h.shape[0], device=h.device), pick]
+        return self.model.logits(h).float()
+
+    def serve_worker(self) -> None:
+        """A tensor group's rank > 0: run rank 0's plans until it says stop.
+        An exception ends the loop (and the worker's process): rank 0's
+        launcher brings the server down with it."""
+        if self.leader:
+            raise RuntimeError("serve_worker runs on the ranks > 0 of a tensor group")
+        while True:
+            op, meta, specs = self._tp.broadcast_object(None)
+            tensors = [torch.empty(shape, dtype=dtype, device=self.device) for shape, dtype in specs]
+            self._tp.broadcast_(tensors)
+            if op == "stop":
+                return
+            with torch.no_grad():
+                if op == "noop":
+                    pass
+                elif op == "forward":
+                    it = iter(tensors)
+                    tokens, table, offsets = next(it), next(it), next(it)
+                    self._forward_logits(tokens, table, offsets, meta["flash"], next(it) if meta["pick"] else None)
+                elif op == "copy_page":
+                    self._copy_page_local(meta["src"], meta["dst"])
+                elif op == "rebuild":
+                    self.pools = None
+                    self._allocate_device_state()
+                elif op == "reload":
+                    scatter_for_inference(self.model, None, self._tp)
+                else:
+                    raise RuntimeError(f"unknown tensor-parallel plan {op!r}")
+
+    def _check_tensor_fault(self, exc: Exception) -> None:
+        """Under a tensor group a fault inside a device program cannot be
+        supervised (the other ranks wait inside its collectives): abort and
+        raise, and the launcher ends every rank."""
+        if self.tp_fault is not None:
+            reason = f"tensor-parallel device program failed on rank {self._tp.rank}: {exc!r}"
+            self._abort(reason)
+            raise RuntimeError(reason) from exc
+
+    def shutdown_workers(self) -> None:
+        """Rank 0: tell the other ranks to leave ``serve_worker`` (once; not
+        after a fault inside a device program, whose ranks are not in step)."""
+        if self._tp is not None and self.leader and not self._workers_stopped and self.tp_fault is None:
+            self._workers_stopped = True
+            self._plan("stop")
+
+    def _heartbeat(self) -> None:
+        """Rank 0 of a tensor group, on an idle tick: a no-op plan when none
+        went out for ``heartbeat_s``, so the other ranks, waiting in
+        ``serve_worker``, never reach the collective timeout."""
+        if (self._tp is not None and self.leader and not self._workers_stopped and self.tp_fault is None
+                and time.monotonic() - self._last_plan >= self._tp.heartbeat_s):
+            self._plan("noop")
+
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy-on-write's device half: page ``src``'s rows of every pool
-        (scale pools too) into page ``dst``."""
+        (scale pools too) into page ``dst``, on every rank."""
+        self._plan("copy_page", src=int(src), dst=int(dst))
+        self._copy_page_local(src, dst)
+
+    def _copy_page_local(self, src: int, dst: int) -> None:
         with torch.no_grad():
             for layer in self.pools:
                 for pool in (layer.k, layer.v, layer.k_scale, layer.v_scale):
@@ -980,10 +1111,10 @@ class ServingEngine:
         padded = torch.tensor([list(prompt) + [0] * (bucket - T)], dtype=torch.long)
         if dev.type == "cuda":
             padded = padded.pin_memory()
-        h = self.model.forward_paged(padded.to(dev, non_blocking=True), self.pools,
-                                     torch.from_numpy(self.slots.table[slot:slot + 1]).to(dev),
-                                     torch.zeros(1, dtype=torch.int32, device=dev), self.cache_len, flash=True)
-        return self.model.logits(h[0, T - 1]).float()
+        return self.forward_logits(padded.to(dev, non_blocking=True),
+                                   torch.from_numpy(self.slots.table[slot:slot + 1]).to(dev),
+                                   torch.zeros(1, dtype=torch.int32, device=dev), flash=True,
+                                   pick=torch.full((1,), T - 1, dtype=torch.long, device=dev))[0]
 
     def _admit_oneshot(self) -> None:
         """The one-shot path (``prefill_chunk=0``, slab): each admitted
@@ -1077,14 +1208,12 @@ class ServingEngine:
             if self._chaos is not None:
                 self._chaos.on_prefill_chunk(self._tick)
             with torch.no_grad():
-                h = self.model.forward_paged(
-                    torch.tensor(tokens, dtype=torch.long, device=dev), self.pools,
-                    torch.from_numpy(self.slots.table[slots]).to(dev),
-                    torch.tensor(starts, dtype=torch.int32, device=dev), self.cache_len,
-                )
                 last_idx = [min(max(n - 1 - s, 0), C - 1) for n, s in zip(lens, starts)]
-                last = self.model.logits(h[torch.arange(len(slots), device=dev),
-                                           torch.tensor(last_idx, device=dev)]).float()
+                last = self.forward_logits(
+                    torch.tensor(tokens, dtype=torch.long, device=dev),
+                    torch.from_numpy(self.slots.table[slots]).to(dev),
+                    torch.tensor(starts, dtype=torch.int32, device=dev),
+                    pick=torch.tensor(last_idx, dtype=torch.long, device=dev))
         except Exception as exc:
             self._on_prefill_fault(exc)
             return True
@@ -1202,6 +1331,7 @@ class ServingEngine:
         """A chunk forward failed: fail ONLY the mid-prefill slots
         (retryably). Decoding slots' pages were not written by it, so
         nothing is rebuilt and the breaker is not fed."""
+        self._check_tensor_fault(exc)
         self.stats["prefill_faults"] += 1
         now = self.now()
         failed = sorted(self._prefilling)
@@ -1247,6 +1377,9 @@ class ServingEngine:
         Thread-safe; False when no live stream carries that id, or on a
         slab engine (nothing there is transferable). The export happens
         between ticks: the device state stays the tick thread's."""
+        if self._tp is not None:
+            raise NotImplementedError("stream migration under tensor parallelism is not ported yet (ROADMAP Queue 1 "
+                                      "item 13)")
         if self.kv_layout != "paged":
             return False
         active = list(self._active)
@@ -1262,6 +1395,9 @@ class ServingEngine:
     def request_migrate_all(self, target: str) -> int:
         """Move every live stream to ``target`` (a drain by migration);
         returns how many were tagged (0 on a slab engine)."""
+        if self._tp is not None:
+            raise NotImplementedError("stream migration under tensor parallelism is not ported yet (ROADMAP Queue 1 "
+                                      "item 13)")
         if self.kv_layout != "paged":
             return 0
         n = sum(1 for a in list(self._active) if a is not None) + len(self._prefilling)
@@ -1444,6 +1580,9 @@ class ServingEngine:
         for the tick thread to place. The handle streams the continuation
         only. A handle that could not be accepted comes back finished
         (rejected or failed, retryable where the condition passes)."""
+        if self._tp is not None:
+            raise NotImplementedError("stream migration under tensor parallelism is not ported yet (ROADMAP Queue 1 "
+                                      "item 13)")
         now = self.now()
         structural = self._validate_import_payload(payload)
         if structural is not None:
@@ -1709,8 +1848,7 @@ class ServingEngine:
             sampled = token.cpu().tolist()
             up = torch.tensor(sampled, dtype=torch.long)
             token = (up.pin_memory() if dev.type == "cuda" else up).to(dev, non_blocking=True)
-        logits = self.model.logits(self.model.forward_paged(
-            token[:, None], self.pools, self._decoding_table(), self._cursors(), self.cache_len)[:, 0]).float()
+        logits = self.forward_logits(token[:, None], self._decoding_table(), self._cursors())[:, 0]
         if self._chaos is not None:
             # injected NaNs meet the same non-finite criterion as organic ones
             logits = self._chaos.poison_logits(self._tick, logits)
@@ -1758,8 +1896,7 @@ class ServingEngine:
         proc = torch.where(vocab[None, :] == self._veto[:, None], NEG_INF, proc)
         token = draw(proc, self.sampling.greedy, uniforms=tok_u)
         x = torch.cat([token[:, None], draft], dim=1)  # [S, K + 1]
-        logits32 = self.model.logits(self.model.forward_paged(
-            x, self.pools, self._decoding_table(), self._cursors(), self.cache_len)).float()  # [S, K + 1, V]
+        logits32 = self.forward_logits(x, self._decoding_table(), self._cursors())  # [S, K + 1, V]
         flat = process_logits(logits32.reshape(S * (K + 1), V), self.sampling)
         if self.sampling.greedy:
             ok = draft == torch.argmax(flat, dim=-1).view(S, K + 1)[:, :K]
@@ -1825,6 +1962,7 @@ class ServingEngine:
                                   "queued": len(self._queue), "emitted": 0})
                 self._tick += 1
                 return True
+            self._heartbeat()
             return False
 
         # supervised region: a fault here fails at most this tick's slots
@@ -1946,6 +2084,7 @@ class ServingEngine:
         mid-prefill (retryable), rebuild the device state, and let the
         breaker escalate: DEGRADED at its threshold, an abort after
         ``max_rebuilds`` consecutive rebuilds."""
+        self._check_tensor_fault(exc)
         self.stats["tick_faults"] += 1
         now = self.now()
         error = f"decode tick failed (retryable): {exc!r}"
@@ -1986,6 +2125,7 @@ class ServingEngine:
         self._prefilling.clear()
         self.pools = self.slots = self._prefix_cache = None
         self._last_logits = self._gen_mask = self._veto = None
+        self._plan("rebuild")
         self._allocate_device_state()
         self._event("engine_rebuilt")
 
@@ -2065,7 +2205,9 @@ class ServingEngine:
         HTTP handler, the SIGHUP thread), which loads, validates
         (``validate_reload``), casts each tensor to the serving dtype and
         moves it to the device here; the tick thread only copies it into the
-        engine's model (the one it was built from) in place. A
+        engine's model (the one it was built from) in place. Under a tensor
+        group the whole tensors stay on the host, and at the swap every rank
+        takes its slices of them, one tensor at a time. A
         corrupt or mismatched artifact raises ``ReloadError`` and the engine
         keeps serving the old weights, READY throughout."""
         try:
@@ -2073,8 +2215,16 @@ class ServingEngine:
             if self._chaos is not None:
                 state = self._chaos.corrupt_reload(state)
             current = self.model.state_dict()
-            validate_reload(current, state)
-            state = {k: v.to(device=self.device, dtype=current[k].dtype, copy=True) for k, v in state.items()}
+            whole = None
+            if self._tp is not None:
+                # the whole tensors stay on the host, sent to every rank at
+                # the swap; this rank validates its own slices
+                whole = {k: v.to(dtype=current[k].dtype) if k in current else v for k, v in state.items()}
+                validate_reload(current, shard_for_inference(self.model, state, self._tp))
+                state = None
+            else:
+                validate_reload(current, state)
+                state = {k: v.to(device=self.device, dtype=current[k].dtype, copy=True) for k, v in state.items()}
         except ReloadError as exc:
             self.stats["reloads_rejected"] += 1
             self._event("reload_rejected", error=str(exc))
@@ -2089,7 +2239,7 @@ class ServingEngine:
                 self.stats["reloads_rejected"] += 1
                 raise ReloadError(f"engine is not serving: {self._dead}")
             # a superseded staged predecessor never serves: its event stays unset
-            self._pending_params = (state, swap_event)
+            self._pending_params = (state, swap_event, whole)
             self._last_reload_event = swap_event
         return {"staged": True, "swapped": swap_event, "reloads": self.stats["reloads"]}
 
@@ -2103,10 +2253,14 @@ class ServingEngine:
             pending, self._pending_params = self._pending_params, None
         if pending is None:
             return
-        state, swap_event = pending
-        with torch.no_grad():
-            self.model.load_state_dict(state)
-        del state
+        state, swap_event, whole = pending
+        if whole is not None:  # every rank copies in its slices of rank 0's whole tensors, one at a time
+            self._plan("reload")
+            scatter_for_inference(self.model, whole, self._tp)
+        else:
+            with torch.no_grad():
+                self.model.load_state_dict(state)
+        del state, whole
         self.stats["reloads"] += 1
         if self._prefix_cache is not None:
             flushed = self._prefix_cache.flush()
@@ -2133,17 +2287,20 @@ class ServingEngine:
         completed drain. A scheduler exception fails every outstanding
         request loudly (so no client waits forever), then re-raises."""
         self.lifecycle.to(READY, reason="scheduler started")
-        while not stop.is_set():
-            try:
-                busy = self.step()
-            except Exception as exc:
-                self._abort(f"scheduler died: {exc!r}")
-                raise
-            if self.draining and self.poll_drain():
-                return
-            if not busy:
-                time.sleep(idle_sleep)
-        self._abort("engine stopped")
+        try:
+            while not stop.is_set():
+                try:
+                    busy = self.step()
+                except Exception as exc:
+                    self._abort(f"scheduler died: {exc!r}")
+                    raise
+                if self.draining and self.poll_drain():
+                    return
+                if not busy:
+                    time.sleep(idle_sleep)
+            self._abort("engine stopped")
+        finally:
+            self.shutdown_workers()
 
     def _abort(self, reason: str) -> None:
         """Finish every outstanding request as ``failed`` and mark the engine
