@@ -111,7 +111,9 @@ Phases, each fatal on failure (nothing is caught):
    grad cosines, bit-equal params across ranks, exact launch counts, peak
    memory, the transfers' share under ``torch.profiler``), plain and packed,
    then the trainer CLI under ``torch.distributed.run`` for 3 steps of
-   ``configs/train_580m_8k.yaml`` and the same CLI on one card; the one-card
+   ``configs/train_580m_8k.yaml`` at 2 layers (``SP_CLI_LAYERS``) and,
+   beside it on the same card, the same CLI on one card (their step time,
+   tokens/s and model-FLOPs share logged as ``contended_*``); the one-card
    reference step's launches give the D 128 rows of the kernel table. In
    the same 4-rank world, the same two steps with ``cp_impl: ulysses``
    (three all-to-alls to the whole row at 3 heads a rank, one K1 call over
@@ -212,8 +214,9 @@ Phases, each fatal on failure (nothing is caught):
    the prefill logits within 1e-4; then all of it but the sampled run with
    int8 weights and an int8 cache (ties of two int8 caches within 2e-3;
    their f32 logits reported). Readings: ms per token, prefill ms, tokens per forward, syncs
-   per forward, launches per token. (b) ``llama3_8b`` at full width and
-   depth, B 1 x T 512, 32 new tokens, cache 8192: (a)'s greedy checks and
+   per forward, launches per token. (b) ``llama3_8b`` at full width, its
+   depth cut to 16 layers (``LLAMA_CUT_LAYERS``: the run's time), B 1 x T
+   512, 32 new tokens, cache 8192: (a)'s greedy checks and
    readings in bf16, then its float32 checks at full width with the depth
    cut to 8 layers (8 GB models, built one at a time). The kernel rows of
    those shapes. (c) The serve CLI in processes of its own
@@ -270,7 +273,8 @@ Phases, each fatal on failure (nothing is caught):
    seed-0 ``.npz``): ``/healthz`` roles, ``/generate`` with ``prefill_to``
    ends ``migrated``, ``/attach`` streams (a)'s mixed tokens, a ship to a
    dead port fails the stream retryably with a flight dump, SIGTERM exits
-   0. (d) ``llama3_8b`` at 32 layers, bf16 then its cache in int8 (the
+   0. (d) ``llama3_8b`` at full width and 16 layers (``LLAMA_CUT_LAYERS``),
+   bf16 then its cache in int8 (the
    same weights): a 512-token prompt handed off (pages bit-equal, launches
    exact), then again with every attention read held to the plain read of
    the same pools at the bf16 bar. The kernel rows of K1 on a prefill
@@ -342,6 +346,30 @@ Phases, each fatal on failure (nothing is caught):
    kernel rows of K1 and K4 at a rank's heads: 125m's heads 6-11 with
    their slopes (the plain version with the slopes of heads 0-5 must miss
    the bar), llama3_8b's 16 query on 4 kv heads.
+25. tensor_training: training over a ``tensor`` axis (``mesh.tensor``), in
+   four parts, with the backend printed (gloo with the ranks sharing card
+   0, NCCL with a card a rank): (a) 125m at full width, depth
+   ``DP_LAYERS``, data 2 x tensor 2 inside data_parallel's 4-rank world:
+   ZeRO 0-3 with AdamW (stage 3 with the chunked loss) and Adafactor at
+   stage 1, 3 steps each, losses within LOSS_MARGIN and grad norms within
+   GRAD_NORM_RTOL of the one-card trainer on the same global batches, the
+   whole params bit-equal on every rank and the replicated leaves across
+   the tensor ranks, bytes a rank by the ZeRO formula over one tensor
+   rank's params beside the data-4 figure, the stage-2 save holding the
+   one-card tree, resumed at data 4 x tensor 1 within the bars; (b) 580m at
+   T 8192, ``SP_LAYERS`` layers, tensor 2 x sequence 2 inside
+   sequence_parallel's world, through the ring and through Ulysses: loss
+   within LOSS_MARGIN of the one-card step, every grad's cosine to the
+   one-card grads' slice at least COS_BAR, exact launches; (c) llama3_8b at
+   full width, 4 layers, over tensor 2 on 2 spawned ranks, bf16, AdamW, no
+   remat: ``llama_training``'s first 3 one-card steps replayed (its batches, from
+   the same seeded weights), losses and grad norms within the bars, the
+   peak a rank; (d) beside (c), the trainer CLI under
+   ``torch.distributed.run`` over data 2 x tensor 2 (125m, 2 layers, 3
+   steps). Then K1-K3 at every new shard shape with each rank's slopes
+   against their plain versions (a plain version handed the slopes of
+   the head range with the tensor offset dropped must miss the bars):
+   the ``_tp``, ``_tp_ring``, ``_tp_ulysses`` and ``_tp_llama`` rows.
 
 Each phase prints its seconds and the disk it leaves, after its step,
 checkpoint and build directories are deleted; the run prints every
@@ -369,8 +397,10 @@ bf16 rounding.
 (kernels, serving, parity, profile, int8_kernels, int8_serving,
 train_kernels, training, resilience, train_1_3b, packed_kernels, packed, sp_kernels,
 sequence_parallel, data_parallel, llama_kernels, llama_serving, llama_training, generate,
-serving_policy, disagg, slab_serving, router, tensor_serving, data_parallel_nccl, sequence_parallel_f32, k4_anatomy
-and tc_fit; parity needs serving); the kernel table then lists the kernels whose phases ran.
+serving_policy, disagg, slab_serving, router, tensor_serving, tensor_training, data_parallel_nccl,
+sequence_parallel_f32, k4_anatomy and tc_fit; parity needs serving; tensor_training runs its parts (a) and
+(b) inside data_parallel's and sequence_parallel's worlds and replays llama_training's steps, so
+naming it adds those three phases); the kernel table then lists the kernels whose phases ran.
 
 The last two lines of standard output are the kernel table as one JSON
 object and ``{"ok": true, "device": {...}}`` (a full run only). Without CUDA the script exits
@@ -3458,6 +3488,7 @@ SP_RANKS, SP_SEQ, SP_MODEL, SP_LR = 4, 8192, "580m", 1e-4
 # trainer CLIs: their gloo transfers through the host scale with the layers
 # (the op-level ring runs one layer's shape either way)
 SP_LAYERS = 4
+SP_CLI_LAYERS = 2  # the trainer CLIs' depth: each saves its state at the end
 SP_SEPARATORS = (1000, 2047, 2048, 3000, 6100, 8191)  # packed case: across and on shard edges
 SP_STEP_CASES = {"plain": {}, "packed": {"doc_sep_token": 0}}  # 580m overrides
 # the same steps through Ulysses (cp_impl: ulysses), held to the same one-card references
@@ -3496,11 +3527,14 @@ def param_checksum(model) -> int:
     return sum(int(p.detach().view(torch.int32).sum(dtype=torch.int64)) for p in model.parameters())
 
 
-def _sp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str, dtype_name: str) -> None:
+def _sp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str, dtype_name: str,
+             tensor_training: bool = False) -> None:
     """One rank of the sequence-parallel phase: the op-level ring at 580m's
     layer shape, then one ring train step of 580m per case (launch counts,
     grad cosines against the one-card grads on rank 0, the param checksum,
-    peak memory), and a second step under the profiler on rank 0."""
+    peak memory), and a second step under the profiler on rank 0; with
+    ``tensor_training``, the tensor_training phase's part (b) after them
+    (``tt_sp_step``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from zero_transformer_tpu_torch.config import OptimizerConfig
@@ -3596,12 +3630,14 @@ def _sp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str, 
         del st, model, step, batch, metrics, capture, adamw_step
         gc.collect()  # the AdamW step wrapper made a cycle through the optimizer
         torch.cuda.empty_cache()
+    if tensor_training:
+        result["tensor_training"] = tt_sp_step(mesh, backend, out, dtype)
     (out / f"rank{rank}.json").write_text(json.dumps(result))
     group.barrier()
     destroy(mesh)
 
 
-def sequence_parallel_phase(dtype=torch.bfloat16) -> dict:
+def sequence_parallel_phase(dtype=torch.bfloat16, tensor_training: bool = False) -> dict:
     """580m at full width, its depth cut to ``SP_LAYERS``, at T 8192 over 4
     ranks: NCCL with a card per rank when the machine has 4, else 4 ranks
     sharing card 0 over gloo (each rank's
@@ -3620,15 +3656,18 @@ def sequence_parallel_phase(dtype=torch.bfloat16) -> dict:
     forward, and its recompute under remat), flash_partial_dq =
     flash_partial_dkv = L x n, for L layers and n ranks (the ``_docs``
     counters in the packed case). Then the trainer CLI under
-    ``torch.distributed.run`` for 3 steps of configs/train_580m_8k.yaml,
-    and the same CLI on one card. Returns the ring's launch counts and, as
+    ``torch.distributed.run`` for 3 steps of configs/train_580m_8k.yaml at
+    ``SP_CLI_LAYERS`` layers and, beside it on the same card, the same CLI on one card (their step
+    readings ``contended_*``: neither run had the card alone). Returns the ring's launch counts and, as
     the ``_d128`` rows of the kernel table, the one-card reference's
     (the training entry at D 128: ``flash_train_fwd_d128``,
     ``flash_dq_d128``, ``flash_dkv_d128``, plain case).
 
     With ``dtype`` float32 (the ``sequence_parallel_f32`` phase) every
     kernel of both sides takes its f32 path: the same bars and readings
-    under ``_f32`` names, without the trainer CLIs."""
+    under ``_f32`` names, without the trainer CLIs. ``tensor_training``:
+    the ranks run the tensor_training phase's part (b) as well, checked
+    here against the same one-card reference (``check_tt_sp``)."""
     from zero_transformer_tpu_torch.config import model_config
     from zero_transformer_tpu_torch.ops import _build, flash
 
@@ -3665,9 +3704,11 @@ def sequence_parallel_phase(dtype=torch.bfloat16) -> dict:
         c: {"loss": l, "step_s": s, "launches": one_card_launches[c]} for c, (l, _, s) in ref_loss.items()}})
 
     t0 = time.perf_counter()
-    results = run_ranks(_sp_rank, SP_RANKS, backend, out, str(dtype).removeprefix("torch."),
+    results = run_ranks(_sp_rank, SP_RANKS, backend, out, str(dtype).removeprefix("torch."), tensor_training,
                         what="sequence-parallel")
     ranks_s = time.perf_counter() - t0
+    if tensor_training:
+        TT_STASH["b"] = check_tt_sp(results, ref_loss["plain"][0])
 
     # the op-level ring against the one-card flash_attention on the gathered tensors
     op = {}
@@ -3731,46 +3772,69 @@ def sequence_parallel_phase(dtype=torch.bfloat16) -> dict:
             f.unlink()
         return launches, sp_rows
 
-    # the trainer CLI under torch.distributed.run, then on one card
-    # 580m at its own dropout 0.1, its depth cut to SP_LAYERS
-    sets = ["training.gradient_accumulation_steps=1", "training.log_frequency=1", f"model.n_layers={SP_LAYERS}"]
+    # the trainer CLI under torch.distributed.run and, beside it, on one card
+    # (the two share the card: their step times are not the ring's or one
+    # card's alone); 580m at its own dropout 0.1, its depth cut to SP_CLI_LAYERS
+    L = SP_CLI_LAYERS
+    sets = ["training.gradient_accumulation_steps=1", "training.log_frequency=1", f"model.n_layers={L}"]
     flops = (f"tokens/s * 3 * (2 * N + 4 * L * d * T) / (989e12 * cards), "
              f"N = {model_config(SP_MODEL, n_layers=L).num_params}, L = {L}, d = 1536, T = {SP_SEQ}")
-    ring_cli, proc = trainer_cli_580m(
-        ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(SP_RANKS), "-m",
-         "zero_transformer_tpu_torch.train", "--dist-backend", backend], [f"mesh.sequence={SP_RANKS}", *sets],
-        Path("build") / "train_580m_8k_sp")
+    one_card = {}
+    beside = threading.Thread(target=lambda: one_card.update(result=trainer_cli_580m(
+        ["-m", "zero_transformer_tpu_torch.train"], sets, Path("build") / "train_580m_8k_one_card")))
+    beside.start()
+    try:
+        ring_cli, proc = trainer_cli_580m(
+            ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(SP_RANKS), "-m",
+             "zero_transformer_tpu_torch.train", "--dist-backend", backend], [f"mesh.sequence={SP_RANKS}", *sets],
+            Path("build") / "train_580m_8k_sp")
+    finally:
+        beside.join()
     topo = next((json.loads(line)["distributed"] for line in proc.stdout.splitlines()
                  if line.startswith('{"distributed"')), None)
     log({"sequence_parallel_trainer_cli": {**ring_cli, "ranks_phase_s": ranks_s, "topology": topo,
-                                           "model_flops_formula": flops}})
-    if topo is None or topo["backend"] != backend or ring_cli["model_flops_share"] is None:
+                                           "model_flops_formula": flops, "beside": "the one-card CLI"}})
+    if topo is None or topo["backend"] != backend or ring_cli["contended_model_flops_share"] is None:
         raise AssertionError(f"the trainer CLI printed no topology or no model-FLOPs share: {topo}, {ring_cli}")
-    one_cli, _ = trainer_cli_580m(["-m", "zero_transformer_tpu_torch.train"], sets,
-                                  Path("build") / "train_580m_8k_one_card")
-    log({"one_card_trainer_cli_580m": {**one_cli, "model_flops_formula": flops}})
+    if "result" not in one_card:
+        raise AssertionError("the one-card 580m trainer CLI beside the ring's failed (its error is above)")
+    one_cli, _ = one_card["result"]
+    log({"one_card_trainer_cli_580m": {**one_cli, "model_flops_formula": flops, "beside": "the ring's CLI"}})
     for f in out.glob("*.pt"):
         f.unlink()
     return launches, sp_rows
 
 
 def ulysses_kernel_rows() -> dict:
-    """K1 (training entry, with lse), K2 and K3 at a Ulysses rank's shape
-    (580m at T 8192 over 4 ranks: one row of the whole T at 3 heads of 128,
-    bf16) with the slopes of heads 3-5 (rank 1's), against their plain
-    versions; the plain versions handed the slopes of heads 0-2 must miss
-    the bars. Timed with SDPA as the yardstick: the kernel table's
-    ``_ulysses`` rows."""
+    """K1-K3 at a Ulysses rank's shape (580m at T 8192 over 4 ranks: one
+    row of the whole T at 3 heads of 128, bf16) with the slopes of heads
+    3-5 (rank 1's): the kernel table's ``_ulysses`` rows
+    (``shard_kernel_rows``)."""
+    Hq = 12 // SP_RANKS
+    return shard_kernel_rows("_ulysses", 1, SP_SEQ, Hq, Hq, 128, (Hq, 12), seed=77)
+
+
+def shard_kernel_rows(suffix: str, B: int, T: int, Hq: int, KVH: int, Dq: int, heads, seed: int,
+                      label: str = "", timed: bool = True) -> dict:
+    """K1 (training entry, with lse), K2 and K3 at a shard's shape (B, the
+    whole T, ``Hq`` query heads on ``KVH`` kv heads of ``Dq``, bf16) with
+    the ALiBi slopes of the model's heads ``heads`` = (lo, total), against
+    their plain versions with the same slopes (K1 within the bf16 bar, K2/K3
+    within one bf16 ulp + GRAD_ATOL); the plain versions handed the slopes
+    of heads 0 .. Hq - 1 (the offset dropped) must miss the bars. With
+    ``timed``, timed with SDPA as the yardstick: the kernel table's rows
+    ``<kernel><suffix>`` (else no rows)."""
     import torch.nn.functional as F
 
     from zero_transformer_tpu_torch.ops import flash
 
-    B, T, Hq, Dq, dtype = 1, SP_SEQ, 12 // SP_RANKS, 128, torch.bfloat16
-    slopes, wrong = shard_slopes((Hq, 12), Hq, True)
-    g = torch.Generator(device="cuda").manual_seed(77)
-    q, k, v, do = (torch.randn(B, T, Hq, Dq, generator=g, device="cuda").to(dtype) for _ in range(4))
+    dtype = torch.bfloat16
+    slopes, wrong = shard_slopes(heads, Hq, True)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(B, T, h, Dq, generator=g, device="cuda").to(dtype) for h in (Hq, KVH, KVH, Hq))
     scale = 1.0 / Dq**0.5
     kw = dict(causal=True, alibi=True, scale=scale, slopes=slopes)
+    tag = label or suffix.strip("_")
 
     def fwd():
         return flash._launch_fwd(q, k, v, causal=True, alibi=True, q_offset=0, segment_ids=None, scale=scale,
@@ -3778,48 +3842,54 @@ def ulysses_kernel_rows() -> dict:
 
     o, lse = fwd()
     ref_o, _ = flash.flash_reference(q, k, v, causal=True, alibi=True, slopes=slopes)
-    fwd_err = compare(o, ref_o, dtype, "ulysses K1")
+    fwd_err = compare(o, ref_o, dtype, f"{tag} K1")
+    del ref_o
     fwd_control = reject_unsliced(o, lambda sl: flash.flash_reference(q, k, v, causal=True, alibi=True,
-                                                                      slopes=sl)[0], wrong, "ulysses K1")
+                                                                      slopes=sl)[0], wrong, f"{tag} K1")
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     got = (flash.launch_dq(q, k, v, do, lse, delta, **kw), *flash.launch_dkv(q, k, v, do, lse, delta, **kw))
     qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
     ref = flash.flash_bwd_reference(qf, kf, vf, of, lse, dof, causal=True, alibi=True, slopes=slopes)
     misses = [grad_miss(a, b) for a, b in zip(got, ref)]
     if max(misses) > 1.0:
-        raise AssertionError(f"ulysses K2/K3: dq/dk/dv at {misses} of their bars")
+        raise AssertionError(f"{tag} K2/K3: dq/dk/dv at {misses} of their bars")
     errs = [float((a.float() - b).abs().max()) for a, b in zip(got, ref)]
     del ref
     off = flash.flash_bwd_reference(qf, kf, vf, of, lse, dof, causal=True, alibi=True, slopes=wrong)
     wrong_misses = [grad_miss(a, b) for a, b in zip(got, off)]
     if max(wrong_misses) <= 1.0:
-        raise AssertionError(f"ulysses K2/K3: the slopes of heads 0-2 pass the bars ({wrong_misses})")
+        raise AssertionError(f"{tag} K2/K3: the slopes of heads 0-{Hq - 1} pass the bars ({wrong_misses})")
     del off, qf, kf, vf, of, dof
     torch.cuda.empty_cache()
+    if not timed:
+        log({f"{tag}_unsliced_slopes": {"k1_err": fwd_control, "k2_k3_over_bar": wrong_misses, "bars": misses,
+                                         "k1_max_err": fwd_err, "grads_max_err": errs}})
+        return {}
     kern = {"flash_train_fwd": fwd,
             "flash_dq": lambda: flash.launch_dq(q, k, v, do, lse, delta, **kw),
             "flash_dkv": lambda: flash.launch_dkv(q, k, v, do, lse, delta, **kw)}
     plain_fwd = time_ms(lambda: flash.flash_reference(q, k, v, causal=True, alibi=True, slopes=slopes), iters=3)
     plain_bwd = time_ms(lambda: flash.flash_bwd_reference(q, k, v, o, lse, do, causal=True, alibi=True,
                                                           slopes=slopes), iters=3)
-    bias = sdpa_bias(B, T, T, [0], torch.ones(B, T, dtype=torch.int32, device="cuda"), dtype, Hq, slopes=slopes)
+    bias = sdpa_bias(B, T, T, [0] * B, torch.ones(B, T, dtype=torch.int32, device="cuda"), dtype, Hq, slopes=slopes)
     qt, kt, vt = (x.transpose(1, 2).requires_grad_() for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
-    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias), iters=10)
+    lib_kw = dict(attn_mask=bias, enable_gqa=Hq != KVH)
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **lib_kw), iters=10)
     # the library backward computes dq, dk and dv together: one time for K2 and K3
     lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
                       iters=10)
-    bounds = train_bounds(B, T, Hq, Hq, Dq, dtype, True)
+    bounds = train_bounds(B, T, Hq, KVH, Dq, dtype, True)
     rows = {}
     for name, fn in kern.items():
         err = fwd_err if name == "flash_train_fwd" else (errs[0] if name == "flash_dq" else max(errs[1:]))
         bound, by = bounds[name]
-        rows[name + "_ulysses"] = dict(max_abs_err=err, ms=time_ms(fn, iters=10), device_ms=device_ms(fn, iters=10),
-                                       plain_ms=plain_fwd if name == "flash_train_fwd" else plain_bwd,
-                                       library_ms=lib_fwd if name == "flash_train_fwd" else lib_bwd,
-                                       bound_ms=bound, bound_by=by)
-        log({"kernel": name + "_ulysses", "shape": [B, T, Hq, Hq, Dq], "heads": [Hq, 12], **rows[name + "_ulysses"]})
-    log({"ulysses_unsliced_slopes": {"k1_err": fwd_control, "k2_k3_over_bar": wrong_misses, "bars": misses}})
+        rows[name + suffix] = dict(max_abs_err=err, ms=time_ms(fn, iters=10), device_ms=device_ms(fn, iters=10),
+                                   plain_ms=plain_fwd if name == "flash_train_fwd" else plain_bwd,
+                                   library_ms=lib_fwd if name == "flash_train_fwd" else lib_bwd,
+                                   bound_ms=bound, bound_by=by)
+        log({"kernel": name + suffix, "shape": [B, T, Hq, KVH, Dq], "heads": list(heads), **rows[name + suffix]})
+    log({f"{tag}_unsliced_slopes": {"k1_err": fwd_control, "k2_k3_over_bar": wrong_misses, "bars": misses}})
     del lib_out, qt, kt, vt, bias
     torch.cuda.empty_cache()
     return rows
@@ -3829,7 +3899,9 @@ def trainer_cli_580m(launcher: list, sets: list, run_dir: Path):
     """3 steps of configs/train_580m_8k.yaml through the trainer CLI
     (``launcher`` the interpreter arguments before ``--cfg``); fails unless
     it exits 0 and logs 3 finite losses. Returns its last step's readings
-    and the finished process."""
+    and the finished process. The two calls run at once on one card, so
+    the step readings are named ``contended_*``: they are neither the
+    ring's nor one card's own step time, tokens/s or model-FLOPs share."""
     import os
 
     if (run_dir / "metrics.jsonl").exists():
@@ -3847,8 +3919,9 @@ def trainer_cli_580m(launcher: list, sets: list, run_dir: Path):
     if len(train) != 3 or not all(math.isfinite(r["loss"]) for r in train):
         raise AssertionError(f"trainer CLI metrics incomplete or non-finite: {records}")
     last = train[-1]
-    return {"wall_s": wall, "losses": [r["loss"] for r in train], "step_time_ms": last["step_time_ms"],
-            "tokens_per_sec": last["tokens_per_sec"], "model_flops_share": last.get("model_flops_share")}, proc
+    return {"wall_s": wall, "losses": [r["loss"] for r in train], "contended_step_time_ms": last["step_time_ms"],
+            "contended_tokens_per_sec": last["tokens_per_sec"],
+            "contended_model_flops_share": last.get("model_flops_share")}, proc
 
 
 # ------------------------------------------------------- data parallelism
@@ -3919,11 +3992,13 @@ def dp_drive(trainer, steps: int, save: bool) -> dict:
             "grad_norms": norms}
 
 
-def dp_readings(trainer, timed: int) -> dict:
+def dp_readings(trainer, timed: int, profiled: bool = True) -> dict:
     """After the steps: the persistent state bytes, the whole params' digest
-    (a collective at stage 3), the replica audit, the latest save's times;
-    then ``timed`` steps timed and one step under the profiler (rank 0:
-    the data group's spans)."""
+    (a collective at stage 3), the digest of the rank's replicated params
+    (under a tensor group: the leaves no tensor rank splits), the replica
+    audit, the latest save's times; then ``timed`` steps timed and, with
+    ``profiled``, one step under the profiler (rank 0: the data and tensor
+    groups' spans)."""
     from torch.profiler import ProfilerActivity, profile
 
     from zero_transformer_tpu_torch.data import to_device
@@ -3938,6 +4013,9 @@ def dp_readings(trainer, timed: int) -> dict:
     leaves = shards.state_leaves()
     out["params_digest"] = sum(leaf_checksum(v) for k, v in leaves.items() if k.startswith("params/")) % 2**32
     del leaves
+    with shards.gathered():
+        out["replicated_digest"] = sum(leaf_checksum(p.detach()) for n, p in trainer.state.model.named_parameters()
+                                       if shards.split_dim.get(n) is None) % 2**32
     audit = make_replica_audit(shards)  # whatever resilience.audit_frequency says
     out["audit_diverged"] = audit() if audit is not None else None
     it = iter(trainer.train_loader)
@@ -3952,6 +4030,8 @@ def dp_readings(trainer, timed: int) -> dict:
             mesh.barrier()
             out["timed_step_ms"] = (time.perf_counter() - t0) * 1e3 / timed
             out["tokens_per_sec"] = trainer.tokens_per_step * timed / (time.perf_counter() - t0)
+        if not profiled:
+            return out
         batch = to_device(next(it), dev)
         mesh.barrier()
         if mesh.rank == 0:
@@ -3961,7 +4041,7 @@ def dp_readings(trainer, timed: int) -> dict:
                 torch.cuda.synchronize(dev)
                 wall_ms = (time.perf_counter() - t0) * 1e3
             spans = {ev.key: ev.cpu_time_total / 1e3 for ev in prof.key_averages()
-                     if ev.key.startswith("data_group.") and str(ev.device_type).endswith("CPU")}
+                     if ev.key.startswith(("data_group.", "tensor_group.")) and str(ev.device_type).endswith("CPU")}
             kernels = kernel_times(prof)
             busy = sum(ms for ms, _ in kernels.values())
             nccl_ms = sum(ms for name, (ms, _) in kernels.items() if "nccl" in name.lower())
@@ -3978,9 +4058,11 @@ def dp_readings(trainer, timed: int) -> dict:
 
 def _dp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str, jobs: list) -> None:
     """One rank of a data-parallel world: for each job, the trainer on the
-    world's mesh (``jobs[i]["overrides"]``; rank 0 first links the step
-    directories a resume starts from), ``dp_drive``, then ``dp_readings``."""
-    from zero_transformer_tpu_torch.parallel.mesh import destroy, init_distributed
+    world's mesh, or on the ``data x tensor x sequence`` mesh ``jobs[i]["mesh"]``
+    made in the same world (``jobs[i]["overrides"]``; rank 0 first links the
+    step directories a resume starts from), ``dp_drive``, then
+    ``dp_readings``."""
+    from zero_transformer_tpu_torch.parallel.mesh import destroy, init_distributed, make_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3995,10 +4077,11 @@ def _dp_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str, 
                 shutil.copytree(src, Path(dst) / Path(src).name, copy_function=os.link)
         mesh.barrier()
         torch.cuda.reset_peak_memory_stats(mesh.device)
-        trainer = dp_trainer(job["overrides"], mesh)
+        trainer = dp_trainer(job["overrides"], make_mesh(*job["mesh"], backend, mesh.device) if "mesh" in job
+                             else mesh)
         try:
             line = dp_drive(trainer, job["steps"], job.get("save", False))
-            line.update(dp_readings(trainer, job.get("timed", 0)))  # takes more steps
+            line.update(dp_readings(trainer, job.get("timed", 0), job.get("profiled", True)))  # takes more steps
             if trainer._restore_report is not None:
                 line["restore_verify_ms"] = trainer._restore_report.verify_ms
         finally:
@@ -4042,12 +4125,13 @@ def dp_world(world: int, backend: str, out: Path, jobs: list) -> list:
     return run_ranks(_dp_rank, world, backend, out, jobs, what="data-parallel")
 
 
-def one_card_reference(out: Path, accum: int, timed: int) -> dict:
+def one_card_reference(out: Path, accum: int, timed: int, **more) -> dict:
     """The one-card trainer on the same global batches: 3 steps' losses and
-    grad norms (and, with ``timed``, the step time)."""
+    grad norms (and, with ``timed``, the step time); ``more``: config
+    overrides."""
     shutil.rmtree(out, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
-    trainer = dp_trainer(dp_overrides(out, 2, accum))
+    trainer = dp_trainer(dp_overrides(out, 2, accum, **more))
     try:
         line = dp_drive(trainer, DP_STEPS, save=False)
         line.update(dp_readings(trainer, timed))
@@ -4100,7 +4184,7 @@ def check_dp_stage(name: str, ranks: list, ref: dict, stage: int, accum: int) ->
     return summary
 
 
-def data_parallel_phase(backend: str = "gloo") -> dict:
+def data_parallel_phase(backend: str = "gloo", tensor_training: bool = False) -> dict:
     """125m at full width, its depth cut to ``DP_LAYERS``, over 4
     data-parallel ranks, bf16 over float32 master params, AdamW, T 1024, a
     global batch of 32 rows a step, synthetic tokens, seed-0 weights (configs/train_125m.yaml cut as
@@ -4120,7 +4204,10 @@ def data_parallel_phase(backend: str = "gloo") -> dict:
     restore falls back to step 2; then the trainer CLI under
     ``torch.distributed.run --nproc-per-node 4`` saves after 3 steps and a
     second launch with ``checkpoint.resume=True`` continues from it.
-    Returns the one-card and 4-rank launch counts of the stage-2 run."""
+    Returns the one-card and 4-rank launch counts of the stage-2 run.
+    ``tensor_training``: the same world runs the tensor_training phase's
+    part (a) after the stages (``tt_dp_jobs``), checked here against the
+    same one-card runs and an Adafactor one (``check_tt_dp``)."""
     from zero_transformer_tpu_torch.checkpoint import CheckpointManager
 
     t_phase = time.perf_counter()
@@ -4140,7 +4227,10 @@ def data_parallel_phase(backend: str = "gloo") -> dict:
                              "transfers": "NCCL, card to card" if nccl else "gloo through pinned host memory"}})
     t0 = time.perf_counter()
     refs = {accum: one_card_reference(out / f"one_card_accum{accum}", accum, timed) for accum in (1, 2)}
-    log({f"{tag}_one_card": {a: {k: r.get(k) for k in ("losses", "grad_norms", "peak_memory_gib",
+    if tensor_training:
+        refs["adafactor"] = one_card_reference(out / "one_card_adafactor", 1, 0,
+                                               **{"optimizer.optimizer": "adafactor"})
+    log({f"{tag}_one_card": {str(a): {k: r.get(k) for k in ("losses", "grad_norms", "peak_memory_gib",
                                                         "timed_step_ms", "tokens_per_sec", "persistent_bytes")}
                              for a, r in refs.items()}, "one_card_s": time.perf_counter() - t0})
 
@@ -4154,12 +4244,17 @@ def data_parallel_phase(backend: str = "gloo") -> dict:
         jobs.append(dict(name="resume_data4", steps=1, save=True,
                          copy=[(str(saved / "2"), str(out / "resume_data4"))],
                          overrides=dp_overrides(out / "resume_data4", 2, **{"checkpoint.resume": True})))
+    if tensor_training:
+        jobs += tt_dp_jobs(out)
     t0 = time.perf_counter()
     ranks = dp_world(DP_RANKS, backend, out, jobs)
     ranks_s = time.perf_counter() - t0
     for name, (stage, accum) in cases.items():
         log({f"{tag}_{name}": check_dp_stage(name, ranks, refs[accum], stage, accum)})
     log({f"{tag}_ranks_s": ranks_s})
+    if tensor_training:
+        TT_STASH["a"] = check_tt_dp(ranks, refs, out, [ranks[0][f"stage{s}"]["persistent_bytes"] for s in range(4)])
+        TT_STASH["a"]["backend"] = backend
     launches = {"one_card": {}, "ranks": ranks[0]["stage2"]["launches"]}
     if nccl:
         log({f"{tag}_tokens_per_sec": {name: [ranks[0][name]["tokens_per_sec"], refs[cases[name][1]]["tokens_per_sec"]]
@@ -4509,13 +4604,13 @@ def llama_serving_phase():
             "paged_attention_int8_llama": int8_launches["paged_attention_int8"]}
 
 
-def llama_model(impl="auto", dtype=torch.bfloat16, policy="none", **over):
+def llama_model(impl="auto", dtype=torch.bfloat16, policy="none", remat: bool = True, **over):
     """llama3_8b cut to LLAMA_TRAIN_LAYERS layers at full width, trainable,
-    remat under ``policy``, the chunked loss, seed-0 weights."""
+    remat under ``policy`` (or none), the chunked loss, seed-0 weights."""
     from zero_transformer_tpu_torch.models import model_getter
 
     return model_getter(LLAMA, dtype=dtype, device="cuda", seed=SEED, trainable=True, attention_impl=impl,
-                        n_layers=LLAMA_TRAIN_LAYERS, remat=True, remat_policy=policy, loss_chunk=LLAMA_CHUNK,
+                        n_layers=LLAMA_TRAIN_LAYERS, remat=remat, remat_policy=policy, loss_chunk=LLAMA_CHUNK,
                         **over)
 
 
@@ -4608,7 +4703,7 @@ def llama_cli(steps: int = 3) -> dict:
             "predicted_peak_gib": llama_predicted_peak("none")["bytes"] / 2**30}
 
 
-def llama_training_phase():
+def llama_training_phase(record: bool = False):
     """llama3_8b at full width, depth cut 32 -> 4 (1,923,125,248 params),
     bf16 over float32 master params, AdamW, B 1 x T 8192, remat, the
     chunked loss: (a) kernel/plain parity on one micro-batch
@@ -4618,7 +4713,9 @@ def llama_training_phase():
     (``llama_predicted_peak``), and one micro-batch's forward and backward
     alone, its peak above the memory held before it (what the policy
     keeps); (c) the trainer CLI (``llama_cli``). Writes no checkpoint.
-    Returns the launches of the policy "none" step."""
+    Returns the launches of the policy "none" step. ``record``: the steps'
+    batches, losses and grad norms, in order, go to ``TT_STASH["llama"]``
+    (tensor_training's part (c) replays them over tensor 2)."""
     from zero_transformer_tpu_torch.config import OptimizerConfig
     from zero_transformer_tpu_torch.ops import _build
     from zero_transformer_tpu_torch.parallel.zero import init_train_state, make_train_step
@@ -4640,8 +4737,18 @@ def llama_training_phase():
     st = init_train_state(model, opt_cfg, schedule)
     step = make_train_step(1, schedule)
 
+    steps = {"batches": [], "losses": [], "grad_norms": []}
+
     def batch():
         return torch.randint(0, 128256, (1, 1, LLAMA_T), generator=g, device="cuda", dtype=torch.int32)
+
+    def run(b) -> float:
+        if record:
+            steps["batches"].append(b)
+        m = step(st, b)
+        steps["losses"].append(float(m["loss"]))
+        steps["grad_norms"].append(float(m["grad_norm"]))
+        return steps["losses"][-1]
 
     L = LLAMA_TRAIN_LAYERS
     want = {"flash_train_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
@@ -4652,14 +4759,16 @@ def llama_training_phase():
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        b = batch()
         _build.reset_launches()
-        losses = [float(step(st, batch())["loss"])]
+        losses = [run(b)]
         torch.cuda.synchronize()
         launches = {n: _build.LAUNCHES[n] for n in want}
         if launches != want:
             raise AssertionError(f"llama launches per step under remat {policy!r}: {launches}, want {want}")
+        b = batch()
         t0 = time.perf_counter()
-        losses.append(float(step(st, batch())["loss"]))
+        losses.append(run(b))
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3
         step_peak = torch.cuda.max_memory_allocated()
@@ -4689,7 +4798,10 @@ def llama_training_phase():
     if persistent != 12 * LLAMA_TRAIN_N:
         raise AssertionError(f"llama AdamW holds {persistent} bytes, want 12N = {12 * LLAMA_TRAIN_N}")
     log({"llama_training_steps": {"B": 1, "T": LLAMA_T, "layers": L, "params": LLAMA_TRAIN_N,
-                                  "persistent_bytes": persistent, "loss_chunk": LLAMA_CHUNK, "policies": policies}})
+                                  "persistent_bytes": persistent, "loss_chunk": LLAMA_CHUNK, "policies": policies,
+                                  "grad_norms": steps["grad_norms"]}})
+    if record:
+        TT_STASH["llama"] = {**steps, "batches": [b.cpu() for b in steps["batches"]]}
     del st, model, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -4703,6 +4815,11 @@ def llama_training_phase():
 GEN_B, GEN_T, GEN_NEW = 4, 256, 64  # 125m: B 4 x T 256 prompts, 64 new tokens
 GEN_LLAMA_T, GEN_LLAMA_NEW = 512, 32  # llama3_8b: B 1 x T 512, 32 new tokens
 GEN_LLAMA_F32_LAYERS = 8  # llama3_8b's float32 checks at full width, depth cut 32 -> 8
+# llama3_8b's bf16 generate and disagg handoff run at full width, depth cut
+# 32 -> 16 for the run's time: their checks are exact (tokens, pages, launch
+# counts) or per attention read, none of them depth-dependent (llama_serving
+# and tensor_serving, whose bf16 bars were set at 32 layers, keep 32)
+LLAMA_CUT_LAYERS = 16
 GEN_CLI_NEW = 32
 # greedy token ties, as parity_phase's greedy_ties allows them: a path may
 # leave the other only where the reference path's top two logits lie within
@@ -4948,7 +5065,7 @@ def generate_125m(int8: bool) -> tuple:
 
 
 def generate_llama() -> tuple:
-    """Phase (b): llama3_8b at full width and depth (32 layers), B 1 x T 512,
+    """Phase (b): llama3_8b at full width, depth cut to LLAMA_CUT_LAYERS, B 1 x T 512,
     32 new tokens, cache 8192: the bf16 kernel path's main run and readings
     (``gen_main_path``, greedy), then ``gen_float32`` (the bf16 paths lie
     ~0.4 of the logits apart at full depth, parity_phase, so the bars hold
@@ -4956,9 +5073,9 @@ def generate_llama() -> tuple:
     float32 models at full depth cost the run most of this part's
     time)."""
     prompt, rep = gen_prompts(1, GEN_LLAMA_T, 9), gen_prompts(1, GEN_LLAMA_T, 3, repetitive=True)
-    model = gen_model(LLAMA, torch.bfloat16, "auto")
-    if model.cfg.n_layers != 32:
-        raise AssertionError("llama3_8b must run at full depth")
+    model = gen_model(LLAMA, torch.bfloat16, "auto", n_layers=LLAMA_CUT_LAYERS)
+    if model.cfg.n_layers != LLAMA_CUT_LAYERS:
+        raise AssertionError(f"llama3_8b must run at {LLAMA_CUT_LAYERS} layers")
     reading, counts, spec = gen_main_path(model, prompt, rep, GEN_LLAMA_NEW, LCACHE, "paged_attention",
                                           sampled=False)
     del model
@@ -6198,12 +6315,12 @@ def kv_cache_dtype(model, kv: str):
 
 
 def disagg_llama() -> dict:
-    """(d) llama3_8b at 32 layers, bf16, then its cache in int8 (the same
+    """(d) llama3_8b at LLAMA_CUT_LAYERS layers, bf16, then its cache in int8 (the same
     weights, held once): a 512-token prompt handed off between two engines
     over the model (pages bit-equal, exact launches), then again with every
     attention read held to the plain read of the same pools at the bf16
     bar."""
-    model = gen_model(LLAMA, torch.bfloat16, "auto")
+    model = gen_model(LLAMA, torch.bfloat16, "auto", n_layers=LLAMA_CUT_LAYERS)
     prompts = [list(prompt_text(DISAGG_LLAMA_T, 61).encode())]
     reading = {}
     for kv in ("auto", "int8"):
@@ -7527,6 +7644,551 @@ def tensor_serving_phase() -> tuple:
     return rows, launches
 
 
+# ------------------------------------------------- tensor-parallel training
+
+TT_DATA, TT_TENSOR = 2, 2  # (a): 125m over data 2 x tensor 2, four ranks
+TT_DIR = Path("build") / "tensor_training"  # (c)'s one-card records, (d)'s run; deleted after the phase
+TT_SEQ = 2  # (b): 580m over tensor 2 x sequence 2 at T 8192
+TT_LLAMA_STEPS = 3  # (c): llama3_8b over tensor 2, the first steps of llama_training's one-card run
+# (a)-(d)'s results, from the phases whose rank worlds run them
+TT_STASH: dict = {}
+TT_NEEDS = ("sequence_parallel", "data_parallel", "llama_training")  # the phases that fill TT_STASH
+
+
+def tt_sets(stage: int) -> dict:
+    return {"mesh.data": TT_DATA, "mesh.tensor": TT_TENSOR, "mesh.zero_stage": stage}
+
+
+def tt_dp_jobs(out: Path) -> list:
+    """(a)'s jobs in a data-parallel world of 4 ranks: ZeRO 0-3 with AdamW
+    (stage 3 with the chunked loss) and Adafactor at stage 1 over data 2 x
+    tensor 2, 3 steps each (the stage-2 run through ``trainer.train``,
+    saving at steps 2 and 3, and profiled once), then the world's own mesh
+    (data 4 x tensor 1) resuming its step 2."""
+    mesh = (TT_DATA, TT_TENSOR, 1)
+    chunk = {3: {"model.loss_chunk": 256}}
+    jobs = [dict(name=f"tp_stage{s}", steps=DP_STEPS, save=s == 2, profiled=s == 2, mesh=mesh,
+                 overrides=dp_overrides(out / f"tp_stage{s}", s, **tt_sets(s), **chunk.get(s, {})))
+            for s in (0, 1, 2, 3)]
+    jobs.append(dict(name="tp_adafactor", steps=DP_STEPS, profiled=False, mesh=mesh,
+                     overrides=dp_overrides(out / "tp_adafactor", 1, **tt_sets(1),
+                                            **{"optimizer.optimizer": "adafactor"})))
+    jobs.append(dict(name="tp_resume_data4", steps=1, save=True, profiled=False,
+                     copy=[(str(out / "tp_stage2" / "2"), str(out / "tp_resume_data4"))],
+                     overrides=dp_overrides(out / "tp_resume_data4", 2, **{"checkpoint.resume": True})))
+    return jobs
+
+
+def tt_local_numel() -> tuple:
+    """(whole params, one tensor rank's params) of 125m at DP_LAYERS layers."""
+    from zero_transformer_tpu_torch.config import model_config
+    from zero_transformer_tpu_torch.models.gpt import Transformer, tp_split_dim
+
+    model = Transformer(model_config("125m", n_layers=DP_LAYERS), device="meta")
+    whole = sum(p.numel() for p in model.parameters())
+    split = sum(p.numel() for n, p in model.named_parameters() if tp_split_dim(n) is not None)
+    return whole, whole - split + split // TT_TENSOR
+
+
+def tt_one_card_tree() -> dict:
+    """What a one-card checkpoint of (a)'s configuration holds: name ->
+    (shape, dtype), from a one-process ZeRO state of 125m at DP_LAYERS
+    layers with AdamW, built on the host (the values are not needed)."""
+    from zero_transformer_tpu_torch.config import OptimizerConfig, model_config
+    from zero_transformer_tpu_torch.models.gpt import Transformer
+    from zero_transformer_tpu_torch.parallel.zero import init_train_state
+    from zero_transformer_tpu_torch.training.optimizer import make_schedule
+
+    model = Transformer(model_config("125m", n_layers=DP_LAYERS), device="cpu").requires_grad_(True)
+    opt = OptimizerConfig()
+    return init_train_state(model, opt, make_schedule(opt)).shards.target()
+
+
+def check_tt_dp(ranks: list, refs: dict, out: Path, dp_bytes: list) -> dict:
+    """(a)'s fatal checks: each job's losses within LOSS_MARGIN and grad norms
+    within GRAD_NORM_RTOL of the one-card run on the same global batches
+    (AdamW's for the stages and the chunked loss, Adafactor's); the whole
+    params' digest equal on all four ranks and the replicated leaves' on
+    all four (bit-equal across tensor ranks); the replica audit clean; the
+    AdamW stages' bytes a rank equal to the ZeRO formula over one tensor
+    rank's params; DP_LAYERS launches of K1-K3 a rank a step. Then the
+    stage-2 run's step-2 save holds the one-card tree (names, shapes) with
+    a manifest whose digests are those of the whole tensors it holds, and
+    the data-4 resume from it continues: its step-3 loss within the bars of
+    the tensor-parallel run's."""
+    from zero_transformer_tpu_torch.checkpoint import CheckpointManager, tree_digests
+
+    whole, local = tt_local_numel()
+    summary = {"params_whole": whole, "params_a_rank": local, "split_share_a_rank": local / whole}
+    for name in ("tp_stage0", "tp_stage1", "tp_stage2", "tp_stage3", "tp_adafactor"):
+        ref = refs["adafactor"] if name == "tp_adafactor" else refs[1]
+        first = ranks[0][name]
+        line = {"losses": first["losses"], "one_card_losses": ref["losses"], "grad_norms": first["grad_norms"],
+                "one_card_grad_norms": ref["grad_norms"],
+                "persistent_bytes_per_rank": [r[name]["persistent_bytes"] for r in ranks],
+                "peak_memory_gib_per_rank": [r[name]["peak_memory_gib"] for r in ranks],
+                "launches_rank0": first["launches"], "profile_rank0": first.get("profile")}
+        for step, loss in first["losses"].items():
+            if not abs(loss - ref["losses"][step]) <= LOSS_MARGIN:
+                raise AssertionError(f"tensor_training (a) {name} step {step}: loss {loss} vs one card "
+                                     f"{ref['losses'][step]}")
+            norm, want = first["grad_norms"][step], ref["grad_norms"][step]
+            if not abs(norm - want) <= GRAD_NORM_RTOL * abs(want):
+                raise AssertionError(f"tensor_training (a) {name} step {step}: grad norm {norm} vs one card {want}")
+        for key in ("params_digest", "replicated_digest"):
+            if len({r[name][key] for r in ranks}) != 1:
+                raise AssertionError(f"tensor_training (a) {name}: {key} differs across the ranks: "
+                                     f"{[r[name][key] for r in ranks]}")
+        if any(r[name]["audit_diverged"] for r in ranks):
+            raise AssertionError(f"tensor_training (a) {name}: the replica audit saw a divergence")
+        stage = int(name[-1]) if name.startswith("tp_stage") else None
+        if stage is not None:
+            padded = -(-local // TT_DATA) * TT_DATA
+            params = padded if stage < 3 else padded // TT_DATA
+            want_bytes = 4 * (params + 2 * (padded if stage == 0 else padded // TT_DATA))
+            if any(r[name]["persistent_bytes"] != want_bytes for r in ranks):
+                raise AssertionError(f"tensor_training (a) {name}: bytes {line['persistent_bytes_per_rank']}, "
+                                     f"want {want_bytes}")
+            line["persistent_bytes_formula"] = want_bytes
+            line["data4_bytes_per_rank"] = dp_bytes[stage] if dp_bytes else None
+        steps = first["end_step"] - first["start_step"]
+        want = {n: DP_LAYERS * steps for n in ("flash_train_fwd", "flash_dq", "flash_dkv")}
+        for r in ranks:
+            if {n: r[name]["launches"].get(n, 0) for n in want} != want:
+                raise AssertionError(f"tensor_training (a) {name} rank {r[name]['rank']}: launches "
+                                     f"{r[name]['launches']}, want {want}")
+        summary[name] = line
+    # the save at data 2 x tensor 2 and the resume at data 4 x tensor 1
+    leaves, meta = CheckpointManager(out / "tp_stage2").restore(2, device="cuda")
+    tree = {k: (tuple(v.shape), str(v.dtype).removeprefix("torch.")) for k, v in leaves.items()}
+    target = tt_one_card_tree()
+    digests = tree_digests(leaves)
+    bad = [k for k, d in digests.items() if meta["manifest"]["leaves"][k]["sum"] != d]
+    del leaves
+    if tree != target or bad or meta["topology"]["mesh"]["tensor"] != TT_TENSOR:
+        raise AssertionError(f"tensor_training (a): the tensor-parallel save is not the one-card tree "
+                             f"(same names and shapes: {tree == target}; digests off: {bad[:3]}; "
+                             f"topology {meta['topology']})")
+    resumed, uninterrupted = ranks[0]["tp_resume_data4"], ranks[0]["tp_stage2"]
+    ckpt = {"leaves": len(tree), "digests_sum": sum(digests.values()) % 2**32, "resumed_start": resumed["start_step"],
+            "resumed_loss": resumed["losses"].get("3"), "uninterrupted_loss": uninterrupted["losses"].get("3"),
+            "resumed_grad_norm": resumed["grad_norms"].get("3"),
+            "uninterrupted_grad_norm": uninterrupted["grad_norms"].get("3"),
+            "restore_verify_ms_rank0": resumed.get("restore_verify_ms"), "save_ms_rank0": uninterrupted["save_ms"]}
+    if not (resumed["start_step"] == 2 and abs(ckpt["resumed_loss"] - ckpt["uninterrupted_loss"]) <= LOSS_MARGIN
+            and abs(ckpt["resumed_grad_norm"] - ckpt["uninterrupted_grad_norm"])
+            <= GRAD_NORM_RTOL * abs(ckpt["uninterrupted_grad_norm"])):
+        raise AssertionError(f"tensor_training (a): the data-4 resume of the tensor-parallel save: {ckpt}")
+    summary["checkpoint"] = ckpt
+    return summary
+
+
+# (b): the 580m steps over tensor 2 x sequence 2 in the sequence-parallel world
+TT_SP_CASES = {"tp_ring": {}, "tp_ulysses": {"cp_impl": "ulysses"}}
+
+
+def tt_sp_step(mesh_world, backend: str, out: Path, dtype) -> dict:
+    """(b) on one rank of the sequence-parallel world: the world's ranks as
+    tensor 2 x sequence 2, one 580m step per case (the ring, Ulysses) from
+    the one-card seeded weights on the one-card batch; rank 0 holds its
+    slices of the grads against the one-card reference's (its
+    ``tensor_shard``). Returns per case the loss, the grad norm, the
+    launches, the step's seconds, peak memory, the grad cosines (rank 0),
+    and checksums of the replicated and of the local params after the
+    update."""
+    from zero_transformer_tpu_torch.config import OptimizerConfig
+    from zero_transformer_tpu_torch.convert import tensor_shard
+    from zero_transformer_tpu_torch.ops import _build
+    from zero_transformer_tpu_torch.parallel.mesh import make_mesh
+    from zero_transformer_tpu_torch.parallel.zero import init_train_state, make_train_step
+    from zero_transformer_tpu_torch.training.optimizer import make_schedule
+
+    mesh = make_mesh(1, TT_TENSOR, TT_SEQ, backend, mesh_world.device)
+    dev = mesh.device
+    res = {"tensor_rank": mesh.tensor.rank, "sequence_rank": mesh.sequence.rank}
+    for case, overrides in TT_SP_CASES.items():
+        from zero_transformer_tpu_torch.models import model_getter
+
+        model = model_getter(SP_MODEL, dtype=dtype, device=dev, seed=SEED, trainable=True, dropout=0.0, remat=True,
+                             n_layers=SP_LAYERS, tensor_group=mesh.tensor, **overrides)
+        model.set_sequence_group(mesh.sequence)
+        opt_cfg = OptimizerConfig(schedule="constant", peak_learning_rate=SP_LR)
+        schedule = make_schedule(opt_cfg)
+        st = init_train_state(model, opt_cfg, schedule)
+        captured, adamw_step = {}, st.optimizer.step
+
+        def capture(grads, norm=None, keep=None, _step=adamw_step):
+            captured["grads"] = st.shards.layout.views(torch.cat([g.reshape(-1) for g in grads]))
+            return _step(grads, norm, keep)
+
+        st.optimizer.step = capture
+        step = make_train_step(1, schedule, seq_group=mesh.sequence)
+        batch = sp_batch(False).to(dev)
+        torch.cuda.synchronize(dev)
+        mesh_world.barrier()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        metrics = step(st, batch)
+        torch.cuda.synchronize(dev)
+        line = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                "step_s": time.perf_counter() - t0,
+                "launches": {n: c for n, c in _build.LAUNCHES.items() if c},
+                "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+        if mesh.sequence.rank == 0:  # one rank of each tensor slice holds its grads against the reference's
+            ref = torch.load(out / "ref_plain.pt", mmap=True, weights_only=True)
+            want = tensor_shard(ref["grads"], mesh.tensor.rank, mesh.tensor.size)
+            cos = {n: float(torch.nn.functional.cosine_similarity(
+                g.flatten().double(), want[n].to(dev).flatten().double(), dim=0))
+                for n, g in captured["grads"].items()}
+            line.update(grad_cos_min=min(cos.values()), grad_cos_min_tensor=min(cos, key=cos.get),
+                        grad_cos_below_bar={n: c for n, c in cos.items() if c < COS_BAR}, ref_loss=ref["loss"])
+            del ref, want
+        captured.clear()
+        split = st.shards.split_dim
+        line["replicated_checksum"] = sum(int(p.detach().view(torch.int32).sum(dtype=torch.int64))
+                                          for n, p in model.named_parameters() if split[n] is None)
+        line["local_checksum"] = param_checksum(model)
+        res[case] = line
+        del st, model, step, batch, metrics, capture, adamw_step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def check_tt_sp(results: list, ref_loss: float) -> dict:
+    """(b)'s fatal checks: each case's loss within LOSS_MARGIN of the
+    one-card step's and every grad's cosine (each tensor slice's, against
+    the one-card grads' slice) at least COS_BAR; the replicated params
+    bit-equal on all four ranks after the update and the split ones across
+    the sequence ranks of each tensor rank; the launches a rank exact:
+    the ring's L x 2 x 2 flash_partial_fwd (its 2 folds, the forward and
+    the recompute) and L x 2 dq/dkv; Ulysses' 2L / L / L over the whole
+    row."""
+    L = SP_LAYERS
+    summary = {}
+    for case in TT_SP_CASES:
+        lines = [r["tensor_training"][case] for r in results]
+        first = lines[0]
+        cos = [x for x in lines if "grad_cos_min" in x]
+        line = {"loss": first["loss"], "loss_one_card": ref_loss, "loss_margin": LOSS_MARGIN,
+                "grad_cos_min": min(x["grad_cos_min"] for x in cos), "grad_norm": first["grad_norm"],
+                "step_s_per_rank": [x["step_s"] for x in lines],
+                "peak_memory_gib_per_rank": [x["peak_memory_gib"] for x in lines],
+                "launches_rank0": first["launches"]}
+        summary[case] = line
+        if not abs(first["loss"] - ref_loss) <= LOSS_MARGIN:
+            raise AssertionError(f"tensor_training (b) {case}: loss {first['loss']} vs one card {ref_loss}")
+        below = {n: c for x in cos for n, c in x["grad_cos_below_bar"].items()}
+        if len(cos) != TT_TENSOR or below:
+            raise AssertionError(f"tensor_training (b) {case}: grad cosines below {COS_BAR}: {below}")
+        if len({x["replicated_checksum"] for x in lines}) != 1:
+            raise AssertionError(f"tensor_training (b) {case}: replicated params differ across the ranks")
+        for t in range(TT_TENSOR):
+            if len({x["local_checksum"] for x, r in zip(lines, results) if r["tensor_training"]["tensor_rank"] == t}) != 1:
+                raise AssertionError(f"tensor_training (b) {case}: tensor rank {t}'s params differ across "
+                                     "its sequence ranks")
+        want = ({"flash_train_fwd": 2 * L, "flash_dq": L, "flash_dkv": L} if case == "tp_ulysses" else
+                {"flash_partial_fwd": 2 * L * TT_SEQ, "flash_partial_dq": L * TT_SEQ,
+                 "flash_partial_dkv": L * TT_SEQ})
+        for x in lines:
+            if x["launches"] != want:
+                raise AssertionError(f"tensor_training (b) {case}: launches {x['launches']}, want {want}")
+    return summary
+
+
+def tt_ring_rows() -> dict:
+    """K1 via flash_partial and K2/K3 via flash_grads at a ring x tensor
+    rank's shard (580m at T 8192 over sequence 2: a 4096-token shard at 6
+    heads of 128, bf16), each tensor rank's slopes (heads 0-5, 6-11): the
+    diagonal and the past shard against the plain versions (the bf16 bar
+    on o and lse, K2/K3 within one bf16 ulp + GRAD_ATOL); tensor rank 1's
+    past shard handed the slopes of heads 0-5 (the tensor offset dropped)
+    must miss them. Tensor rank 1's past shard is timed: the
+    ``_tp_ring`` rows."""
+    import torch.nn.functional as F
+
+    from zero_transformer_tpu_torch.ops import flash
+
+    B, t, Hq, Dq, dtype = 1, SP_SEQ // TT_SEQ, 12 // TT_TENSOR, 128, torch.bfloat16
+    T, scale = 2 * t, 1.0 / Dq**0.5
+    g = torch.Generator(device="cuda").manual_seed(78)
+    q, k, v, do = (torch.randn(B, T, Hq, Dq, generator=g, device="cuda").to(dtype) for _ in range(4))
+    rows, checks = {}, {}
+    for trank in range(TT_TENSOR):
+        slopes, wrong = shard_slopes((trank * Hq, 12), Hq, True)
+        o_all, lse_all = flash._launch_fwd(q, k, v, causal=True, alibi=True, q_offset=0, segment_ids=None,
+                                           scale=scale, want_lse=True, counter=flash.TRAIN_KERNEL, slopes=slopes)
+        for pair, (qi, ki) in (("diagonal", (1, 1)), ("past", (1, 0))):
+            qs, ks, vs, dos = (x.narrow(1, i * t, t).contiguous() for x, i in ((q, qi), (k, ki), (v, ki), (do, qi)))
+            at = dict(causal=True, alibi=True, softmax_scale=scale, q_offset=qi * t, kv_offset=ki * t)
+            o_k, lse_k = flash.flash_partial(qs, ks, vs, **at, slopes=slopes)
+            ref_o, ref_lse = flash.flash_partial_reference(qs, ks, vs, **at, slopes=slopes)
+            errs = [compare(o_k, ref_o, dtype, f"tp ring K1 t{trank} {pair}"),
+                    compare(lse_k, ref_lse, dtype, f"tp ring lse t{trank} {pair}")]
+            o_g, lse_g = o_all.narrow(1, qi * t, t), lse_all.narrow(2, qi * t, t).contiguous()
+            delta = (dos.float() * o_g.float()).sum(-1).transpose(1, 2).contiguous()
+            got = flash.flash_grads(qs, ks, vs, o_g, lse_g, dos, **at, delta=delta, slopes=slopes)
+            f32_in = [x.float() for x in (qs, ks, vs, o_g)] + [lse_g, dos.float()]
+            ref = flash.flash_grads_reference(*f32_in, **at, delta=delta, slopes=slopes)
+            misses = [grad_miss(a, b) for a, b in zip(got, ref)]
+            if max(misses) > 1.0:
+                raise AssertionError(f"tp ring t{trank} {pair}: dq/dk/dv at {misses} of their bars")
+            line = {"o_lse_max_err": errs, "grads_over_bar": misses,
+                    "grads_max_err": [float((a - b).abs().max()) for a, b in zip(got, ref)]}
+            del ref
+            if trank > 0 and pair == "past":  # the tensor offset dropped: heads 0-5's slopes
+                line["offset_dropped_k1_err"] = reject_unsliced(
+                    o_k, lambda sl: flash.flash_partial_reference(qs, ks, vs, **at, slopes=sl)[0], wrong,
+                    f"tp ring t{trank}")
+                off = flash.flash_grads_reference(*f32_in, **at, delta=delta, slopes=wrong)
+                line["offset_dropped_grads_over_bar"] = c_miss = [grad_miss(a, b) for a, b in zip(got, off)]
+                if max(c_miss) <= 1.0:
+                    raise AssertionError(f"tp ring t{trank}: the slopes of heads 0-5 pass K2/K3's bars ({c_miss})")
+                del off
+            checks[f"t{trank}_{pair}"] = line
+            if trank == TT_TENSOR - 1 and pair == "past":
+                kw = dict(causal=True, alibi=True, scale=scale, q_offset=qi * t, kv_offset=ki * t,
+                          out_dtype=torch.float32, slopes=slopes)
+                kern = {"flash_partial_fwd": lambda: flash.flash_partial(qs, ks, vs, **at, slopes=slopes),
+                        "flash_partial_dq": lambda: flash.launch_dq(qs, ks, vs, dos, lse_g, delta, **kw,
+                                                                    counter="flash_partial_dq"),
+                        "flash_partial_dkv": lambda: flash.launch_dkv(qs, ks, vs, dos, lse_g, delta, **kw,
+                                                                      counter="flash_partial_dkv")}
+                plain_fwd = time_ms(lambda: flash.flash_partial_reference(qs, ks, vs, **at, slopes=slopes), iters=3)
+                plain_bwd = time_ms(lambda: flash.flash_grads_reference(qs, ks, vs, o_g, lse_g, dos, **at,
+                                                                        delta=delta, slopes=slopes), iters=3)
+                dist = (qi * t + torch.arange(t, device="cuda"))[:, None] - (ki * t + torch.arange(t, device="cuda"))
+                bias = (-slopes[:, None, None] * dist.clamp(min=0).float())[None].to(dtype)
+                qt, kt, vt = (x.transpose(1, 2).requires_grad_() for x in (qs, ks, vs))
+                lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
+                lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias), iters=10)
+                lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dos.transpose(1, 2),
+                                                              retain_graph=True), iters=10)
+                bounds = partial_bounds(B, t, Hq, Hq, Dq, dtype, t * t, 0)
+                for name, fn in kern.items():
+                    bound, by = bounds[name]
+                    err = errs[0] if name == "flash_partial_fwd" else (
+                        line["grads_max_err"][0] if name == "flash_partial_dq" else max(line["grads_max_err"][1:]))
+                    rows[name + "_tp_ring"] = dict(
+                        max_abs_err=err, ms=time_ms(fn, iters=10), device_ms=device_ms(fn, iters=10),
+                        plain_ms=plain_fwd if name == "flash_partial_fwd" else plain_bwd,
+                        library_ms=lib_fwd if name == "flash_partial_fwd" else lib_bwd, bound_ms=bound, bound_by=by)
+                    log({"kernel": name + "_tp_ring", "shape": [B, t, Hq, Hq, Dq], "heads": [trank * Hq, 12],
+                         "pair": pair, **rows[name + "_tp_ring"]})
+                del lib_out, qt, kt, vt, bias
+        del o_all, lse_all
+        torch.cuda.empty_cache()
+    log({"tensor_training_ring_kernels": checks})
+    return rows
+
+
+def tt_kernel_rows() -> dict:
+    """K1-K3 at every new shard shape of the phase, each rank's slopes
+    against the plain versions: 125m over tensor 2 (B 16 rows of a data
+    rank, T 1024, 6 heads of 64, heads 6-11: ``_tp``); the ring's shards
+    over tensor 2 x sequence 2 (``tt_ring_rows``: ``_tp_ring``); Ulysses
+    over tensor 2 x sequence 2 (T 8192 at 3 heads of 128: tensor rank 1's
+    head ranges checked, 6-8 and 9-11, the latter timed: ``_tp_ulysses``); llama3_8b over
+    tensor 2 (T 8192, 16 query on 4 kv heads, ALiBi off:
+    ``train_kernel_phase``'s bars and controls: ``_tp_llama``)."""
+    rows = {}
+    rows.update(shard_kernel_rows("_tp", DP_RANKS * DP_B // TT_DATA, 1024, 12 // TT_TENSOR, 12 // TT_TENSOR, 64,
+                                  (12 // TT_TENSOR, 12), seed=79, label="tp_125m"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows.update(tt_ring_rows())
+    h = 12 // TT_TENSOR // TT_SEQ
+    for trank in range(TT_TENSOR):
+        for srank in range(TT_SEQ):
+            lo = trank * (12 // TT_TENSOR) + srank * h
+            if trank == 0:
+                continue  # tensor rank 0: dropping the tensor offset changes nothing
+            last = (trank, srank) == (TT_TENSOR - 1, TT_SEQ - 1)
+            rows.update(shard_kernel_rows("_tp_ulysses", 1, SP_SEQ, h, h, 128, (lo, 12), seed=80 + lo,
+                                          label=f"tp_ulysses_heads_{lo}", timed=last))
+            gc.collect()
+            torch.cuda.empty_cache()
+    rows.update(train_kernel_phase([("llama_tp", 1, LLAMA_T, LH // TT_TENSOR, LKVH // TT_TENSOR, LD, torch.bfloat16,
+                                     True, False)], {"llama_tp": "_tp_llama"}))
+    return rows
+
+
+def _tt_llama_rank(rank: int, world: int, backend: str, init_file: str, out_dir: str) -> None:
+    """(c) on one rank of a tensor-parallel world of 2: llama3_8b at full
+    width cut to LLAMA_TRAIN_LAYERS layers over tensor 2 (the one-card
+    seeded weights, each rank's slices), bf16, AdamW at a constant 1e-4,
+    the chunked loss, no remat (its recompute, with its collectives, would
+    only repeat the forward's numbers): the first TT_LLAMA_STEPS batches of
+    llama_training's one-card run, with the launches counted over them."""
+    from zero_transformer_tpu_torch.config import OptimizerConfig
+    from zero_transformer_tpu_torch.ops import _build
+    from zero_transformer_tpu_torch.parallel.mesh import destroy, init_distributed
+    from zero_transformer_tpu_torch.parallel.zero import init_train_state, make_train_step
+    from zero_transformer_tpu_torch.training.optimizer import make_schedule
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = init_distributed(1, backend, "cuda", data=1, tensor=world, rank=rank, world_size=world,
+                            init_method=f"file://{init_file}", local_rank=rank)
+    dev = mesh.device
+    model = llama_model(remat=False, tensor_group=mesh.tensor)
+    opt_cfg = OptimizerConfig(schedule="constant", peak_learning_rate=1e-4)
+    schedule = make_schedule(opt_cfg)
+    st = init_train_state(model, opt_cfg, schedule)
+    step = make_train_step(1, schedule)
+    ref = torch.load(Path(out_dir) / "llama_one_card.pt", weights_only=True)
+    torch.cuda.synchronize(dev)
+    mesh.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    losses, norms = [], []
+    t0 = time.perf_counter()
+    for batch in ref["batches"][:TT_LLAMA_STEPS]:
+        m = step(st, batch.to(dev))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    split = st.shards.split_dim
+    line = {"rank": rank, **mesh.describe(), "losses": losses, "grad_norms": norms, "steps_s": wall,
+            "launches": {n: c for n, c in _build.LAUNCHES.items() if c},
+            "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "persistent_bytes": st.shards.persistent_bytes(), "params_a_rank": st.shards.layout.numel,
+            "replicated_checksum": sum(int(p.detach().view(torch.int32).sum(dtype=torch.int64))
+                                       for n, p in model.named_parameters() if split[n] is None)}
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(line))
+    mesh.barrier()
+    destroy(mesh)
+
+
+def tt_llama(out: Path) -> dict:
+    """(c): llama3_8b over tensor 2 on 2 spawned ranks (gloo on card 0, or
+    NCCL with a card each), held against llama_training's one-card steps on
+    the same batches from the same seeded weights: losses within
+    LOSS_MARGIN, grad norms within GRAD_NORM_RTOL; the replicated params
+    bit-equal on both ranks; exactly L launches of each of K1, K2 and K3 a
+    rank a step (no remat). No checkpoint (the whole state is ~31 GB)."""
+    ref = TT_STASH["llama"]  # llama_training's one-card steps
+    torch.save(ref, out / "llama_one_card.pt")
+    backend = "nccl" if torch.cuda.device_count() >= TT_TENSOR else "gloo"
+    t0 = time.perf_counter()
+    ranks = run_ranks(_tt_llama_rank, TT_TENSOR, backend, out, what="llama tensor-parallel")
+    first = ranks[0]
+    L = LLAMA_TRAIN_LAYERS
+    want = {n: L * TT_LLAMA_STEPS for n in ("flash_train_fwd", "flash_dq", "flash_dkv")}
+    line = {"backend": backend, "losses": first["losses"], "one_card_losses": ref["losses"][:TT_LLAMA_STEPS],
+            "grad_norms": first["grad_norms"], "one_card_grad_norms": ref["grad_norms"][:TT_LLAMA_STEPS],
+            "steps_s_per_rank": [r["steps_s"] for r in ranks],
+            "peak_memory_gib_per_rank": [r["peak_memory_gib"] for r in ranks],
+            "persistent_bytes_per_rank": [r["persistent_bytes"] for r in ranks],
+            "params_a_rank": first["params_a_rank"], "params_whole": LLAMA_TRAIN_N,
+            "launches_rank0": first["launches"], "ranks_s": time.perf_counter() - t0}
+    for i, (loss, norm) in enumerate(zip(first["losses"], first["grad_norms"])):
+        if not abs(loss - ref["losses"][i]) <= LOSS_MARGIN:
+            raise AssertionError(f"tensor_training (c) step {i + 1}: loss {loss} vs one card {ref['losses'][i]}")
+        if not abs(norm - ref["grad_norms"][i]) <= GRAD_NORM_RTOL * abs(ref["grad_norms"][i]):
+            raise AssertionError(f"tensor_training (c) step {i + 1}: grad norm {norm} vs {ref['grad_norms'][i]}")
+    if len({r["replicated_checksum"] for r in ranks}) != 1:
+        raise AssertionError("tensor_training (c): the replicated params differ across the tensor ranks")
+    for r in ranks:
+        if r["launches"] != want:
+            raise AssertionError(f"tensor_training (c) rank {r['rank']}: launches {r['launches']}, want {want}")
+    return line
+
+
+def tt_cli_start(run_dir: Path):
+    """(d): the trainer CLI under torch.distributed.run, 125m at DP_LAYERS
+    layers over data 2 x tensor 2, synthetic tokens, 3 steps; started in the
+    background."""
+    launch = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+              str(TT_DATA * TT_TENSOR), "-m", "zero_transformer_tpu_torch.train", "--cfg", "configs/train_125m.yaml",
+              "--max-steps", "3", "--set", f"mesh.data={TT_DATA}", "--set", f"mesh.tensor={TT_TENSOR}", "--set",
+              "data.source=synthetic", f"training.batch_size={DP_RANKS * DP_B}", f"model.n_layers={DP_LAYERS}",
+              "training.log_frequency=1", "training.evaluation_frequency=0", f"checkpoint.directory={run_dir}"]
+    return subprocess.Popen(launch, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env={**os.environ, "OMP_NUM_THREADS": "2"}), time.perf_counter()
+
+
+def tt_cli_check(proc, t0: float, run_dir: Path) -> dict:
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError("tensor_training (d): the trainer CLI did not finish within 600 s")
+    if proc.returncode != 0:
+        raise AssertionError(f"tensor_training (d): trainer CLI exit {proc.returncode}:\n{stdout[-3000:]}\n"
+                             f"{stderr[-3000:]}")
+    topo = next((json.loads(x)["distributed"] for x in stdout.splitlines() if x.startswith('{"distributed"')), None)
+    records = [json.loads(x) for x in (run_dir / "metrics.jsonl").open()]
+    train = [r for r in records if "loss" in r]
+    steps = sorted(p.name for p in run_dir.iterdir() if p.is_dir())
+    line = {"wall_s": time.perf_counter() - t0, "topology": topo, "steps_logged": [r["step"] for r in train],
+            "losses": [r["loss"] for r in train], "step_dirs": steps,
+            "tokens_per_sec": train[-1]["tokens_per_sec"] if train else None,
+            "step_time_ms": train[-1]["step_time_ms"] if train else None}
+    if (topo is None or topo["tensor"] != TT_TENSOR or topo["data"] != TT_DATA
+            or line["steps_logged"] != [1, 2, 3] or steps != ["3"]
+            or not all(math.isfinite(x) for x in line["losses"])):
+        raise AssertionError(f"tensor_training (d): the trainer CLI over data 2 x tensor 2: {line}")
+    return line
+
+
+def tensor_training_phase() -> tuple:
+    """Tensor-parallel training (``mesh.tensor``), four parts:
+
+    (a) 125m at full width, depth DP_LAYERS, data 2 x tensor 2: ZeRO 0-3
+    with AdamW (stage 3 with the chunked loss) and Adafactor, 3 steps each
+    against the one-card trainer; the save and a data-4 resume
+    (``check_tt_dp``), run inside data_parallel's world;
+    (b) 580m at T 8192, SP_LAYERS layers, tensor 2 x sequence 2 through the
+    ring and Ulysses against the one-card step (``check_tt_sp``), inside
+    sequence_parallel's world (beside that phase's one-card reference);
+    (c) llama3_8b over tensor 2 against llama_training's one-card steps
+    (``tt_llama``), beside (d) the trainer CLI under torch.distributed.run
+    over data 2 x tensor 2;
+    then every new K1-K3 shape against its plain version with each rank's
+    slopes (``tt_kernel_rows``). Returns the kernel rows and the launches
+    of the main path's runs."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    TT_DIR.mkdir(parents=True, exist_ok=True)
+    out = TT_DIR.resolve()
+    launches, part_s = {}, {}
+    a, b = TT_STASH["a"], TT_STASH["b"]  # main() runs data_parallel and sequence_parallel with this phase
+    log({"tensor_training_a": a})
+    launches.update({n + "_tp": a["tp_stage2"]["launches_rank0"][n] for n in ("flash_train_fwd", "flash_dq",
+                                                                             "flash_dkv")})
+    log({"tensor_training_b": b})
+    launches.update({n + "_tp_ring": c for n, c in b["tp_ring"]["launches_rank0"].items()})
+    launches.update({n + "_tp_ulysses": c for n, c in b["tp_ulysses"]["launches_rank0"].items()})
+    cli_dir = out / "cli"
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    proc, t_cli = tt_cli_start(cli_dir)
+    try:
+        t0 = time.perf_counter()
+        c = tt_llama(out)
+        part_s["c"] = time.perf_counter() - t0
+    except BaseException:
+        proc.kill()
+        proc.communicate()
+        raise
+    log({"tensor_training_c": c})
+    launches.update({n + "_tp_llama": cnt for n, cnt in c["launches_rank0"].items()})
+    d = tt_cli_check(proc, t_cli, cli_dir)
+    part_s["d_beside_c"] = d["wall_s"]
+    log({"tensor_training_d": d})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows = tt_kernel_rows()
+    part_s["kernels"] = time.perf_counter() - t0
+    log({"tensor_training_s": time.perf_counter() - t_phase, "tensor_training_part_s": part_s})
+    return rows, launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -7538,10 +8200,11 @@ def card_line() -> str:
 PHASES = ("kernels", "serving", "parity", "profile", "int8_kernels", "int8_serving", "train_kernels", "training",
           "resilience", "train_1_3b", "packed_kernels", "packed", "sp_kernels", "sequence_parallel", "data_parallel",
           "llama_kernels", "llama_serving", "llama_training", "generate", "serving_policy", "disagg", "slab_serving",
-          "router", "tensor_serving")
+          "router", "tensor_serving", "tensor_training")
 # what the phases write under build/ (the kernels' libraries and POLICY_DIR aside)
 PHASE_DIRS = ("resilience", "train_1_3b", "packed", "sp", "train_580m_8k_sp", "train_580m_8k_one_card", "data_parallel",
-              "data_parallel_nccl", "llama_training", "generate", "disagg", "slab_serving", "router", "tensor_serving")
+              "data_parallel_nccl", "llama_training", "generate", "disagg", "slab_serving", "router", "tensor_serving",
+              "tensor_training")
 # named with --phases only: the ring's parity with every kernel on its f32 path, K4's
 # anatomy, data parallelism over NCCL with a card per rank (4 cards), and the
 # fit of the tensor cores' adder that the ALiBi-off K1 emulation uses
@@ -7663,6 +8326,25 @@ SOURCES = {
                          "zero_transformer_tpu/ops/pallas/flash.py:176"),
     "flash_dkv_ulysses": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
                           "zero_transformer_tpu/ops/pallas/flash.py:214"),
+    # tensor-parallel training: a tensor rank's heads with their slopes --
+    # 125m over tensor 2 (6 heads of 64, heads 6-11), the ring's shards over
+    # tensor 2 x sequence 2 (580m, 6 heads of 128), Ulysses over tensor 2 x
+    # sequence 2 (3 heads of 128, heads 9-11), llama3_8b over tensor 2 (16
+    # query on 4 kv heads, ALiBi off)
+    **{f"{kernel}{sfx}": (src, tpu)
+       for sfx in ("_tp", "_tp_ulysses", "_tp_llama")
+       for kernel, src, tpu in (("flash_train_fwd", "zero_transformer_tpu_torch/csrc/flash_fwd.cu",
+                                 "zero_transformer_tpu/ops/pallas/flash.py:127"),
+                                ("flash_dq", "zero_transformer_tpu_torch/csrc/flash_bwd.cu",
+                                 "zero_transformer_tpu/ops/pallas/flash.py:176"),
+                                ("flash_dkv", "zero_transformer_tpu_torch/csrc/flash_bwd.cu",
+                                 "zero_transformer_tpu/ops/pallas/flash.py:214"))},
+    "flash_partial_fwd_tp_ring": ("zero_transformer_tpu_torch/csrc/flash_fwd.cu",
+                                  "zero_transformer_tpu/ops/pallas/flash.py:127"),
+    "flash_partial_dq_tp_ring": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
+                                 "zero_transformer_tpu/ops/pallas/flash.py:176"),
+    "flash_partial_dkv_tp_ring": ("zero_transformer_tpu_torch/csrc/flash_bwd.cu",
+                                  "zero_transformer_tpu/ops/pallas/flash.py:214"),
 }
 
 
@@ -7679,6 +8361,8 @@ def main(argv) -> int:
     if set(phases) - set(PHASES + EXTRA_PHASES):
         print(f"chip_smoke: unknown phases {sorted(set(phases) - set(PHASES + EXTRA_PHASES))}", file=sys.stderr)
         return 2
+    if "tensor_training" in phases:  # its parts run in these phases' worlds and on their records
+        phases = tuple(p for p in PHASES + EXTRA_PHASES if p in phases or p in TT_NEEDS)
     from zero_transformer_tpu_torch.ops import _build
 
     log(card_line())
@@ -7762,14 +8446,15 @@ def main(argv) -> int:
     if "sp_kernels" in phases:
         with timed("sp_kernels"):
             rows.update(sp_kernel_phase())
+    tensor_training = "tensor_training" in phases
     if "sequence_parallel" in phases:
         with timed("sequence_parallel"):
-            sp_launches, sp_rows = sequence_parallel_phase()
+            sp_launches, sp_rows = sequence_parallel_phase(tensor_training=tensor_training)
             launches.update(sp_launches)
             rows.update(sp_rows)
     if "data_parallel" in phases:
         with timed("data_parallel"):
-            data_parallel_phase()
+            data_parallel_phase(tensor_training=tensor_training)
     if "data_parallel_nccl" in phases:
         with timed("data_parallel_nccl"):
             data_parallel_phase("nccl")
@@ -7790,7 +8475,7 @@ def main(argv) -> int:
             launches.update(llama_serving_phase())
     if "llama_training" in phases:
         with timed("llama_training"):
-            launches.update(llama_training_phase())
+            launches.update(llama_training_phase(record=tensor_training))
     for name, fn in (("generate", generate_phase), ("serving_policy", serving_policy_phase),
                      ("disagg", disagg_phase), ("slab_serving", slab_serving_phase)):
         if name in phases:
@@ -7806,6 +8491,11 @@ def main(argv) -> int:
             tp_rows, tp_launches = tensor_serving_phase()
             rows.update(tp_rows)
             launches.update(tp_launches)
+    if tensor_training:
+        with timed("tensor_training"):
+            tt_rows, tt_launches = tensor_training_phase()
+            rows.update(tt_rows)
+            launches.update(tt_launches)
     log({"phase_s": phase_s, "total_s": time.perf_counter() - t_start})
     shutil.rmtree(POLICY_DIR, ignore_errors=True)
     table = [

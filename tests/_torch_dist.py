@@ -21,11 +21,11 @@ import torch.multiprocessing as mp
 DEADLINE_S = 120.0
 
 
-def _entry(rank, world, init_file, body, payload_path, out_dir, sequence):
+def _entry(rank, world, init_file, body, payload_path, out_dir, sequence, tensor):
     torch.set_num_threads(1)
     from zero_transformer_tpu_torch.parallel.mesh import destroy, init_distributed
 
-    mesh = init_distributed(sequence, "gloo", "cpu", rank=rank, world_size=world,
+    mesh = init_distributed(sequence, "gloo", "cpu", tensor=tensor, rank=rank, world_size=world,
                             init_method=f"file://{init_file}")
     try:
         payload = torch.load(payload_path, weights_only=False)
@@ -36,15 +36,17 @@ def _entry(rank, world, init_file, body, payload_path, out_dir, sequence):
 
 
 def run_world(body: str, payload, tmp_path: Path, world: int = 4, deadline: float = DEADLINE_S,
-              sequence: int = None) -> list:
+              sequence: int = None, tensor: int = 1) -> list:
     """Run ``body(mesh, payload)`` on ``world`` gloo ranks of a ``data x
-    sequence`` mesh (``sequence`` None: all ranks in one sequence group);
-    returns each rank's result, in rank order."""
+    tensor x sequence`` mesh (``sequence`` None: all the ranks a tensor
+    group leaves in one sequence group); returns each rank's result, in
+    rank order."""
     tmp_path.mkdir(parents=True, exist_ok=True)
     payload_path = tmp_path / "payload.pt"
     torch.save(payload, payload_path)
     ctx = mp.start_processes(_entry, args=(world, str(tmp_path / "rendezvous"), body, str(payload_path),
-                                           str(tmp_path), world if sequence is None else sequence),
+                                           str(tmp_path), world // tensor if sequence is None else sequence,
+                                           tensor),
                              nprocs=world, join=False, start_method="spawn")
     end = time.monotonic() + deadline
     try:
@@ -151,7 +153,7 @@ def zero_cases(mesh, cases: dict) -> dict:
     out = {}
     for name, c in cases.items():
         m = mesh if (c["data"], c["sequence"]) == (mesh.data.size, mesh.sequence.size) else \
-            make_mesh(c["data"], c["sequence"], "gloo", mesh.device)
+            make_mesh(c["data"], 1, c["sequence"], "gloo", mesh.device)
         model = Transformer(tconfig.model_config(c.get("zoo", "test"), **c["model"]), device="cpu")
         model.load_state_dict({n: torch.from_numpy(p) for n, p in c["params"].items()})
         model.requires_grad_(True).set_sequence_group(m.sequence)
@@ -185,7 +187,7 @@ def ring_loss_grads(mesh, cases: dict) -> dict:
     from zero_transformer_tpu_torch.models.gpt import Transformer
     from zero_transformer_tpu_torch.parallel.mesh import make_mesh
 
-    ring = make_mesh(1, mesh.world_size, "gloo", mesh.device).sequence
+    ring = make_mesh(1, 1, mesh.world_size, "gloo", mesh.device).sequence
     out = {}
     for name, c in cases.items():
         model = Transformer(tconfig.model_config(c["zoo"], **c["model"]), device="cpu", seq_group=ring)
@@ -226,9 +228,15 @@ def trainer_run(mesh, c: dict) -> dict:
     return out
 
 
+def _data_tensor_sequence(data: int, sequence: int, tensor: int = 1) -> tuple:
+    """A run's ``mesh`` entry, ``(data, sequence[, tensor])``, in
+    ``make_mesh``'s order."""
+    return data, tensor, sequence
+
+
 def trainer_runs(mesh, runs: list) -> list:
     """``trainer_run`` for each run in order, on the world's mesh or on a
-    ``data x sequence`` mesh of its own; a run may first have rank 0 copy a
+    ``data x sequence`` (or ``data x sequence x tensor``) mesh of its own; a run may first have rank 0 copy a
     run directory (``copy``: [(source, destination), ...])."""
     import shutil
 
@@ -240,7 +248,7 @@ def trainer_runs(mesh, runs: list) -> list:
             for src, dst in run.get("copy", ()):
                 shutil.copytree(src, dst)
         mesh.barrier()
-        m = mesh if "mesh" not in run else make_mesh(*run["mesh"], "gloo", mesh.device)
+        m = mesh if "mesh" not in run else make_mesh(*_data_tensor_sequence(*run["mesh"]), "gloo", mesh.device)
         out.append(trainer_run(m, run))
     return out
 
@@ -462,3 +470,178 @@ def ulysses_world(mesh, payload: dict) -> dict:
         with torch.no_grad():
             models[name] = model(torch.from_numpy(c["tokens"])).numpy()
     return {"ops": ops, "models": models, "zero": zero_cases(mesh, payload["zero"])}
+
+
+# ------------------------------------------------- tensor-parallel training
+
+
+def tp_train_cases(mesh, cases: dict) -> dict:
+    """Every case's model trained on a ``data x tensor x sequence`` mesh (the
+    world's own, one made for the case, or one process): the whole params (and, with
+    ``load``, the saved state) loaded through ``ZeroShards``, then the
+    case's steps on this data rank's rows of each global batch. Returns the
+    losses, grad norms and tokens, the whole state after the steps
+    (``state_leaves``, every leaf, as numpy), the rank's replicated params
+    (to compare across tensor ranks), its param shapes, persistent bytes
+    and the replica audit's verdict."""
+    from zero_transformer_tpu_torch import config as tconfig
+    from zero_transformer_tpu_torch.models.gpt import Transformer, tp_split_dim
+    from zero_transformer_tpu_torch.parallel.mesh import make_mesh, single_process
+    from zero_transformer_tpu_torch.parallel.zero import init_train_state, make_replica_audit, make_train_step
+    from zero_transformer_tpu_torch.training.optimizer import make_schedule
+
+    out = {}
+    for name, c in cases.items():
+        shape = (c["data"], c.get("tensor", 1), c["sequence"])
+        if shape == (mesh.data.size, mesh.tensor.size, mesh.sequence.size):
+            m = mesh
+        else:  # every rank runs a one-rank case alone
+            m = single_process(mesh.device) if shape == (1, 1, 1) else make_mesh(*shape, "gloo", mesh.device)
+        tp = m.tensor if m.tensor.size > 1 else None
+        model = Transformer(tconfig.model_config(c.get("zoo", "test"), **c["model"]), device="cpu",
+                           tensor_group=tp)
+        model.requires_grad_(True).set_sequence_group(m.sequence)
+        opt_cfg = tconfig.OptimizerConfig(**c["opt"])
+        schedule = make_schedule(opt_cfg)
+        state = init_train_state(model, opt_cfg, schedule, m.data, c["stage"])
+        if c.get("load"):
+            state.shards.load_leaves({k: torch.from_numpy(v) for k, v in c["load"].items()}, c["count"])
+            state.step = c["count"]
+        else:
+            state.shards.load_params({n: torch.from_numpy(p) for n, p in c["params"].items()})
+        step = make_train_step(c["stage"], schedule, c.get("accum_dtype", "float32"), m.sequence,
+                               seed=c.get("seed", 0))
+        rows = c["batches"][0].shape[1] // m.data.size
+        lo = m.data.rank * rows
+        losses, norms, tokens = [], [], []
+        for batch in c["batches"]:
+            metrics = step(state, torch.from_numpy(batch[:, lo:lo + rows]))
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            tokens.append(metrics["tokens"])
+        leaves = state.shards.state_leaves()
+        audit = make_replica_audit(state.shards)
+        with state.shards.gathered():
+            replicated = {n: p.detach().numpy().copy() for n, p in model.named_parameters()
+                          if tp is None or tp_split_dim(n) is None}
+            shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        out[name] = dict(losses=losses, norms=norms, tokens=tokens, count=int(state.optimizer.count),
+                         state={k: v.numpy().copy() for k, v in leaves.items()},
+                         params={k.removeprefix("params/"): v.numpy().copy() for k, v in leaves.items()
+                                 if k.startswith("params/")},
+                         replicated=replicated, shapes=shapes, persistent_bytes=state.shards.persistent_bytes(),
+                         diverged=None if audit is None else audit(), tensor_rank=m.tensor.rank,
+                         data_rank=m.data.rank)
+    return out
+
+
+def tp_loss_cases(group, c: dict) -> dict:
+    """The vocab-parallel losses on this tensor rank's columns of ``c``'s
+    whole logits and head: the mean loss (ignore_index -1, ``z_loss``) and
+    its grad on the local logits; the chunked next-token loss and its
+    grads on the hidden states (this rank's part) and the local head."""
+    from zero_transformer_tpu_torch.ops.losses import chunked_next_token_loss, cross_entropy_loss
+
+    width = c["logits"].shape[-1] // group.size
+    cols = slice(group.rank * width, (group.rank + 1) * width)
+    lo = group.rank * width
+    logits = torch.from_numpy(c["logits"][..., cols].copy()).requires_grad_()
+    labels = torch.from_numpy(c["labels"])
+    full = cross_entropy_loss(logits, labels, ignore_index=-1, z_loss=c["z_loss"], group=group, vocab_lo=lo)
+    (g_full,) = torch.autograd.grad(full, logits)
+    h = torch.from_numpy(c["hidden"]).requires_grad_()
+    w = torch.from_numpy(c["w"][:, cols].copy()).requires_grad_()
+    chunked = chunked_next_token_loss(h, w, labels, c["chunk"], ignore_index=-1, z_loss=c["z_loss"], group=group,
+                                      vocab_lo=lo)
+    dh, dw = torch.autograd.grad(chunked, (h, w))
+    return dict(full=full.item(), full_grad=g_full.numpy(), chunked=chunked.item(), chunked_dh=dh.numpy(),
+                chunked_dw=dw.numpy())
+
+
+def tp_training_world(mesh, payload: dict) -> dict:
+    """The tensor-parallel training file's one world: ``tp_train_cases`` and
+    ``tp_loss_cases`` on the world's tensor group."""
+    return {"train": tp_train_cases(mesh, payload["train"]), "losses": tp_loss_cases(mesh.tensor, payload["losses"])}
+
+
+def tp_attention_cases(mesh, cases: dict) -> dict:
+    """Ring and Ulysses on this rank's shards of a ``tensor x sequence``
+    mesh: q, k, v cut to the rank's sequence shard and its tensor rank's
+    heads. {case: (out, dq, dk, dv, out with the old slopes)}: the last is
+    the forward with no tensor group (the slopes of heads 0 .. H_local - 1,
+    the offset before tensor ranks were counted)."""
+    from zero_transformer_tpu_torch.ops.ring_attention import ring_attention
+    from zero_transformer_tpu_torch.ops.ulysses import ulysses_attention
+
+    seq, tp = mesh.sequence, mesh.tensor
+    out = {}
+    for name, c in cases.items():
+        fn = ulysses_attention if c["engine"] == "ulysses" else ring_attention
+
+        def local(x):  # this rank's time shard and head slice
+            return torch.from_numpy(shard(shard(x, seq.rank, seq.size, 1), tp.rank, tp.size, 2).copy())
+
+        q, k, v = (local(c[x]).requires_grad_() for x in "qkv")
+        ids = None if c["ids"] is None else torch.from_numpy(shard(c["ids"], seq.rank, seq.size))
+        o = fn(q, k, v, seq, causal=True, alibi=c["alibi"], doc_ids=ids, tensor_group=tp)
+        grads = torch.autograd.grad(o, (q, k, v), local(c["g"]))
+        with torch.no_grad():
+            old = fn(q, k, v, seq, causal=True, alibi=c["alibi"], doc_ids=ids)
+        out[name] = tuple(x.detach().numpy() for x in (o, *grads, old))
+    return out
+
+
+def tp_sequence_world(mesh, payload: dict) -> dict:
+    """The tensor x sequence file's one world: ``tp_attention_cases`` and
+    ``tp_train_cases``."""
+    return {"attention": tp_attention_cases(mesh, payload["attention"]),
+            "train": tp_train_cases(mesh, payload["train"])}
+
+
+def tp_checkpoint_world(mesh, payload: dict) -> dict:
+    """The tensor checkpoint file's one world: ``tp_train_cases`` (the
+    world's mesh: data 2 x tensor 2), then the trainer at data 2 x tensor 2
+    for 4 steps (saving at steps 2 and 4), and the trainer at data 4 x
+    tensor 1 resuming its step 2 for steps 3-4. Returns the cases, and for
+    each trainer its logged losses, its whole state after its steps and
+    its whole state before them (for the resume: right after the
+    restore)."""
+    import shutil
+
+    from zero_transformer_tpu_torch import config as tconfig
+    from zero_transformer_tpu_torch.parallel.mesh import make_mesh
+    from zero_transformer_tpu_torch.training.trainer import Trainer
+
+    out = {"cases": tp_train_cases(mesh, payload["cases"])}
+
+    def run(m, overrides, steps, chaos=None):
+        cfg = tconfig.apply_dotted_overrides(tconfig.load_config(payload["config"]), overrides)
+        trainer = Trainer(cfg, device="cpu", mesh=m, chaos=chaos)
+        try:
+            restored = {k: v.numpy().copy() for k, v in trainer.state.shards.state_leaves().items()}
+            trainer.train(max_steps=steps)
+            leaves = {k: v.numpy().copy() for k, v in trainer.state.shards.state_leaves().items()}
+        finally:
+            trainer.close()
+        res = {"state": leaves, "restored": restored, "step": trainer.state.step,
+               "report": dict(trainer.resilience_report)}
+        if m.rank == 0:
+            lines = (Path(cfg.checkpoint.directory) / "metrics.jsonl").read_text().splitlines()
+            res["losses"] = {r["step"]: r["loss"] for r in map(json.loads, lines) if "loss" in r}
+        return res
+
+    base = payload["overrides"]
+    tp_dir, resume_dir, rollback_dir = payload["dirs"]
+    out["tensor"] = run(mesh, {**base, "mesh.data": 2, "mesh.tensor": 2, "checkpoint.directory": tp_dir}, 4)
+    if mesh.rank == 0:
+        shutil.copytree(Path(tp_dir) / "2", Path(resume_dir) / "2")
+    mesh.barrier()
+    data4 = make_mesh(4, 1, 1, "gloo", mesh.device)
+    out["resumed"] = run(data4, {**base, "mesh.data": 4, "mesh.tensor": 1, "checkpoint.directory": resume_dir,
+                                 "checkpoint.resume": True}, 2)
+    from zero_transformer_tpu_torch.resilience.chaos import ChaosMonkey, Fault
+
+    out["rollback"] = run(mesh, {**base, "mesh.data": 2, "mesh.tensor": 2, "checkpoint.directory": rollback_dir,
+                                 **payload["rollback"]}, payload["rollback_steps"],
+                          chaos=ChaosMonkey([Fault("nan_step", *payload["nan_steps"])]))
+    return out

@@ -283,8 +283,10 @@ def test_unported_training_features_raise():
         cfg = tconfig.model_config("test", remat=True, remat_policy=policy)
         assert build_training(tconfig.Config(model=cfg), "cpu").state.model.cfg.remat_policy == policy
     assert tconfig.model_config("test", cp_impl="ulysses").cp_impl == "ulysses"
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        tconfig.MeshConfig(tensor=2)
+    # tensor parallelism is ported: the axis is validated, not refused
+    assert tconfig.MeshConfig(tensor=2).tensor == 2
+    with pytest.raises(ValueError, match="mesh.tensor"):
+        tconfig.MeshConfig(tensor=0)
     # the chunked loss is ported: its chunk is validated as JAX does
     assert tconfig.model_config("test", loss_chunk=256).loss_chunk == 256
     for field in (dict(remat_policy="all"), dict(cp_impl="tree"), dict(loss_chunk=0)):
@@ -305,7 +307,8 @@ def test_unported_training_features_raise():
     assert tconfig.MeshConfig(data=2).data == 2 and tconfig.CheckpointConfig(resume=True).resume
     with pytest.raises(ValueError, match="mesh.data"):
         tconfig.MeshConfig(data=0)
-    for field in ("fsdp", "tensor", "pipe", "dcn_data"):
+    assert tconfig.MeshConfig(data=2, tensor=2, sequence=2).tensor == 2
+    for field in ("fsdp", "pipe", "dcn_data"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
             tconfig.MeshConfig(**{field: 2})
     with pytest.raises(NotImplementedError, match="overlap"):

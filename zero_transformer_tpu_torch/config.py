@@ -274,11 +274,15 @@ def model_config(name: str, **overrides) -> ModelConfig:
 class MeshConfig:
     """``data`` ranks train data-parallel under ZeRO ``zero_stage`` (0-3,
     ``parallel/zero.py``); -1 takes every rank the launch has (world /
-    ``sequence``). ``sequence`` > 1 splits every row over that many ranks
-    and runs attention as a ring (``ops/ring_attention.py``). One process
-    per rank under ``torch.distributed.run``; ``world == data x sequence``
-    is checked where the groups are made (``parallel/mesh.py``). The other
-    axes of the JAX mesh keep JAX's defaults and raise when asked for."""
+    (``tensor`` x ``sequence``)). ``tensor`` > 1 splits every layer's heads,
+    MLP features and vocabulary over that many ranks (the Megatron layers of
+    ``models/gpt.py``, the vocab-parallel loss); ``sequence`` > 1 splits
+    every row over that many ranks and runs attention as a ring
+    (``ops/ring_attention.py``) or through Ulysses' all-to-alls. One process
+    per rank under ``torch.distributed.run``; ``world == data x tensor x
+    sequence`` is checked where the groups are made (``parallel/mesh.py``).
+    The other axes of the JAX mesh keep JAX's defaults and raise when asked
+    for."""
 
     data: int = -1
     fsdp: int = 1
@@ -292,12 +296,14 @@ class MeshConfig:
     def __post_init__(self):
         if self.data != -1 and self.data < 1:
             raise ValueError(f"mesh.data must be -1 (every rank) or >= 1, got {self.data}")
+        if self.tensor < 1:
+            raise ValueError(f"mesh.tensor must be >= 1, got {self.tensor}")
         if self.sequence < 1:
             raise ValueError(f"mesh.sequence must be >= 1, got {self.sequence}")
         if self.zero_stage not in (0, 1, 2, 3):
             raise ValueError(f"zero_stage must be 0-3, got {self.zero_stage}")
-        unported = {"fsdp": ("the fsdp axis", 7), "tensor": ("tensor parallelism", 13),
-                    "pipe": ("pipeline parallelism", 14), "dcn_data": ("multi-slice placement", 7)}
+        unported = {"fsdp": ("the fsdp axis", 7), "pipe": ("pipeline parallelism", 14),
+                    "dcn_data": ("multi-slice placement", 7)}
         for name, (what, item) in unported.items():
             if getattr(self, name) != 1:
                 raise NotImplementedError(f"mesh.{name}={getattr(self, name)}: {what} is not ported yet "

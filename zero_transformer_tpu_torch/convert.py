@@ -24,6 +24,12 @@ layout) converts too: a Dense's ``kernel_q`` ``[in, out]`` int8 and
 ``wte/scale`` become ``wte.embedding_q`` and ``wte.scale``. Float leaves
 come out float32, int8 leaves stay int8.
 
+``tensor_shard`` cuts a whole state dict (converted, or gathered from a
+checkpoint) into a tensor rank's slices by ``models/gpt.py::tp_split_dim``:
+the one rule that tensor-parallel serving (``shard_for_inference``) and
+training (the float32 masters and optimizer state of
+``parallel/zero.py``) both use.
+
 To write the ``.npz`` that ``serve --params`` reads, on a machine with JAX::
 
     import numpy as np
@@ -44,6 +50,29 @@ import torch
 _DENSE = (("attn", "query"), ("attn", "key"), ("attn", "value"), ("attn", "out"),
           ("mlp", "wi"), ("mlp", "gate"), ("mlp", "wo"))  # gate: SwiGLU blocks only
 _NORMS = ("ln_attn", "ln_mlp")
+
+
+def tensor_shard(state: Mapping[str, torch.Tensor], rank: int, size: int) -> Dict[str, torch.Tensor]:
+    """Tensor rank ``rank``'s part of the whole tensors ``state`` (the
+    port's state-dict names): every tensor that ``tp_split_dim`` names cut
+    into ``size`` equal slices along that dim and slice ``rank`` kept (a
+    copy, never a view, so the whole tensor can be freed), the others as
+    they are. Raises when a split dim does not divide."""
+    from zero_transformer_tpu_torch.models.gpt import tp_split_dim
+
+    if size == 1:
+        return dict(state)
+    out = {}
+    for name, t in state.items():
+        dim = tp_split_dim(name)
+        if dim is None:
+            out[name] = t
+            continue
+        if t.shape[dim] % size:
+            raise ValueError(f"{name} {tuple(t.shape)}: dim {dim} does not split over {size} ranks")
+        width = t.shape[dim] // size
+        out[name] = t.narrow(dim, rank * width, width).clone()
+    return out
 
 
 def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:

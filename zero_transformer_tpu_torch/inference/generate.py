@@ -54,8 +54,9 @@ from typing import Iterator, Optional, Tuple
 import torch
 
 from zero_transformer_tpu_torch.config import ModelConfig, resolve_dtype
+from zero_transformer_tpu_torch.convert import tensor_shard
 from zero_transformer_tpu_torch.inference.sampling import SamplingConfig, sample_token
-from zero_transformer_tpu_torch.models.gpt import KVPools, Pools, Transformer, check_tensor_split, tp_split_dim
+from zero_transformer_tpu_torch.models.gpt import KVPools, Pools, Transformer, check_tensor_split
 from zero_transformer_tpu_torch.parallel.mesh import TensorGroup
 
 SLAB_PAGE = 16  # positions per page of the slab's page view (the serving default)
@@ -334,20 +335,7 @@ def shard_for_inference(model: Transformer, params, group: Optional[TensorGroup]
     when the group does not divide the heads (before any weight moves)."""
     n = 1 if group is None else group.size
     check_tensor_split(model.cfg, n)
-    if n == 1:
-        return dict(params)
-    out = {}
-    for name, t in params.items():
-        dim = tp_split_dim(name)
-        if dim is None:
-            out[name] = t
-            continue
-        if t.shape[dim] % n:
-            raise ValueError(f"{name} {tuple(t.shape)}: dim {dim} does not split over {n} ranks")
-        width = t.shape[dim] // n
-        # a copy, never a view: the whole tensor is freed once its slices are taken
-        out[name] = t.narrow(dim, group.rank * width, width).clone()
-    return out
+    return tensor_shard(params, 0 if group is None else group.rank, n)
 
 
 def scatter_for_inference(model: Transformer, params, group: TensorGroup) -> None:

@@ -90,22 +90,30 @@ instead (all-to-alls to whole rows over ``H / n`` heads, JAX
 ``ops/ulysses.py``).
 
 Tensor parallelism (JAX's ``vocab``, ``qheads``, ``kvheads`` and ``mlp``
-logical axes over ``tensor``, ``parallel/sharding.py:44-47``), for
-serving: a ``Transformer`` given a ``TensorGroup`` of N ranks holds the
-Megatron split of every layer. ``query``/``key``/``value``/``wi``/``gate``
+logical axes over ``tensor``, ``parallel/sharding.py:44-47``), for serving
+and training: a ``Transformer`` given a ``TensorGroup`` of N ranks holds
+the Megatron split of every layer. ``query``/``key``/``value``/``wi``/``gate``
 are column-parallel (the rank's ``H / N`` query heads, ``KVH / N`` kv
 heads, ``ff / N`` features); ``out``/``wo`` are row-parallel, their float32
 partial sums all-reduced and rounded once (``_row_parallel``); ``wte``
 (and an untied ``lm_head``) hold the rank's ``V / N`` vocabulary rows: the
-lookup is a masked local lookup plus an all-reduce, the logits ``[..,
-V / N]`` are gathered over the vocabulary. Norm scales and ``wpe`` are
-whole on every rank. ALiBi attends with the slopes of the rank's global
-head range (JAX ``ring_attention.py::_local_slopes`` :201). int8 weights:
-a column split carries its rows' per-output-channel scales, a row split
-keeps the scale whole (exact: the scale applies after the product). The
-collectives are autograd Functions (identity / all-reduce pairs).
+lookup is a masked local lookup plus an all-reduce; without labels the
+logits ``[.., V / N]`` are gathered over the vocabulary, with labels the
+loss is the vocab-parallel cross entropy of ``ops/losses.py`` on the
+rank's columns (the full and the chunked loss alike; ``[.., V]`` never
+exists, and the call returns ``(None, loss)``). Norm scales and ``wpe``
+are whole on every rank, and so are the activations between the layers:
+the three dropout sites lie on them, so every tensor rank draws the same
+masks (the key holds no tensor rank). The collectives are autograd
+Functions (identity / all-reduce pairs), so the grads of the replicated
+leaves come out equal on every tensor rank and are never reduced over
+it. ALiBi attends with the slopes of the rank's global head range (JAX
+``ring_attention.py::_local_slopes`` :201), under a sequence group too:
+the ring and Ulysses take the tensor group for it. int8 weights: a column
+split carries its rows' per-output-channel scales, a row split keeps the
+scale whole (exact: the scale applies after the product).
 ``tp_split_dim`` names each weight's split dimension;
-``inference.shard_for_inference`` cuts a whole state dict with it.
+``convert.tensor_shard`` cuts a whole state dict with it.
 """
 from __future__ import annotations
 
@@ -329,13 +337,34 @@ class _GatherFromTensor(torch.autograd.Function):
         return g.narrow(ctx.dim, lo, ctx.width).contiguous(), None, None
 
 
+class _MmF32(torch.autograd.Function):
+    """``x @ w.T`` of compute-dtype operands accumulated and written in
+    float32 (``torch.mm``'s ``out_dtype``, which has no derivative of its
+    own). The backward is one card's: the incoming float32 grad rounded to
+    the operands' dtype (it is a compute-dtype grad upcast), then ``dx = g
+    @ w`` and ``dw = g.T @ x`` in that dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.T, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).reshape(-1, w.shape[0])
+        dx = (g @ w).reshape(x.shape) if ctx.needs_input_grad[0] else None
+        dw = g.T @ x.reshape(-1, x.shape[-1]) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w.T`` (``w`` ``[out, in]``) with a float32 result: on CUDA the
     product of the compute-dtype operands accumulated and written in
-    float32 (``torch.mm``'s ``out_dtype``), on the CPU in float32."""
+    float32 (``_MmF32``), on the CPU in float32."""
     if x.device.type == "cuda" and x.dtype != torch.float32:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w.T, out_dtype=torch.float32)
-        return y.reshape(*x.shape[:-1], w.shape[0])
+        return _MmF32.apply(x, w)
     return F.linear(x.float(), w.float())
 
 
@@ -470,9 +499,10 @@ class Attention(nn.Module):
         alibi = self.cfg.position == "alibi"
         if self.seq_group is not None and self.cfg.cp_impl == "ulysses":
             out = ulysses_attention(q, k, v, self.seq_group, causal=True, alibi=alibi, doc_ids=doc_ids,
-                                    impl=self.cfg.attention_impl)
+                                    impl=self.cfg.attention_impl, tensor_group=self.tp)
         elif self.seq_group is not None:
-            out = ring_attention(q, k, v, self.seq_group, causal=True, alibi=alibi, doc_ids=doc_ids)
+            out = ring_attention(q, k, v, self.seq_group, causal=True, alibi=alibi, doc_ids=doc_ids,
+                                 tensor_group=self.tp)
         else:
             # a shard's slope table only where there is one: the one-rank call is unchanged
             shard = {} if self.tp is None else {"slopes": self.slopes(x.device)}
@@ -630,9 +660,6 @@ class Transformer(nn.Module):
         """Route attention through the ring (or Ulysses, ``cp_impl``) over
         ``group`` (None or size 1: the one-card path)."""
         self.seq_group = group if group is not None and group.size > 1 else None
-        if self.seq_group is not None and self.tp is not None:
-            raise NotImplementedError("sequence parallelism under a tensor group (Ulysses x tensor, the ring x "
-                                      "tensor) is not ported yet (ROADMAP Queue 1 item 13)")
         for blk in self.blocks:
             blk.attn.seq_group = self.seq_group
         return self
@@ -699,11 +726,14 @@ class Transformer(nn.Module):
         """The head in the compute dtype: ``h @ wte.T`` tied, ``lm_head(h)``
         untied; over a tensor group each rank's ``V / N`` columns gathered
         into the whole ``[.., V]`` on every rank."""
-        if self.tp is None:
-            return self.wte.attend(h) if self.lm_head is None else self.lm_head(h)
+        local = self._local_logits(h)
+        return local if self.tp is None else _GatherFromTensor.apply(local, self.tp, local.ndim - 1)
+
+    def _local_logits(self, h: torch.Tensor) -> torch.Tensor:
+        """The head on this rank's vocabulary rows: ``[.., V / N]`` over a
+        tensor group (its input through Megatron's f), ``[.., V]`` alone."""
         h = _copy_to(h, self.tp)
-        local = self.wte.attend(h) if self.lm_head is None else self.lm_head(h)
-        return _GatherFromTensor.apply(local, self.tp, local.ndim - 1)
+        return self.wte.attend(h) if self.lm_head is None else self.lm_head(h)
 
     def _lookup(self, tokens: torch.Tensor) -> torch.Tensor:
         """The token embedding; over a tensor group the rank's rows looked
@@ -717,12 +747,15 @@ class Transformer(nn.Module):
         h = torch.where(inside[..., None], h, torch.zeros((), dtype=h.dtype, device=h.device))
         return _reduce_from(h, self.tp)
 
+    def _vocab_split(self) -> dict:
+        """The losses' arguments for this rank's vocabulary columns (none
+        on one rank)."""
+        return {} if self.tp is None else {"group": self.tp, "vocab_lo": self.vocab_lo}
+
     def head_weight(self) -> torch.Tensor:
         """The head as ``[d, vocab]`` in the compute dtype (JAX's ``w_dv``:
-        the embedding transposed, or the untied head's kernel)."""
-        if self.tp is not None:
-            raise NotImplementedError("the chunked loss over a tensor group (training with mesh.tensor) is not "
-                                      "ported yet (ROADMAP Queue 1 item 13)")
+        the embedding transposed, or the untied head's kernel); over a
+        tensor group the rank's ``[d, V / N]`` columns."""
         if self.lm_head is None:
             return self.wte.embedding.to(self.wte.compute_dtype).T
         return self.lm_head.weight.to(self.lm_head.compute_dtype).T
@@ -732,16 +765,14 @@ class Transformer(nn.Module):
         """[B, T] token ids -> [B, T, vocab] logits (compute dtype), or
         ``(logits, loss)`` with ``labels``: the float32 next-token loss
         (predict ``labels[:, t + 1]`` from position t); with ``loss_chunk``
-        set, ``(None, loss)`` from the chunked loss (calls without labels
+        set, ``(None, loss)`` from the chunked loss, and over a tensor group
+        ``(None, loss)`` from the vocab-parallel loss (calls without labels
         still return the logits). With ``doc_sep_token`` set, attention
         stays inside each document of the row and the loss skips the labels
         that start a document. ``train`` with ``dropout > 0`` applies
         dropout, and then needs ``dropout_key`` (ints, e.g. the train step's
         ``(seed, step, data rank, micro-step)``): every mask is a pure
         function of it. A weight-only int8 model computes logits only."""
-        if labels is not None and self.tp is not None:
-            raise NotImplementedError("the training loss over a tensor group (mesh.tensor) is not ported yet "
-                                      "(ROADMAP Queue 1 item 13): tensor parallelism serves")
         if labels is not None and self.cfg.param_quant != "none":
             raise NotImplementedError(
                 "param_quant='int8' is an inference configuration; the loss paths run on "
@@ -762,18 +793,19 @@ class Transformer(nn.Module):
             return self._forward_shard(tokens, labels, doc_ids, key)
         h = self._embed(tokens, key, torch.arange(T, device=tokens.device))
         h = self.ln_f(self._blocks(h, doc_ids, key))
-        if labels is not None and self.cfg.loss_chunk:
-            ignore = None
-            if packed:
-                labels, ignore = mask_boundary_labels(labels, doc_ids), -1
-            return None, chunked_next_token_loss(h, self.head_weight(), labels, self.cfg.loss_chunk,
-                                                 ignore_index=ignore)
-        logits = self.logits(h)
         if labels is None:
-            return logits
+            return self.logits(h)
+        ignore = None
         if packed:
-            return logits, next_token_loss(logits, mask_boundary_labels(labels, doc_ids), ignore_index=-1)
-        return logits, next_token_loss(logits, labels)
+            labels, ignore = mask_boundary_labels(labels, doc_ids), -1
+        vocab = self._vocab_split()
+        if self.cfg.loss_chunk:
+            return None, chunked_next_token_loss(_copy_to(h, self.tp), self.head_weight(), labels,
+                                                 self.cfg.loss_chunk, ignore_index=ignore, **vocab)
+        if self.tp is not None:
+            return None, next_token_loss(self._local_logits(h), labels, ignore_index=ignore, **vocab)
+        logits = self.logits(h)
+        return logits, next_token_loss(logits, labels, ignore_index=ignore)
 
     def _positions(self, pos: torch.Tensor) -> torch.Tensor:
         """The learned position rows at ``pos``, clamped to the table: the
@@ -810,8 +842,8 @@ class Transformer(nn.Module):
         """This rank's shard of the full row ``tokens`` [B, T]: the local
         logits ``[B, T / n, vocab]`` and, with labels, (local CE sum) /
         (the global count of labels, summed over the group without grad);
-        with ``loss_chunk`` the sum comes from the chunked loss and the
-        logits are None. The shift and the boundary mask run on the full
+        with ``loss_chunk`` or a tensor group the sum comes from the chunked
+        or the vocab-parallel loss and the logits are None. The shift and the boundary mask run on the full
         row, so the label of a shard's last position is the next shard's
         first token; the row's last position has none."""
         group = self.seq_group
@@ -827,10 +859,13 @@ class Transformer(nn.Module):
         if doc_ids is not None:
             labels = mask_boundary_labels(labels, doc_ids)
         shifted = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -1)], dim=1)[:, lo:hi]
+        vocab = self._vocab_split()
+        logits = None
         if self.cfg.loss_chunk:
-            logits = None
-            total, count = chunked_cross_entropy_sum(h, self.head_weight(), shifted, self.cfg.loss_chunk,
-                                                     ignore_index=-1)
+            total, count = chunked_cross_entropy_sum(_copy_to(h, self.tp), self.head_weight(), shifted,
+                                                     self.cfg.loss_chunk, ignore_index=-1, **vocab)
+        elif self.tp is not None:
+            total, count = cross_entropy_sum(self._local_logits(h), shifted, -1, **vocab)
         else:
             logits = self.logits(h)
             total, count = cross_entropy_sum(logits, shifted, ignore_index=-1)

@@ -1,14 +1,15 @@
 """Ulysses sequence parallelism: all-to-all context-parallel attention.
 
 Counterpart of ``zero_transformer_tpu/ops/ulysses.py`` (``_ulysses_body``
-:56, ``ulysses_attention`` :114), at tensor 1: the second context-parallel
+:56, ``ulysses_attention`` :114): the second context-parallel
 engine beside ``ops/ring_attention.py``. Each rank of a ``SequenceGroup`` of
 n holds a shard ``[B, T/n, H, D]`` of q, k and v. Three all-to-alls
 (``SequenceGroup.all_to_all_``) re-shard them to ``[B, T, H/n, D]``: head
 chunk j goes to rank j, the time chunks concatenate in rank order, so rank
-s owns the global heads ``s·H/n .. (s+1)·H/n - 1`` over the whole row. The
-rank then makes ONE attention call over the full T with the ALiBi slopes of
-that head range (on CUDA tensors the differentiable flash entry: K1
+s owns the global heads ``s·H/n .. (s+1)·H/n - 1`` over the whole row (under
+a tensor group of N, whose rank t holds the heads ``t·H ..`` of ``H·N``, the
+heads ``t·H + s·H/n ..``: JAX's offset :78-81). The rank then makes ONE
+attention call over the full T with the ALiBi slopes of that head range (on CUDA tensors the differentiable flash entry: K1
 forward, K2/K3 backward), with the packed-document ids all-gathered (they
 are ``[B, T]`` ints, tiny). One all-to-all takes the output back to the
 rank's time shard over every head.
@@ -32,7 +33,7 @@ import torch
 from zero_transformer_tpu_torch.ops.attention import dot_product_attention
 from zero_transformer_tpu_torch.ops.flash import slopes_on
 from zero_transformer_tpu_torch.ops.ring_attention import _validate_cp_shapes
-from zero_transformer_tpu_torch.parallel.mesh import SequenceGroup
+from zero_transformer_tpu_torch.parallel.mesh import SequenceGroup, TensorGroup
 
 
 class _AllToAll(torch.autograd.Function):
@@ -67,12 +68,13 @@ def validate_ulysses_shapes(t_q: int, t_kv: int, H: int, KVH: int, n: int) -> No
 def ulysses_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, group: SequenceGroup, *,
     causal: bool = True, alibi: bool = False, doc_ids: Optional[torch.Tensor] = None,
-    softmax_scale: Optional[float] = None, impl: str = "auto",
+    softmax_scale: Optional[float] = None, impl: str = "auto", tensor_group: Optional[TensorGroup] = None,
 ) -> torch.Tensor:
     """Differentiable Ulysses attention on this rank's shards: q ``[B, t, H,
     D]`` and k, v ``[B, t, KVH, D]`` at global positions ``[rank * t, (rank
     + 1) * t)`` of a row of ``group.size * t`` tokens; ``doc_ids`` ``[B, t]``
-    the shard's packed-document ids. Returns this rank's output ``[B, t, H,
+    the shard's packed-document ids; under ``tensor_group`` the ``H`` heads
+    are the rank's slice of ``H x N``. Returns this rank's output ``[B, t, H,
     D]`` of attention over the whole row. ``impl`` is the model's
     ``attention_impl`` for the local full-row call."""
     n = group.size
@@ -89,8 +91,9 @@ def ulysses_attention(
     h_loc = H // n
     slopes = None
     if alibi:
-        lo = group.rank * h_loc
-        slopes = slopes_on(H, str(q.device), True)[lo:lo + h_loc]
+        tp = 1 if tensor_group is None else tensor_group.size
+        lo = group.rank * h_loc + (0 if tp == 1 else tensor_group.rank * H)
+        slopes = slopes_on(H * tp, str(q.device), True)[lo:lo + h_loc]
     out = dot_product_attention(qf, kf, vf, causal=causal, alibi=alibi, doc_ids=ids, impl=impl, slopes=slopes)
     # head-sharded back to seq-sharded: time chunk j to rank j, heads in rank order
     return all_to_all(out, group, 1, 2)

@@ -1,22 +1,25 @@
-"""Process groups for data, sequence and tensor parallelism.
+"""Process groups for data, tensor and sequence parallelism.
 
 Counterpart of ``zero_transformer_tpu/parallel/mesh.py``'s ``data``,
-``sequence`` and ``tensor`` axes (``make_mesh`` :35-119: ``data`` outer,
-``sequence`` inner; the ``tensor`` axis :26-31) and of ``parallel/bootstrap.py::maybe_initialize`` (:29): JAX's mesh
-becomes ``torch.distributed`` groups of one process per rank, started by
+``tensor`` and ``sequence`` axes (``make_mesh`` :35-119, JAX's axis order
+:55: ``data`` outer, ``tensor``, then ``sequence`` fastest) and of
+``parallel/bootstrap.py::maybe_initialize`` (:29): JAX's mesh becomes
+``torch.distributed`` groups of one process per rank, started by
 ``torch.distributed.run`` (or by a caller that passes rank, world size and
 an ``init_method`` itself, as the tests do with ``file://``). World rank
-``r`` is data rank ``r // sequence`` and sequence rank ``r % sequence``: a
-sequence group is ``sequence`` consecutive ranks (they share rows), a data
-group takes one rank of each sequence group.
+``r = (d * tensor + t) * sequence + s``: a sequence group is ``sequence``
+consecutive ranks (they share rows and heads), a tensor group the ranks of
+one ``(d, s)`` (they share rows and split every layer), a data group the
+ranks of one ``(t, s)`` (they hold the same shard of every layer and train
+on different rows).
 
 The backend is always explicit and printed, never switched silently:
 
 - ``nccl`` when every rank has a card of its own (``cuda:LOCAL_RANK``);
 - ``gloo`` for CPU tensors;
 - ``gloo`` when several ranks share a card (NCCL refuses two ranks on one
-  GPU). gloo's collectives take CPU tensors only here, so under gloo both
-  groups stage CUDA tensors through pinned host buffers: that is the gloo
+  GPU). gloo's collectives take CPU tensors only here, so under gloo every
+  group stages CUDA tensors through pinned host buffers: that is the gloo
   backend's transport. The kernels still run on the card.
 
 ``SequenceGroup.rotate_start`` is the ring's ``lax.ppermute`` to ``(r + 1) %
@@ -26,16 +29,20 @@ collectives of ``parallel/zero.py``: ``reduce_scatter_`` (JAX
 ``psum_scatter``), ``all_gather_`` (``all_gather``) and ``all_reduce_``
 (``psum``). Every collective runs inside a ``torch.profiler`` span named
 after its group and operation (``sequence_group.rotate``,
-``data_group.reduce_scatter``, ...: host time, the staging copies
-included), so a profile of a step can say what share of it the transfers
-take. A group of one rank runs no collective at all.
+``data_group.reduce_scatter``, ``tensor_group.all_reduce``, ...: host time,
+the staging copies included), so a profile of a step can say what share of
+it the transfers take. A group of one rank runs no collective at all.
 
-``TensorGroup`` is the ``tensor`` axis of tensor-parallel serving
-(``models/gpt.py``'s Megatron layers, ``serving/engine.py``'s SPMD plans):
-``all_reduce_`` (JAX ``psum``), ``all_gather_`` along a dim (the vocab-split
-logits) and ``broadcast_`` / ``broadcast_object`` from rank 0 (the engine's
-plans), each inside a ``tensor_group.*`` span. ``init_tensor_group`` joins
-or starts the world of a pure tensor-parallel mesh (JAX ``serve_mesh``).
+``TensorGroup`` is the ``tensor`` axis (``models/gpt.py``'s Megatron
+layers; in serving also ``serving/engine.py``'s SPMD plans):
+``all_reduce_`` (JAX ``psum``; ``all_reduce_max`` for the vocab-parallel
+loss's row max), ``all_gather_`` along a dim (the vocab-split logits, and
+a checkpoint's whole tensors) and ``broadcast_`` / ``broadcast_object``
+from rank 0 (the engine's plans), each inside a ``tensor_group.*`` span.
+``init_tensor_group`` joins or starts the world of a pure tensor-parallel
+serving mesh (JAX ``serve_mesh``); a training mesh's tensor group comes
+from ``make_mesh`` and waits the world's collective timeout, with no
+heartbeat.
 """
 from __future__ import annotations
 
@@ -57,9 +64,10 @@ TENSOR_TIMEOUT_S = 1800.0  # a tensor rank's longest wait inside one collective 
 JOIN_TIMEOUT_S = 1800.0  # every rank of a tensor world joins its rendezvous within it
 
 
-def _torchrun_hint(data: int, sequence: int) -> str:
-    sets = " ".join(f"mesh.{k}={v}" for k, v in (("data", data), ("sequence", sequence)) if v > 1)
-    return (f"python -m torch.distributed.run --nproc-per-node {max(data, 1) * sequence} -m "
+def _torchrun_hint(data: int, sequence: int, tensor: int = 1) -> str:
+    sets = " ".join(f"mesh.{k}={v}" for k, v in (("data", data), ("tensor", tensor), ("sequence", sequence))
+                    if v > 1)
+    return (f"python -m torch.distributed.run --nproc-per-node {max(data, 1) * tensor * sequence} -m "
             f"zero_transformer_tpu_torch.train --cfg <config> --set {sets}")
 
 
@@ -113,17 +121,18 @@ class _Group:
             self._host[key] = buf
         return buf[:numel]
 
-    def all_reduce_(self, tensors: Sequence[torch.Tensor], bucket_bytes: int = BUCKET_BYTES) -> None:
-        """Sum each tensor over the group, in place, through flat buckets of
-        one dtype of at most ``bucket_bytes`` (a larger tensor goes alone).
-        Every rank ends with the same bits: the collective sums each element
-        once and hands the result to all."""
+    def all_reduce_(self, tensors: Sequence[torch.Tensor], bucket_bytes: int = BUCKET_BYTES,
+                    op=dist.ReduceOp.SUM) -> None:
+        """Sum (or ``op``) each tensor over the group, in place, through flat
+        buckets of one dtype of at most ``bucket_bytes`` (a larger tensor
+        goes alone). Every rank ends with the same bits: the collective
+        reduces each element once and hands the result to all."""
         if self.size == 1:
             return
         with record_function(f"{self.SPAN}.all_reduce"):
-            self._all_reduce(tensors, bucket_bytes)
+            self._all_reduce(tensors, bucket_bytes, op)
 
-    def _all_reduce(self, tensors: Sequence[torch.Tensor], bucket_bytes: int) -> None:
+    def _all_reduce(self, tensors: Sequence[torch.Tensor], bucket_bytes: int, op) -> None:
         buckets: List[List[torch.Tensor]] = []
         size = 0
         for t in tensors:
@@ -138,10 +147,10 @@ class _Group:
             if self.staged:
                 host = self._flat_buffer(("all_reduce", flat.dtype), flat.numel(), flat.dtype)
                 host.copy_(flat)
-                dist.all_reduce(host, group=self.group)
+                dist.all_reduce(host, op=op, group=self.group)
                 flat.copy_(host)
             else:
-                dist.all_reduce(flat, group=self.group)
+                dist.all_reduce(flat, op=op, group=self.group)
             offset = 0
             for t in bucket:
                 if t.data_ptr() != flat.data_ptr() or t.numel() != flat.numel():
@@ -152,6 +161,13 @@ class _Group:
         """A new tensor: ``value`` summed over the group (no autograd)."""
         out = value.detach().clone()
         self.all_reduce_([out])
+        return out
+
+    def all_reduce_max(self, value: torch.Tensor) -> torch.Tensor:
+        """A new tensor: the elementwise max of ``value`` over the group (no
+        autograd)."""
+        out = value.detach().clone()
+        self.all_reduce_([out], op=dist.ReduceOp.MAX)
         return out
 
     def barrier(self) -> None:
@@ -373,8 +389,9 @@ class DataGroup(_Group):
 
 @dataclasses.dataclass
 class Mesh:
-    """This process's place in the ``data x sequence`` mesh: its world rank,
-    the world's size, and its data and sequence groups."""
+    """This process's place in the ``data x tensor x sequence`` mesh: its
+    world rank, the world's size, and its data, sequence and tensor groups
+    (a tensor group of one rank when ``tensor`` is not given)."""
 
     rank: int
     world_size: int
@@ -382,6 +399,11 @@ class Mesh:
     device: torch.device
     data: DataGroup
     sequence: SequenceGroup
+    tensor: Optional[TensorGroup] = None
+
+    def __post_init__(self):
+        if self.tensor is None:
+            self.tensor = TensorGroup(rank=0, size=1, backend="none", device=self.device)
 
     def barrier(self) -> None:
         if self.world_size == 1:
@@ -401,9 +423,9 @@ class Mesh:
 
     def describe(self) -> dict:
         cards = min(self.world_size, torch.cuda.device_count()) if self.device.type == "cuda" else 0
-        return {"ranks": self.world_size, "rank": self.rank, "data": self.data.size,
+        return {"ranks": self.world_size, "rank": self.rank, "data": self.data.size, "tensor": self.tensor.size,
                 "sequence": self.sequence.size, "backend": self.backend, "device": str(self.device),
-                "cards": cards, "staged_through_host": self.data.staged}
+                "cards": cards, "staged_through_host": self.backend == "gloo" and self.device.type == "cuda"}
 
 
 def single_process(device) -> Mesh:
@@ -411,36 +433,54 @@ def single_process(device) -> Mesh:
     dev = resolve_device(device)
     return Mesh(rank=0, world_size=1, backend="none", device=dev,
                 data=DataGroup(rank=0, size=1, backend="none", device=dev),
-                sequence=SequenceGroup(rank=0, size=1, backend="none", device=dev))
+                sequence=SequenceGroup(rank=0, size=1, backend="none", device=dev),
+                tensor=TensorGroup(rank=0, size=1, backend="none", device=dev))
+
+
+def mesh_data_size(world_size: int, data: int, tensor: int, sequence: int) -> int:
+    """The data axis of a ``data x tensor x sequence`` world (``data`` -1:
+    what the others leave), with JAX ``make_mesh``'s checks (:42-53): the
+    message names the product that fails."""
+    if tensor < 1 or sequence < 1:
+        raise ValueError(f"mesh.tensor and mesh.sequence must be >= 1, got {tensor} and {sequence}")
+    fixed = tensor * sequence
+    want = (f"world size {world_size} must equal mesh.sequence {sequence} x mesh.tensor {tensor} x mesh.data "
+            f"{'(all ranks)' if data == -1 else data}")
+    if world_size % fixed:
+        raise ValueError(f"{want}: {world_size} ranks not divisible by tensor*sequence={fixed}; "
+                         f"{_torchrun_hint(max(data, 1), sequence, tensor)}")
+    n_data = world_size // fixed if data == -1 else data
+    if n_data < 1 or n_data * fixed != world_size:
+        raise ValueError(f"{want}: mesh {n_data}x{tensor}x{sequence} (data x tensor x sequence) != "
+                         f"{world_size} ranks; {_torchrun_hint(max(n_data, 1), sequence, tensor)}")
+    return n_data
 
 
 def init_distributed(sequence: int, backend: Optional[str] = None, device="cuda", *, data: int = -1,
-                     rank: Optional[int] = None, world_size: Optional[int] = None,
+                     tensor: int = 1, rank: Optional[int] = None, world_size: Optional[int] = None,
                      init_method: Optional[str] = None, local_rank: Optional[int] = None) -> Mesh:
-    """Join (or start) the process group of a ``data x sequence`` mesh and
-    make its data and sequence groups.
+    """Join (or start) the process group of a ``data x tensor x sequence``
+    mesh and make its data, tensor and sequence groups.
 
     Rank, world size and local rank come from the arguments or from
     ``torch.distributed.run``'s environment (``RANK``, ``WORLD_SIZE``,
     ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``);
     without either it raises with the launch command. ``data`` -1 takes
-    world / ``sequence``; the world must equal ``data x sequence``.
-    ``backend`` None takes nccl when every rank of the host has a card of
-    its own, else gloo (ranks share card ``LOCAL_RANK % cards``); asking for
-    nccl without a card per rank raises."""
+    world / (``tensor`` x ``sequence``); the world must equal ``data x
+    tensor x sequence``. ``backend`` None takes nccl when every rank of the
+    host has a card of its own, else gloo (ranks share card ``LOCAL_RANK %
+    cards``); asking for nccl without a card per rank raises."""
     env = os.environ
     if rank is None or world_size is None:
         if "RANK" not in env or "WORLD_SIZE" not in env:
-            raise RuntimeError(f"mesh.data={data} x mesh.sequence={sequence} needs one process per rank, "
-                               f"started by torch.distributed.run: {_torchrun_hint(data, sequence)}")
+            raise RuntimeError(f"mesh.data={data} x mesh.tensor={tensor} x mesh.sequence={sequence} needs one "
+                               f"process per rank, started by torch.distributed.run: "
+                               f"{_torchrun_hint(data, sequence, tensor)}")
         rank, world_size = int(env["RANK"]), int(env["WORLD_SIZE"])
     if local_rank is None:
         local_rank = int(env.get("LOCAL_RANK", rank))
     local_world = int(env.get("LOCAL_WORLD_SIZE", world_size))
-    n_data = world_size // sequence if data == -1 else data
-    if n_data < 1 or n_data * sequence != world_size:
-        raise ValueError(f"world size {world_size} must equal mesh.sequence {sequence} x mesh.data "
-                         f"{'(all ranks)' if data == -1 else data}: {_torchrun_hint(max(n_data, 1), sequence)}")
+    n_data = mesh_data_size(world_size, data, tensor, sequence)
     dev = torch.device(device)
     if backend is not None and backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
@@ -463,29 +503,39 @@ def init_distributed(sequence: int, backend: Optional[str] = None, device="cuda"
         if backend == "nccl":
             kwargs["device_id"] = dev
         dist.init_process_group(**kwargs)
-    mesh = make_mesh(n_data, sequence, backend, dev)
+    mesh = make_mesh(n_data, tensor, sequence, backend, dev)
     if rank == 0:
         print(json.dumps({"distributed": mesh.describe()}), flush=True)
     return mesh
 
 
-def make_mesh(data: int, sequence: int, backend: str, device: torch.device) -> Mesh:
-    """This process's ``data x sequence`` mesh over the initialised default
-    group (``data * sequence`` must be its world): every rank makes every
+def make_mesh(data: int, tensor: int, sequence: int, backend: str, device: torch.device) -> Mesh:
+    """This process's ``data x tensor x sequence`` mesh over the initialised
+    default group (the product must be its world), in JAX's axis order:
+    world rank ``(d * tensor + t) * sequence + s``. Every rank makes every
     subgroup, in the same order; a group that spans the world is the
     default group (None)."""
     rank, world_size = dist.get_rank(), dist.get_world_size()
-    if data * sequence != world_size:
-        raise ValueError(f"world size {world_size} must equal mesh.sequence {sequence} x mesh.data {data}")
-    d, s = divmod(rank, sequence)
-    seq_pg = data_pg = None
-    if 1 < sequence < world_size:
-        seq_pg = [dist.new_group(list(range(i * sequence, (i + 1) * sequence))) for i in range(data)][d]
-    if 1 < data < world_size:
-        data_pg = [dist.new_group(list(range(j, world_size, sequence))) for j in range(sequence)][s]
+    mesh_data_size(world_size, data, tensor, sequence)
+    s, t, d = rank % sequence, (rank // sequence) % tensor, rank // (sequence * tensor)
+
+    def at(dd: int, tt: int, ss: int) -> int:
+        return (dd * tensor + tt) * sequence + ss
+
+    def groups(size: int, members: List[List[int]]) -> Optional[dist.ProcessGroup]:
+        """Every group of an axis made in order; this rank's returned."""
+        if not 1 < size < world_size:
+            return None
+        made = [dist.new_group(ranks) for ranks in members]
+        return next(pg for pg, ranks in zip(made, members) if rank in ranks)
+
+    seq_pg = groups(sequence, [[at(dd, tt, j) for j in range(sequence)] for dd in range(data) for tt in range(tensor)])
+    tp_pg = groups(tensor, [[at(dd, j, ss) for j in range(tensor)] for dd in range(data) for ss in range(sequence)])
+    data_pg = groups(data, [[at(j, tt, ss) for j in range(data)] for tt in range(tensor) for ss in range(sequence)])
     return Mesh(rank=rank, world_size=world_size, backend=backend, device=device,
                 data=DataGroup(rank=d, size=data, backend=backend, device=device, group=data_pg),
-                sequence=SequenceGroup(rank=s, size=sequence, backend=backend, device=device, group=seq_pg))
+                sequence=SequenceGroup(rank=s, size=sequence, backend=backend, device=device, group=seq_pg),
+                tensor=TensorGroup(rank=t, size=tensor, backend=backend, device=device, group=tp_pg))
 
 
 def tensor_group_of_world(backend: str, device: torch.device,

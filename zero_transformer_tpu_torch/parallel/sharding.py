@@ -22,6 +22,15 @@ whole leaves by name, so a restore onto another world is a re-slice.
 ``FlatLayout.segments`` maps a contiguous range of the buffer back onto the
 leaves it touches, for the optimizers whose statistics are per leaf
 (Adafactor's factored rows and columns).
+
+Under a tensor group the layout is built over the rank's LOCAL shapes (a
+split leaf's shard, ``models/gpt.py::tp_split_dim``): every tensor rank has
+the same layout of its own values, and the data group (the ranks of one
+tensor and sequence rank) shards it as above. Within each decay class the
+split leaves come first, so the split elements of any range are at most
+two runs (``parts``): the global norm sums their squares over the tensor
+group and counts the replicated leaves once. Each ``Segment`` says whether
+its leaf is split, for the optimizers.
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ class Segment:
     stop: int
     offset: int
     decay: bool
+    split: bool = False  # the leaf is split over a tensor group
 
     @property
     def numel(self) -> int:
@@ -54,26 +64,56 @@ class Segment:
 class FlatLayout:
     """Where each named leaf lives in the flat buffer of ``world`` shards."""
 
-    names: Tuple[str, ...]  # flat order: the decayed leaves first
+    names: Tuple[str, ...]  # flat order: the decayed leaves first, split before replicated in each class
     shapes: Tuple[Tuple[int, ...], ...]
     offsets: Tuple[int, ...]
     numel: int  # elements of all leaves
     decay_end: int  # elements [0, decay_end) decay
     world: int
+    split: Tuple[bool, ...]  # per leaf: split over a tensor group
+    split_runs: Tuple[Tuple[int, int], ...]  # the split leaves' element ranges, at most two
 
     @classmethod
-    def build(cls, shapes: Dict[str, Sequence[int]], decay: Dict[str, bool], world: int) -> "FlatLayout":
+    def build(cls, shapes: Dict[str, Sequence[int]], decay: Dict[str, bool], world: int,
+              split: Optional[Dict[str, bool]] = None) -> "FlatLayout":
         """``shapes`` in the model's parameter order; the decayed leaves keep
-        their order and go first, then the others."""
+        their order and go first, then the others; within each, the leaves
+        ``split`` marks go first."""
         if world < 1:
             raise ValueError(f"world must be >= 1, got {world}")
-        order = [n for n in shapes if decay[n]] + [n for n in shapes if not decay[n]]
-        offsets, off = [], 0
+        split = split or {}
+        order = [n for d in (True, False) for sp in (True, False) for n in shapes
+                 if decay[n] == d and bool(split.get(n)) == sp]
+        offsets, off, runs = [], 0, []
         for n in order:
             offsets.append(off)
-            off += math.prod(shapes[n])
+            size = math.prod(shapes[n])
+            if split.get(n):
+                if runs and runs[-1][1] == off:
+                    runs[-1] = (runs[-1][0], off + size)
+                else:
+                    runs.append((off, off + size))
+            off += size
         decay_end = sum(math.prod(shapes[n]) for n in order if decay[n])
-        return cls(tuple(order), tuple(tuple(shapes[n]) for n in order), tuple(offsets), off, decay_end, world)
+        return cls(tuple(order), tuple(tuple(shapes[n]) for n in order), tuple(offsets), off, decay_end, world,
+                   tuple(bool(split.get(n)) for n in order), tuple(runs))
+
+    def parts(self, lo: int, hi: int) -> List[Tuple[int, int, bool]]:
+        """The range ``[lo, hi)`` cut into runs ``(start, stop, split)``
+        relative to ``lo``: the split leaves' elements and the others (the
+        padding with them)."""
+        out, at = [], lo
+        for a, b in self.split_runs:
+            a, b = max(a, lo), min(b, hi)
+            if a >= b:
+                continue
+            if at < a:
+                out.append((at - lo, a - lo, False))
+            out.append((a - lo, b - lo, True))
+            at = b
+        if at < hi:
+            out.append((at - lo, hi - lo, False))
+        return out
 
     @property
     def padded(self) -> int:
@@ -96,10 +136,10 @@ class FlatLayout:
         in flat order, with the element range of the leaf it holds (the
         padding belongs to no leaf)."""
         out = []
-        for i, (n, s, o) in enumerate(zip(self.names, self.shapes, self.offsets)):
+        for n, s, o, sp in zip(self.names, self.shapes, self.offsets, self.split):
             a, b = max(o, lo), min(o + math.prod(s), hi)
             if a < b:
-                out.append(Segment(n, s, a - o, b - o, a - lo, o < self.decay_end))
+                out.append(Segment(n, s, a - o, b - o, a - lo, o < self.decay_end, sp))
         return out
 
     def views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -133,13 +173,14 @@ class FlatLayout:
         return out
 
 
-def topology_summary(data: int, sequence: int, zero_stage: int) -> dict:
+def topology_summary(data: int, sequence: int, zero_stage: int, tensor: int = 1) -> dict:
     """The topology a checkpoint was saved under, in JAX's format (one
     process and one device per rank; the axes the port has not ported are
     1), written into every step's ``meta.json``."""
-    world = data * sequence
+    world = data * tensor * sequence
     return {
-        "mesh": {"pipe": 1, "data": int(data), "fsdp": 1, "expert": 1, "tensor": 1, "sequence": int(sequence)},
+        "mesh": {"pipe": 1, "data": int(data), "fsdp": 1, "expert": 1, "tensor": int(tensor),
+                 "sequence": int(sequence)},
         "devices": int(world),
         "processes": int(world),
         "zero_stage": int(zero_stage),
@@ -148,13 +189,14 @@ def topology_summary(data: int, sequence: int, zero_stage: int) -> dict:
 
 
 def check_elastic_compat(saved: Optional[dict], data: int, sequence: int, zero_stage: int,
-                         global_batch: int) -> List[str]:
-    """Validate resuming onto a ``data x sequence`` mesh from a checkpoint
-    saved under ``saved`` (a ``topology_summary``; None for a checkpoint
-    without one). Raises ``ValueError`` with JAX's message, word for word,
-    for a global batch the new data world cannot divide, before any step;
-    returns notes describing what changed for a compatible topology."""
-    new = topology_summary(data, sequence, zero_stage)
+                         global_batch: int, tensor: int = 1) -> List[str]:
+    """Validate resuming onto a ``data x tensor x sequence`` mesh from a
+    checkpoint saved under ``saved`` (a ``topology_summary``; None for a
+    checkpoint without one). Raises ``ValueError`` with JAX's message, word
+    for word, for a global batch the new data world cannot divide, before
+    any step; returns notes describing what changed for a compatible
+    topology (a new tensor size is a re-slice of the whole leaves too)."""
+    new = topology_summary(data, sequence, zero_stage, tensor)
     if global_batch % data:
         raise ValueError(
             f"elastic resume: global batch_size {global_batch} is not "

@@ -46,6 +46,19 @@ global mean: the grads and the loss are summed over the sequence ranks
 first, then the data collectives run. A data group of one rank takes stage
 0's step whatever ``zero_stage`` says (no shard is smaller than the whole),
 as JAX's ZeRO axis of size 1 shards nothing.
+
+Under a tensor group (the model's ``tp``, ``models/gpt.py``) each rank's
+flat layout holds its own slices of the split leaves and the replicated
+leaves whole, and the data group is the ranks of one tensor and sequence
+rank (JAX's partial-manual core: ZeRO manual over ``data``, ``tensor``
+left to GSPMD, :212-222). No grad is reduced over the tensor group: the
+Megatron f/g operators leave every replicated leaf's grads equal on every
+tensor rank. The norm sums the split leaves' squares over the tensor group
+and counts the replicated ones once, so every rank clips by the same norm
+and the anomaly guard flags alike. ``state_leaves`` gathers over the data
+group, then along each split leaf's dim over the tensor group: a
+checkpoint holds the one-card tree; ``load_params`` and ``load_leaves``
+take the rank's slices (``convert.tensor_shard``).
 """
 from __future__ import annotations
 
@@ -56,7 +69,8 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from zero_transformer_tpu_torch.config import OptimizerConfig, resolve_dtype
-from zero_transformer_tpu_torch.models.gpt import Transformer
+from zero_transformer_tpu_torch.convert import tensor_shard
+from zero_transformer_tpu_torch.models.gpt import Transformer, tp_split_dim
 from zero_transformer_tpu_torch.parallel.mesh import DataGroup, SequenceGroup
 from zero_transformer_tpu_torch.parallel.sharding import FlatLayout
 from zero_transformer_tpu_torch.resilience.anomaly import AnomalyGuard
@@ -84,8 +98,12 @@ class ZeroShards:
             raise ValueError(f"the flat layout holds one param dtype, got {sorted(map(str, dtypes))}")
         self.model, self.group, self.zero_stage = model, group, zero_stage
         self.stage = zero_stage if group.size > 1 else 0
+        self.tp = model.tp  # None, or the tensor group of more than one rank
+        # the dim each split leaf is cut along over the tensor group
+        self.split_dim = {n: tp_split_dim(n) if self.tp is not None else None for n in named}
         mask = weight_decay_mask(model)
-        self.layout = FlatLayout.build({n: tuple(p.shape) for n, p in named.items()}, mask, group.size)
+        self.layout = FlatLayout.build({n: tuple(p.shape) for n, p in named.items()}, mask, group.size,
+                                       {n: d is not None for n, d in self.split_dim.items()})
         self.params = [named[n] for n in self.layout.names]  # layout order
         self.dtype, self.device = dtypes.pop(), self.params[0].device
         lo, hi = self.layout.shard_range(group.rank)
@@ -110,7 +128,7 @@ class ZeroShards:
             self.bounds = [(s.offset, s.offset + s.numel) for s in segments]
             reduce = (lambda t: self.group.all_reduce_([t])) if self.stage > 0 else None
             return Adafactor(self.split(self.shard), segments, dict(zip(self.layout.names, self.layout.shapes)),
-                             opt_cfg, schedule, scan_layers, reduce)
+                             opt_cfg, schedule, scan_layers, reduce, self.tp, self.split_dim)
         self.bounds = [(0, decay_end), (decay_end, hi - lo)]
         cls = {"adamw": AdamW, "lion": Lion}[opt_cfg.optimizer]
         return cls(self.split(self.shard), [True, False], opt_cfg, schedule)
@@ -172,11 +190,19 @@ class ZeroShards:
         return grads
 
     def global_norm(self, shard: torch.Tensor) -> torch.Tensor:
-        """The norm of the whole grads from this rank's part of them."""
-        sq = torch.sum(torch.square(shard.float()))
+        """The norm of the whole grads from this rank's part of them: the
+        split leaves' squares summed over the tensor group, the replicated
+        leaves' counted once."""
+        lo = 0 if self.stage == 0 else self.layout.shard_range(self.group.rank)[0]
+        sums = [torch.zeros((), dtype=torch.float32, device=shard.device) for _ in range(2)]  # split, replicated
+        for a, b, split in self.layout.parts(lo, lo + shard.numel()):
+            sums[0 if split else 1] = sums[0 if split else 1] + torch.sum(torch.square(shard[a:b].float()))
+        sq = torch.stack(sums)
         if self.stage >= 1:
-            sq = self.group.all_reduce_sum(sq)
-        return torch.sqrt(sq)
+            self.group.all_reduce_([sq])
+        if self.tp is not None:
+            self.tp.all_reduce_([sq[:1]])
+        return torch.sqrt(sq[0] + sq[1])
 
     def all_gather_params(self) -> None:
         """Stages 1-2: every rank's updated shard into the full buffer."""
@@ -201,7 +227,8 @@ class ZeroShards:
         ``opt_state/mu/<name>``; Adafactor's ``opt_state/v_row/<name>`` and
         ``opt_state/v_col/<name>`` for the leaves that factor and
         ``opt_state/v/<name>`` for the others. The count is the
-        checkpoint's ``opt_count``."""
+        checkpoint's ``opt_count``. Under a tensor group the split leaves
+        (and the statistics along a split axis) are gathered whole."""
         opt = self.optimizer
         params = self.full if self.stage < 3 else self._gather_flat(self.shard)
         leaves = {f"params/{n}": v for n, v in self.layout.views(params).items()}
@@ -213,14 +240,32 @@ class ZeroShards:
             views = self.layout.views(shard if self.stage == 0 else self._gather_flat(shard))
             leaves.update({f"opt_state/{key}/{n}": views[n] for n in self._elementwise_names()})
         leaves.update({f"opt_state/{k}": t for k, t in opt.replicated.items()})
-        return leaves
+        return {k: self._whole(k, t) for k, t in leaves.items()}
+
+    def _leaf_split(self, key: str) -> Optional[int]:
+        """The dim a ``state_leaves`` entry is split along over the tensor
+        group, or None."""
+        stat = key.removeprefix("opt_state/")
+        if stat in self.optimizer.replicated:  # a 1-D statistic: split where it runs along a split axis
+            return 0 if stat in getattr(self.optimizer, "split_stats", ()) else None
+        return self.split_dim.get(key.rsplit("/", 1)[-1])
+
+    def _whole(self, key: str, t: torch.Tensor) -> torch.Tensor:
+        dim = self._leaf_split(key)
+        return t if dim is None else self.tp.all_gather_(t.contiguous(), dim)
+
+    def _slice(self, named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This tensor rank's slices of whole leaves by name."""
+        return named if self.tp is None else tensor_shard(named, self.tp.rank, self.tp.size)
 
     def load_params(self, params: Dict[str, torch.Tensor]) -> None:
         """Set the params from whole tensors by name (any device): this rank
-        takes its slice, so a checkpoint of any world size loads."""
+        takes its slice (of the data shards, and of a split leaf), so a
+        checkpoint of any world size loads."""
         missing = set(self.layout.names) - set(params)
         if missing:
             raise ValueError(f"params missing from the checkpoint: {sorted(missing)[:3]}")
+        params = self._slice({n: params[n] for n in self.layout.names})
         with torch.no_grad():
             if self.stage < 3:
                 self.layout.fill(self.full, params)
@@ -233,14 +278,17 @@ class ZeroShards:
         opt = self.optimizer
         with torch.no_grad():
             for key, parts in opt.elementwise.items():
-                named = {n: leaves[f"opt_state/{key}/{n}"] for n in self._elementwise_names()}
+                named = self._slice({n: leaves[f"opt_state/{key}/{n}"] for n in self._elementwise_names()})
                 flat = (self.layout.flatten(named, self.dtype, self.device) if self.stage == 0
                         else self.layout.shard_of(named, self.group.rank, self.dtype, self.device))
                 for (a, b), t in zip(self.bounds, parts):
                     if t.numel():
                         t.copy_(flat[a:b].view_as(t))
             for k, t in opt.replicated.items():
-                t.copy_(leaves[f"opt_state/{k}"])
+                whole = leaves[f"opt_state/{k}"]
+                if self._leaf_split(f"opt_state/{k}") is not None:
+                    whole = whole.chunk(self.tp.size)[self.tp.rank]
+                t.copy_(whole)
             opt.count.fill_(int(count))
 
     def target(self) -> Dict[str, tuple]:
@@ -254,7 +302,13 @@ class ZeroShards:
         for key in self.optimizer.elementwise:
             out.update({f"opt_state/{key}/{n}": (shapes[n], dt) for n in self._elementwise_names()})
         out.update({f"opt_state/{k}": (tuple(t.shape), dt) for k, t in self.optimizer.replicated.items()})
-        return out
+        whole = {}
+        for k, (shape, d) in out.items():
+            dim = self._leaf_split(k)
+            if dim is not None:
+                shape = shape[:dim] + (shape[dim] * self.tp.size,) + shape[dim + 1:]
+            whole[k] = (shape, d)
+        return whole
 
     # -- accounting ----------------------------------------------------------
 

@@ -19,12 +19,16 @@ lion, ``model.loss_chunk`` chunks the loss, ``model.dropout`` trains with
 dropout. The CLI runs on the CUDA card unless ``--device cpu`` is given;
 without a card it refuses to start.
 
-Data parallelism (``mesh.data``, ZeRO ``mesh.zero_stage`` 0-3) and sequence
-parallelism (``mesh.sequence``) run one process per rank under
-``torch.distributed.run``; the world is ``data x sequence``::
+Data parallelism (``mesh.data``, ZeRO ``mesh.zero_stage`` 0-3), tensor
+parallelism (``mesh.tensor``: the Megatron split of every layer and the
+vocab-parallel loss) and sequence parallelism (``mesh.sequence``) run one
+process per rank under ``torch.distributed.run``; the world is ``data x
+tensor x sequence``::
 
     python -m torch.distributed.run --nproc-per-node 4 -m zero_transformer_tpu_torch.train \
         --cfg configs/train_125m.yaml --set mesh.data=4 mesh.zero_stage=2 data.source=synthetic
+    python -m torch.distributed.run --nproc-per-node 4 -m zero_transformer_tpu_torch.train \
+        --cfg configs/train_125m.yaml --set mesh.data=2 --set mesh.tensor=2 data.source=synthetic
     python -m torch.distributed.run --nproc-per-node 4 -m zero_transformer_tpu_torch.train \
         --cfg configs/train_580m_8k.yaml --set mesh.sequence=4
 
@@ -87,7 +91,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
-                   help="torch.distributed backend for mesh.sequence > 1 (default: nccl with a card "
+                   help="torch.distributed backend for a mesh of several ranks (default: nccl with a card "
                         "per rank, else gloo)")
     p.add_argument("--resume", action="store_true",
                    help="resume from the newest verified checkpoint (checkpoint.resume)")
@@ -137,7 +141,8 @@ def main(argv=None) -> None:
         torch.autograd.set_detect_anomaly(True)
     ranks = needs_process_group(cfg)
     if args.dist_backend is not None and not ranks:
-        raise ValueError("--dist-backend applies to a mesh of several ranks (mesh.data or mesh.sequence > 1)")
+        raise ValueError("--dist-backend applies to a mesh of several ranks (mesh.data, mesh.tensor or "
+                         "mesh.sequence > 1)")
     if args.supervise:
         from zero_transformer_tpu_torch.resilience.supervisor import Supervisor
 
@@ -149,7 +154,8 @@ def main(argv=None) -> None:
                 "restarts); no /metrics endpoint will be served")
         Supervisor(cfg, device=device).run(max_steps=args.max_steps)
         return
-    mesh = init_distributed(cfg.mesh.sequence, args.dist_backend, device, data=cfg.mesh.data) if ranks else None
+    mesh = (init_distributed(cfg.mesh.sequence, args.dist_backend, device, data=cfg.mesh.data,
+                             tensor=cfg.mesh.tensor) if ranks else None)
     try:
         trainer = Trainer(cfg, device=device, mesh=mesh)
         exporter = None

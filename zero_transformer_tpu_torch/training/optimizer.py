@@ -27,7 +27,14 @@ moment of each leaf whose JAX shape has two dims of at least 128
 and column sums, one all-reduce of one small buffer over the data group
 completes them (with the per-leaf sums of squared params that
 ``scale_by_param_block_rms`` needs), and every rank then holds the factored
-statistics whole, as JAX replicates them.
+statistics whole, as JAX replicates them. Under a tensor group a leaf may
+be split (``models/gpt.py::tp_split_dim``): JAX factors the whole logical
+leaf, so the port reads the factoring off the whole shape, all-reduces over
+the tensor group the partial sums across the split axis (and the split
+leaves' sums of squared params), averages over the whole axis, and keeps
+the statistic that runs along the split axis local (a checkpoint
+concatenates it; ``split_stats``); the mean of such a ``v_row`` takes one
+more small all-reduce.
 
 The count is a 0-d int32 tensor on the params' device, as optax keeps it
 in the optimizer state, and no step reads it on the host: a schedule
@@ -360,52 +367,79 @@ class _Factored:
 class Adafactor(Optimizer):
     """JAX's ``adafactor`` chain over the parts of leaves ``segments`` (one
     param per segment, flat or leaf-shaped; a segment may start and end
-    mid-row). ``leaves`` holds every leaf of the model by name and shape,
-    in order: every rank keeps each factored leaf's ``v_row`` and ``v_col``
-    whole, and the non-factored ones keep ``v`` over their segments only.
-    ``all_reduce`` (in place, a sum over the data group) completes the
-    partial sums of a sharded step; None when this rank holds every element
-    it updates."""
+    mid-row). ``leaves`` holds every leaf of the model by name and (this
+    rank's) shape, in order: every rank keeps each factored leaf's
+    ``v_row`` and ``v_col`` whole, and the non-factored ones keep ``v`` over
+    their segments only. ``all_reduce`` (in place, a sum over the data
+    group) completes the partial sums of a sharded step; None when this
+    rank holds every element it updates. ``tensor`` (a ``TensorGroup``)
+    and ``split`` (name -> the dim a leaf is split along over it, or None)
+    describe a tensor-parallel model, whose split leaves' whole shapes
+    decide the factoring."""
 
     def __init__(self, params: List[torch.Tensor], segments: List[Segment], leaves: Dict[str, Sequence[int]],
                  cfg: OptimizerConfig, schedule: Schedule, scan_layers: bool,
-                 all_reduce: Optional[Callable[[torch.Tensor], None]] = None):
+                 all_reduce: Optional[Callable[[torch.Tensor], None]] = None, tensor=None,
+                 split: Optional[Dict[str, Optional[int]]] = None):
         if len(params) != len(segments):
             raise ValueError("one segment per param")
         super().__init__(params, cfg, schedule)
         self.segments, self.all_reduce = segments, all_reduce
+        tp = tensor.size if tensor is not None else 1
+        self.tensor = tensor if tp > 1 else None
+        split = {n: d for n, d in (split or {}).items() if d is not None} if tp > 1 else {}
         n_layers = _n_layers(leaves)
         dev = params[0].device
         groups: Dict[str, int] = {}
         group_numel: List[int] = []
+        group_split: List[bool] = []
         self.group: Dict[str, int] = {}
         self.factored: Dict[str, _Factored] = {}
         rows_cols = []
         for n, s in leaves.items():
-            group, axes = factoring(n, s, n_layers, scan_layers)
+            whole = list(s)
+            if n in split:
+                whole[split[n]] *= tp
+            group, axes = factoring(n, whole, n_layers, scan_layers)
             g = self.group[n] = groups.setdefault(group, len(groups))
             if g == len(group_numel):
                 group_numel.append(0)
-            group_numel[g] += math.prod(s)
+                group_split.append(n in split)
+            group_numel[g] += math.prod(whole)
             if axes is not None:
-                rows_cols.append((n, s[0], s[1], axes[0]))  # (name, rows, cols, ar)
+                rows_cols.append((n, s[0], s[1], axes[0], whole, split.get(n)))  # (name, rows, cols, ar, ...)
         # v_row of every factored leaf, then v_col of every one: one flat
         # buffer. v_row runs along the axis other than ar, v_col along ar
-        lengths = [(c, r) if ar == 0 else (r, c) for _, r, c, ar in rows_cols]
+        lengths = [(c, r) if ar == 0 else (r, c) for _, r, c, ar, _, _ in rows_cols]
+        # the whole axes they average over: v_row's divisor is the whole ar
+        # axis, v_col's the whole other one
+        divisors = [(w[ar], w[1 - ar]) for _, _, _, ar, w, _ in rows_cols]
         self.n_row = sum(lr for lr, _ in lengths)
         self.n_stats = self.n_row + sum(lc for _, lc in lengths)
         off_r, off_c = 0, self.n_row
-        for (n, r, c, ar), (lr, lc) in zip(rows_cols, lengths):
-            self.factored[n] = _Factored(c, ar, slice(off_r, off_r + lr), slice(off_c, off_c + lc))
+        self.split_stats = set()  # the statistics that run along a split axis (local)
+        tp_sums = []  # the acc entries summed across a split axis
+        row_split = []  # the factored leaves whose v_row is split
+        for i, ((n, r, c, ar, _, k), (lr, lc)) in enumerate(zip(rows_cols, lengths)):
+            f = self.factored[n] = _Factored(c, ar, slice(off_r, off_r + lr), slice(off_c, off_c + lc))
             off_r, off_c = off_r + lr, off_c + lc
+            if k is not None:
+                across = f.sum0 if k == 0 else f.sum1
+                tp_sums += range(across.start, across.stop)
+                self.split_stats.add(f"v_row/{n}" if k == 1 - ar else f"v_col/{n}")
+                if k == 1 - ar:
+                    row_split.append(i)
+        tp_sums += [self.n_stats + g for g, sp in enumerate(group_split) if sp]
+        self.tp_sums = torch.tensor(tp_sums, dtype=torch.long, device=dev) if tp_sums else None
+        self.tp_rows = torch.tensor(row_split, dtype=torch.long, device=dev) if row_split else None
         self.vrc = torch.zeros(self.n_stats, dtype=torch.float32, device=dev)
-        # each statistic's divisor, the size of the axis it averages over:
-        # v_row's is v_col's length and the reverse
-        self.denom = torch.tensor([lc for lr, lc in lengths for _ in range(lr)] +
-                                  [lr for lr, lc in lengths for _ in range(lc)], dtype=torch.float32, device=dev)
+        # each statistic's divisor, the whole size of the axis it averages over
+        self.denom = torch.tensor([dr for (lr, _), (dr, _) in zip(lengths, divisors) for _ in range(lr)] +
+                                  [dc for (_, lc), (_, dc) in zip(lengths, divisors) for _ in range(lc)],
+                                  dtype=torch.float32, device=dev)
         self.row_leaf = torch.tensor([i for i, (lr, _) in enumerate(lengths) for _ in range(lr)],
                                      dtype=torch.long, device=dev)
-        self.row_len = torch.tensor([lr for lr, _ in lengths], dtype=torch.float32, device=dev)
+        self.row_len = torch.tensor([dc for _, dc in divisors], dtype=torch.float32, device=dev)
         self.group_numel = torch.tensor(group_numel, dtype=torch.float32, device=dev)
         self.n_groups = len(group_numel)
         self.seg_group = torch.tensor([self.group[s.name] for s in segments], dtype=torch.long, device=dev)
@@ -446,10 +480,19 @@ class Adafactor(Optimizer):
             acc[self.n_stats:].index_add_(0, self.seg_group, torch.stack(sq))
         if self.all_reduce is not None:
             self.all_reduce(acc)
+        if self.tp_sums is not None:  # the sums across a split axis, over the tensor group
+            across = acc[self.tp_sums]
+            self.tensor.all_reduce_([across])
+            acc[self.tp_sums] = across
         mean = acc[:self.n_stats] / self.denom
         _write(self.vrc, decay_t * self.vrc + (1.0 - decay_t) * mean, keep)
         v_row = self.vrc[:self.n_row]
-        row_mean = torch.zeros_like(self.row_len).index_add_(0, self.row_leaf, v_row) / self.row_len
+        row_sum = torch.zeros_like(self.row_len).index_add_(0, self.row_leaf, v_row)
+        if self.tp_rows is not None:  # a split v_row's sum, over the tensor group
+            part = row_sum[self.tp_rows]
+            self.tensor.all_reduce_([part])
+            row_sum[self.tp_rows] = part
+        row_mean = row_sum / self.row_len
         # aligned with vrc: the row factors, then the column factors
         factor = torch.cat([(v_row / row_mean[self.row_leaf]) ** -0.5, self.vrc[self.n_row:] ** -0.5])
         # optax safe_root_mean_squares: min_scale where the rms is at most it

@@ -48,10 +48,14 @@ source's nonzero fault counts (``data_*``), to stdout and to
 (``doc_sep_token``) train and evaluate as any other.
 
 Several processes (one per rank under ``torch.distributed.run``) form a
-``data x sequence`` mesh (``parallel/mesh.py``). The ranks of a sequence
-group read the same rows and run their shard of each through the ring; the
-data groups read different rows (the loader's process index and count are
-the data rank and size) and train under ZeRO ``mesh.zero_stage``
+``data x tensor x sequence`` mesh (``parallel/mesh.py``). The ranks of a
+sequence group read the same rows and run their shard of each through the
+ring (or Ulysses); the ranks of a tensor group read the same rows too and
+hold their slices of every layer (the model is built over the mesh's
+tensor group, each rank drawing the one-card weights and keeping its
+slices; a warm start slices the whole tensors); the data groups read
+different rows (the loader's process index and count are the data rank
+and size) and train under ZeRO ``mesh.zero_stage``
 (``parallel/zero.py``). Every rank flags the same steps (the loss and the
 norm are reduced over the groups), so their rollbacks agree. Rank 0 builds
 the CUDA kernels while the others wait at a barrier; only rank 0 writes
@@ -143,8 +147,8 @@ def build_training(cfg: Config, device, mesh: Optional[Mesh] = None, guard: Opti
     steps, the train step guarded by ``guard`` and poisoned by ``poison``
     where given (``parallel/zero.make_train_step``). The optimizer's
     horizon is ``training.total_steps``, as in JAX. ``mesh`` None is one
-    process; ``mesh.sequence`` > 1 or ``mesh.data`` > 1 need a mesh of that
-    many ranks."""
+    process; ``mesh.sequence``, ``mesh.tensor`` or ``mesh.data`` > 1 need a
+    mesh of that many ranks."""
     if cfg.model.param_quant != "none":
         raise ValueError(
             "param_quant is an inference-only configuration (serve "
@@ -155,10 +159,14 @@ def build_training(cfg: Config, device, mesh: Optional[Mesh] = None, guard: Opti
     if cfg.mesh.sequence != mesh.sequence.size:
         raise ValueError(f"mesh.sequence {cfg.mesh.sequence} needs a sequence group of that many ranks, "
                          f"got {mesh.sequence.size}")
+    if cfg.mesh.tensor != mesh.tensor.size:
+        raise ValueError(f"mesh.tensor {cfg.mesh.tensor} needs a tensor group of that many ranks, "
+                         f"got {mesh.tensor.size}")
     if cfg.mesh.data not in (-1, mesh.data.size):
         raise ValueError(f"mesh.data {cfg.mesh.data} needs a data group of that many ranks, got {mesh.data.size}")
     opt = dataclasses.replace(cfg.optimizer, total_steps=cfg.training.total_steps)
-    model = build_model(cfg.model, dev, seed=cfg.training.seed, trainable=True)
+    model = build_model(cfg.model, dev, seed=cfg.training.seed, trainable=True,
+                        tensor_group=mesh.tensor if mesh.tensor.size > 1 else None)
     model.set_sequence_group(mesh.sequence)
     schedule = make_schedule(opt)
     state = init_train_state(model, opt, schedule, mesh.data, cfg.mesh.zero_stage)
@@ -169,10 +177,11 @@ def build_training(cfg: Config, device, mesh: Optional[Mesh] = None, guard: Opti
 
 
 def needs_process_group(cfg: Config) -> bool:
-    """Whether ``cfg`` runs on several ranks: ``mesh.data`` or
-    ``mesh.sequence`` > 1, or a launch by ``torch.distributed.run`` with a
-    world of several processes (``mesh.data`` -1 takes them all)."""
-    return cfg.mesh.sequence > 1 or cfg.mesh.data > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1
+    """Whether ``cfg`` runs on several ranks: ``mesh.data``, ``mesh.tensor``
+    or ``mesh.sequence`` > 1, or a launch by ``torch.distributed.run`` with
+    a world of several processes (``mesh.data`` -1 takes them all)."""
+    return (cfg.mesh.sequence > 1 or cfg.mesh.tensor > 1 or cfg.mesh.data > 1
+            or int(os.environ.get("WORLD_SIZE", "1")) > 1)
 
 
 class Trainer:
@@ -186,7 +195,8 @@ class Trainer:
         self.device = resolve_device(device)
         if mesh is None:
             if needs_process_group(cfg):
-                mesh = init_distributed(cfg.mesh.sequence, None, self.device, data=cfg.mesh.data)
+                mesh = init_distributed(cfg.mesh.sequence, None, self.device, data=cfg.mesh.data,
+                                        tensor=cfg.mesh.tensor)
             else:
                 mesh = single_process(self.device)
         self.mesh = mesh
@@ -267,7 +277,8 @@ class Trainer:
         return {
             "opt_count": int(self.state.optimizer.count),
             "loader": self.train_loader.state(),
-            "topology": topology_summary(self.mesh.data.size, self.mesh.sequence.size, self.cfg.mesh.zero_stage),
+            "topology": topology_summary(self.mesh.data.size, self.mesh.sequence.size, self.cfg.mesh.zero_stage,
+                                         self.mesh.tensor.size),
             "schedule": {"batch_size": t.batch_size, "train_context": t.train_context,
                          "accum_steps": max(t.gradient_accumulation_steps, 1)},
             "config": flat_config(self.cfg),
@@ -293,7 +304,7 @@ class Trainer:
     def _check_restore_meta(self, meta: dict) -> None:
         for note in check_elastic_compat((meta or {}).get("topology"), self.mesh.data.size,
                                          self.mesh.sequence.size, self.cfg.mesh.zero_stage,
-                                         self.cfg.training.batch_size):
+                                         self.cfg.training.batch_size, self.mesh.tensor.size):
             log.warning("elastic resume: %s", note)
             print(json.dumps({"elastic_resume": note}), flush=True)
 
